@@ -5,20 +5,48 @@
 
 Run from the repository root. Phases:
 
-1. build the CUDA kernels from ``src/repro_torch/csrc`` with nvcc;
+1. build the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, one
+   process per source, all started together;
 2. hold each kernel against its plain PyTorch version on the card, at the
    paper's §7.1 width (N=1,000,000 events, C=100 campaigns, S=32 designs),
-   from a fresh and from a mid-day sweep state, under both pricing rules;
+   from a fresh and from a mid-day state, under both pricing rules:
+   ``round_fused`` and ``sweep_partials`` (partials at rtol 1e-5),
+   ``sweep_resolve`` (winners and prices bitwise, sums at rtol 1e-5, atol
+   1e-6·max; its (S, N, C)-mask form at N=65,536, C=64, S=8),
+   ``segment_partials`` (bitwise the plain version on the CPU) and
+   ``capped_scan`` at N=65,536, C=64, S=8 with a reserve, a zero budget and
+   a zero multiplier (bitwise the plain version on the card);
 3. hold the fused-round sweep on the card against the plain torch sweep on
    the CPU at a reduced size (N=65,536, C=64, S=8): every integer output
    equal, spends at rtol 1e-6;
 4. run the main path, ``CounterfactualEngine.sweep(grid,
    method="parallel")`` with ``resolve="auto"``, at full width for both
-   pricing rules; the launch counters show it went through the kernels, a
-   second run must give the same bits, and the torch path on the card must
-   agree within tolerance;
-5. print the numbers: the card's name and power limit, per-round and sweep
-   times, peak memory, and one JSON line describing each kernel.
+   pricing rules; the launch counters show it went through the fused
+   kernels, a second run must give the same bits, the torch path on the
+   card (its partials through ``segment_partials``) must give the same six
+   outputs bit for bit, and one lane per rule must be bitwise the torch path
+   on the CPU;
+5. run the exact replay, ``engine.sweep(grid, method="sequential")``, at
+   full width for both rules: one ``capped_scan`` launch each, a second
+   launch gives the same bits, and the first 131,072 events of lane 0
+   (first price) and lane 31 (second price) are bitwise the plain version
+   on the CPU;
+6. three back-ends, one answer: ``sweep_state_machine`` with ``resolve`` in
+   ``"torch"``, ``"sweep_resolve"`` and ``"fused"`` gives identical six
+   outputs at full width for both rules; the counters show
+   ``"sweep_resolve"`` launched ``sweep_resolve`` once a round and
+   ``segment_partials`` twice; ``engine.simulate(method="parallel")`` of
+   lane 0's design equals lane 0 for each back-end;
+7. the paper's comparison: Algorithm 2 against the exact replay, per lane,
+   in mean relative spend error (each < 0.08), capped campaigns and cap-time
+   shift, and both sweeps' wall times;
+8. print the numbers: the card's name and power limit, each kernel's time
+   beside its plain version's, its library yardstick's and its bound,
+   per-round and sweep times, peak memory, and one JSON line describing
+   each kernel. The plain capped scan is one chain of small launches per
+   event, so it is timed over the first 16,384 events of the full day
+   (``plain_events`` in the JSON line); every other time is at the full
+   shapes.
 
 Every check raises on failure and nothing is caught, so any failure exits
 non-zero. The last line is the JSON result. Without a CUDA device, or
@@ -40,7 +68,28 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12          # H100 SXM fp32, non-tensor (data sheet)
 GRID_AXES = dict(bid_scales=(1.0, 0.9, 1.1, 1.3), reserves=(0.0, 0.05),
                  budget_scales=(1.0, 0.8, 1.25, 1.5))
+SMALL_AXES = dict(bid_scales=(1.0, 1.2), reserves=(0.0, 0.05),
+                  budget_scales=(1.0, 0.5))
 KINDS = ("first_price", "second_price")
+RESOLVES = ("torch", "sweep_resolve", "fused")
+OUTPUTS = ("final_spend", "cap_times", "retired", "boundaries", "num_rounds",
+           "n_hat")
+PREFIX = 131_072                # events of the exact replay checked on the CPU
+PLAIN_EVENTS = 16_384           # events of the plain capped scan timed on card
+CPU_LANE = {"first_price": 0, "second_price": 31}
+ORACLE_TOL = 0.08               # tests/test_core_parallel.py's bound
+KERNELS = (   # name, CUDA source, the TPU kernel (or XLA op) it replaces
+    ("round_fused", "src/repro_torch/csrc/round_fused.cu",
+     "src/repro/kernels/auction_resolve/round_fused.py:197"),
+    ("sweep_partials", "src/repro_torch/csrc/round_fused.cu",
+     "src/repro/kernels/auction_resolve/round_fused.py:301"),
+    ("sweep_resolve", "src/repro_torch/csrc/sweep_resolve.cu",
+     "src/repro/kernels/auction_resolve/sweep_resolve.py:81"),
+    ("capped_scan", "src/repro_torch/csrc/capped_scan.cu",
+     "src/repro/kernels/capped_scan/capped_scan.py:75"),
+    ("segment_partials", "src/repro_torch/csrc/segment_partials.cu",
+     "src/repro/core/segments.py:130"),
+)
 
 
 def require(ok: bool, what: str) -> None:
@@ -74,15 +123,21 @@ def bound_ms(n_bytes: float, n_ops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def partials_cost(values, n_scenarios, window_rows, second_price, outputs):
-    """Bytes and operations of partials passes: the valuation rows read
-    once, the (S, C) lane inputs, the outputs written once; a multiply and
-    a compare per (lane, row, campaign) in the windows (a second compare
-    for second price)."""
-    n, c = values.shape
-    n_bytes = n * c * 4 + n_scenarios * (c * 5 + 16) + outputs
-    n_ops = window_rows * c * (3 if second_price else 2)
+def resolve_cost(n, c, s, rows, second_price, outputs):
+    """Bytes and operations of resolving ``rows`` (lane, event) pairs of an
+    (N, C) matrix for S lanes: the valuation rows read once, the (S, C)
+    lane inputs, the outputs written once; a multiply and a compare per
+    (lane, row, campaign) (a second compare for second price)."""
+    n_bytes = n * c * 4 + s * (c * 5 + 16) + outputs
+    n_ops = rows * c * (3 if second_price else 2)
     return n_bytes, n_ops
+
+
+def smi(fields: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip() \
+        .splitlines()[0]
 
 
 def main() -> int:
@@ -104,36 +159,58 @@ def main() -> int:
     from repro_torch.configs.paper_auction import (PAPER_SYNTHETIC_CPU,
                                                    PAPER_SYNTHETIC_FULL)
     from repro_torch.core import (AuctionRule, CounterfactualEngine,
-                                  ScenarioGrid, sweep_state_machine)
+                                  ScenarioGrid, scenario_rule,
+                                  sweep_sequential, sweep_state_machine)
     from repro_torch.core import executor
+    from repro_torch.core import segments as seg_lib
     from repro_torch.core.segments import REDUCE_BLOCKS
     from repro_torch.data import make_synthetic_env
     from repro_torch.kernels import build
     from repro_torch.kernels.auction_resolve import ops, ref
-    from repro_torch.kernels.auction_resolve import round_fused as kernels
+    from repro_torch.kernels.auction_resolve import round_fused as rf_mod
+    from repro_torch.kernels.auction_resolve import segment_partials as sp_mod
+    from repro_torch.kernels.auction_resolve import sweep_resolve as sr_mod
+    from repro_torch.kernels.capped_scan import capped_scan as cs_mod
+    from repro_torch.kernels.capped_scan import ops as scan_ops
+    from repro_torch.kernels.capped_scan.ref import capped_scan_ref
+
+    counters = (rf_mod, sr_mod, sp_mod, cs_mod)
+
+    def reset_counts():
+        for mod in counters:
+            mod.reset_launches()
+
+    def read_counts() -> dict:
+        return {k: v for mod in counters for k, v in mod.LAUNCHES.items()}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(f"card: {smi} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda}", flush=True)
+    card = smi("name,power.limit")
+    print(f"card: {card} | max SM clock {smi('clocks.max.sm')} | torch "
+          f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    # ---- phase 1: build --------------------------------------------------
-    lib_path, log, seconds = build.build("round_fused")
-    print(f"[1] built {lib_path.name} in {seconds:.2f} s", flush=True)
-    for line in log.splitlines():
-        if "Used" in line or "spill" in line:
-            print(f"    ptxas: {line.strip()}")
+    # ---- phase 1: build ----------------------------------------------------
+    t0 = time.perf_counter()
+    built = build.build_all(["round_fused", "sweep_resolve",
+                             "segment_partials", "capped_scan"])
+    print(f"[1] built {len(built)} libraries in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for name, (lib_path, log, seconds) in built.items():
+        print(f"    {lib_path.name}: nvcc {seconds:.2f} s")
+        for line in log.splitlines():
+            if "Used" in line or "spill" in line:
+                print(f"      ptxas: {line.strip()}")
 
-    # ---- phase 2: kernels vs plain versions at full width ---------------
+    # ---- phase 2: kernels vs plain versions ------------------------------
     full = PAPER_SYNTHETIC_FULL
     t0 = time.perf_counter()
     env = make_synthetic_env(args.seed, full.n_events, full.n_campaigns,
                              full.emb_dim, b_base=full.b_base, device=dev)
+    small_cfg = PAPER_SYNTHETIC_CPU
+    small = make_synthetic_env(args.seed, small_cfg.n_events,
+                               small_cfg.n_campaigns, small_cfg.emb_dim,
+                               b_base=small_cfg.b_base, device=dev)
     torch.cuda.synchronize()
     n, c = env.values.shape
     block = -(-n // REDUCE_BLOCKS)
@@ -141,7 +218,7 @@ def main() -> int:
           f"MB on the card, built in {time.perf_counter() - t0:.2f} s",
           flush=True)
     gen = torch.Generator().manual_seed(args.seed + 1)
-    errs = {"round_fused": 0.0, "sweep_partials": 0.0}
+    errs = {name: 0.0 for name, _, _ in KERNELS}
 
     def close(name, got, want, mask=None):
         if mask is not None:
@@ -149,6 +226,16 @@ def main() -> int:
         tol = 1e-6 * float(want.abs().max())
         torch.testing.assert_close(got, want, rtol=1e-5, atol=tol)
         errs[name] = max(errs[name], float((got - want).abs().max()))
+
+    def equal(name, got, want, what):
+        require(got.dtype == want.dtype and torch.equal(got, want),
+                f"{what}: {name} differs from its plain version")
+
+    def base_grid(kind, budgets, axes):
+        base = AuctionRule(multipliers=torch.ones(budgets.shape[0],
+                                                  device=dev),
+                           reserve=torch.zeros((), device=dev), kind=kind)
+        return ScenarioGrid.product(base, budgets, **axes)
 
     def check_round(label, grid, active, s_hat, n_hat, alive, second):
         out = ops.round_fused(env.values, grid.rules.multipliers, active,
@@ -177,16 +264,27 @@ def main() -> int:
                 f"{label}: skipped lanes wrote non-zero partials")
         return out
 
+    def check_sweep_resolve(label, values, mult, active, reserves, second):
+        got = ops.sweep_resolve(values, mult, active, reserves,
+                                second_price=second)
+        want = ref.sweep_resolve_ref(values, mult, active, reserves,
+                                     second_price=second)
+        torch.cuda.synchronize()
+        equal("winners", got[0], want[0], f"sweep_resolve {label}")
+        equal("prices", got[1], want[1], f"sweep_resolve {label}")
+        close("sweep_resolve", got[2], want[2])
+        return got
+
     timing = {}
     for kind in KINDS:
         second = kind == "second_price"
-        base = AuctionRule(multipliers=torch.ones(c, device=dev),
-                           reserve=torch.zeros((), device=dev), kind=kind)
-        grid = ScenarioGrid.product(base, env.budgets, **GRID_AXES)
+        grid = base_grid(kind, env.budgets, GRID_AXES)
         s = grid.num_scenarios
+        mult, res = grid.rules.multipliers, grid.rules.reserve
         ones = torch.ones((s, c), dtype=torch.bool, device=dev)
         zeros = torch.zeros((s, c), device=dev)
         n0 = torch.zeros(s, dtype=torch.int32, device=dev)
+        full_hi = torch.full_like(n0, n)
         all_alive = torch.ones(s, dtype=torch.bool, device=dev)
         fresh = check_round(f"{kind} fresh", grid, ones, zeros, n0,
                             all_alive, second)
@@ -206,47 +304,81 @@ def main() -> int:
         lo, hi = lo.to(torch.int32), (lo + 2 * n // 5).to(torch.int32)
         lo, hi = lo.to(dev), hi.to(dev)
         v_slice = env.values[offset:offset + n_local]
-        got = ops.sweep_partials(v_slice, grid.rules.multipliers, active,
-                                 grid.rules.reserve, lo, hi, all_alive,
-                                 offset, n_events_global=n,
+        got = ops.sweep_partials(v_slice, mult, active, res, lo, hi,
+                                 all_alive, offset, n_events_global=n,
                                  reduce_blocks=REDUCE_BLOCKS,
                                  second_price=second)
-        want = ref.fused_partials_ref(v_slice, grid.rules.multipliers,
-                                      active, grid.rules.reserve, lo, hi,
+        want = ref.fused_partials_ref(v_slice, mult, active, res, lo, hi,
                                       block_size=block, second_price=second,
                                       index_offset=offset)
         close("sweep_partials", got, want)
-        print(f"[2] {kind}: round (fresh, mid-day) and offset partials "
-              f"agree with the plain versions", flush=True)
+        # the scenario-batched resolve, fresh and mid-day masks
+        resolved = check_sweep_resolve(f"{kind} fresh", env.values, mult,
+                                       ones, res, second)
+        mid = check_sweep_resolve(f"{kind} mid-day", env.values, mult, active,
+                                  res, second)
+        # event-ordered partials of the mid-day resolve, a window per lane:
+        # bitwise the plain version (index_add_) on the CPU
+        win_hi = torch.clamp(n_mid + (n // 7) * (1 + torch.arange(
+            s, device=dev) % 5), max=n).to(torch.int32)
+        got = seg_lib.window_partials(mid[0], mid[1], c, n_mid, win_hi,
+                                      block_size=block)
+        want = seg_lib.window_partials_ref(mid[0].cpu(), mid[1].cpu(), c,
+                                           n_mid.cpu(), win_hi.cpu(),
+                                           block_size=block)
+        equal("partials", got.cpu(), want, f"segment_partials {kind}")
+        print(f"[2] {kind}: round (fresh, mid-day), offset partials, "
+              f"sweep_resolve (fresh, mid-day) and segment_partials agree "
+              f"with the plain versions", flush=True)
         if kind == "first_price":
-            # time the fresh-state round and one full-window pass
-            args_rf = (env.values, grid.rules.multipliers, ones,
-                       grid.rules.reserve, grid.budgets, zeros, n0,
+            # time the fresh-state round, one full-window pass, the fresh
+            # resolve and its full-window partials
+            args_rf = (env.values, mult, ones, res, grid.budgets, zeros, n0,
                        all_alive)
-            full_hi = torch.full_like(n0, n)
             timing["round_fused"] = (
                 cuda_ms(lambda: ops.round_fused(
                     *args_rf, reduce_blocks=REDUCE_BLOCKS), 10),
                 cuda_ms(lambda: ref.round_fused_ref(
-                    *args_rf[:7], block_size=block), 3))
+                    *args_rf[:7], block_size=block), 3), None)
             timing["sweep_partials"] = (
                 cuda_ms(lambda: ops.sweep_partials(
-                    env.values, grid.rules.multipliers, ones,
-                    grid.rules.reserve, n0, full_hi, all_alive,
+                    env.values, mult, ones, res, n0, full_hi, all_alive,
                     n_events_global=n, reduce_blocks=REDUCE_BLOCKS), 10),
                 cuda_ms(lambda: ref.fused_partials_ref(
-                    env.values, grid.rules.multipliers, ones,
-                    grid.rules.reserve, n0, full_hi, block_size=block), 3))
+                    env.values, mult, ones, res, n0, full_hi,
+                    block_size=block), 3), None)
+            timing["sweep_resolve"] = (
+                cuda_ms(lambda: ops.sweep_resolve(env.values, mult, ones,
+                                                  res), 10),
+                cuda_ms(lambda: ref.sweep_resolve_ref(env.values, mult, ones,
+                                                      res), 3), None)
+            w, p = resolved[0], resolved[1]
+            # the library yardstick: one index_add_ over every lane's rows
+            flat_ids = ((torch.arange(s, device=dev)[:, None] * REDUCE_BLOCKS
+                         + torch.arange(n, device=dev) // block)
+                        * (c + 1) + torch.where(w < 0, c, w)).reshape(-1)
+            flat_p = p.reshape(-1)
+            timing["segment_partials"] = (
+                cuda_ms(lambda: seg_lib.window_partials(
+                    w, p, c, n0, full_hi, block_size=block), 10),
+                cuda_ms(lambda: seg_lib.window_partials_ref(
+                    w, p, c, n0, full_hi, block_size=block), 3),
+                cuda_ms(lambda: torch.zeros(
+                    s * REDUCE_BLOCKS * (c + 1), device=dev).index_add_(
+                        0, flat_ids, flat_p), 10))
+            del flat_ids, flat_p, w, p
             out_bytes = s * REDUCE_BLOCKS * c * 4
-            rows_rate = s * n
             rows_block = int(fresh[4].sum())
-            timing["round_fused_bound"] = bound_ms(*partials_cost(
-                env.values, s, rows_rate + rows_block, False,
-                2 * out_bytes + 9 * s))
-            timing["sweep_partials_bound"] = bound_ms(*partials_cost(
-                env.values, s, rows_rate, False, out_bytes))
+            timing["round_fused_bound"] = bound_ms(*resolve_cost(
+                n, c, s, s * n + rows_block, False, 2 * out_bytes + 9 * s))
+            timing["sweep_partials_bound"] = bound_ms(*resolve_cost(
+                n, c, s, s * n, False, out_bytes))
+            timing["sweep_resolve_bound"] = bound_ms(*resolve_cost(
+                n, c, s, s * n, False, s * n * 8 + s * c * 4))
+            timing["segment_partials_bound"] = bound_ms(
+                s * n * 8 + s * 8 + out_bytes, s * n)
             round_bodies = {}
-            for resolve in ("fused", "torch"):
+            for resolve in RESOLVES:
                 round_bodies[resolve] = executor._make_round_body(
                     executor.SweepPlan(resolve=resolve), resolve,
                     values=env.values, rules=grid.rules,
@@ -259,20 +391,44 @@ def main() -> int:
             timing["round_ms"] = {
                 resolve: cuda_ms(lambda: body(core0, all_alive), reps)
                 for (resolve, body), reps in zip(round_bodies.items(),
-                                                 (10, 3))}
+                                                 (3, 10, 10))}
+        del resolved, mid
+
+    # the per-event (S, N, C) mask and the exact replay at the reduced size
+    for kind in KINDS:
+        second = kind == "second_price"
+        grid = base_grid(kind, small.budgets, SMALL_AXES)
+        s, (n_s, c_s) = grid.num_scenarios, small.values.shape
+        per_event = (torch.rand((s, n_s, c_s), generator=gen) < 0.75).to(dev)
+        check_sweep_resolve(f"{kind} per-event mask", small.values,
+                            grid.rules.multipliers, per_event,
+                            grid.rules.reserve, second)
+        del per_event
+        budgets = grid.budgets.clone()
+        budgets[:, 2] = 0.0                     # caps at event 1, unsold
+        mult = grid.rules.multipliers.clone()
+        mult[:, 3] = 0.0                        # never bids above a reserve
+        got = scan_ops.capped_scan(small.values, budgets, mult,
+                                   grid.rules.reserve, second_price=second)
+        t0 = time.perf_counter()
+        want = capped_scan_ref(small.values, budgets, mult,
+                               grid.rules.reserve, second_price=second)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        for name, a, b in zip(("winners", "prices", "final_spend",
+                               "cap_times"), got, want):
+            equal(name, a, b, f"capped_scan {kind}")
+        require(bool((got[3][:, 2] == 1).all()),
+                f"capped_scan {kind}: a zero budget did not cap at event 1")
+        print(f"[2] {kind}: sweep_resolve with an (S, N, C) mask and "
+              f"capped_scan (reserve, zero budget, zero multiplier) agree "
+              f"with the plain versions at N={n_s} C={c_s} S={s}; the plain "
+              f"capped scan took {plain_s:.2f} s on the card "
+              f"({plain_s / n_s * 1e6:.2f} us per event)", flush=True)
 
     # ---- phase 3: exactness at a reduced size ----------------------------
-    small_cfg = PAPER_SYNTHETIC_CPU
-    small = make_synthetic_env(args.seed, small_cfg.n_events,
-                               small_cfg.n_campaigns, small_cfg.emb_dim,
-                               b_base=small_cfg.b_base, device=dev)
     for kind in KINDS:
-        base = AuctionRule(
-            multipliers=torch.ones(small.n_campaigns, device=dev),
-            reserve=torch.zeros((), device=dev), kind=kind)
-        grid = ScenarioGrid.product(base, small.budgets, bid_scales=(1.0, 1.2),
-                                    reserves=(0.0, 0.05),
-                                    budget_scales=(1.0, 0.5))
+        grid = base_grid(kind, small.budgets, SMALL_AXES)
         t0 = time.perf_counter()
         on_card = sweep_state_machine(small.values, grid.budgets, grid.rules,
                                       resolve="fused")
@@ -283,9 +439,7 @@ def main() -> int:
         on_cpu = sweep_state_machine(small.values.cpu(), grid.budgets.cpu(),
                                      rules_cpu, resolve="torch")
         t2 = time.perf_counter()
-        names = ("final_spend", "cap_times", "retired", "boundaries",
-                 "num_rounds", "n_hat")
-        for name, a, b in zip(names[1:], on_card[1:], on_cpu[1:]):
+        for name, a, b in zip(OUTPUTS[1:], on_card[1:], on_cpu[1:]):
             require(torch.equal(a.cpu(), b), f"phase 3 {kind}: {name} differs")
         torch.testing.assert_close(on_card[0].cpu(), on_cpu[0], rtol=1e-6,
                                    atol=0.0)
@@ -295,27 +449,29 @@ def main() -> int:
               f"fused on the card == torch on the CPU (bitwise: {bitwise}); "
               f"rounds {on_card[4].tolist()}; {t1 - t0:.2f} s on the card, "
               f"{t2 - t1:.2f} s on the CPU", flush=True)
+    del small
 
     # ---- phase 4: the main path at full width ----------------------------
     results = {}
-    counted = {"round_fused": 0, "sweep_partials": 0}
+    counted = {name: 0 for name, _, _ in KERNELS}
     peak = {"fused": 0, "torch": 0}
-    cpu_lane = {"first_price": 0, "second_price": 31}
+    engines = {}
     for kind in KINDS:
         base = AuctionRule(multipliers=torch.ones(c, device=dev),
                            reserve=torch.zeros((), device=dev), kind=kind)
         engine = CounterfactualEngine(env.values, env.budgets, base_rule=base)
         grid = engine.grid(**GRID_AXES)
-        kernels.reset_launches()
+        engines[kind] = (engine, grid)
+        reset_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         sweep = engine.sweep(grid, method="parallel")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
+        launches = read_counts()
         peak["fused"] = max(peak["fused"], torch.cuda.max_memory_allocated())
-        for name in counted:
+        for name in ("round_fused", "sweep_partials"):
             counted[name] += launches[name]
         spend, caps = sweep.results.final_spend, sweep.results.cap_times
         require(bool(torch.isfinite(spend).all())
@@ -323,50 +479,40 @@ def main() -> int:
                 and bool((spend >= 0).all()),
                 f"{kind}: spends not finite, negative or of the wrong shape")
         # the same sweep again: the kernels are deterministic
-        again = sweep_state_machine(env.values, grid.budgets, grid.rules)
-        rounds = int(again[4].max())
+        fused = sweep_state_machine(env.values, grid.budgets, grid.rules,
+                                    resolve="fused")
+        rounds = int(fused[4].max())
         require(launches["round_fused"] == rounds,
                 f"{kind}: {launches['round_fused']} round_fused launches for "
                 f"{rounds} rounds")
         require(launches["sweep_partials"] == 2 * rounds,
                 f"{kind}: {launches['sweep_partials']} partials launches for "
                 f"{rounds} rounds")
-        require(torch.equal(spend, again[0]) and torch.equal(caps, again[1]),
+        require(torch.equal(spend, fused[0]) and torch.equal(caps, fused[1]),
                 f"{kind}: a second fused sweep gave other bits")
-        # the plain torch path on the card, one lane at a time
+        # the plain torch path on the card, one lane at a time: its
+        # partials go through the event-ordered segment_partials kernel, so
+        # it must give the fused path's bits
+        reset_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         plain = sweep_state_machine(env.values, grid.budgets, grid.rules,
                                     resolve="torch")
         torch.cuda.synchronize()
         plain_wall = time.perf_counter() - t0
+        torch_counts = read_counts()
         peak["torch"] = max(peak["torch"], torch.cuda.max_memory_allocated())
-        # The torch path on the card sums with atomics, so its partials and
-        # spends differ from the kernel's event-ordered sums in the last
-        # bits. Algorithm 2 turns that into a different boundary wherever
-        # a floor(time-to-live) sits near an integer, and from there on the
-        # lane replays other blocks and its cap times move. Lanes that
-        # replay the same rounds must agree to rtol 1e-4; the others are
-        # reported. (Exactness is checked against the CPU below, where the
-        # plain version sums in event order as the kernel does.)
-        f_ret, f_bnd = again[2], again[3][:, 1:]
-        p_ret, p_bnd = plain[2], plain[3][:, 1:]
-        same_round = (f_ret == p_ret) & (f_bnd == p_bnd)       # (S, C+1)
-        diverged = ~same_round.all(-1)
-        first = (~same_round).to(torch.int32).argmax(-1)
-        lanes = diverged.nonzero()[:, 0]
-        gap = (f_bnd[lanes, first[lanes]] - p_bnd[lanes, first[lanes]]).abs()
-        torch.testing.assert_close(spend[~diverged], plain[0][~diverged],
-                                   rtol=1e-4, atol=1e-3)
-        differ = int((caps != plain[1]).sum())
-        print(f"[4] {kind}: torch path on the card: {int((~diverged).sum())}"
-              f" of {grid.num_scenarios} lanes replay the same rounds (spends "
-              f"at rtol 1e-4); the others first differ at rounds "
-              f"{first[lanes].tolist()} by {gap.tolist()} event(s); "
-              f"{differ} of {caps.numel()} cap times differ", flush=True)
+        plain_rounds = int(plain[4].max())
+        require(torch_counts["segment_partials"] == 2 * plain_rounds,
+                f"{kind}: torch path made {torch_counts['segment_partials']} "
+                f"segment_partials launches for {plain_rounds} rounds")
+        for name, a, b in zip(OUTPUTS, fused, plain):
+            require(torch.equal(a, b),
+                    f"{kind}: the torch path's {name} differs from the fused "
+                    f"path's")
         # one lane at full width against the torch path on the CPU, where
-        # index_add_ sums in event order as the kernel does: the same bits
-        lane = cpu_lane[kind]
+        # index_add_ sums in event order as the kernels do: the same bits
+        lane = CPU_LANE[kind]
         rule_cpu = AuctionRule(
             multipliers=grid.rules.multipliers[lane:lane + 1].cpu(),
             reserve=grid.rules.reserve[lane:lane + 1].cpu(), kind=kind)
@@ -375,31 +521,150 @@ def main() -> int:
                                      grid.budgets[lane:lane + 1].cpu(),
                                      rule_cpu, resolve="torch")
         cpu_wall = time.perf_counter() - t0
-        for name, a, b in zip(("final_spend", "cap_times", "retired",
-                               "boundaries", "num_rounds", "n_hat"),
-                              again, on_cpu):
+        for name, a, b in zip(OUTPUTS, fused, on_cpu):
             require(torch.equal(a[lane].cpu(), b[0]),
                     f"{kind}: lane {lane} {name} differs from the CPU")
         results[kind] = dict(wall=wall, plain_wall=plain_wall, rounds=rounds,
-                             cap_differ=differ)
+                             fused=fused)
         print(f"[4] {kind}: engine.sweep S={grid.num_scenarios} N={n} C={c}: "
               f"{rounds} rounds, {wall:.3f} s, "
               f"{n * grid.num_scenarios / wall:.4g} events*scenarios/s; "
-              f"launches {launches}; torch path {plain_wall:.3f} s; lane "
-              f"{lane} bitwise the CPU torch path ({cpu_wall:.1f} s)",
-              flush=True)
+              f"launches {launches}; torch path on the card bitwise the fused "
+              f"path, all six outputs ({plain_wall:.3f} s, "
+              f"{torch_counts['segment_partials']} segment_partials "
+              f"launches); lane {lane} bitwise the CPU torch path "
+              f"({cpu_wall:.1f} s)", flush=True)
         print(sweep.format_delta_table())
+        del plain, on_cpu
 
-    # ---- phase 5: numbers ------------------------------------------------
+    # ---- phase 5: the exact replay at full width -------------------------
+    exact = {}
+    for kind in KINDS:
+        second = kind == "second_price"
+        engine, grid = engines[kind]
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seq = engine.sweep(grid, method="sequential", record_events=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        require(launches["capped_scan"] == 1,
+                f"{kind}: {launches['capped_scan']} capped_scan launches for "
+                f"one sequential sweep")
+        counted["capped_scan"] += launches["capped_scan"]
+        res = seq.results
+        require(bool(torch.isfinite(res.final_spend).all())
+                and tuple(res.winners.shape) == (grid.num_scenarios, n),
+                f"{kind}: the exact replay's outputs are malformed")
+        again = sweep_sequential(env.values, grid.budgets, grid.rules)
+        require(torch.equal(again.final_spend, res.final_spend)
+                and torch.equal(again.cap_times, res.cap_times),
+                f"{kind}: a second capped_scan launch gave other bits")
+        # the replay is causal: its first PREFIX events are the replay of
+        # the first PREFIX events, which the plain version runs on the CPU
+        lane = CPU_LANE[kind]
+        t0 = time.perf_counter()
+        w_cpu, p_cpu, _, cap_cpu = scan_ops.capped_scan(
+            env.values[:PREFIX].cpu(), grid.budgets[lane].cpu(),
+            grid.rules.multipliers[lane].cpu(), grid.rules.reserve[lane].cpu(),
+            second_price=second)
+        cpu_wall = time.perf_counter() - t0
+        caps = res.cap_times[lane].cpu()
+        require(torch.equal(res.winners[lane, :PREFIX].cpu(), w_cpu)
+                and torch.equal(res.prices[lane, :PREFIX].cpu(), p_cpu),
+                f"{kind}: lane {lane}'s first {PREFIX} sales differ from the "
+                f"CPU")
+        require(torch.equal(torch.where(caps <= PREFIX, caps, PREFIX + 1),
+                            cap_cpu),
+                f"{kind}: lane {lane}'s cap times up to {PREFIX} differ from "
+                f"the CPU")
+        exact[kind] = dict(spend=res.final_spend, caps=res.cap_times,
+                           wall=wall)
+        print(f"[5] {kind}: exact replay S={grid.num_scenarios} N={n} C={c} "
+              f"in one capped_scan launch: {wall:.4f} s, "
+              f"{n * grid.num_scenarios / wall:.4g} events*scenarios/s; "
+              f"a second launch gives the same bits; lane {lane}'s first "
+              f"{PREFIX} events bitwise the CPU ({cpu_wall:.1f} s)",
+              flush=True)
+        del seq, res, again
+
+    # ---- phase 6: three back-ends, one answer ----------------------------
+    sr_wall = {}
+    for kind in KINDS:
+        engine, grid = engines[kind]
+        fused = results[kind]["fused"]
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sweep_state_machine(env.values, grid.budgets, grid.rules,
+                                  resolve="sweep_resolve")
+        torch.cuda.synchronize()
+        sr_wall[kind] = time.perf_counter() - t0
+        launches = read_counts()
+        rounds = int(out[4].max())
+        require(launches["sweep_resolve"] == rounds,
+                f"{kind}: {launches['sweep_resolve']} sweep_resolve launches "
+                f"for {rounds} rounds")
+        require(launches["segment_partials"] == 2 * rounds,
+                f"{kind}: {launches['segment_partials']} segment_partials "
+                f"launches for {rounds} rounds")
+        counted["sweep_resolve"] += launches["sweep_resolve"]
+        counted["segment_partials"] += launches["segment_partials"]
+        for name, a, b in zip(OUTPUTS, out, fused):
+            require(torch.equal(a, b), f"{kind}: the sweep_resolve back-end's "
+                                       f"{name} differs from the fused one's")
+        rule0, budgets0 = scenario_rule(grid.rules, 0), grid.budgets[0]
+        for resolve in RESOLVES:
+            one = engine.simulate(rule0, budgets0, method="parallel",
+                                  resolve=resolve)
+            require(torch.equal(one.final_spend, fused[0][0])
+                    and torch.equal(one.cap_times, fused[1][0]),
+                    f"{kind}: engine.simulate(resolve={resolve!r}) differs "
+                    f"from lane 0 of the sweep")
+        print(f"[6] {kind}: torch, sweep_resolve and fused back-ends give "
+              f"identical outputs; sweep_resolve sweep {rounds} rounds in "
+              f"{sr_wall[kind]:.4f} s, launches {launches}; "
+              f"engine.simulate of lane 0 equals lane 0 for all three",
+              flush=True)
+
+    # ---- phase 7: the paper's comparison ---------------------------------
+    for kind in KINDS:
+        engine, grid = engines[kind]
+        alg2, oracle = results[kind]["fused"], exact[kind]
+        s_par, s_seq = alg2[0].double().cpu(), oracle["spend"].double().cpu()
+        rel = ((s_par - s_seq).abs() / s_seq.clamp(min=1e-9)).mean(-1)
+        c_par = torch.clamp(alg2[1].cpu().long(), max=n + 1)
+        c_seq = torch.clamp(oracle["caps"].cpu().long(), max=n + 1)
+        shift = (c_par - c_seq).abs().double().mean(-1)
+        print(f"[7] {kind}: Algorithm 2 against the exact replay, per lane "
+              f"(mean relative spend error | capped: Alg. 2, exact | mean "
+              f"cap-time shift in events)")
+        for lane in range(grid.num_scenarios):
+            print(f"    {lane:2d} {grid.labels[lane]:<26} "
+                  f"{float(rel[lane]):.6f} | {int((c_par[lane] <= n).sum()):3d}"
+                  f" {int((c_seq[lane] <= n).sum()):3d} | "
+                  f"{float(shift[lane]):.1f}")
+        worst = int(rel.argmax())
+        require(float(rel.max()) < ORACLE_TOL,
+                f"{kind}: lane {worst} has mean relative spend error "
+                f"{float(rel.max()):.4f} >= {ORACLE_TOL}")
+        walls = (results[kind]["wall"], sr_wall[kind], oracle["wall"])
+        print(f"[7] {kind}: worst lane error {float(rel.max()):.6f}; wall: "
+              f"Algorithm 2 fused {walls[0]:.4f} s, sweep_resolve "
+              f"{walls[1]:.4f} s, exact replay {walls[2]:.4f} s; "
+              + ", ".join(f"{n * grid.num_scenarios / w:.4g}" for w in walls)
+              + " events*scenarios/s", flush=True)
+
+    # ---- phase 8: numbers ------------------------------------------------
     # one traced fused sweep (first price): device busy time by kernel
     from torch.profiler import ProfilerActivity, profile
-    base = AuctionRule(multipliers=torch.ones(c, device=dev),
-                       reserve=torch.zeros((), device=dev), kind=KINDS[0])
-    grid = ScenarioGrid.product(base, env.budgets, **GRID_AXES)
+    engine, grid = engines[KINDS[0]]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sweep_state_machine(env.values, grid.budgets, grid.rules)
+        sweep_state_machine(env.values, grid.budgets, grid.rules,
+                            resolve="fused")
         torch.cuda.synchronize()
         traced_wall = time.perf_counter() - t0
     by_kernel = sorted(
@@ -407,37 +672,70 @@ def main() -> int:
          if e.self_device_time_total > 0), key=lambda kv: -kv[1])
     busy_us = sum(us for _, us in by_kernel)
     if busy_us > 0:
-        print(f"[5] traced fused sweep: wall {traced_wall:.4f} s, device "
+        print(f"[8] traced fused sweep: wall {traced_wall:.4f} s, device "
               f"busy {busy_us / 1e6:.4f} s, idle share "
               f"{1 - busy_us / 1e6 / traced_wall:.4f}")
         for key, us in by_kernel[:6]:
             print(f"    {us / 1e3:12.3f} ms  {key[:90]}")
     else:
-        print("[5] traced fused sweep: the profiler recorded no device time; "
+        print("[8] traced fused sweep: the profiler recorded no device time; "
               "device busy share not measured")
-    print(smi)
-    print(f"[5] per-round time from the fresh state, S=32 (CUDA events, "
-          f"median): fused {timing['round_ms']['fused']:.4f} ms, torch path "
-          f"{timing['round_ms']['torch']:.4f} ms")
+    # the exact replay of the full day, 32 lanes, first price: the kernel,
+    # then its plain version over the first PLAIN_EVENTS events (a chain of
+    # small launches per event; the full day would take many minutes),
+    # which must give the kernel's first PLAIN_EVENTS sales bit for bit
+    s = grid.num_scenarios
+    scan_args = (grid.budgets, grid.rules.multipliers, grid.rules.reserve)
+    scan_ms = cuda_ms(lambda: scan_ops.capped_scan(env.values, *scan_args),
+                      3)
+    kernel_out = scan_ops.capped_scan(env.values, *scan_args)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain_out = capped_scan_ref(env.values[:PLAIN_EVENTS], *scan_args)
+    stop.record()
+    stop.synchronize()
+    timing["capped_scan"] = (scan_ms, start.elapsed_time(stop), None)
+    for name, a, b in zip(("winners", "prices"), kernel_out, plain_out):
+        equal(name, a[:, :PLAIN_EVENTS], b, "capped_scan full day")
+    del kernel_out, plain_out
+    timing["capped_scan_bound"] = bound_ms(
+        n * c * 4 + s * c * 12 + s * 4 + s * n * 8 + s * c * 8, s * n * c * 3)
+    print(f"[8] capped_scan, full day, S={s}: {scan_ms:.4f} ms "
+          f"({scan_ms * 1e6 / n:.2f} ns per event of the lane chains); the "
+          f"plain version {timing['capped_scan'][1]:.1f} ms for the first "
+          f"{PLAIN_EVENTS} events, bitwise the kernel; SM clock now "
+          f"{smi('clocks.sm')}")
+    print(card)
+    rm = timing["round_ms"]
+    print(f"[8] per-round time from the fresh state, S=32 (CUDA events, "
+          f"median): fused {rm['fused']:.4f} ms, sweep_resolve "
+          f"{rm['sweep_resolve']:.4f} ms, torch path {rm['torch']:.4f} ms")
     for kind, r in results.items():
-        print(f"[5] sweep {kind}: wall {r['wall']:.4f} s, "
+        print(f"[8] sweep {kind}: wall {r['wall']:.4f} s, "
               f"{n * 32 / r['wall']:.6g} events*scenarios/s, "
-              f"{r['rounds']} rounds; torch path wall {r['plain_wall']:.4f} s")
-    print(f"[5] peak device memory in a full-width sweep: fused "
+              f"{r['rounds']} rounds; torch path wall {r['plain_wall']:.4f} s;"
+              f" sweep_resolve wall {sr_wall[kind]:.4f} s; exact replay wall "
+              f"{exact[kind]['wall']:.4f} s")
+    print(f"[8] peak device memory in a full-width sweep: fused "
           f"{peak['fused'] / 2**30:.3f} GiB, torch path "
           f"{peak['torch'] / 2**30:.3f} GiB")
-    src = "src/repro_torch/csrc/round_fused.cu"
-    pallas = "src/repro/kernels/auction_resolve/round_fused.py"
     rows = []
-    for name, line in (("round_fused", 197), ("sweep_partials", 301)):
-        ms, plain_ms = timing[name]
+    for name, src, replaces in KERNELS:
+        ms, plain_ms, library_ms = timing[name]
         bound, bound_by = timing[f"{name}_bound"]
+        print(f"[8] {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"{library_ms if library_ms is None else f'{library_ms:.4f}'}"
+              f" ms, bound {bound:.4f} ms ({bound_by}), "
+              f"{counted[name]} launches on its path")
         rows.append(dict(name=name, route="cuda", source=src,
-                         replaces=f"{pallas}:{line}",
-                         launches=counted[name], max_abs_err=errs[name],
-                         ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                         bound_by=bound_by, library_ms=None))
-        require(counted[name] > 0, f"{name} never launched on the main path")
+                         replaces=replaces, launches=counted[name],
+                         max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=bound_by,
+                         library_ms=library_ms,
+                         plain_events=PLAIN_EVENTS if name == "capped_scan"
+                         else n))
+        require(counted[name] > 0, f"{name} never launched on its path")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,10 @@ reserves × budget scalings — which :meth:`CounterfactualEngine.sweep`
 evaluates in one batched program and summarises as a delta table against
 the base design (scenario ``base_index``, 0 by default).
 
-Ported estimators: ``sweep(method="parallel")`` (Algorithm 2) and the
-``"sequential"`` oracle. The others raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+Ported estimators: Algorithm 2 (``simulate``/``sweep`` with
+``method="parallel"``) and the exact ``"sequential"`` oracle (one
+capped-scan kernel launch on the card). The others raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch
 from repro_torch.core import sweep as sweep_lib
 from repro_torch.core.executor import (SweepPlan, execute_sweep,
                                        reject_unported)
+from repro_torch.core.parallel import parallel_simulate
 from repro_torch.core.sequential import sequential_replay
 from repro_torch.core.types import AuctionRule, SimResult
 from repro_torch.device import DeviceLike, pick_device
@@ -32,7 +34,6 @@ from repro_torch.device import DeviceLike, pick_device
 _UNPORTED_METHODS = {
     "sort2aggregate": "ROADMAP.md queue 1, item 4 (Algorithms 3-4)",
     "naive_sampling": "ROADMAP.md queue 1, item 4 (Algorithms 3-4)",
-    "parallel": "ROADMAP.md queue 1, item 2 (core/parallel.py)",
 }
 
 
@@ -168,11 +169,15 @@ class CounterfactualEngine:
     def simulate(self, rule: Optional[AuctionRule] = None,
                  budgets: Optional[torch.Tensor] = None,
                  method: str = "sort2aggregate", **kwargs) -> SimResult:
-        """One design's replay. Ported: ``method="sequential"``."""
+        """One design's replay. Ported: ``method="sequential"`` (the exact
+        oracle) and ``method="parallel"`` (Algorithm 2, ``**kwargs`` going
+        to :func:`~repro_torch.core.parallel.parallel_simulate`)."""
         rule = rule or self.base_rule
         budgets = self.budgets if budgets is None else budgets
         if method == "sequential":
             return sequential_replay(self.values, budgets, rule, **kwargs)
+        if method == "parallel":
+            return parallel_simulate(self.values, budgets, rule, **kwargs)
         if method in _UNPORTED_METHODS:
             raise _method_not_ported(method, "simulate")
         raise ValueError(f"unknown method: {method}")
@@ -191,8 +196,8 @@ class CounterfactualEngine:
 
         ``method="parallel"`` runs Algorithm 2 through the executor
         (``resolve="auto"``: the CUDA fused round on the card, the torch
-        path on the CPU); ``method="sequential"`` runs the exact oracle one
-        lane after another (validation only)."""
+        path on the CPU); ``method="sequential"`` runs the exact oracle for
+        all lanes at once (one capped-scan launch on the card)."""
         reject_unported(mesh=mesh, chunks=chunks,
                         scenario_chunks=scenario_chunks, tuned=tuned)
         plan = SweepPlan(placement=driver, resolve=resolve)

@@ -7,25 +7,32 @@ A :class:`SweepPlan` names the axes of one execution and
 * **placement** — ``"batched"`` (S lanes on one device) or ``"device"``
   (one unbatched lane, run as the batched program at S=1);
 * **resolve** — the per-round back-end: ``"torch"`` (resolve with plain
-  tensor ops, one lane at a time, then two weighted canonical partials of
-  the same winners/prices), ``"fused"`` (the whole round through
-  ``kernels.auction_resolve.ops.round_fused``: the hand-written CUDA kernel
-  for CUDA tensors, its plain version for CPU tensors), or ``"auto"``
-  (``"fused"`` on CUDA, ``"torch"`` on the CPU — :func:`pick_resolve`);
+  tensor ops, one lane at a time, then two windowed canonical partials of
+  the same winners/prices), ``"sweep_resolve"`` (all lanes resolved at once
+  by ``kernels.auction_resolve.ops.sweep_resolve``, then the same two
+  partials; ``repro``'s ``"pallas"``), ``"fused"`` (the whole round through
+  ``kernels.auction_resolve.ops.round_fused``), or ``"auto"`` (``"fused"``
+  on CUDA, ``"torch"`` on the CPU — :func:`pick_resolve`). Each kernel
+  wrapper launches its hand-written CUDA kernel for CUDA tensors and runs
+  its plain version for CPU tensors; the partials go through
+  :func:`repro_torch.core.segments.window_partials`, event-ordered on both;
 * **skip_retired** — whether the CUDA round skips frozen lanes' work.
 
 Every reduction goes through the canonical ``(S, 32, C)`` block partials
 and the in-order fold of :mod:`repro_torch.core.segments`, and the per-lane
 arithmetic (:func:`lane_predict` / :func:`lane_commit`) repeats
 ``repro``'s operation for operation, so on the CPU the port reproduces
-``repro``'s ``execute_sweep`` outputs bit for bit.
+``repro``'s ``execute_sweep`` outputs bit for bit, and on the card every
+back-end gives the CPU's bits.
 
 The round loop (:func:`_run_loop`) is a Python loop that checks once per
 round whether any lane is alive — one host sync per round; capturing the
 loop in a CUDA graph is later work. Axes ``repro`` has and this port does
 not yet (event ``chunks``, ``scenario_chunks``, the ``sharded`` and
-``multihost`` placements, ``tuned`` plans, overlays, ``resolve="pallas"``)
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+``multihost`` placements, ``tuned`` plans, overlays) raise
+``NotImplementedError`` naming the ROADMAP item that ports them; the port
+names its resolve back-ends after what they run, so ``repro``'s ``"jnp"``
+and ``"pallas"`` are unknown options here.
 """
 from __future__ import annotations
 
@@ -38,13 +45,13 @@ from repro_torch.core import segments as seg_lib
 from repro_torch.core.types import AuctionRule, never_capped
 from repro_torch.kernels.auction_resolve import ops as resolve_ops
 
-RESOLVE_BACKENDS = ("torch", "fused")
+RESOLVE_BACKENDS = ("torch", "sweep_resolve", "fused")
 PLACEMENTS = ("device", "batched")
+SIM_DRIVERS = ("auto", "device", "host")
 
 # axes of repro's executor this port has not reached, and where ROADMAP.md
 # queues them
 UNPORTED = {
-    "resolve='pallas'": "queue 2, item 3 (sweep_resolve kernel)",
     "placement='sharded'": "queue 1, item 8 (multi-GPU placements)",
     "placement='multihost'": "queue 1, item 8 (multi-GPU placements)",
     "chunks": "queue 1, item 3 (execution axes on one GPU)",
@@ -79,8 +86,6 @@ def pick_resolve(resolve: str, device) -> str:
     the CUDA fused round on CUDA, the plain torch path on the CPU."""
     if resolve == "auto":
         return "fused" if torch.device(device).type == "cuda" else "torch"
-    if resolve == "pallas":
-        raise not_ported("resolve='pallas'")
     if resolve not in RESOLVE_BACKENDS:
         raise _unknown("resolve back-end", resolve,
                        RESOLVE_BACKENDS + ("auto",))
@@ -91,7 +96,8 @@ def pick_resolve(resolve: str, device) -> str:
 class SweepPlan:
     """Everything that decides which Algorithm-2 program runs:
     ``placement`` (``"batched"`` | ``"device"``), ``resolve`` (``"torch"``
-    | ``"fused"`` | ``"auto"``) and ``skip_retired``."""
+    | ``"sweep_resolve"`` | ``"fused"`` | ``"auto"``) and
+    ``skip_retired``."""
 
     placement: str = "batched"
     resolve: str = "auto"
@@ -102,11 +108,16 @@ class SweepPlan:
             raise not_ported(f"placement={self.placement!r}")
         if self.placement not in PLACEMENTS:
             raise _unknown("placement", self.placement, PLACEMENTS)
-        if self.resolve == "pallas":
-            raise not_ported("resolve='pallas'")
         if self.resolve not in RESOLVE_BACKENDS + ("auto",):
             raise _unknown("resolve back-end", self.resolve,
                            RESOLVE_BACKENDS + ("auto",))
+
+
+def check_sim_driver(driver: str) -> str:
+    """Validate a single-scenario ``parallel_simulate`` driver string."""
+    if driver not in SIM_DRIVERS:
+        raise _unknown("driver", driver, SIM_DRIVERS)
+    return driver
 
 
 def check_batch_shapes(values, budgets, rules) -> None:
@@ -182,17 +193,23 @@ def lane_commit(blk, c_next, no_cap, n_next, s_hat, active, cap, rnd,
 def _make_round_body(plan: SweepPlan, resolve: str, *, values, rules,
                      budgets_f32, n_events: int, n_campaigns: int):
     """The per-round map ``round_body(core, keep) -> core'`` for the
-    ``"torch"`` (resolve-once) or ``"fused"`` back-end."""
+    ``"torch"`` or ``"sweep_resolve"`` (resolve-once) or ``"fused"``
+    back-end."""
     sentinel = never_capped(n_events)
     second = rules.kind == "second_price"
     block = seg_lib.reduce_block_size(n_events)
     b = budgets_f32
     reserves = rules.reserve.to(torch.float32).expand(b.shape[0])
-    gidx = torch.arange(n_events, device=values.device)
 
     def resolve_lanes(active):
-        """(S, N) winners/prices, one lane at a time: the bids tensor is
-        (N, C), never (S, N, C)."""
+        """(S, N) winners/prices of every lane: one ``sweep_resolve`` for
+        all lanes, or the torch path one lane at a time (the bids tensor is
+        then (N, C), never (S, N, C))."""
+        if resolve == "sweep_resolve":
+            winners, prices, _ = resolve_ops.sweep_resolve(
+                values, rules.multipliers, active, reserves,
+                second_price=second)
+            return winners, prices
         out = [auction.resolve(values, active[s], AuctionRule(
             multipliers=rules.multipliers[s], reserve=reserves[s],
             kind=rules.kind)) for s in range(active.shape[0])]
@@ -201,12 +218,8 @@ def _make_round_body(plan: SweepPlan, resolve: str, *, values, rules,
 
     def weighted_partials(winners, prices, lo, hi):
         """(S, G, C) canonical partials of the events in ``[lo, hi)``."""
-        return torch.stack([
-            seg_lib.partial_spend_sums(
-                winners[s], prices[s], n_campaigns,
-                ((gidx >= lo[s]) & (gidx < hi[s])).to(prices.dtype),
-                block_size=block)
-            for s in range(winners.shape[0])])
+        return seg_lib.window_partials(winners, prices, n_campaigns, lo, hi,
+                                       block_size=block)
 
     def round_body(core, keep):
         s_hat, active, cap, n_hat, rnd, retired, bnds = core

@@ -1,11 +1,12 @@
 """Sequential (oracle) simulation — §4 of the paper (port of
 ``repro.core.sequential:23-65``).
 
-The ground truth every parallel method is judged against: a Python loop over
-events carrying the spend state and recomputing the activation vector before
-each auction. O(N) serial and slow on purpose — the validation oracle, not a
-production path. ``naive_sampled_replay`` arrives with the SORT2AGGREGATE
-slice.
+The ground truth every parallel method is judged against: the events in
+order, carrying the spend state and recomputing the activation vector before
+each auction. On CUDA tensors it is one launch of the capped-scan kernel
+(``csrc/capped_scan.cu``, a warp walking the events); on the CPU a Python
+loop over events, O(N) serial and slow on purpose. ``naive_sampled_replay``
+arrives with the SORT2AGGREGATE slice.
 """
 from __future__ import annotations
 
@@ -13,6 +14,16 @@ import torch
 
 from repro_torch.core import auction
 from repro_torch.core.types import AuctionRule, SimResult, never_capped
+from repro_torch.kernels.capped_scan import ops as scan_ops
+
+KINDS = ("first_price", "second_price")
+
+
+def second_price(kind: str) -> bool:
+    """Whether a pricing ``kind`` is second price; unknown kinds raise."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown auction kind: {kind}")
+    return kind == "second_price"
 
 
 def capped_sum(xs: torch.Tensor, budget) -> torch.Tensor:
@@ -32,6 +43,13 @@ def sequential_replay(values: torch.Tensor, budgets: torch.Tensor,
     The spend state is updated in place, one float32 add per sale, as the
     reference's ``s.at[w].add(p)`` does.
     """
+    if values.device.type == "cuda":
+        winners, prices, s, cap = scan_ops.capped_scan(
+            values, budgets, rule.multipliers, rule.reserve,
+            second_price=second_price(rule.kind))
+        return SimResult(final_spend=s, cap_times=cap,
+                         winners=winners if record_events else None,
+                         prices=prices if record_events else None)
     n_events, n_campaigns = values.shape
     device = values.device
     sentinel = never_capped(n_events)

@@ -14,8 +14,9 @@ import torch
 
 from repro_torch.core.executor import (SweepPlan, check_batch_shapes,
                                        execute_sweep, reject_unported)
-from repro_torch.core.sequential import sequential_replay
+from repro_torch.core.sequential import second_price
 from repro_torch.core.types import AuctionRule, SimResult
+from repro_torch.kernels.capped_scan import ops as scan_ops
 
 
 def stack_rules(rules) -> AuctionRule:
@@ -44,16 +45,16 @@ def scenario_rule(rules: AuctionRule, s: int) -> AuctionRule:
 def sweep_sequential(values: torch.Tensor, budgets: torch.Tensor,
                      rules: AuctionRule,
                      record_events: bool = False) -> SimResult:
-    """S exact serial replays, one lane after another (the sweep oracle)."""
+    """S exact serial replays at once (the sweep oracle): one launch of the
+    capped-scan kernel on CUDA, the batched plain version on the CPU. Each
+    lane is bit for bit ``sequential_replay`` of its design."""
     check_batch_shapes(values, budgets, rules)
-    outs = [sequential_replay(values, budgets[s], scenario_rule(rules, s),
-                              record_events=record_events)
-            for s in range(budgets.shape[0])]
-    stack = lambda xs: None if xs[0] is None else torch.stack(xs)
-    return SimResult(final_spend=stack([o.final_spend for o in outs]),
-                     cap_times=stack([o.cap_times for o in outs]),
-                     winners=stack([o.winners for o in outs]),
-                     prices=stack([o.prices for o in outs]))
+    winners, prices, spend, cap = scan_ops.capped_scan(
+        values, budgets, rules.multipliers, rules.reserve,
+        second_price=second_price(rules.kind))
+    return SimResult(final_spend=spend, cap_times=cap,
+                     winners=winners if record_events else None,
+                     prices=prices if record_events else None)
 
 
 def sweep_parallel(values: torch.Tensor, budgets: torch.Tensor,
@@ -75,15 +76,16 @@ def sweep_parallel(values: torch.Tensor, budgets: torch.Tensor,
 
 
 def sweep_state_machine(values: torch.Tensor, budgets: torch.Tensor,
-                        rules: AuctionRule, resolve: str = "auto",
+                        rules: AuctionRule, resolve: str = "sweep_resolve",
                         skip_retired: bool = True, *, chunks=None,
                         scenario_chunks=None, overlay=None):
     """The batched Algorithm-2 loop with its full round log exposed.
 
     Returns ``(s_hat (S, C), cap_times (S, C), retired (S, C+1),
-    boundaries (S, C+2), num_rounds (S,), n_hat (S,))``. (``repro``'s
-    default back-end here is its Pallas resolve, which this port does not
-    have; ``"auto"`` picks the fused round on CUDA, torch on the CPU.)
+    boundaries (S, C+2), num_rounds (S,), n_hat (S,))``. The default
+    back-end is ``"sweep_resolve"``, the counterpart of ``repro``'s Pallas
+    resolve: one resolve of all lanes per round, two canonical partials of
+    its winners and prices.
     """
     reject_unported(chunks=chunks, scenario_chunks=scenario_chunks)
     plan = SweepPlan(placement="batched", resolve=resolve,

@@ -70,6 +70,40 @@ class AuctionRule:
 
 
 @dataclasses.dataclass(frozen=True)
+class Segments:
+    """A piecewise-constant activation history.
+
+    Events in ``[boundaries[j], boundaries[j+1])`` (0-indexed) are resolved
+    under activation mask ``masks[j]``. Once the segments are known, every
+    per-event quantity is a parallel map and every total a parallel reduce.
+    """
+
+    boundaries: torch.Tensor   # (K+2,) int32, [0] = 0, [-1] = N
+    masks: torch.Tensor        # (K+1, C) bool, the mask of each segment
+
+    @property
+    def num_segments(self) -> int:
+        return self.masks.shape[0]
+
+    def seg_ids(self, n_events: int) -> torch.Tensor:
+        """Segment id of each event index (0-based), int32."""
+        idx = torch.arange(n_events, dtype=torch.int32,
+                           device=self.boundaries.device)
+        return torch.searchsorted(self.boundaries[1:-1].contiguous(), idx,
+                                  right=True).to(torch.int32)
+
+    @staticmethod
+    def trivial(n_events: int, num_campaigns: int,
+                device: DeviceLike = None) -> "Segments":
+        dev = pick_device(device)
+        return Segments(
+            boundaries=torch.tensor([0, n_events], dtype=torch.int32,
+                                    device=dev),
+            masks=torch.ones((1, num_campaigns), dtype=torch.bool,
+                             device=dev))
+
+
+@dataclasses.dataclass(frozen=True)
 class SimResult:
     """Outcome of a (counterfactual) replay.
 
@@ -81,6 +115,7 @@ class SimResult:
     cap_times: torch.Tensor                 # (C,) or (S, C) int32, 1-based
     winners: Optional[torch.Tensor] = None  # (N,) int32, -1 = no sale
     prices: Optional[torch.Tensor] = None   # (N,) float32
+    segments: Optional[Segments] = None     # Algorithm 2's activation history
 
     @property
     def revenue(self) -> torch.Tensor:

@@ -1,17 +1,21 @@
-"""Public wrappers of the fused-round kernels (port of
-``repro.kernels.auction_resolve.ops:124,169``).
+"""Public wrappers of the auction-resolve kernels (port of
+``repro.kernels.auction_resolve.ops:74,124,169``).
 
 They dispatch on the tensors' device: a CUDA tensor goes to the hand-written
-CUDA kernel (:mod:`.round_fused`), which launches or raises; a CPU tensor
-goes to the plain PyTorch version (:mod:`.ref`), because the caller asked
-for the CPU. There is no padding: the kernels take any N and C.
+CUDA kernel (:mod:`.round_fused`, :mod:`.sweep_resolve`), which launches or
+raises; a CPU tensor goes to the plain PyTorch version (:mod:`.ref`),
+because the caller asked for the CPU. There is no padding: the kernels take
+any N and C.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.segments import REDUCE_BLOCKS
 from repro_torch.kernels.auction_resolve import ref
 from repro_torch.kernels.auction_resolve import round_fused as cuda_kernels
+from repro_torch.kernels.auction_resolve.sweep_resolve import \
+    sweep_resolve_cuda
 
 
 def _lane_inputs(multipliers, active, reserves, n_scenarios, device):
@@ -24,6 +28,25 @@ def _lane_inputs(multipliers, active, reserves, n_scenarios, device):
 def _i32(x, device, n_scenarios):
     return torch.as_tensor(x, dtype=torch.int32, device=device).expand(
         n_scenarios).contiguous()
+
+
+def sweep_resolve(values: torch.Tensor, multipliers: torch.Tensor,
+                  active: torch.Tensor, reserves=0.0, *,
+                  second_price: bool = False):
+    """Resolve S scenario lanes against one (N, C) valuation matrix under
+    an (S, C) or (S, N, C) activation. Returns ``(winners (S, N) int32
+    [-1 = no sale], prices (S, N) float32, spend sums (S, C) float32)``;
+    winners and prices are bit for bit the per-lane
+    ``repro_torch.core.auction.resolve``."""
+    s = multipliers.shape[0]
+    dev = values.device
+    mult, act, res = _lane_inputs(multipliers, active, reserves, s, dev)
+    if dev.type == "cpu":
+        return ref.sweep_resolve_ref(values, mult, act, res,
+                                     second_price=second_price)
+    return sweep_resolve_cuda(values, mult, act, res,
+                              second_price=second_price,
+                              reduce_blocks=REDUCE_BLOCKS)
 
 
 def round_fused(values: torch.Tensor, multipliers: torch.Tensor,

@@ -1,9 +1,10 @@
-"""Plain PyTorch versions of the fused-round kernels (port of
-``repro.kernels.auction_resolve.ref:62,125,158``).
+"""Plain PyTorch versions of the auction-resolve kernels (port of
+``repro.kernels.auction_resolve.ref:62,94,125,158``).
 
-These are what the CUDA kernels in ``csrc/round_fused.cu`` compute, written
-as ordinary tensor code: the CPU path runs them, and ``chip_smoke.py`` holds
-the kernels against them on the card. The partials go through the same
+These are what the CUDA kernels in ``csrc/round_fused.cu`` and
+``csrc/sweep_resolve.cu`` compute, written as ordinary tensor code: the CPU
+path runs them, and ``chip_smoke.py`` holds the kernels against them on the
+card. The partials go through the same
 event-ordered ``index_add_`` and the same in-order block fold as
 :mod:`repro_torch.core.segments`; the prediction repeats
 ``repro_torch.core.executor.lane_predict``'s arithmetic vectorised over
@@ -18,13 +19,10 @@ from repro_torch.core.segments import REDUCE_BLOCKS, fold_blocks
 NEG = -2.0 ** 30
 
 
-def resolve_tile_ref(values: torch.Tensor, multipliers: torch.Tensor,
-                     active: torch.Tensor, reserve,
-                     second_price: bool = False):
-    """Single-scenario resolve of a (T, C) valuation tile under a (C,) or
-    (T, C) activation. Returns (winners (T,) int32 [-1 = no sale], prices
-    (T,) float32, spend sums (C,))."""
-    c = values.shape[1]
+def _resolve_rows(values: torch.Tensor, multipliers: torch.Tensor,
+                  active: torch.Tensor, reserve, second_price: bool):
+    """(winners (T,) int32 [-1 = no sale], prices (T,) float32) of a (T, C)
+    valuation tile under one lane's (C,) or (T, C) activation."""
     bids = values.to(torch.float32) * multipliers.to(torch.float32)
     eligible = active & (bids > reserve)
     masked = torch.where(eligible, bids, NEG)
@@ -39,9 +37,47 @@ def resolve_tile_ref(values: torch.Tensor, multipliers: torch.Tensor,
     else:
         prices = torch.where(sale, top, 0.0)
     winners = torch.where(sale, winners[:, 0].to(torch.int32), -1)
+    return winners, prices.to(torch.float32)
+
+
+def resolve_tile_ref(values: torch.Tensor, multipliers: torch.Tensor,
+                     active: torch.Tensor, reserve,
+                     second_price: bool = False):
+    """Single-scenario resolve of a (T, C) valuation tile under a (C,) or
+    (T, C) activation. Returns (winners (T,) int32 [-1 = no sale], prices
+    (T,) float32, spend sums (C,))."""
+    c = values.shape[1]
+    winners, prices = _resolve_rows(values, multipliers, active, reserve,
+                                    second_price)
     cols = torch.arange(c, device=values.device)
     sums = ((winners[:, None] == cols) * prices[:, None]).sum(0)
-    return winners, prices.to(torch.float32), sums
+    return winners, prices, sums
+
+
+def sweep_resolve_ref(values: torch.Tensor, multipliers: torch.Tensor,
+                      active: torch.Tensor, reserves: torch.Tensor,
+                      second_price: bool = False, *,
+                      reduce_blocks: int = REDUCE_BLOCKS):
+    """S lanes resolved against one (N, C) valuation matrix under an
+    (S, C) or (S, N, C) activation, one lane at a time. Returns (winners
+    (S, N) int32, prices (S, N) float32, spend sums (S, C)). Each lane's
+    sums are its canonical block partials (``index_add_``, in event order
+    on the CPU) folded over the blocks in order, as the CUDA kernel sums
+    them; ``repro``'s oracle sums each lane in another order."""
+    n, c = values.shape
+    block = -(-n // reduce_blocks)
+    ids_blk = (torch.arange(n, device=values.device) // block) * (c + 1)
+    winners, prices, sums = [], [], []
+    for s in range(multipliers.shape[0]):
+        w, p = _resolve_rows(values, multipliers[s], active[s], reserves[s],
+                             second_price)
+        parts = torch.zeros(reduce_blocks * (c + 1), dtype=torch.float32,
+                            device=values.device)
+        parts.index_add_(0, ids_blk + torch.where(w < 0, c, w).long(), p)
+        winners.append(w)
+        prices.append(p)
+        sums.append(fold_blocks(parts.reshape(reduce_blocks, c + 1)[:, :c]))
+    return torch.stack(winners), torch.stack(prices), torch.stack(sums)
 
 
 def fused_partials_ref(values: torch.Tensor, multipliers: torch.Tensor,
@@ -58,9 +94,8 @@ def fused_partials_ref(values: torch.Tensor, multipliers: torch.Tensor,
     ids_blk = (gidx // block_size) * (c + 1)
     out = []
     for s in range(multipliers.shape[0]):
-        winners, prices, _ = resolve_tile_ref(
-            values, multipliers[s], active[s], reserves[s],
-            second_price=second_price)
+        winners, prices = _resolve_rows(values, multipliers[s], active[s],
+                                        reserves[s], second_price)
         weight = ((gidx >= lo[s]) & (gidx < hi[s])).to(prices.dtype)
         w = torch.where(winners < 0, c, winners).long()
         parts = torch.zeros(reduce_blocks * (c + 1), dtype=torch.float32,

@@ -3,10 +3,11 @@ with ``ctypes``.
 
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so a
 build takes seconds. The library goes to ``<repo>/build/kernels/`` under a
-name keyed by a hash of the source and the flags; a second process finds it
-there, and an edited source builds anew. Nothing is built at import time:
-the CPU tests import every module, and a build runs only when a CUDA tensor
-reaches a kernel wrapper.
+name keyed by a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags; a second process finds it there, and an edited source or header
+builds anew. :func:`build_all` runs one ``nvcc`` per source, all at once.
+Nothing is built at import time: the CPU tests import every module, and a
+build runs only when a CUDA tensor reaches a kernel wrapper.
 
 A failed build raises; there is no fallback to the plain PyTorch version.
 """
@@ -20,6 +21,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -44,8 +46,10 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to: keyed by source and flags."""
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    key = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{key.hexdigest()[:16]}.so"
 
 
@@ -72,6 +76,16 @@ def build(name: str) -> tuple[Path, str, float]:
         log_path.write_text(log)
         os.replace(tmp_out, out)      # atomic: a racing process sees all or none
     return out, log, time.perf_counter() - t0
+
+
+def build_all(names) -> dict:
+    """:func:`build` for every name, one ``nvcc`` process per source, all
+    started together. Returns ``{name: (path, log, seconds)}``; raises the
+    first failure."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        futures = {name: pool.submit(build, name) for name in names}
+        return {name: f.result() for name, f in futures.items()}
 
 
 @functools.lru_cache(maxsize=None)

@@ -79,7 +79,8 @@ def test_unknown_options_raise_the_reference_message():
     assert str(_unknown("resolve back-end", "cuda", ("torch", "fused"))) \
         == str(j_unknown("resolve back-end", "cuda", ("torch", "fused")))
     with pytest.raises(ValueError, match=r"unknown resolve back-end: 'cuda' "
-                       r"\(choose from 'torch', 'fused', 'auto'\)"):
+                       r"\(choose from 'torch', 'sweep_resolve', 'fused', "
+                       r"'auto'\)"):
         SweepPlan(resolve="cuda")
     with pytest.raises(ValueError, match=r"unknown resolve back-end: 'jnp'"):
         pick_resolve("jnp", "cpu")
@@ -97,7 +98,8 @@ def small():
 
 
 @pytest.mark.parametrize("axis", [
-    dict(resolve="pallas"), dict(driver="sharded"), dict(driver="multihost"),
+    dict(method="naive_sampling"), dict(driver="sharded"),
+    dict(driver="multihost"),
     dict(chunks=128), dict(scenario_chunks=1), dict(tuned=True),
     dict(mesh=object()),
 ])
@@ -111,8 +113,8 @@ def test_unported_entry_points_raise(small):
     env, engine, grid = small
     with pytest.raises(NotImplementedError, match="item 4"):
         engine.sweep(grid, method="sort2aggregate")
-    with pytest.raises(NotImplementedError, match="core/parallel.py"):
-        engine.simulate(method="parallel")
+    with pytest.raises(NotImplementedError, match="item 4"):
+        engine.simulate(method="sort2aggregate")
     with pytest.raises(NotImplementedError, match="item 5"):
         sweep_parallel(env.values, grid.budgets, grid.rules, overlay=object())
     with pytest.raises(NotImplementedError, match="item 3"):

@@ -1,4 +1,4 @@
-"""The fused-round CUDA kernels against their plain versions, on a card.
+"""The CUDA kernels against their plain versions, on a card.
 
 The kernels have no CPU mode, so every test here is marked ``cuda`` and
 skips without a CUDA device. This file imports neither ``jax`` nor
@@ -8,19 +8,27 @@ the JAX-importing ``tests/conftest.py``):
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Event-ordered sums make the kernels bitwise the plain versions on the CPU.
-The plain versions on the card sum with atomics, so against those the
-partials are only close.
+The plain versions on the card sum with atomics (``index_add_``), so
+against those the partials are only close.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import AuctionRule, sweep_state_machine  # noqa: E402
+from repro_torch.core import (AuctionRule, parallel_simulate,  # noqa: E402
+                              segments, sequential_replay, sweep_sequential,
+                              sweep_state_machine)
 from repro_torch.core.segments import REDUCE_BLOCKS as G  # noqa: E402
 from repro_torch.data import make_synthetic_env  # noqa: E402
 from repro_torch.kernels.auction_resolve import ops, ref  # noqa: E402
 from repro_torch.kernels.auction_resolve import round_fused as cuda_rf  # noqa: E402
+from repro_torch.kernels.auction_resolve import \
+    segment_partials as cuda_sp  # noqa: E402
+from repro_torch.kernels.auction_resolve import \
+    sweep_resolve as cuda_sr  # noqa: E402
+from repro_torch.kernels.capped_scan import capped_scan as cuda_cs  # noqa: E402
+from repro_torch.kernels.capped_scan import ops as scan_ops  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -110,3 +118,196 @@ def test_fused_sweep_bitwise_the_cpu_torch_path(dev):
     for a, b in zip(on_card, on_cpu):
         assert a.dtype == b.dtype
         assert torch.equal(a.cpu(), b)
+
+
+# ---------------------------------------------------------------------------
+# Event-ordered partials: the repair of index_add_'s atomics on CUDA
+# ---------------------------------------------------------------------------
+
+def _log(s, n, c, seed):
+    """Resolved events: winners in [-1, C) and positive prices."""
+    rng = np.random.default_rng(seed)
+    winners = rng.integers(-1, c, (s, n)).astype(np.int32)
+    prices = rng.uniform(0.01, 1.0, (s, n)).astype(np.float32)
+    return torch.from_numpy(winners), torch.from_numpy(prices)
+
+
+def test_partial_spend_sums_on_the_card_gives_the_cpu_bits(dev):
+    """The fault: on CUDA, ``index_add_`` adds with atomics, so its sums
+    are only close to the CPU's event-ordered ones. The repair: on CUDA
+    ``partial_spend_sums`` is the event-ordered kernel, bitwise the CPU.
+    8 campaigns, 32 blocks of ~2,400 rows: ~300 rows per (block, campaign)."""
+    n, c = 76_800, 8
+    winners, prices = _log(1, n, c, seed=5)
+    weights = (torch.arange(n) % 7 != 3).to(torch.float32)
+    block = -(-n // G)
+    on_cpu = segments.partial_spend_sums(winners[0], prices[0], c, weights,
+                                         block_size=block)
+    before = cuda_sp.LAUNCHES["segment_partials"]
+    on_card = segments.partial_spend_sums(
+        winners[0].to(dev), prices[0].to(dev), c, weights.to(dev),
+        block_size=block)
+    torch.cuda.synchronize()
+    assert cuda_sp.LAUNCHES["segment_partials"] == before + 1
+    assert torch.equal(on_card.cpu(), on_cpu)
+    atomics = segments.index_add_partials(
+        winners[0].to(dev), (prices[0] * weights).to(dev), c,
+        block_size=block)
+    torch.testing.assert_close(atomics.cpu(), on_cpu, rtol=1e-5, atol=0.0)
+
+
+def test_window_partials_on_the_card_gives_the_cpu_bits(dev):
+    """S lanes, a window per lane, a slice of the log at an offset, and C
+    above one warp's width."""
+    s, n_global, c = 5, 9000, 70
+    offset, n = 1500, 6000
+    winners, prices = _log(s, n, c, seed=6)
+    lo = torch.tensor([0, 1000, 2500, 4000, 7400], dtype=torch.int32)
+    hi = torch.tensor([9000, 5000, 2600, 8000, 7400], dtype=torch.int32)
+    block = -(-n_global // G)
+    on_cpu = segments.window_partials(winners, prices, c, lo, hi,
+                                      block_size=block, index_offset=offset)
+    on_card = segments.window_partials(
+        winners.to(dev), prices.to(dev), c, lo.to(dev), hi.to(dev),
+        block_size=block, index_offset=offset)
+    assert torch.equal(on_card.cpu(), on_cpu)
+
+
+# ---------------------------------------------------------------------------
+# sweep_resolve and capped_scan against their plain versions
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sp", [False, True])
+@pytest.mark.parametrize("per_event", [False, True])
+@pytest.mark.parametrize("n,c", [(3000, 37), (1111, 150)])
+def test_sweep_resolve_matches_plain(dev, sp, per_event, n, c):
+    s = 6
+    x = _inputs(s, n, c, seed=7)
+    act = x["act"]
+    if per_event:
+        rng = np.random.default_rng(8)
+        act = torch.from_numpy(rng.uniform(size=(s, n, c)) < 0.7)
+    args = (x["values"], x["mult"], act, x["res"])
+    on_cpu = ops.sweep_resolve(*args, second_price=sp)
+    before = cuda_sr.LAUNCHES["sweep_resolve"]
+    on_card = ops.sweep_resolve(*[a.to(dev) for a in args], second_price=sp)
+    torch.cuda.synchronize()
+    assert cuda_sr.LAUNCHES["sweep_resolve"] == before + 1
+    for a, b in zip(on_card, on_cpu):
+        assert a.dtype == b.dtype
+        assert torch.equal(a.cpu(), b)
+
+
+def _scan_inputs(s, n, c, seed):
+    rng = np.random.default_rng(seed)
+    values = rng.uniform(0.0, 1.0, (n, c)).astype(np.float32)
+    mult = rng.uniform(0.5, 1.5, (s, c)).astype(np.float32)
+    mult[:, 1] = 0.0                               # a campaign that never bids
+    budgets = rng.uniform(0.5, 8.0, (s, c)).astype(np.float32)
+    budgets[:, 2] = 0.0                            # caps at event 1, unsold
+    reserves = np.linspace(0.0, 0.3, s).astype(np.float32)
+    return [torch.from_numpy(a) for a in (values, budgets, mult, reserves)]
+
+
+@pytest.mark.parametrize("sp", [False, True])
+@pytest.mark.parametrize("c", [20, 64, 100, 256])
+def test_capped_scan_matches_plain(dev, sp, c):
+    values, budgets, mult, reserves = _scan_inputs(4, 3000, c, seed=9)
+    on_cpu = scan_ops.capped_scan(values, budgets, mult, reserves,
+                                  second_price=sp)
+    before = cuda_cs.LAUNCHES["capped_scan"]
+    on_card = scan_ops.capped_scan(values.to(dev), budgets.to(dev),
+                                   mult.to(dev), reserves.to(dev),
+                                   second_price=sp)
+    torch.cuda.synchronize()
+    assert cuda_cs.LAUNCHES["capped_scan"] == before + 1
+    for a, b in zip(on_card, on_cpu):
+        assert a.dtype == b.dtype
+        assert torch.equal(a.cpu(), b)
+    assert bool((on_cpu[3][:, 2] == 1).all())      # zero budget caps first
+
+
+def test_oracle_entry_points_on_the_card(dev):
+    """``sequential_replay`` and ``sweep_sequential`` on CUDA tensors run
+    the kernel and give the CPU plain loop's bits."""
+    env = make_synthetic_env(2, n_events=2048, n_campaigns=12, emb_dim=6,
+                             device="cpu")
+    rules = AuctionRule(multipliers=torch.stack([env.rule.multipliers,
+                                                 env.rule.multipliers * 1.2]),
+                        reserve=torch.tensor([0.0, 0.05]),
+                        kind="second_price")
+    budgets = torch.stack([env.budgets, env.budgets * 0.5])
+    on_cpu = sweep_sequential(env.values, budgets, rules, record_events=True)
+    on_card = sweep_sequential(
+        env.values.to(dev), budgets.to(dev),
+        AuctionRule(multipliers=rules.multipliers.to(dev),
+                    reserve=rules.reserve.to(dev), kind=rules.kind),
+        record_events=True)
+    for name in ("final_spend", "cap_times", "winners", "prices"):
+        assert torch.equal(getattr(on_card, name).cpu(),
+                           getattr(on_cpu, name)), name
+    lane = AuctionRule(multipliers=rules.multipliers[1],
+                       reserve=rules.reserve[1], kind=rules.kind)
+    solo = sequential_replay(env.values, budgets[1], lane)
+    assert torch.equal(solo.final_spend, on_cpu.final_spend[1])
+    assert torch.equal(solo.cap_times, on_cpu.cap_times[1])
+
+
+# ---------------------------------------------------------------------------
+# Every back-end and driver on the card gives the CPU's bits
+# ---------------------------------------------------------------------------
+
+def _grid_env():
+    env = make_synthetic_env(4, n_events=4096, n_campaigns=16, emb_dim=8,
+                             device="cpu")
+    budgets = torch.stack([env.budgets, env.budgets * 0.5, env.budgets * 2])
+    rules = AuctionRule(
+        multipliers=torch.stack([env.rule.multipliers * m
+                                 for m in (1.0, 1.2, 0.9)]),
+        reserve=torch.tensor([0.0, 0.05, 0.0]), kind="first_price")
+    return env, budgets, rules
+
+
+def _on(dev, rules):
+    return AuctionRule(multipliers=rules.multipliers.to(dev),
+                       reserve=rules.reserve.to(dev), kind=rules.kind)
+
+
+@pytest.mark.parametrize("resolve", ["torch", "sweep_resolve", "fused"])
+def test_every_backend_on_the_card_is_the_cpu_sweep(dev, resolve):
+    env, budgets, rules = _grid_env()
+    on_cpu = sweep_state_machine(env.values, budgets, rules, resolve="torch")
+    cuda_sp.reset_launches()
+    cuda_sr.reset_launches()
+    on_card = sweep_state_machine(env.values.to(dev), budgets.to(dev),
+                                  _on(dev, rules), resolve=resolve)
+    rounds = int(on_card[4].max())
+    for a, b in zip(on_card, on_cpu):
+        assert torch.equal(a.cpu(), b)
+    want_sp = 0 if resolve == "fused" else 2 * rounds
+    want_sr = rounds if resolve == "sweep_resolve" else 0
+    assert cuda_sp.LAUNCHES["segment_partials"] == want_sp
+    assert cuda_sr.LAUNCHES["sweep_resolve"] == want_sr
+
+
+@pytest.mark.parametrize("driver,resolve", [
+    ("device", "torch"), ("device", "sweep_resolve"), ("device", "fused"),
+    ("host", "torch")])
+def test_parallel_simulate_on_the_card_is_the_cpu_result(dev, driver,
+                                                         resolve):
+    env, budgets, rules = _grid_env()
+    rule = AuctionRule(multipliers=rules.multipliers[1],
+                       reserve=rules.reserve[1], kind=rules.kind)
+    kw = dict(driver=driver, resolve=resolve, return_trace=True)
+    res_cpu, trace_cpu = parallel_simulate(env.values, budgets[1], rule,
+                                           **kw)
+    res, trace = parallel_simulate(
+        env.values.to(dev), budgets[1].to(dev),
+        AuctionRule(multipliers=rule.multipliers.to(dev),
+                    reserve=rule.reserve.to(dev), kind=rule.kind), **kw)
+    assert torch.equal(res.final_spend.cpu(), res_cpu.final_spend)
+    assert torch.equal(res.cap_times.cpu(), res_cpu.cap_times)
+    assert torch.equal(res.segments.boundaries.cpu(),
+                       res_cpu.segments.boundaries)
+    assert torch.equal(res.segments.masks.cpu(), res_cpu.segments.masks)
+    assert trace == trace_cpu

@@ -83,11 +83,12 @@ def reference(env):
 
 @pytest.mark.parametrize("grid_name", ["first", "second", "first_ties",
                                        "second_ties", "skewed"])
-@pytest.mark.parametrize("resolve", ["torch", "fused"])
+@pytest.mark.parametrize("resolve", ["torch", "sweep_resolve", "fused"])
 def test_sweep_state_machine_bitwise_the_reference(env, reference,
                                                    grid_name, resolve):
-    """All six outputs equal, dtypes included. ``"fused"`` on CPU tensors
-    is the fused round's plain version: the same bits."""
+    """All six outputs equal, dtypes included. ``"sweep_resolve"`` and
+    ``"fused"`` on CPU tensors run their kernels' plain versions: the same
+    bits."""
     values, grid = _port(env, _grids(env)[grid_name])
     out = sweep_state_machine(values, grid.budgets, grid.rules,
                               resolve=resolve)
