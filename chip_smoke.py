@@ -13,7 +13,13 @@ Run from the repository root. Phases:
    ``round_fused`` and ``sweep_partials`` (partials at rtol 1e-5),
    ``sweep_resolve`` (winners and prices bitwise, sums at rtol 1e-5, atol
    1e-6·max; its (S, N, C)-mask form at N=65,536, C=64, S=8),
-   ``segment_partials`` (bitwise the plain version on the CPU) and
+   ``segment_partials`` (bitwise the plain version on the CPU),
+   ``auction_resolve`` on the day's own embeddings (EmbTile) and on its
+   valuation matrix (MatrixTile), each with a (C,) and an (N, C) mask and
+   a reserve (winners and prices bitwise; sums at rtol 1e-5, and
+   MatrixTile's bitwise the plain version on the CPU), ``first_crossing``
+   of the 32 resolved lanes (cap times bitwise the plain version on the
+   card and, for one lane, on the CPU; spends bitwise the CPU) and
    ``capped_scan`` at N=65,536, C=64, S=8 with a reserve, a zero budget and
    a zero multiplier (bitwise the plain version on the card);
 3. hold the fused-round sweep on the card against the plain torch sweep on
@@ -40,10 +46,21 @@ Run from the repository root. Phases:
 7. the paper's comparison: Algorithm 2 against the exact replay, per lane,
    in mean relative spend error (each < 0.08), capped campaigns and cap-time
    shift, and both sweeps' wall times;
-8. print the numbers: the card's name and power limit, each kernel's time
+8. SORT2AGGREGATE at full width for both rules: ``engine.simulate()``
+   (default method and settings: Algorithm 4, the refinement, the
+   aggregate pass) and ``engine.sweep(grid, method="sort2aggregate")`` with
+   the base design's warm start; the counters show both went through
+   ``auction_resolve`` and ``first_crossing`` and nothing else, no
+   ``index_add_`` ran, a second run gives the same bits, and at N=65,536,
+   C=64, S=8 every output is bitwise the port on the CPU; then its
+   accuracy against phase 5's exact replay, per lane, with every lane
+   whose consistency gap is 0 (a self-consistent segment history) within
+   a spend-weighted error of 0.02 (``tests/test_core_s2a.py``'s bound);
+9. print the numbers: the card's name and power limit, each kernel's time
    beside its plain version's, its library yardstick's and its bound,
-   per-round and sweep times, peak memory, and one JSON line describing
-   each kernel. The plain capped scan is one chain of small launches per
+   per-round and sweep times, the SORT2AGGREGATE wall times and Algorithm
+   4's share of them, peak memory, and one JSON line describing each
+   kernel. The plain capped scan is one chain of small launches per
    event, so it is timed over the first 16,384 events of the full day
    (``plain_events`` in the JSON line); every other time is at the full
    shapes.
@@ -78,6 +95,7 @@ PREFIX = 131_072                # events of the exact replay checked on the CPU
 PLAIN_EVENTS = 16_384           # events of the plain capped scan timed on card
 CPU_LANE = {"first_price": 0, "second_price": 31}
 ORACLE_TOL = 0.08               # tests/test_core_parallel.py's bound
+S2A_TOL = 0.02                  # tests/test_core_s2a.py's bound
 KERNELS = (   # name, CUDA source, the TPU kernel (or XLA op) it replaces
     ("round_fused", "src/repro_torch/csrc/round_fused.cu",
      "src/repro/kernels/auction_resolve/round_fused.py:197"),
@@ -89,6 +107,10 @@ KERNELS = (   # name, CUDA source, the TPU kernel (or XLA op) it replaces
      "src/repro/kernels/capped_scan/capped_scan.py:75"),
     ("segment_partials", "src/repro_torch/csrc/segment_partials.cu",
      "src/repro/core/segments.py:130"),
+    ("auction_resolve", "src/repro_torch/csrc/auction_resolve.cu",
+     "src/repro/kernels/auction_resolve/auction_resolve.py:80"),
+    ("first_crossing", "src/repro_torch/csrc/first_crossing.cu",
+     "src/repro/core/segments.py:68"),
 )
 
 
@@ -156,17 +178,22 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
 
+    from repro_torch import prng
     from repro_torch.configs.paper_auction import (PAPER_SYNTHETIC_CPU,
                                                    PAPER_SYNTHETIC_FULL)
     from repro_torch.core import (AuctionRule, CounterfactualEngine,
                                   ScenarioGrid, scenario_rule,
+                                  spend_weighted_relative_error,
                                   sweep_sequential, sweep_state_machine)
-    from repro_torch.core import executor
+    from repro_torch.core import auction, executor
     from repro_torch.core import segments as seg_lib
+    from repro_torch.core import vi as vi_lib
     from repro_torch.core.segments import REDUCE_BLOCKS
     from repro_torch.data import make_synthetic_env
     from repro_torch.kernels import build
     from repro_torch.kernels.auction_resolve import ops, ref
+    from repro_torch.kernels.auction_resolve import auction_resolve as ar_mod
+    from repro_torch.kernels.auction_resolve import first_crossing as fc_mod
     from repro_torch.kernels.auction_resolve import round_fused as rf_mod
     from repro_torch.kernels.auction_resolve import segment_partials as sp_mod
     from repro_torch.kernels.auction_resolve import sweep_resolve as sr_mod
@@ -174,7 +201,7 @@ def main() -> int:
     from repro_torch.kernels.capped_scan import ops as scan_ops
     from repro_torch.kernels.capped_scan.ref import capped_scan_ref
 
-    counters = (rf_mod, sr_mod, sp_mod, cs_mod)
+    counters = (rf_mod, sr_mod, sp_mod, cs_mod, ar_mod, fc_mod)
 
     def reset_counts():
         for mod in counters:
@@ -193,7 +220,8 @@ def main() -> int:
     # ---- phase 1: build ----------------------------------------------------
     t0 = time.perf_counter()
     built = build.build_all(["round_fused", "sweep_resolve",
-                             "segment_partials", "capped_scan"])
+                             "segment_partials", "capped_scan",
+                             "auction_resolve", "first_crossing"])
     print(f"[1] built {len(built)} libraries in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, (lib_path, log, seconds) in built.items():
@@ -218,6 +246,7 @@ def main() -> int:
           f"MB on the card, built in {time.perf_counter() - t0:.2f} s",
           flush=True)
     gen = torch.Generator().manual_seed(args.seed + 1)
+    card_gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
     errs = {name: 0.0 for name, _, _ in KERNELS}
 
     def close(name, got, want, mask=None):
@@ -392,7 +421,85 @@ def main() -> int:
                 resolve: cuda_ms(lambda: body(core0, all_alive), reps)
                 for (resolve, body), reps in zip(round_bodies.items(),
                                                  (3, 10, 10))}
-        del resolved, mid
+        # the single-design resolve: EmbTile on the day's own embeddings,
+        # MatrixTile on its valuation matrix; a (C,) and an (N, C) mask, a
+        # reserve, the bids of lane 5
+        mult1 = mult[5].contiguous()
+        res1 = torch.tensor(0.05, device=dev)
+        cmask = torch.rand(c, generator=card_gen, device=dev) < 0.8
+        nmask = torch.rand((n, c), generator=card_gen, device=dev) < 0.8
+        for mname, mask in (("(C,) mask", cmask), ("(N, C) mask", nmask)):
+            what = f"auction_resolve {kind} {mname}"
+            got = ops.auction_resolve(env.event_emb, env.campaign_emb, mult1,
+                                      mask, res1, second_price=second)
+            want = ref.auction_resolve_ref(env.event_emb, env.campaign_emb,
+                                           mult1, mask, res1,
+                                           second_price=second)
+            torch.cuda.synchronize()
+            equal("winners", got[0], want[0], f"{what} EmbTile")
+            equal("prices", got[1], want[1], f"{what} EmbTile")
+            close("auction_resolve", got[2], want[2])
+            got = ops.resolve_masked(env.values, mult1, mask, res1,
+                                     second_price=second)
+            want = ref.resolve_masked_ref(env.values, mult1, mask, res1,
+                                          second_price=second)
+            on_cpu = ref.resolve_masked_ref(env.values.cpu(), mult1.cpu(),
+                                            mask.cpu(), res1.cpu(),
+                                            second_price=second)
+            equal("winners", got[0], want[0], f"{what} MatrixTile")
+            equal("prices", got[1], want[1], f"{what} MatrixTile")
+            close("auction_resolve", got[2], want[2])
+            equal("sums", got[2].cpu(), on_cpu[2], f"{what} MatrixTile on "
+                  f"the CPU")
+        # the first crossings and spends of the 32 resolved lanes: cap times
+        # bitwise the plain version on the card and (one lane) on the CPU,
+        # spends bitwise the CPU's event-ordered sums
+        w, p = resolved[0], resolved[1]
+        fc_spend, fc_cap = seg_lib.crossing_and_spend(w, p, grid.budgets, c)
+        plain_cap = seg_lib.first_crossing_ref(w, p, grid.budgets, c)
+        torch.cuda.synchronize()
+        equal("cap times", fc_cap, plain_cap, f"first_crossing {kind}")
+        equal("spend", fc_spend.cpu(), auction.spend_sums(w.cpu(), p.cpu(), c),
+              f"first_crossing {kind} on the CPU")
+        lane = CPU_LANE[kind]
+        equal("cap times", fc_cap[lane].cpu(), seg_lib.first_crossing_ref(
+            w[lane].cpu(), p[lane].cpu(), grid.budgets[lane].cpu(), c),
+            f"first_crossing {kind} lane {lane} on the CPU")
+        require(bool((fc_cap <= n).any()) and bool((fc_cap > n).any()),
+                f"first_crossing {kind}: the lanes should cap some campaigns "
+                f"and not others")
+        print(f"[2] {kind}: auction_resolve (EmbTile and MatrixTile, both "
+              f"masks) and first_crossing ({int((fc_cap <= n).sum())} "
+              f"crossings in {s} lanes) agree with the plain versions",
+              flush=True)
+        if kind == "first_price":
+            # auction_resolve at the shape of an aggregate pass (MatrixTile,
+            # an (N, C) mask, no sums) and at the embeddings' (EmbTile, a
+            # (C,) mask, sums); first_crossing of 32 lanes
+            timing["auction_resolve"] = (
+                cuda_ms(lambda: ops.resolve_masked(
+                    env.values, mult1, nmask, res1, sums=False), 10),
+                cuda_ms(lambda: ref.resolve_masked_ref(
+                    env.values, mult1, nmask, res1), 3), None)
+            timing["auction_resolve_emb"] = (
+                cuda_ms(lambda: ops.auction_resolve(
+                    env.event_emb, env.campaign_emb, mult1, cmask, res1), 10),
+                cuda_ms(lambda: ref.auction_resolve_ref(
+                    env.event_emb, env.campaign_emb, mult1, cmask, res1), 3))
+            timing["first_crossing"] = (
+                cuda_ms(lambda: seg_lib.crossing_and_spend(
+                    w, p, grid.budgets, c), 3),
+                cuda_ms(lambda: seg_lib.first_crossing_ref(
+                    w, p, grid.budgets, c), 1), None)
+            d = env.event_emb.shape[1]
+            timing["auction_resolve_bound"] = bound_ms(
+                n * c * 4 + n * c + c * 4 + 4 + n * 8, n * c * 2)
+            timing["auction_resolve_emb_bound"] = bound_ms(
+                (n + c) * d * 4 + c * 5 + 4 + n * 8 + c * 4,
+                n * c * (2 * d + 6))
+            timing["first_crossing_bound"] = bound_ms(
+                s * n * 8 + s * c * 12, s * n * c * 3)
+        del resolved, mid, w, p, nmask
 
     # the per-event (S, N, C) mask and the exact replay at the reduced size
     for kind in KINDS:
@@ -449,7 +556,6 @@ def main() -> int:
               f"fused on the card == torch on the CPU (bitwise: {bitwise}); "
               f"rounds {on_card[4].tolist()}; {t1 - t0:.2f} s on the card, "
               f"{t2 - t1:.2f} s on the CPU", flush=True)
-    del small
 
     # ---- phase 4: the main path at full width ----------------------------
     results = {}
@@ -656,30 +762,182 @@ def main() -> int:
               + ", ".join(f"{n * grid.num_scenarios / w:.4g}" for w in walls)
               + " events*scenarios/s", flush=True)
 
-    # ---- phase 8: numbers ------------------------------------------------
-    # one traced fused sweep (first price): device busy time by kernel
+    # ---- phase 8: SORT2AGGREGATE -------------------------------------------
+    plain_index_add = torch.Tensor.index_add_
+    index_adds = [0]
+
+    def counting_index_add(self, *a, **k):
+        index_adds[0] += 1
+        return plain_index_add(self, *a, **k)
+
+    def driven(fn):
+        """``fn()`` run with every kernel count and a count of index_add_
+        calls set to 0 just before; returns ``(result, wall seconds, kernel
+        counts, index_add_ calls)``."""
+        reset_counts()
+        index_adds[0] = 0
+        torch.Tensor.index_add_ = counting_index_add
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        torch.Tensor.index_add_ = plain_index_add
+        return out, wall, read_counts(), index_adds[0]
+
+    def same_s2a(a, b, what):
+        for name in ("final_spend", "cap_times"):
+            require(torch.equal(getattr(a, name).cpu(),
+                                getattr(b, name).cpu()),
+                    f"{what}: {name} differs")
+
+    def same_s2a_sweep(a, b, what):
+        same_s2a(a.results, b.results, what)
+        require(torch.equal(a.consistency_gaps.cpu(), b.consistency_gaps.cpu())
+                and torch.equal(a.refine_iters.cpu(), b.refine_iters.cpu()),
+                f"{what}: consistency gaps or refine iterations differ")
+
+    s2a = {}
+    s2a_peak = 0
+    refine_iters = 8                      # engine.sweep's default
+    for kind in KINDS:
+        engine, grid = engines[kind]
+        s = grid.num_scenarios
+        torch.cuda.reset_peak_memory_stats()
+        sim, sim_wall, sim_counts, sim_adds = driven(engine.simulate)
+        sweep, sweep_wall, sweep_counts, sweep_adds = driven(
+            lambda: engine.sweep(grid, method="sort2aggregate"))
+        s2a_peak = max(s2a_peak, torch.cuda.max_memory_allocated())
+        for what, cnt, adds in (("simulate", sim_counts, sim_adds),
+                                ("sweep", sweep_counts, sweep_adds)):
+            others = {k: v for k, v in cnt.items() if v and k not in (
+                "auction_resolve", "first_crossing")}
+            require(cnt["auction_resolve"] > 0 and cnt["first_crossing"] > 0
+                    and not others,
+                    f"{kind} S2A {what}: launches {cnt}, expected only "
+                    f"auction_resolve and first_crossing")
+            require(adds == 0, f"{kind} S2A {what} made {adds} index_add_ "
+                               f"calls")
+            counted["auction_resolve"] += cnt["auction_resolve"]
+            counted["first_crossing"] += cnt["first_crossing"]
+        # the sweep = the base design's simulate (its warm start), then
+        # refine_iters + 1 passes of S resolves and one crossing launch
+        passes = refine_iters + 1
+        require(sweep_counts["first_crossing"]
+                == sim_counts["first_crossing"] + passes
+                and sweep_counts["auction_resolve"]
+                == sim_counts["auction_resolve"] + passes * s,
+                f"{kind}: S2A sweep launches {sweep_counts} against "
+                f"simulate's {sim_counts}")
+        res = sweep.results
+        require(bool(torch.isfinite(res.final_spend).all())
+                and tuple(res.final_spend.shape) == (s, c)
+                and bool((res.final_spend >= 0).all())
+                and tuple(res.cap_times.shape) == (s, c),
+                f"{kind}: S2A sweep outputs malformed")
+        # the same again: the same bits
+        same_s2a(engine.simulate(), sim, f"{kind} second S2A simulate")
+        same_s2a_sweep(engine.sweep(grid, method="sort2aggregate"), sweep,
+                       f"{kind} second S2A sweep")
+        # Algorithm 4 alone, as simulate runs it (the default key and VI)
+        vi_est, vi_wall, _, _ = driven(lambda: vi_lib.estimate_pi(
+            env.values, env.budgets, engine.base_rule, prng.PRNGKey(0),
+            sample_size=max(int(round(n * 0.01)), 64), num_iters=20,
+            batch_size=64))
+        # the reduced size: the card's bits are the CPU's
+        outs = []
+        t0 = time.perf_counter()
+        for device in (dev, torch.device("cpu")):
+            base_small = AuctionRule(
+                multipliers=torch.ones(small.n_campaigns, device=device),
+                reserve=torch.zeros((), device=device), kind=kind)
+            eng = CounterfactualEngine(small.values, small.budgets,
+                                       base_rule=base_small, device=device)
+            outs.append((eng.simulate(), eng.sweep(
+                eng.grid(**SMALL_AXES), method="sort2aggregate")))
+        small_wall = time.perf_counter() - t0
+        same_s2a(outs[0][0], outs[1][0], f"{kind} S2A simulate card vs CPU")
+        same_s2a_sweep(outs[0][1], outs[1][1], f"{kind} S2A sweep card vs "
+                                               f"CPU")
+        s2a[kind] = dict(sim_wall=sim_wall, sweep_wall=sweep_wall,
+                         vi_wall=vi_wall, sweep=sweep,
+                         launches=(sim_counts, sweep_counts))
+        print(f"[8] {kind}: S2A engine.simulate() {sim_wall:.4f} s "
+              f"(launches {sim_counts}); engine.sweep(method="
+              f"'sort2aggregate') S={s} {sweep_wall:.4f} s (launches "
+              f"{sweep_counts}); Algorithm 4 alone {vi_wall:.4f} s; no "
+              f"index_add_; a second run gives the same bits; at "
+              f"N={small.n_events} C={small.n_campaigns} S=8 the card is "
+              f"bitwise the CPU ({small_wall:.1f} s)", flush=True)
+        print(sweep.format_delta_table())
+        # accuracy against phase 5's exact replay
+        oracle = exact[kind]
+        s_hat, s_ref = res.final_spend.cpu(), oracle["spend"].cpu()
+        rel = ((s_hat.double() - s_ref.double()).abs()
+               / s_ref.double().clamp(min=1e-9)).mean(-1)
+        swe = torch.stack([spend_weighted_relative_error(s_hat[k], s_ref[k])
+                           for k in range(s)])
+        c_s2a = torch.clamp(res.cap_times.cpu().long(), max=n + 1)
+        c_seq = torch.clamp(oracle["caps"].cpu().long(), max=n + 1)
+        print(f"[8] {kind}: SORT2AGGREGATE against the exact replay, per "
+              f"lane (mean relative spend error | spend-weighted error | "
+              f"capped: S2A, exact | cap times equal | consistency gap | "
+              f"refine iterations used)")
+        for k in range(s):
+            print(f"    {k:2d} {grid.labels[k]:<26} {float(rel[k]):.6f} | "
+                  f"{float(swe[k]):.6f} | {int((c_s2a[k] <= n).sum()):3d} "
+                  f"{int((c_seq[k] <= n).sum()):3d} | "
+                  f"{int((c_s2a[k] == c_seq[k]).sum()):3d} | "
+                  f"{float(sweep.consistency_gaps[k]):.0f} | "
+                  f"{int(sweep.refine_iters[k])}")
+        # a lane whose replayed crossings reproduce its assumed cap times
+        # (consistency gap 0) holds a self-consistent segment history: the
+        # exact replay's, up to the float order of the crossing sums
+        converged = sweep.consistency_gaps.cpu() == 0
+        if bool(converged.any()):
+            worst = float(swe[converged].max())
+            require(worst < S2A_TOL,
+                    f"{kind}: a lane with consistency gap 0 has "
+                    f"spend-weighted error {worst:.4f} >= {S2A_TOL}")
+        sim_err = float(spend_weighted_relative_error(sim.final_spend.cpu(),
+                                                      s_ref[0]))
+        print(f"[8] {kind}: {int(converged.sum())} of {s} lanes converged "
+              f"(gap 0); worst lane spend-weighted error "
+              f"{float(swe.max()):.6f}, worst mean relative error "
+              f"{float(rel.max()):.6f}; engine.simulate() of the base design "
+              f"(lane 0): spend-weighted error {sim_err:.6f}", flush=True)
+        del outs, sweep, res
+
+    # ---- phase 9: numbers ------------------------------------------------
+    # one traced fused sweep and one traced SORT2AGGREGATE simulate (first
+    # price): device busy time by kernel
     from torch.profiler import ProfilerActivity, profile
     engine, grid = engines[KINDS[0]]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sweep_state_machine(env.values, grid.budgets, grid.rules,
-                            resolve="fused")
-        torch.cuda.synchronize()
-        traced_wall = time.perf_counter() - t0
-    by_kernel = sorted(
-        ((e.key, e.self_device_time_total) for e in prof.key_averages()
-         if e.self_device_time_total > 0), key=lambda kv: -kv[1])
-    busy_us = sum(us for _, us in by_kernel)
-    if busy_us > 0:
-        print(f"[8] traced fused sweep: wall {traced_wall:.4f} s, device "
-              f"busy {busy_us / 1e6:.4f} s, idle share "
-              f"{1 - busy_us / 1e6 / traced_wall:.4f}")
-        for key, us in by_kernel[:6]:
-            print(f"    {us / 1e3:12.3f} ms  {key[:90]}")
-    else:
-        print("[8] traced fused sweep: the profiler recorded no device time; "
-              "device busy share not measured")
+
+    def trace(label, fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            traced_wall = time.perf_counter() - t0
+        by_kernel = sorted(
+            ((e.key, e.self_device_time_total) for e in prof.key_averages()
+             if e.self_device_time_total > 0), key=lambda kv: -kv[1])
+        busy_us = sum(us for _, us in by_kernel)
+        if busy_us > 0:
+            print(f"[9] traced {label}: wall {traced_wall:.4f} s, device "
+                  f"busy {busy_us / 1e6:.4f} s, idle share "
+                  f"{1 - busy_us / 1e6 / traced_wall:.4f}")
+            for key, us in by_kernel[:6]:
+                print(f"    {us / 1e3:12.3f} ms  {key[:90]}")
+        else:
+            print(f"[9] traced {label}: the profiler recorded no device "
+                  f"time; device busy share not measured")
+
+    trace("fused sweep", lambda: sweep_state_machine(
+        env.values, grid.budgets, grid.rules, resolve="fused"))
+    trace("S2A simulate", engine.simulate)
     # the exact replay of the full day, 32 lanes, first price: the kernel,
     # then its plain version over the first PLAIN_EVENTS events (a chain of
     # small launches per event; the full day would take many minutes),
@@ -701,30 +959,46 @@ def main() -> int:
     del kernel_out, plain_out
     timing["capped_scan_bound"] = bound_ms(
         n * c * 4 + s * c * 12 + s * 4 + s * n * 8 + s * c * 8, s * n * c * 3)
-    print(f"[8] capped_scan, full day, S={s}: {scan_ms:.4f} ms "
+    print(f"[9] capped_scan, full day, S={s}: {scan_ms:.4f} ms "
           f"({scan_ms * 1e6 / n:.2f} ns per event of the lane chains); the "
           f"plain version {timing['capped_scan'][1]:.1f} ms for the first "
           f"{PLAIN_EVENTS} events, bitwise the kernel; SM clock now "
           f"{smi('clocks.sm')}")
     print(card)
     rm = timing["round_ms"]
-    print(f"[8] per-round time from the fresh state, S=32 (CUDA events, "
+    print(f"[9] per-round time from the fresh state, S=32 (CUDA events, "
           f"median): fused {rm['fused']:.4f} ms, sweep_resolve "
           f"{rm['sweep_resolve']:.4f} ms, torch path {rm['torch']:.4f} ms")
     for kind, r in results.items():
-        print(f"[8] sweep {kind}: wall {r['wall']:.4f} s, "
+        print(f"[9] sweep {kind}: wall {r['wall']:.4f} s, "
               f"{n * 32 / r['wall']:.6g} events*scenarios/s, "
               f"{r['rounds']} rounds; torch path wall {r['plain_wall']:.4f} s;"
               f" sweep_resolve wall {sr_wall[kind]:.4f} s; exact replay wall "
               f"{exact[kind]['wall']:.4f} s")
-    print(f"[8] peak device memory in a full-width sweep: fused "
+    print(f"[9] peak device memory in a full-width sweep: fused "
           f"{peak['fused'] / 2**30:.3f} GiB, torch path "
           f"{peak['torch'] / 2**30:.3f} GiB")
+    for kind, r in s2a.items():
+        print(f"[9] SORT2AGGREGATE {kind}: simulate {r['sim_wall']:.4f} s, "
+              f"sweep S=32 {r['sweep_wall']:.4f} s "
+              f"({n * 32 / r['sweep_wall']:.6g} events*scenarios/s); "
+              f"Algorithm 4 alone {r['vi_wall']:.4f} s, "
+              f"{r['vi_wall'] / r['sim_wall']:.4f} of simulate and "
+              f"{r['vi_wall'] / r['sweep_wall']:.4f} of the sweep")
+    print(f"[9] peak device memory in the SORT2AGGREGATE runs: "
+          f"{s2a_peak / 2**30:.3f} GiB")
+    emb_ms, emb_plain = timing["auction_resolve_emb"]
+    emb_bound, emb_by = timing["auction_resolve_emb_bound"]
+    print(f"[9] auction_resolve EmbTile (N={n}, C={c}, "
+          f"d={env.event_emb.shape[1]}, (C,) mask, with sums): "
+          f"{emb_ms:.4f} ms, plain {emb_plain:.4f} ms, bound "
+          f"{emb_bound:.4f} ms ({emb_by}); the JSON line's auction_resolve "
+          f"row is MatrixTile at an aggregate pass's shape")
     rows = []
     for name, src, replaces in KERNELS:
         ms, plain_ms, library_ms = timing[name]
         bound, bound_by = timing[f"{name}_bound"]
-        print(f"[8] {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        print(f"[9] {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
               f"{library_ms if library_ms is None else f'{library_ms:.4f}'}"
               f" ms, bound {bound:.4f} ms ({bound_by}), "
               f"{counted[name]} launches on its path")

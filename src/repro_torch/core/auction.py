@@ -19,6 +19,8 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.types import AuctionRule
+from repro_torch.kernels.auction_resolve.first_crossing import \
+    first_crossing_cuda
 
 NEG_INF = float("-inf")
 
@@ -65,13 +67,27 @@ def resolve_row(values_row: torch.Tensor, active: torch.Tensor,
 def spend_sums(winners: torch.Tensor, prices: torch.Tensor,
                num_campaigns: int,
                weights: torch.Tensor | None = None) -> torch.Tensor:
-    """Per-campaign total spend over a block. On the CPU ``index_add_``
-    adds in event order, as XLA's segment sum does; on CUDA it uses atomics
-    and the order varies."""
+    """Per-campaign total spend over a block, (T,) or (S, T) winners and
+    prices giving (C,) or (S, C) sums, each added in event order as XLA's
+    segment sum adds on the CPU: ``index_add_`` on the CPU; on CUDA, where
+    ``index_add_`` adds with atomics in an order that changes from run to
+    run, the flat sum of the ``first_crossing`` kernel."""
     p = prices if weights is None else prices * weights
-    w = torch.where(winners < 0, num_campaigns, winners).long()
-    sums = torch.zeros(num_campaigns + 1, dtype=p.dtype, device=p.device)
-    return sums.index_add_(0, w, p)[:num_campaigns]
+    lanes = winners.reshape(-1, winners.shape[-1])
+    out = winners.shape[:-1] + (num_campaigns,)
+    if winners.device.type == "cuda":
+        _, sums = first_crossing_cuda(
+            lanes.to(torch.int32).contiguous(),
+            p.reshape(lanes.shape).to(torch.float32).contiguous(), None,
+            num_campaigns=num_campaigns)
+        return sums.reshape(out)
+    w = torch.where(lanes < 0, num_campaigns, lanes).long()
+    ids = w + (num_campaigns + 1) * torch.arange(
+        lanes.shape[0], device=w.device)[:, None]
+    sums = torch.zeros(lanes.shape[0] * (num_campaigns + 1), dtype=p.dtype,
+                       device=p.device)
+    sums.index_add_(0, ids.reshape(-1), p.reshape(-1))
+    return sums.reshape(-1, num_campaigns + 1)[:, :num_campaigns].reshape(out)
 
 
 def spend_matrix(winners: torch.Tensor, prices: torch.Tensor,

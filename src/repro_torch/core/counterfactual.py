@@ -8,10 +8,15 @@ reserves × budget scalings — which :meth:`CounterfactualEngine.sweep`
 evaluates in one batched program and summarises as a delta table against
 the base design (scenario ``base_index``, 0 by default).
 
-Ported estimators: Algorithm 2 (``simulate``/``sweep`` with
-``method="parallel"``) and the exact ``"sequential"`` oracle (one
-capped-scan kernel launch on the card). The others raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Ported estimators: SORT2AGGREGATE (``method="sort2aggregate"``, the
+default of ``simulate`` and ``compare``: Algorithm 4's estimate, the
+segment refinement and the aggregate pass, through the ``auction_resolve``
+and ``first_crossing`` kernels on the card), Algorithm 2
+(``method="parallel"``) and the exact ``"sequential"`` oracle (one
+capped-scan kernel launch on the card). ``"naive_sampling"`` raises
+``NotImplementedError`` naming the ROADMAP item that ports it. Keys are
+:mod:`repro_torch.prng` keys; the default is ``PRNGKey(0)``, as in
+``repro``.
 """
 from __future__ import annotations
 
@@ -22,18 +27,21 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.core import sweep as sweep_lib
-from repro_torch.core.executor import (SweepPlan, execute_sweep,
+from repro_torch.core import vi as vi_lib
+from repro_torch.core.executor import (SweepPlan, check_s2a_options,
+                                       execute_s2a_sweep, execute_sweep,
                                        reject_unported)
 from repro_torch.core.parallel import parallel_simulate
 from repro_torch.core.sequential import sequential_replay
+from repro_torch.core.sort2aggregate import sort2aggregate as _sort2aggregate
 from repro_torch.core.types import AuctionRule, SimResult
 from repro_torch.device import DeviceLike, pick_device
 
 # estimators of repro's engine this port has not reached yet
 _UNPORTED_METHODS = {
-    "sort2aggregate": "ROADMAP.md queue 1, item 4 (Algorithms 3-4)",
-    "naive_sampling": "ROADMAP.md queue 1, item 4 (Algorithms 3-4)",
+    "naive_sampling": "ROADMAP.md queue 1, item 4 (naive_sampled_replay)",
 }
 
 
@@ -41,6 +49,22 @@ def _method_not_ported(method: str, where: str) -> NotImplementedError:
     return NotImplementedError(
         f"{where}(method={method!r}) is not ported to repro_torch yet; see "
         f"{_UNPORTED_METHODS[method]}")
+
+
+@dataclasses.dataclass
+class CounterfactualDelta:
+    """Platform-level diff between two simulated designs."""
+    revenue_base: float
+    revenue_alt: float
+    spend_base: torch.Tensor
+    spend_alt: torch.Tensor
+    cap_times_base: torch.Tensor
+    cap_times_alt: torch.Tensor
+
+    @property
+    def revenue_lift(self) -> float:
+        return (self.revenue_alt - self.revenue_base) / max(
+            self.revenue_base, 1e-12)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,6 +135,10 @@ class SweepResult:
     results: SimResult              # batched: (S, C) spends / cap times
     n_events: int
     base_index: int = 0
+    consistency_gaps: Optional[torch.Tensor] = None   # (S,), s2a sweeps
+    # refine iterations that moved each scenario's cap times (s2a sweeps):
+    # the warm-start quality signal
+    refine_iters: Optional[torch.Tensor] = None
 
     def delta_table(self) -> List[dict]:
         """One row per scenario: ``revenue``, ``revenue_lift``,
@@ -168,19 +196,45 @@ class CounterfactualEngine:
 
     def simulate(self, rule: Optional[AuctionRule] = None,
                  budgets: Optional[torch.Tensor] = None,
-                 method: str = "sort2aggregate", **kwargs) -> SimResult:
-        """One design's replay. Ported: ``method="sequential"`` (the exact
-        oracle) and ``method="parallel"`` (Algorithm 2, ``**kwargs`` going
-        to :func:`~repro_torch.core.parallel.parallel_simulate`)."""
+                 method: str = "sort2aggregate",
+                 key: Optional[torch.Tensor] = None,
+                 **kwargs) -> SimResult:
+        """One design's replay: ``"sort2aggregate"`` (``**kwargs`` going to
+        :func:`~repro_torch.core.sort2aggregate.sort2aggregate`; ``key``
+        defaults to ``PRNGKey(0)``), ``"parallel"`` (Algorithm 2,
+        ``**kwargs`` going to
+        :func:`~repro_torch.core.parallel.parallel_simulate`) or
+        ``"sequential"`` (the exact oracle)."""
         rule = rule or self.base_rule
         budgets = self.budgets if budgets is None else budgets
         if method == "sequential":
             return sequential_replay(self.values, budgets, rule, **kwargs)
         if method == "parallel":
             return parallel_simulate(self.values, budgets, rule, **kwargs)
+        if method == "sort2aggregate":
+            key = key if key is not None else prng.PRNGKey(0)
+            return _sort2aggregate(self.values, budgets, rule, key,
+                                   **kwargs).result
         if method in _UNPORTED_METHODS:
             raise _method_not_ported(method, "simulate")
         raise ValueError(f"unknown method: {method}")
+
+    def compare(self, alt_rule: AuctionRule,
+                alt_budgets: Optional[torch.Tensor] = None,
+                method: str = "sort2aggregate",
+                key: Optional[torch.Tensor] = None,
+                **kwargs) -> CounterfactualDelta:
+        """The base design against ``alt_rule``/``alt_budgets``, each
+        simulated with its half of a split of ``key``."""
+        key = key if key is not None else prng.PRNGKey(0)
+        k1, k2 = prng.split(key)
+        base = self.simulate(method=method, key=k1, **kwargs)
+        alt = self.simulate(rule=alt_rule, budgets=alt_budgets,
+                            method=method, key=k2, **kwargs)
+        return CounterfactualDelta(
+            revenue_base=float(base.revenue), revenue_alt=float(alt.revenue),
+            spend_base=base.final_spend, spend_alt=alt.final_spend,
+            cap_times_base=base.cap_times, cap_times_alt=alt.cap_times)
 
     def grid(self, **kwargs) -> ScenarioGrid:
         """A :meth:`ScenarioGrid.product` around this engine's base
@@ -190,6 +244,8 @@ class CounterfactualEngine:
     def sweep(self, grid: ScenarioGrid, method: str = "parallel",
               base_index: int = 0, record_events: bool = False,
               resolve: str = "auto", driver: str = "batched", *,
+              warm_start="base", refine_iters: int = 8,
+              crossing_block: int = 4096, key: Optional[torch.Tensor] = None,
               mesh=None, chunks=None, scenario_chunks=None,
               tuned: bool = False) -> SweepResult:
         """Evaluate every scenario in ``grid`` in one batched program.
@@ -197,10 +253,54 @@ class CounterfactualEngine:
         ``method="parallel"`` runs Algorithm 2 through the executor
         (``resolve="auto"``: the CUDA fused round on the card, the torch
         path on the CPU); ``method="sequential"`` runs the exact oracle for
-        all lanes at once (one capped-scan launch on the card)."""
-        reject_unported(mesh=mesh, chunks=chunks,
-                        scenario_chunks=scenario_chunks, tuned=tuned)
+        all lanes at once (one capped-scan launch on the card);
+        ``method="sort2aggregate"`` refines every lane's segment history
+        ``refine_iters`` times and aggregates it.
+
+        ``warm_start`` (``"sort2aggregate"`` only) seeds the refinement:
+        ``"base"`` (or ``True``, the default) with the base design's cap
+        times from the single-design estimator; ``"per_scenario"`` with
+        Algorithm 4 run for every lane on common random numbers; ``False``
+        (or None) from the all-active state. ``crossing_block`` sizes the
+        first-crossing scan. The result carries ``consistency_gaps`` and
+        ``refine_iters`` per scenario."""
+        reject_unported(mesh=mesh, tuned=tuned)
         plan = SweepPlan(placement=driver, resolve=resolve)
+        if chunks is not None and method not in ("parallel",
+                                                 "sort2aggregate"):
+            raise ValueError(
+                "chunks= (event-chunked streaming) applies to "
+                "method='parallel' and method='sort2aggregate' sweeps; "
+                f"drop chunks= for method={method!r}.")
+        if scenario_chunks is not None and method != "parallel":
+            raise ValueError(
+                "scenario_chunks= (scenario-chunked execution) currently "
+                "applies to method='parallel' sweeps only; drop "
+                f"scenario_chunks= for method={method!r}.")
+        warm_start = {True: "base", False: None}.get(warm_start, warm_start)
+        if warm_start not in (None, "base", "per_scenario"):
+            raise ValueError(
+                f"unknown warm_start mode: {warm_start!r} "
+                "(use 'per_scenario', 'base', or False)")
+        gaps = iters = None
+        if method == "sort2aggregate":
+            # fail fast before paying for a warm start
+            check_s2a_options(plan, record_events, chunks=chunks,
+                              scenario_chunks=scenario_chunks)
+            caps0 = None
+            if warm_start == "per_scenario":
+                caps0 = self._per_scenario_warm_caps(grid, key)
+            elif warm_start == "base":
+                caps0 = self._base_warm_caps(grid, base_index, refine_iters,
+                                             key)
+            results, gaps, iters = execute_s2a_sweep(
+                self.values, grid.budgets, grid.rules, plan,
+                cap_times_init=caps0, refine_iters=refine_iters,
+                record_events=record_events, crossing_block=crossing_block)
+            return SweepResult(grid=grid, results=results,
+                               n_events=self.n_events, base_index=base_index,
+                               consistency_gaps=gaps, refine_iters=iters)
+        reject_unported(chunks=chunks, scenario_chunks=scenario_chunks)
         if method == "parallel":
             s_hat, cap_times, _, _, _, _ = execute_sweep(
                 self.values, grid.budgets, grid.rules, plan)
@@ -215,3 +315,34 @@ class CounterfactualEngine:
             raise ValueError(f"unknown sweep method: {method}")
         return SweepResult(grid=grid, results=results,
                            n_events=self.n_events, base_index=base_index)
+
+    def _base_warm_caps(self, grid: ScenarioGrid, base_index: int,
+                        refine_iters: int,
+                        key: Optional[torch.Tensor]) -> torch.Tensor:
+        """(C,) warm-start cap times from the base design (the paper's
+        previous-day trick): the single-design SORT2AGGREGATE of scenario
+        ``base_index``."""
+        base_rule, base_budgets = grid.scenario(base_index)
+        key = key if key is not None else prng.PRNGKey(0)
+        base = _sort2aggregate(self.values, base_budgets, base_rule, key,
+                               refine_iters=refine_iters)
+        return base.result.cap_times
+
+    def _per_scenario_warm_caps(self, grid: ScenarioGrid,
+                                key: Optional[torch.Tensor],
+                                sample_rate: float = 0.1,
+                                vi_iters: int = 80,
+                                vi_batch_size: int = 64,
+                                vi_eta_decay: float = 0.05) -> torch.Tensor:
+        """(S, C) warm-start cap times: Algorithm 4 for every scenario on
+        the same sample and draws (common random numbers), each under its
+        own design, with a larger VI budget than the single-design default
+        (10% sample, 80 epochs, decayed steps), as in ``repro``."""
+        sample_size = max(int(round(self.n_events * sample_rate)),
+                          vi_batch_size)
+        est = vi_lib.estimate_pi_sweep(
+            self.values, grid.budgets, grid.rules,
+            key if key is not None else prng.PRNGKey(0),
+            sample_size=sample_size, num_iters=vi_iters,
+            batch_size=vi_batch_size, eta_decay=vi_eta_decay)
+        return vi_lib.pi_to_cap_times(est.pi, self.n_events)

@@ -25,6 +25,10 @@ arithmetic (:func:`lane_predict` / :func:`lane_commit`) repeats
 ``repro``'s ``execute_sweep`` outputs bit for bit, and on the card every
 back-end gives the CPU's bits.
 
+The SORT2AGGREGATE sweep has its own entry, :func:`execute_s2a_sweep`
+(validated by :func:`check_s2a_options`): every lane refined and
+aggregated by :func:`repro_torch.core.sort2aggregate.refine_fixed_lanes`.
+
 The round loop (:func:`_run_loop`) is a Python loop that checks once per
 round whether any lane is alive — one host sync per round; capturing the
 loop in a CUDA graph is later work. Axes ``repro`` has and this port does
@@ -42,6 +46,7 @@ import torch
 
 from repro_torch.core import auction
 from repro_torch.core import segments as seg_lib
+from repro_torch.core.sort2aggregate import refine_fixed_lanes
 from repro_torch.core.types import AuctionRule, never_capped
 from repro_torch.kernels.auction_resolve import ops as resolve_ops
 
@@ -313,3 +318,58 @@ def execute_sweep(values, budgets, rules, plan: SweepPlan, *, overlay=None):
                              dataclasses.replace(plan, placement="batched"))
         return tuple(x[0] for x in out)
     return _sweep_batched(values, budgets, rules, plan)
+
+
+# ---------------------------------------------------------------------------
+# The SORT2AGGREGATE sweep
+# ---------------------------------------------------------------------------
+
+def check_s2a_options(plan: SweepPlan, record_events: bool = False, *,
+                      chunks=None, scenario_chunks=None) -> None:
+    """Validate the SORT2AGGREGATE sweep's plan (callable up front, so an
+    engine can fail fast before paying for a warm start). ``chunks`` and
+    ``scenario_chunks`` stand for the fields of ``repro``'s plan that the
+    port's :class:`SweepPlan` does not have yet; the errors ``repro``
+    raises for them are raised with its texts, and chunked replays
+    otherwise raise ``NotImplementedError``."""
+    if chunks is not None:
+        if record_events:
+            raise ValueError(
+                "record_events is not supported with chunks= on the "
+                "sort2aggregate sweep: per-event winners/prices of the "
+                "whole log are the O(N·C) residency chunking avoids. Drop "
+                "record_events (spends/cap times stream fine) or drop "
+                "chunks=.")
+        reject_unported(chunks=chunks)
+    if scenario_chunks is not None:
+        raise ValueError(
+            "scenario_chunks= (scenario-chunked execution) currently "
+            "applies to method='parallel' sweeps only; drop "
+            "scenario_chunks= for the sort2aggregate sweep.")
+
+
+def execute_s2a_sweep(values, budgets, rules, plan: SweepPlan, *,
+                      cap_times_init=None, refine_iters: int = 8,
+                      record_events: bool = False,
+                      crossing_block: int = 4096, chunks=None,
+                      scenario_chunks=None):
+    """Run the SORT2AGGREGATE scenario sweep: every lane refined from its
+    warm start (``cap_times_init`` (S, C) or (C,); all-active when None)
+    for ``refine_iters`` fixed-point iterations, then aggregated. Both
+    placements run the lanes batched: each pass resolves the lanes one at a
+    time and finds every lane's crossings in one launch. Returns
+    ``(SimResult (S, ...), consistency_gaps (S,) float32, refine_iters_used
+    (S,) int32)``."""
+    check_s2a_options(plan, record_events, chunks=chunks,
+                      scenario_chunks=scenario_chunks)
+    check_batch_shapes(values, budgets, rules)
+    n_events, n_campaigns = values.shape
+    if cap_times_init is None:
+        cap_times_init = torch.full((n_campaigns,), never_capped(n_events),
+                                    dtype=torch.int32)
+    caps0 = torch.as_tensor(cap_times_init).to(values.device, torch.int32)
+    caps0 = caps0.expand(budgets.shape[0], n_campaigns).contiguous()
+    return refine_fixed_lanes(values, budgets, rules, caps0,
+                              refine_iters=refine_iters,
+                              record_events=record_events,
+                              crossing_block=crossing_block)

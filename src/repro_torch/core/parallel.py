@@ -36,10 +36,6 @@ from repro_torch.core.executor import (SweepPlan, check_sim_driver,
 from repro_torch.core.types import (AuctionRule, Segments, SimResult,
                                     never_capped)
 
-_NO_EVENTS = ("record_events=True needs segments.aggregate, which is not "
-              "ported to repro_torch yet; see ROADMAP.md queue 1, item 4 "
-              "(Algorithms 3-4)")
-
 
 @dataclasses.dataclass
 class ParallelSimTrace:
@@ -64,21 +60,30 @@ def parallel_simulate(values: torch.Tensor, budgets: torch.Tensor,
     reference loop) or ``"auto"`` (host when custom ``rate_fn``/``block_fn``
     closures are given, else device). ``resolve`` is the device driver's
     back-end: ``"torch"`` (the default, ``repro``'s ``"jnp"``),
-    ``"sweep_resolve"``, ``"fused"`` or ``"auto"``.
+    ``"sweep_resolve"``, ``"fused"`` or ``"auto"``. ``record_events``
+    replays the segment history once more
+    (:func:`~repro_torch.core.segments.aggregate`) for per-event winners and
+    prices.
     """
     check_sim_driver(driver)
-    if record_events:
-        raise NotImplementedError(_NO_EVENTS)
     if driver == "auto":
         driver = "host" if (rate_fn is not None or block_fn is not None) \
             else "device"
     if driver == "device":
         if rate_fn is not None or block_fn is not None:
             raise ValueError("custom rate_fn/block_fn need driver='host'")
-        return _simulate_device(values, budgets, rule, resolve=resolve,
-                                return_trace=return_trace)
-    return _simulate_host(values, budgets, rule, rate_fn=rate_fn,
-                          block_fn=block_fn, return_trace=return_trace)
+        out = _simulate_device(values, budgets, rule, resolve=resolve,
+                               return_trace=return_trace)
+    else:
+        out = _simulate_host(values, budgets, rule, rate_fn=rate_fn,
+                             block_fn=block_fn, return_trace=return_trace)
+    if not record_events:
+        return out
+    result, trace = out if return_trace else (out, None)
+    replay = seg_lib.aggregate(values, result.segments, budgets, rule)
+    result = dataclasses.replace(result, winners=replay.winners,
+                                 prices=replay.prices)
+    return (result, trace) if return_trace else result
 
 
 def _segments(boundaries, masks, n_campaigns: int, device) -> Segments:

@@ -5,15 +5,16 @@ Batched inputs are a stacked :class:`~repro_torch.core.types.AuctionRule`
 (multipliers (S, C), reserve (S,), one shared ``kind``) plus (S, C)
 budgets; the (N, C) valuation matrix has no scenario axis. Axis order is
 (scenario, event, campaign) throughout. The Algorithm-2 sweeps are thin
-wrappers over :func:`repro_torch.core.executor.execute_sweep`.
-``sweep_sort2aggregate`` arrives with the SORT2AGGREGATE slice.
+wrappers over :func:`repro_torch.core.executor.execute_sweep`, the
+SORT2AGGREGATE sweep over :func:`~repro_torch.core.executor.execute_s2a_sweep`.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.executor import (SweepPlan, check_batch_shapes,
-                                       execute_sweep, reject_unported)
+                                       execute_s2a_sweep, execute_sweep,
+                                       reject_unported)
 from repro_torch.core.sequential import second_price
 from repro_torch.core.types import AuctionRule, SimResult
 from repro_torch.kernels.capped_scan import ops as scan_ops
@@ -91,3 +92,24 @@ def sweep_state_machine(values: torch.Tensor, budgets: torch.Tensor,
     plan = SweepPlan(placement="batched", resolve=resolve,
                      skip_retired=skip_retired)
     return execute_sweep(values, budgets, rules, plan, overlay=overlay)
+
+
+def sweep_sort2aggregate(values: torch.Tensor, budgets: torch.Tensor,
+                         rules: AuctionRule, cap_times_init=None,
+                         refine_iters: int = 8, record_events: bool = False,
+                         chunks=None, crossing_block: int = 4096):
+    """SORT2AGGREGATE over a scenario batch: per-scenario fixed-point
+    refinement of the segment history from ``cap_times_init`` ((S, C) or
+    (C,); the optimistic all-active start when None), then one aggregate
+    pass. Returns ``(results, consistency_gaps (S,), refine_iters_used
+    (S,))``: ``gaps[s]`` is the largest |assumed - replayed| cap time in
+    events, ``refine_iters_used[s]`` the iterations that moved lane s's cap
+    times. Each lane's bits are its single-design
+    :func:`~repro_torch.core.sort2aggregate.refine_fixed_device`'s.
+    ``chunks`` (the chunked replay) is not ported yet."""
+    return execute_s2a_sweep(values, budgets, rules,
+                             SweepPlan(placement="batched"),
+                             cap_times_init=cap_times_init,
+                             refine_iters=refine_iters,
+                             record_events=record_events,
+                             crossing_block=crossing_block, chunks=chunks)

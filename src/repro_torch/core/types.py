@@ -102,6 +102,28 @@ class Segments:
             masks=torch.ones((1, num_campaigns), dtype=torch.bool,
                              device=dev))
 
+    @staticmethod
+    def from_cap_times(cap_times: torch.Tensor, n_events: int) -> "Segments":
+        """Build segments from per-campaign cap times (C,), or a batch
+        (..., C) giving batched fields.
+
+        ``cap_times[c]`` is the 1-based event index after which campaign
+        ``c`` is inactive; ``> n_events`` means it never caps. There are
+        always C+1 segments: campaigns capping at the same time keep a
+        duplicate boundary (the earlier segment is empty), and a
+        never-capped campaign's boundary is clipped to N (an empty segment
+        at the end). ``masks[j]`` holds the campaigns whose cap time is
+        strictly greater than the segment's start.
+        """
+        cap = cap_times.to(torch.int64)
+        times = torch.where(cap <= n_events, cap, n_events + 1)
+        ends = torch.clamp(torch.sort(times, dim=-1).values, max=n_events)
+        edge = torch.zeros(cap.shape[:-1] + (1,), dtype=torch.int64,
+                           device=cap.device)
+        bnds = torch.cat([edge, ends, edge + n_events], dim=-1)
+        masks = cap[..., None, :] > bnds[..., :-1, None]
+        return Segments(boundaries=bnds.to(torch.int32), masks=masks)
+
 
 @dataclasses.dataclass(frozen=True)
 class SimResult:

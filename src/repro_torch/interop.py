@@ -1,4 +1,5 @@
-"""Carry a scenario batch from the reference package's arrays into the port.
+"""Carry a scenario batch, or a random key, from the reference package's
+arrays into the port.
 
 The reference (JAX) package's arrays reach the port as numpy arrays — what
 ``np.asarray`` gives for them. Those are often read-only views, so they are
@@ -36,3 +37,15 @@ def from_reference(values, budgets, multipliers, reserves, kind: str,
         labels = [f"scenario{i}" for i in range(budgets.shape[0])]
     grid = ScenarioGrid(rules=rules, budgets=budgets, labels=tuple(labels))
     return _tensor(values, np.float32, dev), grid
+
+
+def key_from_reference(key_data, *, device: DeviceLike = "cpu"
+                       ) -> torch.Tensor:
+    """A :mod:`repro_torch.prng` key from a ``jax.random`` key's data (its
+    two uint32 words, ``np.asarray(jax.random.PRNGKey(seed))``, or a batch
+    of keys (..., 2)): the same words, held as int64."""
+    words = np.array(key_data, dtype=np.uint32, copy=True)
+    if words.shape[-1:] != (2,):
+        raise ValueError(f"a threefry key has two uint32 words, got shape "
+                         f"{words.shape}")
+    return torch.from_numpy(words.astype(np.int64)).to(pick_device(device))

@@ -1,8 +1,9 @@
 """Public wrappers of the auction-resolve kernels (port of
-``repro.kernels.auction_resolve.ops:74,124,169``).
+``repro.kernels.auction_resolve.ops``).
 
 They dispatch on the tensors' device: a CUDA tensor goes to the hand-written
-CUDA kernel (:mod:`.round_fused`, :mod:`.sweep_resolve`), which launches or
+CUDA kernel (:mod:`.round_fused`, :mod:`.sweep_resolve`,
+:mod:`.auction_resolve`), which launches or
 raises; a CPU tensor goes to the plain PyTorch version (:mod:`.ref`),
 because the caller asked for the CPU. There is no padding: the kernels take
 any N and C.
@@ -13,6 +14,8 @@ import torch
 
 from repro_torch.core.segments import REDUCE_BLOCKS
 from repro_torch.kernels.auction_resolve import ref
+from repro_torch.kernels.auction_resolve.auction_resolve import (
+    resolve_emb_cuda, resolve_matrix_cuda)
 from repro_torch.kernels.auction_resolve import round_fused as cuda_kernels
 from repro_torch.kernels.auction_resolve.sweep_resolve import \
     sweep_resolve_cuda
@@ -28,6 +31,58 @@ def _lane_inputs(multipliers, active, reserves, n_scenarios, device):
 def _i32(x, device, n_scenarios):
     return torch.as_tensor(x, dtype=torch.int32, device=device).expand(
         n_scenarios).contiguous()
+
+
+def _design_inputs(multipliers, active, reserve, live, device):
+    mult = multipliers.to(device=device, dtype=torch.float32).contiguous()
+    act = active.to(device=device, dtype=torch.bool).contiguous()
+    res = torch.as_tensor(reserve, dtype=torch.float32,
+                          device=device).reshape(())
+    if live is not None:
+        live = live.to(device=device, dtype=torch.bool).contiguous()
+    return mult, act, res, live
+
+
+def auction_resolve(event_emb: torch.Tensor, campaign_emb: torch.Tensor,
+                    multipliers: torch.Tensor, active: torch.Tensor,
+                    reserve=0.0, *, second_price: bool = False):
+    """One design's auctions with valuations built from embeddings (Eq.
+    12): event embeddings (N, d), campaign embeddings (C, d) (float32 or
+    bf16), multipliers (C,), a (C,) or (N, C) activation. Returns
+    ``(winners (N,) int32 [-1 = no sale], prices (N,) float32, spend sums
+    (C,) float32)``, the sums added in event order. Any N, C and d."""
+    dev = event_emb.device
+    mult, act, res, _ = _design_inputs(multipliers, active, reserve, None,
+                                       dev)
+    if dev.type == "cpu":
+        return ref.auction_resolve_ref(event_emb, campaign_emb, mult, act,
+                                       res, second_price=second_price)
+    e, r = event_emb, campaign_emb.to(dev)
+    if e.dtype != r.dtype or e.dtype != torch.bfloat16:
+        e, r = e.to(torch.float32), r.to(torch.float32)   # exact widening
+    return resolve_emb_cuda(e.contiguous(), r.contiguous(), mult, act, None,
+                            res, second_price=second_price, want_sums=True)
+
+
+def resolve_masked(values: torch.Tensor, multipliers: torch.Tensor,
+                   active: torch.Tensor, reserve, live=None, *,
+                   second_price: bool = False, sums: bool = True):
+    """One design's auctions over a valuation matrix ``values`` (N, C)
+    under a (C,) or (N, C) activation; rows whose ``live`` (N,) is False
+    are not sold. Returns ``(winners (N,) int32, prices (N,) float32, spend
+    sums (C,) float32 or None when ``sums`` is False)``, the sums added in
+    event order. The resolve of SORT2AGGREGATE's segment replays and
+    Algorithm 4's batches."""
+    dev = values.device
+    mult, act, res, live = _design_inputs(multipliers, active, reserve, live,
+                                          dev)
+    if dev.type == "cpu":
+        winners, prices, total = ref.resolve_masked_ref(
+            values, mult, act, res, live, second_price=second_price)
+        return winners, prices, total if sums else None
+    return resolve_matrix_cuda(values.to(torch.float32).contiguous(), mult,
+                               act, live, res, second_price=second_price,
+                               want_sums=sums)
 
 
 def sweep_resolve(values: torch.Tensor, multipliers: torch.Tensor,

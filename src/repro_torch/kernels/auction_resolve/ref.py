@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the auction-resolve kernels (port of
-``repro.kernels.auction_resolve.ref:62,94,125,158``).
+``repro.kernels.auction_resolve.ref``).
 
-These are what the CUDA kernels in ``csrc/round_fused.cu`` and
-``csrc/sweep_resolve.cu`` compute, written as ordinary tensor code: the CPU
+These are what the CUDA kernels in ``csrc/round_fused.cu``,
+``csrc/sweep_resolve.cu`` and ``csrc/auction_resolve.cu`` compute, written
+as ordinary tensor code: the CPU
 path runs them, and ``chip_smoke.py`` holds the kernels against them on the
 card. The partials go through the same
 event-ordered ``index_add_`` and the same in-order block fold as
@@ -15,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.segments import REDUCE_BLOCKS, fold_blocks
+from repro_torch.kernels.auction_resolve.auction_resolve import inv_scale
 
 NEG = -2.0 ** 30
 
@@ -38,6 +40,59 @@ def _resolve_rows(values: torch.Tensor, multipliers: torch.Tensor,
         prices = torch.where(sale, top, 0.0)
     winners = torch.where(sale, winners[:, 0].to(torch.int32), -1)
     return winners, prices.to(torch.float32)
+
+
+def valuations(event_emb: torch.Tensor,
+               campaign_emb: torch.Tensor) -> torch.Tensor:
+    """Paper Eq. (12) as ``csrc/auction_resolve.cu``'s EmbTile computes it:
+    (T, d), (C, d) -> (T, C) ``min(exp(dot * s) / 10, 1)`` with ``s`` the
+    float32 ``1 / (2 sqrt d)``, each dot an in-order float32 loop over d
+    (one rounded product and one rounded add a term). Embeddings are
+    widened to float32 first. ``repro``'s version divides a matmul by
+    ``2 sqrt d``, so the two agree to float32 tolerance."""
+    e = event_emb.to(torch.float32)
+    r = campaign_emb.to(torch.float32)
+    d = e.shape[-1]
+    dot = e[:, :1] * r[:, 0]
+    for j in range(1, d):
+        dot = dot + e[:, j:j + 1] * r[:, j]
+    f32 = dict(dtype=torch.float32, device=e.device)
+    scale = torch.tensor(inv_scale(d), **f32)
+    # a tensor divisor: PyTorch on CUDA multiplies by the reciprocal of a
+    # Python-number divisor, which rounds differently from the kernel's
+    # IEEE division
+    ten = torch.tensor(10.0, **f32)
+    return torch.minimum(torch.exp(dot * scale) / ten, torch.ones((), **f32))
+
+
+def resolve_masked_ref(values: torch.Tensor, multipliers: torch.Tensor,
+                       active: torch.Tensor, reserve,
+                       live: torch.Tensor | None = None,
+                       second_price: bool = False):
+    """One design's resolve of a (T, C) valuation tile under a (C,) or
+    (T, C) activation, rows with ``live`` False not sold. Returns (winners
+    (T,) int32 [-1 = no sale], prices (T,) float32, spend sums (C,)); the
+    sums are added in event order by ``index_add_`` (on the CPU; with
+    atomics on CUDA)."""
+    c = values.shape[1]
+    act = active if live is None else active & live[:, None]
+    winners, prices = _resolve_rows(values, multipliers, act, reserve,
+                                    second_price)
+    sums = torch.zeros(c + 1, dtype=torch.float32, device=values.device)
+    sums.index_add_(0, torch.where(winners < 0, c, winners).long(), prices)
+    return winners, prices, sums[:c]
+
+
+def auction_resolve_ref(event_emb: torch.Tensor, campaign_emb: torch.Tensor,
+                        multipliers: torch.Tensor, active: torch.Tensor,
+                        reserve, second_price: bool = False,
+                        live: torch.Tensor | None = None):
+    """The embedding-level resolve: :func:`valuations` of the embeddings,
+    then :func:`resolve_masked_ref`. Returns (winners (T,) int32, prices
+    (T,) float32, spend sums (C,))."""
+    return resolve_masked_ref(valuations(event_emb, campaign_emb),
+                              multipliers, active, reserve, live,
+                              second_price)
 
 
 def resolve_tile_ref(values: torch.Tensor, multipliers: torch.Tensor,

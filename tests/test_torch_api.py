@@ -112,9 +112,9 @@ def test_unported_sweep_axes_raise(small, axis):
 def test_unported_entry_points_raise(small):
     env, engine, grid = small
     with pytest.raises(NotImplementedError, match="item 4"):
-        engine.sweep(grid, method="sort2aggregate")
+        engine.sweep(grid, method="naive_sampling")
     with pytest.raises(NotImplementedError, match="item 4"):
-        engine.simulate(method="sort2aggregate")
+        engine.simulate(method="naive_sampling")
     with pytest.raises(NotImplementedError, match="item 5"):
         sweep_parallel(env.values, grid.budgets, grid.rules, overlay=object())
     with pytest.raises(NotImplementedError, match="item 3"):

@@ -16,12 +16,18 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import (AuctionRule, parallel_simulate,  # noqa: E402
-                              segments, sequential_replay, sweep_sequential,
+from repro_torch import prng  # noqa: E402
+from repro_torch.core import (AuctionRule, CounterfactualEngine,  # noqa: E402
+                              auction, parallel_simulate, segments,
+                              sequential_replay, sweep_sequential,
                               sweep_state_machine)
 from repro_torch.core.segments import REDUCE_BLOCKS as G  # noqa: E402
 from repro_torch.data import make_synthetic_env  # noqa: E402
 from repro_torch.kernels.auction_resolve import ops, ref  # noqa: E402
+from repro_torch.kernels.auction_resolve import \
+    auction_resolve as cuda_ar  # noqa: E402
+from repro_torch.kernels.auction_resolve import \
+    first_crossing as cuda_fc  # noqa: E402
 from repro_torch.kernels.auction_resolve import round_fused as cuda_rf  # noqa: E402
 from repro_torch.kernels.auction_resolve import \
     segment_partials as cuda_sp  # noqa: E402
@@ -311,3 +317,147 @@ def test_parallel_simulate_on_the_card_is_the_cpu_result(dev, driver,
                        res_cpu.segments.boundaries)
     assert torch.equal(res.segments.masks.cpu(), res_cpu.segments.masks)
     assert trace == trace_cpu
+
+
+# ---------------------------------------------------------------------------
+# auction_resolve and first_crossing (SORT2AGGREGATE) against their plain
+# versions, and the slice end to end
+# ---------------------------------------------------------------------------
+
+def _emb(n, c, d, per_event, seed):
+    rng = np.random.default_rng(seed)
+    t = torch.from_numpy
+    return (t(rng.standard_normal((n, d)).astype(np.float32)),
+            t(rng.standard_normal((c, d)).astype(np.float32)),
+            t(np.exp(rng.standard_normal(c) * 0.1).astype(np.float32)),
+            t(rng.uniform(size=(n, c) if per_event else (c,)) < 0.8))
+
+
+@pytest.mark.parametrize("sp", [False, True])
+@pytest.mark.parametrize("per_event", [False, True])
+@pytest.mark.parametrize("n,c,d", [(3000, 37, 10), (1111, 150, 3),
+                                   (777, 5, 128)])
+def test_auction_resolve_emb_tile_matches_plain(dev, sp, per_event, n, c, d):
+    """EmbTile: winners and prices are the plain version's bits on the card
+    (the same expf and division); the event-ordered sums are the plain
+    version's up to the atomics of its index_add_."""
+    e, r, mult, act = [x.to(dev) for x in _emb(n, c, d, per_event, 9)]
+    res = torch.tensor(0.03, device=dev)
+    before = cuda_ar.LAUNCHES["auction_resolve"]
+    got = ops.auction_resolve(e, r, mult, act, res, second_price=sp)
+    want = ref.auction_resolve_ref(e, r, mult, act, res, second_price=sp)
+    torch.cuda.synchronize()
+    assert cuda_ar.LAUNCHES["auction_resolve"] == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-5)
+    bf = ops.auction_resolve(e.bfloat16(), r.bfloat16(), mult, act, res,
+                             second_price=sp)
+    bf_want = ref.auction_resolve_ref(e.bfloat16(), r.bfloat16(), mult, act,
+                                      res, second_price=sp)
+    assert torch.equal(bf[0], bf_want[0]) and torch.equal(bf[1], bf_want[1])
+
+
+@pytest.mark.parametrize("sp", [False, True])
+@pytest.mark.parametrize("per_event", [False, True])
+@pytest.mark.parametrize("n,c", [(3000, 37), (1111, 150), (64, 100)])
+def test_resolve_masked_matrix_tile_is_the_cpu(dev, sp, per_event, n, c):
+    """MatrixTile with dead rows: winners, prices and the event-ordered sums
+    are the plain version's bits on the CPU."""
+    rng = np.random.default_rng(n + c)
+    values = torch.from_numpy(rng.uniform(0, 1, (n, c)).astype(np.float32))
+    mult = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32))
+    act = torch.from_numpy(rng.uniform(size=(n, c) if per_event else (c,))
+                           < 0.7)
+    live = torch.from_numpy(rng.uniform(size=n) < 0.9)
+    res = torch.tensor(0.05)
+    on_cpu = ops.resolve_masked(values, mult, act, res, live,
+                                second_price=sp)
+    on_card = ops.resolve_masked(values.to(dev), mult.to(dev), act.to(dev),
+                                 res.to(dev), live.to(dev), second_price=sp)
+    for a, b in zip(on_card, on_cpu):
+        assert torch.equal(a.cpu(), b)
+    no_sums = ops.resolve_masked(values.to(dev), mult.to(dev), act.to(dev),
+                                 res.to(dev), second_price=sp, sums=False)
+    assert no_sums[2] is None
+
+
+def test_auction_resolve_refuses_what_its_shared_memory_cannot_hold(dev):
+    e, r, mult, act = [x.to(dev) for x in _emb(16, 4000, 16, False, 1)]
+    with pytest.raises(ValueError, match="C·d"):
+        ops.auction_resolve(e, r, mult, act)
+
+
+def _crossing_log(s, n, c, block, seed):
+    """S lanes of resolved events and budgets at the plain version's own
+    running spend at random events, some one ulp above it."""
+    winners, prices = _log(s, n, c, seed)
+    rng = np.random.default_rng(seed)
+    budgets = torch.empty((s, c))
+    for lane in range(s):
+        cum, s0 = [], torch.zeros(c)
+        for lo in range(0, n, block):
+            sm = (winners[lane, lo:lo + block, None] == torch.arange(c)) \
+                * prices[lane, lo:lo + block, None]
+            cum.append(s0 + segments.xla_cumsum(sm))
+            s0 = cum[-1][-1]
+        cum = torch.cat(cum)
+        rows = torch.from_numpy(rng.integers(0, n, c))
+        budgets[lane] = cum[rows, torch.arange(c)]
+    budgets[:, ::2] = torch.nextafter(budgets[:, ::2],
+                                      torch.tensor(float("inf")))
+    return winners, prices, budgets
+
+
+@pytest.mark.parametrize("block", [4096, 1000, 17, 16, 65536])
+@pytest.mark.parametrize("c", [12, 150])
+def test_first_crossing_is_the_cpu(dev, block, c):
+    s, n = 3, 20_000
+    winners, prices, budgets = _crossing_log(s, n, c, block, seed=block + c)
+    want_spend, want_cap = segments.crossing_and_spend(winners, prices,
+                                                       budgets, c, block)
+    before = cuda_fc.LAUNCHES["first_crossing"]
+    spend, cap = segments.crossing_and_spend(
+        winners.to(dev), prices.to(dev), budgets.to(dev), c, block)
+    torch.cuda.synchronize()
+    assert cuda_fc.LAUNCHES["first_crossing"] == before + 1
+    assert torch.equal(cap.cpu(), want_cap)
+    assert torch.equal(spend.cpu(), want_spend)
+    assert bool((want_cap <= n).any())
+
+
+def test_spend_sums_on_the_card_is_the_cpu_sum():
+    """The repair of index_add_'s atomics: on CUDA, auction.spend_sums is
+    the event-ordered flat sum, bitwise the CPU's at N=1e6, C=100."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    winners, prices = _log(1, 1_000_000, 100, seed=11)
+    weights = (torch.arange(1_000_000) % 5 != 2).to(torch.float32)
+    on_cpu = auction.spend_sums(winners[0], prices[0], 100, weights)
+    on_card = auction.spend_sums(winners[0].cuda(), prices[0].cuda(), 100,
+                                 weights.cuda())
+    assert torch.equal(on_card.cpu(), on_cpu)
+
+
+def test_sort2aggregate_on_the_card_is_the_cpu(dev):
+    """engine.simulate() (Algorithm 4, refinement, aggregate) and the S2A
+    sweep in every warm-start mode: the card's bits are the CPU's."""
+    env, budgets, rules = _grid_env()
+    grid_axes = dict(bid_scales=[1.0, 1.2], reserves=[0.0, 0.05])
+    on = {}
+    for device in ("cpu", dev):
+        engine = CounterfactualEngine(env.values, env.budgets,
+                                      device=device)
+        grid = engine.grid(**grid_axes)
+        cuda_ar.reset_launches()
+        cuda_fc.reset_launches()
+        on[str(device)] = [engine.simulate(),
+                           engine.simulate(key=prng.PRNGKey(3),
+                                           vi_batch_size=1, vi_iters=2)] + [
+            engine.sweep(grid, method="sort2aggregate", warm_start=w,
+                         refine_iters=3).results
+            for w in ("base", "per_scenario", False)]
+    assert cuda_ar.LAUNCHES["auction_resolve"] > 0
+    assert cuda_fc.LAUNCHES["first_crossing"] > 0
+    for a, b in zip(on[str(dev)], on["cpu"]):
+        assert torch.equal(a.final_spend.cpu(), b.final_spend)
+        assert torch.equal(a.cap_times.cpu(), b.cap_times)

@@ -197,10 +197,20 @@ def test_pallas_is_refused_with_the_unknown_option_text(env):
 
 
 def test_record_events_and_unknown_driver_raise(env):
+    """``record_events`` replays the segment history (``aggregate``) for
+    repro's per-event winners and prices; an unknown driver raises."""
     rule, budgets = _designs(env)["first"]
     values, t_budgets, t_rule = _port(env, rule, budgets)
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        parallel_simulate(values, t_budgets, t_rule, record_events=True)
+    want = j_parallel(env.values, budgets, rule, record_events=True)
+    for driver in ("device", "host"):
+        got = parallel_simulate(values, t_budgets, t_rule, driver=driver,
+                                record_events=True)
+        np.testing.assert_array_equal(got.winners.numpy(),
+                                      np.asarray(want.winners))
+        np.testing.assert_array_equal(got.prices.numpy(),
+                                      np.asarray(want.prices))
+        np.testing.assert_array_equal(got.final_spend.numpy(),
+                                      np.asarray(want.final_spend))
     with pytest.raises(ValueError) as err:
         parallel_simulate(values, t_budgets, t_rule, driver="sharded")
     assert str(err.value) == str(j_unknown("driver", "sharded",
