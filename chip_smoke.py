@@ -56,12 +56,28 @@ Run from the repository root. Phases:
    accuracy against phase 5's exact replay, per lane, with every lane
    whose consistency gap is 0 (a self-consistent segment history) within
    a spend-weighted error of 0.02 (``tests/test_core_s2a.py``'s bound);
-9. print the numbers: the card's name and power limit, each kernel's time
+9. LM serving (``repro_torch.serve.ServeEngine``): (a) ``flash_attention``
+   against its plain version at ``tests/test_kernels.py``'s five shapes,
+   stablelm-1.6b's prefill (B=8, S=2048, H=32, dh=64, bf16), gemma3-4b's
+   local layer (B=1, S=4096, H=8, KV=4, dh=256, window 1024, bf16), a
+   ragged S, and stablelm's prefill shape once more in float32 (2e-5
+   float32, 2e-2 bfloat16 and two ulps at each row's scale; two launches
+   bitwise equal);
+   (b) stablelm-1.6b at full width (24 layers, d_model 2048, vocab
+   100,352, random weights from ``--seed``): 8 requests of 2,048 prompt
+   tokens from seeded numpy, ``generate`` for 32 greedy tokens; exactly
+   24 ``flash_attention`` launches in the prefill and none in decode, the
+   same tokens on a second run, every token in ``[0, vocab)``; (c) the
+   same model cut to 2 layers on the card and on the CPU, 2 requests × 256
+   tokens and 8 teacher-forced decode steps: prefill and decode logits
+   within ``LM_TOL`` of their scale;
+10. print the numbers: the card's name and power limit, each kernel's time
    beside its plain version's, its library yardstick's and its bound,
    per-round and sweep times, the SORT2AGGREGATE wall times and Algorithm
-   4's share of them, peak memory, and one JSON line describing each
-   kernel. The plain capped scan is one chain of small launches per
-   event, so it is timed over the first 16,384 events of the full day
+   4's share of them, the LM's prefill time, decode time per token,
+   tokens/s and peak memory, and one JSON line describing each kernel.
+   The plain capped scan is one chain of small launches per event, so it
+   is timed over the first 16,384 events of the full day
    (``plain_events`` in the JSON line); every other time is at the full
    shapes.
 
@@ -83,6 +99,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12          # H100 SXM fp32, non-tensor (data sheet)
+BF16_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
 GRID_AXES = dict(bid_scales=(1.0, 0.9, 1.1, 1.3), reserves=(0.0, 0.05),
                  budget_scales=(1.0, 0.8, 1.25, 1.5))
 SMALL_AXES = dict(bid_scales=(1.0, 1.2), reserves=(0.0, 0.05),
@@ -111,6 +128,29 @@ KERNELS = (   # name, CUDA source, the TPU kernel (or XLA op) it replaces
      "src/repro/kernels/auction_resolve/auction_resolve.py:80"),
     ("first_crossing", "src/repro_torch/csrc/first_crossing.cu",
      "src/repro/core/segments.py:68"),
+    ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention/flash_attention.py:82"),
+)
+LM_ARCH = "stablelm-1.6b"
+LM_REQUESTS, LM_PROMPT, LM_STEPS = 8, 2048, 32
+LM_CPU_LAYERS, LM_CPU_REQUESTS, LM_CPU_PROMPT, LM_CPU_STEPS = 2, 2, 256, 8
+LM_TOL = 2e-2       # card vs CPU logits, max |diff| over max |CPU|, bf16
+# kernel vs plain in bfloat16: both work in float32 and round the output
+# once, so they differ by at most one output ulp; the bound is two ulps at
+# each row's scale, max |diff| <= 2^-6 * max |plain| over the row's dh
+# values (one 64-key tile dropped or counted twice moves a late row of
+# S=2048 by several percent of its scale)
+FLASH_BF16_ROW_TOL = 2.0 ** -6
+FLASH_SHAPES = (    # b, s, h, kv, dh, causal, window, dtype name
+    (2, 256, 4, 2, 64, True, None, "float32"),     # tests/test_kernels.py
+    (1, 512, 2, 2, 64, True, 128, "float32"),
+    (2, 128, 4, 1, 32, False, None, "bfloat16"),
+    (1, 384, 3, 3, 128, True, None, "float32"),
+    (1, 64, 2, 2, 16, True, 16, "float32"),
+    (8, 2048, 32, 32, 64, True, None, "bfloat16"),  # stablelm-1.6b prefill
+    (8, 2048, 32, 32, 64, True, None, "float32"),   # its grid at f32 precision
+    (1, 4096, 8, 4, 256, True, 1024, "bfloat16"),   # gemma3-4b local layer
+    (2, 1000, 4, 2, 128, True, None, "bfloat16"),   # ragged S
 )
 
 
@@ -137,11 +177,12 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S):
     """The least time the card could take: the larger of bytes over HBM
-    bandwidth and fp32 operations over the fp32 rate."""
+    bandwidth and operations over the card's peak rate for their type
+    (fp32 unless said)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -160,6 +201,220 @@ def smi(fields: str) -> str:
         ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip() \
         .splitlines()[0]
+
+
+def trace(tag: str, label: str, fn) -> None:
+    """Run ``fn`` under ``torch.profiler`` and print its wall time, the
+    device's busy time (the sum of the kernels' own device time: the rows
+    of device type CUDA, so an operator and the kernel it launched are not
+    both counted) and idle share, and the six busiest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t0
+    by_kernel = sorted(
+        ((e.key, e.self_device_time_total) for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA
+         and e.self_device_time_total > 0), key=lambda kv: -kv[1])
+    busy_us = sum(us for _, us in by_kernel)
+    if busy_us == 0:
+        print(f"{tag} traced {label}: the profiler recorded no device "
+              f"time; device busy share not measured")
+        return
+    print(f"{tag} traced {label}: wall {traced_wall:.4f} s, device busy "
+          f"{busy_us / 1e6:.4f} s, idle share "
+          f"{1 - busy_us / 1e6 / traced_wall:.4f}")
+    for key, us in by_kernel[:6]:
+        print(f"    {us / 1e3:12.3f} ms  {key[:90]}")
+
+
+def serve_phase(seed: int, dev, reset_counts, read_counts) -> dict:
+    """Phase 9: the LM serving path. Returns its numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import Model, build_model
+    from repro_torch.serve import ServeEngine
+
+    out = {"err": 0.0}
+    # ---- (a) the kernel against its plain version
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    for b, s, h, kv, dh, causal, window, dname in FLASH_SHAPES:
+        dtype = getattr(torch, dname)
+        q = torch.randn((b, s, h, dh), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, s, kv, dh), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, s, kv, dh), generator=gen, device=dev).to(dtype)
+        got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+        again = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        label = (f"flash_attention B={b} S={s} H={h} KV={kv} dh={dh} "
+                 f"causal={causal} window={window} {dname}")
+        require(torch.equal(got, again), f"{label}: two launches differ")
+        tol = 2e-2 if dname == "bfloat16" else 2e-5
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        row_err = float((diff / want.float().abs().amax(
+            dim=-1, keepdim=True).clamp_min(1e-30)).max())
+        if dname == "bfloat16":
+            require(row_err <= FLASH_BF16_ROW_TOL,
+                    f"{label}: max |kernel - plain| / row scale {row_err:.4g}"
+                    f" > {FLASH_BF16_ROW_TOL}")
+        out["err"] = max(out["err"], err)
+        print(f"[9] {label}: max |kernel - plain| {err:.3g} (tol {tol}), "
+              f"at the row's scale {row_err:.3g}"
+              + (f" (tol {FLASH_BF16_ROW_TOL})" if dname == "bfloat16"
+                 else "")
+              + ", two launches bitwise equal", flush=True)
+        del diff
+        if ((b, s, h, dh) == (LM_REQUESTS, LM_PROMPT, 32, 64)
+                and dname == "bfloat16"):
+            # the yardstick reads the same tensors in its (B, H, S, dh)
+            # layout, as strided views; the port never calls it
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            out["flash"] = (
+                cuda_ms(lambda: fa_ops.flash_attention(q, k, v), 10),
+                cuda_ms(lambda: attention_ref(q, k, v), 3),
+                cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 10))
+            pairs = b * h * s * (s + 1) // 2        # the causal half
+            out["flash_bound"] = bound_ms(4 * q.numel() * q.element_size(),
+                                          2 * 2 * pairs * dh, BF16_OPS_PER_S)
+            out["flash_shape"] = label
+        del q, k, v, got, again, want
+
+    # ---- (b) stablelm-1.6b at full width
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=seed)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT))
+    tokens = torch.from_numpy(prompts).to(dev)
+    engine = ServeEngine(model, max_len=LM_PROMPT + LM_STEPS)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    logits, caches = engine.prefill(tokens)
+    torch.cuda.synchronize()
+    prefill_counts = read_counts()
+    require(prefill_counts["flash_attention"] == cfg.n_layers and not any(
+        n for name, n in prefill_counts.items() if name != "flash_attention"),
+        f"prefill launches {prefill_counts}, expected {cfg.n_layers} "
+        f"flash_attention and nothing else")
+    require(bool(torch.isfinite(logits.float()).all())
+            and tuple(logits.shape) == (LM_REQUESTS, 1, cfg.padded_vocab),
+            "prefill logits not finite or of the wrong shape")
+    del logits, caches
+
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    generated = engine.generate(tokens, LM_STEPS)
+    torch.cuda.synchronize()
+    out["generate_s"] = time.perf_counter() - t0
+    out["peak"] = torch.cuda.max_memory_allocated()
+    launches = read_counts()
+    require(launches["flash_attention"] == cfg.n_layers and not any(
+        n for name, n in launches.items() if name != "flash_attention"),
+        f"generate launches {launches}: expected the prefill's "
+        f"{cfg.n_layers} flash_attention and none in decode")
+    out["launches"] = launches["flash_attention"]
+    require(tuple(generated.shape) == (LM_REQUESTS, LM_STEPS)
+            and bool(((generated >= 0) & (generated < cfg.vocab_size)).all()),
+            f"generated tokens malformed: {tuple(generated.shape)}")
+    second = engine.generate(tokens, LM_STEPS)
+    require(torch.equal(second, generated), "a second generate gave other "
+                                            "tokens")
+    # prefill alone, and the decode steps alone, from the same prompts
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = engine.prefill(tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    out["prefill_s"] = statistics.median(times)
+    tok = engine._sample(logits)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(LM_STEPS):
+        logits, caches = model.decode_step(caches, tok[:, None],
+                                           LM_PROMPT + i)
+        tok = engine._sample(logits)
+    torch.cuda.synchronize()
+    out["decode_ms"] = (time.perf_counter() - t0) / LM_STEPS * 1e3
+    trace("[9]", f"{LM_ARCH} prefill", lambda: engine.prefill(tokens))
+
+    def decode_steps(n=4):
+        nonlocal logits, caches, tok
+        for i in range(n):
+            logits, caches = model.decode_step(caches, tok[:, None],
+                                               LM_PROMPT + i)
+            tok = engine._sample(logits)
+
+    trace("[9]", f"{LM_ARCH} 4 decode steps", decode_steps)
+    print(f"[9] {LM_ARCH} d_model={cfg.d_model} layers={cfg.n_layers} "
+          f"vocab={cfg.vocab_size}: generate {LM_REQUESTS} x {LM_PROMPT} "
+          f"prompt tokens + {LM_STEPS} greedy tokens in "
+          f"{out['generate_s']:.4f} s; {launches['flash_attention']} "
+          f"flash_attention launches, all in the prefill; a second run gives "
+          f"the same tokens; first tokens {generated[:, :6].tolist()}",
+          flush=True)
+    del logits, caches, tokens
+
+    # ---- (c) card vs CPU, two layers at full width
+    small = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS)
+    card = Model(small, device=dev)
+    card.load_state_dict({k: v for k, v in model.state_dict().items()
+                          if not k.startswith("blocks.")
+                          or int(k.split(".")[1]) < LM_CPU_LAYERS})
+    del model
+    cpu = Model(small, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    seq = np.random.default_rng(seed + 1).integers(
+        0, small.vocab_size, (LM_CPU_REQUESTS, LM_CPU_PROMPT + LM_CPU_STEPS))
+    seq = torch.from_numpy(seq)
+    t0 = time.perf_counter()
+    worst = {}
+    runs = {}
+    for name, m in (("card", card), ("cpu", cpu)):
+        d = m.device
+        steps = []
+        logits, caches = m.prefill(seq[:, :LM_CPU_PROMPT].to(d),
+                                   LM_CPU_PROMPT + LM_CPU_STEPS)
+        steps.append(logits.float().cpu())
+        for i in range(LM_CPU_STEPS):
+            pos = LM_CPU_PROMPT + i
+            logits, caches = m.decode_step(caches, seq[:, pos:pos + 1].to(d),
+                                           pos)
+            steps.append(logits.float().cpu())
+        runs[name] = steps
+    for i, (a, b) in enumerate(zip(runs["card"], runs["cpu"])):
+        rel = float((a - b).abs().max() / b.abs().max())
+        kind = "prefill" if i == 0 else "decode"
+        worst[kind] = max(worst.get(kind, 0.0), rel)
+        require(rel < LM_TOL, f"card vs CPU logits ({kind} {i}): relative "
+                              f"error {rel:.4g} >= {LM_TOL}")
+    print(f"[9] {LM_ARCH} cut to {LM_CPU_LAYERS} layers, {LM_CPU_REQUESTS} x "
+          f"{LM_CPU_PROMPT} tokens + {LM_CPU_STEPS} teacher-forced decode "
+          f"steps: card vs CPU logits, max |diff| / max |CPU|: prefill "
+          f"{worst['prefill']:.4g}, decode {worst['decode']:.4g} (tol "
+          f"{LM_TOL}; {time.perf_counter() - t0:.1f} s)", flush=True)
+    return out
 
 
 def main() -> int:
@@ -200,8 +455,9 @@ def main() -> int:
     from repro_torch.kernels.capped_scan import capped_scan as cs_mod
     from repro_torch.kernels.capped_scan import ops as scan_ops
     from repro_torch.kernels.capped_scan.ref import capped_scan_ref
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
 
-    counters = (rf_mod, sr_mod, sp_mod, cs_mod, ar_mod, fc_mod)
+    counters = (rf_mod, sr_mod, sp_mod, cs_mod, ar_mod, fc_mod, fa_mod)
 
     def reset_counts():
         for mod in counters:
@@ -221,7 +477,8 @@ def main() -> int:
     t0 = time.perf_counter()
     built = build.build_all(["round_fused", "sweep_resolve",
                              "segment_partials", "capped_scan",
-                             "auction_resolve", "first_crossing"])
+                             "auction_resolve", "first_crossing",
+                             "flash_attention"])
     print(f"[1] built {len(built)} libraries in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, (lib_path, log, seconds) in built.items():
@@ -908,36 +1165,24 @@ def main() -> int:
               f"(lane 0): spend-weighted error {sim_err:.6f}", flush=True)
         del outs, sweep, res
 
-    # ---- phase 9: numbers ------------------------------------------------
+    # ---- phase 9: LM serving -------------------------------------------
+    t0 = time.perf_counter()
+    lm = serve_phase(args.seed, dev, reset_counts, read_counts)
+    print(f"[9] LM serving phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    counted["flash_attention"] = lm["launches"]
+    errs["flash_attention"] = lm["err"]
+    timing["flash_attention"] = lm["flash"]
+    timing["flash_attention_bound"] = lm["flash_bound"]
+
+    # ---- phase 10: numbers ------------------------------------------------
     # one traced fused sweep and one traced SORT2AGGREGATE simulate (first
     # price): device busy time by kernel
-    from torch.profiler import ProfilerActivity, profile
     engine, grid = engines[KINDS[0]]
 
-    def trace(label, fn):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            traced_wall = time.perf_counter() - t0
-        by_kernel = sorted(
-            ((e.key, e.self_device_time_total) for e in prof.key_averages()
-             if e.self_device_time_total > 0), key=lambda kv: -kv[1])
-        busy_us = sum(us for _, us in by_kernel)
-        if busy_us > 0:
-            print(f"[9] traced {label}: wall {traced_wall:.4f} s, device "
-                  f"busy {busy_us / 1e6:.4f} s, idle share "
-                  f"{1 - busy_us / 1e6 / traced_wall:.4f}")
-            for key, us in by_kernel[:6]:
-                print(f"    {us / 1e3:12.3f} ms  {key[:90]}")
-        else:
-            print(f"[9] traced {label}: the profiler recorded no device "
-                  f"time; device busy share not measured")
-
-    trace("fused sweep", lambda: sweep_state_machine(
+    trace("[10]", "fused sweep", lambda: sweep_state_machine(
         env.values, grid.budgets, grid.rules, resolve="fused"))
-    trace("S2A simulate", engine.simulate)
+    trace("[10]", "S2A simulate", engine.simulate)
     # the exact replay of the full day, 32 lanes, first price: the kernel,
     # then its plain version over the first PLAIN_EVENTS events (a chain of
     # small launches per event; the full day would take many minutes),
@@ -959,46 +1204,58 @@ def main() -> int:
     del kernel_out, plain_out
     timing["capped_scan_bound"] = bound_ms(
         n * c * 4 + s * c * 12 + s * 4 + s * n * 8 + s * c * 8, s * n * c * 3)
-    print(f"[9] capped_scan, full day, S={s}: {scan_ms:.4f} ms "
+    print(f"[10] capped_scan, full day, S={s}: {scan_ms:.4f} ms "
           f"({scan_ms * 1e6 / n:.2f} ns per event of the lane chains); the "
           f"plain version {timing['capped_scan'][1]:.1f} ms for the first "
           f"{PLAIN_EVENTS} events, bitwise the kernel; SM clock now "
           f"{smi('clocks.sm')}")
     print(card)
     rm = timing["round_ms"]
-    print(f"[9] per-round time from the fresh state, S=32 (CUDA events, "
+    print(f"[10] per-round time from the fresh state, S=32 (CUDA events, "
           f"median): fused {rm['fused']:.4f} ms, sweep_resolve "
           f"{rm['sweep_resolve']:.4f} ms, torch path {rm['torch']:.4f} ms")
     for kind, r in results.items():
-        print(f"[9] sweep {kind}: wall {r['wall']:.4f} s, "
+        print(f"[10] sweep {kind}: wall {r['wall']:.4f} s, "
               f"{n * 32 / r['wall']:.6g} events*scenarios/s, "
               f"{r['rounds']} rounds; torch path wall {r['plain_wall']:.4f} s;"
               f" sweep_resolve wall {sr_wall[kind]:.4f} s; exact replay wall "
               f"{exact[kind]['wall']:.4f} s")
-    print(f"[9] peak device memory in a full-width sweep: fused "
+    print(f"[10] peak device memory in a full-width sweep: fused "
           f"{peak['fused'] / 2**30:.3f} GiB, torch path "
           f"{peak['torch'] / 2**30:.3f} GiB")
     for kind, r in s2a.items():
-        print(f"[9] SORT2AGGREGATE {kind}: simulate {r['sim_wall']:.4f} s, "
+        print(f"[10] SORT2AGGREGATE {kind}: simulate {r['sim_wall']:.4f} s, "
               f"sweep S=32 {r['sweep_wall']:.4f} s "
               f"({n * 32 / r['sweep_wall']:.6g} events*scenarios/s); "
               f"Algorithm 4 alone {r['vi_wall']:.4f} s, "
               f"{r['vi_wall'] / r['sim_wall']:.4f} of simulate and "
               f"{r['vi_wall'] / r['sweep_wall']:.4f} of the sweep")
-    print(f"[9] peak device memory in the SORT2AGGREGATE runs: "
+    print(f"[10] peak device memory in the SORT2AGGREGATE runs: "
           f"{s2a_peak / 2**30:.3f} GiB")
     emb_ms, emb_plain = timing["auction_resolve_emb"]
     emb_bound, emb_by = timing["auction_resolve_emb_bound"]
-    print(f"[9] auction_resolve EmbTile (N={n}, C={c}, "
+    print(f"[10] auction_resolve EmbTile (N={n}, C={c}, "
           f"d={env.event_emb.shape[1]}, (C,) mask, with sums): "
           f"{emb_ms:.4f} ms, plain {emb_plain:.4f} ms, bound "
           f"{emb_bound:.4f} ms ({emb_by}); the JSON line's auction_resolve "
           f"row is MatrixTile at an aggregate pass's shape")
+    tokens_out = LM_REQUESTS * LM_STEPS
+    print(f"[10] {LM_ARCH} serving on {card}: prefill of {LM_REQUESTS} x "
+          f"{LM_PROMPT} tokens {lm['prefill_s']:.4f} s "
+          f"({LM_REQUESTS * LM_PROMPT / lm['prefill_s']:.6g} prompt tokens/s);"
+          f" decode {lm['decode_ms']:.4f} ms per step of {LM_REQUESTS} tokens "
+          f"({LM_REQUESTS / lm['decode_ms'] * 1e3:.6g} tokens/s); generate "
+          f"of {LM_STEPS} tokens {lm['generate_s']:.4f} s "
+          f"({tokens_out / lm['generate_s']:.6g} generated tokens/s); peak "
+          f"device memory {lm['peak'] / 2**30:.3f} GiB; weights initialised "
+          f"in {lm['init_s']:.2f} s")
+    print(f"[10] flash_attention at {lm['flash_shape']}: "
+          f"{lm['launches']} launches per prefill")
     rows = []
     for name, src, replaces in KERNELS:
         ms, plain_ms, library_ms = timing[name]
         bound, bound_by = timing[f"{name}_bound"]
-        print(f"[9] {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        print(f"[10] {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
               f"{library_ms if library_ms is None else f'{library_ms:.4f}'}"
               f" ms, bound {bound:.4f} ms ({bound_by}), "
               f"{counted[name]} launches on its path")
@@ -1007,8 +1264,9 @@ def main() -> int:
                          max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
                          bound_ms=bound, bound_by=bound_by,
                          library_ms=library_ms,
-                         plain_events=PLAIN_EVENTS if name == "capped_scan"
-                         else n))
+                         plain_events=(PLAIN_EVENTS if name == "capped_scan"
+                                       else None if name == "flash_attention"
+                                       else n)))
         require(counted[name] > 0, f"{name} never launched on its path")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

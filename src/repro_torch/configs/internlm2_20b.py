@@ -1,0 +1,20 @@
+"""internlm2-20b [dense] — GQA [arXiv:2403.17297; hf].
+
+Assigned: 48L d_model=6144 48H (GQA kv=8) d_ff=16384 vocab=92544.
+"""
+from repro_torch.configs.base import ArchConfig, LayerSpec
+
+CONFIG = ArchConfig(
+    name="internlm2-20b",
+    family="dense",
+    n_layers=48,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=8,
+    d_head=128,
+    d_ff=16384,
+    vocab_size=92544,
+    pattern=(LayerSpec(kind="attn"),),
+    rope_theta=1_000_000.0,
+    long_context_ok=False,
+)

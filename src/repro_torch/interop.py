@@ -1,5 +1,5 @@
-"""Carry a scenario batch, or a random key, from the reference package's
-arrays into the port.
+"""Carry a scenario batch, a random key, or a language model's parameters
+from the reference package's arrays into the port.
 
 The reference (JAX) package's arrays reach the port as numpy arrays — what
 ``np.asarray`` gives for them. Those are often read-only views, so they are
@@ -7,14 +7,16 @@ copied before torch takes them.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.counterfactual import ScenarioGrid
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import AuctionRule
 from repro_torch.device import DeviceLike, pick_device
+from repro_torch.models.model import Model
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:
@@ -49,3 +51,63 @@ def key_from_reference(key_data, *, device: DeviceLike = "cpu"
         raise ValueError(f"a threefry key has two uint32 words, got shape "
                          f"{words.shape}")
     return torch.from_numpy(words.astype(np.int64)).to(pick_device(device))
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for key, sub in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(sub, dict):
+            out.update(_flatten(sub, path + "/"))
+        else:
+            out[path] = np.asarray(sub)
+    return out
+
+
+def _reference_leaf(name: str, cfg: ArchConfig) -> Tuple[str, Optional[int]]:
+    """The reference tree path of the port's parameter ``name``, and the
+    index into the stacked ``groups`` axis (None outside the groups)."""
+    head, _, rest = name.partition(".")
+    if head != "blocks":
+        return name.replace(".", "/"), None
+    index, _, rest = rest.partition(".")
+    layer, width = int(index), len(cfg.pattern)
+    rest = rest.replace(".", "/")
+    if layer < cfg.n_groups * width:
+        return f"groups/sub{layer % width}/{rest}", layer // width
+    return f"tail/tail{layer - cfg.n_groups * width}/{rest}", None
+
+
+def lm_params_from_reference(params, cfg: ArchConfig, *,
+                             device: DeviceLike = None) -> Model:
+    """The port's :class:`Model` of ``cfg`` holding the reference's
+    parameters: ``params`` is ``repro``'s tree from ``Model.init_params``
+    with numpy leaves (``np.asarray`` of each). The stacked ``groups``
+    leaves (n_groups, ...) are unstacked into one block per layer; each
+    value is cast to the port's serving dtype (bfloat16 matmul weights,
+    as the reference's ``cdt`` casts them; float32 norm scales). A
+    missing, extra or misshapen leaf raises ``ValueError``."""
+    model = Model(cfg, device=device)
+    leaves = _flatten(params)
+    used = set()
+    for name, p in model.named_parameters():
+        path, group = _reference_leaf(name, cfg)
+        if path not in leaves:
+            raise ValueError(f"the reference tree has no {path!r} for the "
+                             f"port's {name}")
+        value = leaves[path]
+        if group is not None:
+            if value.shape[:1] != (cfg.n_groups,):
+                raise ValueError(f"{path} stacks {value.shape[:1]} groups, "
+                                 f"the config has {cfg.n_groups}")
+            value = value[group]
+        if value.shape != tuple(p.shape):
+            raise ValueError(f"{path} has shape {value.shape}, the port's "
+                             f"{name} {tuple(p.shape)}")
+        used.add(path)
+        p.data.copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
+    extra = sorted(set(leaves) - used)
+    if extra:
+        raise ValueError(f"reference leaves the port has no parameter for: "
+                         f"{extra}")
+    return model

@@ -1,0 +1,73 @@
+"""``ctypes`` wrapper of the flash-attention CUDA kernel
+(``csrc/flash_attention.cu``), the port of ``repro``'s
+``flash_attention_pallas``. It follows :mod:`repro_torch.kernels.binding`
+and counts its launches in :data:`LAUNCHES`.
+
+The kernel reads the model's ``(B, S, H, dh)`` layout directly, and query
+head h reads kv head ``h // (H // KV)``: no transpose and no repeated kv
+heads are materialised. ``(BH, S, dh)`` tensors, the Pallas kernel's
+layout, are the case ``H = KV = 1`` (pass ``q[:, :, None]``).
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import binding
+from repro_torch.kernels.binding import I as _I, P as _P, check as _check
+
+LAUNCHES = {"flash_attention": 0}
+
+HEAD_DIMS = (16, 32, 64, 128, 256)
+MAX_GRID_Y = 65535          # CUDA's limit on gridDim.y, which is B*H here
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SIGNATURES = {"fa_forward": [_P] * 4 + [_I] * 8 + [_P]}
+
+
+def reset_launches() -> None:
+    LAUNCHES["flash_attention"] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    return binding.bind("flash_attention", _SIGNATURES)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """Attention of q (B, S, H, dh) over k, v (B, S, KV, dh), all float32
+    or all bfloat16 and contiguous; causal and/or with a sliding
+    ``window``. One launch; returns (B, S, H, dh) in q's dtype."""
+    b, s, h, dh = q.shape
+    kv = k.shape[2]
+    dev = q.device
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention takes float32 or bfloat16, got "
+                         f"{q.dtype}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"flash_attention takes head dims {HEAD_DIMS}, "
+                         f"got {dh}")
+    if kv < 1 or h % kv:
+        raise ValueError(f"{h} query heads do not group onto {kv} kv heads")
+    if b * h > MAX_GRID_Y:
+        raise ValueError(f"B*H={b * h} exceeds the kernel's grid limit of "
+                         f"{MAX_GRID_Y}")
+    if window is not None and window < 1:
+        raise ValueError(f"a window must be positive, got {window}")
+    binding.require_cuda(q)
+    ptrs = [
+        _check("q", q, q.dtype, (b, s, h, dh), dev),
+        _check("k", k, q.dtype, (b, s, kv, dh), dev),
+        _check("v", v, q.dtype, (b, s, kv, dh), dev),
+    ]
+    out = torch.empty_like(q)
+    lib = _lib()
+    err = lib.fa_forward(*ptrs, out.data_ptr(), b, s, h, kv, dh, int(causal),
+                         -1 if window is None else window, _DTYPES[q.dtype],
+                         binding.stream(dev))
+    binding.raise_on(err, "flash_attention_kernel")
+    LAUNCHES["flash_attention"] += 1
+    return out

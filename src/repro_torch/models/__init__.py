@@ -1,0 +1,4 @@
+"""The dense-attention language models (port of ``repro.models``)."""
+from repro_torch.models.model import Model, build_model
+
+__all__ = ["Model", "build_model"]

@@ -1,0 +1,159 @@
+"""GQA attention (port of ``repro.models.attention``): prefill through the
+flash-attention kernel, cached decode.
+
+* Prefill attention (:func:`causal_attention`) is the documented fast path
+  of the reference made real: on a CUDA tensor it is the hand-written
+  kernel ``csrc/flash_attention.cu`` (float32 inside), on a CPU tensor the
+  kernel's plain version. Nothing falls back from one to the other.
+* Decode (:func:`attend_decode`) is plain torch matmuls, as the reference
+  leaves it to XLA, in the reference's dtypes: bfloat16 scores rounded,
+  a float32 softmax, bfloat16 probabilities.
+* Sliding-window layers keep *rolling* decode caches of length ``window``
+  (slot = position % window).
+
+The reference's arrays are immutable; the port writes a decode step's key
+and value into the cache in place, which saves a copy of the whole cache a
+step, and returns the same cache.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig, LayerSpec
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import NEG, inv_sqrt, repeat_kv
+from repro_torch.models.layers import COMPUTE_DTYPE, rmsnorm_head, rope
+from repro_torch.models.spec import new_param
+
+
+class Attention(nn.Module):
+    """``wq`` (d, H, dh), ``wk`` and ``wv`` (d, KV, dh), ``wo`` (H, dh, d),
+    the reference's layouts; QK-norm scales (dh,) when the config has
+    them."""
+    INIT = {"q_norm": "ones", "k_norm": "ones"}
+
+    def __init__(self, cfg: ArchConfig, device: torch.device):
+        super().__init__()
+        d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        self.wq = new_param((d, h, dh), COMPUTE_DTYPE, device)
+        self.wk = new_param((d, kv, dh), COMPUTE_DTYPE, device)
+        self.wv = new_param((d, kv, dh), COMPUTE_DTYPE, device)
+        self.wo = new_param((h, dh, d), COMPUTE_DTYPE, device)
+        if cfg.qk_norm:
+            self.q_norm = new_param((dh,), torch.float32, device)
+            self.k_norm = new_param((dh,), torch.float32, device)
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor       # (B, S_cache, KV, dh)
+    v: torch.Tensor       # (B, S_cache, KV, dh)
+
+
+def cache_len(layer: LayerSpec, max_len: int) -> int:
+    return min(max_len, layer.window) if layer.window else max_len
+
+
+def init_cache(cfg: ArchConfig, layer: LayerSpec, batch: int, max_len: int,
+               device: torch.device) -> KVCache:
+    shape = (batch, cache_len(layer, max_len), cfg.n_kv_heads, cfg.d_head)
+    return KVCache(k=torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device),
+                   v=torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device))
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk", x, w)``."""
+    d, heads, dh = w.shape
+    return (x @ w.reshape(d, heads * dh)).unflatten(-1, (heads, dh))
+
+
+def _qkv(p: Attention, x: torch.Tensor, cfg: ArchConfig,
+         positions: torch.Tensor):
+    q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+    if cfg.qk_norm:
+        q = rmsnorm_head(p.q_norm, q, cfg.norm_eps)
+        k = rmsnorm_head(p.k_norm, k, cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _out(ctx: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshk,hkd->bsd", ctx, wo)``."""
+    h, dh, d = wo.shape
+    return ctx.flatten(-2) @ wo.reshape(h * dh, d)
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     window: Optional[int] = None,
+                     causal: bool = True) -> torch.Tensor:
+    """Exact attention, q (B, S, H, dh), k and v (B, S, KV, dh), through
+    the flash-attention kernel (its plain version on the CPU): float32
+    scores and softmax, the output in q's dtype."""
+    return flash_attention(q, k, v, causal=causal, window=window)
+
+
+def attend_full(p: Attention, x: torch.Tensor, cfg: ArchConfig,
+                layer: LayerSpec, positions: torch.Tensor,
+                causal: bool = True):
+    """Prefill path. Returns ``(out, (k, v))``, k and v for the cache."""
+    q, k, v = _qkv(p, x, cfg, positions)
+    ctx = causal_attention(q, k, v, window=layer.window, causal=causal)
+    return _out(ctx, p.wo), (k, v)
+
+
+def attend_decode(p: Attention, x: torch.Tensor, cfg: ArchConfig,
+                  layer: LayerSpec, cache: KVCache, pos: int):
+    """One-token decode. x (B, 1, d); ``pos`` the position of this token.
+
+    Window layers use a rolling cache (slot = pos % window); RoPE is
+    applied before the cache, so stored keys carry absolute phases. The
+    cache is updated in place and returned."""
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    q, k, v = _qkv(p, x, cfg, positions)
+
+    s_cache = cache.k.shape[1]
+    slot = pos % s_cache
+    cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
+    cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
+
+    # absolute position held by each slot j: largest n <= pos with n % S == j
+    j = torch.arange(s_cache, device=x.device)
+    slot_pos = pos - ((pos - j) % s_cache)
+    valid = slot_pos >= 0
+    if layer.window is not None:
+        valid &= slot_pos > pos - layer.window
+
+    kk, vv = repeat_kv(cache.k, cfg.n_heads), repeat_kv(cache.v, cfg.n_heads)
+    scale = float(torch.tensor(inv_sqrt(cfg.d_head)).to(q.dtype))
+    scores = torch.einsum("bthk,bshk->bhts", q * scale, kk).float()
+    scores = torch.where(valid[None, None, None, :], scores, NEG)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    ctx = torch.einsum("bhts,bshk->bthk", probs, vv)
+    return _out(ctx, p.wo), cache
+
+
+def prefill_cache(layer: LayerSpec, k: torch.Tensor, v: torch.Tensor,
+                  max_len: int) -> KVCache:
+    """A decode cache from prefill's k and v (B, S, KV, dh).
+
+    Window layers keep the last ``window`` positions, stored
+    rolling-aligned (slot = position % window) so decode continues
+    seamlessly."""
+    s = k.shape[1]
+    s_cache = cache_len(layer, max_len)
+    if s >= s_cache:
+        # roll so that absolute position p sits in slot p % s_cache
+        shift = (s - s_cache) % s_cache
+        k_c = torch.roll(k[:, s - s_cache:], shift, dims=1)
+        v_c = torch.roll(v[:, s - s_cache:], shift, dims=1)
+        return KVCache(k=k_c.to(COMPUTE_DTYPE), v=v_c.to(COMPUTE_DTYPE))
+    shape = (k.shape[0], s_cache) + tuple(k.shape[2:])
+    k_c = torch.zeros(shape, dtype=COMPUTE_DTYPE, device=k.device)
+    v_c = torch.zeros(shape, dtype=COMPUTE_DTYPE, device=k.device)
+    k_c[:, :s] = k
+    v_c[:, :s] = v
+    return KVCache(k=k_c, v=v_c)

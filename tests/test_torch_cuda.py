@@ -35,6 +35,13 @@ from repro_torch.kernels.auction_resolve import \
     sweep_resolve as cuda_sr  # noqa: E402
 from repro_torch.kernels.capped_scan import capped_scan as cuda_cs  # noqa: E402
 from repro_torch.kernels.capped_scan import ops as scan_ops  # noqa: E402
+from repro_torch.configs import get_config, reduced_config  # noqa: E402
+from repro_torch.kernels.flash_attention import \
+    flash_attention as cuda_fa  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.models import attention as t_attention  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -461,3 +468,82 @@ def test_sort2aggregate_on_the_card_is_the_cpu(dev):
     for a, b in zip(on[str(dev)], on["cpu"]):
         assert torch.equal(a.final_spend.cpu(), b.final_spend)
         assert torch.equal(a.cap_times.cpu(), b.cap_times)
+
+
+FLASH_SHAPES = [   # b, s, h, kv, dh, causal, window, dtype
+    (8, 2048, 32, 32, 64, True, None, torch.bfloat16),    # stablelm prefill
+    (8, 2048, 32, 32, 64, True, None, torch.float32),
+    (1, 4096, 8, 4, 256, True, 1024, torch.bfloat16),     # gemma3-4b local
+    (2, 1000, 4, 2, 128, True, None, torch.float32),      # ragged S
+    (1, 333, 6, 3, 32, False, 50, torch.float32),         # window, not causal
+    (2, 130, 4, 1, 16, False, None, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("b,s,h,kv,dh,causal,window,dtype", FLASH_SHAPES)
+def test_flash_attention_matches_plain(dev, b, s, h, kv, dh, causal, window,
+                                       dtype):
+    """The kernel against its plain version on the card, at
+    tests/test_kernels.py's tolerances (2e-5 float32, 2e-2 bfloat16), and
+    two launches bitwise equal. In bfloat16 both sides work in float32 and
+    round the output once, so they also agree within two output ulps at
+    each row's scale (2^-6 of the row's largest value)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(s + h)
+    q = torch.randn((b, s, h, dh), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, s, kv, dh), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, s, kv, dh), generator=gen, device=dev).to(dtype)
+    before = cuda_fa.LAUNCHES["flash_attention"]
+    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    again = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa_ref.attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert cuda_fa.LAUNCHES["flash_attention"] == before + 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        scale = want.float().abs().amax(dim=-1, keepdim=True)
+        assert ((got.float() - want.float()).abs() <= 2.0 ** -6 * scale).all()
+
+
+def test_flash_attention_folded_heads(dev):
+    """The Pallas kernel's (BH, S, dh) layout is the case H = KV = 1."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((6, 300, 64), generator=gen, device=dev)
+               for _ in range(3))
+    got = cuda_fa.flash_attention_cuda(q[:, :, None], k[:, :, None],
+                                       v[:, :, None], window=77)[:, :, 0]
+    want = fa_ref.flash_attention_ref(q, k, v, window=77)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "gemma3-4b"])
+def test_reduced_prefill_on_the_card_is_the_plain_path(dev, arch,
+                                                       monkeypatch):
+    """A reduced model's prefill through the kernel (one launch per layer)
+    against the same model with the plain attention, both on the card:
+    logits within 1e-2 of their scale (float32 attention either way; a
+    bfloat16 context may round the other way)."""
+    cfg = reduced_config(arch)
+    model = build_model(cfg, device=dev, seed=0)
+    tokens = torch.randint(0, cfg.vocab_size, (3, 40),
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    cuda_fa.reset_launches()
+    got, caches = model.prefill(tokens, 48)
+    torch.cuda.synchronize()
+    assert cuda_fa.LAUNCHES["flash_attention"] == cfg.n_layers
+    monkeypatch.setattr(t_attention, "flash_attention", fa_ref.attention_ref)
+    want, plain_caches = model.prefill(tokens, 48)
+    assert cuda_fa.LAUNCHES["flash_attention"] == cfg.n_layers
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 1e-2 * float(want.float().abs().max())
+    assert torch.equal(caches[0].k, plain_caches[0].k)
+
+
+def test_lm_entry_points_default_to_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    model = build_model(reduced_config("stablelm-1.6b"))
+    assert model.device.type == "cuda"
+    assert get_config("stablelm-1.6b").d_model == 2048

@@ -1,0 +1,139 @@
+"""The flash-attention kernel's plain versions against ``repro``'s Pallas
+kernel (interpret mode on the CPU, as ``repro.kernels.flash_attention.ops``
+picks off a TPU), at ``tests/test_kernels.py``'s cases and tolerances,
+plus a window without causal masking and an S that no power of two >= 64
+divides.
+
+The CUDA kernel itself runs only on a card: ``chip_smoke.py`` and
+``tests/test_torch_cuda.py`` hold it against these plain versions there.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels.flash_attention import flash_attention as j_flash  # noqa: E402
+from repro.kernels.flash_attention import flash_attention_ref as j_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention as cuda_fa  # noqa: E402
+from repro_torch.kernels.flash_attention import ops, ref  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tests run in several worker processes at once; torch's default
+    of one thread per core in each of them oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _qkv(b, s, h, kv, dh, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((b, s, h, dh), (b, s, kv, dh), (b, s, kv, dh))]
+
+
+def _port(x, dtype):
+    return torch.from_numpy(x).to(dtype)
+
+
+CASES = [   # tests/test_kernels.py:245-251, then the two added cases
+    (2, 256, 4, 2, 64, True, None, "float32"),
+    (1, 512, 2, 2, 64, True, 128, "float32"),
+    (2, 128, 4, 1, 32, False, None, "bfloat16"),
+    (1, 384, 3, 3, 128, True, None, "float32"),
+    (1, 64, 2, 2, 16, True, 16, "float32"),
+    (2, 192, 4, 2, 32, False, 40, "float32"),     # window, not causal
+    (1, 200, 4, 2, 32, True, 24, "bfloat16"),     # S = 8 * 25
+]
+
+
+@pytest.mark.parametrize("b,s,h,kv,dh,causal,window,dtype", CASES)
+def test_plain_version_matches_the_pallas_kernel(b, s, h, kv, dh, causal,
+                                                 window, dtype):
+    q, k, v = _qkv(b, s, h, kv, dh, seed=s + h)
+    want = j_flash(jnp.asarray(q, dtype), jnp.asarray(k, dtype),
+                   jnp.asarray(v, dtype), causal=causal, window=window,
+                   block_q=128, block_k=128)
+    tdt = getattr(torch, dtype)
+    got = ops.flash_attention(_port(q, tdt), _port(k, tdt), _port(v, tdt),
+                              causal=causal, window=window)
+    assert got.dtype == tdt and tuple(got.shape) == (b, s, h, dh)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 16),
+                                           (False, None), (False, 16)])
+def test_folded_oracle_matches_the_reference_oracle(causal, window):
+    """``flash_attention_ref`` on (BH, S, dh), the Pallas kernel's layout,
+    is ``repro``'s oracle to float32 rounding."""
+    q, k, v = (x.reshape(6, 96, 32) for x in _qkv(1, 96, 6, 6, 32, seed=3))
+    want = j_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                 causal=causal, window=window)
+    got = ref.flash_attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), causal=causal,
+                                  window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-6,
+                               atol=2e-6)
+
+
+@pytest.mark.parametrize("h,kv", [(4, 1), (6, 3), (8, 2)])
+def test_grouped_heads_are_the_repeated_heads(h, kv):
+    """The GQA entry equals the plain version on kv heads repeated as
+    ``jnp.repeat`` lays them out: query head i reads kv head i // (H/KV)."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(2, 80, h, kv, 16, seed=h))
+    got = ops.flash_attention(q, k, v, window=20)
+    rep = h // kv
+    want = ref.attention_ref(q, k.repeat_interleave(rep, 2),
+                             v.repeat_interleave(rep, 2), window=20)
+    assert torch.equal(got, want)
+    one_head = ref.flash_attention_ref(
+        q[:, :, 5 % h].contiguous(), k[:, :, (5 % h) // rep].contiguous(),
+        v[:, :, (5 % h) // rep].contiguous(), window=20)
+    assert torch.equal(got[:, :, 5 % h], one_head)
+
+
+def test_the_reference_scale_is_the_float32_one():
+    """The Pallas kernel scales by the Python double ``1/dh**0.5`` cast to
+    float32; the oracle (and the CUDA kernel) by ``1/sqrtf(dh)`` in
+    float32. The two are the same float32 for every head dim the kernel
+    takes."""
+    for dh in cuda_fa.HEAD_DIMS:
+        assert np.float32(1.0 / dh ** 0.5) == \
+            np.float32(1.0) / np.sqrt(np.float32(dh))
+
+
+def test_a_cuda_wrapper_refuses_what_it_cannot_launch():
+    """The wrapper launches or raises: a CPU tensor, an unsupported head
+    dim or dtype, ungrouped heads or a window below 1 are refused before
+    the library is built, and nothing is counted."""
+    cuda_fa.reset_launches()
+    q = torch.zeros(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_fa.flash_attention_cuda(q, q, q)
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="head dims"):
+        cuda_fa.flash_attention_cuda(*[torch.empty(1, 8, 2, 48, **meta)] * 3)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        cuda_fa.flash_attention_cuda(*[torch.empty(
+            1, 8, 2, 64, dtype=torch.float16, **meta)] * 3)
+    with pytest.raises(ValueError, match="kv heads"):
+        cuda_fa.flash_attention_cuda(torch.empty(1, 8, 3, 64, **meta),
+                                     *[torch.empty(1, 8, 2, 64, **meta)] * 2)
+    with pytest.raises(ValueError, match="window"):
+        cuda_fa.flash_attention_cuda(*[torch.empty(1, 8, 2, 64, **meta)] * 3,
+                                     window=0)
+    assert cuda_fa.LAUNCHES == {"flash_attention": 0}
+
+
+def test_a_non_cpu_tensor_goes_to_the_kernel_not_the_plain_version():
+    """Only a CPU tensor takes the plain version; any other device reaches
+    the CUDA wrapper, which raises for a tensor that is not on a card."""
+    q = torch.empty(1, 8, 2, 64, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors, got meta"):
+        ops.flash_attention(q, q, q)
