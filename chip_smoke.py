@@ -60,14 +60,17 @@ Run from the repository root. Phases:
    against its plain version at ``tests/test_kernels.py``'s five shapes,
    stablelm-1.6b's prefill (B=8, S=2048, H=32, dh=64, bf16), gemma3-4b's
    local layer (B=1, S=4096, H=8, KV=4, dh=256, window 1024, bf16), a
-   ragged S, and stablelm's prefill shape once more in float32 (2e-5
-   float32, 2e-2 bfloat16 and two ulps at each row's scale; two launches
-   bitwise equal);
+   ragged S, stablelm's prefill shape once more in float32, and the bf16
+   tensor-core kernel's edges (S below and just past a 128-row query
+   tile, a window cutting a 64-row kv tile, GQA 8:1) (2e-5 float32, 2e-2
+   bfloat16 and two ulps at each row's scale; two launches bitwise equal);
+   it times the kernel at the float32 prefill and gemma3-4b shapes too;
    (b) stablelm-1.6b at full width (24 layers, d_model 2048, vocab
    100,352, random weights from ``--seed``): 8 requests of 2,048 prompt
    tokens from seeded numpy, ``generate`` for 32 greedy tokens; exactly
    24 ``flash_attention`` launches in the prefill and none in decode, the
-   same tokens on a second run, every token in ``[0, vocab)``; (c) the
+   same tokens on a second run, every token in ``[0, vocab)``; a traced
+   prefill's busiest kernels and the attention kernel's share; (c) the
    same model cut to 2 layers on the card and on the CPU, 2 requests × 256
    tokens and 8 teacher-forced decode steps: prefill and decode logits
    within ``LM_TOL`` of their scale;
@@ -135,11 +138,15 @@ LM_ARCH = "stablelm-1.6b"
 LM_REQUESTS, LM_PROMPT, LM_STEPS = 8, 2048, 32
 LM_CPU_LAYERS, LM_CPU_REQUESTS, LM_CPU_PROMPT, LM_CPU_STEPS = 2, 2, 256, 8
 LM_TOL = 2e-2       # card vs CPU logits, max |diff| over max |CPU|, bf16
-# kernel vs plain in bfloat16: both work in float32 and round the output
-# once, so they differ by at most one output ulp; the bound is two ulps at
-# each row's scale, max |diff| <= 2^-6 * max |plain| over the row's dh
-# values (one 64-key tile dropped or counted twice moves a late row of
-# S=2048 by several percent of its scale)
+# kernel vs plain in bfloat16: the kernel's tensor cores take the
+# probabilities as two bfloat16 terms (16 significant bits; rounded once to
+# bfloat16, as repro's model attention rounds them, they would move the
+# output by ~u/sqrt(n) of its row's scale over n keys), so both sides are
+# float32-accurate up to 2^-16 in P and round the output once: they differ
+# by about one output ulp. The bound is two ulps at each row's scale, max
+# |diff| <= 2^-6 * max |plain| over the row's dh values (one 64-key tile
+# dropped or counted twice moves a late row of S=2048 by several percent
+# of its scale)
 FLASH_BF16_ROW_TOL = 2.0 ** -6
 FLASH_SHAPES = (    # b, s, h, kv, dh, causal, window, dtype name
     (2, 256, 4, 2, 64, True, None, "float32"),     # tests/test_kernels.py
@@ -151,7 +158,17 @@ FLASH_SHAPES = (    # b, s, h, kv, dh, causal, window, dtype name
     (8, 2048, 32, 32, 64, True, None, "float32"),   # its grid at f32 precision
     (1, 4096, 8, 4, 256, True, 1024, "bfloat16"),   # gemma3-4b local layer
     (2, 1000, 4, 2, 128, True, None, "bfloat16"),   # ragged S
+    # the bf16 tensor-core kernel's edges: S below one 128-row query tile
+    # and one past it, a window cutting a 64-row kv tile, GQA 8:1, dh=256
+    (2, 40, 4, 2, 16, True, None, "bfloat16"),
+    (2, 129, 4, 2, 64, True, None, "bfloat16"),
+    (1, 500, 16, 2, 64, True, 77, "bfloat16"),
+    (1, 300, 4, 2, 256, True, 77, "bfloat16"),
 )
+# the shapes phase 9 (a) times besides stablelm's bf16 prefill: its float32
+# twin (the CUDA-core kernel) and gemma3-4b's dh=256 window layer
+FLASH_TIMED = {(8, 2048, 32, 32, 64, True, None, "float32"): "float32 prefill",
+               (1, 4096, 8, 4, 256, True, 1024, "bfloat16"): "gemma3-4b"}
 
 
 def require(ok: bool, what: str) -> None:
@@ -203,11 +220,12 @@ def smi(fields: str) -> str:
         .splitlines()[0]
 
 
-def trace(tag: str, label: str, fn) -> None:
+def trace(tag: str, label: str, fn) -> dict:
     """Run ``fn`` under ``torch.profiler`` and print its wall time, the
     device's busy time (the sum of the kernels' own device time: the rows
     of device type CUDA, so an operator and the kernel it launched are not
-    both counted) and idle share, and the six busiest kernels."""
+    both counted) and idle share, and the six busiest kernels. Returns the
+    device microseconds by kernel name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -225,12 +243,13 @@ def trace(tag: str, label: str, fn) -> None:
     if busy_us == 0:
         print(f"{tag} traced {label}: the profiler recorded no device "
               f"time; device busy share not measured")
-        return
+        return {}
     print(f"{tag} traced {label}: wall {traced_wall:.4f} s, device busy "
           f"{busy_us / 1e6:.4f} s, idle share "
           f"{1 - busy_us / 1e6 / traced_wall:.4f}")
     for key, us in by_kernel[:6]:
         print(f"    {us / 1e3:12.3f} ms  {key[:90]}")
+    return dict(by_kernel)
 
 
 def serve_phase(seed: int, dev, reset_counts, read_counts) -> dict:
@@ -278,6 +297,39 @@ def serve_phase(seed: int, dev, reset_counts, read_counts) -> dict:
                  else "")
               + ", two launches bitwise equal", flush=True)
         del diff
+        shape = (b, s, h, kv, dh, causal, window, dname)
+        if shape in FLASH_TIMED:
+            # key-query pairs each row sees (causal and window)
+            rows = torch.arange(s, dtype=torch.float64)
+            seen = rows + 1 if window is None else torch.clamp(rows + 1,
+                                                               max=window)
+            pairs = b * h * float(seen.sum())
+            kernel_ms = cuda_ms(lambda: fa_ops.flash_attention(
+                q, k, v, causal=causal, window=window), 10)
+            plain_ms = cuda_ms(lambda: attention_ref(
+                q, k, v, causal=causal, window=window), 3)
+            # the yardstick: SDPA on the same tensors as strided (B, H, S,
+            # dh) views, a band mask for the window; the port never calls it
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            band = None
+            if window is not None:
+                idx = torch.arange(s, device=dev)
+                band = ((idx[None, :] <= idx[:, None])
+                        & (idx[None, :] > idx[:, None] - window))
+            library_ms = cuda_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=band, is_causal=band is None,
+                    enable_gqa=kv != h), 10)
+            bound = bound_ms(2 * (q.numel() + k.numel()) * q.element_size(),
+                             2 * 2 * pairs * dh,
+                             FP32_OPS_PER_S if dname == "float32"
+                             else BF16_OPS_PER_S)
+            out.setdefault("flash_timed", []).append(
+                (FLASH_TIMED[shape], label, kernel_ms, plain_ms, library_ms,
+                 bound))
+            print(f"[9] {label}: kernel {kernel_ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
+                  f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
         if ((b, s, h, dh) == (LM_REQUESTS, LM_PROMPT, 32, 64)
                 and dname == "bfloat16"):
             # the yardstick reads the same tensors in its (B, H, S, dh)
@@ -357,7 +409,14 @@ def serve_phase(seed: int, dev, reset_counts, read_counts) -> dict:
         tok = engine._sample(logits)
     torch.cuda.synchronize()
     out["decode_ms"] = (time.perf_counter() - t0) / LM_STEPS * 1e3
-    trace("[9]", f"{LM_ARCH} prefill", lambda: engine.prefill(tokens))
+    by_kernel = trace("[9]", f"{LM_ARCH} prefill",
+                      lambda: engine.prefill(tokens))
+    flash_us = sum(us for key, us in by_kernel.items() if "flash_" in key)
+    if by_kernel:
+        print(f"[9] {LM_ARCH} prefill: flash_attention kernels "
+              f"{flash_us / 1e3:.3f} ms of {sum(by_kernel.values()) / 1e3:.3f}"
+              f" ms device busy ({flash_us / sum(by_kernel.values()):.4f})",
+              flush=True)
 
     def decode_steps(n=4):
         nonlocal logits, caches, tok
@@ -1251,6 +1310,14 @@ def main() -> int:
           f"in {lm['init_s']:.2f} s")
     print(f"[10] flash_attention at {lm['flash_shape']}: "
           f"{lm['launches']} launches per prefill")
+    for name, label, kernel_ms, plain_ms, library_ms, (bound, by) in \
+            lm["flash_timed"]:
+        print(f"[10] flash_attention, {name} ({label}): {kernel_ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by})")
+    sp_ms, _, sp_library_ms = timing["segment_partials"]
+    print(f"[10] segment_partials full-window pass: {sp_ms:.4f} ms, "
+          f"{sp_ms / sp_library_ms:.4f} of the index_add_ beside it")
     rows = []
     for name, src, replaces in KERNELS:
         ms, plain_ms, library_ms = timing[name]

@@ -1,7 +1,7 @@
-// Device code shared by the port's auction kernels (round_fused.cu,
-// sweep_resolve.cu, segment_partials.cu): the tile shape of the resolve
-// kernels, and the ordered same-winner group add that keeps every
-// per-campaign sum in event order without float atomics.
+// Device code shared by the port's auction kernels: the tile shape of the
+// resolve kernels, and the ordered same-winner group add that keeps every
+// per-campaign sum in event order without float atomics (round_fused.cu,
+// sweep_resolve.cu); segment_partials.cu takes the shared-memory limit.
 #pragma once
 
 #include <cuda_runtime.h>

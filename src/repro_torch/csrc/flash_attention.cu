@@ -1,10 +1,11 @@
-// Hand-written Hopper (sm_90a) kernel: causal, optionally sliding-window,
-// attention forward with an online softmax, float32 inside.
+// Hand-written Hopper (sm_90a) kernels: causal, optionally sliding-window,
+// attention forward with an online softmax. bfloat16 inputs go to a
+// tensor-core kernel (mma.sync), float32 inputs to a CUDA-core kernel.
 //
 // Replaces repro/kernels/flash_attention/flash_attention.py:82
 // `flash_attention_pallas` (its `_kernel`, :25-79). The port's model sends
 // every prefill attention layer here (repro_torch/models/attention.py
-// `causal_attention`), 24 launches per stablelm-1.6b prefill.
+// `causal_attention`), 24 launches per stablelm-1.6b prefill, all bf16.
 //
 // What it computes. q (B, S, H, dh), k and v (B, S, KV, dh), all float32 or
 // all bfloat16, in the model's layout; query head h reads kv head
@@ -14,42 +15,68 @@
 //   a window is given);
 //   out_i = sum_j softmax(scores)_j v_j, in q's dtype,
 // the online softmax of the Pallas kernel: per kv block, m_new = max(m,
-// max_j s_j), p_j = expf(s_j - m_new), alpha = expf(m - m_new), l = alpha*l
+// max_j s_j), p_j = exp(s_j - m_new), alpha = exp(m - m_new), l = alpha*l
 // + sum_j p_j, acc = alpha*acc + sum_j p_j v_j; at the end acc / max(l,
-// 1e-30). Kv blocks entirely above the causal frontier or outside the
-// window are skipped, as the Pallas kernel's `relevant` test does (:40-44).
-// S need not divide the blocks: rows past S are not written, and keys past
-// S are masked and staged as zeros.
+// 1e-30), rounded once to q's dtype. Kv blocks entirely above the causal
+// frontier or outside the window are skipped, as the Pallas kernel's
+// `relevant` test does (:40-44). S need not divide the blocks: rows past S
+// are not written, and keys past S are masked and staged as zeros.
+// The tensor cores take bf16 operands, so the bf16 kernel feeds them each
+// probability p_j as two bf16 terms, hi = bf16(p_j) and lo = bf16(p_j -
+// hi): 16 significant bits instead of bf16's 8, which keeps it within the
+// plain version's float32 probabilities as closely as the float32 kernel
+// (the output rounding to bf16 is then the only visible difference).
 //
 // What bounds it on the H100. At stablelm-1.6b's prefill (B=8, S=2048,
-// H=32, dh=64, causal, bf16) the causal half of QK^T and PV is 1.37e11
-// operations: 0.14 ms at the 989 TFLOP/s bf16 tensor-core peak (the bound
-// for bf16 inputs), 2.05 ms at the 67 TFLOP/s float32 rate this kernel
-// computes at. q, k, v and o are 268 MB, 0.08 ms at 3.35 TB/s. So the
-// operations bound it, and this kernel, on CUDA cores in float32, cannot
-// come nearer than 2.05 ms.
+// H=32, dh=64, causal, bf16) the causal half of QK^T and PV is 1.375e11
+// operations: 0.139 ms at the 989 TFLOP/s bf16 tensor-core peak, 2.05 ms at
+// the 67 TFLOP/s float32 rate of CUDA cores. q, k, v and o are 268 MB in
+// bf16, 0.08 ms at 3.35 TB/s. So the operations bound it; the split P makes
+// the PV product two tensor-core passes, 1.5x the multiplies of a kernel
+// that rounds P once.
 //
-// What the design does about it. It is the simple form: one CTA of 256
-// threads per (b, h, block of 64 query rows); the kv axis, sequential on the
-// TPU's grid, is a loop inside the CTA over 64-row key and value tiles
-// staged in shared memory as float32 (rows padded by one float against bank
-// conflicts). A thread owns four query rows (ty + 16*i) and, for the scores,
-// four keys (tx + 16*j): a 4x4 register tile, 8 shared loads per 16 fused
-// multiply-adds. The 16 threads of a row group are half a warp, so row
-// maxima and sums are shuffles. Probabilities go through shared memory to
-// the PV product, where the thread keeps the same four rows and dh/16
-// columns of the accumulator, so alpha, m and l stay in registers. No
-// atomics: two launches give the same bits. The shared memory (208.75 KB at
-// dh=256) is set with cudaFuncSetAttribute above 48 KB. Tensor cores
-// (mma.sync or wgmma on bf16 tiles), TMA and warp specialisation are a
-// later PR's work.
+// What the bf16 design does about it (`flash_tc_kernel`, the
+// FlashAttention-2 shape on mma.sync). One CTA per (b, h, 128 query rows),
+// 8 warps of 16 rows each (64 rows and 4 warps at dh=256, where the
+// accumulator takes 128 registers a thread), two CTAs an SM at dh <= 64;
+// the CTAs of the last query tiles, the heaviest under a causal mask, are
+// launched first. Q is copied once by 16-byte cp.async into XOR-swizzled
+// shared memory and loaded by ldmatrix into A fragments, which stay in
+// registers across the kv loop for dh <= 128 (at dh=256 they are reloaded
+// from shared memory per k-step). K and V tiles of 64 rows go through a
+// cp.async ring of three stages (two at dh=256): the next tile is in
+// flight while the current one multiplies, with one barrier a tile. S =
+// Q K^T is mma.sync.m16n8k16 (bf16 in, float32 accumulators; the products
+// of bf16 values are exact, only the order of the float32 sum differs from
+// the plain version). The softmax stays in registers: a row lies on a quad
+// of 4 threads, so its max takes 2 shuffles, and m, l and alpha never leave
+// registers. P's accumulator fragments are the A operands of O += P V
+// directly (the m16n8 accumulator layout is the m16n8k16 A layout), split
+// into hi and lo in registers; V comes in by ldmatrix.trans. The output is
+// divided by max(l, 1e-30), rounded once to bf16 and written with 16-byte
+// stores through shared memory. No atomics and a fixed order: two launches
+// give the same bits. wgmma, TMA and warp specialisation are a later PR's
+// work.
 //
-// Floats. The shared flags pass --fmad=false; the dot products use
-// __fmaf_rn explicitly, and expf (not __expf) keeps the float32 tolerance.
+// The float32 design (`flash_fwd_kernel`) is the simple form: one CTA of
+// 256 threads per (b, h, block of 64 query rows), 64-row key and value
+// tiles staged in shared memory as float32 (rows padded by one float
+// against bank conflicts), a 4x4 register tile per thread (8 shared loads
+// per 16 fused multiply-adds), probabilities through shared memory to the
+// PV product. On CUDA cores in float32 it cannot come nearer than 2.05 ms
+// at the prefill shape. The shared memory (208.75 KB at dh=256) is set with
+// cudaFuncSetAttribute above 48 KB, as is the bf16 kernel's (160 KB at
+// dh=256, 128 KB at dh=128).
+//
+// Floats. The shared flags pass --fmad=false; the dot products of the
+// float32 kernel use __fmaf_rn explicitly, and expf (not __expf) keeps the
+// float32 tolerance. The bf16 kernel takes exp(x) as exp2f(x * log2(e)),
+// within a few float32 ulps of expf.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -57,15 +84,6 @@ constexpr int kBQ = 64;          // query rows per CTA
 constexpr int kBK = 64;          // key/value rows per tile
 constexpr int kThreads = 256;    // 16 row groups x 16 column groups
 constexpr float kNeg = -1073741824.0f;   // -2^30, the reference's NEG
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 template <int DH>
 struct Layout {                  // shared-memory tiles, in floats
@@ -79,23 +97,22 @@ struct Layout {                  // shared-memory tiles, in floats
 
 // Rows [row0, row0 + rows) of one head into a padded float32 tile; rows at
 // or past S are zeros.
-template <int DH, typename T>
+template <int DH>
 __device__ __forceinline__ void stage(float* tile, int stride,
-                                      const T* __restrict__ src, long base,
+                                      const float* __restrict__ src, long base,
                                       long row_stride, int row0, int rows,
                                       int S) {
   for (int idx = threadIdx.x; idx < rows * DH; idx += kThreads) {
     const int r = idx / DH, d = idx % DH, s = row0 + r;
-    tile[r * stride + d] =
-        s < S ? to_f32(src[base + (long)s * row_stride + d]) : 0.0f;
+    tile[r * stride + d] = s < S ? src[base + (long)s * row_stride + d] : 0.0f;
   }
 }
 
-template <int DH, typename T>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int H,
-                 int KV, int causal, int window) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int S,
+                 int H, int KV, int causal, int window) {
   using L = Layout<DH>;
   constexpr int kCols = DH / 16;       // accumulator columns per thread
   extern __shared__ float smem[];
@@ -211,39 +228,380 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty + 16 * i;
     if (row >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* dst = o + q_base + (long)row * q_row;
+    float* dst = o + q_base + (long)row * q_row;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) store(dst + tx + 16 * c, acc[i][c] / denom);
+    for (int c = 0; c < kCols; ++c) dst[tx + 16 * c] = acc[i][c] / denom;
   }
 }
 
-template <int DH, typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int KV, int causal, int window, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<DH, T>;
+// ---------------------------------------------------------------------------
+// The bf16 tensor-core kernel
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int DH>
+struct TC {
+  static constexpr int kWarps = DH == 256 ? 4 : 8;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kBQ = 16 * kWarps;    // query rows per CTA
+  // K/V ring: with three stages the tile loaded next never lands in the
+  // stage another warp may still read, so one barrier a tile suffices; at
+  // dh=256 three stages would not fit, and two take a second barrier
+  static constexpr int kStages = DH == 256 ? 2 : 3;
+  static constexpr int kChunks = DH / 8;     // 16-byte chunks per row
+  static constexpr int kTile = kBK * DH;     // elements of a K or V tile
+  static constexpr bool kQInRegs = DH <= 128;
+  static constexpr size_t kBytes =
+      (size_t)(kBQ * DH + 2 * kStages * kTile) * sizeof(bf16);
+};
+
+// Element offset of 16-byte chunk `chunk` of row `row` in a swizzled tile
+// of DH bf16 a row. The eight rows an ldmatrix reads at one chunk column
+// fall on eight distinct 16-byte bank groups: for rows of 128 bytes or
+// more the chunk index is XORed with the row's low 3 bits; shorter rows
+// share a 128-byte line, and the chunk's place in the line is XORed with
+// the line's index. A warp's 16 rows never leave their own lines.
+template <int DH>
+__device__ __forceinline__ int swz(int row, int chunk) {
+  if constexpr (DH >= 64) {
+    return row * DH + ((chunk ^ (row & 7)) << 3);
+  } else {
+    const int lin = row * (DH / 8) + chunk;
+    return (lin ^ ((lin >> 3) & 7)) << 3;
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes from global to shared memory, asynchronously; src_bytes 0
+// zero-fills the destination (the source address must still be valid).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// c (16x8, float32) += a (16x16, bf16, row) * b (16x8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16, lo in the low half (the lower column).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Two floats as bf16 pairs hi + lo: hi rounds them, lo rounds what hi
+// leaves, so hi + lo carries 16 significant bits of each (the error is
+// 2^-16 of the value, not bf16's 2^-9).
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+}
+
+// Rows [row0, row0 + ROWS) of one head into a swizzled tile by cp.async;
+// rows at or past S are zero-filled.
+template <int DH, int ROWS>
+__device__ __forceinline__ void load_tile(bf16* tile,
+                                          const bf16* __restrict__ src,
+                                          long base, long row_stride, int row0,
+                                          int S) {
+  using C = TC<DH>;
+  for (int idx = threadIdx.x; idx < ROWS * C::kChunks; idx += C::kThreads) {
+    const int r = idx / C::kChunks, c = idx % C::kChunks, s = row0 + r;
+    const bf16* from = src + base + (long)min(s, S - 1) * row_stride + c * 8;
+    cp_async16(tile + swz<DH>(r, c), from, s < S ? 16 : 0);
+  }
+}
+
+// Two CTAs an SM for dh <= 64 (at most 128 registers a thread).
+template <int DH>
+__global__ void __launch_bounds__(TC<DH>::kThreads, DH <= 64 ? 2 : 1)
+flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ o, int S,
+                int H, int KV, int causal, int window) {
+  using C = TC<DH>;
+  constexpr int kKSteps = DH / 16;     // k-steps of QK^T, n-tile pairs of PV
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(tc_smem);
+  bf16* Ks = Qs + C::kBQ * DH;
+  bf16* Vs = Ks + C::kStages * C::kTile;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, g = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::kBQ;   // heaviest first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const long q_row = (long)H * DH, kv_row = (long)KV * DH;
+  const long q_base = (long)b * S * q_row + (long)h * DH;
+  const long kv_base = (long)b * S * kv_row + (long)g * DH;
+  const float scale = 1.0f / sqrtf((float)DH);
+
+  // the kv tiles the Pallas kernel's `relevant` test keeps: a range
+  int t_end = (S + kBK - 1) / kBK;
+  if (causal) t_end = min(t_end, (q0 + C::kBQ - 1) / kBK + 1);
+  int t_begin = 0;
+  if (window > 0) {
+    const int x = q0 - window - kBK + 1;   // relevant iff t * kBK > x
+    t_begin = x < 0 ? 0 : x / kBK + 1;
+  }
+
+  load_tile<DH, C::kBQ>(Qs, q, q_base, q_row, q0, S);
+  load_tile<DH, kBK>(Ks, k, kv_base, kv_row, t_begin * kBK, S);
+  load_tile<DH, kBK>(Vs, v, kv_base, kv_row, t_begin * kBK, S);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+
+  const int wrow = warp * 16;          // the warp's first row in the tile
+  // ldmatrix row and chunk offsets of this lane: A (and the trans'd V)
+  // fragments take rows lane & 15, chunk lane >> 4; K's take keys
+  // (lane & 7) + 8 * (lane >> 4), chunk (lane >> 3) & 1
+  const int a_row = lane & 15, a_chunk = lane >> 4;
+  const int k_row = (lane & 7) + ((lane >> 4) << 3), k_chunk = (lane >> 3) & 1;
+  const int v_row = (lane & 7) + (((lane >> 3) & 1) << 3), v_chunk = lane >> 4;
+
+  uint32_t qf[C::kQInRegs ? kKSteps : 1][4];
+  if constexpr (C::kQInRegs) {
+#pragma unroll
+    for (int ks = 0; ks < kKSteps; ++ks)
+      ldmatrix_x4(qf[ks], Qs + swz<DH>(wrow + a_row, 2 * ks + a_chunk));
+  }
+
+  float m[2] = {kNeg, kNeg}, l[2] = {0.0f, 0.0f};
+  float oacc[DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.0f;
+
+  const int row_lo = q0 + wrow + gid, row_hi = row_lo + 8;
+  for (int t = t_begin; t < t_end; ++t) {
+    const int st = (t - t_begin) % C::kStages;
+    const int nx = (st + 1) % C::kStages;
+    const bf16* Kt = Ks + st * C::kTile;
+    const bf16* Vt = Vs + st * C::kTile;
+    // the next tile goes into stage nx, last read for tile t + 1 - kStages,
+    // which every thread has left: three stages back, the previous
+    // iteration's opening barrier; two, its closing one
+    if (t + 1 < t_end) {
+      load_tile<DH, kBK>(Ks + nx * C::kTile, k, kv_base, kv_row,
+                         (t + 1) * kBK, S);
+      load_tile<DH, kBK>(Vs + nx * C::kTile, v, kv_base, kv_row,
+                         (t + 1) * kBK, S);
+    }
+    cp_commit();
+    cp_wait<1>();                      // tile t has landed
+    __syncthreads();
+
+    // ---- S = Q K^T, 16 rows x 64 keys per warp
+    float sacc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[j][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < kKSteps; ++ks) {
+      uint32_t a[4];
+      if constexpr (C::kQInRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[ks][e];
+      } else {
+        ldmatrix_x4(a, Qs + swz<DH>(wrow + a_row, 2 * ks + a_chunk));
+      }
+#pragma unroll
+      for (int j2 = 0; j2 < 4; ++j2) {
+        uint32_t bk[4];
+        ldmatrix_x4(bk, Kt + swz<DH>(16 * j2 + k_row, 2 * ks + k_chunk));
+        mma_bf16(sacc[2 * j2], a, bk[0], bk[1]);
+        mma_bf16(sacc[2 * j2 + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // ---- scale, mask, online softmax in registers; element e of n-tile j
+    // is row (e < 2 ? row_lo : row_hi), key c0 + 8j + 2*tig + (e & 1)
+    const int c0 = t * kBK;
+    const int wq0 = q0 + wrow;         // the warp's rows are [wq0, wq0 + 16)
+    const bool masked = c0 + kBK > S || (causal && c0 + kBK - 1 > wq0) ||
+                        (window > 0 && c0 <= wq0 + 15 - window);
+    float mx[2] = {kNeg, kNeg};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float s = sacc[j][e] * scale;
+        if (masked) {
+          const int col = c0 + 8 * j + 2 * tig + (e & 1);
+          const int row = e < 2 ? row_lo : row_hi;
+          bool keep = col < S;
+          if (causal) keep = keep && col <= row;
+          if (window > 0) keep = keep && col > row - window;
+          s = keep ? s : kNeg;
+        }
+        sacc[j][e] = s;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // a row's 64 scores lie on the quad of lanes sharing gid
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f((m[r] - m_new) * kLog2e);
+      m[r] = m_new;
+    }
+    float ps[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f((sacc[j][e] - m[e >> 1]) * kLog2e);
+        sacc[j][e] = p;
+        ps[e >> 1] += p;
+      }
+    // l is kept per thread (its quarter of the row) and summed over the
+    // quad at the end; alpha is the same for the whole row
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + ps[r];
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n) {
+      oacc[n][0] *= alpha[0];
+      oacc[n][1] *= alpha[0];
+      oacc[n][2] *= alpha[1];
+      oacc[n][3] *= alpha[1];
+    }
+
+    // ---- O += P V: P's accumulator fragments of keys [16kk, 16kk + 16)
+    // are the A fragments of that k-step, P = hi + lo in two bf16 terms
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t hi[4], lo[4];
+      split_bf16(sacc[2 * kk][0], sacc[2 * kk][1], hi[0], lo[0]);
+      split_bf16(sacc[2 * kk][2], sacc[2 * kk][3], hi[1], lo[1]);
+      split_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1], hi[2], lo[2]);
+      split_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3], hi[3], lo[3]);
+#pragma unroll
+      for (int n2 = 0; n2 < kKSteps; ++n2) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, Vt + swz<DH>(16 * kk + v_row, 2 * n2 + v_chunk));
+        mma_bf16(oacc[2 * n2], hi, bv[0], bv[1]);
+        mma_bf16(oacc[2 * n2 + 1], hi, bv[2], bv[3]);
+        mma_bf16(oacc[2 * n2], lo, bv[0], bv[1]);
+        mma_bf16(oacc[2 * n2 + 1], lo, bv[2], bv[3]);
+      }
+    }
+    if (C::kStages == 2) __syncthreads();   // stage st is free for t + 2
+  }
+
+  // ---- epilogue: normalise, round once, stage the warp's 16 rows in its
+  // own rows of Qs (only this warp reads them), 16-byte stores
+  float denom[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    denom[r] = fmaxf(l[r], 1e-30f);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n) {
+    const int off = 2 * tig;
+    *reinterpret_cast<uint32_t*>(Qs + swz<DH>(wrow + gid, n) + off) =
+        pack_bf16(oacc[n][0] / denom[0], oacc[n][1] / denom[0]);
+    *reinterpret_cast<uint32_t*>(Qs + swz<DH>(wrow + gid + 8, n) + off) =
+        pack_bf16(oacc[n][2] / denom[1], oacc[n][3] / denom[1]);
+  }
+  __syncwarp();
+  for (int idx = lane; idx < 16 * C::kChunks; idx += 32) {
+    const int r = idx / C::kChunks, c = idx % C::kChunks;
+    const int row = q0 + wrow + r;
+    if (row < S)
+      *reinterpret_cast<uint4*>(o + q_base + (long)row * q_row + c * 8) =
+          *reinterpret_cast<const uint4*>(Qs + swz<DH>(wrow + r, c));
+  }
+}
+
+template <int DH>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int S, int H, int KV, int causal, int window,
+               cudaStream_t stream) {
+  auto kernel = flash_fwd_kernel<DH>;
   const size_t bytes = Layout<DH>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
   kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, KV, causal, window);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, KV, causal,
+      window);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int S, int H, int KV, int dh, int causal, int window,
-             cudaStream_t stream) {
-  switch (dh) {
-    case 16: return launch<16, T>(q, k, v, o, B, S, H, KV, causal, window, stream);
-    case 32: return launch<32, T>(q, k, v, o, B, S, H, KV, causal, window, stream);
-    case 64: return launch<64, T>(q, k, v, o, B, S, H, KV, causal, window, stream);
-    case 128: return launch<128, T>(q, k, v, o, B, S, H, KV, causal, window, stream);
-    case 256: return launch<256, T>(q, k, v, o, B, S, H, KV, causal, window, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+template <int DH>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                int S, int H, int KV, int causal, int window,
+                cudaStream_t stream) {
+  using C = TC<DH>;
+  auto kernel = flash_tc_kernel<DH>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, (S + C::kBQ - 1) / C::kBQ);
+  kernel<<<grid, C::kThreads, C::kBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, H, KV, causal,
+      window);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
+           int H, int KV, int causal, int window, int bf16_in,
+           cudaStream_t stream) {
+  return bf16_in
+             ? launch_bf16<DH>(q, k, v, o, B, S, H, KV, causal, window, stream)
+             : launch_f32<DH>(q, k, v, o, B, S, H, KV, causal, window, stream);
 }
 
 }  // namespace
@@ -251,17 +609,22 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" {
 
 // Attention of q (B, S, H, dh) over k, v (B, S, KV, dh) into o (B, S, H,
-// dh); bf16 != 0 for bfloat16 tensors, float32 otherwise; window <= 0 for
-// none. Returns the cudaError_t of the launch, or cudaErrorInvalidValue for
-// a head dim other than 16, 32, 64, 128 or 256 or H not a multiple of KV.
+// dh); bf16_in != 0 for bfloat16 tensors (16-byte aligned), float32
+// otherwise; window <= 0 for none. Returns the cudaError_t of the launch,
+// or cudaErrorInvalidValue for a head dim other than 16, 32, 64, 128 or
+// 256 or H not a multiple of KV.
 int fa_forward(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int H, int KV, int dh, int causal, int window, int bf16,
-               cudaStream_t stream) {
+               int S, int H, int KV, int dh, int causal, int window,
+               int bf16_in, cudaStream_t stream) {
   if (KV < 1 || H % KV != 0) return (int)cudaErrorInvalidValue;
-  if (bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, B, S, H, KV, dh, causal, window,
-                                   stream);
-  return dispatch<float>(q, k, v, o, B, S, H, KV, dh, causal, window, stream);
+  switch (dh) {
+    case 16: return launch<16>(q, k, v, o, B, S, H, KV, causal, window, bf16_in, stream);
+    case 32: return launch<32>(q, k, v, o, B, S, H, KV, causal, window, bf16_in, stream);
+    case 64: return launch<64>(q, k, v, o, B, S, H, KV, causal, window, bf16_in, stream);
+    case 128: return launch<128>(q, k, v, o, B, S, H, KV, causal, window, bf16_in, stream);
+    case 256: return launch<256>(q, k, v, o, B, S, H, KV, causal, window, bf16_in, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -22,8 +22,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
     """Causal (optionally sliding-window) attention of q (B, S, H, dh) over
-    k, v (B, S, KV, dh), float32 inside; returns (B, S, H, dh) in q's
-    dtype. GQA: query head h reads kv head ``h // (H // KV)``."""
+    k, v (B, S, KV, dh), float32 scores and softmax (on bfloat16 inputs
+    the kernel's tensor cores take the probabilities as two bfloat16
+    terms); returns (B, S, H, dh) in q's dtype. GQA: query head h reads kv
+    head ``h // (H // KV)``."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
     return flash_attention_cuda(q.contiguous(), k.contiguous(),

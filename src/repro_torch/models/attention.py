@@ -3,8 +3,10 @@ flash-attention kernel, cached decode.
 
 * Prefill attention (:func:`causal_attention`) is the documented fast path
   of the reference made real: on a CUDA tensor it is the hand-written
-  kernel ``csrc/flash_attention.cu`` (float32 inside), on a CPU tensor the
-  kernel's plain version. Nothing falls back from one to the other.
+  kernel ``csrc/flash_attention.cu`` (float32 scores and softmax; on
+  bfloat16 tensors the probabilities reach its tensor cores as two
+  bfloat16 terms, 16 significant bits), on a CPU tensor the kernel's plain
+  version. Nothing falls back from one to the other.
 * Decode (:func:`attend_decode`) is plain torch matmuls, as the reference
   leaves it to XLA, in the reference's dtypes: bfloat16 scores rounded,
   a float32 softmax, bfloat16 probabilities.

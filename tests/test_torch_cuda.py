@@ -186,6 +186,43 @@ def test_window_partials_on_the_card_gives_the_cpu_bits(dev):
     assert torch.equal(on_card.cpu(), on_cpu)
 
 
+SP_LAYOUTS = {   # n_global, offset, n, lanes' global windows [lo, hi)
+    # n not a multiple of the 512-row chunk, windows whose edges fall
+    # inside a chunk, an empty window
+    "whole": (20_000, 0, 20_000, [0, 777, 5000], [20_000, 13_001, 5000]),
+    # a slice at an odd offset: lanes of 11,111 rows start off a 16-byte
+    # boundary; one window of a single row, one empty at the slice's end
+    "slice": (15_000, 1537, 11_111, [0, 2000, 9000, 14_000],
+              [15_000, 2001, 12_647, 14_000]),
+}
+
+
+@pytest.mark.parametrize("layout", sorted(SP_LAYOUTS))
+@pytest.mark.parametrize("c", [1, 33, "limit"])
+def test_segment_partials_edges_give_the_cpu_bits(dev, layout, c):
+    """The staged kernel at its edges, bitwise ``window_partials_ref``
+    (``index_add_`` on the CPU): C from 1 to the kernel's shared-memory
+    limit (``sp_max_campaigns``), window edges inside a staged chunk, an
+    offset, an empty window, and n not a multiple of the chunk."""
+    if c == "limit":
+        c = cuda_sp._lib().sp_max_campaigns()
+    n_global, offset, n, lo, hi = SP_LAYOUTS[layout]
+    winners, prices = _log(len(lo), n, c, seed=n + c % 101)
+    lo = torch.tensor(lo, dtype=torch.int32)
+    hi = torch.tensor(hi, dtype=torch.int32)
+    block = -(-n_global // G)
+    on_cpu = segments.window_partials_ref(winners, prices, c, lo, hi,
+                                          block_size=block,
+                                          index_offset=offset)
+    before = cuda_sp.LAUNCHES["segment_partials"]
+    on_card = segments.window_partials(
+        winners.to(dev), prices.to(dev), c, lo.to(dev), hi.to(dev),
+        block_size=block, index_offset=offset)
+    torch.cuda.synchronize()
+    assert cuda_sp.LAUNCHES["segment_partials"] == before + 1
+    assert torch.equal(on_card.cpu(), on_cpu)
+
+
 # ---------------------------------------------------------------------------
 # sweep_resolve and capped_scan against their plain versions
 # ---------------------------------------------------------------------------
@@ -477,6 +514,16 @@ FLASH_SHAPES = [   # b, s, h, kv, dh, causal, window, dtype
     (2, 1000, 4, 2, 128, True, None, torch.float32),      # ragged S
     (1, 333, 6, 3, 32, False, 50, torch.float32),         # window, not causal
     (2, 130, 4, 1, 16, False, None, torch.bfloat16),
+    # the bf16 tensor-core kernel: every head dim, S against its 128-row
+    # query tiles (64 at dh=256), a window cutting a 64-row kv tile, GQA 8:1
+    (2, 40, 4, 2, 16, True, None, torch.bfloat16),        # below one tile
+    (2, 127, 4, 4, 32, True, None, torch.bfloat16),
+    (2, 129, 4, 2, 64, True, None, torch.bfloat16),
+    (2, 1000, 4, 2, 128, True, None, torch.bfloat16),
+    (1, 300, 4, 2, 256, True, 77, torch.bfloat16),
+    (1, 500, 16, 2, 64, True, 77, torch.bfloat16),        # GQA 8:1
+    (2, 333, 8, 1, 32, False, 77, torch.bfloat16),        # GQA 8:1
+    (1, 257, 2, 2, 128, False, None, torch.bfloat16),
 ]
 
 
@@ -485,9 +532,12 @@ def test_flash_attention_matches_plain(dev, b, s, h, kv, dh, causal, window,
                                        dtype):
     """The kernel against its plain version on the card, at
     tests/test_kernels.py's tolerances (2e-5 float32, 2e-2 bfloat16), and
-    two launches bitwise equal. In bfloat16 both sides work in float32 and
-    round the output once, so they also agree within two output ulps at
-    each row's scale (2^-6 of the row's largest value)."""
+    two launches bitwise equal. In bfloat16 the kernel's tensor cores take
+    the probabilities as two bfloat16 terms (16 significant bits, not
+    rounded to bfloat16 as ``repro``'s model attention rounds them), so
+    both sides are float32-accurate up to 2^-16 in P and round the output
+    once: they agree within two output ulps at each row's scale (2^-6 of
+    the row's largest value)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(s + h)
     q = torch.randn((b, s, h, dh), generator=gen, device=dev).to(dtype)
@@ -518,12 +568,25 @@ def test_flash_attention_folded_heads(dev):
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
+def test_flash_attention_bf16_refuses_an_unaligned_tensor(dev):
+    """The bf16 kernel copies 16 bytes at a time: a contiguous view that
+    starts off a 16-byte boundary is refused, and nothing is launched."""
+    q = torch.zeros(2 * 64 * 2 * 64 + 1, dtype=torch.bfloat16,
+                    device=dev)[1:].view(2, 64, 2, 64)
+    k = torch.zeros((2, 64, 2, 64), dtype=torch.bfloat16, device=dev)
+    before = cuda_fa.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fa_ops.flash_attention(q, k, k)
+    assert cuda_fa.LAUNCHES["flash_attention"] == before
+
+
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "gemma3-4b"])
 def test_reduced_prefill_on_the_card_is_the_plain_path(dev, arch,
                                                        monkeypatch):
     """A reduced model's prefill through the kernel (one launch per layer)
     against the same model with the plain attention, both on the card:
-    logits within 1e-2 of their scale (float32 attention either way; a
+    logits within 1e-2 of their scale (float32 scores and softmax either
+    way, the kernel's probabilities split into two bfloat16 terms; a
     bfloat16 context may round the other way)."""
     cfg = reduced_config(arch)
     model = build_model(cfg, device=dev, seed=0)

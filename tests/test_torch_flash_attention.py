@@ -131,6 +131,48 @@ def test_a_cuda_wrapper_refuses_what_it_cannot_launch():
     assert cuda_fa.LAUNCHES == {"flash_attention": 0}
 
 
+BF16_LIMITS = {   # the bf16 tensor-core route: (q, k, v), what it raises
+    # 8,388,609 rows are 65,536 query tiles of 128, one past gridDim.y
+    "query tiles at dh=64": (
+        [torch.empty(1, 65535 * 128 + 1, 1, 64, dtype=torch.bfloat16,
+                     device="meta")] * 3, "grid limit"),
+    # dh=256 takes 64-row tiles, so half that S is already too long
+    "query tiles at dh=256": (
+        [torch.empty(1, 65535 * 64 + 1, 1, 256, dtype=torch.bfloat16,
+                     device="meta")] * 3, "grid limit"),
+    # B*H is the grid's x axis here, not bounded by 65,535: the meta
+    # tensors pass every limit and are refused only as not on a card
+    "B*H beyond the float32 grid": (
+        [torch.empty(65536, 4, 1, 64, dtype=torch.bfloat16,
+                     device="meta")] * 3, "CUDA tensors, got meta"),
+    "an unaligned q": (
+        [torch.zeros(2 * 8 * 2 * 64 + 1, dtype=torch.bfloat16)[1:].view(
+            2, 8, 2, 64)] + [torch.zeros(2, 8, 2, 64,
+                                         dtype=torch.bfloat16)] * 2,
+        "q must start on a 16-byte boundary"),
+    "an unaligned v": (
+        [torch.zeros(2, 8, 2, 64, dtype=torch.bfloat16)] * 2
+        + [torch.zeros(2 * 8 * 2 * 64 + 4, dtype=torch.bfloat16)[4:].view(
+            2, 8, 2, 64)], "v must start on a 16-byte boundary"),
+    "head dim 48": (
+        [torch.empty(1, 8, 2, 48, dtype=torch.bfloat16, device="meta")] * 3,
+        "head dims"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BF16_LIMITS))
+def test_the_bf16_route_refuses_what_it_cannot_launch(case):
+    """The bf16 tensor-core kernel's own limits: its grid's y axis counts
+    query tiles of ``BF16_ROWS[dh]`` rows, and its 16-byte copies need
+    tensors that start on a 16-byte boundary. Each is refused before the
+    library is built, and nothing is counted."""
+    cuda_fa.reset_launches()
+    qkv, match = BF16_LIMITS[case]
+    with pytest.raises(ValueError, match=match):
+        cuda_fa.flash_attention_cuda(*qkv)
+    assert cuda_fa.LAUNCHES == {"flash_attention": 0}
+
+
 def test_a_non_cpu_tensor_goes_to_the_kernel_not_the_plain_version():
     """Only a CPU tensor takes the plain version; any other device reaches
     the CUDA wrapper, which raises for a tensor that is not on a card."""

@@ -2,8 +2,8 @@
 ``repro``'s parameters carried across (``interop.lm_params_from_reference``).
 
 ``repro``'s ``causal_attention`` rounds scores and probabilities to
-bfloat16; the port's prefill attention is the flash-attention kernel's
-(float32 inside, as ``repro``'s Pallas kernel). So the slice is held two
+bfloat16; the port's prefill attention on the CPU is the flash-attention
+kernel's plain version (float32 inside, as ``repro``'s Pallas kernel). So the slice is held two
 ways, each with the scale-aware error ``max|port - repro| / max|repro|``
 of ``tests/test_archs_smoke.py:84``:
 
