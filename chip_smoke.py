@@ -21,7 +21,8 @@ Run from the repository root. Phases:
    of the 32 resolved lanes (cap times bitwise the plain version on the
    card and, for one lane, on the CPU; spends bitwise the CPU) and
    ``capped_scan`` at N=65,536, C=64, S=8 with a reserve, a zero budget and
-   a zero multiplier (bitwise the plain version on the card);
+   a zero multiplier, and at N=4,096, S=4 with C=257 and C=1,000, past the
+   first design's 256 campaigns (bitwise the plain version on the card);
 3. hold the fused-round sweep on the card against the plain torch sweep on
    the CPU at a reduced size (N=65,536, C=64, S=8): every integer output
    equal, spends at rtol 1e-6;
@@ -34,15 +35,24 @@ Run from the repository root. Phases:
    on the CPU;
 5. run the exact replay, ``engine.sweep(grid, method="sequential")``, at
    full width for both rules: one ``capped_scan`` launch each, a second
-   launch gives the same bits, and the first 131,072 events of lane 0
+   launch gives the same bits, the first 131,072 events of lane 0
    (first price) and lane 31 (second price) are bitwise the plain version
-   on the CPU;
+   on the CPU, and every lane at full width is the exact replay: its events
+   resolved against its own cap times (MatrixTile, an (N, C) mask) give its
+   winners and prices, ``first_crossing``'s flat sums its spends, and each
+   campaign's sequential cumsum on the host reaches the budget at its cap
+   time;
 6. three back-ends, one answer: ``sweep_state_machine`` with ``resolve`` in
    ``"torch"``, ``"sweep_resolve"`` and ``"fused"`` gives identical six
    outputs at full width for both rules; the counters show
    ``"sweep_resolve"`` launched ``sweep_resolve`` once a round and
    ``segment_partials`` twice; ``engine.simulate(method="parallel")`` of
-   lane 0's design equals lane 0 for each back-end;
+   lane 0's design equals lane 0 for each back-end; and at a C one past
+   the round kernels' shared memory (512 events, S=4, both rules)
+   ``engine.sweep(method="parallel")`` with ``resolve="auto"`` resolves
+   each lane with ``auction_resolve`` and its partials with
+   ``segment_partials`` (the counters show it, and no round kernel), to the
+   CPU's bits;
 7. the paper's comparison: Algorithm 2 against the exact replay, per lane,
    in mean relative spend error (each < 0.08), capped campaigns and cap-time
    shift, and both sweeps' wall times;
@@ -78,7 +88,12 @@ Run from the repository root. Phases:
    beside its plain version's, its library yardstick's and its bound,
    per-round and sweep times, the SORT2AGGREGATE wall times and Algorithm
    4's share of them, the LM's prefill time, decode time per token,
-   tokens/s and peak memory, and one JSON line describing each kernel.
+   tokens/s and peak memory, ``capped_scan``'s and ``first_crossing``'s
+   times beside their first designs' (``EARLIER_MS``), ``first_crossing``'s
+   time at one lane (``simulate``'s shape) and at one lane of N in
+   ``SMALL_N`` (small calls, bitwise the CPU), and one JSON line describing
+   each kernel (``first_crossing``'s row also gives the device kernels its
+   calls ran).
    The plain capped scan is one chain of small launches per event, so it
    is timed over the first 16,384 events of the full day
    (``plain_events`` in the JSON line); every other time is at the full
@@ -112,7 +127,14 @@ RESOLVES = ("torch", "sweep_resolve", "fused")
 OUTPUTS = ("final_spend", "cap_times", "retired", "boundaries", "num_rounds",
            "n_hat")
 PREFIX = 131_072                # events of the exact replay checked on the CPU
+WIDE_CAMPAIGNS = (257, 1000)    # capped_scan past the first design's limit
+WIDE_EVENTS = 4096
+# the first designs' times, measured by this script on an NVIDIA H100 80GB
+# HBM3 at 700 W before their redesign, printed beside this run's
+EARLIER_MS = {"capped_scan": 437.2258, "first_crossing": 77.9087}
 PLAIN_EVENTS = 16_384           # events of the plain capped scan timed on card
+SMALL_N = (256, 1024, 8192)     # first_crossing's small calls, one lane
+ANY_C_EVENTS = 512              # the parallel sweep past the round kernels
 CPU_LANE = {"first_price": 0, "second_price": 31}
 ORACLE_TOL = 0.08               # tests/test_core_parallel.py's bound
 S2A_TOL = 0.02                  # tests/test_core_s2a.py's bound
@@ -211,6 +233,23 @@ def resolve_cost(n, c, s, rows, second_price, outputs):
     n_bytes = n * c * 4 + s * (c * 5 + 16) + outputs
     n_ops = rows * c * (3 if second_price else 2)
     return n_bytes, n_ops
+
+
+def crossing_ops(winners, n, c, block=4096):
+    """Operations ``first_crossing`` needs for S lanes of N events in
+    crossing blocks of ``block``: inside a 16-row group a campaign's
+    running spend changes only at its own sales, so per (lane, campaign)
+    and block a test at each group's first row and one add for each group
+    total pushed up XLA's levels; per sale an add and a test of the scan
+    and an add of the flat sum. The sales are this run's."""
+    s = winners.shape[0]
+    sales = int((winners >= 0).sum())
+    pushes, width = 0, block
+    while width > 16:
+        width = -(-width // 16)
+        pushes += width
+    blocks = -(-n // block)
+    return s * c * blocks * (-(-block // 16) + pushes) + 3 * sales
 
 
 def smi(fields: str) -> str:
@@ -481,6 +520,7 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
 
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -804,9 +844,28 @@ def main() -> int:
                     env.event_emb, env.campaign_emb, mult1, cmask, res1), 3))
             timing["first_crossing"] = (
                 cuda_ms(lambda: seg_lib.crossing_and_spend(
-                    w, p, grid.budgets, c), 3),
+                    w, p, grid.budgets, c), 10),
                 cuda_ms(lambda: seg_lib.first_crossing_ref(
                     w, p, grid.budgets, c), 1), None)
+            # one lane: the shape of simulate()'s nine launches
+            w1, p1, b1 = w[:1], p[:1], grid.budgets[:1]
+            timing["first_crossing_one_lane"] = (
+                cuda_ms(lambda: seg_lib.crossing_and_spend(w1, p1, b1, c),
+                        10),
+                cuda_ms(lambda: seg_lib.first_crossing_ref(w1, p1, b1, c),
+                        1))
+            # what a small call costs (auction.spend_sums on a short
+            # log): one lane of the first SMALL_N events, bitwise the CPU
+            timing["first_crossing_small"] = {}
+            for rows in SMALL_N:
+                ws, ps = w1[:, :rows].contiguous(), p1[:, :rows].contiguous()
+                want = seg_lib.crossing_and_spend(ws.cpu(), ps.cpu(),
+                                                  b1.cpu(), c)
+                got = seg_lib.crossing_and_spend(ws, ps, b1, c)
+                for name, a, b in zip(("spend", "cap times"), got, want):
+                    equal(name, a.cpu(), b, f"first_crossing N={rows}")
+                timing["first_crossing_small"][rows] = cuda_ms(
+                    lambda: seg_lib.crossing_and_spend(ws, ps, b1, c), 50)
             d = env.event_emb.shape[1]
             timing["auction_resolve_bound"] = bound_ms(
                 n * c * 4 + n * c + c * 4 + 4 + n * 8, n * c * 2)
@@ -814,7 +873,9 @@ def main() -> int:
                 (n + c) * d * 4 + c * 5 + 4 + n * 8 + c * 4,
                 n * c * (2 * d + 6))
             timing["first_crossing_bound"] = bound_ms(
-                s * n * 8 + s * c * 12, s * n * c * 3)
+                s * n * 8 + s * c * 12, crossing_ops(w, n, c))
+            timing["first_crossing_one_lane_bound"] = bound_ms(
+                n * 8 + c * 12, crossing_ops(w1, n, c))
         del resolved, mid, w, p, nmask
 
     # the per-event (S, N, C) mask and the exact replay at the reduced size
@@ -848,6 +909,27 @@ def main() -> int:
               f"with the plain versions at N={n_s} C={c_s} S={s}; the plain "
               f"capped scan took {plain_s:.2f} s on the card "
               f"({plain_s / n_s * 1e6:.2f} us per event)", flush=True)
+        # C past the first design's 256-campaign limit, state in shared
+        # memory; budgets a fifth of the base so that most campaigns cap
+        for c_w in WIDE_CAMPAIGNS:
+            values_w = torch.rand((WIDE_EVENTS, c_w), generator=card_gen,
+                                  device=dev)
+            budgets_w = torch.rand((4, c_w), generator=card_gen,
+                                   device=dev) * (0.2 * WIDE_EVENTS / c_w)
+            mult_w = 0.5 + torch.rand((4, c_w), generator=card_gen,
+                                      device=dev)
+            res_w = torch.tensor([0.0, 0.05, 0.1, 0.2], device=dev)
+            got = scan_ops.capped_scan(values_w, budgets_w, mult_w, res_w,
+                                       second_price=second)
+            want = capped_scan_ref(values_w, budgets_w, mult_w, res_w,
+                                   second_price=second)
+            for name, a, b in zip(("winners", "prices", "final_spend",
+                                   "cap_times"), got, want):
+                equal(name, a, b, f"capped_scan {kind} C={c_w}")
+            print(f"[2] {kind}: capped_scan at N={WIDE_EVENTS} C={c_w} S=4 "
+                  f"agrees with the plain version "
+                  f"({int((got[3] <= WIDE_EVENTS).sum())} of {4 * c_w} "
+                  f"campaigns capped)", flush=True)
 
     # ---- phase 3: exactness at a reduced size ----------------------------
     for kind in KINDS:
@@ -960,6 +1042,52 @@ def main() -> int:
         del plain, on_cpu
 
     # ---- phase 5: the exact replay at full width -------------------------
+    def fixed_point(kind, grid, res, second):
+        """Every lane is the exact replay: resolving each event against the
+        kernel's own activations (campaign c active at event n iff its cap
+        time is above n and its budget positive) gives its winners and
+        prices bitwise; first_crossing's flat sums of those sales give its
+        spends bitwise; and on the host a sequential float32 np.cumsum of
+        each campaign's prices first reaches its budget at its cap time."""
+        t0 = time.perf_counter()
+        events = torch.arange(n, device=dev)[:, None]
+        for lane in range(grid.num_scenarios):
+            mask = ((res.cap_times[lane][None, :] > events)
+                    & (grid.budgets[lane] > 0)[None, :])
+            w, p, _ = ops.resolve_masked(
+                env.values, grid.rules.multipliers[lane], mask,
+                grid.rules.reserve[lane], second_price=second, sums=False)
+            require(torch.equal(w, res.winners[lane])
+                    and torch.equal(p, res.prices[lane]),
+                    f"{kind}: lane {lane} is not the replay of its own cap "
+                    f"times")
+            del mask, w, p
+        require(torch.equal(auction.spend_sums(res.winners, res.prices, c),
+                            res.final_spend),
+                f"{kind}: the flat sums of the replay's sales are not its "
+                f"spends")
+        winners, prices = res.winners.cpu().numpy(), res.prices.cpu().numpy()
+        caps = res.cap_times.cpu().numpy()
+        budgets = grid.budgets.cpu().numpy()
+        for lane in range(grid.num_scenarios):
+            order = np.argsort(winners[lane], kind="stable")
+            bounds = np.searchsorted(winners[lane][order], np.arange(c + 1))
+            for cc in range(c):
+                rows = order[bounds[cc]:bounds[cc + 1]]
+                cum = np.cumsum(prices[lane][rows], dtype=np.float32)
+                hit = np.nonzero(cum >= budgets[lane, cc])[0]
+                want = rows[hit[0]] + 1 if len(hit) else n + 1
+                require(caps[lane, cc] == want,
+                        f"{kind}: lane {lane} campaign {cc}: cap time "
+                        f"{caps[lane, cc]}, its sales' cumsum reaches the "
+                        f"budget at {want}")
+        print(f"[5] {kind}: all {grid.num_scenarios} lanes are the exact "
+              f"replay at full width: each event resolved against the "
+              f"kernel's own cap times gives its winners and prices, the "
+              f"flat sums its spends, and each campaign's sequential cumsum "
+              f"its cap times ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+
     exact = {}
     for kind in KINDS:
         second = kind == "second_price"
@@ -1001,6 +1129,7 @@ def main() -> int:
                             cap_cpu),
                 f"{kind}: lane {lane}'s cap times up to {PREFIX} differ from "
                 f"the CPU")
+        fixed_point(kind, grid, res, second)
         exact[kind] = dict(spend=res.final_spend, caps=res.cap_times,
                            wall=wall)
         print(f"[5] {kind}: exact replay S={grid.num_scenarios} N={n} C={c} "
@@ -1049,6 +1178,45 @@ def main() -> int:
               f"{sr_wall[kind]:.4f} s, launches {launches}; "
               f"engine.simulate of lane 0 equals lane 0 for all three",
               flush=True)
+
+    # a C one past the round kernels' shared memory: "auto" takes the
+    # per-lane auction_resolve back-end, ten campaigns capping
+    c_any = ops.round_campaign_limits()["fused"] + 1
+    gen_any = torch.Generator().manual_seed(args.seed)
+    values_any = torch.rand((ANY_C_EVENTS, c_any), generator=gen_any)
+    values_any[:, :10] += 0.5
+    budgets_any = torch.full((c_any,), 1e6)
+    budgets_any[:10] = 5.0
+    for kind in KINDS:
+        out_any = {}
+        for where in ("cpu", "cuda"):
+            base = AuctionRule(multipliers=torch.ones(c_any, device=where),
+                               reserve=torch.zeros((), device=where),
+                               kind=kind)
+            eng = CounterfactualEngine(values_any, budgets_any,
+                                       base_rule=base, device=where)
+            reset_counts()
+            out_any[where] = eng.sweep(eng.grid(
+                bid_scales=(1.0, 1.2), reserves=(0.0, 0.05)),
+                method="parallel").results
+            torch.cuda.synchronize()
+            launches = read_counts()
+        require(launches["auction_resolve"] > 0
+                and launches["segment_partials"] > 0
+                and not launches["round_fused"]
+                and not launches["sweep_resolve"],
+                f"{kind} C={c_any}: launches {launches}, expected "
+                f"auction_resolve and segment_partials only")
+        for name in ("final_spend", "cap_times"):
+            equal(name, getattr(out_any["cuda"], name).cpu(),
+                  getattr(out_any["cpu"], name), f"{kind} C={c_any} sweep")
+        require(bool((out_any["cpu"].cap_times <= ANY_C_EVENTS).any()),
+                f"{kind} C={c_any}: no campaign capped")
+        print(f"[6] {kind}: engine.sweep(method='parallel') at C={c_any}, "
+              f"one past the fused round's shared memory, N={ANY_C_EVENTS} "
+              f"S=4: auction_resolve per lane and segment_partials "
+              f"(launches {launches}), bitwise the CPU", flush=True)
+    del values_any, out_any
 
     # ---- phase 7: the paper's comparison ---------------------------------
     for kind in KINDS:
@@ -1115,6 +1283,7 @@ def main() -> int:
 
     s2a = {}
     s2a_peak = 0
+    fc_device_kernels = 0
     refine_iters = 8                      # engine.sweep's default
     for kind in KINDS:
         engine, grid = engines[kind]
@@ -1127,7 +1296,8 @@ def main() -> int:
         for what, cnt, adds in (("simulate", sim_counts, sim_adds),
                                 ("sweep", sweep_counts, sweep_adds)):
             others = {k: v for k, v in cnt.items() if v and k not in (
-                "auction_resolve", "first_crossing")}
+                "auction_resolve", "first_crossing",
+                "first_crossing_device_kernels")}
             require(cnt["auction_resolve"] > 0 and cnt["first_crossing"] > 0
                     and not others,
                     f"{kind} S2A {what}: launches {cnt}, expected only "
@@ -1136,6 +1306,7 @@ def main() -> int:
                                f"calls")
             counted["auction_resolve"] += cnt["auction_resolve"]
             counted["first_crossing"] += cnt["first_crossing"]
+            fc_device_kernels += cnt["first_crossing_device_kernels"]
         # the sweep = the base design's simulate (its warm start), then
         # refine_iters + 1 passes of S resolves and one crossing launch
         passes = refine_iters + 1
@@ -1264,10 +1435,23 @@ def main() -> int:
     timing["capped_scan_bound"] = bound_ms(
         n * c * 4 + s * c * 12 + s * 4 + s * n * 8 + s * c * 8, s * n * c * 3)
     print(f"[10] capped_scan, full day, S={s}: {scan_ms:.4f} ms "
-          f"({scan_ms * 1e6 / n:.2f} ns per event of the lane chains); the "
+          f"({scan_ms * 1e6 / n:.2f} ns per event of the lane chains; the "
+          f"first design {EARLIER_MS['capped_scan']} ms, "
+          f"{EARLIER_MS['capped_scan'] / scan_ms:.2f}x); the "
           f"plain version {timing['capped_scan'][1]:.1f} ms for the first "
           f"{PLAIN_EVENTS} events, bitwise the kernel; SM clock now "
           f"{smi('clocks.sm')}")
+    fc_ms = timing["first_crossing"][0]
+    fc1_ms, fc1_plain = timing["first_crossing_one_lane"]
+    fc1_bound, fc1_by = timing["first_crossing_one_lane_bound"]
+    print(f"[10] first_crossing, S={s}: {fc_ms:.4f} ms (the first design "
+          f"{EARLIER_MS['first_crossing']} ms, "
+          f"{EARLIER_MS['first_crossing'] / fc_ms:.2f}x); one lane "
+          f"(simulate's shape): {fc1_ms:.4f} ms, plain {fc1_plain:.4f} ms, "
+          f"bound {fc1_bound:.4f} ms ({fc1_by})")
+    print(f"[10] first_crossing, one lane, C={c}, small calls: " + ", ".join(
+        f"N={rows} {ms:.4f} ms"
+        for rows, ms in timing["first_crossing_small"].items()))
     print(card)
     rm = timing["round_ms"]
     print(f"[10] per-round time from the fresh state, S=32 (CUDA events, "
@@ -1334,6 +1518,12 @@ def main() -> int:
                          plain_events=(PLAIN_EVENTS if name == "capped_scan"
                                        else None if name == "flash_attention"
                                        else n)))
+        if name == "first_crossing":
+            rows[-1].update(one_lane_ms=fc1_ms, one_lane_plain_ms=fc1_plain,
+                            one_lane_bound_ms=fc1_bound,
+                            device_kernels=fc_device_kernels,
+                            small_n_ms={str(k): v for k, v in timing[
+                                "first_crossing_small"].items()})
         require(counted[name] > 0, f"{name} never launched on its path")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,9 @@ A :class:`SweepPlan` names the axes of one execution and
   by ``kernels.auction_resolve.ops.sweep_resolve``, then the same two
   partials; ``repro``'s ``"pallas"``), ``"fused"`` (the whole round through
   ``kernels.auction_resolve.ops.round_fused``), or ``"auto"`` (``"fused"``
-  on CUDA, ``"torch"`` on the CPU — :func:`pick_resolve`). Each kernel
+  on CUDA, ``"torch"`` on the CPU — :func:`pick_resolve`; on CUDA a C
+  above a kernel back-end's shared memory takes :data:`ANY_C_BACKEND`,
+  each lane resolved by the ``auction_resolve`` kernel). Each kernel
   wrapper launches its hand-written CUDA kernel for CUDA tensors and runs
   its plain version for CPU tensors; the partials go through
   :func:`repro_torch.core.segments.window_partials`, event-ordered on both;
@@ -51,6 +53,9 @@ from repro_torch.core.types import AuctionRule, never_capped
 from repro_torch.kernels.auction_resolve import ops as resolve_ops
 
 RESOLVE_BACKENDS = ("torch", "sweep_resolve", "fused")
+# the CUDA back-end of a C above the round kernels' shared memory; chosen by
+# pick_resolve, never named by a caller
+ANY_C_BACKEND = "auction_resolve"
 PLACEMENTS = ("device", "batched")
 SIM_DRIVERS = ("auto", "device", "host")
 
@@ -86,14 +91,30 @@ def reject_unported(**axes) -> None:
             raise not_ported(name)
 
 
-def pick_resolve(resolve: str, device) -> str:
+def pick_resolve(resolve: str, device, n_campaigns: int | None = None, *,
+                 limits: dict | None = None) -> str:
     """Resolve ``"auto"`` to a concrete back-end for tensors on ``device``:
-    the CUDA fused round on CUDA, the plain torch path on the CPU."""
+    the CUDA fused round on CUDA, the plain torch path on the CPU.
+
+    On CUDA, given ``n_campaigns``, a kernel back-end whose shared memory
+    cannot hold C campaigns (``limits``, by default
+    ``resolve_ops.round_campaign_limits()``), whether asked for or picked by
+    ``"auto"``, gives way to :data:`ANY_C_BACKEND`, as ``repro``'s fused
+    gate falls back to two passes: each lane resolved by the
+    ``auction_resolve`` kernel, which takes any C, and its partials by
+    ``segment_partials``, both in event order, so it gives the other
+    back-ends' bits."""
     if resolve == "auto":
-        return "fused" if torch.device(device).type == "cuda" else "torch"
-    if resolve not in RESOLVE_BACKENDS:
+        resolve = "fused" if torch.device(device).type == "cuda" else "torch"
+    elif resolve not in RESOLVE_BACKENDS:
         raise _unknown("resolve back-end", resolve,
                        RESOLVE_BACKENDS + ("auto",))
+    if (resolve != "torch" and n_campaigns is not None
+            and torch.device(device).type == "cuda"):
+        limits = resolve_ops.round_campaign_limits() if limits is None \
+            else limits
+        if n_campaigns > limits[resolve]:
+            return ANY_C_BACKEND
     return resolve
 
 
@@ -198,8 +219,8 @@ def lane_commit(blk, c_next, no_cap, n_next, s_hat, active, cap, rnd,
 def _make_round_body(plan: SweepPlan, resolve: str, *, values, rules,
                      budgets_f32, n_events: int, n_campaigns: int):
     """The per-round map ``round_body(core, keep) -> core'`` for the
-    ``"torch"`` or ``"sweep_resolve"`` (resolve-once) or ``"fused"``
-    back-end."""
+    ``"torch"``, ``"sweep_resolve"`` or :data:`ANY_C_BACKEND` (resolve-once)
+    or ``"fused"`` back-end."""
     sentinel = never_capped(n_events)
     second = rules.kind == "second_price"
     block = seg_lib.reduce_block_size(n_events)
@@ -208,16 +229,23 @@ def _make_round_body(plan: SweepPlan, resolve: str, *, values, rules,
 
     def resolve_lanes(active):
         """(S, N) winners/prices of every lane: one ``sweep_resolve`` for
-        all lanes, or the torch path one lane at a time (the bids tensor is
-        then (N, C), never (S, N, C))."""
+        all lanes, or one lane at a time, by the ``auction_resolve`` kernel
+        (:data:`ANY_C_BACKEND`) or the torch path (the bids tensor is then
+        (N, C), never (S, N, C))."""
         if resolve == "sweep_resolve":
             winners, prices, _ = resolve_ops.sweep_resolve(
                 values, rules.multipliers, active, reserves,
                 second_price=second)
             return winners, prices
-        out = [auction.resolve(values, active[s], AuctionRule(
-            multipliers=rules.multipliers[s], reserve=reserves[s],
-            kind=rules.kind)) for s in range(active.shape[0])]
+        if resolve == ANY_C_BACKEND:
+            out = [resolve_ops.resolve_masked(
+                values, rules.multipliers[s], active[s], reserves[s],
+                second_price=second, sums=False)[:2]
+                for s in range(active.shape[0])]
+        else:
+            out = [auction.resolve(values, active[s], AuctionRule(
+                multipliers=rules.multipliers[s], reserve=reserves[s],
+                kind=rules.kind)) for s in range(active.shape[0])]
         return (torch.stack([w for w, _ in out]),
                 torch.stack([p for _, p in out]))
 
@@ -288,8 +316,8 @@ def _unpack(core):
 def _sweep_batched(values, budgets, rules, plan: SweepPlan):
     """The scenario-batched Algorithm-2 loop on one device."""
     check_batch_shapes(values, budgets, rules)
-    resolve = pick_resolve(plan.resolve, values.device)
     n_events, n_campaigns = values.shape
+    resolve = pick_resolve(plan.resolve, values.device, n_campaigns)
     budgets_f32 = budgets.to(torch.float32)
     round_body = _make_round_body(
         plan, resolve, values=values, rules=rules, budgets_f32=budgets_f32,

@@ -267,6 +267,68 @@ def first_crossing_ref(winners: torch.Tensor, prices: torch.Tensor,
     return torch.clamp(cap, max=sentinel)
 
 
+def first_crossing_blocks_ref(winners: torch.Tensor, prices: torch.Tensor,
+                              budgets: torch.Tensor, num_campaigns: int,
+                              block: int = 4096):
+    """``(spend, cap times)`` of S lanes (``winners``/``prices`` (S, N),
+    ``budgets`` (S, C)) by the decomposition ``csrc/first_crossing.cu``
+    runs; for tests, bitwise :func:`first_crossing_ref` and the flat sums.
+
+    * Pass A: every block's in-block scan (:func:`xla_cumsum`) on its own,
+      its total ``T[b]`` the value at its last row.
+    * Pass B: the chain ``s0[0] = 0``, ``s0[b+1] = s0[b] + T[b]``.
+    * Pass C: ``s0[b] + scan >= budget``, tested only at the first row of
+      each 16-row group and at the campaign's own sales: between those rows
+      the scan does not change, so the first crossing is one of them. The
+      earliest crossing block wins.
+    * Flat sums: a stable sort of each lane's events by winner, then one
+      chain per (lane, campaign) over its own sales in event order, from
+      0.0 (a non-sale adds +0.0, which changes nothing).
+    """
+    s, n = winners.shape
+    c = num_campaigns
+    dev = winners.device
+    sentinel = never_capped(n)
+    cols = torch.arange(c, device=dev)
+    b = budgets.to(torch.float32)
+    p32 = prices.to(torch.float32)
+    starts = list(range(0, n, block))
+    scans, totals = [], []
+    for lo in starts:                                           # pass A
+        w = winners[:, lo:lo + block, None]
+        scan = xla_cumsum((w == cols).to(torch.float32)
+                          * p32[:, lo:lo + block, None])
+        scans.append(scan)
+        totals.append(scan[:, -1, :])
+    s0 = [torch.zeros((s, c), dtype=torch.float32, device=dev)]
+    for t in totals[:-1]:                                       # pass B
+        s0.append(s0[-1] + t)
+    cap = torch.full((s, c), sentinel, dtype=torch.int32, device=dev)
+    for lo, scan, base in zip(reversed(starts), reversed(scans),
+                              reversed(s0)):                    # pass C
+        rows = torch.arange(scan.shape[1], device=dev)
+        tested = (rows[None, :, None] % _GROUP == 0) | (
+            winners[:, lo:lo + block, None] == cols)
+        crossed = ((base[:, None, :] + scan) >= b[:, None, :]) & tested
+        first = torch.argmax(crossed.to(torch.uint8), dim=1)
+        cap = torch.where(crossed.any(dim=1),
+                          (lo + first + 1).to(torch.int32), cap)
+    # flat sums: the counting sort and the per-campaign chains
+    key = torch.where(winners < 0, c, winners).long()
+    order = torch.argsort(key, dim=1, stable=True)
+    sorted_p = p32.gather(1, order)
+    counts = torch.zeros((s, c + 1), dtype=torch.long, device=dev)
+    counts.scatter_add_(1, key, torch.ones_like(key))
+    first_pos = torch.cumsum(counts, dim=1) - counts
+    spend = torch.zeros((s, c), dtype=torch.float32, device=dev)
+    longest = int(counts[:, :c].max()) if n else 0
+    for i in range(longest):
+        live = i < counts[:, :c]
+        pos = torch.clamp(first_pos[:, :c] + i, max=max(n - 1, 0))
+        spend = torch.where(live, spend + sorted_p.gather(1, pos), spend)
+    return spend, cap
+
+
 def first_crossing_times(winners: torch.Tensor, prices: torch.Tensor,
                          budgets: torch.Tensor, num_campaigns: int,
                          block: int = 4096) -> torch.Tensor:

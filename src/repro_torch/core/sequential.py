@@ -4,8 +4,8 @@
 The ground truth every parallel method is judged against: the events in
 order, carrying the spend state and recomputing the activation vector before
 each auction. On CUDA tensors it is one launch of the capped-scan kernel
-(``csrc/capped_scan.cu``, a warp walking the events); on the CPU a Python
-loop over events, O(N) serial and slow on purpose. ``naive_sampled_replay``
+(``csrc/capped_scan.cu``, speculative windows repaired at each cap); on
+the CPU a Python loop over events, O(N) serial and slow on purpose. ``naive_sampled_replay``
 arrives with the SORT2AGGREGATE slice.
 """
 from __future__ import annotations

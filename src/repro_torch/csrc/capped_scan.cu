@@ -1,6 +1,6 @@
 // Hand-written Hopper (sm_90a) kernel: the exact budget-capped sequential
 // replay (the paper's Algorithm 1 carried over all campaigns), one scenario
-// lane per warp.
+// lane per CTA.
 //
 // Replaces the Pallas TPU kernel `capped_scan_pallas` of
 // repro/kernels/capped_scan/capped_scan.py (:75, body `_kernel` :27), which
@@ -19,41 +19,76 @@
 //
 // What bounds it on the H100. The bytes (the (N, C) valuations read once,
 // 400 MB at N=1e6, C=100, plus 8 bytes per (lane, event) written) take
-// ~0.2 ms at 3.35 TB/s, and the multiplies and compares less. Neither is
-// the bound: each event depends on the spends the previous event left, so
-// a lane is a chain of N dependent steps, and the chain's latency (the
-// masked arg-max across the warp, then one add) bounds it.
+// ~0.2 ms at 3.35 TB/s, and the multiplies and compares less. The first
+// design (one warp a lane, each event a chain of a column scan, three warp
+// reductions and an add: 437 ms for 32 lanes) was held by that chain. But
+// an event depends on the earlier ones only through the active set, and
+// that changes only when a sale takes its campaign to its budget: at most
+// C times a lane.
 //
-// What the design does about it. One warp per lane keeps the lane's state
-// in registers: lane k of the warp owns campaigns k, k + 32, ... (kPer of
-// them). The valuation rows do not depend on the state, so each thread loads
-// its columns kDepth rows ahead of the chain into a register ring; the
-// loads are coalesced across the warp, and the S warps read the same rows,
-// which L2 serves. A step is the thread's own scan of its kPer columns in
-// ascending order (top two bids, first index on ties), then the merge across
-// the warp in a few instructions: the largest bid by an integer max
-// reduction over order-preserving keys (redux.sync), the lowest index
-// holding it by a min reduction, the bid's exact bits from the winner's
-// thread by one shuffle, and for second price one more max over each
-// thread's best but the winner's thread's second. Then the owner's add, and
-// every thread tests its own columns for the cap (a budget <= 0 caps at
-// event 1 without a sale, as in the reference). Every thread ends a step
-// with the same result; thread n % 32 keeps event n's winner and price,
-// and each 32 events are stored in one coalesced write. The S lanes run
-// side by side on S SMs.
+// What the design does about it: speculative windows with a frozen active
+// set, repaired at the first cap. A lane's CTA loops over windows of
+// kWindow events from n0:
+//  1. resolve: the window's events all against the active set at n0, one
+//     warp per row, kRows rows at once with every valuation load of up to
+//     kChunks 32-column chunks issued before the (branch-free) scan, so a
+//     warp keeps kRows * kChunks loads in flight: each thread's columns in
+//     ascending order (top two bids, first index on ties), then the merge
+//     across the warp: the largest bid by an integer max reduction over
+//     order-preserving keys (redux.sync), the lowest index holding it by a
+//     min reduction, the bid's exact bits from the winner's thread by one
+//     shuffle, and for second price one more max over each thread's best
+//     but the winner's thread's second. Winners and prices go to shared
+//     memory, and each row's mask of the rows of its 32-row step with the
+//     same winner (__match_any_sync);
+//  2. ordered sums: warp 0 walks the window's sales in event order, 32 rows
+//     at a time, each same-winner group's lowest row adding the group's
+//     prices in row order to the campaign's spend, and stops at the first
+//     event k after which a spend is no longer below its budget (only the
+//     winner's spend moves at an event, so at most one campaign caps
+//     there). Meanwhile the other 15 warps resolve the next window against
+//     the same active set, into a second buffer: that work is right unless
+//     this window caps, which happens at most C times a lane;
+//  3. commit: events [n0, k] (the whole window if nothing capped) are the
+//     sequential replay's, since the active set was that of n0 until k. The
+//     spends stand as they were after k, the capping campaign leaves the
+//     active set with cap time k + 1, the window's winners and prices are
+//     stored with coalesced writes, and the next window starts at k + 1:
+//     already resolved if nothing capped, resolved again otherwise.
+// A lane resolves at most N + C * kWindow events. The latency floor is the
+// chain of windows, ~N / kWindow + (caps a lane), each the longer of warp
+// 0's walk (kWindow / 32 dependent steps) and 15 warps' resolve, and two
+// barriers. Every spend takes the same float32 adds in the same order as
+// the sequential walk, so the bits are the first design's.
 //
-// Bids are compared as floats in the scan, and as keys in the merge, where
-// -0.0 orders below +0.0; the two differ only for a zero bid under a
+// State: spend, budget, the multiplier (NaN once inactive, so a bid is NaN
+// and never eligible) and the cap time, 16 bytes a campaign, in shared
+// memory up to cs_max_shared_campaigns() campaigns and in device memory
+// above it (the outputs and a scratch buffer), so any C that fits the card
+// runs. A budget <= 0 caps at event 1 without a sale; a NaN budget is never
+// active and never caps.
+//
+// Bids are compared as floats in a thread's scan, and as keys in the merge,
+// where -0.0 orders below +0.0; the two differ only for a zero bid under a
 // negative reserve.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kDepth = 8;                     // rows loaded ahead
-constexpr int kMaxPer = 8;                    // campaigns per thread
+constexpr int kThreads = 512;                 // one CTA per lane
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 8;                      // rows a warp resolves at once
+constexpr int kChunks = 4;                    // 32-column chunks at once
+constexpr int kWindow = 1024;                 // events per window
+constexpr int kNone = INT_MAX;
+constexpr size_t kMaxSmem = 232448;           // per-block opt-in limit, sm_90
+// a window's winners, prices and same-winner masks
+constexpr size_t kWindowBytes = (size_t)kWindow * 12;
+constexpr size_t kStateBytes = 16;            // per campaign in shared memory
 
 // A float's order-preserving unsigned key (-0.0 below +0.0) and back.
 __device__ __forceinline__ unsigned ordered(float f) {
@@ -65,8 +100,137 @@ __device__ __forceinline__ float unordered(unsigned k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
-template <int kPer>
-__global__ void __launch_bounds__(32)
+int max_shared_campaigns() {
+  return (int)((kMaxSmem - 64 - 2 * kWindowBytes) / kStateBytes);
+}
+
+// Resolves the `len` events of the window from n0 against the active set
+// `em` into winners w_buf and prices p_buf; warps wi, wi + nw, ... of the
+// CTA take kRows rows at a time.
+template <bool kSecond>
+__device__ __forceinline__ void resolve_window(
+    const float* __restrict__ values, const float* em, float reserve, int n0,
+    int len, int C, int32_t* w_buf, float* p_buf, int wi, int nw) {
+  const int lane = threadIdx.x & 31;
+  for (int r0 = wi * kRows; r0 < len; r0 += nw * kRows) {
+    float best[kRows], second[kRows];
+    int win[kRows];
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      best[q] = second[q] = reserve;          // eligible: bid > reserve
+      win[q] = -1;
+    }
+    const float* row = values + (size_t)(n0 + r0) * C;
+    for (int c0 = 0; c0 < C; c0 += 32 * kChunks) {
+      // every load of the step first (kChunks * kRows in flight), then the
+      // scan without branches, so no load waits behind a compare
+      float v[kChunks][kRows], e[kChunks];
+#pragma unroll
+      for (int j = 0; j < kChunks; ++j) {
+        const int c = c0 + 32 * j + lane;
+        e[j] = c < C ? em[c] : nanf("");
+#pragma unroll
+        for (int q = 0; q < kRows; ++q)
+          v[j][q] = (c < C && r0 + q < len)
+                        ? __ldg(row + (size_t)q * C + c) : 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < kChunks; ++j) {
+        const int c = c0 + 32 * j + lane;
+#pragma unroll
+        for (int q = 0; q < kRows; ++q) {
+          const float bid = v[j][q] * e[j];
+          const bool gt = bid > best[q];
+          if (kSecond) {
+            const bool gt2 = bid > second[q];
+            second[q] = gt ? best[q] : (gt2 ? bid : second[q]);
+          }
+          best[q] = gt ? bid : best[q];
+          win[q] = gt ? c : win[q];
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      const unsigned top = __reduce_max_sync(0xffffffffu, ordered(best[q]));
+      const unsigned cand = (win[q] >= 0 && ordered(best[q]) == top)
+                                ? (unsigned)win[q] : 0xffffffffu;
+      const unsigned wmin = __reduce_min_sync(0xffffffffu, cand);
+      const int w_all = wmin == 0xffffffffu ? -1 : (int)wmin;
+      const float top_bid = __shfl_sync(0xffffffffu, best[q], w_all & 31);
+      float price = top_bid;
+      if (kSecond) {
+        const float mine = (w_all >= 0 && (w_all & 31) == lane)
+                               ? second[q] : best[q];
+        price = unordered(__reduce_max_sync(0xffffffffu, ordered(mine)));
+      }
+      if (lane == q && r0 + q < len) {
+        w_buf[r0 + q] = w_all;
+        p_buf[r0 + q] = w_all >= 0 ? price : 0.0f;
+      }
+    }
+  }
+}
+
+// The same-winner groups of a window's rows: for each row, the mask of the
+// rows of its 32-row step with its winner (__match_any_sync); warps wi,
+// wi + nw, ... take a step at a time.
+__device__ __forceinline__ void group_window(const int32_t* w_buf,
+                                             unsigned* g_buf, int len,
+                                             int wi, int nw) {
+  const int lane = threadIdx.x & 31;
+  for (int r = wi * 32; r < len; r += nw * 32) {
+    const int w = r + lane < len ? w_buf[r + lane] : -1;
+    g_buf[r + lane] = __match_any_sync(0xffffffffu, w);
+  }
+}
+
+// One warp's walk of a window's `len` events in order, 32 at a time: each
+// group's lowest row adds its prices in row order to the campaign's spend,
+// and the walk stops at the first row after which a spend is no longer
+// below its budget (that step's adds are made again up to the row).
+// Returns that row, or kNone; the spends stand as after it.
+__device__ __forceinline__ int walk_window(const int32_t* w_buf,
+                                           const float* p_buf,
+                                           const unsigned* g_buf, int len,
+                                           float* sp, const float* bud) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  int first = kNone;
+  for (int r = 0; r < len && first == kNone; r += 32) {
+    const int w = r + lane < len ? w_buf[r + lane] : -1;
+    const unsigned peers = g_buf[r + lane];
+    const bool leader = w >= 0 && (peers & below) == 0;
+    float acc = 0.0f;
+    int cross = kNone;
+    if (leader) {
+      const float b = bud[w];
+      acc = sp[w];
+      for (unsigned m = peers; m != 0u; m &= m - 1u) {
+        const int i = r + __ffs(m) - 1;
+        acc = acc + p_buf[i];
+        if (!(acc < b)) {
+          cross = i;
+          break;
+        }
+      }
+    }
+    first = (int)__reduce_min_sync(0xffffffffu, (unsigned)cross);
+    if (first != kNone && leader) {           // a cap: the rows up to it
+      acc = sp[w];
+      for (unsigned m = peers; m != 0u; m &= m - 1u) {
+        const int i = r + __ffs(m) - 1;
+        if (i > first) break;
+        acc = acc + p_buf[i];
+      }
+    }
+    if (leader) sp[w] = acc;
+  }
+  return first;
+}
+
+template <bool kSecond, bool kShared>
+__global__ void __launch_bounds__(kThreads, 1)
 capped_scan_kernel(const float* __restrict__ values,     // (N, C)
                    const float* __restrict__ budgets,    // (S, C)
                    const float* __restrict__ mult,       // (S, C)
@@ -75,150 +239,172 @@ capped_scan_kernel(const float* __restrict__ values,     // (N, C)
                    float* __restrict__ prices,           // (S, N)
                    float* __restrict__ spend,            // (S, C)
                    int32_t* __restrict__ cap,            // (S, C)
-                   int N, int C, int second_price) {
+                   float* __restrict__ scratch,          // (S, C) or null
+                   int N, int C) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int kmin;
+  // two window buffers, each winners, prices and same-winner masks
+  const auto w_s = [&](int b) {
+    return reinterpret_cast<int32_t*>(smem + b * kWindowBytes);
+  };
+  const auto p_s = [&](int b) {
+    return reinterpret_cast<float*>(w_s(b) + kWindow);
+  };
+  const auto g_s = [&](int b) {
+    return reinterpret_cast<unsigned*>(p_s(b) + kWindow);
+  };
   const int s = blockIdx.x;
-  const int lane = threadIdx.x;
-  const int sentinel = N + 1;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float reserve = reserves[s];
-  float b[kPer], m[kPer], sp[kPer];
-  int cp[kPer];
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int c = lane + 32 * j;
-    const bool real = c < C;
-    b[j] = real ? budgets[(size_t)s * C + c] : INFINITY;  // never caps
-    m[j] = real ? mult[(size_t)s * C + c] : nanf("");     // never bids
-    sp[j] = 0.0f;
-    cp[j] = sentinel;
-  }
-  float ring[kDepth][kPer];
-#pragma unroll
-  for (int d = 0; d < kDepth; ++d)
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int c = lane + 32 * j;
-      ring[d][j] =
-          (d < N && c < C) ? __ldg(values + (size_t)d * C + c) : 0.0f;
-    }
+  const float* b_in = budgets + (size_t)s * C;
+  const float* m_in = mult + (size_t)s * C;
 
-  int kept_w = -1;                            // event (n & 31)'s result,
-  float kept_p = 0.0f;                        // held by thread n & 31
-  for (int n0 = 0; n0 < N; n0 += kDepth) {
-#pragma unroll
-    for (int d = 0; d < kDepth; ++d) {
-      const int n = n0 + d;
-      if (n >= N) break;
-      float v[kPer];
-      const long long ahead = (long long)n + kDepth;
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int c = lane + 32 * j;
-        v[j] = ring[d][j];
-        ring[d][j] = (ahead < N && c < C)
-                         ? __ldg(values + (size_t)ahead * C + c) : 0.0f;
-      }
-      // this thread's columns, ascending: eligible means active and
-      // bid > reserve, which starting `best` at the reserve enforces
-      float best = reserve, second = reserve;
-      int win = -1;
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        if (!(sp[j] < b[j])) continue;        // burnt out (or NaN budget)
-        const float bid = v[j] * m[j];
-        if (bid > best) {
-          second = best;
-          best = bid;
-          win = lane + 32 * j;
-        } else if (bid > second) {
-          second = bid;
-        }
-      }
-      // merge across the warp with integer reductions: the largest bid
-      // (as an order-preserving key), then the lowest index holding it;
-      // the winner's lane supplies the bid's exact bits
-      const unsigned top = __reduce_max_sync(0xffffffffu, ordered(best));
-      const unsigned cand =
-          (win >= 0 && ordered(best) == top) ? (unsigned)win : 0xffffffffu;
-      const unsigned wmin = __reduce_min_sync(0xffffffffu, cand);
-      const int w_all = wmin == 0xffffffffu ? -1 : (int)wmin;
-      const float top_bid = __shfl_sync(0xffffffffu, best, w_all & 31);
-      if (second_price) {
-        // the largest bid of the rest: the winner's lane offers its second,
-        // every other lane its best
-        const float mine = (w_all >= 0 && (w_all & 31) == lane) ? second
-                                                                  : best;
-        second = unordered(__reduce_max_sync(0xffffffffu, ordered(mine)));
-      }
-      best = top_bid;
-      win = w_all;
-      const float price = win >= 0 ? (second_price ? second : best) : 0.0f;
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        if (win == lane + 32 * j) sp[j] = sp[j] + price;
-        if (cp[j] == sentinel && sp[j] >= b[j]) cp[j] = n + 1;
-      }
-      if (lane == (n & 31)) {
-        kept_w = win;
-        kept_p = price;
-      }
-      if ((n & 31) == 31 || n == N - 1) {
-        const int row = (n & ~31) + lane;
-        if (row <= n) {
-          winners[(size_t)s * N + row] = kept_w;
-          prices[(size_t)s * N + row] = kept_p;
-        }
-      }
+  // the lane's state: in shared memory, or in the outputs and the scratch
+  // (a template parameter, so that the compiler knows which and issues
+  // shared-memory loads for the first)
+  float *em, *sp;
+  const float* bud;
+  int32_t* cp;
+  if (kShared) {
+    float* st = reinterpret_cast<float*>(smem + 2 * kWindowBytes);
+    em = st;
+    sp = st + C;
+    float* b_s = st + 2 * C;
+    cp = reinterpret_cast<int32_t*>(st + 3 * C);
+    for (int c = tid; c < C; c += kThreads) b_s[c] = b_in[c];
+    bud = b_s;
+  } else {
+    em = scratch + (size_t)s * C;
+    sp = spend + (size_t)s * C;
+    cp = cap + (size_t)s * C;
+    bud = b_in;
+  }
+  for (int c = tid; c < C; c += kThreads) {
+    const float b = b_in[c];
+    sp[c] = 0.0f;
+    em[c] = 0.0f < b ? m_in[c] : nanf("");    // inactive: never bids
+    cp[c] = 0.0f >= b ? 1 : N + 1;            // a budget <= 0 caps at 1
+  }
+  __syncthreads();
+
+  int cur = 0;
+  int len = min(kWindow, N);
+  if (len > 0) {
+    resolve_window<kSecond>(values, em, reserve, 0, len, C, w_s(cur),
+                            p_s(cur), warp, kWarps);
+    __syncthreads();
+    group_window(w_s(cur), g_s(cur), len, warp, kWarps);
+    __syncthreads();
+  }
+  for (int n0 = 0; n0 < N;) {
+    // warp 0 walks the window while the other warps resolve the next one
+    // against the same active set: right unless this window caps
+    const int next0 = n0 + len;
+    const int next_len = min(kWindow, N - next0);
+    if (warp == 0) {
+      const int k = walk_window(w_s(cur), p_s(cur), g_s(cur), len, sp, bud);
+      if (lane == 0) kmin = k;
+    } else if (next_len > 0) {
+      resolve_window<kSecond>(values, em, reserve, next0, next_len, C,
+                              w_s(1 - cur), p_s(1 - cur), warp - 1,
+                              kWarps - 1);
+      asm volatile("bar.sync 1, %0;" ::"r"(kThreads - 32) : "memory");
+      group_window(w_s(1 - cur), g_s(1 - cur), next_len, warp - 1,
+                   kWarps - 1);
     }
+    __syncthreads();
+
+    // commit events [n0, k] (the whole window if nothing capped)
+    const int k = kmin;
+    const int m = k == kNone ? len : k + 1;
+    if (k != kNone && tid == 0) {             // the campaign that capped
+      const int c = w_s(cur)[k];
+      em[c] = nanf("");
+      if (sp[c] >= bud[c]) cp[c] = n0 + k + 1;
+    }
+    for (int r = tid; r < m; r += kThreads) {
+      winners[(size_t)s * N + n0 + r] = w_s(cur)[r];
+      prices[(size_t)s * N + n0 + r] = p_s(cur)[r];
+    }
+    n0 += m;
+    if (k == kNone) {                         // the next window is right
+      cur = 1 - cur;
+      len = next_len;
+    } else if (n0 < N) {                      // resolve it again from k + 1
+      __syncthreads();
+      len = min(kWindow, N - n0);
+      resolve_window<kSecond>(values, em, reserve, n0, len, C, w_s(1 - cur),
+                              p_s(1 - cur), warp, kWarps);
+      __syncthreads();
+      group_window(w_s(1 - cur), g_s(1 - cur), len, warp, kWarps);
+      cur = 1 - cur;
+    }
+    __syncthreads();
   }
 
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int c = lane + 32 * j;
-    if (c < C) {
-      spend[(size_t)s * C + c] = sp[j];
-      cap[(size_t)s * C + c] = cp[j];
+  if (kShared) {
+    for (int c = tid; c < C; c += kThreads) {
+      spend[(size_t)s * C + c] = sp[c];
+      cap[(size_t)s * C + c] = cp[c];
     }
   }
 }
 
-template <int kPer>
+template <bool kSecond, bool kShared>
 int launch(const float* values, const float* budgets, const float* mult,
            const float* reserves, int32_t* winners, float* prices,
-           float* spend, int32_t* cap, int S, int N, int C, int second_price,
+           float* spend, int32_t* cap, float* scratch, int S, int N, int C,
            cudaStream_t stream) {
-  capped_scan_kernel<kPer><<<S, 32, 0, stream>>>(
-      values, budgets, mult, reserves, winners, prices, spend, cap, N, C,
-      second_price);
+  const size_t dyn =
+      2 * kWindowBytes + (kShared ? (size_t)C * kStateBytes : 0);
+  if (dyn > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        capped_scan_kernel<kSecond, kShared>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+    if (err != cudaSuccess) return (int)err;
+  }
+  capped_scan_kernel<kSecond, kShared><<<S, kThreads, dyn, stream>>>(
+      values, budgets, mult, reserves, winners, prices, spend, cap, scratch,
+      N, C);
   return (int)cudaGetLastError();
+}
+
+template <bool kSecond>
+int launch_rule(const float* values, const float* budgets, const float* mult,
+                const float* reserves, int32_t* winners, float* prices,
+                float* spend, int32_t* cap, float* scratch, int S, int N,
+                int C, cudaStream_t stream) {
+  if (C <= max_shared_campaigns())
+    return launch<kSecond, true>(values, budgets, mult, reserves, winners,
+                                 prices, spend, cap, scratch, S, N, C,
+                                 stream);
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<kSecond, false>(values, budgets, mult, reserves, winners,
+                                prices, spend, cap, scratch, S, N, C, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// S exact replays, one warp each. Returns the cudaError_t of the launch, or
-// cudaErrorInvalidValue for a C above cs_max_campaigns().
+// S exact replays, one CTA each. `scratch` holds S * C floats when C is
+// above cs_max_shared_campaigns() (null otherwise). Returns the cudaError_t
+// of the launch.
 int cs_capped_scan(const float* values, const float* budgets,
                    const float* mult, const float* reserves, int32_t* winners,
-                   float* prices, float* spend, int32_t* cap, int S, int N,
-                   int C, int second_price, cudaStream_t stream) {
-  const int per = (C + 31) / 32;
-  if (per <= 1)
-    return launch<1>(values, budgets, mult, reserves, winners, prices, spend,
-                     cap, S, N, C, second_price, stream);
-  if (per <= 2)
-    return launch<2>(values, budgets, mult, reserves, winners, prices, spend,
-                     cap, S, N, C, second_price, stream);
-  if (per <= 4)
-    return launch<4>(values, budgets, mult, reserves, winners, prices, spend,
-                     cap, S, N, C, second_price, stream);
-  if (per <= kMaxPer)
-    return launch<kMaxPer>(values, budgets, mult, reserves, winners, prices,
-                           spend, cap, S, N, C, second_price, stream);
-  return (int)cudaErrorInvalidValue;
+                   float* prices, float* spend, int32_t* cap, float* scratch,
+                   int S, int N, int C, int second_price,
+                   cudaStream_t stream) {
+  return second_price
+             ? launch_rule<true>(values, budgets, mult, reserves, winners,
+                                 prices, spend, cap, scratch, S, N, C, stream)
+             : launch_rule<false>(values, budgets, mult, reserves, winners,
+                                  prices, spend, cap, scratch, S, N, C,
+                                  stream);
 }
 
-// Largest C one warp holds in registers.
-int cs_max_campaigns(void) { return 32 * kMaxPer; }
+// Largest C whose state the kernel keeps in shared memory; above it the
+// state lives in device memory.
+int cs_max_shared_campaigns(void) { return max_shared_campaigns(); }
 
 }  // extern "C"

@@ -5,6 +5,11 @@ embeddings (:func:`resolve_emb_cuda`) or read from a valuation matrix
 (:func:`resolve_matrix_cuda`, the SORT2AGGREGATE path). It follows
 :mod:`repro_torch.kernels.binding` and counts its launches in
 :data:`LAUNCHES`.
+
+The kernel's shared memory holds the sums of at most
+:func:`max_shared_floats` campaigns and EmbTile's embeddings of at most
+:func:`emb_max_campaigns` campaigns; the wrappers refuse more, and
+:mod:`.ops` routes such calls around those limits.
 """
 from __future__ import annotations
 
@@ -38,6 +43,17 @@ def _lib():
     return binding.bind("auction_resolve", _SIGNATURES)
 
 
+def max_shared_floats() -> int:
+    """Floats of shared memory the kernel has for the sums' C running
+    totals (and EmbTile's embeddings); builds the kernel."""
+    return _lib().ar_max_shared_floats()
+
+
+def emb_max_campaigns(d: int) -> int:
+    """The largest C whose EmbTile embeddings, C·d + 128·d floats, fit."""
+    return max_shared_floats() // d - ROWS_PER_CTA
+
+
 def _lane_ptrs(mult, act, live, reserve, n, c, dev):
     per_event = act.ndim == 2
     ptrs = [
@@ -57,12 +73,6 @@ def _outputs(n, c, want_sums, dev):
     return winners, prices, sums
 
 
-def _check_sums(lib, c, want_sums):
-    if want_sums and c > lib.ar_max_shared_floats():
-        raise ValueError(f"C={c} exceeds the auction_resolve sums' limit of "
-                         f"{lib.ar_max_shared_floats()} campaigns")
-
-
 def resolve_matrix_cuda(values: torch.Tensor, mult: torch.Tensor,
                         act: torch.Tensor, live: torch.Tensor | None,
                         reserve: torch.Tensor, *, second_price: bool,
@@ -74,7 +84,9 @@ def resolve_matrix_cuda(values: torch.Tensor, mult: torch.Tensor,
     lib = _lib()
     n, c = values.shape
     dev = values.device
-    _check_sums(lib, c, want_sums)
+    if want_sums:
+        binding.check_campaigns(c, lib.ar_max_shared_floats(),
+                                "auction_resolve sums")
     ptrs, per_event = _lane_ptrs(mult, act, live, reserve, n, c, dev)
     v_ptr = _check("values", values, torch.float32, (n, c), dev)
     winners, prices, sums = _outputs(n, c, want_sums, dev)
@@ -104,19 +116,14 @@ def resolve_emb_cuda(event_emb: torch.Tensor, campaign_emb: torch.Tensor,
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"embeddings have dtype {dtype}, expected float32 "
                          "or bfloat16")
-    need = c * d + ROWS_PER_CTA * d
-    if need > lib.ar_max_shared_floats():
-        raise ValueError(
-            f"C·d = {c * d} (C={c}, d={d}) exceeds the auction_resolve "
-            f"kernel's shared memory: C·d + {ROWS_PER_CTA}·d must be at most "
-            f"{lib.ar_max_shared_floats()} floats")
-    _check_sums(lib, c, want_sums)
+    binding.check_campaigns(c, emb_max_campaigns(d),
+                            f"auction_resolve EmbTile (d={d})")
     ptrs, per_event = _lane_ptrs(mult, act, live, reserve, n, c, dev)
-    e_ptr = _check("event_emb", event_emb, dtype, (n, d), dev)
-    r_ptr = _check("campaign_emb", campaign_emb, dtype, (c, d), dev)
     winners, prices, sums = _outputs(n, c, want_sums, dev)
     err = lib.ar_resolve_emb(
-        e_ptr, r_ptr, int(dtype == torch.bfloat16), d, inv_scale(d), *ptrs,
+        _check("event_emb", event_emb, dtype, (n, d), dev),
+        _check("campaign_emb", campaign_emb, dtype, (c, d), dev),
+        int(dtype == torch.bfloat16), d, inv_scale(d), *ptrs,
         winners.data_ptr(), prices.data_ptr(),
         None if sums is None else sums.data_ptr(), n, c, int(per_event),
         int(second_price), binding.stream(dev))

@@ -7,11 +7,15 @@ and ``auction.spend_sums`` (a segment sum). The kernel gives both in the
 reference's float order; :mod:`repro_torch.core.segments` and
 :mod:`repro_torch.core.auction` send CUDA tensors here, and keep the plain
 versions (``first_crossing_ref``, ``index_add_``) for CPU tensors. The
-wrapper follows :mod:`repro_torch.kernels.binding` and counts its launches
-in :data:`LAUNCHES`.
+wrapper follows :mod:`repro_torch.kernels.binding` and counts in
+:data:`LAUNCHES` its calls (``"first_crossing"``, one per call) and the
+device kernels they ran (``"first_crossing_device_kernels"``, as the
+library counts them): four a call (block totals, the chains, the
+crossings, the flat sums; ``csrc/first_crossing.cu``).
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -19,18 +23,24 @@ import torch
 from repro_torch.kernels import binding
 from repro_torch.kernels.binding import I as _I, P as _P, check as _check
 
-LAUNCHES = {"first_crossing": 0}
+LAUNCHES = {"first_crossing": 0, "first_crossing_device_kernels": 0}
 
-_SIGNATURES = {"fc_first_crossing": [_P] * 5 + [_I] * 4 + [_P]}
+_SIGNATURES = {"fc_first_crossing": [_P] * 6 + [_I] * 4 + [_P],
+               "fc_scratch_bytes": [_I] * 4,
+               "fc_device_kernels": []}
 
 
 def reset_launches() -> None:
-    LAUNCHES["first_crossing"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    return binding.bind("first_crossing", _SIGNATURES)
+    lib = binding.bind("first_crossing", _SIGNATURES)
+    lib.fc_scratch_bytes.restype = ctypes.c_longlong
+    lib.fc_device_kernels.restype = ctypes.c_longlong
+    return lib
 
 
 def first_crossing_cuda(winners: torch.Tensor, prices: torch.Tensor,
@@ -40,7 +50,7 @@ def first_crossing_cuda(winners: torch.Tensor, prices: torch.Tensor,
     float32. Returns ``(cap times (S, C) int32, spend (S, C) float32)``:
     the flat per-campaign sums in event order and, when ``budgets`` (S, C)
     is given, the first crossings of the blockwise running spend in XLA's
-    cumsum order (None without budgets). One launch for all lanes."""
+    cumsum order (None without budgets). One call for all lanes."""
     binding.require_cuda(winners)
     lib = _lib()
     s, n = winners.shape
@@ -57,9 +67,14 @@ def first_crossing_cuda(winners: torch.Tensor, prices: torch.Tensor,
     cap = None if budgets is None else torch.empty(
         (s, c), dtype=torch.int32, device=dev)
     spend = torch.empty((s, c), dtype=torch.float32, device=dev)
+    scratch = torch.empty(lib.fc_scratch_bytes(s, n, c, block),
+                          dtype=torch.uint8, device=dev)
+    before = lib.fc_device_kernels()
     err = lib.fc_first_crossing(
-        *ptrs, None if cap is None else cap.data_ptr(), spend.data_ptr(), s,
-        n, c, block, binding.stream(dev))
+        *ptrs, None if cap is None else cap.data_ptr(), spend.data_ptr(),
+        scratch.data_ptr(), s, n, c, block, binding.stream(dev))
     binding.raise_on(err, "first_crossing_kernel")
     LAUNCHES["first_crossing"] += 1
+    LAUNCHES["first_crossing_device_kernels"] += \
+        lib.fc_device_kernels() - before
     return cap, spend

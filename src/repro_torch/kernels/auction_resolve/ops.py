@@ -6,19 +6,94 @@ CUDA kernel (:mod:`.round_fused`, :mod:`.sweep_resolve`,
 :mod:`.auction_resolve`), which launches or
 raises; a CPU tensor goes to the plain PyTorch version (:mod:`.ref`),
 because the caller asked for the CPU. There is no padding: the kernels take
-any N and C.
+any N.
+
+C is limited by the kernels' shared memory, and this module holds the
+decisions that keep every C a CUDA caller can pass on hand-written kernels
+with the same bits: :func:`round_campaign_limits` (the round back-ends'
+limits, which ``core.executor.pick_resolve`` reads), :func:`resolve_masked`
+(sums above the kernel's limit from ``first_crossing``'s flat sum) and
+:func:`auction_resolve` (EmbTile above its C·d limit in campaign chunks,
+:func:`resolve_by_campaign_chunks`). :data:`PATHS` counts the calls that
+took the last two.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.segments import REDUCE_BLOCKS
+from repro_torch.kernels.auction_resolve import auction_resolve as ar_kernel
 from repro_torch.kernels.auction_resolve import ref
+from repro_torch.kernels.auction_resolve import sweep_resolve as sr_kernel
 from repro_torch.kernels.auction_resolve.auction_resolve import (
     resolve_emb_cuda, resolve_matrix_cuda)
 from repro_torch.kernels.auction_resolve import round_fused as cuda_kernels
+from repro_torch.kernels.auction_resolve.first_crossing import \
+    first_crossing_cuda
 from repro_torch.kernels.auction_resolve.sweep_resolve import \
     sweep_resolve_cuda
+
+PATHS = {"auction_resolve_flat_sums": 0, "auction_resolve_chunked": 0}
+
+
+def reset_paths() -> None:
+    for name in PATHS:
+        PATHS[name] = 0
+
+
+def round_campaign_limits() -> dict:
+    """The largest C each CUDA round back-end holds in shared memory:
+    ``"fused"`` (``round_fused``) and ``"sweep_resolve"``; builds both
+    kernels."""
+    return {"fused": cuda_kernels.max_campaigns(),
+            "sweep_resolve": sr_kernel.max_campaigns()}
+
+
+def _flat_sums(winners: torch.Tensor, prices: torch.Tensor,
+               c: int) -> torch.Tensor:
+    """(C,) event-ordered sums of one design's resolved events by
+    ``first_crossing``'s flat sum, the sums of a C above the resolve
+    kernel's shared memory: both add each campaign's prices in event order
+    from 0.0, so the bits are the same (a card test holds the two)."""
+    _, sums = first_crossing_cuda(winners[None], prices[None], None,
+                                  num_campaigns=c)
+    PATHS["auction_resolve_flat_sums"] += 1
+    return sums[0]
+
+
+def resolve_by_campaign_chunks(resolve, num_campaigns: int, chunk: int,
+                               reserve: torch.Tensor, *, second_price: bool):
+    """One design's ``(winners, prices)`` from resolves of campaign chunks
+    of at most ``chunk`` campaigns, merged exactly. ``resolve(c0, c1,
+    second)`` resolves campaigns [c0, c1) alone and returns their
+    ``(winners, prices)`` (winners chunk-relative, -1 = no sale). A chunk's
+    first-price resolve gives its winner and top bid, its second-price
+    resolve ``max(second bid, reserve)``. The winner is the largest top bid,
+    an earlier chunk winning a tie (the first index wins); its second price
+    is the winning chunk's, maxed with the other chunks' top bids. Every
+    step is a comparison or a max, so the bits are the unchunked resolve's.
+    """
+    best = win = sec = None
+    for c0 in range(0, num_campaigns, chunk):
+        c1 = min(c0 + chunk, num_campaigns)
+        w, top = resolve(c0, c1, False)
+        sale = w >= 0
+        top = torch.where(sale, top, float("-inf"))
+        w = torch.where(sale, w + c0, -1)
+        if best is None:
+            best = torch.full_like(top, float("-inf"))
+            win = torch.full_like(w, -1)
+            sec = torch.broadcast_to(reserve.to(top), top.shape)
+        better = top > best
+        if second_price:
+            _, chunk_sec = resolve(c0, c1, True)
+            sec = torch.where(better, torch.maximum(best, chunk_sec),
+                              torch.maximum(sec, top))
+        win = torch.where(better, w, win)
+        best = torch.where(better, top, best)
+    price = sec if second_price else best
+    return win.to(torch.int32), torch.where(win >= 0, price, 0.0).to(
+        torch.float32)
 
 
 def _lane_inputs(multipliers, active, reserves, n_scenarios, device):
@@ -50,7 +125,10 @@ def auction_resolve(event_emb: torch.Tensor, campaign_emb: torch.Tensor,
     12): event embeddings (N, d), campaign embeddings (C, d) (float32 or
     bf16), multipliers (C,), a (C,) or (N, C) activation. Returns
     ``(winners (N,) int32 [-1 = no sale], prices (N,) float32, spend sums
-    (C,) float32)``, the sums added in event order. Any N, C and d."""
+    (C,) float32)``, the sums added in event order. Any N, C and d: on
+    CUDA, campaigns whose embeddings do not fit the kernel's shared memory
+    are resolved in chunks that fit (:func:`resolve_by_campaign_chunks`)
+    and their sums are the flat sums of the merged events."""
     dev = event_emb.device
     mult, act, res, _ = _design_inputs(multipliers, active, reserve, None,
                                        dev)
@@ -60,8 +138,22 @@ def auction_resolve(event_emb: torch.Tensor, campaign_emb: torch.Tensor,
     e, r = event_emb, campaign_emb.to(dev)
     if e.dtype != r.dtype or e.dtype != torch.bfloat16:
         e, r = e.to(torch.float32), r.to(torch.float32)   # exact widening
-    return resolve_emb_cuda(e.contiguous(), r.contiguous(), mult, act, None,
-                            res, second_price=second_price, want_sums=True)
+    e, r = e.contiguous(), r.contiguous()
+    c, d = r.shape
+    chunk = ar_kernel.emb_max_campaigns(d)
+    if c <= chunk or chunk < 1:           # fits, or the wrapper refuses d
+        return resolve_emb_cuda(e, r, mult, act, None, res,
+                                second_price=second_price, want_sums=True)
+    PATHS["auction_resolve_chunked"] += 1
+
+    def resolve(c0, c1, second):
+        return resolve_emb_cuda(e, r[c0:c1], mult[c0:c1],
+                                act[..., c0:c1].contiguous(), None, res,
+                                second_price=second, want_sums=False)[:2]
+
+    winners, prices = resolve_by_campaign_chunks(
+        resolve, c, chunk, res, second_price=second_price)
+    return winners, prices, _flat_sums(winners, prices, c)
 
 
 def resolve_masked(values: torch.Tensor, multipliers: torch.Tensor,
@@ -72,7 +164,9 @@ def resolve_masked(values: torch.Tensor, multipliers: torch.Tensor,
     are not sold. Returns ``(winners (N,) int32, prices (N,) float32, spend
     sums (C,) float32 or None when ``sums`` is False)``, the sums added in
     event order. The resolve of SORT2AGGREGATE's segment replays and
-    Algorithm 4's batches."""
+    Algorithm 4's batches, and of the round back-end that takes any C
+    (``core.executor``). On CUDA, sums of more campaigns than the kernel's
+    shared memory holds are ``first_crossing``'s flat sums."""
     dev = values.device
     mult, act, res, live = _design_inputs(multipliers, active, reserve, live,
                                           dev)
@@ -80,9 +174,14 @@ def resolve_masked(values: torch.Tensor, multipliers: torch.Tensor,
         winners, prices, total = ref.resolve_masked_ref(
             values, mult, act, res, live, second_price=second_price)
         return winners, prices, total if sums else None
-    return resolve_matrix_cuda(values.to(torch.float32).contiguous(), mult,
-                               act, live, res, second_price=second_price,
-                               want_sums=sums)
+    c = values.shape[1]
+    flat = sums and c > ar_kernel.max_shared_floats()
+    winners, prices, total = resolve_matrix_cuda(
+        values.to(torch.float32).contiguous(), mult, act, live, res,
+        second_price=second_price, want_sums=sums and not flat)
+    if flat:
+        total = _flat_sums(winners, prices, c)
+    return winners, prices, total
 
 
 def sweep_resolve(values: torch.Tensor, multipliers: torch.Tensor,

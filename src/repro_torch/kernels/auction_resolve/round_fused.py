@@ -36,6 +36,11 @@ def _lib():
     return binding.bind("round_fused", _SIGNATURES)
 
 
+def max_campaigns() -> int:
+    """The largest C the kernel holds in shared memory; builds it."""
+    return _lib().rf_max_campaigns()
+
+
 def _partials(lib, values, mult, act, reserves, lo, hi, alive, *,
               offset: int, n_global: int, block_size: int, reduce_blocks: int,
               second_price: bool, skip_retired: bool) -> torch.Tensor:

@@ -29,6 +29,11 @@ def _lib():
     return binding.bind("sweep_resolve", _SIGNATURES)
 
 
+def max_campaigns() -> int:
+    """The largest C the kernel holds in shared memory; builds it."""
+    return _lib().sr_max_campaigns()
+
+
 def sweep_resolve_cuda(values: torch.Tensor, mult: torch.Tensor,
                        act: torch.Tensor, reserves: torch.Tensor, *,
                        second_price: bool, reduce_blocks: int):

@@ -15,8 +15,8 @@ from repro_torch.kernels.binding import I as _I, P as _P, check as _check
 LAUNCHES = {"capped_scan": 0}
 
 _SIGNATURES = {
-    "cs_capped_scan": [_P] * 8 + [_I] * 4 + [_P],
-    "cs_max_campaigns": [],
+    "cs_capped_scan": [_P] * 9 + [_I] * 4 + [_P],
+    "cs_max_shared_campaigns": [],
 }
 
 
@@ -32,15 +32,16 @@ def _lib():
 def capped_scan_cuda(values: torch.Tensor, budgets: torch.Tensor,
                      mult: torch.Tensor, reserves: torch.Tensor, *,
                      second_price: bool):
-    """S exact replays in one launch, one warp per lane. Returns
-    ``(winners (S, N) int32, prices (S, N) float32, spend (S, C) float32,
-    cap times (S, C) int32)``."""
+    """S exact replays in one launch, one CTA per lane, any C: the lane's
+    state lives in shared memory up to ``cs_max_shared_campaigns()``
+    campaigns and in device memory (a scratch buffer and the outputs)
+    above. Returns ``(winners (S, N) int32, prices (S, N) float32, spend
+    (S, C) float32, cap times (S, C) int32)``."""
     binding.require_cuda(values)
     lib = _lib()
     n, c = values.shape
     s = budgets.shape[0]
     dev = values.device
-    binding.check_campaigns(c, lib.cs_max_campaigns(), "capped_scan")
     ptrs = [
         _check("values", values, torch.float32, (n, c), dev),
         _check("budgets", budgets, torch.float32, (s, c), dev),
@@ -51,9 +52,13 @@ def capped_scan_cuda(values: torch.Tensor, budgets: torch.Tensor,
     prices = torch.empty((s, n), dtype=torch.float32, device=dev)
     spend = torch.empty((s, c), dtype=torch.float32, device=dev)
     cap = torch.empty((s, c), dtype=torch.int32, device=dev)
+    scratch = None
+    if c > lib.cs_max_shared_campaigns():
+        scratch = torch.empty((s, c), dtype=torch.float32, device=dev)
     err = lib.cs_capped_scan(
         *ptrs, winners.data_ptr(), prices.data_ptr(), spend.data_ptr(),
-        cap.data_ptr(), s, n, c, int(second_price), binding.stream(dev))
+        cap.data_ptr(), None if scratch is None else scratch.data_ptr(), s,
+        n, c, int(second_price), binding.stream(dev))
     binding.raise_on(err, "capped_scan_kernel")
     LAUNCHES["capped_scan"] += 1
     return winners, prices, spend, cap

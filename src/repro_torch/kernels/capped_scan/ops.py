@@ -3,8 +3,8 @@
 
 It dispatches on the device: a CUDA tensor goes to the hand-written kernel
 (:mod:`.capped_scan`), which launches or raises; a CPU tensor goes to the
-plain version (:mod:`.ref`). There is no padding: the kernel takes any N,
-and C up to its register limit.
+plain version (:mod:`.ref`). There is no padding: the kernel takes any N
+and any C.
 """
 from __future__ import annotations
 

@@ -52,3 +52,73 @@ def capped_scan_ref(values: torch.Tensor, budgets: torch.Tensor,
         winners[:, i] = torch.where(sale, w[:, 0].to(torch.int32), -1)
         prices[:, i] = price
     return winners, prices, spend, cap
+
+
+def _resolve_rows(rows: torch.Tensor, mult: torch.Tensor,
+                  active: torch.Tensor, reserve: torch.Tensor,
+                  second_price: bool):
+    """One lane's rows (W, C) resolved against one frozen (C,) activation,
+    with the per-event arithmetic of :func:`capped_scan_ref`."""
+    bids = rows.to(torch.float32) * mult
+    masked = torch.where(active & (bids > reserve), bids, NEG_INF)
+    w = torch.argmax(masked, dim=1, keepdim=True)
+    top = masked.gather(1, w)[:, 0]
+    sale = top > NEG_INF
+    if second_price:
+        second = masked.scatter(1, w, NEG_INF).amax(1)
+        second = torch.where(second > NEG_INF, second, reserve)
+        price = torch.where(sale, torch.maximum(second, reserve), 0.0)
+    else:
+        price = torch.where(sale, top, 0.0)
+    return torch.where(sale, w[:, 0].to(torch.int32), -1), price
+
+
+def capped_scan_windows_ref(values: torch.Tensor, budgets: torch.Tensor,
+                            multipliers: torch.Tensor,
+                            reserves: torch.Tensor,
+                            second_price: bool = False, *, window: int):
+    """:func:`capped_scan_ref` by the decomposition ``csrc/capped_scan.cu``
+    runs, for tests: speculative windows against a frozen active set,
+    repaired at the first cap.
+
+    The active set ``spend < budget`` changes only when a sale leaves its
+    campaign at or above its budget. So a lane resolves the ``window``
+    events from ``n0`` all against the active set at ``n0``, then adds each
+    campaign's sales to its spend in event order and finds the first event
+    ``k`` after which a spend is no longer below its budget. Events ``[n0,
+    k]`` are exactly the sequential replay's; the lane commits them (the
+    whole window if nothing capped), sets the cap time ``k + 1`` and
+    restarts at ``k + 1``. A budget <= 0 caps at event 1, unsold."""
+    n, c = values.shape
+    s_count = budgets.shape[0]
+    dev = values.device
+    b = budgets.to(torch.float32)
+    mult = multipliers.to(torch.float32)
+    res = reserves.to(torch.float32)
+    winners = torch.empty((s_count, n), dtype=torch.int32, device=dev)
+    prices = torch.empty((s_count, n), dtype=torch.float32, device=dev)
+    spend = torch.zeros((s_count, c), dtype=torch.float32, device=dev)
+    cap = torch.where(0.0 >= b, 1, n + 1).to(torch.int32)
+    for lane in range(s_count):
+        sp, bl = spend[lane], b[lane]
+        n0 = 0
+        while n0 < n:
+            hi = min(n0 + window, n)
+            w, p = _resolve_rows(values[n0:hi], mult[lane], sp < bl,
+                                 res[lane], second_price)
+            k = hi - n0 - 1                       # commit the whole window
+            trial = sp.clone()
+            for r, wr in enumerate(w.tolist()):   # the ordered sums
+                if wr < 0:
+                    continue
+                trial[wr] += p[r]
+                if not bool(trial[wr] < bl[wr]):
+                    k = r
+                    if bool(trial[wr] >= bl[wr]):
+                        cap[lane, wr] = n0 + r + 1
+                    break
+            sp.copy_(trial)
+            winners[lane, n0:n0 + k + 1] = w[:k + 1]
+            prices[lane, n0:n0 + k + 1] = p[:k + 1]
+            n0 += k + 1
+    return winners, prices, spend, cap

@@ -25,7 +25,8 @@ from repro_torch.core import (AuctionRule, CounterfactualEngine,  # noqa: E402
 from repro_torch.interop import from_reference  # noqa: E402
 from repro_torch.kernels.capped_scan import capped_scan as cuda_cs  # noqa: E402
 from repro_torch.kernels.capped_scan import ops as scan_ops  # noqa: E402
-from repro_torch.kernels.capped_scan.ref import capped_scan_ref  # noqa: E402
+from repro_torch.kernels.capped_scan.ref import (  # noqa: E402
+    capped_scan_ref, capped_scan_windows_ref)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -106,6 +107,38 @@ def test_capped_scan_matches_the_reference_replay(kind):
         ref = j_replay(jnp.asarray(values), jnp.asarray(budgets[k]), rule)
         _assert_equal((ref.winners, ref.prices, ref.final_spend,
                        ref.cap_times), [x[k] for x in out], f"lane {k}")
+
+
+@pytest.mark.parametrize("kind", ["first_price", "second_price"])
+@pytest.mark.parametrize("window", [1, 7, 64, "N"])
+def test_capped_scan_windows_ref_is_the_replay(kind, window):
+    """The CUDA kernel's decomposition (speculative windows against a
+    frozen active set, repaired at the first cap) bitwise the plain version
+    and ``repro``'s replay: windows of 1, 7, 64 and N, so that restarts land
+    on window edges; budgets small enough that most campaigns cap; a lane
+    with a negative reserve over rows of zero valuations (zero bids are
+    eligible), zero and NaN budgets."""
+    n, c, s = 600, 14, 4
+    values, budgets, mult, reserves = _lanes(n, c, s, seed=21)
+    values[::5] = 0.0
+    budgets *= 0.15
+    budgets[2, 5] = np.nan
+    reserves[3] = -0.25
+    second = kind == "second_price"
+    args = (_t(values), _t(budgets), _t(mult), _t(reserves))
+    plain = capped_scan_ref(*args, second_price=second)
+    got = capped_scan_windows_ref(*args, second_price=second,
+                                  window=n if window == "N" else window)
+    for a, b in zip(plain, got):
+        assert torch.equal(a, b)
+    assert float((plain[3] <= n).float().mean()) > 0.5
+    assert int(plain[3][2, 5]) == n + 1 and bool((plain[3][1:, 2] == 1).all())
+    for k in range(s):
+        rule = JRule(multipliers=jnp.asarray(mult[k]),
+                     reserve=jnp.float32(reserves[k]), kind=kind)
+        ref = j_replay(jnp.asarray(values), jnp.asarray(budgets[k]), rule)
+        _assert_equal((ref.winners, ref.prices, ref.final_spend,
+                       ref.cap_times), [x[k] for x in got], f"lane {k}")
 
 
 @pytest.fixture(scope="module")

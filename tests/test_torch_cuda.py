@@ -18,7 +18,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import prng  # noqa: E402
 from repro_torch.core import (AuctionRule, CounterfactualEngine,  # noqa: E402
-                              auction, parallel_simulate, segments,
+                              auction, executor, parallel_simulate, segments,
                               sequential_replay, sweep_sequential,
                               sweep_state_machine)
 from repro_torch.core.segments import REDUCE_BLOCKS as G  # noqa: E402
@@ -259,10 +259,48 @@ def _scan_inputs(s, n, c, seed):
     return [torch.from_numpy(a) for a in (values, budgets, mult, reserves)]
 
 
+def _scan_edges(n, c, seed, second_price):
+    """The windowed kernel's traps: tied valuations (four levels), a lane
+    with a negative reserve and rows of zero valuations (zero bids that are
+    eligible), a NaN budget, budgets small enough that most campaigns cap,
+    and a lane where campaign 0 alone bids 1.0 an event against the spend
+    of 1,024 sales, so it caps on the first window's last event and every
+    later window of that lane sells nothing."""
+    values, budgets, mult, reserves = _scan_inputs(4, n, c, seed)
+    rng = np.random.default_rng(seed + 1)
+    values = torch.from_numpy(
+        rng.integers(0, 4, (n, c)).astype(np.float32) / 4)
+    values[::7] = 0.0
+    values[:, 0] = 1.0
+    budgets = budgets * 0.3
+    budgets[0, 4] = float("nan")
+    reserves[1] = -0.25
+    mult[3] = 0.0
+    mult[3, 0] = 1.0
+    price = reserves[3].numpy() if second_price else np.float32(1.0)
+    acc = np.float32(0.0)
+    for _ in range(1024):
+        acc = np.float32(acc + price)
+    budgets[3, 0] = float(acc)
+    return values, budgets, mult, reserves
+
+
 @pytest.mark.parametrize("sp", [False, True])
-@pytest.mark.parametrize("c", [20, 64, 100, 256])
-def test_capped_scan_matches_plain(dev, sp, c):
-    values, budgets, mult, reserves = _scan_inputs(4, 3000, c, seed=9)
+@pytest.mark.parametrize("c,layout", [(20, "plain"), (64, "plain"),
+                                      (100, "plain"), (256, "plain"),
+                                      (257, "plain"), (1000, "plain"),
+                                      (37, "edges"), (300, "edges")])
+def test_capped_scan_matches_plain(dev, sp, c, layout):
+    """Bitwise the plain version at C up to and past the first design's
+    256-campaign limit, and at the windowed design's edges: N not a
+    multiple of the 1,024-event window, ties, zero bids under a negative
+    reserve, zero and NaN budgets, a cap on a window's last event and
+    windows without a sale. Shared-memory state beyond
+    cs_max_shared_campaigns() is test_capped_scan_state_in_device_memory."""
+    n = 3000 if layout == "plain" else 2 * 1024 + 37
+    values, budgets, mult, reserves = (
+        _scan_inputs(4, n, c, seed=9) if layout == "plain"
+        else _scan_edges(n, c, seed=c, second_price=sp))
     on_cpu = scan_ops.capped_scan(values, budgets, mult, reserves,
                                   second_price=sp)
     before = cuda_cs.LAUNCHES["capped_scan"]
@@ -275,6 +313,26 @@ def test_capped_scan_matches_plain(dev, sp, c):
         assert a.dtype == b.dtype
         assert torch.equal(a.cpu(), b)
     assert bool((on_cpu[3][:, 2] == 1).all())      # zero budget caps first
+    if layout == "edges":
+        assert int(on_cpu[3][3, 0]) == 1024        # the window's last event
+        assert int(on_cpu[3][0, 4]) == n + 1       # a NaN budget never caps
+        assert bool((on_cpu[3] <= n).float().mean() > 0.5)
+
+
+def test_capped_scan_state_in_device_memory(dev):
+    """C above cs_max_shared_campaigns(): the lane state lives in device
+    memory, and the bits are the plain version's."""
+    c = cuda_cs._lib().cs_max_shared_campaigns() + 1
+    values, budgets, mult, reserves = _scan_inputs(2, 300, c, seed=12)
+    budgets = budgets * 0.05
+    on_cpu = scan_ops.capped_scan(values, budgets, mult, reserves,
+                                  second_price=True)
+    on_card = scan_ops.capped_scan(values.to(dev), budgets.to(dev),
+                                   mult.to(dev), reserves.to(dev),
+                                   second_price=True)
+    for a, b in zip(on_card, on_cpu):
+        assert torch.equal(a.cpu(), b)
+    assert bool((on_cpu[3] <= 300).any())
 
 
 def test_oracle_entry_points_on_the_card(dev):
@@ -306,6 +364,70 @@ def test_oracle_entry_points_on_the_card(dev):
 # ---------------------------------------------------------------------------
 # Every back-end and driver on the card gives the CPU's bits
 # ---------------------------------------------------------------------------
+
+def _wide_engine(c, device, seed):
+    """An engine of C campaigns over 512 events, budgets large but for ten
+    campaigns that value the events most and cap, so Algorithm 2 runs a
+    few rounds at any C."""
+    rng = np.random.default_rng(seed)
+    values = rng.uniform(0.0, 1.0, (512, c)).astype(np.float32)
+    budgets = np.full(c, 1e6, np.float32)
+    budgets[:10] = 5.0
+    values[:, :10] += 0.5
+    return CounterfactualEngine(torch.from_numpy(values),
+                                torch.from_numpy(budgets), device=device)
+
+
+@pytest.mark.parametrize("c", [257, 1000])
+def test_sequential_sweep_above_the_first_kernels_limit(dev, c):
+    """engine.sweep(method="sequential") at C past the first capped-scan
+    design's 256: one launch, the CPU's bits, both rules."""
+    for kind in ("first_price", "second_price"):
+        out = {}
+        for device in ("cpu", dev):
+            engine = _wide_engine(c, device, seed=c)
+            engine.base_rule = AuctionRule(
+                multipliers=engine.base_rule.multipliers,
+                reserve=engine.base_rule.reserve, kind=kind)
+            grid = engine.grid(bid_scales=[1.0, 1.2], reserves=[0.0, 0.05],
+                               budget_scales=[1.0, 0.02])
+            cuda_cs.reset_launches()
+            out[str(device)] = engine.sweep(grid, method="sequential",
+                                            record_events=True).results
+            assert cuda_cs.LAUNCHES["capped_scan"] == (device == dev)
+        for name in ("final_spend", "cap_times", "winners", "prices"):
+            assert torch.equal(getattr(out[str(dev)], name).cpu(),
+                               getattr(out["cpu"], name)), (kind, name)
+        assert bool((out["cpu"].cap_times <= 512).any())
+
+
+@pytest.mark.parametrize("resolve", ["auto", "fused", "sweep_resolve"])
+def test_parallel_sweep_above_the_round_kernels_limits(dev, resolve):
+    """engine.sweep(method="parallel") at a C the fused round (or the
+    sweep_resolve kernel) cannot hold: each lane is resolved by the
+    auction_resolve kernel and its partials by segment_partials (the
+    counters show both, and neither round kernel), and the results are the
+    CPU torch path's bits."""
+    limits = ops.round_campaign_limits()
+    c = limits["fused" if resolve == "auto" else resolve] + 1
+    out = {}
+    for device in ("cpu", dev):
+        engine = _wide_engine(c, device, seed=5)
+        grid = engine.grid(bid_scales=[1.0, 1.2], reserves=[0.0, 0.05])
+        for mod in (cuda_rf, cuda_sr, cuda_sp, cuda_ar):
+            mod.reset_launches()
+        out[str(device)] = engine.sweep(grid, method="parallel",
+                                        resolve=resolve).results
+    assert executor.pick_resolve(resolve, dev, c) == executor.ANY_C_BACKEND
+    assert cuda_rf.LAUNCHES["round_fused"] == 0
+    assert cuda_rf.LAUNCHES["sweep_partials"] == 0
+    assert cuda_sr.LAUNCHES["sweep_resolve"] == 0
+    assert cuda_ar.LAUNCHES["auction_resolve"] > 0
+    assert cuda_sp.LAUNCHES["segment_partials"] > 0
+    for name in ("final_spend", "cap_times"):
+        assert torch.equal(getattr(out[str(dev)], name).cpu(),
+                           getattr(out["cpu"], name)), name
+    assert bool((out["cpu"].cap_times <= 512).any())
 
 def _grid_env():
     env = make_synthetic_env(4, n_events=4096, n_campaigns=16, emb_dim=8,
@@ -425,10 +547,87 @@ def test_resolve_masked_matrix_tile_is_the_cpu(dev, sp, per_event, n, c):
     assert no_sums[2] is None
 
 
-def test_auction_resolve_refuses_what_its_shared_memory_cannot_hold(dev):
+@pytest.mark.parametrize("sp", [False, True])
+def test_auction_resolve_refuses_what_its_shared_memory_cannot_hold(dev, sp):
+    """It refuses nothing now: C·d above the kernel's shared memory (C=4000,
+    d=16) runs in campaign chunks merged exactly, bitwise the plain version
+    on the card, with the flat sums of the merged events bitwise the
+    CPU's."""
     e, r, mult, act = [x.to(dev) for x in _emb(16, 4000, 16, False, 1)]
-    with pytest.raises(ValueError, match="C·d"):
-        ops.auction_resolve(e, r, mult, act)
+    res = torch.tensor(0.03, device=dev)
+    cuda_ar.reset_launches()
+    ops.reset_paths()
+    got = ops.auction_resolve(e, r, mult, act, res, second_price=sp)
+    want = ref.auction_resolve_ref(e, r, mult, act, res, second_price=sp)
+    torch.cuda.synchronize()
+    assert ops.PATHS["auction_resolve_chunked"] == 1
+    assert ops.PATHS["auction_resolve_flat_sums"] == 1
+    assert cuda_ar.LAUNCHES["auction_resolve"] > 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[2].cpu(), auction.spend_sums(
+        got[0].cpu(), got[1].cpu(), 4000))
+
+
+def test_auction_resolve_sums_are_first_crossings_flat_sums(dev):
+    """The two event-ordered sums the port has on the card give the same
+    bits: the auction_resolve kernel's own sums and first_crossing's flat
+    sum of the same winners and prices (the sums above the kernel's
+    shared memory come from the latter)."""
+    rng = np.random.default_rng(3)
+    for n, c in ((5000, 37), (3000, 150), (700, 100)):
+        values = torch.from_numpy(
+            rng.uniform(0, 1, (n, c)).astype(np.float32)).to(dev)
+        mult = torch.ones(c, device=dev)
+        act = torch.from_numpy(rng.uniform(size=c) < 0.7).to(dev)
+        w, p, sums = ops.resolve_masked(values, mult, act,
+                                        torch.tensor(0.05, device=dev))
+        flat = auction.spend_sums(w, p, c)
+        assert torch.equal(sums, flat)
+
+
+def test_auction_resolve_sums_above_the_shared_memory(dev):
+    """MatrixTile with sums of more C than ``ar_max_shared_floats()``: the
+    sums are first_crossing's flat sums, and all three outputs are the
+    plain version's bits on the CPU."""
+    c = cuda_ar.max_shared_floats() + 1
+    rng = np.random.default_rng(4)
+    n = 256
+    values = torch.from_numpy(rng.uniform(0, 1, (n, c)).astype(np.float32))
+    mult = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32))
+    act = torch.from_numpy(rng.uniform(size=(n, c)) < 0.9)
+    res = torch.tensor(0.05)
+    on_cpu = ops.resolve_masked(values, mult, act, res, second_price=True)
+    cuda_ar.reset_launches()
+    cuda_fc.reset_launches()
+    ops.reset_paths()
+    on_card = ops.resolve_masked(values.to(dev), mult.to(dev), act.to(dev),
+                                 res.to(dev), second_price=True)
+    torch.cuda.synchronize()
+    assert cuda_ar.LAUNCHES["auction_resolve"] == 1
+    assert ops.PATHS["auction_resolve_flat_sums"] == 1
+    assert cuda_fc.LAUNCHES["first_crossing"] == 1
+    for a, b in zip(on_card, on_cpu):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_segment_partials_above_its_shared_memory(dev):
+    """C = sp_max_campaigns() + 1: campaign chunks, one launch each,
+    bitwise the plain version on the CPU."""
+    c = cuda_sp._lib().sp_max_campaigns() + 1
+    winners, prices = _log(2, 3000, c, seed=8)
+    lo = torch.tensor([0, 700], dtype=torch.int32)
+    hi = torch.tensor([3000, 2100], dtype=torch.int32)
+    block = -(-3000 // G)
+    on_cpu = segments.window_partials_ref(winners, prices, c, lo, hi,
+                                          block_size=block)
+    cuda_sp.reset_launches()
+    on_card = segments.window_partials(
+        winners.to(dev), prices.to(dev), c, lo.to(dev), hi.to(dev),
+        block_size=block)
+    torch.cuda.synchronize()
+    assert cuda_sp.LAUNCHES["segment_partials_chunked"] == 1
+    assert cuda_sp.LAUNCHES["segment_partials"] == 2
+    assert torch.equal(on_card.cpu(), on_cpu)
 
 
 def _crossing_log(s, n, c, block, seed):
@@ -452,18 +651,54 @@ def _crossing_log(s, n, c, block, seed):
     return winners, prices, budgets
 
 
-@pytest.mark.parametrize("block", [4096, 1000, 17, 16, 65536])
+def _crossing_edges(winners, prices, budgets, block):
+    """Budgets that cross on a block's first and last rows (campaign 1 at
+    the running spend of row ``block``, campaign 3 of row ``2 * block -
+    1``, each row made a sale of its campaign; rows 0 and N-1 when the log
+    holds less than two blocks), a zero and a
+    negative budget (cap at event 1), and, with more than one lane, a lane
+    without a sale."""
+    s, n = winners.shape
+    c = budgets.shape[1]
+    rows = (block, 2 * block - 1) if 2 * block <= n else (0, n - 1)
+    for col, row in zip((1, 3), rows):
+        for lane in range(s):
+            winners[lane, row] = col
+            cum, s0 = None, torch.zeros(())
+            for lo in range(0, row + 1, block):
+                sm = (winners[lane, lo:lo + block] == col) \
+                    * prices[lane, lo:lo + block]
+                cum = s0 + segments.xla_cumsum(sm[:, None])[:, 0]
+                s0 = cum[-1]
+            budgets[lane, col] = cum[row % block]
+    budgets[:, c - 1] = 0.0
+    budgets[:, c - 2] = -1.0
+    if s > 1:
+        winners[s - 1] = -1
+    return winners, prices, budgets
+
+
+@pytest.mark.parametrize("block", [4096, 1000, 17, 16, 5, 1, 65536])
 @pytest.mark.parametrize("c", [12, 150])
-def test_first_crossing_is_the_cpu(dev, block, c):
-    s, n = 3, 20_000
+@pytest.mark.parametrize("s,n", [(3, 20_000), (1, 20_000), (3, 700)])
+def test_first_crossing_is_the_cpu(dev, block, c, s, n):
+    """Cap times and spends bitwise the CPU at every block edge: blocks of
+    <= 16 rows (a sequential scan), of 1, and not dividing N; crossings on
+    a block's first and last rows; zero and negative budgets; a lane
+    without a sale; one lane (``simulate``'s shape); and a short log. A
+    call runs four device kernels, as the library counts them."""
     winners, prices, budgets = _crossing_log(s, n, c, block, seed=block + c)
+    if block > 1:
+        winners, prices, budgets = _crossing_edges(winners, prices, budgets,
+                                                   block)
     want_spend, want_cap = segments.crossing_and_spend(winners, prices,
                                                        budgets, c, block)
-    before = cuda_fc.LAUNCHES["first_crossing"]
+    cuda_fc.reset_launches()
     spend, cap = segments.crossing_and_spend(
         winners.to(dev), prices.to(dev), budgets.to(dev), c, block)
     torch.cuda.synchronize()
-    assert cuda_fc.LAUNCHES["first_crossing"] == before + 1
+    assert cuda_fc.LAUNCHES["first_crossing"] == 1
+    assert cuda_fc.LAUNCHES["first_crossing_device_kernels"] == 4
     assert torch.equal(cap.cpu(), want_cap)
     assert torch.equal(spend.cpu(), want_spend)
     assert bool((want_cap <= n).any())

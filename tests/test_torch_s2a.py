@@ -15,6 +15,7 @@ from repro.core import AuctionRule as JRule  # noqa: E402
 from repro.core import CounterfactualEngine as JEngine  # noqa: E402
 from repro.core import ScenarioGrid as JGrid  # noqa: E402
 from repro.core import Segments as JSegments  # noqa: E402
+from repro.core import auction as j_auction  # noqa: E402
 from repro.core import metrics as j_metrics  # noqa: E402
 from repro.core import segments as j_seg  # noqa: E402
 from repro.core import sequential_replay as j_sequential  # noqa: E402
@@ -154,6 +155,46 @@ def test_first_crossing_times_within_an_ulp(block):
             _t(np.stack([w, w])), _t(np.stack([p, p])),
             _t(np.stack([b, b])), c, block)
         _same(np.stack([want, want]), lanes)
+
+
+@pytest.mark.parametrize("block", [1, 16, 17, 256, 4096])
+def test_first_crossing_blocks_ref_is_the_plain_version(block):
+    """The CUDA kernel's decomposition (block totals, the s0 chain, the
+    crossings tested at group starts and sales, the per-campaign flat
+    chains) bitwise the plain version and ``repro`` for blocks of 1, 16,
+    17, 256 and 4096 over an N that none divides; budgets at ``repro``'s
+    running spend on a block's first and last rows (those rows made sales),
+    at random rows and one ulp above; a zero and a negative budget."""
+    n, c, s = 5003, 12, 2
+    rng = np.random.default_rng(block)
+    w = rng.integers(-1, c, (s, n)).astype(np.int32)
+    p = np.where(w >= 0, rng.random((s, n)), 0.0).astype(np.float32)
+    edges = [block, max(2 * block - 1, block + 1)]
+    edges = [min(r, n - 1) for r in edges]
+    w[:, edges] = [0, 1]
+    p[:, edges] = 0.5
+    budgets = np.empty((s, c), np.float32)
+    for k in range(s):
+        cum = _blockwise_running_spend(w[k], p[k], c, block)
+        rows = rng.integers(0, n, c)
+        rows[:2] = edges
+        budgets[k] = cum[rows, np.arange(c)]
+    budgets[1] = np.nextafter(budgets[1], np.float32(np.inf))
+    budgets[:, -2:] = [0.0, -1.0]
+    got_spend, got_cap = segments.first_crossing_blocks_ref(
+        _t(w), _t(p), _t(budgets), c, block)
+    _same(segments.first_crossing_ref(_t(w), _t(p), _t(budgets), c, block),
+          got_cap)
+    for k in range(s):
+        _same(j_seg.first_crossing_times(jnp.asarray(w[k]),
+                                         jnp.asarray(p[k]),
+                                         jnp.asarray(budgets[k]), c,
+                                         block=block), got_cap[k])
+        _same(j_auction.spend_sums(jnp.asarray(w[k]), jnp.asarray(p[k]), c),
+              got_spend[k])
+    assert int(got_cap[0, 0]) == edges[0] + 1
+    assert int(got_cap[0, 1]) == edges[1] + 1
+    assert bool((got_cap[:, -2:] == 1).all())
 
 
 @pytest.fixture(scope="module")
