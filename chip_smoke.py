@@ -23,6 +23,13 @@ Run from the repository root. Phases:
    ``capped_scan`` at N=65,536, C=64, S=8 with a reserve, a zero budget and
    a zero multiplier, and at N=4,096, S=4 with C=257 and C=1,000, past the
    first design's 256 campaigns (bitwise the plain version on the card);
+   and the resolve core of ``sweep_partials`` and ``sweep_resolve``
+   (``csrc/lane_resolve.cuh``) at its edges (``PARTIALS_EDGES``,
+   ``SWEEP_RESOLVE_EDGES``: windows starting and ending inside a tile,
+   inside one canonical block, on block edges, retired lanes, an offset
+   slice, S no multiple of the lanes per item, C of 1, 100, 129 and either
+   side of the 8-lane item's shared memory, a per-event mask), bitwise
+   the plain versions on the CPU under both pricing rules;
 3. hold the fused-round sweep on the card against the plain torch sweep on
    the CPU at a reduced size (N=65,536, C=64, S=8): every integer output
    equal, spends at rtol 1e-6;
@@ -47,12 +54,13 @@ Run from the repository root. Phases:
    outputs at full width for both rules; the counters show
    ``"sweep_resolve"`` launched ``sweep_resolve`` once a round and
    ``segment_partials`` twice; ``engine.simulate(method="parallel")`` of
-   lane 0's design equals lane 0 for each back-end; and at a C one past
-   the round kernels' shared memory (512 events, S=4, both rules)
-   ``engine.sweep(method="parallel")`` with ``resolve="auto"`` resolves
-   each lane with ``auction_resolve`` and its partials with
-   ``segment_partials`` (the counters show it, and no round kernel), to the
-   CPU's bits;
+   lane 0's design equals lane 0 for each back-end; at C=12,269, one past
+   the first partials kernel's limit (``OLD_RF_LIMIT``), the fused round
+   runs it; and at a C one past the round kernels' shared memory (512
+   events, S=4, both rules) ``engine.sweep(method="parallel")`` with
+   ``resolve="auto"`` resolves each lane with ``auction_resolve`` and its
+   partials with ``segment_partials`` (the counters show it, and no round
+   kernel); both to the CPU's bits;
 7. the paper's comparison: Algorithm 2 against the exact replay, per lane,
    in mean relative spend error (each < 0.08), capped campaigns and cap-time
    shift, and both sweeps' wall times;
@@ -86,6 +94,11 @@ Run from the repository root. Phases:
    within ``LM_TOL`` of their scale;
 10. print the numbers: the card's name and power limit, each kernel's time
    beside its plain version's, its library yardstick's and its bound,
+   ``sweep_partials`` also at a late-round pass (every lane's window the
+   last half of the last canonical block) and as the mean launch of a
+   traced fused sweep, the round, partials and ``sweep_resolve`` beside
+   their first designs' times (``EARLIER_MS``), the scan's issue floor
+   (``SCAN_INSTRUCTIONS``),
    per-round and sweep times, the SORT2AGGREGATE wall times and Algorithm
    4's share of them, the LM's prefill time, decode time per token,
    tokens/s and peak memory, ``capped_scan``'s and ``first_crossing``'s
@@ -131,7 +144,42 @@ WIDE_CAMPAIGNS = (257, 1000)    # capped_scan past the first design's limit
 WIDE_EVENTS = 4096
 # the first designs' times, measured by this script on an NVIDIA H100 80GB
 # HBM3 at 700 W before their redesign, printed beside this run's
-EARLIER_MS = {"capped_scan": 437.2258, "first_crossing": 77.9087}
+EARLIER_MS = {"capped_scan": 437.2258, "first_crossing": 77.9087,
+              "round_fused": 4.3255, "sweep_partials": 2.6350,
+              "sweep_resolve": 3.4829,
+              # the first partials kernel's total in a traced fused sweep
+              # (176 launches)
+              "sweep_partials_traced": 314.881}
+OLD_RF_LIMIT = 12_268           # the first partials kernel's largest C
+# per (lane, row, campaign), the resolve core's scan issues a multiply, a
+# compare and two selects (first price; a max and a select more for second
+# price) and, at 8 lanes an item, (1 + 8) / 32 shared loads: the issue
+# floor is these over 128 thread-instructions a cycle on every SM
+SCAN_INSTRUCTIONS = {"first_price": 4 + 9 / 32, "second_price": 6 + 9 / 32}
+# the resolve core's edges (phase 2), against the plain versions on the
+# CPU: name, S, N, C, windows ("t8" / "t8+1": the largest C an item of 8
+# lanes holds, and one more)
+PARTIALS_EDGES = (
+    ("windows starting and ending inside tiles", 6, 20_000, 37, "mid_tile"),
+    ("windows inside one canonical block", 5, 20_000, 100, "one_block"),
+    ("windows on block edges (n_next on an edge)", 4, 20_000, 100,
+     "block_edges"),
+    ("retired lanes, an offset slice, S=7", 7, 20_000, 129,
+     "retired_offset"),
+    ("C=1", 9, 5_000, 1, "mid_tile"),
+    ("C=100, S=32", 32, 8_000, 100, "mid_tile"),
+    ("C=129", 3, 5_000, 129, "retired_offset"),
+    ("C=t8", 8, 3_000, "t8", "mid_tile"),
+    ("C=t8+1", 8, 3_000, "t8+1", "mid_tile"),
+)
+SWEEP_RESOLVE_EDGES = (   # name, S, N, C, per-event mask
+    ("N below one tile", 3, 100, 37, False),
+    ("ragged N, S=5", 5, 1_001, 100, False),
+    ("C=1", 9, 3_000, 1, False),
+    ("C=129, per-event mask", 4, 2_000, 129, True),
+    ("C=t8", 8, 1_500, "t8", False),
+    ("C=t8+1", 8, 1_500, "t8+1", False),
+)
 PLAIN_EVENTS = 16_384           # events of the plain capped scan timed on card
 SMALL_N = (256, 1024, 8192)     # first_crossing's small calls, one lane
 ANY_C_EVENTS = 512              # the parallel sweep past the round kernels
@@ -259,12 +307,13 @@ def smi(fields: str) -> str:
         .splitlines()[0]
 
 
-def trace(tag: str, label: str, fn) -> dict:
+def trace(tag: str, label: str, fn, counts: dict | None = None) -> dict:
     """Run ``fn`` under ``torch.profiler`` and print its wall time, the
     device's busy time (the sum of the kernels' own device time: the rows
     of device type CUDA, so an operator and the kernel it launched are not
     both counted) and idle share, and the six busiest kernels. Returns the
-    device microseconds by kernel name."""
+    device microseconds by kernel name; ``counts``, if given, gets each
+    kernel's number of launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -274,10 +323,13 @@ def trace(tag: str, label: str, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         traced_wall = time.perf_counter() - t0
-    by_kernel = sorted(
-        ((e.key, e.self_device_time_total) for e in prof.key_averages()
-         if e.device_type == DeviceType.CUDA
-         and e.self_device_time_total > 0), key=lambda kv: -kv[1])
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    by_kernel = sorted(((e.key, e.self_device_time_total) for e in rows),
+                       key=lambda kv: -kv[1])
+    if counts is not None:
+        counts.update((e.key, e.count) for e in rows)
     busy_us = sum(us for _, us in by_kernel)
     if busy_us == 0:
         print(f"{tag} traced {label}: the profiler recorded no device "
@@ -289,6 +341,96 @@ def trace(tag: str, label: str, fn) -> dict:
     for key, us in by_kernel[:6]:
         print(f"    {us / 1e3:12.3f} ms  {key[:90]}")
     return dict(by_kernel)
+
+
+def edge_windows(kind: str, s: int, n: int, n_blocks: int):
+    """Per-lane windows of a phase-2 edge case: ``(lo, hi, alive, offset,
+    n_local, block_size)``."""
+    import torch
+    block = -(-n // n_blocks)
+    ar = torch.arange(s, dtype=torch.int64)
+    alive = torch.ones(s, dtype=torch.bool)
+    offset, n_local = 0, n
+    if kind == "mid_tile":
+        lo = 37 + ar * (n // (3 * s)) + 101 * (ar % 3)
+        hi = n - 5 - ar * (n // (4 * s)) - 77 * (ar % 2)
+    elif kind == "one_block":
+        lo = 20 * block + 3 + ar * 7
+        hi = 21 * block - 1 - ar * 5
+    elif kind == "block_edges":
+        lo = (ar + 1) * block
+        hi = torch.clamp((ar + 3) * block, max=n)
+    else:
+        offset, n_local = 1000, n - 3000
+        lo = 900 + ar * 333
+        hi = n - 2500 - ar * 251
+        alive = ar % 3 != 1
+    return (lo.to(torch.int32), hi.to(torch.int32), alive, offset, n_local,
+            block)
+
+
+def coarse_inputs(s: int, n: int, c: int, seed: int, per_event: bool):
+    """Valuations and multipliers on coarse grids (equal bids are common,
+    so the first index's tie-break is tested), an activation and reserves,
+    on the CPU."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    values = torch.randint(0, 8, (n, c), generator=gen).float() / 8
+    mult = torch.tensor([0.5, 1.0, 1.5])[
+        torch.randint(0, 3, (s, c), generator=gen)]
+    act = torch.rand((s, n, c) if per_event else (s, c), generator=gen) < 0.8
+    res = (torch.arange(s) % 4).float() / 8
+    return values, mult, act, res
+
+
+def core_edges(dev, ops, ref, rf_mod, n_blocks: int) -> None:
+    """Phase 2's edge shapes of the resolve core: partials_kernel and
+    sweep_resolve_kernel against their plain versions on the CPU, bit for
+    bit, under both pricing rules."""
+    import torch
+    t8 = 1
+    while rf_mod.item_lanes(t8 + 1) == 8:
+        t8 += 1
+    wide = {"t8": t8, "t8+1": t8 + 1}
+    for seed, (name, s, n, c, kind) in enumerate(PARTIALS_EDGES):
+        c = wide.get(c, c)
+        values, mult, act, res = coarse_inputs(s, n, c, seed, False)
+        lo, hi, alive, offset, n_local, block = edge_windows(kind, s, n,
+                                                             n_blocks)
+        v_local = values[offset:offset + n_local]
+        for second in (False, True):
+            got = ops.sweep_partials(
+                v_local.to(dev), mult.to(dev), act.to(dev), res.to(dev),
+                lo.to(dev), hi.to(dev), alive.to(dev), offset,
+                n_events_global=n, reduce_blocks=n_blocks,
+                second_price=second).cpu()
+            want = ref.fused_partials_ref(v_local, mult, act, res, lo, hi,
+                                          block_size=block,
+                                          second_price=second,
+                                          index_offset=offset)
+            require(torch.equal(got[alive], want[alive])
+                    and not got[~alive].any() and bool(got[alive].any()),
+                    f"sweep_partials edge {name!r} (C={c}, second price "
+                    f"{second}) differs from its plain version on the CPU")
+        print(f"[2] sweep_partials edge: {name} (S={s} N={n} C={c}): "
+              f"bitwise the plain version on the CPU, both rules",
+              flush=True)
+    for seed, (name, s, n, c, per_event) in enumerate(SWEEP_RESOLVE_EDGES):
+        c = wide.get(c, c)
+        values, mult, act, res = coarse_inputs(s, n, c, 100 + seed,
+                                               per_event)
+        for second in (False, True):
+            got = ops.sweep_resolve(values.to(dev), mult.to(dev),
+                                    act.to(dev), res.to(dev),
+                                    second_price=second)
+            want = ref.sweep_resolve_ref(values, mult, act, res,
+                                         second_price=second)
+            require(all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+                    f"sweep_resolve edge {name!r} (C={c}, second price "
+                    f"{second}) differs from its plain version on the CPU")
+        print(f"[2] sweep_resolve edge: {name} (S={s} N={n} C={c}): "
+              f"winners, prices and sums bitwise the plain version on the "
+              f"CPU, both rules", flush=True)
 
 
 def serve_phase(seed: int, dev, reset_counts, read_counts) -> dict:
@@ -732,6 +874,17 @@ def main() -> int:
                 cuda_ms(lambda: ref.fused_partials_ref(
                     env.values, mult, ones, res, n0, full_hi,
                     block_size=block), 3), None)
+            # a late-round pass: every lane's window the last half of the
+            # last canonical block, the shape most of a sweep's passes have
+            n_late = torch.full_like(n0, n - block // 2)
+            timing["sweep_partials_late"] = cuda_ms(
+                lambda: ops.sweep_partials(
+                    env.values, mult, ones, res, n_late, full_hi, all_alive,
+                    n_events_global=n, reduce_blocks=REDUCE_BLOCKS), 10)
+            timing["sweep_partials_late_bound"] = bound_ms(
+                (n - n_late[0].item()) * c * 4 + s * (c * 5 + 16) +
+                s * REDUCE_BLOCKS * c * 4,
+                s * (n - n_late[0].item()) * c * 2)
             timing["sweep_resolve"] = (
                 cuda_ms(lambda: ops.sweep_resolve(env.values, mult, ones,
                                                   res), 10),
@@ -930,6 +1083,8 @@ def main() -> int:
                   f"agrees with the plain version "
                   f"({int((got[3] <= WIDE_EVENTS).sum())} of {4 * c_w} "
                   f"campaigns capped)", flush=True)
+
+    core_edges(dev, ops, ref, rf_mod, REDUCE_BLOCKS)
 
     # ---- phase 3: exactness at a reduced size ----------------------------
     for kind in KINDS:
@@ -1180,43 +1335,58 @@ def main() -> int:
               flush=True)
 
     # a C one past the round kernels' shared memory: "auto" takes the
-    # per-lane auction_resolve back-end, ten campaigns capping
-    c_any = ops.round_campaign_limits()["fused"] + 1
+    # per-lane auction_resolve back-end; and one past the first partials
+    # kernel's limit (OLD_RF_LIMIT), which the fused round now takes; ten
+    # campaigns capping
+    rf_limit = ops.round_campaign_limits()["fused"]
+    require(rf_limit >= OLD_RF_LIMIT, f"the fused round's limit {rf_limit} "
+                                      f"fell below {OLD_RF_LIMIT}")
     gen_any = torch.Generator().manual_seed(args.seed)
-    values_any = torch.rand((ANY_C_EVENTS, c_any), generator=gen_any)
-    values_any[:, :10] += 0.5
-    budgets_any = torch.full((c_any,), 1e6)
-    budgets_any[:10] = 5.0
-    for kind in KINDS:
-        out_any = {}
-        for where in ("cpu", "cuda"):
-            base = AuctionRule(multipliers=torch.ones(c_any, device=where),
-                               reserve=torch.zeros((), device=where),
-                               kind=kind)
-            eng = CounterfactualEngine(values_any, budgets_any,
-                                       base_rule=base, device=where)
-            reset_counts()
-            out_any[where] = eng.sweep(eng.grid(
-                bid_scales=(1.0, 1.2), reserves=(0.0, 0.05)),
-                method="parallel").results
-            torch.cuda.synchronize()
-            launches = read_counts()
-        require(launches["auction_resolve"] > 0
-                and launches["segment_partials"] > 0
-                and not launches["round_fused"]
-                and not launches["sweep_resolve"],
-                f"{kind} C={c_any}: launches {launches}, expected "
-                f"auction_resolve and segment_partials only")
-        for name in ("final_spend", "cap_times"):
-            equal(name, getattr(out_any["cuda"], name).cpu(),
-                  getattr(out_any["cpu"], name), f"{kind} C={c_any} sweep")
-        require(bool((out_any["cpu"].cap_times <= ANY_C_EVENTS).any()),
-                f"{kind} C={c_any}: no campaign capped")
-        print(f"[6] {kind}: engine.sweep(method='parallel') at C={c_any}, "
-              f"one past the fused round's shared memory, N={ANY_C_EVENTS} "
-              f"S=4: auction_resolve per lane and segment_partials "
-              f"(launches {launches}), bitwise the CPU", flush=True)
-    del values_any, out_any
+    for c_any, backend in ((OLD_RF_LIMIT + 1, "round_fused"),
+                           (rf_limit + 1, "auction_resolve")):
+        values_any = torch.rand((ANY_C_EVENTS, c_any), generator=gen_any)
+        values_any[:, :10] += 0.5
+        budgets_any = torch.full((c_any,), 1e6)
+        budgets_any[:10] = 5.0
+        for kind in KINDS:
+            out_any = {}
+            for where in ("cpu", "cuda"):
+                base = AuctionRule(
+                    multipliers=torch.ones(c_any, device=where),
+                    reserve=torch.zeros((), device=where), kind=kind)
+                eng = CounterfactualEngine(values_any, budgets_any,
+                                           base_rule=base, device=where)
+                reset_counts()
+                out_any[where] = eng.sweep(eng.grid(
+                    bid_scales=(1.0, 1.2), reserves=(0.0, 0.05)),
+                    method="parallel").results
+                torch.cuda.synchronize()
+                launches = read_counts()
+            if backend == "round_fused":
+                require(launches["round_fused"] > 0
+                        and not launches["auction_resolve"],
+                        f"{kind} C={c_any}: launches {launches}, expected "
+                        f"the fused round")
+                how = "the fused round, one past the first design's limit"
+            else:
+                require(launches["auction_resolve"] > 0
+                        and launches["segment_partials"] > 0
+                        and not launches["round_fused"]
+                        and not launches["sweep_resolve"],
+                        f"{kind} C={c_any}: launches {launches}, expected "
+                        f"auction_resolve and segment_partials only")
+                how = ("auction_resolve per lane and segment_partials, one "
+                       "past the fused round's shared memory")
+            for name in ("final_spend", "cap_times"):
+                equal(name, getattr(out_any["cuda"], name).cpu(),
+                      getattr(out_any["cpu"], name),
+                      f"{kind} C={c_any} sweep")
+            require(bool((out_any["cpu"].cap_times <= ANY_C_EVENTS).any()),
+                    f"{kind} C={c_any}: no campaign capped")
+            print(f"[6] {kind}: engine.sweep(method='parallel') at "
+                  f"C={c_any}, N={ANY_C_EVENTS} S=4: {how} (launches "
+                  f"{launches}), bitwise the CPU", flush=True)
+        del values_any, out_any
 
     # ---- phase 7: the paper's comparison ---------------------------------
     for kind in KINDS:
@@ -1410,8 +1580,23 @@ def main() -> int:
     # price): device busy time by kernel
     engine, grid = engines[KINDS[0]]
 
-    trace("[10]", "fused sweep", lambda: sweep_state_machine(
-        env.values, grid.budgets, grid.rules, resolve="fused"))
+    sweep_counts = {}
+    sweep_us = trace("[10]", "fused sweep", lambda: sweep_state_machine(
+        env.values, grid.budgets, grid.rules, resolve="fused"),
+        counts=sweep_counts)
+    # the partials kernel is lanes_kernel<second price, no stores, ...>
+    partials_keys = [k for k in sweep_us
+                     if "lanes_kernel<" in k and ", false, false," in k]
+    partials_launches = sum(sweep_counts[k] for k in partials_keys)
+    if partials_launches:
+        partials_us = sum(sweep_us[k] for k in partials_keys)
+        timing["sweep_partials_traced"] = (partials_us / 1e3,
+                                           partials_launches)
+        print(f"[10] partials_kernel in the traced fused sweep: "
+              f"{partials_launches} launches, {partials_us / 1e3:.3f} ms, "
+              f"mean {partials_us / 1e3 / partials_launches:.4f} ms a "
+              f"launch (the first design: "
+              f"{EARLIER_MS['sweep_partials_traced']} ms over 176)")
     trace("[10]", "S2A simulate", engine.simulate)
     # the exact replay of the full day, 32 lanes, first price: the kernel,
     # then its plain version over the first PLAIN_EVENTS events (a chain of
@@ -1453,6 +1638,26 @@ def main() -> int:
         f"N={rows} {ms:.4f} ms"
         for rows, ms in timing["first_crossing_small"].items()))
     print(card)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    for kind, per_element in SCAN_INSTRUCTIONS.items():
+        floor = s * n * c * per_element / (sms * 128 * clock_hz) * 1e3
+        print(f"[10] issue floor of a full-day pass, {kind}: {s} x {n} x "
+              f"{c} elements x {per_element:.4f} instructions over {sms} "
+              f"SMs x 128 a cycle at {clock_hz / 1e9:.2f} GHz: {floor:.4f} "
+              f"ms")
+        timing[f"issue_floor_{kind}"] = floor
+    late_bound, late_by = timing["sweep_partials_late_bound"]
+    print(f"[10] {card}: partials_kernel full-day pass "
+          f"{timing['sweep_partials'][0]:.4f} ms (first design "
+          f"{EARLIER_MS['sweep_partials']} ms), late-round pass [N - "
+          f"{block // 2}, N) for every lane "
+          f"{timing['sweep_partials_late']:.4f} ms (bound {late_bound:.4f} "
+          f"ms, {late_by}); round "
+          f"{timing['round_fused'][0]:.4f} ms (first design "
+          f"{EARLIER_MS['round_fused']} ms); sweep_resolve "
+          f"{timing['sweep_resolve'][0]:.4f} ms (first design "
+          f"{EARLIER_MS['sweep_resolve']} ms)")
     rm = timing["round_ms"]
     print(f"[10] per-round time from the fresh state, S=32 (CUDA events, "
           f"median): fused {rm['fused']:.4f} ms, sweep_resolve "
@@ -1518,6 +1723,14 @@ def main() -> int:
                          plain_events=(PLAIN_EVENTS if name == "capped_scan"
                                        else None if name == "flash_attention"
                                        else n)))
+        if name == "sweep_partials":
+            rows[-1].update(late_ms=timing["sweep_partials_late"],
+                            late_bound_ms=late_bound,
+                            issue_floor_ms=timing["issue_floor_first_price"])
+            if "sweep_partials_traced" in timing:
+                traced_ms, traced_n = timing["sweep_partials_traced"]
+                rows[-1].update(sweep_mean_ms=traced_ms / traced_n,
+                                sweep_launches_traced=traced_n)
         if name == "first_crossing":
             rows[-1].update(one_lane_ms=fc1_ms, one_lane_plain_ms=fc1_plain,
                             one_lane_bound_ms=fc1_bound,

@@ -1,7 +1,8 @@
-// Device code shared by the port's auction kernels: the tile shape of the
-// resolve kernels, and the ordered same-winner group add that keeps every
-// per-campaign sum in event order without float atomics (round_fused.cu,
-// sweep_resolve.cu); segment_partials.cu takes the shared-memory limit.
+// Device code shared by the port's auction kernels: the per-block
+// shared-memory limit, and the ordered same-winner group add that keeps
+// every per-campaign sum in event order without float atomics
+// (lane_resolve.cuh, the core of round_fused.cu and sweep_resolve.cu, and
+// auction_resolve.cu); segment_partials.cu takes the shared-memory limit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -9,11 +10,6 @@
 
 namespace auction_tile {
 
-constexpr int kLanes = 4;                    // scenario lanes per CTA
-constexpr int kRows = 64;                    // rows per tile
-constexpr int kThreads = kLanes * kRows;     // one thread per (lane, row)
-constexpr int kWarps = kThreads / 32;
-constexpr int kCols = 128;                   // campaigns staged at a time
 constexpr size_t kMaxSmem = 232448;          // per-block opt-in limit, sm_90
 
 // One warp adds its 32 rows' prices onto the per-campaign running sums

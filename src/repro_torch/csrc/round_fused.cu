@@ -7,7 +7,7 @@
 // :110).
 //
 // What they compute. S scenario lanes share one (N, C) valuation matrix.
-// For each lane s, `partials_kernel` resolves the auctions of the events in
+// For each lane s, a partials pass resolves the auctions of the events in
 // the lane's window [lo[s], hi[s]) (bid = value * multiplier, eligible when
 // active and bid > reserve, first or second price) and reduces the spends
 // onto the canonical (S, G = 32, C) grid: parts[s, g, c] is the spend of
@@ -18,163 +18,57 @@
 // n_next from device memory, so a round needs no host round trip. Winners
 // and prices never leave shared memory.
 //
-// What bounds it on the H100. One partials pass reads the rows of its
-// window once from HBM (N*C*4 bytes: 400 MB at N=1e6, C=100, ~0.12 ms at
-// 3.35 TB/s) if L2 serves the other lanes; the work is S*rows*C multiplies
-// and compares (3.2e9 at S=32), under 0.1 ms at the 67 TFLOP/s fp32 rate.
-// So its least time is set by the bytes, ~0.12 ms a pass.
+// What bounds it on the H100. A full-day pass (N=1e6, C=100, S=32) reads
+// the 400 MB of valuations once from HBM: 0.12 ms at 3.35 TB/s. Issue is
+// the higher floor: per (lane, row, campaign) a multiply, a compare and two
+// selects (first price; a max and a select more for second price) and
+// 9/32 of a shared load, 4.28 instructions for 3.2e9 elements, 0.41 ms at
+// 128 thread-instructions a cycle on 132 SMs at 1.98 GHz (second price
+// 0.60 ms). On an H100 the pass runs at about a third of that floor
+// (chip_smoke.py); what holds the scan there (the compares and selects,
+// which issue at half the multiplies' rate, the per-stage barriers) is not
+// measured apart. A late-round
+// pass (every lane's window the last half of one canonical block) is 1/64
+// of the work, all of it in one block.
 //
-// What the design does about it. The sums must be deterministic and equal
-// to the reference's event-ordered segment sum, so there are no float
-// atomics: one CTA owns the partials of kLanes lanes for one canonical block
-// g, and each (lane, campaign) sum is added in event order inside it. A CTA
-// walks the rows of block g that lie inside its lanes' windows (rows
-// outside add an exact +0.0 in the reference, so skipping them is exact), a
-// tile of kRows rows at a time:
-//   1. the tile's valuations and the lanes' multipliers are staged in shared
-//      memory with coalesced loads, once for all kLanes lanes;
-//   2. one thread per (lane, row) scans the row's bids in campaign order,
-//      keeping the top bid, its first index and the second bid in registers
-//      (no shuffles; inactive campaigns carry a NaN multiplier and never
-//      compare true);
-//   3. within each warp (32 rows of one lane) the rows with the same winner
-//      form a group (__match_any_sync), and the group's first row adds the
-//      group's prices in row order to the campaign's running sum; the two
-//      warps of a lane take turns, so every sum is added in event order
-//      (auction_tile.cuh's add_in_row_order, shared with sweep_resolve.cu
-//      and segment_partials.cu).
-// The scan stays written out in the kernel: the same scan called through a
-// device function that took the shared tile by reference ran about half as
-// fast on the H100.
-// Built with --fmad=false so that (b - s_hat) / rate and the sums round as
-// the reference rounds them. The rows are read from L2 once per CTA, so
-// S / kLanes times per pass; issue of the per-element scan (two shared
-// loads, a multiply, two compares) is what is left to bound it.
+// What the design does about it (lane_resolve.cuh, the core shared with
+// sweep_resolve.cu; a copy of the core written out in this source ran
+// at the same speed on an H100, tools/core_written_out.py):
+//  * the time of a pass follows the live rows: one launch of one CTA per
+//    SM, whose CTAs read the windows and take work items of (canonical
+//    block, up to 8 lanes), as many lanes as still give most SMs an item:
+//    8 at a full-day pass (each row read from L2 four times), 1 when the
+//    windows lie in one block (32 items at S=32);
+//  * loads overlap the scan: TMA copies 512-row, 16-column stages into a
+//    ring of three slots, each completing on its own mbarrier;
+//  * a thread scans one row for all the item's lanes, so a 16-byte shared
+//    load of four valuations feeds 4 * L bids and a broadcast load of four
+//    multipliers four: (1 + L) / (4 L) shared loads an element;
+//  * the ordered adds run over the next tile's stages: warp 8 + l adds
+//    lane l's tile 32 rows at a time, each same-winner group's prices held
+//    in registers, onto shared-memory running sums. No float atomics.
+// Any C up to rf_max_campaigns() (a one-lane item's multipliers and
+// running sums in shared memory) runs; an item takes fewer lanes as C
+// grows. Built with --fmad=false so that (b - s_hat) / rate and the sums
+// round as the reference rounds them.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "auction_tile.cuh"
+#include "lane_resolve.cuh"
 
 namespace {
 
-using namespace auction_tile;
-
-constexpr size_t kStaticSmem =
-    sizeof(float) * (kRows * (kCols + 1) + kLanes * kCols + kLanes * kRows) +
-    2 * sizeof(long long) * kLanes;
+constexpr int kThreads = 256;               // predict_kernel
+constexpr int kWarps = kThreads / 32;
 
 // (v, i) := smaller value, then lower index (first minimum).
 __device__ __forceinline__ void keep_min(float& v, int& i, float v2, int i2) {
   if (v2 < v || (v2 == v && i2 < i)) {
     v = v2;
     i = i2;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-partials_kernel(const float* __restrict__ values,     // (n_local, C)
-                const float* __restrict__ mult,       // (S, C)
-                const uint8_t* __restrict__ act,      // (S, C) bool
-                const float* __restrict__ reserves,   // (S,)
-                const int32_t* __restrict__ lo,       // (S,) global
-                const int32_t* __restrict__ hi,       // (S,) or null = N
-                const uint8_t* __restrict__ alive,    // (S,) bool
-                float* __restrict__ parts,            // (S, G, C)
-                int S, int n_local, int C, int offset, int n_global,
-                int block_size, int G, int second_price, int skip_retired) {
-  __shared__ float tile[kRows][kCols + 1];    // +1: conflict-free row reads
-  __shared__ float mult_s[kLanes][kCols];     // NaN = inactive campaign
-  __shared__ float price_s[kLanes][kRows];
-  __shared__ long long win_lo[kLanes], win_hi[kLanes];
-  extern __shared__ float acc[];              // (kLanes, C) running sums
-
-  const int tid = threadIdx.x;
-  const int l = tid / kRows;                  // this thread's lane ...
-  const int r = tid % kRows;                  // ... and row in the tile
-  const int s0 = blockIdx.x * kLanes;
-  const int g = blockIdx.y;
-  const int s = s0 + l;
-
-  // each lane's rows: canonical block g, this slice of the log, its window
-  if (tid < kLanes) {
-    const int st = s0 + tid;
-    long long a = (long long)g * block_size;
-    long long b = a + block_size;
-    if (st < S && !(skip_retired && !alive[st])) {
-      a = max(a, (long long)max(offset, lo[st]));
-      b = min(b, (long long)offset + n_local);
-      b = min(b, (long long)(hi != nullptr ? hi[st] : n_global));
-    }
-    win_lo[tid] = a;
-    win_hi[tid] = (st < S && !(skip_retired && !alive[st])) ? max(a, b) : a;
-  }
-  for (int i = tid; i < kLanes * C; i += kThreads) acc[i] = 0.0f;
-  __syncthreads();
-  long long u0 = 0, u1 = 0;                   // union of the lanes' rows
-  bool any = false;
-  for (int k = 0; k < kLanes; ++k) {
-    if (win_hi[k] == win_lo[k]) continue;
-    u0 = any ? min(u0, win_lo[k]) : win_lo[k];
-    u1 = any ? max(u1, win_hi[k]) : win_hi[k];
-    any = true;
-  }
-  const long long my_lo = win_lo[l], my_hi = win_hi[l];
-  const float reserve = s < S ? reserves[s] : 0.0f;
-  const int col = tid % kCols;                // staging: a row segment per
-  const int step = kThreads / kCols;          // kCols threads, coalesced
-
-  for (long long base = u0; base < u1; base += kRows) {
-    const int rows = (int)min((long long)kRows, u1 - base);
-    float best = reserve, second = reserve;   // eligible means bid > reserve
-    int win = -1;
-    for (int c0 = 0; c0 < C; c0 += kCols) {
-      const int cols = min(kCols, C - c0);
-      if (col < cols) {
-        for (int rr = tid / kCols; rr < rows; rr += step)
-          tile[rr][col] = values[(size_t)(base + rr - offset) * C + c0 + col];
-        for (int ll = tid / kCols; ll < kLanes; ll += step) {
-          const int st = s0 + ll;
-          const size_t sc = (size_t)st * C + c0 + col;
-          mult_s[ll][col] = (st < S && act[sc]) ? mult[sc] : nanf("");
-        }
-      }
-      __syncthreads();
-      if (r < rows) {
-        const float* vrow = tile[r];
-        const float* mrow = mult_s[l];
-        for (int k = 0; k < cols; ++k) {
-          const float bid = vrow[k] * mrow[k];
-          if (bid > best) {                   // strict: first index wins ties
-            second = best;
-            best = bid;
-            win = c0 + k;
-          } else if (bid > second) {
-            second = bid;
-          }
-        }
-      }
-      __syncthreads();
-    }
-    const long long row = base + r;
-    const int winner = (win >= 0 && r < rows && row >= my_lo && row < my_hi)
-                           ? win : -1;
-    // second price: max(second-highest eligible bid, reserve), which is
-    // `second` because it started at the reserve
-    price_s[l][r] = second_price ? second : best;
-    __syncwarp();
-    for (int half = 0; half < kRows / 32; ++half) {
-      if (r / 32 == half)                     // whole warps
-        add_in_row_order(acc + (size_t)l * C, winner, price_s[l] + half * 32,
-                         r % 32);
-      __syncthreads();
-    }
-  }
-
-  if (s < S) {
-    float* out = parts + ((size_t)s * G + g) * C;
-    for (int c = r; c < C; c += kRows) out[c] = acc[l * C + c];
   }
 }
 
@@ -229,10 +123,6 @@ predict_kernel(const float* __restrict__ rate_parts,  // (S, G, C)
   }
 }
 
-inline size_t partials_smem(int C) {
-  return (size_t)kLanes * C * sizeof(float);
-}
-
 }  // namespace
 
 extern "C" {
@@ -247,18 +137,11 @@ int rf_sweep_partials(const float* values, const float* mult,
                       int C, int offset, int n_global, int block_size, int G,
                       int second_price, int skip_retired,
                       cudaStream_t stream) {
-  const size_t dyn = partials_smem(C);
-  if (kStaticSmem + dyn > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        partials_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)dyn);
-    if (err != cudaSuccess) return (int)err;
-  }
-  dim3 grid((S + kLanes - 1) / kLanes, G);
-  partials_kernel<<<grid, kThreads, dyn, stream>>>(
-      values, mult, act, reserves, lo, hi, alive, parts, S, n_local, C,
-      offset, n_global, block_size, G, second_price, skip_retired);
-  return (int)cudaGetLastError();
+  lane_resolve::Args a{values, mult, act, reserves, lo, hi, alive, parts,
+                       nullptr, nullptr, S, n_local, C, offset, n_global,
+                       block_size, G, skip_retired, 0};
+  return second_price ? lane_resolve::launch<true, false, false>(a, stream)
+                      : lane_resolve::launch<false, false, false>(a, stream);
 }
 
 // The cap-out prediction from (S, G, C) rate partials (the port of
@@ -273,9 +156,14 @@ int rf_predict(const float* rate_parts, const float* budgets,
   return (int)cudaGetLastError();
 }
 
-// Largest C whose running sums fit the partials kernel's shared memory.
-int rf_max_campaigns(void) {
-  return (int)((kMaxSmem - kStaticSmem) / (kLanes * sizeof(float)));
+// Largest C the partials kernel takes: a one-lane item's multipliers and
+// running sums in shared memory.
+int rf_max_campaigns(void) { return lane_resolve::campaign_limit(); }
+
+// The most lanes an item of the partials kernel takes at C campaigns (8, 4,
+// 2 or 1; 0 past rf_max_campaigns()).
+int rf_item_lanes(int C) {
+  return lane_resolve::max_lanes(C, lane_resolve::kDynLimit);
 }
 
 }  // extern "C"

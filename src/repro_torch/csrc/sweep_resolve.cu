@@ -14,132 +14,34 @@
 //
 // What bounds it on the H100. It reads the (N, C) valuations once (400 MB at
 // N=1e6, C=100) and writes winners and prices (256 MB at S=32): ~0.2 ms at
-// 3.35 TB/s. The work is a multiply and two compares per (lane, event,
-// campaign), 9.6e9 at S=32, ~0.14 ms at the 67 TFLOP/s fp32 rate. So bytes
-// bound it.
+// 3.35 TB/s. Issue is the higher floor: 4.28 instructions a (lane, event,
+// campaign) for first price (a multiply, a compare, two selects, 9/32 of a
+// shared load), 3.2e9 of them at S=32, ~0.41 ms at 128 thread-instructions
+// a cycle on 132 SMs at 1.98 GHz (second price ~0.60 ms).
 //
-// What the design does about it. It is the scan of round_fused.cu's
-// partials_kernel, written out here as there: one CTA per (kLanes lanes,
-// canonical block g) stages a 64-row tile of valuations in shared memory
-// once for its lanes and scans each (lane, row) in one thread with the top
-// two bids in registers (`best` and `second` start at the reserve and a bid
-// replaces `best` only if strictly greater, so the winner is the first index
-// of the largest eligible bid and `second` ends as the second price; an
-// inactive campaign gets a NaN multiplier, which never compares true). It
-// writes each (lane, row)'s winner and price with coalesced stores. The
-// spend sums are deterministic: each CTA adds its block's prices per
-// campaign in event order (auction_tile.cuh's add_in_row_order, the two
-// warps of a lane taking turns) into (S, G, C) partials, and `fold_kernel`
-// folds them over g = 0 .. G-1 in order, as segments.fold_blocks does. The
-// TPU kernel sums each tile as a tree, so the sums agree with it to float32
+// What the design does about it. The resolve core is round_fused.cu's
+// partials pass (lane_resolve.cuh, shared by both sources) with every
+// lane's window the whole log: one launch of one CTA per SM taking items
+// of (canonical block g, up to 8 lanes), the rows staged by TMA through a
+// ring of three slots and scanned one thread a row for all the item's
+// lanes, warps 8 + l adding lane l's prices in row order onto the item's
+// running sums over the next tile's stages. Here the core also stores each
+// tile's winners and prices from shared memory, a 512-event row segment
+// per lane, coalesced, spread over the next tile's stages like the adds.
+// The spend sums are deterministic: each item adds its block's prices per
+// campaign in event order into (S, G, C) partials, and `fold_kernel` folds
+// them over g = 0 .. G-1 in order, as segments.fold_blocks does. The TPU
+// kernel sums each tile as a tree, so the sums agree with it to float32
 // tolerance, not bit for bit.
 // The (S, N, C) mask is read from device memory per element, uncoalesced:
 // it is off the main path.
 
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
 
-#include "auction_tile.cuh"
+#include "lane_resolve.cuh"
 
 namespace {
-
-using namespace auction_tile;
-
-constexpr size_t kStaticSmem =
-    sizeof(float) * (kRows * (kCols + 1) + kLanes * kCols + kLanes * kRows);
-
-template <bool kPerEvent>
-__global__ void __launch_bounds__(kThreads)
-sweep_resolve_kernel(const float* __restrict__ values,     // (N, C)
-                     const float* __restrict__ mult,       // (S, C)
-                     const uint8_t* __restrict__ act,      // (S,[N,] C)
-                     const float* __restrict__ reserves,   // (S,)
-                     int32_t* __restrict__ winners,        // (S, N)
-                     float* __restrict__ prices,           // (S, N)
-                     float* __restrict__ parts,            // (S, G, C)
-                     int S, int N, int C, int block_size, int G,
-                     int second_price) {
-  __shared__ float tile[kRows][kCols + 1];    // +1: conflict-free row reads
-  __shared__ float mult_s[kLanes][kCols];     // NaN = inactive campaign
-  __shared__ float price_s[kLanes][kRows];
-  extern __shared__ float acc[];              // (kLanes, C) running sums
-
-  const int tid = threadIdx.x;
-  const int l = tid / kRows;                  // this thread's lane ...
-  const int r = tid % kRows;                  // ... and row in the tile
-  const int s0 = blockIdx.x * kLanes;
-  const int g = blockIdx.y;
-  const int s = s0 + l;
-  for (int i = tid; i < kLanes * C; i += kThreads) acc[i] = 0.0f;
-  __syncthreads();
-  const long long g0 = (long long)g * block_size;
-  const long long g1 = min(g0 + block_size, (long long)N);
-  const float reserve = s < S ? reserves[s] : 0.0f;
-  const int col = tid % kCols;                // staging: a row segment per
-  const int step = kThreads / kCols;          // kCols threads, coalesced
-
-  for (long long base = g0; base < g1; base += kRows) {
-    const int rows = (int)min((long long)kRows, g1 - base);
-    const long long row = base + r;
-    const bool mine = s < S && r < rows;
-    const uint8_t* act_row =
-        (kPerEvent && mine) ? act + ((size_t)s * N + row) * C : nullptr;
-    float best = reserve, second = reserve;   // eligible means bid > reserve
-    int win = -1;
-    for (int c0 = 0; c0 < C; c0 += kCols) {
-      const int cols = min(kCols, C - c0);
-      if (col < cols) {
-        for (int rr = tid / kCols; rr < rows; rr += step)
-          tile[rr][col] = values[(size_t)(base + rr) * C + c0 + col];
-        for (int ll = tid / kCols; ll < kLanes; ll += step) {
-          const int st = s0 + ll;
-          const size_t sc = (size_t)st * C + c0 + col;
-          mult_s[ll][col] =
-              (st < S && (kPerEvent || act[sc])) ? mult[sc] : nanf("");
-        }
-      }
-      __syncthreads();
-      if (mine) {
-        const float* vrow = tile[r];
-        const float* mrow = mult_s[l];
-        for (int k = 0; k < cols; ++k) {
-          if (kPerEvent && !act_row[c0 + k]) continue;
-          const float bid = vrow[k] * mrow[k];
-          if (bid > best) {                   // strict: first index wins ties
-            second = best;
-            best = bid;
-            win = c0 + k;
-          } else if (bid > second) {
-            second = bid;
-          }
-        }
-      }
-      __syncthreads();
-    }
-    const int winner = (win >= 0 && mine) ? win : -1;
-    // second price: max(second-highest eligible bid, reserve), which is
-    // `second` because it started at the reserve
-    const float price = winner >= 0 ? (second_price ? second : best) : 0.0f;
-    if (mine) {
-      winners[(size_t)s * N + row] = winner;
-      prices[(size_t)s * N + row] = price;
-    }
-    price_s[l][r] = price;
-    __syncwarp();
-    for (int half = 0; half < kRows / 32; ++half) {
-      if (r / 32 == half)                     // whole warps
-        add_in_row_order(acc + (size_t)l * C, winner, price_s[l] + half * 32,
-                         r % 32);
-      __syncthreads();
-    }
-  }
-
-  if (s < S) {
-    float* out = parts + ((size_t)s * G + g) * C;
-    for (int c = r; c < C; c += kRows) out[c] = acc[l * C + c];
-  }
-}
 
 // sums[s, c] = parts[s, 0, c] + parts[s, 1, c] + ... in order of g.
 __global__ void fold_kernel(const float* __restrict__ parts,   // (S, G, C)
@@ -154,30 +56,6 @@ __global__ void fold_kernel(const float* __restrict__ parts,   // (S, G, C)
   sums[i] = sum;
 }
 
-template <bool kPerEvent>
-int launch(const float* values, const float* mult, const uint8_t* act,
-           const float* reserves, int32_t* winners, float* prices,
-           float* parts, float* sums, int S, int N, int C, int block_size,
-           int G, int second_price, cudaStream_t stream) {
-  const size_t dyn = (size_t)kLanes * C * sizeof(float);
-  if (kStaticSmem + dyn > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sweep_resolve_kernel<kPerEvent>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
-    if (err != cudaSuccess) return (int)err;
-  }
-  dim3 grid((S + kLanes - 1) / kLanes, G);
-  sweep_resolve_kernel<kPerEvent><<<grid, kThreads, dyn, stream>>>(
-      values, mult, act, reserves, winners, prices, parts, S, N, C,
-      block_size, G, second_price);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long cells = (long long)S * C;
-  fold_kernel<<<(unsigned)((cells + 255) / 256), 256, 0, stream>>>(
-      parts, sums, S, C, G);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -190,18 +68,24 @@ int sr_sweep_resolve(const float* values, const float* mult,
                      int32_t* winners, float* prices, float* parts,
                      float* sums, int S, int N, int C, int block_size, int G,
                      int second_price, int per_event, cudaStream_t stream) {
-  return per_event
-             ? launch<true>(values, mult, act, reserves, winners, prices,
-                            parts, sums, S, N, C, block_size, G, second_price,
-                            stream)
-             : launch<false>(values, mult, act, reserves, winners, prices,
-                             parts, sums, S, N, C, block_size, G,
-                             second_price, stream);
+  using lane_resolve::launch;
+  lane_resolve::Args a{values, mult, act, reserves, nullptr, nullptr,
+                       nullptr, parts, winners, prices, S, N, C, 0, N,
+                       block_size, G, 0, 0};
+  int err = per_event
+                ? (second_price ? launch<true, true, true>(a, stream)
+                                : launch<false, true, true>(a, stream))
+                : (second_price ? launch<true, true, false>(a, stream)
+                                : launch<false, true, false>(a, stream));
+  if (err != 0) return err;
+  const long long cells = (long long)S * C;
+  fold_kernel<<<(unsigned)((cells + 255) / 256), 256, 0, stream>>>(
+      parts, sums, S, C, G);
+  return (int)cudaGetLastError();
 }
 
-// Largest C whose running sums fit the kernel's shared memory.
-int sr_max_campaigns(void) {
-  return (int)((kMaxSmem - kStaticSmem) / (kLanes * sizeof(float)));
-}
+// Largest C the kernel takes: a one-lane item's multipliers and running sums
+// in shared memory.
+int sr_max_campaigns(void) { return lane_resolve::campaign_limit(); }
 
 }  // extern "C"

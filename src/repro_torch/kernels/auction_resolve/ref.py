@@ -19,6 +19,9 @@ from repro_torch.core.segments import REDUCE_BLOCKS, fold_blocks
 from repro_torch.kernels.auction_resolve.auction_resolve import inv_scale
 
 NEG = -2.0 ** 30
+# csrc/lane_resolve.cuh: rows a tile (one thread a row), the most lanes an
+# item takes
+LANE_TILE, LANE_MAX = 512, 8
 
 
 def _resolve_rows(values: torch.Tensor, multipliers: torch.Tensor,
@@ -203,3 +206,98 @@ def round_fused_ref(values: torch.Tensor, multipliers: torch.Tensor,
     block_parts = fused_partials_ref(values, multipliers, active, reserves,
                                      n_hat, n_next, **kw)
     return rate_parts, block_parts, c_next, no_cap, n_next
+
+
+def lane_items(live_per_block, n_ctas: int, max_lanes: int = LANE_MAX):
+    """The kernels' choice of lanes per item: the most (8, 4, 2) whose items
+    (``ceil(live lanes / L)`` per block) still give 3/4 of ``n_ctas`` CTAs
+    one each, else 1."""
+    for lanes in (8, 4, 2):
+        items = sum(-(-n // lanes) for n in live_per_block)
+        if lanes <= max_lanes and 4 * items >= 3 * n_ctas:
+            return lanes
+    return 1
+
+
+def lane_resolve_ref(values: torch.Tensor, multipliers: torch.Tensor,
+                     active: torch.Tensor, reserves: torch.Tensor,
+                     lo=None, hi=None, alive=None, *, block_size: int,
+                     reduce_blocks: int = REDUCE_BLOCKS,
+                     second_price: bool = False, index_offset: int = 0,
+                     n_global: int | None = None, skip_retired: bool = False,
+                     tile: int = LANE_TILE, n_ctas: int = 132,
+                     max_lanes: int = LANE_MAX):
+    """What ``csrc/lane_resolve.cuh`` (the core of ``partials_kernel`` and
+    ``sweep_resolve_kernel``) computes, by the same split, for tests: bitwise
+    :func:`fused_partials_ref` (``lo``/``hi`` the windows, ``None`` = the
+    whole log) and :func:`sweep_resolve_ref`.
+
+    * Items: each canonical block g with the lanes whose windows (cut to the
+      rows ``values`` holds; empty for a dead lane when ``skip_retired``)
+      meet it, in lane order, in groups of L (:func:`lane_items`); (lane,
+      block) pairs of no item stay zero.
+    * An item's rows: the union of its lanes' windows in g, ``tile`` rows at
+      a time, each row resolved for each of the item's lanes, the rows
+      outside a lane's window unsold.
+    * The walk: per lane, tile after tile, each campaign's sales in the
+      tile's row order onto its running sum, from 0.0 (``index_add_``, in
+      order on the CPU).
+
+    Returns ``(parts (S, G, C), winners (S, n) int32, prices (S, n)
+    float32)``; a (lane, row) no item covers has winner -1, price 0."""
+    n_local, c = values.shape
+    s_count = multipliers.shape[0]
+    dev = values.device
+    n_global = index_offset + n_local if n_global is None else n_global
+    per_event = active.ndim == 3
+    res = torch.as_tensor(reserves, dtype=torch.float32,
+                          device=dev).expand(s_count)
+    w0 = torch.full((s_count,), index_offset, dtype=torch.int64)
+    if lo is not None:
+        w0 = torch.maximum(w0, lo.to(torch.int64).cpu())
+    w1 = torch.full((s_count,), n_global, dtype=torch.int64)
+    if hi is not None:
+        w1 = hi.to(torch.int64).cpu()
+    w1 = torch.clamp(w1, max=index_offset + n_local)
+    if skip_retired:
+        dead = ~alive.cpu()
+        w0, w1 = torch.where(dead, 0, w0), torch.where(dead, 0, w1)
+
+    def in_block(s, g):
+        a = max(int(w0[s]), g * block_size)
+        b = min(int(w1[s]), (g + 1) * block_size)
+        return a, b
+
+    live = [[s for s in range(s_count)
+             if in_block(s, g)[0] < in_block(s, g)[1]]
+            for g in range(reduce_blocks)]
+    lanes_per_item = lane_items([len(x) for x in live], n_ctas, max_lanes)
+    parts = torch.zeros((s_count, reduce_blocks, c), dtype=torch.float32,
+                        device=dev)
+    winners = torch.full((s_count, n_local), -1, dtype=torch.int32,
+                         device=dev)
+    prices = torch.zeros((s_count, n_local), dtype=torch.float32, device=dev)
+    for g in range(reduce_blocks):
+        for j in range(0, len(live[g]), lanes_per_item):
+            lanes = live[g][j:j + lanes_per_item]
+            wins = [in_block(s, g) for s in lanes]
+            u0, u1 = min(a for a, _ in wins), max(b for _, b in wins)
+            acc = torch.zeros((len(lanes), c), dtype=torch.float32,
+                              device=dev)
+            for t0 in range(u0, u1, tile):
+                rows = torch.arange(t0, min(t0 + tile, u1), device=dev)
+                v = values[rows - index_offset]
+                for k, s in enumerate(lanes):
+                    act = active[s][rows] if per_event else active[s]
+                    win, price = _resolve_rows(v, multipliers[s], act,
+                                               res[s], second_price)
+                    a, b = wins[k]
+                    w = torch.where((rows >= a) & (rows < b), win, -1)
+                    p = torch.where(w >= 0, price, 0.0)
+                    sold = w >= 0
+                    acc[k].index_add_(0, w[sold].long(), p[sold])
+                    winners[s, rows - index_offset] = w
+                    prices[s, rows - index_offset] = p
+            for k, s in enumerate(lanes):
+                parts[s, g] = acc[k]
+    return parts, winners, prices

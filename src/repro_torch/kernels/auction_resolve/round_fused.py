@@ -23,6 +23,7 @@ _SIGNATURES = {
     "rf_sweep_partials": [_P] * 8 + [_I] * 9 + [_P],
     "rf_predict": [_P] * 8 + [_I] * 4 + [_P],
     "rf_max_campaigns": [],
+    "rf_item_lanes": [_I],
 }
 
 
@@ -39,6 +40,12 @@ def _lib():
 def max_campaigns() -> int:
     """The largest C the kernel holds in shared memory; builds it."""
     return _lib().rf_max_campaigns()
+
+
+def item_lanes(n_campaigns: int) -> int:
+    """The most lanes a work item of the partials kernel takes at C
+    campaigns (8, 4, 2 or 1; 0 past :func:`max_campaigns`); builds it."""
+    return _lib().rf_item_lanes(n_campaigns)
 
 
 def _partials(lib, values, mult, act, reserves, lo, hi, alive, *,

@@ -134,6 +134,188 @@ def test_fused_sweep_bitwise_the_cpu_torch_path(dev):
 
 
 # ---------------------------------------------------------------------------
+# The redesigned resolve core (csrc/lane_resolve.cuh) at its edges
+# ---------------------------------------------------------------------------
+
+def _coarse(s, n, c, seed, per_event=False):
+    """Valuations and multipliers on coarse grids (many equal bids, so ties
+    for the first index to break are common) and an activation."""
+    rng = np.random.default_rng(seed)
+    values = (rng.integers(0, 8, (n, c)) / 8).astype(np.float32)
+    mult = rng.choice(np.float32([0.5, 1.0, 1.5]), (s, c))
+    act = rng.uniform(size=(s, n, c) if per_event else (s, c)) < 0.8
+    res = (np.arange(s) % 4 / 8).astype(np.float32)
+    return [torch.from_numpy(x) for x in (values, mult, act, res)]
+
+
+def _lanes8_threshold():
+    """The largest C whose work items still take 8 lanes."""
+    c = 1
+    while cuda_rf.item_lanes(c + 1) == 8:
+        c += 1
+    return c
+
+
+# name: (S, N, C, windows); C "t8" / "t8+1" is the largest C an item of 8
+# lanes holds and one more (items of 4). windows: "mid_tile" (across blocks,
+# starting and ending inside 256-row tiles), "one_block" (inside canonical
+# block 20), "block_edges" (n_next on a block edge), "retired_offset" (a
+# slice of the log at offset 1000, every third lane dead)
+PARTIALS_EDGES = {
+    "mid_tile": (6, 20_000, 37, "mid_tile"),
+    "one_block": (5, 20_000, 100, "one_block"),
+    "block_edges": (4, 20_000, 100, "block_edges"),
+    "retired_offset_s7": (7, 20_000, 129, "retired_offset"),
+    "c1": (9, 5_000, 1, "mid_tile"),
+    "c100": (32, 8_000, 100, "mid_tile"),
+    "c129": (3, 5_000, 129, "retired_offset"),
+    "c_t8": (8, 3_000, "t8", "mid_tile"),
+    "c_t8+1": (8, 3_000, "t8+1", "mid_tile"),
+}
+
+
+def _edge_windows(kind, s, n):
+    block = -(-n // G)
+    ar = torch.arange(s, dtype=torch.int64)
+    alive = torch.ones(s, dtype=torch.bool)
+    offset, n_local = 0, n
+    if kind == "mid_tile":
+        lo = 37 + ar * (n // (3 * s)) + 101 * (ar % 3)
+        hi = n - 5 - ar * (n // (4 * s)) - 77 * (ar % 2)
+    elif kind == "one_block":
+        lo = 20 * block + 3 + ar * 7
+        hi = 21 * block - 1 - ar * 5
+    elif kind == "block_edges":
+        lo = (ar + 1) * block
+        hi = torch.minimum((ar + 3) * block, torch.tensor(n))
+    else:
+        offset, n_local = 1000, n - 3000
+        lo = 900 + ar * 333
+        hi = n - 2500 - ar * 251
+        alive = ar % 3 != 1
+    return (lo.to(torch.int32), hi.to(torch.int32), alive, offset, n_local,
+            block)
+
+
+@pytest.mark.parametrize("sp", [False, True])
+@pytest.mark.parametrize("case", sorted(PARTIALS_EDGES))
+def test_partials_kernel_edges_give_the_cpu_bits(dev, case, sp):
+    """partials_kernel at the redesign's edges (windows starting and ending
+    inside a tile, inside one canonical block, on block edges, retired
+    lanes, an offset slice, S no multiple of the lanes per item, C of 1,
+    100, 129 and either side of the 8-lane item's shared memory): the CPU's
+    fused_partials_ref bit for bit, retired lanes zero."""
+    s, n, c, kind = PARTIALS_EDGES[case]
+    if isinstance(c, str):
+        c = _lanes8_threshold() + (1 if c.endswith("+1") else 0)
+    values, mult, act, res = _coarse(s, n, c, seed=len(case))
+    lo, hi, alive, offset, n_local, block = _edge_windows(kind, s, n)
+    v_local = values[offset:offset + n_local]
+    before = cuda_rf.LAUNCHES["sweep_partials"]
+    got = ops.sweep_partials(
+        v_local.to(dev), mult.to(dev), act.to(dev), res.to(dev), lo.to(dev),
+        hi.to(dev), alive.to(dev), offset, n_events_global=n,
+        reduce_blocks=G, second_price=sp)
+    torch.cuda.synchronize()
+    assert cuda_rf.LAUNCHES["sweep_partials"] == before + 1
+    want = ref.fused_partials_ref(v_local, mult, act, res, lo, hi,
+                                  block_size=block, second_price=sp,
+                                  index_offset=offset)
+    got = got.cpu()
+    assert torch.equal(got[alive], want[alive])
+    assert not got[~alive].any()
+    assert got[alive].any()
+
+
+# name: (S, N, C, per-event mask)
+SWEEP_RESOLVE_EDGES = {
+    "rows_below_a_tile": (3, 100, 37, False),
+    "ragged_n_s5": (5, 1_001, 100, False),
+    "c1": (9, 3_000, 1, False),
+    "c129_per_event": (4, 2_000, 129, True),
+    "c_t8": (8, 1_500, "t8", False),
+    "c_t8+1": (8, 1_500, "t8+1", False),
+}
+
+
+@pytest.mark.parametrize("sp", [False, True])
+@pytest.mark.parametrize("case", sorted(SWEEP_RESOLVE_EDGES))
+def test_sweep_resolve_kernel_edges_give_the_cpu_bits(dev, case, sp):
+    """sweep_resolve_kernel at the redesign's edges: winners, prices and the
+    folded sums are the CPU's sweep_resolve_ref bit for bit."""
+    s, n, c, per_event = SWEEP_RESOLVE_EDGES[case]
+    if isinstance(c, str):
+        c = _lanes8_threshold() + (1 if c.endswith("+1") else 0)
+    values, mult, act, res = _coarse(s, n, c, seed=len(case),
+                                     per_event=per_event)
+    got = ops.sweep_resolve(values.to(dev), mult.to(dev), act.to(dev),
+                            res.to(dev), second_price=sp)
+    want = ref.sweep_resolve_ref(values, mult, act, res, second_price=sp)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("kernel", ["partials", "sweep_resolve"])
+def test_round_kernels_at_their_campaign_limits(dev, kernel):
+    """At the kernels' own limit (a one-lane item's shared memory) the
+    results are the CPU's bits; one campaign more, the wrapper refuses."""
+    limit = ops.round_campaign_limits()[
+        "fused" if kernel == "partials" else "sweep_resolve"]
+    s, n = 3, 300
+    values, mult, act, res = _coarse(s, n, limit, seed=21)
+    block = -(-n // G)
+    if kernel == "partials":
+        lo = torch.tensor([0, 17, 150], dtype=torch.int32)
+        hi = torch.tensor([300, 290, 151], dtype=torch.int32)
+        alive = torch.ones(s, dtype=torch.bool)
+
+        def run(v, m, a, r):
+            return ops.sweep_partials(
+                v, m, a, r, lo.to(v.device), hi.to(v.device),
+                alive.to(v.device), n_events_global=n, reduce_blocks=G,
+                second_price=True)
+
+        got = run(values.to(dev), mult.to(dev), act.to(dev), res.to(dev))
+        want = ref.fused_partials_ref(values, mult, act, res, lo, hi,
+                                      block_size=block, second_price=True)
+        assert torch.equal(got.cpu(), want)
+    else:
+        def run(v, m, a, r):
+            return ops.sweep_resolve(v, m, a, r, second_price=True)
+
+        got = run(values.to(dev), mult.to(dev), act.to(dev), res.to(dev))
+        want = ref.sweep_resolve_ref(values, mult, act, res,
+                                     second_price=True)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+    wide = [torch.cat([x, x[..., :1]], dim=-1).to(dev)
+            for x in (values, mult, act)]
+    with pytest.raises(ValueError, match="exceeds"):
+        run(*wide, res.to(dev))
+
+
+def test_parallel_sweep_at_the_first_designs_limit_plus_one(dev):
+    """C = 12,269, one past the first partials kernel's shared memory: the
+    fused round takes it now (no auction_resolve launch) with the CPU's
+    bits."""
+    c = 12_269
+    assert ops.round_campaign_limits()["fused"] >= c
+    out = {}
+    for device in ("cpu", dev):
+        engine = _wide_engine(c, device, seed=5)
+        grid = engine.grid(bid_scales=[1.0, 1.2], reserves=[0.0, 0.05])
+        for mod in (cuda_rf, cuda_ar):
+            mod.reset_launches()
+        out[str(device)] = engine.sweep(grid, method="parallel").results
+    assert cuda_rf.LAUNCHES["round_fused"] > 0
+    assert cuda_ar.LAUNCHES["auction_resolve"] == 0
+    for name in ("final_spend", "cap_times"):
+        assert torch.equal(getattr(out[str(dev)], name).cpu(),
+                           getattr(out["cpu"], name)), name
+
+
+# ---------------------------------------------------------------------------
 # Event-ordered partials: the repair of index_add_'s atomics on CUDA
 # ---------------------------------------------------------------------------
 

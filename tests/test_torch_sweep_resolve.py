@@ -186,3 +186,91 @@ def test_sweep_resolve_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         cuda_sr.sweep_resolve_cuda(_t(values), _t(mult), _t(act), _t(res),
                                    second_price=False, reduce_blocks=32)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels' decomposition (csrc/lane_resolve.cuh) in plain torch
+# ---------------------------------------------------------------------------
+
+LANE_N, LANE_C, LANE_S = 640, 37, 5          # canonical blocks of 20 rows
+LANE_BLOCK = LANE_N // 32
+# windows per case: (lo, hi, alive, index_offset, n_ctas); lo/hi global
+LANE_WINDOWS = {
+    # starting and ending inside tiles and blocks, a lane inside block 0;
+    # one CTA, so items of 8 lanes hold all five (S is no multiple of L)
+    "mid_tile": ([3, 50, 101, 7, 0], [620, 333, 640, 9, 555], None, 0, 1),
+    # every window inside canonical block 17 (rows 340-359), one lane an
+    # item
+    "one_block": ([341, 340, 350, 344, 358], [355, 360, 351, 359, 359],
+                  None, 0, 132),
+    # a slice of the log at a non-zero offset, two retired lanes
+    "retired": ([90, 130, 0, 222, 300], [500, 640, 470, 541, 310],
+                [True, False, True, True, False], 100, 8),
+}
+
+
+def _lane_inputs(s, n, c, per_event, seed):
+    """Valuations and multipliers on coarse grids, so that equal bids (ties
+    for the first index to break) are common."""
+    rng = np.random.default_rng(seed)
+    values = (rng.integers(0, 8, (n, c)) / 8).astype(np.float32)
+    mult = rng.choice(np.float32([0.5, 1.0, 1.5]), (s, c))
+    act = rng.uniform(size=(s, n, c) if per_event else (s, c)) < 0.8
+    res = np.float32([0.0, 0.25, 0.125, 0.5, 0.0])[:s]
+    return [_t(x) for x in (values, mult, act, res)]
+
+
+@pytest.mark.parametrize("sp", [False, True])
+@pytest.mark.parametrize("windows", sorted(LANE_WINDOWS))
+@pytest.mark.parametrize("tile", [1, 7, 64, LANE_BLOCK + 1])
+def test_lane_resolve_ref_is_the_fused_partials(tile, windows, sp):
+    """The kernels' split (items of lanes per block, tiles, each campaign's
+    sales walked in row order) gives
+    ``fused_partials_ref``'s partials bit for bit, whatever the tile; a
+    retired lane's are zeros."""
+    values, mult, act, res = _lane_inputs(LANE_S, LANE_N, LANE_C, False, 11)
+    lo, hi, alive, offset, n_ctas = LANE_WINDOWS[windows]
+    lo = torch.tensor(lo, dtype=torch.int32)
+    hi = torch.tensor(hi, dtype=torch.int32)
+    alive = torch.tensor(alive if alive else [True] * LANE_S)
+    v_local = values[offset:offset + LANE_N - 2 * offset]
+    got, _, _ = t_ref.lane_resolve_ref(
+        v_local, mult, act, res, lo, hi, alive, block_size=LANE_BLOCK,
+        second_price=sp, index_offset=offset, n_global=LANE_N,
+        skip_retired=True, tile=tile, n_ctas=n_ctas)
+    want = t_ref.fused_partials_ref(v_local, mult, act, res, lo, hi,
+                                    block_size=LANE_BLOCK, second_price=sp,
+                                    index_offset=offset)
+    assert torch.equal(got[alive], want[alive])
+    assert not got[~alive].any()
+    assert got[alive].any()
+
+
+@pytest.mark.parametrize("sp", [False, True])
+@pytest.mark.parametrize("per_event", [False, True])
+@pytest.mark.parametrize("tile", [1, 7, 64, LANE_BLOCK + 1])
+def test_lane_resolve_ref_is_sweep_resolve_ref(tile, per_event, sp):
+    """With every window the whole log, the same split gives
+    ``sweep_resolve_ref``'s winners and prices, and its sums as the in-order
+    fold of the items' partials, bit for bit."""
+    from repro_torch.core import segments
+    values, mult, act, res = _lane_inputs(LANE_S, LANE_N, LANE_C, per_event,
+                                          12)
+    parts, winners, prices = t_ref.lane_resolve_ref(
+        values, mult, act, res, block_size=LANE_BLOCK, second_price=sp,
+        tile=tile, n_ctas=4)
+    want = t_ref.sweep_resolve_ref(values, mult, act, res, second_price=sp)
+    assert torch.equal(winners, want[0])
+    assert torch.equal(prices, want[1])
+    assert torch.equal(segments.fold_blocks(parts), want[2])
+
+
+@pytest.mark.parametrize("live,n_ctas,lanes", [
+    ([32] * 32, 132, 8),           # a full-day pass at S=32: 128 items
+    ([32] * 16 + [0] * 16, 132, 4),
+    ([0] * 31 + [32], 132, 1),     # a late-round pass: 32 one-lane items
+    ([5] * 32, 132, 1),
+    ([5] * 3, 1, 8),
+])
+def test_lane_items_fill_the_grid(live, n_ctas, lanes):
+    assert t_ref.lane_items(live, n_ctas) == lanes
