@@ -30,6 +30,15 @@ Run from the repository root. Phases:
    slice, S no multiple of the lanes per item, C of 1, 100, 129 and either
    side of the 8-lane item's shared memory, a per-event mask), bitwise
    the plain versions on the CPU under both pricing rules;
+   ``segment_resolve`` at hand-built edge tables (``SEGMENT_EDGES``:
+   boundaries on tile edges, duplicates, caps at event 1 and N, masks in
+   no order, N of 1 and 129, S=33), bitwise the plain version on the CPU;
+   ``vi`` (Algorithm 4 in one launch) at ``simulate``'s full shape (1%
+   sample, 20 epochs of 64 rows), both rules and couplings, bitwise the
+   plain loop on the CPU on the same draws, and at S=32 on the
+   per-scenario warm start's 10% sample cut to ``VI_SWEEP_CPU_EPOCHS``
+   epoch(s), bitwise the CPU's lane loop; then timed alone at the full
+   warm start (S=32, 80 epochs);
 3. hold the fused-round sweep on the card against the plain torch sweep on
    the CPU at a reduced size (N=65,536, C=64, S=8): every integer output
    equal, spends at rtol 1e-6;
@@ -70,7 +79,14 @@ Run from the repository root. Phases:
    the base design's warm start; the counters show both went through
    ``auction_resolve`` and ``first_crossing`` and nothing else, no
    ``index_add_`` ran, a second run gives the same bits, and at N=65,536,
-   C=64, S=8 every output is bitwise the port on the CPU; then its
+   C=64, S=8 every output is bitwise the port on the CPU: simulate makes one
+   ``vi`` launch and a ``segment_resolve`` and a ``first_crossing`` launch a
+   pass, the sweep ``refine_iters + 1`` more of each (one
+   ``segment_resolve`` launch a pass for all 32 lanes), no
+   ``auction_resolve``; the sweep with ``warm_start="per_scenario"`` (10%
+   sample, 80 epochs) runs in one ``vi`` launch and is timed; at the
+   sweep's own cap times ``segment_resolve`` is bitwise the per-lane
+   MatrixTile resolve on the gathered masks, both rules; then its
    accuracy against phase 5's exact replay, per lane, with every lane
    whose consistency gap is 0 (a self-consistent segment history) within
    a spend-weighted error of 0.02 (``tests/test_core_s2a.py``'s bound);
@@ -104,9 +120,12 @@ Run from the repository root. Phases:
    tokens/s and peak memory, ``capped_scan``'s and ``first_crossing``'s
    times beside their first designs' (``EARLIER_MS``), ``first_crossing``'s
    time at one lane (``simulate``'s shape) and at one lane of N in
-   ``SMALL_N`` (small calls, bitwise the CPU), and one JSON line describing
-   each kernel (``first_crossing``'s row also gives the device kernels its
-   calls ran).
+   ``SMALL_N`` (small calls, bitwise the CPU), ``vi``'s time beside its
+   chain floor, at simulate's shape and at the full warm start,
+   ``segment_resolve`` at S=32 and at one lane, and one JSON line
+   describing each kernel (``first_crossing``'s row also gives the device
+   kernels its calls ran; ``vi``'s its chain floor and the warm start;
+   ``segment_resolve``'s its one-lane time).
    The plain capped scan is one chain of small launches per event, so it
    is timed over the first 16,384 events of the full day
    (``plain_events`` in the JSON line); every other time is at the full
@@ -181,8 +200,34 @@ SWEEP_RESOLVE_EDGES = (   # name, S, N, C, per-event mask
     ("C=t8+1", 8, 1_500, "t8+1", False),
 )
 PLAIN_EVENTS = 16_384           # events of the plain capped scan timed on card
+# Algorithm 4 as simulate runs it (a 1% sample, 20 epochs of 64 rows) and as
+# the per-scenario warm start does (10%, 80 epochs, decayed steps); the S=32
+# sweep's comparison with the CPU is cut to VI_SWEEP_CPU_EPOCHS epochs
+VI_SIMULATE = dict(sample_rate=0.01, num_iters=20, batch_size=64,
+                   eta_decay=0.0)
+VI_WARM = dict(sample_rate=0.1, num_iters=80, batch_size=64, eta_decay=0.05)
+VI_SWEEP_CPU_EPOCHS = 1
+# per (row, campaign) a vi step's scan issues a compare of the uniform with
+# pi, a select, a multiply, a compare with the best bid and a select: a
+# dependent step on one SM takes at least B*C*5/128 cycles (the chain floor)
+VI_SCAN_INSTRUCTIONS = 5
+# segment_resolve's hand-built edges (phase 2), against the plain version on
+# the CPU: name, table, S, N, C
+SEGMENT_EDGES = (
+    ("boundaries on and beside tile edges, S=33", "tile_edges", 33, 1000,
+     12),
+    ("duplicate boundaries, C=100, S=33", "duplicates", 33, 3000, 100),
+    ("caps at event 1 and N, never-capped campaigns, C=37", "cap_at_1_and_n",
+     5, 1000, 37),
+    ("hand-built, non-monotone masks, 0 and N inner, S=33", "hand_built", 33,
+     1000, 12),
+    ("hand-built, N=1", "hand_built", 2, 1, 12),
+    ("hand-built, N=129, C=7", "hand_built", 3, 129, 7),
+    ("duplicates, N=127", "duplicates", 4, 127, 100),
+)
 SMALL_N = (256, 1024, 8192)     # first_crossing's small calls, one lane
 ANY_C_EVENTS = 512              # the parallel sweep past the round kernels
+SHORT_SUM_ROWS = (1_000, 8_192)  # short resolves with sums (phase 2)
 CPU_LANE = {"first_price": 0, "second_price": 31}
 ORACLE_TOL = 0.08               # tests/test_core_parallel.py's bound
 S2A_TOL = 0.02                  # tests/test_core_s2a.py's bound
@@ -203,6 +248,12 @@ KERNELS = (   # name, CUDA source, the TPU kernel (or XLA op) it replaces
      "src/repro/core/segments.py:68"),
     ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
      "src/repro/kernels/flash_attention/flash_attention.py:82"),
+    # auction_resolve_pallas's counterpart redesigned for its two uses on
+    # SORT2AGGREGATE's path: Algorithm 4's batches and the segment replays
+    ("vi", "src/repro_torch/csrc/vi.cu",
+     "src/repro/kernels/auction_resolve/auction_resolve.py:80"),
+    ("segment_resolve", "src/repro_torch/csrc/segment_resolve.cu",
+     "src/repro/kernels/auction_resolve/auction_resolve.py:80"),
 )
 LM_ARCH = "stablelm-1.6b"
 LM_REQUESTS, LM_PROMPT, LM_STEPS = 8, 2048, 32
@@ -431,6 +482,76 @@ def core_edges(dev, ops, ref, rf_mod, n_blocks: int) -> None:
         print(f"[2] sweep_resolve edge: {name} (S={s} N={n} C={c}): "
               f"winners, prices and sums bitwise the plain version on the "
               f"CPU, both rules", flush=True)
+
+
+def segment_table(kind: str, s: int, n: int, c: int, rng):
+    """A segment table of one phase-2 edge case: ``(boundaries (S, K+2)
+    int32, masks (S, K+1, C) bool)``, from cap times or hand-built (sorted
+    boundaries with 0 and N among the inner ones, masks in no order)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import Segments
+    if kind == "hand_built":
+        k = 9
+        inner = np.sort(np.concatenate(
+            [rng.integers(0, n + 1, (s, k - 3)),
+             np.tile([0, min(128, n), n], (s, 1))], axis=1), axis=1)
+        bounds = np.concatenate([np.zeros((s, 1)), inner,
+                                 np.full((s, 1), n)], axis=1)
+        return (torch.from_numpy(bounds.astype(np.int32)),
+                torch.from_numpy(rng.uniform(size=(s, k + 1, c)) < 0.6))
+    caps = rng.integers(1, n + 1, (s, c))
+    if kind == "tile_edges":
+        edges = np.array([128, 256, 385, 511, n - 1])
+        caps = edges[rng.integers(0, len(edges), (s, c))]
+    elif kind == "duplicates":
+        caps = rng.choice([n // 5, n // 2, n // 2, n // 2, n - 3], (s, c))
+    elif kind == "cap_at_1_and_n":
+        caps[:, 0], caps[:, 1], caps[:, 2], caps[:, 3] = 1, n, n + 1, 10 * n
+        caps[::2, 4:7] = 1
+    segs = Segments.from_cap_times(torch.from_numpy(caps.astype(np.int32)),
+                                   n)
+    return segs.boundaries, segs.masks
+
+
+def segment_edges(dev, ops, ref) -> None:
+    """Phase 2's edge tables of segment_resolve_kernel against its plain
+    version on the CPU, bit for bit, under both pricing rules."""
+    import numpy as np
+    import torch
+    for seed, (name, kind, s, n, c) in enumerate(SEGMENT_EDGES):
+        rng = np.random.default_rng(200 + seed)
+        values, mult, _, _ = coarse_inputs(s, n, c, 200 + seed, False)
+        res = torch.from_numpy(rng.choice([0.0, 0.125, 0.3], s).astype(
+            np.float32))
+        bounds, masks = segment_table(kind, s, n, c, rng)
+        for second in (False, True):
+            got = ops.segment_resolve(values.to(dev), mult.to(dev),
+                                      res.to(dev), bounds.to(dev),
+                                      masks.to(dev), second_price=second)
+            want = ref.segment_resolve_plain(values, mult, res, bounds, masks,
+                                             second)
+            require(all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+                    f"segment_resolve edge {name!r} (second price {second}) "
+                    f"differs from its plain version on the CPU")
+        print(f"[2] segment_resolve edge: {name} (S={s} N={n} C={c}): "
+              f"bitwise the plain version on the CPU, both rules",
+              flush=True)
+
+
+def vi_cost(n_batches: int, b: int, c: int, w: int, total: int, s: int,
+            clock_hz: float):
+    """``(bytes, operations, chain floor ms)`` of S lanes of Algorithm 4:
+    the sampled rows, the uniforms, the steps and the (S, C) inputs read
+    once and pi written once; a compare, a multiply and a compare per
+    (lane, step, row, campaign); the chain floor is ``total`` dependent
+    steps, each at least VI_SCAN_INSTRUCTIONS * B * C / 128 cycles of one
+    SM's issue (one SM a lane, as the kernel runs)."""
+    n_bytes = 4 * (n_batches * b * c + total * b * w + total + n_batches
+                   + s * (4 * c + 1))
+    n_ops = 3 * s * total * b * c
+    floor_ms = total * (VI_SCAN_INSTRUCTIONS * b * c / 128) / clock_hz * 1e3
+    return n_bytes, n_ops, floor_ms
 
 
 def serve_phase(seed: int, dev, reset_counts, read_counts) -> dict:
@@ -678,7 +799,7 @@ def main() -> int:
     from repro_torch.configs.paper_auction import (PAPER_SYNTHETIC_CPU,
                                                    PAPER_SYNTHETIC_FULL)
     from repro_torch.core import (AuctionRule, CounterfactualEngine,
-                                  ScenarioGrid, scenario_rule,
+                                  ScenarioGrid, Segments, scenario_rule,
                                   spend_weighted_relative_error,
                                   sweep_sequential, sweep_state_machine)
     from repro_torch.core import auction, executor
@@ -692,13 +813,16 @@ def main() -> int:
     from repro_torch.kernels.auction_resolve import first_crossing as fc_mod
     from repro_torch.kernels.auction_resolve import round_fused as rf_mod
     from repro_torch.kernels.auction_resolve import segment_partials as sp_mod
+    from repro_torch.kernels.auction_resolve import segment_resolve as sg_mod
+    from repro_torch.kernels.auction_resolve import vi as vi_mod
     from repro_torch.kernels.auction_resolve import sweep_resolve as sr_mod
     from repro_torch.kernels.capped_scan import capped_scan as cs_mod
     from repro_torch.kernels.capped_scan import ops as scan_ops
     from repro_torch.kernels.capped_scan.ref import capped_scan_ref
     from repro_torch.kernels.flash_attention import flash_attention as fa_mod
 
-    counters = (rf_mod, sr_mod, sp_mod, cs_mod, ar_mod, fc_mod, fa_mod)
+    counters = (rf_mod, sr_mod, sp_mod, cs_mod, ar_mod, fc_mod, fa_mod,
+                vi_mod, sg_mod)
 
     def reset_counts():
         for mod in counters:
@@ -719,7 +843,7 @@ def main() -> int:
     built = build.build_all(["round_fused", "sweep_resolve",
                              "segment_partials", "capped_scan",
                              "auction_resolve", "first_crossing",
-                             "flash_attention"])
+                             "flash_attention", "vi", "segment_resolve"])
     print(f"[1] built {len(built)} libraries in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, (lib_path, log, seconds) in built.items():
@@ -960,6 +1084,49 @@ def main() -> int:
             close("auction_resolve", got[2], want[2])
             equal("sums", got[2].cpu(), on_cpu[2], f"{what} MatrixTile on "
                   f"the CPU")
+        # short resolves with sums: the kernel's winners and prices, the
+        # sums first_crossing's flat sum (one a call), EmbTile's and
+        # MatrixTile's bitwise the CPU's event-ordered sums
+        ops.reset_paths()
+        for rows in SHORT_SUM_ROWS:
+            e_short, v_short = env.event_emb[:rows], env.values[:rows]
+            for mname, mask in (("(C,) mask", cmask),
+                                ("(N, C) mask", nmask[:rows])):
+                what = f"auction_resolve {kind} {mname} N={rows} with sums"
+                got = ops.auction_resolve(e_short, env.campaign_emb, mult1,
+                                          mask, res1, second_price=second)
+                want = ref.auction_resolve_ref(e_short, env.campaign_emb,
+                                               mult1, mask, res1,
+                                               second_price=second)
+                equal("winners", got[0], want[0], f"{what} EmbTile")
+                equal("prices", got[1], want[1], f"{what} EmbTile")
+                equal("sums", got[2].cpu(), auction.spend_sums(
+                    got[0].cpu(), got[1].cpu(), c), f"{what} EmbTile on the "
+                                                    f"CPU")
+                got = ops.resolve_masked(v_short, mult1, mask, res1,
+                                         second_price=second)
+                on_cpu = ref.resolve_masked_ref(
+                    v_short.cpu(), mult1.cpu(), mask.cpu(), res1.cpu(),
+                    second_price=second)
+                for name, a, b in zip(("winners", "prices", "sums"), got,
+                                      on_cpu):
+                    equal(name, a.cpu(), b, f"{what} MatrixTile on the CPU")
+        flat_calls = 4 * len(SHORT_SUM_ROWS)
+        require(ops.PATHS["auction_resolve_flat_sums"] == flat_calls,
+                f"short resolves took {ops.PATHS['auction_resolve_flat_sums']}"
+                f" flat sums, expected {flat_calls}")
+        print(f"[2] {kind}: auction_resolve with sums at N="
+              f"{', '.join(map(str, SHORT_SUM_ROWS))} (EmbTile and "
+              f"MatrixTile, both masks): flat sums, bitwise the CPU",
+              flush=True)
+        if kind == "first_price":
+            # one design's resolve with sums at the short shapes
+            timing["short_sums"] = {}
+            for rows in SHORT_SUM_ROWS:
+                e_short = env.event_emb[:rows]
+                timing["short_sums"][rows] = cuda_ms(
+                    lambda: ops.auction_resolve(e_short, env.campaign_emb,
+                                                mult1, cmask, res1), 50)
         # the first crossings and spends of the 32 resolved lanes: cap times
         # bitwise the plain version on the card and (one lane) on the CPU,
         # spends bitwise the CPU's event-ordered sums
@@ -982,10 +1149,12 @@ def main() -> int:
               f"crossings in {s} lanes) agree with the plain versions",
               flush=True)
         if kind == "first_price":
-            # auction_resolve at the shape of an aggregate pass (MatrixTile,
-            # an (N, C) mask, no sums) and at the embeddings' (EmbTile, a
-            # (C,) mask, sums); first_crossing of 32 lanes
-            timing["auction_resolve"] = (
+            # auction_resolve standalone at N=1e6, C=100 (MatrixTile, an
+            # (N, C) mask, no sums: no main path sends this shape since the
+            # segment replays went to segment_resolve; phase 6 times the
+            # JSON row's shape) and at the embeddings' (EmbTile, a (C,)
+            # mask, sums); first_crossing of 32 lanes
+            timing["auction_resolve_c100"] = (
                 cuda_ms(lambda: ops.resolve_masked(
                     env.values, mult1, nmask, res1, sums=False), 10),
                 cuda_ms(lambda: ref.resolve_masked_ref(
@@ -1020,7 +1189,7 @@ def main() -> int:
                 timing["first_crossing_small"][rows] = cuda_ms(
                     lambda: seg_lib.crossing_and_spend(ws, ps, b1, c), 50)
             d = env.event_emb.shape[1]
-            timing["auction_resolve_bound"] = bound_ms(
+            timing["auction_resolve_c100_bound"] = bound_ms(
                 n * c * 4 + n * c + c * 4 + 4 + n * 8, n * c * 2)
             timing["auction_resolve_emb_bound"] = bound_ms(
                 (n + c) * d * 4 + c * 5 + 4 + n * 8 + c * 4,
@@ -1085,6 +1254,118 @@ def main() -> int:
                   f"campaigns capped)", flush=True)
 
     core_edges(dev, ops, ref, rf_mod, REDUCE_BLOCKS)
+    segment_edges(dev, ops, ref)
+
+    # Algorithm 4 at simulate's full shape: the vi kernel (one launch for
+    # every batch) against the plain loop on the CPU on the same draws,
+    # both rules and both couplings, bit for bit
+    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    values_cpu, budgets_cpu = env.values.cpu(), env.budgets.cpu()
+    key = prng.PRNGKey(args.seed)
+    k_sim = max(int(round(n * VI_SIMULATE["sample_rate"])),
+                VI_SIMULATE["batch_size"])
+    run_kw = dict(sample_size=k_sim, batch_size=VI_SIMULATE["batch_size"],
+                  eta=0.5, eta_decay=VI_SIMULATE["eta_decay"], pi0=None,
+                  track_every=0)
+    for coupling in ("shared", "independent"):
+        draws = vi_lib._draws(key, n, c, sample_size=k_sim,
+                              num_iters=VI_SIMULATE["num_iters"],
+                              batch_size=VI_SIMULATE["batch_size"],
+                              coupling=coupling, device=dev)
+        draws_cpu = vi_lib._Draws(idx=draws.idx.cpu(), u=draws.u.cpu(),
+                                  n_batches=draws.n_batches)
+        t0 = time.perf_counter()
+        for kind in KINDS:
+            rule = AuctionRule(multipliers=torch.ones(c, device=dev),
+                               reserve=torch.zeros((), device=dev),
+                               kind=kind)
+            got = vi_lib._run(env.values, env.budgets, rule, draws, **run_kw)
+            want = vi_lib._run(values_cpu, budgets_cpu, AuctionRule(
+                multipliers=torch.ones(c), reserve=torch.zeros(()),
+                kind=kind), draws_cpu, **run_kw)
+            equal("pi", got.pi.cpu(), want.pi,
+                  f"vi {kind} {coupling} against the CPU loop")
+            require(bool(((got.pi >= 0) & (got.pi <= 1)).all())
+                    and bool((got.pi < 1).any()),
+                    f"vi {kind} {coupling}: pi out of [0, 1] or no campaign "
+                    f"predicted to cap")
+        print(f"[2] vi at simulate's shape (N={n} C={c}, {k_sim} sampled "
+              f"rows, {draws.u.shape[0]} batches of "
+              f"{VI_SIMULATE['batch_size']}), {coupling} coupling: bitwise "
+              f"the plain loop on the CPU, both rules "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        if coupling == "shared":
+            chain = vi_lib._chain(env.values, env.budgets, draws,
+                                  sample_size=k_sim,
+                                  batch_size=VI_SIMULATE["batch_size"],
+                                  eta=0.5, eta_decay=VI_SIMULATE["eta_decay"])
+            vi_args = (chain.sampled, draws.u, chain.step, chain.denom,
+                       chain.btilde[None], torch.ones((1, c), device=dev),
+                       torch.zeros(1, device=dev),
+                       torch.ones((1, c), device=dev))
+            timing["vi"] = (
+                cuda_ms(lambda: vi_mod.vi_cuda(
+                    *vi_args, sample_size=k_sim, second_price=False), 10),
+                cuda_ms(lambda: ref.vi_chain_ref(*vi_args,
+                                                 sample_size=k_sim), 1),
+                None)
+            v_bytes, v_ops, v_floor = vi_cost(
+                draws.n_batches, VI_SIMULATE["batch_size"], c, 1,
+                draws.u.shape[0], 1, clock_hz)
+            timing["vi_bound"] = bound_ms(v_bytes, v_ops)
+            timing["vi_chain_floor"] = v_floor
+            timing["vi_plain_shape"] = (k_sim, int(draws.u.shape[0]))
+            del chain, vi_args
+        del draws, draws_cpu
+    # the scenario sweep on the warm start's sample, S=32: one launch for
+    # every lane, bitwise the CPU's lane loop at VI_SWEEP_CPU_EPOCHS epochs;
+    # then the kernel alone at the warm start's full 80 epochs, timed
+    k_warm = max(int(round(n * VI_WARM["sample_rate"])), VI_WARM["batch_size"])
+    warm_kw = dict(sample_size=k_warm, batch_size=VI_WARM["batch_size"],
+                   eta_decay=VI_WARM["eta_decay"])
+    for kind in KINDS:
+        grid = base_grid(kind, env.budgets, GRID_AXES)
+        t0 = time.perf_counter()
+        got = vi_lib.estimate_pi_sweep(env.values, grid.budgets, grid.rules,
+                                       key, num_iters=VI_SWEEP_CPU_EPOCHS,
+                                       **warm_kw)
+        want = vi_lib.estimate_pi_sweep(
+            values_cpu, grid.budgets.cpu(), AuctionRule(
+                multipliers=grid.rules.multipliers.cpu(),
+                reserve=grid.rules.reserve.cpu(), kind=kind), key,
+            num_iters=VI_SWEEP_CPU_EPOCHS, **warm_kw)
+        equal("pi", got.pi.cpu(), want.pi,
+              f"vi sweep {kind} S={grid.num_scenarios} against the CPU")
+        print(f"[2] vi sweep {kind}: S={grid.num_scenarios} lanes in one "
+              f"launch, {k_warm} sampled rows, {VI_SWEEP_CPU_EPOCHS} epoch(s) "
+              f"({-(-k_warm // 64) * VI_SWEEP_CPU_EPOCHS} steps a lane): "
+              f"bitwise the CPU's lane loop "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    grid = base_grid(KINDS[0], env.budgets, GRID_AXES)
+    s_warm = grid.num_scenarios
+    draws = vi_lib._draws(key, n, c, sample_size=k_warm,
+                          num_iters=VI_WARM["num_iters"],
+                          batch_size=VI_WARM["batch_size"], coupling="shared",
+                          device=dev)
+    chain = vi_lib._chain(env.values, grid.budgets, draws, sample_size=k_warm,
+                          batch_size=VI_WARM["batch_size"], eta=0.5,
+                          eta_decay=VI_WARM["eta_decay"])
+    warm_args = (chain.sampled, draws.u, chain.step, chain.denom,
+                 chain.btilde.contiguous(),
+                 grid.rules.multipliers.contiguous(),
+                 grid.rules.reserve.contiguous(),
+                 torch.ones((s_warm, c), device=dev))
+    w_bytes, w_ops, w_floor = vi_cost(draws.n_batches, VI_WARM["batch_size"],
+                                      c, 1, draws.u.shape[0], s_warm,
+                                      clock_hz)
+    timing["vi_warm"] = (cuda_ms(lambda: vi_mod.vi_cuda(
+        *warm_args, sample_size=k_warm, second_price=False), 3),
+        bound_ms(w_bytes, w_ops)[0], w_floor, draws.u.shape[0])
+    print(f"[2] vi at the full per-scenario warm start (S={s_warm}, {k_warm} "
+          f"sampled rows, {VI_WARM['num_iters']} epochs, "
+          f"{draws.u.shape[0]} steps a lane): {timing['vi_warm'][0]:.4f} ms "
+          f"(chain floor {w_floor:.4f} ms)", flush=True)
+    del draws, chain, warm_args, values_cpu, budgets_cpu
 
     # ---- phase 3: exactness at a reduced size ----------------------------
     for kind in KINDS:
@@ -1377,6 +1658,7 @@ def main() -> int:
                         f"auction_resolve and segment_partials only")
                 how = ("auction_resolve per lane and segment_partials, one "
                        "past the fused round's shared memory")
+                counted["auction_resolve"] += launches["auction_resolve"]
             for name in ("final_spend", "cap_times"):
                 equal(name, getattr(out_any["cuda"], name).cpu(),
                       getattr(out_any["cpu"], name),
@@ -1386,6 +1668,38 @@ def main() -> int:
             print(f"[6] {kind}: engine.sweep(method='parallel') at "
                   f"C={c_any}, N={ANY_C_EVENTS} S=4: {how} (launches "
                   f"{launches}), bitwise the CPU", flush=True)
+        if backend == "auction_resolve":
+            # the auction_resolve row's shape: one lane's MatrixTile resolve
+            # of this back-end, a (C,) mask, no sums; bitwise the plain
+            # version on the card
+            v_any = values_any.to(dev)
+            mult_any = torch.rand(c_any, generator=gen_any).to(dev) + 0.5
+            act_any = (torch.rand(c_any, generator=gen_any) < 0.8).to(dev)
+            res_any = torch.tensor(0.05, device=dev)
+            for kind in KINDS:
+                second = kind == KINDS[1]
+                got = ops.resolve_masked(v_any, mult_any, act_any, res_any,
+                                         second_price=second, sums=False)
+                want = ref.resolve_masked_ref(v_any, mult_any, act_any,
+                                              res_any, second_price=second)
+                equal("winners", got[0], want[0],
+                      f"auction_resolve {kind} C={c_any} N={ANY_C_EVENTS}")
+                equal("prices", got[1], want[1],
+                      f"auction_resolve {kind} C={c_any} N={ANY_C_EVENTS}")
+            timing["auction_resolve"] = (
+                cuda_ms(lambda: ops.resolve_masked(
+                    v_any, mult_any, act_any, res_any, sums=False), 50),
+                cuda_ms(lambda: ref.resolve_masked_ref(
+                    v_any, mult_any, act_any, res_any), 10), None)
+            timing["auction_resolve_bound"] = bound_ms(
+                ANY_C_EVENTS * c_any * 4 + c_any * 5 + 4 + ANY_C_EVENTS * 8,
+                ANY_C_EVENTS * c_any * 2)
+            timing["auction_resolve_shape"] = (ANY_C_EVENTS, c_any)
+            print(f"[6] auction_resolve MatrixTile at the any-C back-end's "
+                  f"shape (N={ANY_C_EVENTS}, C={c_any}, (C,) mask, no sums): "
+                  f"bitwise the plain version, both rules; "
+                  f"{timing['auction_resolve'][0]:.4f} ms", flush=True)
+            del v_any
         del values_any, out_any
 
     # ---- phase 7: the paper's comparison ---------------------------------
@@ -1466,26 +1780,50 @@ def main() -> int:
         for what, cnt, adds in (("simulate", sim_counts, sim_adds),
                                 ("sweep", sweep_counts, sweep_adds)):
             others = {k: v for k, v in cnt.items() if v and k not in (
-                "auction_resolve", "first_crossing",
+                "vi", "segment_resolve", "first_crossing",
                 "first_crossing_device_kernels")}
-            require(cnt["auction_resolve"] > 0 and cnt["first_crossing"] > 0
-                    and not others,
-                    f"{kind} S2A {what}: launches {cnt}, expected only "
-                    f"auction_resolve and first_crossing")
+            require(cnt["vi"] == 1 and cnt["segment_resolve"] > 0
+                    and cnt["first_crossing"] > 0 and not others,
+                    f"{kind} S2A {what}: launches {cnt}, expected one vi "
+                    f"launch and only segment_resolve and first_crossing "
+                    f"besides")
             require(adds == 0, f"{kind} S2A {what} made {adds} index_add_ "
                                f"calls")
-            counted["auction_resolve"] += cnt["auction_resolve"]
-            counted["first_crossing"] += cnt["first_crossing"]
+            for name in ("vi", "segment_resolve", "first_crossing"):
+                counted[name] += cnt[name]
             fc_device_kernels += cnt["first_crossing_device_kernels"]
+        # simulate: Algorithm 4 in one vi launch, then at most
+        # refine_iters + 1 replay passes of one segment_resolve and one
+        # first_crossing launch each
+        require(sim_counts["segment_resolve"] == sim_counts["first_crossing"]
+                <= refine_iters + 1,
+                f"{kind}: S2A simulate launches {sim_counts}")
         # the sweep = the base design's simulate (its warm start), then
-        # refine_iters + 1 passes of S resolves and one crossing launch
+        # refine_iters + 1 passes of ONE segment_resolve launch for all S
+        # lanes and one crossing launch each
         passes = refine_iters + 1
         require(sweep_counts["first_crossing"]
                 == sim_counts["first_crossing"] + passes
-                and sweep_counts["auction_resolve"]
-                == sim_counts["auction_resolve"] + passes * s,
+                and sweep_counts["segment_resolve"]
+                == sim_counts["segment_resolve"] + passes,
                 f"{kind}: S2A sweep launches {sweep_counts} against "
                 f"simulate's {sim_counts}")
+        # the full-size per-scenario warm start: Algorithm 4 for all S
+        # lanes (10% sample, 80 epochs) in one vi launch, then the passes
+        warm, warm_wall, warm_counts, warm_adds = driven(
+            lambda: engine.sweep(grid, method="sort2aggregate",
+                                 warm_start="per_scenario"))
+        require(warm_counts["vi"] == 1 and warm_counts["vi_device_state"] == 0
+                and warm_counts["segment_resolve"] == passes
+                and warm_counts["first_crossing"] == passes
+                and not warm_counts["auction_resolve"] and warm_adds == 0,
+                f"{kind}: per-scenario warm start launches {warm_counts}")
+        require(bool(torch.isfinite(warm.results.final_spend).all())
+                and tuple(warm.results.cap_times.shape) == (s, c),
+                f"{kind}: per-scenario warm start outputs malformed")
+        for name in ("vi", "segment_resolve", "first_crossing"):
+            counted[name] += warm_counts[name]
+        fc_device_kernels += warm_counts["first_crossing_device_kernels"]
         res = sweep.results
         require(bool(torch.isfinite(res.final_spend).all())
                 and tuple(res.final_spend.shape) == (s, c)
@@ -1516,13 +1854,56 @@ def main() -> int:
         same_s2a(outs[0][0], outs[1][0], f"{kind} S2A simulate card vs CPU")
         same_s2a_sweep(outs[0][1], outs[1][1], f"{kind} S2A sweep card vs "
                                                f"CPU")
+        # every lane's replay at the sweep's own cap times, S=32 and one
+        # lane (lane 0's table, the shape of simulate's passes): the segment
+        # kernel against its plain version (each lane's gathered mask and
+        # resolve in PyTorch) and, as a second witness, the per-lane
+        # MatrixTile route, bit for bit; timed at both shapes
+        segs = Segments.from_cap_times(sweep.results.cap_times, n)
+        seg_args = (env.values, grid.rules.multipliers, grid.rules.reserve,
+                    segs.boundaries, segs.masks)
+        one = (env.values,) + tuple(x[:1] for x in seg_args[1:])
+        second = kind == KINDS[1]
+        for lanes, args_ in ((s, seg_args), (1, one)):
+            got = sg_mod.segment_resolve_cuda(*args_, second_price=second)
+            for witness, want in (
+                    ("the plain version", ref.segment_resolve_plain(
+                        *args_, second_price=second)),
+                    ("per-lane MatrixTile", ops.segment_resolve_per_lane(
+                        *args_, second_price=second))):
+                for name, a, b in zip(("winners", "prices"), got, want):
+                    equal(name, a, b, f"segment_resolve {kind} S={lanes} at "
+                                      f"the sweep's cap times against "
+                                      f"{witness}")
+                del want
+            del got
+        if kind == KINDS[0]:
+            timing["segment_resolve"] = (
+                cuda_ms(lambda: sg_mod.segment_resolve_cuda(
+                    *seg_args, second_price=False), 10),
+                cuda_ms(lambda: ref.segment_resolve_plain(*seg_args), 1),
+                None)
+            timing["segment_resolve_one_lane"] = (
+                cuda_ms(lambda: sg_mod.segment_resolve_cuda(
+                    *one, second_price=False), 10),
+                cuda_ms(lambda: ref.segment_resolve_plain(*one), 3))
+            k_seg = segs.masks.shape[1] - 1
+            for tag, lanes in (("", s), ("_one_lane", 1)):
+                timing[f"segment_resolve{tag}_bound"] = bound_ms(
+                    n * c * 4 + lanes * (n * 8 + (k_seg + 2) * 4
+                                         + (k_seg + 1) * c + c * 4 + 4),
+                    2 * lanes * n * c)
         s2a[kind] = dict(sim_wall=sim_wall, sweep_wall=sweep_wall,
-                         vi_wall=vi_wall, sweep=sweep,
-                         launches=(sim_counts, sweep_counts))
+                         vi_wall=vi_wall, sweep=sweep, warm_wall=warm_wall,
+                         launches=(sim_counts, sweep_counts, warm_counts))
         print(f"[8] {kind}: S2A engine.simulate() {sim_wall:.4f} s "
               f"(launches {sim_counts}); engine.sweep(method="
               f"'sort2aggregate') S={s} {sweep_wall:.4f} s (launches "
-              f"{sweep_counts}); Algorithm 4 alone {vi_wall:.4f} s; no "
+              f"{sweep_counts}); with warm_start='per_scenario' "
+              f"{warm_wall:.4f} s (launches {warm_counts}); Algorithm 4 "
+              f"alone {vi_wall:.4f} s; segment_resolve bitwise its plain "
+              f"version and per-lane MatrixTile at the sweep's cap times "
+              f"(S={s} and one lane); no "
               f"index_add_; a second run gives the same bits; at "
               f"N={small.n_events} C={small.n_campaigns} S=8 the card is "
               f"bitwise the CPU ({small_wall:.1f} s)", flush=True)
@@ -1563,7 +1944,7 @@ def main() -> int:
               f"{float(swe.max()):.6f}, worst mean relative error "
               f"{float(rel.max()):.6f}; engine.simulate() of the base design "
               f"(lane 0): spend-weighted error {sim_err:.6f}", flush=True)
-        del outs, sweep, res
+        del outs, sweep, res, warm, segs, seg_args
 
     # ---- phase 9: LM serving -------------------------------------------
     t0 = time.perf_counter()
@@ -1677,7 +2058,8 @@ def main() -> int:
               f"({n * 32 / r['sweep_wall']:.6g} events*scenarios/s); "
               f"Algorithm 4 alone {r['vi_wall']:.4f} s, "
               f"{r['vi_wall'] / r['sim_wall']:.4f} of simulate and "
-              f"{r['vi_wall'] / r['sweep_wall']:.4f} of the sweep")
+              f"{r['vi_wall'] / r['sweep_wall']:.4f} of the sweep; the sweep "
+              f"with the full per-scenario warm start {r['warm_wall']:.4f} s")
     print(f"[10] peak device memory in the SORT2AGGREGATE runs: "
           f"{s2a_peak / 2**30:.3f} GiB")
     emb_ms, emb_plain = timing["auction_resolve_emb"]
@@ -1685,8 +2067,36 @@ def main() -> int:
     print(f"[10] auction_resolve EmbTile (N={n}, C={c}, "
           f"d={env.event_emb.shape[1]}, (C,) mask, with sums): "
           f"{emb_ms:.4f} ms, plain {emb_plain:.4f} ms, bound "
-          f"{emb_bound:.4f} ms ({emb_by}); the JSON line's auction_resolve "
-          f"row is MatrixTile at an aggregate pass's shape")
+          f"{emb_bound:.4f} ms ({emb_by}); with sums, one design, C={c}: "
+          + ", ".join(f"N={r_} {ms:.4f} ms"
+                      for r_, ms in timing["short_sums"].items()))
+    c100_ms, c100_plain, _ = timing["auction_resolve_c100"]
+    c100_bound, _ = timing["auction_resolve_c100_bound"]
+    ar_rows, ar_c = timing["auction_resolve_shape"]
+    print(f"[10] auction_resolve MatrixTile standalone at N={n}, C={c} "
+          f"((N, C) mask, no sums; no main-path launches at this shape): "
+          f"{c100_ms:.4f} ms, plain {c100_plain:.4f} ms, bound "
+          f"{c100_bound:.4f} ms; the JSON line's auction_resolve row is "
+          f"MatrixTile at the any-C back-end's shape, N={ar_rows}, C={ar_c}")
+    vi_ms, vi_plain, _ = timing["vi"]
+    vi_bound, vi_by = timing["vi_bound"]
+    warm_ms, warm_bound, warm_floor, warm_steps = timing["vi_warm"]
+    print(f"[10] vi, simulate's Algorithm 4 (one lane, "
+          f"{VI_SIMULATE['num_iters']} epochs of "
+          f"{VI_SIMULATE['batch_size']} rows): {vi_ms:.4f} ms, plain "
+          f"(ref.vi_chain_ref on the card) {vi_plain:.4f} ms, bound "
+          f"{vi_bound:.4f} ms ({vi_by}), chain floor "
+          f"{timing['vi_chain_floor']:.4f} ms; the full per-scenario warm "
+          f"start (S={s}, {warm_steps} steps a lane): {warm_ms:.4f} ms, "
+          f"bound {warm_bound:.4f} ms, chain floor {warm_floor:.4f} ms")
+    sg1_ms, sg1_plain = timing["segment_resolve_one_lane"]
+    sg1_bound, _ = timing["segment_resolve_one_lane_bound"]
+    print(f"[10] segment_resolve at the sweep's cap times: S={s} "
+          f"{timing['segment_resolve'][0]:.4f} ms (plain "
+          f"{timing['segment_resolve'][1]:.4f} ms, bound "
+          f"{timing['segment_resolve_bound'][0]:.4f} ms); one lane "
+          f"{sg1_ms:.4f} ms (plain {sg1_plain:.4f} ms, bound "
+          f"{sg1_bound:.4f} ms)")
     tokens_out = LM_REQUESTS * LM_STEPS
     print(f"[10] {LM_ARCH} serving on {card}: prefill of {LM_REQUESTS} x "
           f"{LM_PROMPT} tokens {lm['prefill_s']:.4f} s "
@@ -1721,7 +2131,10 @@ def main() -> int:
                          bound_ms=bound, bound_by=bound_by,
                          library_ms=library_ms,
                          plain_events=(PLAIN_EVENTS if name == "capped_scan"
-                                       else None if name == "flash_attention"
+                                       else ar_rows
+                                       if name == "auction_resolve"
+                                       else None if name in ("flash_attention",
+                                                             "vi")
                                        else n)))
         if name == "sweep_partials":
             rows[-1].update(late_ms=timing["sweep_partials_late"],
@@ -1737,6 +2150,26 @@ def main() -> int:
                             device_kernels=fc_device_kernels,
                             small_n_ms={str(k): v for k, v in timing[
                                 "first_crossing_small"].items()})
+        if name == "auction_resolve":
+            rows[-1].update(
+                n_events=ar_rows, n_campaigns=ar_c,
+                standalone_c100_ms=c100_ms,
+                standalone_c100_plain_ms=c100_plain,
+                standalone_c100_bound_ms=c100_bound,
+                emb_sums_ms=emb_ms, emb_sums_bound_ms=emb_bound,
+                short_sums_ms={str(k): v for k, v
+                               in timing["short_sums"].items()})
+        if name == "vi":
+            rows[-1].update(plain_sampled_rows=timing["vi_plain_shape"][0],
+                            plain_steps=timing["vi_plain_shape"][1],
+                            chain_floor_ms=timing["vi_chain_floor"],
+                            warm_start_ms=warm_ms,
+                            warm_start_bound_ms=warm_bound,
+                            warm_start_chain_floor_ms=warm_floor,
+                            warm_start_steps=warm_steps)
+        if name == "segment_resolve":
+            rows[-1].update(one_lane_ms=sg1_ms, one_lane_plain_ms=sg1_plain,
+                            one_lane_bound_ms=sg1_bound)
         require(counted[name] > 0, f"{name} never launched on its path")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

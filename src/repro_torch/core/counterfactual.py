@@ -10,8 +10,8 @@ the base design (scenario ``base_index``, 0 by default).
 
 Ported estimators: SORT2AGGREGATE (``method="sort2aggregate"``, the
 default of ``simulate`` and ``compare``: Algorithm 4's estimate, the
-segment refinement and the aggregate pass, through the ``auction_resolve``
-and ``first_crossing`` kernels on the card), Algorithm 2
+segment refinement and the aggregate pass, through the ``vi``,
+``segment_resolve`` and ``first_crossing`` kernels on the card), Algorithm 2
 (``method="parallel"``) and the exact ``"sequential"`` oracle (one
 capped-scan kernel launch on the card). ``"naive_sampling"`` raises
 ``NotImplementedError`` naming the ROADMAP item that ports it. Keys are

@@ -8,7 +8,7 @@ and reads off the per-campaign totals and first budget crossings
 exactly: the total is a flat per-campaign sum in event order (XLA's segment
 sum on the CPU), and the crossing scan adds each block's one-hot spends in
 the order of XLA's CPU ``cumsum`` (:func:`xla_cumsum`). On CUDA tensors
-the resolve is the ``auction_resolve`` kernel and both sums come from one
+the resolve is the ``segment_resolve`` kernel and both sums come from one
 ``first_crossing`` kernel launch (``csrc/first_crossing.cu``), which gives
 the CPU's bits.
 
@@ -369,16 +369,17 @@ def crossing_and_spend(winners: torch.Tensor, prices: torch.Tensor,
 def resolve_segments(values: torch.Tensor, segments: Segments,
                      rule: AuctionRule):
     """(winners (N,), prices (N,)) of every event under its segment's
-    activation mask: the (N, C) mask ``segments.masks[seg_ids]`` and one
-    ``resolve_masked`` (the ``auction_resolve`` kernel on CUDA)."""
+    activation mask: ``ops.segment_resolve`` for one lane (on CUDA one
+    ``segment_resolve`` launch, which reads the segment table in place; on
+    the CPU the (N, C) mask ``segments.masks[seg_ids]`` and one resolve)."""
     # ops imports this module (REDUCE_BLOCKS), so it is imported here
     from repro_torch.kernels.auction_resolve import ops as resolve_ops
-    n_events = values.shape[0]
-    masks = segments.masks[segments.seg_ids(n_events)]
-    winners, prices, _ = resolve_ops.resolve_masked(
-        values, rule.multipliers, masks, rule.reserve,
-        second_price=rule.kind == "second_price", sums=False)
-    return winners, prices
+    winners, prices = resolve_ops.segment_resolve(
+        values, rule.multipliers.reshape(1, -1),
+        torch.as_tensor(rule.reserve).reshape(1),
+        segments.boundaries.reshape(1, -1), segments.masks[None],
+        second_price=rule.kind == "second_price")
+    return winners[0], prices[0]
 
 
 def aggregate(values: torch.Tensor, segments: Segments,

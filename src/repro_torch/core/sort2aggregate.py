@@ -9,10 +9,11 @@
 * **Aggregate** — one final replay under the converged segments.
 
 Each replay is one pass of :func:`repro_torch.core.segments.aggregate`: a
-resolve under per-event masks (the ``auction_resolve`` kernel on CUDA) and
-the flat totals and first crossings in ``repro``'s float order (the
-``first_crossing`` kernel on CUDA), so on the CPU every cap time, gap and
-spend is ``repro``'s bit for bit, and the card gives the CPU's bits.
+resolve under each event's segment mask (on CUDA the ``segment_resolve``
+kernel, one launch for every lane of a pass) and the flat totals and first
+crossings in ``repro``'s float order (the ``first_crossing`` kernel on
+CUDA), so on the CPU every cap time, gap and spend is ``repro``'s bit for
+bit, and the card gives the CPU's bits.
 
 The event-chunked spine ``refine_fixed_chunked`` waits for the chunk axis
 (ROADMAP.md queue 1, item 3).
@@ -28,6 +29,7 @@ import torch
 from repro_torch.core import segments as seg_lib
 from repro_torch.core import vi as vi_lib
 from repro_torch.core.types import AuctionRule, Segments, SimResult
+from repro_torch.kernels.auction_resolve import ops as resolve_ops
 
 
 @dataclasses.dataclass
@@ -81,19 +83,16 @@ def _replay_lanes(values: torch.Tensor, caps: torch.Tensor,
                   budgets: torch.Tensor, rules: AuctionRule, *,
                   crossing_block: int):
     """One replay of S lanes (caps (S, C)) under their segment histories:
-    each lane resolved on its own (N, C) mask, then one crossing pass for
-    all lanes. Returns ``(spend (S, C), cap times (S, C), winners (S, N),
+    every lane resolved under its own segment table (one
+    ``segment_resolve`` launch on CUDA), then one crossing pass for all
+    lanes. Returns ``(spend (S, C), cap times (S, C), winners (S, N),
     prices (S, N))``; lanes never exchange data, so each lane's bits are
     its single-lane :func:`~repro_torch.core.segments.aggregate`'s."""
     n_events, n_campaigns = values.shape
     segs = Segments.from_cap_times(caps, n_events)
-    resolved = [seg_lib.resolve_segments(
-        values, Segments(boundaries=segs.boundaries[s], masks=segs.masks[s]),
-        AuctionRule(multipliers=rules.multipliers[s],
-                    reserve=rules.reserve[s], kind=rules.kind))
-        for s in range(caps.shape[0])]
-    winners = torch.stack([w for w, _ in resolved])
-    prices = torch.stack([p for _, p in resolved])
+    winners, prices = resolve_ops.segment_resolve(
+        values, rules.multipliers, rules.reserve, segs.boundaries,
+        segs.masks, second_price=rules.kind == "second_price")
     spend, cap = seg_lib.crossing_and_spend(winners, prices, budgets,
                                             n_campaigns, crossing_block)
     return spend, cap, winners, prices

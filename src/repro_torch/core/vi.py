@@ -15,9 +15,11 @@ The random draws are ``repro``'s: the sample is ``choice(replace=False)``
 of a split of the key and the activations' uniforms come from
 ``split(k_events, total_batches)``, all through :mod:`repro_torch.prng`, so
 the same key gives the same estimate bit for bit. All uniforms of a run are
-drawn at once (threefry is elementwise over keys); each batch is then one
-``resolve_masked`` (the ``auction_resolve`` kernel on CUDA, padded rows
-dead through ``live``) and a few (C,) updates.
+drawn at once (threefry is elementwise over keys). On the CPU each batch is
+then one ``resolve_masked`` (padded rows dead through ``live``) and a few
+(C,) updates, a loop on the host: the plain version. On CUDA every batch of
+every lane is one launch of the ``vi`` kernel (``csrc/vi.cu``), which
+gives the loop's bits.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from repro_torch import prng
 from repro_torch.floats import fma
 from repro_torch.core.types import AuctionRule, never_capped
 from repro_torch.kernels.auction_resolve import ops as resolve_ops
+from repro_torch.kernels.auction_resolve.vi import vi_cuda
 
 _OVERLAYS = ("overlay_row/overlay (intervention semantics in the VI) is not "
              "ported to repro_torch yet; see ROADMAP.md queue 1, item 5 (CRN "
@@ -85,10 +88,20 @@ def _draws(key: torch.Tensor, n_events: int, n_campaigns: int, *,
                   n_batches=n_batches)
 
 
-def _run(values, budgets, rule: AuctionRule, draws: _Draws, *,
-         sample_size: int, batch_size: int, eta: float, eta_decay: float,
-         pi0, track_every: int) -> PiEstimate:
-    """The VI iteration of one design on given draws."""
+@dataclasses.dataclass(frozen=True)
+class _Chain:
+    """What every batch step reads besides pi: the sampled rows (padded to
+    whole batches with dead zero rows), the live rows, each batch's live
+    count, the per-event budgets and each step's size."""
+    sampled: torch.Tensor      # (n_batches * B, C)
+    live: torch.Tensor         # (n_batches * B,) bool
+    denom: torch.Tensor        # (n_batches,) float32, at least 1
+    btilde: torch.Tensor       # (..., C) budgets / N
+    step: torch.Tensor         # (total,) float32
+
+
+def _chain(values, budgets, draws: _Draws, *, sample_size: int,
+           batch_size: int, eta: float, eta_decay: float) -> _Chain:
     n_events, n_campaigns = values.shape
     dev = values.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -106,8 +119,52 @@ def _run(values, budgets, rule: AuctionRule, draws: _Draws, *,
     eta_t = torch.tensor(eta, **f32) / fma(
         torch.tensor(eta_decay, **f32), epoch, torch.ones((), **f32))
     step = eta_t * torch.tensor(float(batch_size), **f32)      # (total,)
-    pi = torch.ones(n_campaigns, **f32) if pi0 is None \
-        else pi0.to(**f32)
+    return _Chain(sampled=sampled, live=live, denom=denom, btilde=btilde,
+                  step=step)
+
+
+def _run_cuda(chain: _Chain, rules: AuctionRule, draws: _Draws, pi0, *,
+              sample_size: int, track_every: int):
+    """Every batch of S lanes (``chain.btilde`` and the rule's fields (S,
+    ...)) in one ``vi`` kernel launch. Returns ``(pi (S, C), history (S,
+    n_tracked, C) or None)``."""
+    s, c = chain.btilde.shape
+    dev = chain.sampled.device
+    pi = torch.ones((s, c), dtype=torch.float32, device=dev) \
+        if pi0 is None else pi0.to(device=dev, dtype=torch.float32)
+    return vi_cuda(
+        chain.sampled, draws.u.contiguous(), chain.step.contiguous(),
+        chain.denom.contiguous(), chain.btilde.contiguous(),
+        rules.multipliers.to(device=dev, dtype=torch.float32).contiguous(),
+        torch.as_tensor(rules.reserve, dtype=torch.float32,
+                        device=dev).reshape(s).contiguous(), pi,
+        sample_size=sample_size, second_price=rules.kind == "second_price",
+        track_every=track_every)
+
+
+def _run(values, budgets, rule: AuctionRule, draws: _Draws, *,
+         sample_size: int, batch_size: int, eta: float, eta_decay: float,
+         pi0, track_every: int) -> PiEstimate:
+    """The VI iteration of one design on given draws: one ``vi`` launch on
+    CUDA, the host loop (the plain version) on the CPU."""
+    n_campaigns = values.shape[1]
+    dev = values.device
+    chain = _chain(values, budgets, draws, sample_size=sample_size,
+                   batch_size=batch_size, eta=eta, eta_decay=eta_decay)
+    total = draws.u.shape[0]
+    updates = torch.tensor(total, dtype=torch.int32)
+    if dev.type == "cuda":
+        lane = AuctionRule(multipliers=rule.multipliers.reshape(1, -1),
+                           reserve=torch.as_tensor(rule.reserve).reshape(1),
+                           kind=rule.kind)
+        pi, hist = _run_cuda(
+            dataclasses.replace(chain, btilde=chain.btilde.reshape(1, -1)),
+            lane, draws, None if pi0 is None else pi0.reshape(1, -1),
+            sample_size=sample_size, track_every=track_every)
+        return PiEstimate(pi=pi[0], history=None if hist is None
+                          else hist[0], num_updates=updates)
+    pi = torch.ones(n_campaigns, dtype=torch.float32, device=dev) \
+        if pi0 is None else pi0.to(dtype=torch.float32, device=dev)
     second = rule.kind == "second_price"
     history = []
     for t in range(total):
@@ -115,15 +172,15 @@ def _run(values, budgets, rule: AuctionRule, draws: _Draws, *,
         lo = b * batch_size
         active = draws.u[t] < pi[None, :]                      # (B, C)
         _, _, sums = resolve_ops.resolve_masked(
-            sampled[lo:lo + batch_size], rule.multipliers, active,
-            rule.reserve, live[lo:lo + batch_size], second_price=second)
-        delta = btilde - sums / denom[b]
-        pi = torch.clamp(fma(step[t], delta, pi), 0.0, 1.0)
+            chain.sampled[lo:lo + batch_size], rule.multipliers, active,
+            rule.reserve, chain.live[lo:lo + batch_size],
+            second_price=second)
+        delta = chain.btilde - sums / chain.denom[b]
+        pi = torch.clamp(fma(chain.step[t], delta, pi), 0.0, 1.0)
         if track_every:
             history.append(pi)
     hist = torch.stack(history)[::track_every] if track_every else None
-    return PiEstimate(pi=pi, history=hist,
-                      num_updates=torch.tensor(total, dtype=torch.int32))
+    return PiEstimate(pi=pi, history=hist, num_updates=updates)
 
 
 def estimate_pi(values: torch.Tensor, budgets: torch.Tensor,
@@ -159,7 +216,8 @@ def estimate_pi_sweep(values: torch.Tensor, budgets: torch.Tensor,
     """Algorithm 4 over a scenario batch (budgets (S, C), a stacked rule)
     with ONE key: every lane sees the same sampled events and the same
     uniforms (common random numbers), so pi deltas across scenarios are
-    design effects. Lanes run one after another on the shared draws.
+    design effects. On CUDA every lane runs in one ``vi`` kernel launch;
+    on the CPU the lanes run one after another on the shared draws.
     Returns a :class:`PiEstimate` whose ``pi`` is (S, C)."""
     if overlay is not None:
         raise NotImplementedError(_OVERLAYS)
@@ -167,6 +225,13 @@ def estimate_pi_sweep(values: torch.Tensor, budgets: torch.Tensor,
     draws = _draws(key, n_events, n_campaigns, sample_size=sample_size,
                    num_iters=num_iters, batch_size=batch_size,
                    coupling=coupling, device=values.device)
+    if values.device.type == "cuda":
+        chain = _chain(values, budgets, draws, sample_size=sample_size,
+                       batch_size=batch_size, eta=eta, eta_decay=eta_decay)
+        pi, _ = _run_cuda(chain, rules, draws, pi0, sample_size=sample_size,
+                          track_every=0)
+        return PiEstimate(pi=pi, history=None, num_updates=torch.full(
+            (budgets.shape[0],), draws.u.shape[0], dtype=torch.int32))
     lanes = [
         _run(values, budgets[s], AuctionRule(
             multipliers=rules.multipliers[s], reserve=rules.reserve[s],

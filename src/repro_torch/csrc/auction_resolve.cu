@@ -3,17 +3,19 @@
 //
 // Replaces the Pallas TPU kernel `auction_resolve_pallas` of
 // repro/kernels/auction_resolve/auction_resolve.py (:80, body `_kernel` :28).
-// In the port it carries every resolve of SORT2AGGREGATE: each segment
-// replay of `segments.aggregate` (mask `segments.masks[seg_ids]`) and each
-// Algorithm-4 batch of `vi.estimate_pi` (mask `u < pi`, padded rows dead).
+// In the port MatrixTile resolves each design of the round back-end that
+// takes any C (`core/executor.py`) and each segment replay of a C above
+// segment_resolve.cu's limit (mask `segments.masks[seg_ids]`);
+// SORT2AGGREGATE's main path runs vi.cu and segment_resolve.cu instead.
 //
 // What it computes. For each event n: bid[c] = v[n, c] * mult[c];
 // eligible = act & bid > reserve & live[n], with `act` a (C,) or (N, C)
 // mask; the winner is the first index of the largest eligible bid (-1 if
 // none); first price pays the top bid, second price max(second-largest
-// eligible bid, reserve); no sale pays 0. Out: winners (N,) int32, prices
-// (N,) float32 and, on request, the per-campaign spend sums (C,), added in
-// event order from 0.0 (a flat segment sum, as XLA's is on the CPU).
+// eligible bid, reserve); no sale pays 0. Out: winners (N,) int32 and
+// prices (N,) float32. The per-campaign spend sums of the TPU kernel are
+// not computed here: ops.py takes them from first_crossing.cu's flat sum,
+// added in event order from 0.0 as XLA's segment sum is on the CPU.
 // The valuations come from one of two tile sources, a template parameter:
 //  * EmbTile computes them in registers from embeddings (Eq. 12):
 //    min(exp((e . r) * (1 / (2 sqrt d))) / 10, 1), the dot a fixed-order
@@ -38,9 +40,6 @@
 // greater: the first index of the largest eligible bid wins and `second`
 // ends as the second price), as round_fused.cu's scan does. An inactive
 // campaign of a (C,) mask gets a NaN multiplier, which never compares true.
-// The sums are a second launch, one warp walking the rows 32 at a time and
-// adding same-winner groups in row order (auction_tile.cuh's
-// add_in_row_order): no float atomics, and the bits of a sequential sum.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -174,34 +173,11 @@ auction_resolve_kernel(Tile tile,
   }
 }
 
-// sums[c] = the prices of the events campaign c won, added in event order
-// from 0.0. One warp; same-winner groups of 32 rows added in row order.
-__global__ void __launch_bounds__(32)
-ordered_sums_kernel(const int32_t* __restrict__ winners,
-                    const float* __restrict__ prices,
-                    float* __restrict__ sums, int N, int C) {
-  __shared__ float warp_prices[32];
-  extern __shared__ float acc[];             // (C,)
-  const int lane = threadIdx.x;
-  for (int c = lane; c < C; c += 32) acc[c] = 0.0f;
-  __syncwarp();
-  for (long long base = 0; base < N; base += 32) {
-    const long long row = base + lane;
-    int w = row < N ? winners[row] : -1;
-    if (w >= C) w = -1;                      // never index past the sums
-    warp_prices[lane] = row < N ? prices[row] : 0.0f;
-    __syncwarp();
-    auction_tile::add_in_row_order(acc, w, warp_prices, lane);
-    __syncwarp();
-  }
-  for (int c = lane; c < C; c += 32) sums[c] = acc[c];
-}
-
 template <class Tile>
 int launch(const Tile& tile, int d, const float* mult, const uint8_t* act,
            const uint8_t* live, const float* reserve, int32_t* winners,
-           float* prices, float* sums, int N, int C, int per_event,
-           int second_price, cudaStream_t stream) {
+           float* prices, int N, int C, int per_event, int second_price,
+           cudaStream_t stream) {
   const size_t dyn = Tile::smem_floats(C, d) * sizeof(float);
   auto kernel = per_event ? auction_resolve_kernel<Tile, true>
                           : auction_resolve_kernel<Tile, false>;
@@ -213,16 +189,6 @@ int launch(const Tile& tile, int d, const float* mult, const uint8_t* act,
   const unsigned blocks = (unsigned)((N + kRows - 1) / kRows);
   kernel<<<blocks, kRows, dyn, stream>>>(tile, mult, act, live, reserve,
                                          winners, prices, N, C, second_price);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || sums == nullptr) return (int)err;
-  const size_t acc = (size_t)C * sizeof(float);
-  if (acc + 32 * sizeof(float) > 48 * 1024) {
-    err = cudaFuncSetAttribute(ordered_sums_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)acc);
-    if (err != cudaSuccess) return (int)err;
-  }
-  ordered_sums_kernel<<<1, 32, acc, stream>>>(winners, prices, sums, N, C);
   return (int)cudaGetLastError();
 }
 
@@ -231,15 +197,15 @@ int launch(const Tile& tile, int d, const float* mult, const uint8_t* act,
 extern "C" {
 
 // Resolve N events of an (N, C) valuation matrix. `act` is (N, C) when
-// `per_event`, else (C,); `live` (N,) may be null (every row live); `sums`
-// may be null (no sums). Returns the cudaError_t of the launches.
+// `per_event`, else (C,); `live` (N,) may be null (every row live).
+// Returns the cudaError_t of the launch.
 int ar_resolve_matrix(const float* values, const float* mult,
                       const uint8_t* act, const uint8_t* live,
                       const float* reserve, int32_t* winners, float* prices,
-                      float* sums, int N, int C, int per_event,
-                      int second_price, cudaStream_t stream) {
+                      int N, int C, int per_event, int second_price,
+                      cudaStream_t stream) {
   return launch(MatrixTile{values, C}, 0, mult, act, live, reserve, winners,
-                prices, sums, N, C, per_event, second_price, stream);
+                prices, N, C, per_event, second_price, stream);
 }
 
 // Resolve N events whose valuations come from event embeddings (N, d) and
@@ -248,23 +214,23 @@ int ar_resolve_emb(const void* event_emb, const void* campaign_emb, int bf16,
                    int d, float inv_scale, const float* mult,
                    const uint8_t* act, const uint8_t* live,
                    const float* reserve, int32_t* winners, float* prices,
-                   float* sums, int N, int C, int per_event, int second_price,
+                   int N, int C, int per_event, int second_price,
                    cudaStream_t stream) {
   if (bf16)
     return launch(
         EmbTile<__nv_bfloat16>{(const __nv_bfloat16*)event_emb,
                                (const __nv_bfloat16*)campaign_emb, C, d,
                                inv_scale},
-        d, mult, act, live, reserve, winners, prices, sums, N, C, per_event,
+        d, mult, act, live, reserve, winners, prices, N, C, per_event,
         second_price, stream);
   return launch(EmbTile<float>{(const float*)event_emb,
                                (const float*)campaign_emb, C, d, inv_scale},
-                d, mult, act, live, reserve, winners, prices, sums, N, C,
-                per_event, second_price, stream);
+                d, mult, act, live, reserve, winners, prices, N, C, per_event,
+                second_price, stream);
 }
 
 // Shared memory (floats) left for EmbTile's embeddings, C*d + 128*d of
-// them, and for the sums' C running totals.
+// them.
 int ar_max_shared_floats(void) {
   return (int)((auction_tile::kMaxSmem - kStaticSmem) / sizeof(float));
 }

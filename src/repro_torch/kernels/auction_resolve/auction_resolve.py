@@ -2,14 +2,14 @@
 (``csrc/auction_resolve.cu``), the port of ``repro``'s
 ``auction_resolve_pallas``. Two tile sources: valuations computed from
 embeddings (:func:`resolve_emb_cuda`) or read from a valuation matrix
-(:func:`resolve_matrix_cuda`, the SORT2AGGREGATE path). It follows
+(:func:`resolve_matrix_cuda`). It follows
 :mod:`repro_torch.kernels.binding` and counts its launches in
-:data:`LAUNCHES`.
+:data:`LAUNCHES`. The kernel returns winners and prices; :mod:`.ops` adds
+the spend sums with ``first_crossing``'s flat sum.
 
-The kernel's shared memory holds the sums of at most
-:func:`max_shared_floats` campaigns and EmbTile's embeddings of at most
-:func:`emb_max_campaigns` campaigns; the wrappers refuse more, and
-:mod:`.ops` routes such calls around those limits.
+The kernel's shared memory holds EmbTile's embeddings of at most
+:func:`emb_max_campaigns` campaigns; the wrapper refuses more, and
+:mod:`.ops` resolves such calls in campaign chunks.
 """
 from __future__ import annotations
 
@@ -27,8 +27,8 @@ LAUNCHES = {"auction_resolve": 0}
 ROWS_PER_CTA = 128          # kRows of the kernel: EmbTile stages 128*d floats
 
 _SIGNATURES = {
-    "ar_resolve_matrix": [_P] * 8 + [_I] * 4 + [_P],
-    "ar_resolve_emb": [_P, _P, _I, _I, ctypes.c_float] + [_P] * 7
+    "ar_resolve_matrix": [_P] * 7 + [_I] * 4 + [_P],
+    "ar_resolve_emb": [_P, _P, _I, _I, ctypes.c_float] + [_P] * 6
     + [_I] * 4 + [_P],
     "ar_max_shared_floats": [],
 }
@@ -44,8 +44,8 @@ def _lib():
 
 
 def max_shared_floats() -> int:
-    """Floats of shared memory the kernel has for the sums' C running
-    totals (and EmbTile's embeddings); builds the kernel."""
+    """Floats of shared memory the kernel has for EmbTile's embeddings;
+    builds the kernel."""
     return _lib().ar_max_shared_floats()
 
 
@@ -65,48 +65,39 @@ def _lane_ptrs(mult, act, live, reserve, n, c, dev):
     return ptrs, per_event
 
 
-def _outputs(n, c, want_sums, dev):
-    winners = torch.empty(n, dtype=torch.int32, device=dev)
-    prices = torch.empty(n, dtype=torch.float32, device=dev)
-    sums = torch.empty(c, dtype=torch.float32, device=dev) \
-        if want_sums else None
-    return winners, prices, sums
+def _outputs(n, dev):
+    return (torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty(n, dtype=torch.float32, device=dev))
 
 
 def resolve_matrix_cuda(values: torch.Tensor, mult: torch.Tensor,
                         act: torch.Tensor, live: torch.Tensor | None,
-                        reserve: torch.Tensor, *, second_price: bool,
-                        want_sums: bool):
+                        reserve: torch.Tensor, *, second_price: bool):
     """Resolve the N events of a valuation matrix (N, C) under a (C,) or
     (N, C) activation and optional live rows (N,). Returns ``(winners (N,)
-    int32, prices (N,) float32, sums (C,) float32 or None)``."""
+    int32, prices (N,) float32)``."""
     binding.require_cuda(values)
     lib = _lib()
     n, c = values.shape
     dev = values.device
-    if want_sums:
-        binding.check_campaigns(c, lib.ar_max_shared_floats(),
-                                "auction_resolve sums")
     ptrs, per_event = _lane_ptrs(mult, act, live, reserve, n, c, dev)
     v_ptr = _check("values", values, torch.float32, (n, c), dev)
-    winners, prices, sums = _outputs(n, c, want_sums, dev)
+    winners, prices = _outputs(n, dev)
     err = lib.ar_resolve_matrix(
-        v_ptr, *ptrs, winners.data_ptr(), prices.data_ptr(),
-        None if sums is None else sums.data_ptr(), n, c, int(per_event),
-        int(second_price), binding.stream(dev))
+        v_ptr, *ptrs, winners.data_ptr(), prices.data_ptr(), n, c,
+        int(per_event), int(second_price), binding.stream(dev))
     binding.raise_on(err, "auction_resolve_kernel")
     LAUNCHES["auction_resolve"] += 1
-    return winners, prices, sums
+    return winners, prices
 
 
 def resolve_emb_cuda(event_emb: torch.Tensor, campaign_emb: torch.Tensor,
                      mult: torch.Tensor, act: torch.Tensor,
                      live: torch.Tensor | None, reserve: torch.Tensor, *,
-                     second_price: bool, want_sums: bool):
+                     second_price: bool):
     """Resolve N events whose valuations are Eq. 12 of event embeddings
     (N, d) and campaign embeddings (C, d), both float32 or both bf16.
-    Returns ``(winners (N,) int32, prices (N,) float32, sums (C,) float32
-    or None)``."""
+    Returns ``(winners (N,) int32, prices (N,) float32)``."""
     binding.require_cuda(event_emb)
     lib = _lib()
     n, d = event_emb.shape
@@ -119,17 +110,16 @@ def resolve_emb_cuda(event_emb: torch.Tensor, campaign_emb: torch.Tensor,
     binding.check_campaigns(c, emb_max_campaigns(d),
                             f"auction_resolve EmbTile (d={d})")
     ptrs, per_event = _lane_ptrs(mult, act, live, reserve, n, c, dev)
-    winners, prices, sums = _outputs(n, c, want_sums, dev)
+    winners, prices = _outputs(n, dev)
     err = lib.ar_resolve_emb(
         _check("event_emb", event_emb, dtype, (n, d), dev),
         _check("campaign_emb", campaign_emb, dtype, (c, d), dev),
         int(dtype == torch.bfloat16), d, inv_scale(d), *ptrs,
-        winners.data_ptr(), prices.data_ptr(),
-        None if sums is None else sums.data_ptr(), n, c, int(per_event),
+        winners.data_ptr(), prices.data_ptr(), n, c, int(per_event),
         int(second_price), binding.stream(dev))
     binding.raise_on(err, "auction_resolve_kernel")
     LAUNCHES["auction_resolve"] += 1
-    return winners, prices, sums
+    return winners, prices
 
 
 def inv_scale(d: int) -> float:

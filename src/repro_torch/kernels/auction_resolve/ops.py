@@ -3,7 +3,7 @@
 
 They dispatch on the tensors' device: a CUDA tensor goes to the hand-written
 CUDA kernel (:mod:`.round_fused`, :mod:`.sweep_resolve`,
-:mod:`.auction_resolve`), which launches or
+:mod:`.auction_resolve`, :mod:`.segment_resolve`), which launches or
 raises; a CPU tensor goes to the plain PyTorch version (:mod:`.ref`),
 because the caller asked for the CPU. There is no padding: the kernels take
 any N.
@@ -12,28 +12,33 @@ C is limited by the kernels' shared memory, and this module holds the
 decisions that keep every C a CUDA caller can pass on hand-written kernels
 with the same bits: :func:`round_campaign_limits` (the round back-ends'
 limits, which ``core.executor.pick_resolve`` reads), :func:`resolve_masked`
-(sums above the kernel's limit from ``first_crossing``'s flat sum) and
-:func:`auction_resolve` (EmbTile above its C·d limit in campaign chunks,
-:func:`resolve_by_campaign_chunks`). :data:`PATHS` counts the calls that
-took the last two.
+and :func:`auction_resolve` (their sums from ``first_crossing``'s flat sum
+at any C; EmbTile above its C·d limit in campaign chunks,
+:func:`resolve_by_campaign_chunks`) and :func:`segment_resolve` (above the
+segment kernel's limit, a MatrixTile resolve per lane,
+:func:`segment_resolve_per_lane`). :data:`PATHS` counts the flat sums and
+the calls that took the last two routes.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.segments import REDUCE_BLOCKS
+from repro_torch.core.types import Segments
 from repro_torch.kernels.auction_resolve import auction_resolve as ar_kernel
 from repro_torch.kernels.auction_resolve import ref
 from repro_torch.kernels.auction_resolve import sweep_resolve as sr_kernel
 from repro_torch.kernels.auction_resolve.auction_resolve import (
     resolve_emb_cuda, resolve_matrix_cuda)
 from repro_torch.kernels.auction_resolve import round_fused as cuda_kernels
+from repro_torch.kernels.auction_resolve import segment_resolve as sg_kernel
 from repro_torch.kernels.auction_resolve.first_crossing import \
     first_crossing_cuda
 from repro_torch.kernels.auction_resolve.sweep_resolve import \
     sweep_resolve_cuda
 
-PATHS = {"auction_resolve_flat_sums": 0, "auction_resolve_chunked": 0}
+PATHS = {"auction_resolve_flat_sums": 0, "auction_resolve_chunked": 0,
+         "segment_resolve_per_lane": 0}
 
 
 def reset_paths() -> None:
@@ -52,9 +57,9 @@ def round_campaign_limits() -> dict:
 def _flat_sums(winners: torch.Tensor, prices: torch.Tensor,
                c: int) -> torch.Tensor:
     """(C,) event-ordered sums of one design's resolved events by
-    ``first_crossing``'s flat sum, the sums of a C above the resolve
-    kernel's shared memory: both add each campaign's prices in event order
-    from 0.0, so the bits are the same (a card test holds the two)."""
+    ``first_crossing``'s flat sum, the sums of every CUDA resolve: each
+    campaign's prices added in event order from 0.0, the bits of the plain
+    version's ``index_add_`` on the CPU (card tests hold the two)."""
     _, sums = first_crossing_cuda(winners[None], prices[None], None,
                                   num_campaigns=c)
     PATHS["auction_resolve_flat_sums"] += 1
@@ -128,7 +133,7 @@ def auction_resolve(event_emb: torch.Tensor, campaign_emb: torch.Tensor,
     (C,) float32)``, the sums added in event order. Any N, C and d: on
     CUDA, campaigns whose embeddings do not fit the kernel's shared memory
     are resolved in chunks that fit (:func:`resolve_by_campaign_chunks`)
-    and their sums are the flat sums of the merged events."""
+    and the sums are always :func:`_flat_sums`."""
     dev = event_emb.device
     mult, act, res, _ = _design_inputs(multipliers, active, reserve, None,
                                        dev)
@@ -142,14 +147,15 @@ def auction_resolve(event_emb: torch.Tensor, campaign_emb: torch.Tensor,
     c, d = r.shape
     chunk = ar_kernel.emb_max_campaigns(d)
     if c <= chunk or chunk < 1:           # fits, or the wrapper refuses d
-        return resolve_emb_cuda(e, r, mult, act, None, res,
-                                second_price=second_price, want_sums=True)
+        winners, prices = resolve_emb_cuda(e, r, mult, act, None, res,
+                                           second_price=second_price)
+        return winners, prices, _flat_sums(winners, prices, c)
     PATHS["auction_resolve_chunked"] += 1
 
     def resolve(c0, c1, second):
         return resolve_emb_cuda(e, r[c0:c1], mult[c0:c1],
                                 act[..., c0:c1].contiguous(), None, res,
-                                second_price=second, want_sums=False)[:2]
+                                second_price=second)
 
     winners, prices = resolve_by_campaign_chunks(
         resolve, c, chunk, res, second_price=second_price)
@@ -163,10 +169,11 @@ def resolve_masked(values: torch.Tensor, multipliers: torch.Tensor,
     under a (C,) or (N, C) activation; rows whose ``live`` (N,) is False
     are not sold. Returns ``(winners (N,) int32, prices (N,) float32, spend
     sums (C,) float32 or None when ``sums`` is False)``, the sums added in
-    event order. The resolve of SORT2AGGREGATE's segment replays and
-    Algorithm 4's batches, and of the round back-end that takes any C
-    (``core.executor``). On CUDA, sums of more campaigns than the kernel's
-    shared memory holds are ``first_crossing``'s flat sums."""
+    event order. The resolve of the round back-end that takes any C
+    (``core.executor``), of the segment replays above
+    ``segment_resolve``'s limit (:func:`segment_resolve_per_lane`) and of
+    Algorithm 4's batches on the CPU. On CUDA the sums are
+    :func:`_flat_sums`."""
     dev = values.device
     mult, act, res, live = _design_inputs(multipliers, active, reserve, live,
                                           dev)
@@ -174,14 +181,59 @@ def resolve_masked(values: torch.Tensor, multipliers: torch.Tensor,
         winners, prices, total = ref.resolve_masked_ref(
             values, mult, act, res, live, second_price=second_price)
         return winners, prices, total if sums else None
-    c = values.shape[1]
-    flat = sums and c > ar_kernel.max_shared_floats()
-    winners, prices, total = resolve_matrix_cuda(
+    winners, prices = resolve_matrix_cuda(
         values.to(torch.float32).contiguous(), mult, act, live, res,
-        second_price=second_price, want_sums=sums and not flat)
-    if flat:
-        total = _flat_sums(winners, prices, c)
-    return winners, prices, total
+        second_price=second_price)
+    return winners, prices, (_flat_sums(winners, prices, values.shape[1])
+                             if sums else None)
+
+
+def segment_resolve(values: torch.Tensor, multipliers: torch.Tensor,
+                    reserves, boundaries: torch.Tensor, masks: torch.Tensor,
+                    *, second_price: bool = False):
+    """Every event resolved for S lanes, each under its own segment table:
+    event n of lane s under ``masks[s][j]``, j its segment in
+    ``boundaries[s]`` (``Segments.seg_ids``). ``multipliers`` (S, C),
+    ``reserves`` (S,) or a scalar, ``boundaries`` (S, K+2), ``masks`` (S,
+    K+1, C). Returns ``(winners (S, N) int32, prices (S, N) float32)``, bit
+    for bit each lane's ``resolve_masked`` on its gathered (N, C) mask. On
+    CUDA one ``segment_resolve`` launch for all lanes, or, above its
+    shared memory, :func:`segment_resolve_per_lane`."""
+    s = multipliers.shape[0]
+    dev = values.device
+    mult = multipliers.to(device=dev, dtype=torch.float32).contiguous()
+    res = torch.as_tensor(reserves, dtype=torch.float32,
+                          device=dev).expand(s).contiguous()
+    bounds = boundaries.to(device=dev, dtype=torch.int32).contiguous()
+    m = masks.to(device=dev, dtype=torch.bool).contiguous()
+    if dev.type == "cpu":
+        return ref.segment_resolve_plain(values, mult, res, bounds, m,
+                                         second_price)
+    v = values.to(torch.float32).contiguous()
+    if values.shape[1] > sg_kernel.max_campaigns():
+        PATHS["segment_resolve_per_lane"] += 1
+        return segment_resolve_per_lane(v, mult, res, bounds, m,
+                                        second_price=second_price)
+    return sg_kernel.segment_resolve_cuda(v, mult, res, bounds, m,
+                                          second_price=second_price)
+
+
+def segment_resolve_per_lane(values: torch.Tensor, mult: torch.Tensor,
+                             reserves: torch.Tensor, boundaries: torch.Tensor,
+                             masks: torch.Tensor, *, second_price: bool):
+    """:func:`segment_resolve` one lane at a time: each lane's (N, C) mask
+    gathered from its table and one :func:`resolve_masked` (the MatrixTile
+    kernel on CUDA). The route above the segment kernel's shared memory."""
+    n = values.shape[0]
+    out = []
+    for s in range(mult.shape[0]):
+        seg_ids = Segments(boundaries=boundaries[s],
+                           masks=masks[s]).seg_ids(n)
+        out.append(resolve_masked(values, mult[s], masks[s][seg_ids],
+                                  reserves[s], second_price=second_price,
+                                  sums=False)[:2])
+    return (torch.stack([w for w, _ in out]),
+            torch.stack([p for _, p in out]))
 
 
 def sweep_resolve(values: torch.Tensor, multipliers: torch.Tensor,

@@ -2,8 +2,9 @@
 ``repro.kernels.auction_resolve.ref``).
 
 These are what the CUDA kernels in ``csrc/round_fused.cu``,
-``csrc/sweep_resolve.cu`` and ``csrc/auction_resolve.cu`` compute, written
-as ordinary tensor code: the CPU
+``csrc/sweep_resolve.cu``, ``csrc/auction_resolve.cu`` and
+``csrc/segment_resolve.cu`` compute, written as ordinary tensor code: the
+CPU
 path runs them, and ``chip_smoke.py`` holds the kernels against them on the
 card. The partials go through the same
 event-ordered ``index_add_`` and the same in-order block fold as
@@ -16,12 +17,18 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.segments import REDUCE_BLOCKS, fold_blocks
+from repro_torch.core.types import Segments
+from repro_torch.floats import fma
 from repro_torch.kernels.auction_resolve.auction_resolve import inv_scale
 
 NEG = -2.0 ** 30
 # csrc/lane_resolve.cuh: rows a tile (one thread a row), the most lanes an
 # item takes
 LANE_TILE, LANE_MAX = 512, 8
+# csrc/vi.cu: threads a CTA (one lane); csrc/segment_resolve.cu: rows a
+# tile, lanes whose first pieces are staged together
+VI_THREADS = 512
+SEGMENT_TILE, SEGMENT_LANES = 128, 32
 
 
 def _resolve_rows(values: torch.Tensor, multipliers: torch.Tensor,
@@ -301,3 +308,161 @@ def lane_resolve_ref(values: torch.Tensor, multipliers: torch.Tensor,
             for k, s in enumerate(lanes):
                 parts[s, g] = acc[k]
     return parts, winners, prices
+
+
+def segment_resolve_plain(values: torch.Tensor, multipliers: torch.Tensor,
+                          reserves: torch.Tensor, boundaries: torch.Tensor,
+                          masks: torch.Tensor, second_price: bool = False):
+    """The plain version of ``csrc/segment_resolve.cu``: each lane's (N, C)
+    mask gathered from its segment table (``masks[s][seg_ids]``) and the
+    events resolved under it, one lane at a time. ``multipliers`` (S, C),
+    ``reserves`` (S,), ``boundaries`` (S, K+2), ``masks`` (S, K+1, C).
+    Returns ``(winners (S, N) int32, prices (S, N) float32)``."""
+    n = values.shape[0]
+    out = []
+    for s in range(multipliers.shape[0]):
+        seg_ids = Segments(boundaries=boundaries[s],
+                           masks=masks[s]).seg_ids(n)
+        out.append(_resolve_rows(values, multipliers[s], masks[s][seg_ids],
+                                 reserves[s], second_price))
+    return (torch.stack([w for w, _ in out]),
+            torch.stack([p for _, p in out]))
+
+
+def segment_resolve_ref(values: torch.Tensor, multipliers: torch.Tensor,
+                        reserves: torch.Tensor, boundaries: torch.Tensor,
+                        masks: torch.Tensor, second_price: bool = False, *,
+                        tile: int = SEGMENT_TILE,
+                        lanes: int = SEGMENT_LANES):
+    """What ``csrc/segment_resolve.cu`` computes, by its split, for tests
+    (bitwise :func:`segment_resolve_plain`): tiles of ``tile`` rows; per
+    tile, lanes ``lanes`` at a time; a lane's segments in the tile j_lo ..
+    j_hi (the inner boundaries at or below its first and last rows); its
+    first piece, segment j_lo up to the next boundary, resolved under that
+    segment's (C,) mask; each later non-empty piece on its own. Rows no
+    piece covers keep winner -2 and a NaN price."""
+    n, _ = values.shape
+    s_count, k2 = boundaries.shape
+    k = k2 - 2
+    dev = values.device
+    winners = torch.full((s_count, n), -2, dtype=torch.int32, device=dev)
+    prices = torch.full((s_count, n), float("nan"), dtype=torch.float32,
+                        device=dev)
+    bounds = boundaries.to(torch.int64).cpu()
+
+    def piece(s, p0, p1, j):
+        w, p = _resolve_rows(values[p0:p1], multipliers[s], masks[s, j],
+                             reserves[s], second_price)
+        winners[s, p0:p1] = w
+        prices[s, p0:p1] = p
+
+    for t0 in range(0, n, tile):
+        t1 = min(t0 + tile, n)
+        for s0 in range(0, s_count, lanes):
+            for s in range(s0, min(s0 + lanes, s_count)):
+                inner = bounds[s, 1:k + 1]
+                j_lo = int((inner <= t0).sum())
+                j_hi = int((inner <= t1 - 1).sum())
+                end = int(bounds[s, j_lo + 1]) if j_lo < k else n
+                piece(s, t0, min(end, t1), j_lo)
+                for j in range(j_lo + 1, j_hi + 1):
+                    p0 = max(int(bounds[s, j]), t0)
+                    p1 = min(int(bounds[s, j + 1]) if j < k else n, t1)
+                    if p0 < p1:
+                        piece(s, p0, p1, j)
+    return winners, prices
+
+
+def vi_threads_per_row(batch_size: int) -> int:
+    """``csrc/vi.cu``'s threads per batch row: the most, a power of two up
+    to 32, that ``batch_size`` rows fill in a CTA."""
+    tpr = 32
+    while tpr > 1 and tpr * batch_size > VI_THREADS:
+        tpr //= 2
+    return tpr
+
+
+def _slice_top2(bids: torch.Tensor, reserve: torch.Tensor):
+    """A thread's scan of its column slice, per (lane, row): ``bids`` (S,
+    B, k) in column order, NaN where inactive. Returns ``(best, second,
+    win)`` with ``win`` the slice-local first index of the largest eligible
+    bid (-1 if none), ``best``/``second`` starting at the reserve."""
+    res = reserve[:, None].expand(bids.shape[:-1])
+    if bids.shape[-1] == 0:                 # a slice past the last column
+        return res, res, torch.full_like(res, -1, dtype=torch.int64)
+    masked = torch.where(bids > res[..., None], bids, float("-inf"))
+    win = torch.argmax(masked, -1, keepdim=True)
+    top = masked.gather(-1, win)[..., 0]
+    rest = masked.scatter(-1, win, float("-inf")).amax(-1)
+    sale = top > float("-inf")
+    return (torch.where(sale, top, res),
+            torch.where(rest > float("-inf"), rest, res),
+            torch.where(sale, win[..., 0], -1))
+
+
+def vi_chain_ref(sampled: torch.Tensor, u: torch.Tensor, step: torch.Tensor,
+                 denom: torch.Tensor, btilde: torch.Tensor,
+                 multipliers: torch.Tensor, reserves: torch.Tensor,
+                 pi0: torch.Tensor, *, sample_size: int,
+                 second_price: bool = False, track_every: int = 0):
+    """What ``csrc/vi.cu`` computes from its own inputs, by its split, for
+    tests (bitwise ``core.vi``'s loop and ``repro``'s ``estimate_pi``), all
+    lanes at once: ``sampled`` (n_batches·B, C), ``u`` (total, B, 1 or C),
+    ``step`` (total,), ``denom`` (n_batches,), ``btilde``, ``multipliers``,
+    ``pi0`` (S, C), ``reserves`` (S,). Per step: the batch's rows resolved
+    by :func:`vi_threads_per_row` interleaved column slices, each scanned
+    on its own, then merged pairwise in the kernel's shuffle order (the
+    larger best wins, the lower column on a tie; the second price the larger
+    of the loser's best and the winner's second); each campaign's prices
+    added in row order from +0.0; the update ``clamp(fma(step,
+    btilde - sums / denom, pi), 0, 1)``. Returns ``(pi (S, C), history (S,
+    ceil(total / track_every), C) or None)``."""
+    total, b, w = u.shape
+    n_batches = sampled.shape[0] // b
+    s_count, c = multipliers.shape
+    dev = sampled.device
+    tpr = vi_threads_per_row(b)
+    res = reserves.to(torch.float32)
+    pi = pi0.to(torch.float32).clone()
+    cols = torch.arange(c, device=dev)
+    history = []
+    for t in range(total):
+        bi = t % n_batches
+        v = sampled[bi * b:(bi + 1) * b]                       # (B, C)
+        active = u[t][None] < pi[:, None, :]                   # (S, B, C)
+        bids = torch.where(active, v[None] * multipliers[:, None, :],
+                           float("nan"))
+        live = (bi * b + torch.arange(b, device=dev)) < sample_size
+        parts = []
+        for k in range(tpr):
+            sl = cols[k::tpr]
+            best, second, win = _slice_top2(bids[..., sl], res)
+            if len(sl):
+                win = torch.where(win >= 0, sl[win.clamp(min=0)], -1)
+            dead = ~live[None, :]
+            parts.append((torch.where(dead, res[:, None], best),
+                          torch.where(dead, res[:, None], second),
+                          torch.where(dead, -1, win)))
+        best, second, win = (torch.stack(x, -1) for x in zip(*parts))
+        o = 1
+        while o < tpr:
+            perm = torch.arange(tpr, device=dev) ^ o
+            ob, os_, ow = best[..., perm], second[..., perm], win[..., perm]
+            take = (ob > best) | ((ob == best) & (ow >= 0) & (ow < win))
+            second = torch.where(take, torch.maximum(best, os_),
+                                 torch.maximum(second, ob))
+            best = torch.where(take, ob, best)
+            win = torch.where(take, ow, win)
+            o *= 2
+        best, second, win = best[..., 0], second[..., 0], win[..., 0]
+        price = torch.where(win >= 0, second if second_price else best, 0.0)
+        sums = torch.zeros((s_count, c + 1), dtype=torch.float32, device=dev)
+        slot = torch.where(win >= 0, win, c)
+        for r in range(b):                                     # row order
+            sums.scatter_add_(1, slot[:, r:r + 1], price[:, r:r + 1])
+        delta = btilde - sums[:, :c] / denom[bi]
+        pi = torch.clamp(fma(step[t], delta, pi), 0.0, 1.0)
+        if track_every and t % track_every == 0:
+            history.append(pi)
+    hist = torch.stack(history, 1) if track_every else None
+    return pi, hist

@@ -124,7 +124,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     res = torch.zeros(())
     with pytest.raises(ValueError, match="CUDA tensors"):
         resolve_matrix_cuda(torch.ones(8, 3), _t(x["mult"]), _t(x["act"]),
-                            None, res, second_price=False, want_sums=True)
+                            None, res, second_price=False)
     with pytest.raises(ValueError, match="CUDA tensors"):
         resolve_emb_cuda(_t(x["e"]), _t(x["r"]), _t(x["mult"]), _t(x["act"]),
-                         None, res, second_price=False, want_sums=True)
+                         None, res, second_price=False)

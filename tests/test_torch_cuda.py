@@ -18,9 +18,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import prng  # noqa: E402
 from repro_torch.core import (AuctionRule, CounterfactualEngine,  # noqa: E402
-                              auction, executor, parallel_simulate, segments,
-                              sequential_replay, sweep_sequential,
-                              sweep_state_machine)
+                              Segments, auction, executor, parallel_simulate,
+                              segments, sequential_replay, sweep_sequential,
+                              sweep_state_machine, vi)
 from repro_torch.core.segments import REDUCE_BLOCKS as G  # noqa: E402
 from repro_torch.data import make_synthetic_env  # noqa: E402
 from repro_torch.kernels.auction_resolve import ops, ref  # noqa: E402
@@ -31,6 +31,9 @@ from repro_torch.kernels.auction_resolve import \
 from repro_torch.kernels.auction_resolve import round_fused as cuda_rf  # noqa: E402
 from repro_torch.kernels.auction_resolve import \
     segment_partials as cuda_sp  # noqa: E402
+from repro_torch.kernels.auction_resolve import \
+    segment_resolve as cuda_sg  # noqa: E402
+from repro_torch.kernels.auction_resolve import vi as cuda_vi  # noqa: E402
 from repro_torch.kernels.auction_resolve import \
     sweep_resolve as cuda_sr  # noqa: E402
 from repro_torch.kernels.capped_scan import capped_scan as cuda_cs  # noqa: E402
@@ -751,26 +754,30 @@ def test_auction_resolve_refuses_what_its_shared_memory_cannot_hold(dev, sp):
 
 
 def test_auction_resolve_sums_are_first_crossings_flat_sums(dev):
-    """The two event-ordered sums the port has on the card give the same
-    bits: the auction_resolve kernel's own sums and first_crossing's flat
-    sum of the same winners and prices (the sums above the kernel's
-    shared memory come from the latter)."""
+    """On the card a resolve's sums are first_crossing's flat sum of its
+    winners and prices (counted, one a call), at short and long N alike:
+    the bits of the plain version's event-ordered sums on the CPU."""
     rng = np.random.default_rng(3)
-    for n, c in ((5000, 37), (3000, 150), (700, 100)):
+    for n, c in ((5000, 37), (3000, 150), (700, 100), (1, 3)):
         values = torch.from_numpy(
-            rng.uniform(0, 1, (n, c)).astype(np.float32)).to(dev)
-        mult = torch.ones(c, device=dev)
-        act = torch.from_numpy(rng.uniform(size=c) < 0.7).to(dev)
-        w, p, sums = ops.resolve_masked(values, mult, act,
-                                        torch.tensor(0.05, device=dev))
-        flat = auction.spend_sums(w, p, c)
-        assert torch.equal(sums, flat)
+            rng.uniform(0, 1, (n, c)).astype(np.float32))
+        mult = torch.ones(c)
+        act = torch.from_numpy(rng.uniform(size=c) < 0.7)
+        res = torch.tensor(0.05)
+        ops.reset_paths()
+        on_card = ops.resolve_masked(values.to(dev), mult.to(dev),
+                                     act.to(dev), res.to(dev))
+        torch.cuda.synchronize()
+        assert ops.PATHS["auction_resolve_flat_sums"] == 1
+        on_cpu = ref.resolve_masked_ref(values, mult, act, res)
+        for a, b in zip(on_card, on_cpu):
+            assert torch.equal(a.cpu(), b)
 
 
 def test_auction_resolve_sums_above_the_shared_memory(dev):
     """MatrixTile with sums of more C than ``ar_max_shared_floats()``: the
-    sums are first_crossing's flat sums, and all three outputs are the
-    plain version's bits on the CPU."""
+    sums are first_crossing's flat sums, as at every C, and all three
+    outputs are the plain version's bits on the CPU."""
     c = cuda_ar.max_shared_floats() + 1
     rng = np.random.default_rng(4)
     n = 256
@@ -911,17 +918,237 @@ def test_sort2aggregate_on_the_card_is_the_cpu(dev):
         grid = engine.grid(**grid_axes)
         cuda_ar.reset_launches()
         cuda_fc.reset_launches()
+        cuda_vi.reset_launches()
+        cuda_sg.reset_launches()
         on[str(device)] = [engine.simulate(),
                            engine.simulate(key=prng.PRNGKey(3),
                                            vi_batch_size=1, vi_iters=2)] + [
             engine.sweep(grid, method="sort2aggregate", warm_start=w,
                          refine_iters=3).results
             for w in ("base", "per_scenario", False)]
-    assert cuda_ar.LAUNCHES["auction_resolve"] > 0
-    assert cuda_fc.LAUNCHES["first_crossing"] > 0
+    # Algorithm 4 one vi launch a run (four simulates: two, the base warm
+    # start's, and per_scenario's one for all lanes), each replay pass one
+    # segment_resolve launch, no auction_resolve
+    assert cuda_vi.LAUNCHES["vi"] == 4
+    assert cuda_sg.LAUNCHES["segment_resolve"] == \
+        cuda_fc.LAUNCHES["first_crossing"] > 0
+    assert cuda_ar.LAUNCHES["auction_resolve"] == 0
     for a, b in zip(on[str(dev)], on["cpu"]):
         assert torch.equal(a.final_spend.cpu(), b.final_spend)
         assert torch.equal(a.cap_times.cpu(), b.cap_times)
+
+
+# (batch_size, coupling, sample_size, num_iters, C, pi0, track_every): as
+# tests/test_torch_vi.py's cases, and simulate's own shape cut in N
+VI_CASES = {
+    "B64_shared": (64, "shared", 200, 30, 16, None, 3),
+    "B64_independent": (64, "independent", 200, 30, 16, None, 0),
+    "B1_shared": (1, "shared", 40, 3, 16, None, 7),
+    "B20_independent": (20, "independent", 100, 5, 16, None, 0),
+    "B3_pi0": (3, "shared", 50, 4, 16, 0.7, 2),
+    "B600_independent": (600, "independent", 1500, 2, 16, None, 0),
+    "simulate_c100": (64, "shared", 2000, 4, 100, None, 0),
+}
+
+
+def _vi_env(c, seed=5):
+    rng = np.random.default_rng(seed)
+    values = torch.from_numpy(rng.uniform(0, 1, (4096, c)).astype(np.float32))
+    budgets = torch.from_numpy(
+        rng.uniform(10, 60, c).astype(np.float32))
+    mult = torch.from_numpy(rng.uniform(0.8, 1.2, c).astype(np.float32))
+    return values, budgets, mult
+
+
+@pytest.mark.parametrize("kind", ["first_price", "second_price"])
+@pytest.mark.parametrize("case", sorted(VI_CASES))
+def test_vi_kernel_is_the_cpu_loop(dev, case, kind):
+    """estimate_pi on the card, one vi launch, is the CPU loop bit for
+    bit: pi and the tracked history."""
+    b, coupling, k, iters, c, p0, track = VI_CASES[case]
+    values, budgets, mult = _vi_env(c)
+    kw = dict(sample_size=k, num_iters=iters, batch_size=b,
+              coupling=coupling, eta_decay=0.05, track_every=track)
+    pi0 = None if p0 is None else torch.full((c,), p0)
+    out = {}
+    for where in ("cpu", dev):
+        rule = AuctionRule(multipliers=mult.to(where),
+                           reserve=torch.tensor(0.02, device=where),
+                           kind=kind)
+        cuda_vi.reset_launches()
+        out[str(where)] = vi.estimate_pi(
+            values.to(where), budgets.to(where), rule,
+            prng.PRNGKey(3).to(where),
+            pi0=None if pi0 is None else pi0.to(where), **kw)
+    assert cuda_vi.LAUNCHES == {"vi": 1, "vi_device_state": 0}
+    assert torch.equal(out[str(dev)].pi.cpu(), out["cpu"].pi)
+    if track:
+        assert torch.equal(out[str(dev)].history.cpu(), out["cpu"].history)
+    assert not torch.equal(out["cpu"].pi, torch.ones(c))
+
+
+@pytest.mark.parametrize("coupling", ["shared", "independent"])
+def test_vi_kernel_state_in_device_memory(dev, coupling):
+    """The first C whose staged state does not fit in shared memory (64-row
+    batches): the state lives in device memory, one launch, the CPU's
+    bits."""
+    w = 1 if coupling == "shared" else None
+    c = 16
+    while cuda_vi.staged(64, c + 1, w or c + 1):
+        c += 1
+    c += 1
+    values, budgets, mult = _vi_env(c, seed=6)
+    out = {}
+    for where in ("cpu", dev):
+        rule = AuctionRule(multipliers=mult.to(where),
+                           reserve=torch.tensor(0.02, device=where),
+                           kind="second_price")
+        cuda_vi.reset_launches()
+        out[str(where)] = vi.estimate_pi(
+            values.to(where), budgets.to(where) * c / 16, rule,
+            prng.PRNGKey(4).to(where), sample_size=300, num_iters=3,
+            batch_size=64, coupling=coupling)
+    assert cuda_vi.LAUNCHES == {"vi": 1, "vi_device_state": 1}
+    assert torch.equal(out[str(dev)].pi.cpu(), out["cpu"].pi)
+
+
+def test_vi_sweep_kernel_is_the_cpu_lanes(dev):
+    """estimate_pi_sweep: five lanes in one vi launch, with a pi0, bitwise
+    the CPU's lane loop."""
+    values, budgets, mult = _vi_env(24, seed=7)
+    scales = torch.tensor([1.0, 0.5, 2.0, 1.0, 0.8])
+    out = {}
+    for where in ("cpu", dev):
+        rules = AuctionRule(
+            multipliers=(mult[None] * torch.tensor(
+                [1.0, 1.0, 1.0, 1.3, 0.9])[:, None]).to(where),
+            reserve=torch.tensor([0.0, 0.02, 0.0, 0.05, 0.0], device=where),
+            kind="first_price")
+        cuda_vi.reset_launches()
+        out[str(where)] = vi.estimate_pi_sweep(
+            values.to(where), (budgets[None] * scales[:, None]).to(where),
+            rules, prng.PRNGKey(5).to(where), sample_size=333,
+            num_iters=5, batch_size=64, eta_decay=0.05,
+            pi0=torch.full((5, 24), 0.95, device=where))
+    assert cuda_vi.LAUNCHES["vi"] == 1
+    assert torch.equal(out[str(dev)].pi.cpu(), out["cpu"].pi)
+    assert torch.equal(out[str(dev)].num_updates, out["cpu"].num_updates)
+
+
+def _segment_table(case, s, n, c, rng):
+    """(boundaries (S, K+2), masks (S, K+1, C)) of one edge case."""
+    tile = cuda_sg.ROWS_PER_CTA
+    if case == "hand_built":                # not monotone, 0 and N inner
+        k = 9
+        inner = np.sort(np.concatenate(
+            [rng.integers(0, n + 1, (s, k - 3)),
+             np.tile([0, min(tile, n), n], (s, 1))], axis=1), axis=1)
+        bounds = np.concatenate([np.zeros((s, 1)), inner,
+                                 np.full((s, 1), n)], axis=1)
+        masks = rng.uniform(size=(s, k + 1, c)) < 0.6
+        return (torch.from_numpy(bounds.astype(np.int32)),
+                torch.from_numpy(masks))
+    caps = rng.integers(1, n + 1, (s, c))
+    if case == "tile_edges":
+        edges = np.array([tile, 2 * tile, 3 * tile + 1, 4 * tile - 1, n - 1])
+        caps = edges[rng.integers(0, len(edges), (s, c))]
+    elif case == "duplicates":
+        caps = rng.choice([n // 5, n // 2, n // 2, n // 2, n - 3], (s, c))
+    elif case == "cap_at_1_and_n":
+        caps[:, 0], caps[:, 1], caps[:, 2], caps[:, 3] = 1, n, n + 1, 10 * n
+        caps[::2, 4:7] = 1
+    segs = Segments.from_cap_times(torch.from_numpy(caps.astype(np.int32)),
+                                   n)
+    return segs.boundaries, segs.masks
+
+
+def _segment_inputs(case, s, n, c, seed):
+    rng = np.random.default_rng(seed)
+    values, mult, _, _ = _coarse(s, n, c, seed)
+    res = torch.from_numpy(rng.choice([0.0, 0.125, 0.3], s).astype(
+        np.float32))
+    return (values, mult, res) + _segment_table(case, s, n, c, rng)
+
+
+# (case, S, N, C): the CPU tests' edges, N below one tile and one past it,
+# C no multiple of 4 (4-byte copies), S past the 32 lanes staged together
+SEGMENT_EDGES = {
+    "tile_edges_s1": ("tile_edges", 1, 1000, 12),
+    "tile_edges_s33": ("tile_edges", 33, 1000, 12),
+    "duplicates_s33": ("duplicates", 33, 3000, 100),
+    "cap_at_1_and_n_s5": ("cap_at_1_and_n", 5, 1000, 37),
+    "hand_built_s33": ("hand_built", 33, 1000, 12),
+    "hand_built_n1": ("hand_built", 2, 1, 12),
+    "hand_built_n129": ("hand_built", 3, 129, 7),
+    "duplicates_n127": ("duplicates", 4, 127, 100),
+}
+
+
+@pytest.mark.parametrize("sp", [False, True])
+@pytest.mark.parametrize("case", sorted(SEGMENT_EDGES))
+def test_segment_resolve_kernel_edges_give_the_cpu_bits(dev, case, sp):
+    kind, s, n, c = SEGMENT_EDGES[case]
+    values, mult, res, bounds, masks = _segment_inputs(kind, s, n, c,
+                                                       seed=len(case) + s)
+    want = ref.segment_resolve_plain(values, mult, res, bounds, masks, sp)
+    cuda_sg.reset_launches()
+    got = ops.segment_resolve(values.to(dev), mult.to(dev), res.to(dev),
+                              bounds.to(dev), masks.to(dev),
+                              second_price=sp)
+    torch.cuda.synchronize()
+    assert cuda_sg.LAUNCHES["segment_resolve"] == 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("above", [False, True])
+def test_segment_resolve_at_and_above_its_shared_memory(dev, above):
+    """C at the kernel's limit runs the kernel; one more takes the
+    per-lane MatrixTile route, counted. Both are the CPU's bits."""
+    c = cuda_sg.max_campaigns() + int(above)
+    values, mult, res, bounds, masks = _segment_inputs("duplicates", 3, 600,
+                                                       c, seed=9)
+    want = ref.segment_resolve_plain(values, mult, res, bounds, masks, True)
+    cuda_sg.reset_launches()
+    cuda_ar.reset_launches()
+    ops.reset_paths()
+    got = ops.segment_resolve(values.to(dev), mult.to(dev), res.to(dev),
+                              bounds.to(dev), masks.to(dev),
+                              second_price=True)
+    torch.cuda.synchronize()
+    assert cuda_sg.LAUNCHES["segment_resolve"] == int(not above)
+    assert ops.PATHS["segment_resolve_per_lane"] == int(above)
+    assert cuda_ar.LAUNCHES["auction_resolve"] == 3 * int(above)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("emb", [False, True])
+def test_sums_of_long_resolves_are_the_flat_sums(dev, emb):
+    """A resolve of 8,193 rows: the sums are first_crossing's flat sums
+    (counted), the event-ordered sums of the kernel's sales on the CPU;
+    winners and prices are the plain version's on the card."""
+    n, c = 8193, 37
+    rng = np.random.default_rng(12)
+    mult = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32))
+    act = torch.from_numpy(rng.uniform(size=c) < 0.8).to(dev)
+    res = torch.tensor(0.05, device=dev)
+    if emb:
+        e, r, _, _ = _emb(n, c, 6, False, 13)
+        args = (e.to(dev), r.to(dev))
+        fn, plain = ops.auction_resolve, ref.auction_resolve_ref
+    else:
+        args = (torch.from_numpy(rng.uniform(0, 1, (n, c)).astype(
+            np.float32)).to(dev),)
+        fn, plain = ops.resolve_masked, ref.resolve_masked_ref
+    ops.reset_paths()
+    got = fn(*args, mult.to(dev), act, res, second_price=True)
+    want = plain(*args, mult.to(dev), act, res, second_price=True)
+    torch.cuda.synchronize()
+    assert ops.PATHS["auction_resolve_flat_sums"] == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[2].cpu(), auction.spend_sums(
+        got[0].cpu(), got[1].cpu(), c))
 
 
 FLASH_SHAPES = [   # b, s, h, kv, dh, causal, window, dtype
