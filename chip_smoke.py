@@ -67,9 +67,16 @@ Run from the repository root. Phases:
    the first partials kernel's limit (``OLD_RF_LIMIT``), the fused round
    runs it; and at a C one past the round kernels' shared memory (512
    events, S=4, both rules) ``engine.sweep(method="parallel")`` with
-   ``resolve="auto"`` resolves each lane with ``auction_resolve`` and its
-   partials with ``segment_partials`` (the counters show it, and no round
-   kernel); both to the CPU's bits;
+   ``resolve="auto"`` resolves every lane of a round with one
+   ``auction_resolve`` launch and one merge of its campaign chunks (the
+   counters equal the rounds, counted by the same sweep on the CPU) and its
+   partials with ``segment_partials``, and no round kernel; both to the
+   CPU's bits. The matrix kernel at that shape, S=4 and S=1, is bitwise its
+   plain version on the card and the CPU; its resolve and merge launches
+   are timed (and traced for their device time); at N=65,536, C=16,384,
+   S=32 (``ANY_C_DAY``) its one launch is timed against 32 one-lane
+   launches, beside its byte bound and issue floor, three lanes bitwise
+   the plain version;
 7. the paper's comparison: Algorithm 2 against the exact replay, per lane,
    in mean relative spend error (each < 0.08), capped campaigns and cap-time
    shift, and both sweeps' wall times;
@@ -94,11 +101,16 @@ Run from the repository root. Phases:
    against its plain version at ``tests/test_kernels.py``'s five shapes,
    stablelm-1.6b's prefill (B=8, S=2048, H=32, dh=64, bf16), gemma3-4b's
    local layer (B=1, S=4096, H=8, KV=4, dh=256, window 1024, bf16), a
-   ragged S, stablelm's prefill shape once more in float32, and the bf16
+   ragged S, stablelm's prefill shape once more in float32, the bf16
    tensor-core kernel's edges (S below and just past a 128-row query
-   tile, a window cutting a 64-row kv tile, GQA 8:1) (2e-5 float32, 2e-2
-   bfloat16 and two ulps at each row's scale; two launches bitwise equal);
-   it times the kernel at the float32 prefill and gemma3-4b shapes too;
+   tile, a window cutting a 64-row kv tile, GQA 8:1) and the float32
+   split-TF32 kernel's (dh=32 and 256, gemma3-4b's layer, a ragged S, GQA
+   8:1, windows cutting a 64- and a 32-key kv tile, B*H=65,540) (2e-5
+   float32, with ``allow_tf32`` False on the plain side, 2e-2 bfloat16
+   and two ulps at each row's scale; two launches bitwise equal); it times
+   the kernel at the float32 prefill and both gemma3-4b shapes beside
+   SDPA and the bound (in float32 that of split TF32 on the tensor
+   cores, with the CUDA cores' beside it);
    (b) stablelm-1.6b at full width (24 layers, d_model 2048, vocab
    100,352, random weights from ``--seed``): 8 requests of 2,048 prompt
    tokens from seeded numpy, ``generate`` for 32 greedy tokens; exactly
@@ -150,6 +162,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12          # H100 SXM fp32, non-tensor (data sheet)
 BF16_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
+TF32_OPS_PER_S = 495e12         # H100 SXM TF32 tensor cores, dense
 GRID_AXES = dict(bid_scales=(1.0, 0.9, 1.1, 1.3), reserves=(0.0, 0.05),
                  budget_scales=(1.0, 0.8, 1.25, 1.5))
 SMALL_AXES = dict(bid_scales=(1.0, 1.2), reserves=(0.0, 0.05),
@@ -166,6 +179,9 @@ WIDE_EVENTS = 4096
 EARLIER_MS = {"capped_scan": 437.2258, "first_crossing": 77.9087,
               "round_fused": 4.3255, "sweep_partials": 2.6350,
               "sweep_resolve": 3.4829,
+              # one lane at the any-C back-end's shape; the float32
+              # prefill on CUDA cores
+              "auction_resolve": 2.3959, "flash_attention_f32": 6.2775,
               # the first partials kernel's total in a traced fused sweep
               # (176 launches)
               "sweep_partials_traced": 314.881}
@@ -227,6 +243,18 @@ SEGMENT_EDGES = (
 )
 SMALL_N = (256, 1024, 8192)     # first_crossing's small calls, one lane
 ANY_C_EVENTS = 512              # the parallel sweep past the round kernels
+# a day-sized any-C resolve (phase 6): N, C, S (4.3 GB of valuations). The
+# matrix kernel's issue floor there: a thread holds ANY_C_LANES lanes of a
+# row; every (lane, row, campaign) pays a multiply and a compare folded into
+# the thread's any-test, every (thread, campaign) the lanes' multiplier loads
+# (4 a load) and the branch on the any-test, every 4 campaigns a load of
+# valuations; where the any-test fires (counted on this run's data), every
+# lane of the thread takes two compares and three selects, and one
+# instruction forms the column
+ANY_C_DAY = (65_536, 16_384, 32)
+ANY_C_LANES = 8
+ANY_C_LANE_INSTRUCTIONS = 2
+ANY_C_UPDATE_INSTRUCTIONS = 5
 SHORT_SUM_ROWS = (1_000, 8_192)  # short resolves with sums (phase 2)
 CPU_LANE = {"first_price": 0, "second_price": 31}
 ORACLE_TOL = 0.08               # tests/test_core_parallel.py's bound
@@ -243,6 +271,9 @@ KERNELS = (   # name, CUDA source, the TPU kernel (or XLA op) it replaces
     ("segment_partials", "src/repro_torch/csrc/segment_partials.cu",
      "src/repro/core/segments.py:130"),
     ("auction_resolve", "src/repro_torch/csrc/auction_resolve.cu",
+     "src/repro/kernels/auction_resolve/auction_resolve.py:80"),
+    # the matrix kernel's second launch: its campaign chunks merged
+    ("auction_resolve_merge", "src/repro_torch/csrc/auction_resolve.cu",
      "src/repro/kernels/auction_resolve/auction_resolve.py:80"),
     ("first_crossing", "src/repro_torch/csrc/first_crossing.cu",
      "src/repro/core/segments.py:68"),
@@ -285,11 +316,23 @@ FLASH_SHAPES = (    # b, s, h, kv, dh, causal, window, dtype name
     (2, 129, 4, 2, 64, True, None, "bfloat16"),
     (1, 500, 16, 2, 64, True, 77, "bfloat16"),
     (1, 300, 4, 2, 256, True, 77, "bfloat16"),
+    # the float32 split-TF32 kernel's edges: dh=32 and 256, a ragged S, GQA
+    # 8:1 with a window cutting a 64-key kv tile, a window cutting a 32-key
+    # tile at dh=256, B*H past the old float32 grid's 65,535
+    (2, 333, 8, 4, 32, False, 50, "float32"),
+    (1, 4096, 8, 4, 256, True, 1024, "float32"),
+    (2, 1000, 4, 2, 64, True, None, "float32"),
+    (1, 500, 16, 2, 64, True, 77, "float32"),
+    (1, 300, 4, 2, 256, True, 77, "float32"),
+    (16385, 16, 4, 1, 64, True, None, "float32"),
 )
 # the shapes phase 9 (a) times besides stablelm's bf16 prefill: its float32
-# twin (the CUDA-core kernel) and gemma3-4b's dh=256 window layer
+# twin (the split-TF32 kernel) and gemma3-4b's dh=256 window layer in both
+# types
 FLASH_TIMED = {(8, 2048, 32, 32, 64, True, None, "float32"): "float32 prefill",
-               (1, 4096, 8, 4, 256, True, 1024, "bfloat16"): "gemma3-4b"}
+               (1, 4096, 8, 4, 256, True, 1024, "bfloat16"): "gemma3-4b",
+               (1, 4096, 8, 4, 256, True, 1024, "float32"):
+                   "gemma3-4b float32"}
 
 
 def require(ok: bool, what: str) -> None:
@@ -322,6 +365,29 @@ def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def scan_fires(values, mult, act, reserves, lanes):
+    """How often the matrix kernel's scan leaves its fast path in a
+    one-chunk launch: the (thread, campaign) pairs at which a bid of one of
+    the thread's ``lanes`` lanes (consecutive lanes of one row) exceeds
+    that lane's second best, the running top two starting at the reserve
+    and an inactive campaign's bid NaN, as in the kernel. One column at a
+    time on the card, (S, N) at once."""
+    import torch
+    s, n = mult.shape[0], values.shape[0]
+    m = torch.where(act, mult, float("nan"))
+    best = reserves[:, None].expand(s, n).clone()
+    sec = best.clone()
+    fires = torch.zeros((), dtype=torch.int64, device=values.device)
+    for c in range(values.shape[1]):
+        bid = values[:, c][None, :] * m[:, c:c + 1]
+        up = bid > sec
+        fires += up.view(s // lanes, lanes, n).any(1).sum()
+        top = bid > best
+        sec = torch.where(top, best, torch.where(up, bid, sec))
+        best = torch.where(top, bid, best)
+    return int(fires)
 
 
 def resolve_cost(n, c, s, rows, second_price, outputs):
@@ -622,16 +688,25 @@ def serve_phase(seed: int, dev, reset_counts, read_counts) -> dict:
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=band, is_causal=band is None,
                     enable_gqa=kv != h), 10)
-            bound = bound_ms(2 * (q.numel() + k.numel()) * q.element_size(),
-                             2 * 2 * pairs * dh,
-                             FP32_OPS_PER_S if dname == "float32"
-                             else BF16_OPS_PER_S)
+            n_bytes = 2 * (q.numel() + k.numel()) * q.element_size()
+            if dname == "float32":
+                # the kernel's split TF32 does three TF32 products a float32
+                # product on the tensor cores; the same products on the CUDA
+                # cores are kept beside it
+                bound = bound_ms(n_bytes, 3 * 2 * 2 * pairs * dh,
+                                 TF32_OPS_PER_S)
+                cuda_core = bound_ms(n_bytes, 2 * 2 * pairs * dh)[0]
+            else:
+                bound = bound_ms(n_bytes, 2 * 2 * pairs * dh, BF16_OPS_PER_S)
+                cuda_core = None
             out.setdefault("flash_timed", []).append(
                 (FLASH_TIMED[shape], label, kernel_ms, plain_ms, library_ms,
-                 bound))
+                 bound, cuda_core))
             print(f"[9] {label}: kernel {kernel_ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
-                  f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+                  f"{bound[0]:.4f} ms ({bound[1]})"
+                  + (f" in split TF32, on the CUDA cores {cuda_core:.4f} ms"
+                     if cuda_core else ""), flush=True)
         if ((b, s, h, dh) == (LM_REQUESTS, LM_PROMPT, 32, 64)
                 and dname == "bfloat16"):
             # the yardstick reads the same tensors in its (B, H, S, dh)
@@ -776,6 +851,137 @@ def serve_phase(seed: int, dev, reset_counts, read_counts) -> dict:
           f"{worst['prefill']:.4g}, decode {worst['decode']:.4g} (tol "
           f"{LM_TOL}; {time.perf_counter() - t0:.1f} s)", flush=True)
     return out
+
+
+def any_c_phase(dev, values_any, gen_any, ops, ref, ar_mod, timing,
+                equal) -> None:
+    """Phase 6's matrix-kernel checks and times: at the any-C back-end's
+    shape (N=512, C=15,553, (C,) masks) the resolve of 4 lanes and of one
+    lane bitwise the plain version on the card and the CPU, both rules;
+    each launch (resolve, merge) timed beside its plain version and its
+    device time from a trace; then the day-sized shape (``ANY_C_DAY``):
+    the one launch for 32 lanes against 32 one-lane launches, bitwise the
+    plain version on the card, beside its byte bound and issue floor."""
+    import torch
+    n_any, c_any = values_any.shape
+    v_any = values_any.to(dev)
+    mult4 = (torch.rand((4, c_any), generator=gen_any) + 0.5).to(dev)
+    act4 = (torch.rand((4, c_any), generator=gen_any) < 0.8).to(dev)
+    res4 = torch.tensor([0.0, 0.05, 0.1, 0.05], device=dev)
+    for kind in KINDS:
+        second = kind == KINDS[1]
+        what = f"auction_resolve {kind} C={c_any} N={n_any}"
+        got = ops.resolve_lanes(v_any, mult4, act4, res4,
+                                second_price=second)
+        want = ref.resolve_lanes_ref(v_any, mult4, act4, res4, second)
+        on_cpu = ref.resolve_lanes_ref(values_any, mult4.cpu(), act4.cpu(),
+                                       res4.cpu(), second)
+        for name, a, b, c in zip(("winners", "prices"), got, want, on_cpu):
+            equal(name, a, b, f"{what} S=4")
+            equal(name, a.cpu(), c, f"{what} S=4 on the CPU")
+        one = ops.resolve_masked(v_any, mult4[2], act4[2], res4[2],
+                                 second_price=second, sums=False)
+        one_plain = ref.resolve_masked_ref(v_any, mult4[2], act4[2], res4[2],
+                                           second_price=second)
+        for name, a, b, c in zip(("winners", "prices"), one, one_plain,
+                                 got):
+            equal(name, a, b, f"{what} S=1")
+            equal(name, a, c[2], f"{what} S=1 against lane 2 of S=4")
+    chunks, cols = ar_mod.chunk_plan(
+        n_any, c_any, torch.cuda.get_device_properties(0)
+        .multi_processor_count)
+    parts = ar_mod.resolve_chunks_cuda(v_any, mult4, act4, res4,
+                                       second_price=False)
+    m1, a1, r1 = mult4[:1], act4[:1], res4[:1]
+    timing["auction_resolve"] = (
+        cuda_ms(lambda: ar_mod.resolve_chunks_cuda(
+            v_any, mult4, act4, res4, second_price=False), 50),
+        cuda_ms(lambda: ref.resolve_chunks_ref(
+            v_any, mult4, act4, res4, chunk_cols=cols), 3), None)
+    timing["auction_resolve_merge"] = (
+        cuda_ms(lambda: ar_mod.merge_chunks_cuda(*parts,
+                                                 second_price=False), 50),
+        cuda_ms(lambda: ref.merge_chunks_ref(*parts), 10), None)
+    timing["auction_resolve_calls"] = {
+        "s4": cuda_ms(lambda: ops.resolve_lanes(v_any, mult4, act4, res4),
+                      50),
+        "s1": cuda_ms(lambda: ops.resolve_lanes(v_any, m1, a1, r1), 50),
+        "s1_plain": cuda_ms(lambda: ref.resolve_lanes_ref(v_any, m1, a1, r1),
+                            10)}
+    device = {}
+    for lanes, (m, a, r) in (("s4", (mult4, act4, res4)),
+                             ("s1", (m1, a1, r1))):
+        traced = trace("[6]", f"20 any-C resolves, {lanes}", lambda: [
+            ops.resolve_lanes(v_any, m, a, r) for _ in range(20)])
+        for key, us in traced.items():
+            for kernel in ("matrix_lanes_kernel", "merge_kernel"):
+                if kernel in key:
+                    device[f"{kernel}_{lanes}"] = us / 20 / 1e3
+    timing["auction_resolve_device"] = device
+    s = 4
+    timing["auction_resolve_bound"] = bound_ms(
+        n_any * c_any * 4 + s * (c_any * 5 + 4) + s * chunks * n_any * 12,
+        s * n_any * c_any * 2)
+    timing["auction_resolve_merge_bound"] = bound_ms(
+        s * chunks * n_any * 12 + s * n_any * 8, s * n_any * chunks * 2)
+    timing["auction_resolve_shape"] = (n_any, c_any, chunks, cols)
+    print(f"[6] auction_resolve at the any-C back-end's shape (N={n_any}, "
+          f"C={c_any}, (C,) masks, {chunks} chunks of {cols}): S=4 and S=1 "
+          f"bitwise the plain version on the card and the CPU, both rules; "
+          f"resolve launch {timing['auction_resolve'][0]:.4f} ms, merge "
+          f"{timing['auction_resolve_merge'][0]:.4f} ms; a whole call S=4 "
+          f"{timing['auction_resolve_calls']['s4']:.4f} ms, S=1 "
+          f"{timing['auction_resolve_calls']['s1']:.4f} ms; device time a "
+          f"launch {device}", flush=True)
+    del v_any, parts
+
+    # the day-sized shape: one launch for 32 lanes against 32 one-lane
+    # launches of the same kernel
+    n_day, c_day, s_day = ANY_C_DAY
+    gen = torch.Generator(device=dev).manual_seed(7)
+    v_day = torch.rand((n_day, c_day), generator=gen, device=dev)
+    m_day = torch.rand((s_day, c_day), generator=gen, device=dev) + 0.5
+    a_day = torch.rand((s_day, c_day), generator=gen, device=dev) < 0.8
+    r_day = torch.linspace(0.0, 0.3, s_day, device=dev)
+    got = ops.resolve_lanes(v_day, m_day, a_day, r_day)
+    for lane in (0, 17, 31):
+        want = ref.resolve_masked_ref(v_day, m_day[lane], a_day[lane],
+                                      r_day[lane])
+        equal("winners", got[0][lane], want[0], f"day-sized lane {lane}")
+        equal("prices", got[1][lane], want[1], f"day-sized lane {lane}")
+    del got, want
+    all_ms = cuda_ms(lambda: ops.resolve_lanes(v_day, m_day, a_day, r_day),
+                     5)
+    per_lane_ms = cuda_ms(lambda: [
+        ops.resolve_lanes(v_day, m_day[i:i + 1], a_day[i:i + 1],
+                          r_day[i:i + 1]) for i in range(s_day)], 3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    threads = s_day // ANY_C_LANES * n_day
+    fast = (s_day * n_day * c_day * ANY_C_LANE_INSTRUCTIONS
+            + threads * c_day * (ANY_C_LANES / 4 + 1) + threads * c_day / 4)
+    fires = scan_fires(v_day, m_day, a_day, r_day, ANY_C_LANES)
+    updates = fires * (ANY_C_LANES * ANY_C_UPDATE_INSTRUCTIONS + 1)
+    per_ms = sms * 128 * clock_hz / 1e3
+    floor = (fast + updates) / per_ms
+    day_bound = bound_ms(n_day * c_day * 4 + s_day * (c_day * 5 + 4)
+                         + s_day * n_day * 8, s_day * n_day * c_day * 2)
+    timing["auction_resolve_day"] = dict(
+        shape=list(ANY_C_DAY), ms=all_ms, one_lane_launches_ms=per_lane_ms,
+        bound_ms=day_bound[0], bound_by=day_bound[1], issue_floor_ms=floor,
+        fast_path_floor_ms=fast / per_ms, update_fires=fires)
+    print(f"[6] auction_resolve at N={n_day}, C={c_day}, S={s_day}: one "
+          f"launch {all_ms:.4f} ms, {s_day} one-lane launches "
+          f"{per_lane_ms:.4f} ms; bound {day_bound[0]:.4f} ms "
+          f"({day_bound[1]}), issue floor {floor:.4f} ms: the fast path "
+          f"{fast / (s_day * n_day * c_day):.4f} instructions a (lane, row, "
+          f"campaign), {fast / per_ms:.4f} ms, and {fires} fired any-tests "
+          f"of {ANY_C_LANES} lanes ({fires / (threads * c_day):.3g} of the "
+          f"thread-campaigns) x {ANY_C_LANES * ANY_C_UPDATE_INSTRUCTIONS + 1}"
+          f" instructions, {updates / per_ms:.4f} ms, over {sms} SMs x 128 a "
+          f"cycle at {clock_hz / 1e9:.2f} GHz; lanes 0, 17, 31 bitwise the "
+          f"plain version", flush=True)
+    del v_day, m_day, a_day
 
 
 def main() -> int:
@@ -1616,9 +1822,9 @@ def main() -> int:
               flush=True)
 
     # a C one past the round kernels' shared memory: "auto" takes the
-    # per-lane auction_resolve back-end; and one past the first partials
-    # kernel's limit (OLD_RF_LIMIT), which the fused round now takes; ten
-    # campaigns capping
+    # any-C auction_resolve back-end (every lane of a round in one launch);
+    # and one past the first partials kernel's limit (OLD_RF_LIMIT), which
+    # the fused round now takes; ten campaigns capping
     rf_limit = ops.round_campaign_limits()["fused"]
     require(rf_limit >= OLD_RF_LIMIT, f"the fused round's limit {rf_limit} "
                                       f"fell below {OLD_RF_LIMIT}")
@@ -1630,17 +1836,18 @@ def main() -> int:
         budgets_any = torch.full((c_any,), 1e6)
         budgets_any[:10] = 5.0
         for kind in KINDS:
-            out_any = {}
+            out_any, grids_any = {}, {}
             for where in ("cpu", "cuda"):
                 base = AuctionRule(
                     multipliers=torch.ones(c_any, device=where),
                     reserve=torch.zeros((), device=where), kind=kind)
                 eng = CounterfactualEngine(values_any, budgets_any,
                                            base_rule=base, device=where)
+                grids_any[where] = eng.grid(bid_scales=(1.0, 1.2),
+                                            reserves=(0.0, 0.05))
                 reset_counts()
-                out_any[where] = eng.sweep(eng.grid(
-                    bid_scales=(1.0, 1.2), reserves=(0.0, 0.05)),
-                    method="parallel").results
+                out_any[where] = eng.sweep(grids_any[where],
+                                           method="parallel").results
                 torch.cuda.synchronize()
                 launches = read_counts()
             if backend == "round_fused":
@@ -1650,15 +1857,28 @@ def main() -> int:
                         f"the fused round")
                 how = "the fused round, one past the first design's limit"
             else:
-                require(launches["auction_resolve"] > 0
+                # the sweep's rounds, from the same sweep on the CPU
+                cpu_core = sweep_state_machine(
+                    values_any, grids_any["cpu"].budgets,
+                    grids_any["cpu"].rules, resolve="torch")
+                equal("final_spend", cpu_core[0],
+                      out_any["cpu"].final_spend, f"{kind} C={c_any} CPU")
+                rounds_any = int(cpu_core[4].max())
+                require(launches["auction_resolve"] == rounds_any
+                        and launches["auction_resolve_merge"] == rounds_any
                         and launches["segment_partials"] > 0
                         and not launches["round_fused"]
                         and not launches["sweep_resolve"],
                         f"{kind} C={c_any}: launches {launches}, expected "
-                        f"auction_resolve and segment_partials only")
-                how = ("auction_resolve per lane and segment_partials, one "
-                       "past the fused round's shared memory")
+                        f"one auction_resolve and one merge a round "
+                        f"({rounds_any} rounds, S=4) and segment_partials "
+                        f"only")
+                how = (f"one auction_resolve launch a round for all 4 lanes "
+                       f"({rounds_any} rounds) and segment_partials, one "
+                       f"past the fused round's shared memory")
                 counted["auction_resolve"] += launches["auction_resolve"]
+                counted["auction_resolve_merge"] += \
+                    launches["auction_resolve_merge"]
             for name in ("final_spend", "cap_times"):
                 equal(name, getattr(out_any["cuda"], name).cpu(),
                       getattr(out_any["cpu"], name),
@@ -1669,37 +1889,8 @@ def main() -> int:
                   f"C={c_any}, N={ANY_C_EVENTS} S=4: {how} (launches "
                   f"{launches}), bitwise the CPU", flush=True)
         if backend == "auction_resolve":
-            # the auction_resolve row's shape: one lane's MatrixTile resolve
-            # of this back-end, a (C,) mask, no sums; bitwise the plain
-            # version on the card
-            v_any = values_any.to(dev)
-            mult_any = torch.rand(c_any, generator=gen_any).to(dev) + 0.5
-            act_any = (torch.rand(c_any, generator=gen_any) < 0.8).to(dev)
-            res_any = torch.tensor(0.05, device=dev)
-            for kind in KINDS:
-                second = kind == KINDS[1]
-                got = ops.resolve_masked(v_any, mult_any, act_any, res_any,
-                                         second_price=second, sums=False)
-                want = ref.resolve_masked_ref(v_any, mult_any, act_any,
-                                              res_any, second_price=second)
-                equal("winners", got[0], want[0],
-                      f"auction_resolve {kind} C={c_any} N={ANY_C_EVENTS}")
-                equal("prices", got[1], want[1],
-                      f"auction_resolve {kind} C={c_any} N={ANY_C_EVENTS}")
-            timing["auction_resolve"] = (
-                cuda_ms(lambda: ops.resolve_masked(
-                    v_any, mult_any, act_any, res_any, sums=False), 50),
-                cuda_ms(lambda: ref.resolve_masked_ref(
-                    v_any, mult_any, act_any, res_any), 10), None)
-            timing["auction_resolve_bound"] = bound_ms(
-                ANY_C_EVENTS * c_any * 4 + c_any * 5 + 4 + ANY_C_EVENTS * 8,
-                ANY_C_EVENTS * c_any * 2)
-            timing["auction_resolve_shape"] = (ANY_C_EVENTS, c_any)
-            print(f"[6] auction_resolve MatrixTile at the any-C back-end's "
-                  f"shape (N={ANY_C_EVENTS}, C={c_any}, (C,) mask, no sums): "
-                  f"bitwise the plain version, both rules; "
-                  f"{timing['auction_resolve'][0]:.4f} ms", flush=True)
-            del v_any
+            any_c_phase(dev, values_any, gen_any, ops, ref, ar_mod, timing,
+                        equal)
         del values_any, out_any
 
     # ---- phase 7: the paper's comparison ---------------------------------
@@ -2072,12 +2263,25 @@ def main() -> int:
                       for r_, ms in timing["short_sums"].items()))
     c100_ms, c100_plain, _ = timing["auction_resolve_c100"]
     c100_bound, _ = timing["auction_resolve_c100_bound"]
-    ar_rows, ar_c = timing["auction_resolve_shape"]
+    ar_rows, ar_c, ar_chunks, ar_cols = timing["auction_resolve_shape"]
+    ar_calls = timing["auction_resolve_calls"]
+    ar_day = timing["auction_resolve_day"]
     print(f"[10] auction_resolve MatrixTile standalone at N={n}, C={c} "
           f"((N, C) mask, no sums; no main-path launches at this shape): "
           f"{c100_ms:.4f} ms, plain {c100_plain:.4f} ms, bound "
-          f"{c100_bound:.4f} ms; the JSON line's auction_resolve row is "
-          f"MatrixTile at the any-C back-end's shape, N={ar_rows}, C={ar_c}")
+          f"{c100_bound:.4f} ms; the JSON line's auction_resolve and "
+          f"auction_resolve_merge rows are the matrix kernel's two launches "
+          f"at the any-C back-end's shape, N={ar_rows}, C={ar_c}, S=4 "
+          f"({ar_chunks} chunks of {ar_cols}); a whole call S=4 "
+          f"{ar_calls['s4']:.4f} ms, S=1 {ar_calls['s1']:.4f} ms (plain "
+          f"{ar_calls['s1_plain']:.4f} ms; the first design's one-lane "
+          f"kernel {EARLIER_MS['auction_resolve']} ms), device time a launch "
+          f"{timing['auction_resolve_device']}; N={ar_day['shape'][0]}, "
+          f"C={ar_day['shape'][1]}, S={ar_day['shape'][2]}: one launch "
+          f"{ar_day['ms']:.4f} ms, one-lane launches "
+          f"{ar_day['one_lane_launches_ms']:.4f} ms, bound "
+          f"{ar_day['bound_ms']:.4f} ms, issue floor "
+          f"{ar_day['issue_floor_ms']:.4f} ms")
     vi_ms, vi_plain, _ = timing["vi"]
     vi_bound, vi_by = timing["vi_bound"]
     warm_ms, warm_bound, warm_floor, warm_steps = timing["vi_warm"]
@@ -2109,11 +2313,16 @@ def main() -> int:
           f"in {lm['init_s']:.2f} s")
     print(f"[10] flash_attention at {lm['flash_shape']}: "
           f"{lm['launches']} launches per prefill")
-    for name, label, kernel_ms, plain_ms, library_ms, (bound, by) in \
-            lm["flash_timed"]:
+    for name, label, kernel_ms, plain_ms, library_ms, (bound, by), \
+            cuda_core in lm["flash_timed"]:
         print(f"[10] flash_attention, {name} ({label}): {kernel_ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
-              f"{bound:.4f} ms ({by})")
+              f"{bound:.4f} ms ({by})"
+              + (f" in split TF32 (on the CUDA cores {cuda_core:.4f} ms)"
+                 if cuda_core else "")
+              + (f"; the CUDA-core design "
+                 f"{EARLIER_MS['flash_attention_f32']} ms"
+                 if name == "float32 prefill" else ""))
     sp_ms, _, sp_library_ms = timing["segment_partials"]
     print(f"[10] segment_partials full-window pass: {sp_ms:.4f} ms, "
           f"{sp_ms / sp_library_ms:.4f} of the index_add_ beside it")
@@ -2132,7 +2341,7 @@ def main() -> int:
                          library_ms=library_ms,
                          plain_events=(PLAIN_EVENTS if name == "capped_scan"
                                        else ar_rows
-                                       if name == "auction_resolve"
+                                       if name.startswith("auction_resolve")
                                        else None if name in ("flash_attention",
                                                              "vi")
                                        else n)))
@@ -2150,15 +2359,37 @@ def main() -> int:
                             device_kernels=fc_device_kernels,
                             small_n_ms={str(k): v for k, v in timing[
                                 "first_crossing_small"].items()})
+        if name.startswith("auction_resolve"):
+            rows[-1].update(n_events=ar_rows, n_campaigns=ar_c, n_lanes=4,
+                            chunks=ar_chunks, chunk_cols=ar_cols)
         if name == "auction_resolve":
+            device = timing["auction_resolve_device"]
             rows[-1].update(
-                n_events=ar_rows, n_campaigns=ar_c,
+                device_ms=device.get("matrix_lanes_kernel_s4"),
+                call_ms=ar_calls["s4"], one_lane_call_ms=ar_calls["s1"],
+                one_lane_plain_ms=ar_calls["s1_plain"],
+                one_lane_device_ms=device.get("matrix_lanes_kernel_s1"),
+                day=ar_day,
                 standalone_c100_ms=c100_ms,
                 standalone_c100_plain_ms=c100_plain,
                 standalone_c100_bound_ms=c100_bound,
                 emb_sums_ms=emb_ms, emb_sums_bound_ms=emb_bound,
                 short_sums_ms={str(k): v for k, v
                                in timing["short_sums"].items()})
+        if name == "auction_resolve_merge":
+            rows[-1].update(device_ms=timing["auction_resolve_device"].get(
+                "merge_kernel_s4"))
+        if name == "flash_attention":
+            for timed, _, t_ms, t_plain, t_lib, (t_bound, _), cuda_core \
+                    in lm["flash_timed"]:
+                key = timed.replace(" ", "_").replace("-", "_").replace(
+                    ".", "_")
+                rows[-1][f"{key}_ms"] = t_ms
+                rows[-1][f"{key}_plain_ms"] = t_plain
+                rows[-1][f"{key}_library_ms"] = t_lib
+                rows[-1][f"{key}_bound_ms"] = t_bound
+                if cuda_core:
+                    rows[-1][f"{key}_cuda_core_bound_ms"] = cuda_core
         if name == "vi":
             rows[-1].update(plain_sampled_rows=timing["vi_plain_shape"][0],
                             plain_steps=timing["vi_plain_shape"][1],

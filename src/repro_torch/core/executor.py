@@ -14,9 +14,9 @@ A :class:`SweepPlan` names the axes of one execution and
   ``kernels.auction_resolve.ops.round_fused``), or ``"auto"`` (``"fused"``
   on CUDA, ``"torch"`` on the CPU — :func:`pick_resolve`; on CUDA a C
   above a kernel back-end's shared memory takes :data:`ANY_C_BACKEND`,
-  each lane resolved by the ``auction_resolve`` kernel). Each kernel
-  wrapper launches its hand-written CUDA kernel for CUDA tensors and runs
-  its plain version for CPU tensors; the partials go through
+  every lane of a round resolved by one ``auction_resolve`` launch). Each
+  kernel wrapper launches its hand-written CUDA kernel for CUDA tensors
+  and runs its plain version for CPU tensors; the partials go through
   :func:`repro_torch.core.segments.window_partials`, event-ordered on both;
 * **skip_retired** — whether the CUDA round skips frozen lanes' work.
 
@@ -100,10 +100,10 @@ def pick_resolve(resolve: str, device, n_campaigns: int | None = None, *,
     cannot hold C campaigns (``limits``, by default
     ``resolve_ops.round_campaign_limits()``), whether asked for or picked by
     ``"auto"``, gives way to :data:`ANY_C_BACKEND`, as ``repro``'s fused
-    gate falls back to two passes: each lane resolved by the
-    ``auction_resolve`` kernel, which takes any C, and its partials by
-    ``segment_partials``, both in event order, so it gives the other
-    back-ends' bits."""
+    gate falls back to two passes: every lane resolved by one
+    ``auction_resolve`` launch a round, which takes any C, and the
+    partials by ``segment_partials``, both in event order, so it gives the
+    other back-ends' bits."""
     if resolve == "auto":
         resolve = "fused" if torch.device(device).type == "cuda" else "torch"
     elif resolve not in RESOLVE_BACKENDS:
@@ -228,24 +228,22 @@ def _make_round_body(plan: SweepPlan, resolve: str, *, values, rules,
     reserves = rules.reserve.to(torch.float32).expand(b.shape[0])
 
     def resolve_lanes(active):
-        """(S, N) winners/prices of every lane: one ``sweep_resolve`` for
-        all lanes, or one lane at a time, by the ``auction_resolve`` kernel
-        (:data:`ANY_C_BACKEND`) or the torch path (the bids tensor is then
-        (N, C), never (S, N, C))."""
+        """(S, N) winners/prices of every lane: one ``sweep_resolve`` or,
+        for :data:`ANY_C_BACKEND`, one ``auction_resolve`` launch (and its
+        chunk merge) for all lanes, or the torch path one lane at a time
+        (the bids tensor is then (N, C), never (S, N, C))."""
         if resolve == "sweep_resolve":
             winners, prices, _ = resolve_ops.sweep_resolve(
                 values, rules.multipliers, active, reserves,
                 second_price=second)
             return winners, prices
         if resolve == ANY_C_BACKEND:
-            out = [resolve_ops.resolve_masked(
-                values, rules.multipliers[s], active[s], reserves[s],
-                second_price=second, sums=False)[:2]
-                for s in range(active.shape[0])]
-        else:
-            out = [auction.resolve(values, active[s], AuctionRule(
-                multipliers=rules.multipliers[s], reserve=reserves[s],
-                kind=rules.kind)) for s in range(active.shape[0])]
+            return resolve_ops.resolve_lanes(values, rules.multipliers,
+                                             active, reserves,
+                                             second_price=second)
+        out = [auction.resolve(values, active[s], AuctionRule(
+            multipliers=rules.multipliers[s], reserve=reserves[s],
+            kind=rules.kind)) for s in range(active.shape[0])]
         return (torch.stack([w for w, _ in out]),
                 torch.stack([p for _, p in out]))
 

@@ -1,6 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels: causal, optionally sliding-window,
-// attention forward with an online softmax. bfloat16 inputs go to a
-// tensor-core kernel (mma.sync), float32 inputs to a CUDA-core kernel.
+// attention forward with an online softmax, on the tensor cores: bfloat16
+// inputs through bf16 mma.sync, float32 inputs through split TF32.
 //
 // Replaces repro/kernels/flash_attention/flash_attention.py:82
 // `flash_attention_pallas` (its `_kernel`, :25-79). The port's model sends
@@ -33,7 +33,9 @@
 // the 67 TFLOP/s float32 rate of CUDA cores. q, k, v and o are 268 MB in
 // bf16, 0.08 ms at 3.35 TB/s. So the operations bound it; the split P makes
 // the PV product two tensor-core passes, 1.5x the multiplies of a kernel
-// that rounds P once.
+// that rounds P once. In float32 split TF32 takes three TF32 products for
+// one float32 product: 4.1e11 operations, 0.83 ms at the 495 TFLOP/s dense
+// TF32 peak (against 2.05 ms on CUDA cores).
 //
 // What the bf16 design does about it (`flash_tc_kernel`, the
 // FlashAttention-2 shape on mma.sync). One CTA per (b, h, 128 query rows),
@@ -58,18 +60,34 @@
 // give the same bits. wgmma, TMA and warp specialisation are a later PR's
 // work.
 //
-// The float32 design (`flash_fwd_kernel`) is the simple form: one CTA of
-// 256 threads per (b, h, block of 64 query rows), 64-row key and value
-// tiles staged in shared memory as float32 (rows padded by one float
-// against bank conflicts), a 4x4 register tile per thread (8 shared loads
-// per 16 fused multiply-adds), probabilities through shared memory to the
-// PV product. On CUDA cores in float32 it cannot come nearer than 2.05 ms
-// at the prefill shape. The shared memory (208.75 KB at dh=256) is set with
-// cudaFuncSetAttribute above 48 KB, as is the bf16 kernel's (160 KB at
-// dh=256, 128 KB at dh=128).
+// The float32 design (`flash_tf32_kernel`) is the same shape in split TF32
+// (3xTF32) on mma.sync.m16n8k8: each float32 operand x is hi = tf32(x),
+// rounded to nearest with ties away (cvt.rna's rounding, done with integer
+// operations), and lo = tf32(x - hi), and
+// a b is lo_a hi_b + hi_a lo_b + hi_a hi_b in float32 accumulators (lo_a
+// lo_b, below 2^-22 of the product, is dropped), for S = Q K^T and for O +=
+// P V; ref.attention_split_tf32_ref repeats this rounding and the block
+// order on the CPU, within the float32 tolerance of the plain version.
+// One CTA per (b, h, 128 query rows), 8 warps of 16 rows (64 rows and 4
+// warps at dh=256, whose accumulator takes 128 registers a thread), two
+// CTAs an SM at dh <= 64; heaviest query tiles first, B*H on the grid's x
+// axis. Q and a two-stage ring of K and V tiles (64 keys; 32 at dh=256)
+// come in by 16-byte cp.async into rows padded by 4 floats, so every
+// fragment load is on 32 distinct banks; the next tile is in flight while
+// the current one multiplies. The operands are split in registers as they
+// are loaded. The m16n8 accumulator gives a thread P's keys 2t and 2t + 1
+// of an 8-key step where the tf32 A fragment wants columns t and t + 4: the
+// kernel takes the step's keys in the permuted order (0, 2, 4, 6, 1, 3, 5,
+// 7), so P's registers are A as they stand and V's B fragment loads rows 2t
+// and 2t + 1; no shuffles, and the sum over a step's keys comes in that
+// fixed order. The softmax stays in registers as in the bf16 kernel, with
+// expf; the output is divided by max(l, 1e-30) and stored as float pairs.
+// The shared memory (102 KB at dh=64, 198 KB at dh=128 and 195 KB at
+// dh=256) is set with cudaFuncSetAttribute above 48 KB, as is the bf16
+// kernel's (160 KB at dh=256, 128 KB at dh=128).
 //
-// Floats. The shared flags pass --fmad=false; the dot products of the
-// float32 kernel use __fmaf_rn explicitly, and expf (not __expf) keeps the
+// Floats. The shared flags pass --fmad=false; the float32 kernel's products
+// are the tensor cores' (split TF32), and expf (not __expf) keeps the
 // float32 tolerance. The bf16 kernel takes exp(x) as exp2f(x * log2(e)),
 // within a few float32 ulps of expf.
 
@@ -80,159 +98,8 @@
 
 namespace {
 
-constexpr int kBQ = 64;          // query rows per CTA
-constexpr int kBK = 64;          // key/value rows per tile
-constexpr int kThreads = 256;    // 16 row groups x 16 column groups
+constexpr int kBK = 64;          // key/value rows per tile of the bf16 kernel
 constexpr float kNeg = -1073741824.0f;   // -2^30, the reference's NEG
-
-template <int DH>
-struct Layout {                  // shared-memory tiles, in floats
-  static constexpr int kQS = DH + 1;   // padded row strides
-  static constexpr int kKS = DH + 1;
-  static constexpr int kVS = DH;
-  static constexpr int kPS = kBK + 1;
-  static constexpr int kFloats = kBQ * kQS + kBK * kKS + kBK * kVS + kBQ * kPS;
-  static constexpr size_t kBytes = kFloats * sizeof(float);
-};
-
-// Rows [row0, row0 + rows) of one head into a padded float32 tile; rows at
-// or past S are zeros.
-template <int DH>
-__device__ __forceinline__ void stage(float* tile, int stride,
-                                      const float* __restrict__ src, long base,
-                                      long row_stride, int row0, int rows,
-                                      int S) {
-  for (int idx = threadIdx.x; idx < rows * DH; idx += kThreads) {
-    const int r = idx / DH, d = idx % DH, s = row0 + r;
-    tile[r * stride + d] = s < S ? src[base + (long)s * row_stride + d] : 0.0f;
-  }
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int S,
-                 int H, int KV, int causal, int window) {
-  using L = Layout<DH>;
-  constexpr int kCols = DH / 16;       // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + kBQ * L::kQS;
-  float* Vs = Ks + kBK * L::kKS;
-  float* Ps = Vs + kBK * L::kVS;
-
-  const int bh = blockIdx.y, b = bh / H, h = bh % H, g = h / (H / KV);
-  const int q0 = blockIdx.x * kBQ;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const long q_row = (long)H * DH, kv_row = (long)KV * DH;
-  const long q_base = (long)b * S * q_row + (long)h * DH;
-  const long kv_base = (long)b * S * kv_row + (long)g * DH;
-  const float scale = 1.0f / sqrtf((float)DH);
-
-  stage<DH>(Qs, L::kQS, q, q_base, q_row, q0, kBQ, S);
-
-  float m[4], l[4], acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNeg;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.0f;
-  }
-
-  const int n_kv = (S + kBK - 1) / kBK;
-  for (int t = 0; t < n_kv; ++t) {
-    const int c0 = t * kBK;
-    // the same test for every thread of the CTA, so the barriers below are
-    // reached by all or none
-    bool relevant = true;
-    if (causal) relevant = c0 <= q0 + kBQ - 1;
-    if (window > 0) relevant = relevant && (c0 + kBK - 1 > q0 - window);
-    if (!relevant) continue;
-
-    __syncthreads();   // the previous tile's readers are done; Q is staged
-    stage<DH>(Ks, L::kKS, k, kv_base, kv_row, c0, kBK, S);
-    stage<DH>(Vs, L::kVS, v, kv_base, kv_row, c0, kBK, S);
-    __syncthreads();
-
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.0f;
-#pragma unroll 16
-    for (int d = 0; d < DH; ++d) {
-      float a[4], bk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * L::kQS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = Ks[(tx + 16 * j) * L::kKS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = __fmaf_rn(a[i], bk[j], sc[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float mc = kNeg;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = c0 + tx + 16 * j;
-        bool keep = col < S;
-        if (causal) keep = keep && col <= row;
-        if (window > 0) keep = keep && col > row - window;
-        sc[i][j] = keep ? sc[i][j] * scale : kNeg;
-        mc = fmaxf(mc, sc[i][j]);
-      }
-      // the row's 64 scores lie in the 16 lanes sharing ty (half a warp)
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, off));
-      const float m_new = fmaxf(m[i], mc);
-      const float alpha = expf(m[i] - m_new);
-      float ps = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(sc[i][j] - m_new);
-        Ps[(ty + 16 * i) * L::kPS + tx + 16 * j] = p;
-        ps += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      l[i] = alpha * l[i] + ps;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int j = 0; j < kBK; ++j) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty + 16 * i) * L::kPS + j];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const float vv = Vs[j * L::kVS + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = __fmaf_rn(p[i], vv, acc[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= S) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    float* dst = o + q_base + (long)row * q_row;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) dst[tx + 16 * c] = acc[i][c] / denom;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The bf16 tensor-core kernel
@@ -561,17 +428,274 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The float32 tensor-core kernel (split TF32)
+// ---------------------------------------------------------------------------
+
+template <int DH>
+struct TF {
+  static constexpr int kWarps = DH == 256 ? 4 : 8;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kBQ = 16 * kWarps;    // query rows per CTA
+  static constexpr int kBK = DH == 256 ? 32 : 64;   // keys per kv tile
+  // rows padded by one 16-byte chunk: a stride of 4 (mod 32) floats puts
+  // the fragments' loads (8 rows x 4 columns of Q and K, 4 row pairs x 8
+  // columns of V) on 32 distinct banks
+  static constexpr int kStride = DH + 4;
+  static constexpr int kChunks = DH / 4;     // 16-byte chunks per row
+  static constexpr int kTile = kBK * kStride;
+  static constexpr size_t kBytes =
+      (size_t)(kBQ + 4 * kBK) * kStride * sizeof(float);   // Q + 2 x (K, V)
+};
+
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero,
+// the rounding of cvt.rna.tf32.f32 for finite x, in two integer operations
+// (half the dropped 13 bits' range added to the magnitude, then the 13
+// bits cleared), which issue faster than cvt.rna
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x as hi + lo, two TF32 values: hi rounds x, lo rounds what hi leaves (x -
+// hi is exact), so hi + lo carries 22 significant bits of x
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// c (16x8, float32) += a (16x8, tf32, row) * b (8x8, tf32, col)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in split TF32: lo.hi, then hi.lo, then hi.hi (the small terms
+// first); lo.lo, below 2^-22 of the product, is dropped
+__device__ __forceinline__ void mma_split(float (&c)[4],
+                                          const uint32_t (&ahi)[4],
+                                          const uint32_t (&alo)[4],
+                                          float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(c, alo, bh0, bh1);
+  mma_tf32(c, ahi, bl0, bl1);
+  mma_tf32(c, ahi, bh0, bh1);
+}
+
+// Rows [row0, row0 + ROWS) of one head into a padded float32 tile by
+// 16-byte cp.async; rows at or past S are zero-filled.
+template <int DH, int ROWS>
+__device__ __forceinline__ void load_rows(float* tile,
+                                          const float* __restrict__ src,
+                                          long base, long row_stride, int row0,
+                                          int S) {
+  using C = TF<DH>;
+  for (int idx = threadIdx.x; idx < ROWS * C::kChunks; idx += C::kThreads) {
+    const int r = idx / C::kChunks, c = idx % C::kChunks, s = row0 + r;
+    const float* from = src + base + (long)min(s, S - 1) * row_stride + c * 4;
+    cp_async16(tile + r * C::kStride + c * 4, from, s < S ? 16 : 0);
+  }
+}
+
+// Two CTAs an SM for dh <= 64 (at most 128 registers a thread).
+template <int DH>
+__global__ void __launch_bounds__(TF<DH>::kThreads, DH <= 64 ? 2 : 1)
+flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o, int S,
+                  int H, int KV, int causal, int window) {
+  using C = TF<DH>;
+  constexpr int kTK = C::kBK;          // keys a tile
+  constexpr int kDSteps = DH / 8;      // k-steps of QK^T, n-tiles of PV
+  constexpr int kKeyTiles = kTK / 8;   // n-tiles of QK^T, k-steps of PV
+  extern __shared__ __align__(128) unsigned char tf_smem[];
+  float* Qs = reinterpret_cast<float*>(tf_smem);
+  float* Ks = Qs + C::kBQ * C::kStride;
+  float* Vs = Ks + 2 * C::kTile;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, g = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::kBQ;   // heaviest first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const long q_row = (long)H * DH, kv_row = (long)KV * DH;
+  const long q_base = (long)b * S * q_row + (long)h * DH;
+  const long kv_base = (long)b * S * kv_row + (long)g * DH;
+  const float scale = 1.0f / sqrtf((float)DH);
+
+  // the kv tiles the Pallas kernel's `relevant` test keeps: a range
+  int t_end = (S + kTK - 1) / kTK;
+  if (causal) t_end = min(t_end, (q0 + C::kBQ - 1) / kTK + 1);
+  int t_begin = 0;
+  if (window > 0) {
+    const int x = q0 - window - kTK + 1;   // relevant iff t * kTK > x
+    t_begin = x < 0 ? 0 : x / kTK + 1;
+  }
+
+  load_rows<DH, C::kBQ>(Qs, q, q_base, q_row, q0, S);
+  load_rows<DH, kTK>(Ks, k, kv_base, kv_row, t_begin * kTK, S);
+  load_rows<DH, kTK>(Vs, v, kv_base, kv_row, t_begin * kTK, S);
+  cp_commit();
+
+  const int wrow = warp * 16;          // the warp's first row in the tile
+  // this lane's A elements of Q: rows gid and gid + 8, columns tig and
+  // tig + 4 of each 8-column k-step
+  const float* Qa = Qs + (wrow + gid) * C::kStride + tig;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.0f, 0.0f};
+  float oacc[kDSteps][4];
+#pragma unroll
+  for (int n = 0; n < kDSteps; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.0f;
+
+  const int row_lo = q0 + wrow + gid, row_hi = row_lo + 8;
+  for (int t = t_begin; t < t_end; ++t) {
+    const int st = (t - t_begin) & 1;
+    const float* Kt = Ks + st * C::kTile;
+    const float* Vt = Vs + st * C::kTile;
+    // the next tile goes into the other stage, which every thread left at
+    // the previous iteration's closing barrier
+    if (t + 1 < t_end) {
+      load_rows<DH, kTK>(Ks + (st ^ 1) * C::kTile, k, kv_base, kv_row,
+                         (t + 1) * kTK, S);
+      load_rows<DH, kTK>(Vs + (st ^ 1) * C::kTile, v, kv_base, kv_row,
+                         (t + 1) * kTK, S);
+    }
+    cp_commit();
+    cp_wait<1>();                      // tile t (and Q) has landed
+    __syncthreads();
+
+    // ---- S = Q K^T, 16 rows x kTK keys per warp; B of n-tile j is keys
+    // 8j + gid at columns tig and tig + 4 of the k-step
+    float sacc[kKeyTiles][4];
+#pragma unroll
+    for (int j = 0; j < kKeyTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[j][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < kDSteps; ++ks) {
+      const float* qa = Qa + 8 * ks;
+      uint32_t ahi[4], alo[4];
+      split_tf32(qa[0], ahi[0], alo[0]);
+      split_tf32(qa[8 * C::kStride], ahi[1], alo[1]);
+      split_tf32(qa[4], ahi[2], alo[2]);
+      split_tf32(qa[8 * C::kStride + 4], ahi[3], alo[3]);
+#pragma unroll
+      for (int j = 0; j < kKeyTiles; ++j) {
+        const float* kb = Kt + (8 * j + gid) * C::kStride + 8 * ks + tig;
+        mma_split(sacc[j], ahi, alo, kb[0], kb[4]);
+      }
+    }
+
+    // ---- scale, mask, online softmax in registers; element e of n-tile j
+    // is row (e < 2 ? row_lo : row_hi), key c0 + 8j + 2*tig + (e & 1)
+    const int c0 = t * kTK;
+    const int wq0 = q0 + wrow;         // the warp's rows are [wq0, wq0 + 16)
+    const bool masked = c0 + kTK > S || (causal && c0 + kTK - 1 > wq0) ||
+                        (window > 0 && c0 <= wq0 + 15 - window);
+    float mx[2] = {kNeg, kNeg};
+#pragma unroll
+    for (int j = 0; j < kKeyTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float s = sacc[j][e] * scale;
+        if (masked) {
+          const int col = c0 + 8 * j + 2 * tig + (e & 1);
+          const int row = e < 2 ? row_lo : row_hi;
+          bool keep = col < S;
+          if (causal) keep = keep && col <= row;
+          if (window > 0) keep = keep && col > row - window;
+          s = keep ? s : kNeg;
+        }
+        sacc[j][e] = s;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // a row's scores lie on the quad of lanes sharing gid
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+    }
+    float ps[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < kKeyTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(sacc[j][e] - m[e >> 1]);
+        sacc[j][e] = p;
+        ps[e >> 1] += p;
+      }
+    // l is kept per thread (its quarter of the row) and summed over the
+    // quad at the end; alpha is the same for the whole row
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + ps[r];
+#pragma unroll
+    for (int n = 0; n < kDSteps; ++n) {
+      oacc[n][0] *= alpha[0];
+      oacc[n][1] *= alpha[0];
+      oacc[n][2] *= alpha[1];
+      oacc[n][3] *= alpha[1];
+    }
+
+    // ---- O += P V. The accumulator holds keys 2*tig and 2*tig + 1 of
+    // each 8-key step where the A fragment wants columns tig and tig + 4:
+    // the step's keys are taken in the order 0, 2, 4, 6, 1, 3, 5, 7, so a
+    // thread's two P values are its A columns as they stand, and V's B
+    // fragment reads keys 2*tig and 2*tig + 1 (no shuffles)
+#pragma unroll
+    for (int kk = 0; kk < kKeyTiles; ++kk) {
+      uint32_t phi[4], plo[4];
+      split_tf32(sacc[kk][0], phi[0], plo[0]);
+      split_tf32(sacc[kk][2], phi[1], plo[1]);
+      split_tf32(sacc[kk][1], phi[2], plo[2]);
+      split_tf32(sacc[kk][3], phi[3], plo[3]);
+      const float* vb = Vt + (8 * kk + 2 * tig) * C::kStride + gid;
+#pragma unroll
+      for (int n = 0; n < kDSteps; ++n)
+        mma_split(oacc[n], phi, plo, vb[8 * n], vb[C::kStride + 8 * n]);
+    }
+    __syncthreads();                   // stage st is free for tile t + 2
+  }
+
+  // ---- epilogue: normalise and store each lane's column pairs
+  float denom[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    denom[r] = fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int n = 0; n < kDSteps; ++n) {
+    const int col = 8 * n + 2 * tig;
+    if (row_lo < S)
+      *reinterpret_cast<float2*>(o + q_base + (long)row_lo * q_row + col) =
+          make_float2(oacc[n][0] / denom[0], oacc[n][1] / denom[0]);
+    if (row_hi < S)
+      *reinterpret_cast<float2*>(o + q_base + (long)row_hi * q_row + col) =
+          make_float2(oacc[n][2] / denom[1], oacc[n][3] / denom[1]);
+  }
+}
+
 template <int DH>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int S, int H, int KV, int causal, int window,
                cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<DH>;
-  const size_t bytes = Layout<DH>::kBytes;
+  using C = TF<DH>;
+  auto kernel = flash_tf32_kernel<DH>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kBytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  kernel<<<grid, kThreads, bytes, stream>>>(
+  const dim3 grid(B * H, (S + C::kBQ - 1) / C::kBQ);
+  kernel<<<grid, C::kThreads, C::kBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, H, KV, causal,
       window);
@@ -609,7 +733,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 extern "C" {
 
 // Attention of q (B, S, H, dh) over k, v (B, S, KV, dh) into o (B, S, H,
-// dh); bf16_in != 0 for bfloat16 tensors (16-byte aligned), float32
+// dh), all 16-byte aligned; bf16_in != 0 for bfloat16 tensors, float32
 // otherwise; window <= 0 for none. Returns the cudaError_t of the launch,
 // or cudaErrorInvalidValue for a head dim other than 16, 32, 64, 128 or
 // 256 or H not a multiple of KV.

@@ -11,7 +11,8 @@ any N.
 C is limited by the kernels' shared memory, and this module holds the
 decisions that keep every C a CUDA caller can pass on hand-written kernels
 with the same bits: :func:`round_campaign_limits` (the round back-ends'
-limits, which ``core.executor.pick_resolve`` reads), :func:`resolve_masked`
+limits, which ``core.executor.pick_resolve`` reads; above them
+:func:`resolve_lanes`, which takes any C), :func:`resolve_masked`
 and :func:`auction_resolve` (their sums from ``first_crossing``'s flat sum
 at any C; EmbTile above its C·d limit in campaign chunks,
 :func:`resolve_by_campaign_chunks`) and :func:`segment_resolve` (above the
@@ -29,7 +30,7 @@ from repro_torch.kernels.auction_resolve import auction_resolve as ar_kernel
 from repro_torch.kernels.auction_resolve import ref
 from repro_torch.kernels.auction_resolve import sweep_resolve as sr_kernel
 from repro_torch.kernels.auction_resolve.auction_resolve import (
-    resolve_emb_cuda, resolve_matrix_cuda)
+    resolve_emb_cuda, resolve_lanes_cuda, resolve_matrix_cuda)
 from repro_torch.kernels.auction_resolve import round_fused as cuda_kernels
 from repro_torch.kernels.auction_resolve import segment_resolve as sg_kernel
 from repro_torch.kernels.auction_resolve.first_crossing import \
@@ -169,10 +170,10 @@ def resolve_masked(values: torch.Tensor, multipliers: torch.Tensor,
     under a (C,) or (N, C) activation; rows whose ``live`` (N,) is False
     are not sold. Returns ``(winners (N,) int32, prices (N,) float32, spend
     sums (C,) float32 or None when ``sums`` is False)``, the sums added in
-    event order. The resolve of the round back-end that takes any C
-    (``core.executor``), of the segment replays above
+    event order. The resolve of the segment replays above
     ``segment_resolve``'s limit (:func:`segment_resolve_per_lane`) and of
-    Algorithm 4's batches on the CPU. On CUDA the sums are
+    Algorithm 4's batches on the CPU. On CUDA one lane of the matrix
+    kernel (:func:`resolve_lanes`'s), and the sums are
     :func:`_flat_sums`."""
     dev = values.device
     mult, act, res, live = _design_inputs(multipliers, active, reserve, live,
@@ -186,6 +187,28 @@ def resolve_masked(values: torch.Tensor, multipliers: torch.Tensor,
         second_price=second_price)
     return winners, prices, (_flat_sums(winners, prices, values.shape[1])
                              if sums else None)
+
+
+def resolve_lanes(values: torch.Tensor, multipliers: torch.Tensor,
+                  active: torch.Tensor, reserves=0.0, *,
+                  second_price: bool = False):
+    """S lanes of one valuation matrix ``values`` (N, C), each under its
+    own multipliers and (C,) activation (``multipliers``, ``active`` (S,
+    C)) and reserve (``reserves`` (S,) or a scalar). Returns ``(winners
+    (S, N) int32 [-1 = no sale], prices (S, N) float32)``, bit for bit each
+    lane's :func:`resolve_masked`. The resolve of the round back-end that
+    takes any C (``core.executor.ANY_C_BACKEND``): on CUDA one
+    ``auction_resolve`` launch for all lanes (reading the matrix once) and
+    one merge of its campaign chunks; on the CPU
+    :func:`ref.resolve_lanes_ref`."""
+    s = multipliers.shape[0]
+    dev = values.device
+    mult, act, res = _lane_inputs(multipliers, active, reserves, s, dev)
+    if dev.type == "cpu":
+        return ref.resolve_lanes_ref(values, mult, act, res,
+                                     second_price=second_price)
+    return resolve_lanes_cuda(values.to(torch.float32).contiguous(), mult,
+                              act, res, second_price=second_price)
 
 
 def segment_resolve(values: torch.Tensor, multipliers: torch.Tensor,

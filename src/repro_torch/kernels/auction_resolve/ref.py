@@ -4,8 +4,7 @@
 These are what the CUDA kernels in ``csrc/round_fused.cu``,
 ``csrc/sweep_resolve.cu``, ``csrc/auction_resolve.cu`` and
 ``csrc/segment_resolve.cu`` compute, written as ordinary tensor code: the
-CPU
-path runs them, and ``chip_smoke.py`` holds the kernels against them on the
+CPU path runs them, and ``chip_smoke.py`` holds the kernels against them on the
 card. The partials go through the same
 event-ordered ``index_add_`` and the same in-order block fold as
 :mod:`repro_torch.core.segments`; the prediction repeats
@@ -91,6 +90,64 @@ def resolve_masked_ref(values: torch.Tensor, multipliers: torch.Tensor,
     sums = torch.zeros(c + 1, dtype=torch.float32, device=values.device)
     sums.index_add_(0, torch.where(winners < 0, c, winners).long(), prices)
     return winners, prices, sums[:c]
+
+
+def resolve_lanes_ref(values: torch.Tensor, multipliers: torch.Tensor,
+                      active: torch.Tensor, reserves: torch.Tensor,
+                      second_price: bool = False):
+    """The plain version of ``csrc/auction_resolve.cu``'s matrix kernel:
+    S lanes of one (N, C) valuation matrix, multipliers and activations (S,
+    C), reserves (S,), resolved one lane at a time. Returns ``(winners (S,
+    N) int32, prices (S, N) float32)``."""
+    out = [_resolve_rows(values, multipliers[s], active[s], reserves[s],
+                         second_price) for s in range(multipliers.shape[0])]
+    n = values.shape[0]
+    if not out:
+        return (torch.empty((0, n), dtype=torch.int32),
+                torch.empty((0, n), dtype=torch.float32))
+    return (torch.stack([w for w, _ in out]),
+            torch.stack([p for _, p in out]))
+
+
+def resolve_chunks_ref(values: torch.Tensor, multipliers: torch.Tensor,
+                       active: torch.Tensor, reserves: torch.Tensor, *,
+                       chunk_cols: int):
+    """The resolve launch of ``csrc/auction_resolve.cu``'s matrix kernel,
+    by its split: the columns in chunks of ``chunk_cols``, and per (lane,
+    chunk, row) the scan's ``(best, second, win)`` (best and second start
+    at the reserve, a bid is NaN where its campaign is inactive, ``win``
+    the global column of the chunk's first largest eligible bid or -1).
+    Returns the three as (S, K, N) tensors."""
+    c = values.shape[1]
+    res = reserves.to(torch.float32)
+    bids = values.to(torch.float32)[None] * torch.where(
+        active, multipliers.to(torch.float32), float("nan"))[:, None]
+    out = []
+    for c0 in range(0, c, chunk_cols):
+        b, s2, w = _slice_top2(bids[..., c0:c0 + chunk_cols], res)
+        out.append((b, s2, torch.where(w >= 0, w + c0, -1).to(torch.int32)))
+    return tuple(torch.stack(x, dim=1) for x in zip(*out))
+
+
+def merge_chunks_ref(best: torch.Tensor, sec: torch.Tensor,
+                     win: torch.Tensor, second_price: bool = False):
+    """The plain version of ``merge_kernel``: per (lane, row) the chunks'
+    ``(best, second, win)`` (S, K, N) merged in ascending order; a later
+    chunk wins only on a strictly larger best, and the second price is
+    then the larger of its second and the earlier best, else of the
+    earlier second and its best. Returns ``(winners (S, N) int32, prices
+    (S, N) float32)``."""
+    b, s2, w = best[:, 0], sec[:, 0], win[:, 0]
+    for k in range(1, best.shape[1]):
+        bk, sk, wk = best[:, k], sec[:, k], win[:, k]
+        better = bk > b
+        s2 = torch.where(better, torch.where(sk > b, sk, b),
+                         torch.where(bk > s2, bk, s2))
+        w = torch.where(better, wk, w)
+        b = torch.where(better, bk, b)
+    price = s2 if second_price else b
+    return w.to(torch.int32), torch.where(w >= 0, price, 0.0).to(
+        torch.float32)
 
 
 def auction_resolve_ref(event_emb: torch.Tensor, campaign_emb: torch.Tensor,

@@ -8,11 +8,11 @@ head h reads kv head ``h // (H // KV)``: no transpose and no repeated kv
 heads are materialised. ``(BH, S, dh)`` tensors, the Pallas kernel's
 layout, are the case ``H = KV = 1`` (pass ``q[:, :, None]``).
 
-bfloat16 tensors go to the tensor-core kernel, which copies 16 bytes at a
-time (the tensors must start on a 16-byte boundary) and launches one CTA
-per (b, h) along the grid's x axis and one per ``BF16_ROWS[dh]`` query
-rows along its y axis; float32 tensors go to the CUDA-core kernel, one CTA
-per (b, h) along y and per 64 query rows along x.
+Both kernels run on the tensor cores (bfloat16 tensors through bf16
+``mma.sync``, float32 tensors through split TF32), copy 16 bytes at a time
+(the tensors must start on a 16-byte boundary) and launch one CTA per (b,
+h) along the grid's x axis and one per ``ROWS[dh]`` query rows along its
+y axis, which bounds S and not B*H.
 """
 from __future__ import annotations
 
@@ -28,8 +28,9 @@ LAUNCHES = {"flash_attention": 0}
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GRID_Y = 65535          # CUDA's limit on gridDim.y
-# query rows per CTA of the bf16 kernel (csrc/flash_attention.cu, TC<DH>)
-BF16_ROWS = {16: 128, 32: 128, 64: 128, 128: 128, 256: 64}
+# query rows per CTA of both kernels (csrc/flash_attention.cu, TC<DH> and
+# TF<DH>)
+ROWS = {16: 128, 32: 128, 64: 128, 128: 128, 256: 64}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {"fa_forward": [_P] * 4 + [_I] * 8 + [_P]}
 
@@ -60,19 +61,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got {dh}")
     if kv < 1 or h % kv:
         raise ValueError(f"{h} query heads do not group onto {kv} kv heads")
-    if q.dtype == torch.bfloat16:
-        tiles = -(-s // BF16_ROWS[dh])
-        if tiles > MAX_GRID_Y:
-            raise ValueError(f"S={s} is {tiles} query tiles of "
-                             f"{BF16_ROWS[dh]} rows, beyond the kernel's "
-                             f"grid limit of {MAX_GRID_Y}")
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name} must start on a 16-byte boundary "
-                                 f"for the bf16 kernel's copies")
-    elif b * h > MAX_GRID_Y:
-        raise ValueError(f"B*H={b * h} exceeds the kernel's grid limit of "
+    tiles = -(-s // ROWS[dh])
+    if tiles > MAX_GRID_Y:
+        raise ValueError(f"S={s} is {tiles} query tiles of {ROWS[dh]} "
+                         f"rows, beyond the kernel's grid limit of "
                          f"{MAX_GRID_Y}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary for "
+                             f"the kernel's copies")
     if window is not None and window < 1:
         raise ValueError(f"a window must be positive, got {window}")
     binding.require_cuda(q)

@@ -68,3 +68,68 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = flash_attention_ref(fold(q), fold(k), fold(v), causal=causal,
                               window=window)
     return out.reshape(b, h, s, dh).transpose(1, 2)
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (10 mantissa bits) to nearest, ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds: half of the dropped
+    13 bits' range added to the magnitude bits, then the 13 bits
+    cleared. Finite inputs only."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in split TF32: each operand as hi = tf32(x) and lo =
+    tf32(x - hi); lo·hi + hi·lo + hi·hi, the small terms first, lo·lo
+    dropped. Products of TF32 values are exact in float32, so only the
+    order of the float32 sums differs from the tensor cores'."""
+    a_hi = round_tf32(a)
+    a_lo = round_tf32(a - a_hi)
+    b_hi = round_tf32(b)
+    b_lo = round_tf32(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def attention_split_tf32_ref(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True,
+                             window: Optional[int] = None) -> torch.Tensor:
+    """What ``csrc/flash_attention.cu``'s float32 kernel computes, for
+    tests: float32 q (B, S, H, dh), k, v (B, S, KV, dh); S = Q K^T and O +=
+    P V in split TF32 (:func:`_split_product`), the online softmax over kv
+    tiles of 64 keys (32 at dh=256, ``TF<DH>::kBK``) in the kernel's order (per tile m
+    = max(m, max s), alpha = exp(m_old - m), l = alpha l + sum p, O =
+    alpha O + P V; at the end O / max(l, 1e-30)), masked scores NEG. It
+    shows on the CPU how far split TF32 moves the output from
+    :func:`attention_ref`. Returns (B, S, H, dh) float32."""
+    b, s, h, dh = q.shape
+    k, v = repeat_kv(k, h), repeat_kv(v, h)
+
+    def fold(x):
+        return x.float().transpose(1, 2).reshape(b * h, s, dh)
+
+    qf, kf, vf = fold(q), fold(k), fold(v)
+    rows = torch.arange(s)[:, None]
+    m = torch.full((b * h, s, 1), NEG)
+    l = torch.zeros((b * h, s, 1))
+    acc = torch.zeros((b * h, s, dh))
+    tile = 32 if dh == 256 else 64
+    for c0 in range(0, s, tile):
+        c1 = min(c0 + tile, s)
+        cols = torch.arange(c0, c1)[None, :]
+        keep = torch.ones((s, c1 - c0), dtype=torch.bool)
+        if causal:
+            keep &= cols <= rows
+        if window is not None:
+            keep &= cols > rows - window
+        scores = _split_product(qf, kf[:, c0:c1].transpose(1, 2)) \
+            * inv_sqrt(dh)
+        scores = torch.where(keep[None], scores, NEG)
+        m_new = torch.maximum(m, scores.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(scores - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = alpha * acc + _split_product(p, vf[:, c0:c1])
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.reshape(b, h, s, dh).transpose(1, 2)

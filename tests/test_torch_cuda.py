@@ -587,27 +587,40 @@ def test_sequential_sweep_above_the_first_kernels_limit(dev, c):
 
 
 @pytest.mark.parametrize("resolve", ["auto", "fused", "sweep_resolve"])
-def test_parallel_sweep_above_the_round_kernels_limits(dev, resolve):
+def test_parallel_sweep_above_the_round_kernels_limits(dev, resolve,
+                                                       monkeypatch):
     """engine.sweep(method="parallel") at a C the fused round (or the
-    sweep_resolve kernel) cannot hold: each lane is resolved by the
-    auction_resolve kernel and its partials by segment_partials (the
-    counters show both, and neither round kernel), and the results are the
-    CPU torch path's bits."""
+    sweep_resolve kernel) cannot hold: every lane of a round is resolved by
+    one auction_resolve launch (and one merge of its campaign chunks) and
+    the partials by segment_partials (the counters show them, one resolve
+    a round, and neither round kernel), and the results are the CPU torch
+    path's bits."""
     limits = ops.round_campaign_limits()
     c = limits["fused" if resolve == "auto" else resolve] + 1
+    rounds = []
+    lanes = executor.resolve_ops.resolve_lanes
+
+    def one_round(values, multipliers, active, *args, **kw):
+        rounds.append(tuple(active.shape))
+        return lanes(values, multipliers, active, *args, **kw)
+
+    monkeypatch.setattr(executor.resolve_ops, "resolve_lanes", one_round)
     out = {}
     for device in ("cpu", dev):
         engine = _wide_engine(c, device, seed=5)
         grid = engine.grid(bid_scales=[1.0, 1.2], reserves=[0.0, 0.05])
         for mod in (cuda_rf, cuda_sr, cuda_sp, cuda_ar):
             mod.reset_launches()
+        rounds.clear()
         out[str(device)] = engine.sweep(grid, method="parallel",
                                         resolve=resolve).results
     assert executor.pick_resolve(resolve, dev, c) == executor.ANY_C_BACKEND
     assert cuda_rf.LAUNCHES["round_fused"] == 0
     assert cuda_rf.LAUNCHES["sweep_partials"] == 0
     assert cuda_sr.LAUNCHES["sweep_resolve"] == 0
-    assert cuda_ar.LAUNCHES["auction_resolve"] > 0
+    assert rounds and set(rounds) == {(4, c)}
+    assert cuda_ar.LAUNCHES["auction_resolve"] == len(rounds)
+    assert cuda_ar.LAUNCHES["auction_resolve_merge"] == len(rounds)
     assert cuda_sp.LAUNCHES["segment_partials"] > 0
     for name in ("final_spend", "cap_times"):
         assert torch.equal(getattr(out[str(dev)], name).cpu(),
@@ -730,6 +743,96 @@ def test_resolve_masked_matrix_tile_is_the_cpu(dev, sp, per_event, n, c):
     no_sums = ops.resolve_masked(values.to(dev), mult.to(dev), act.to(dev),
                                  res.to(dev), second_price=sp, sums=False)
     assert no_sums[2] is None
+
+
+def _lane_matrix(s, n, c, seed):
+    """S lanes of an (N, C) matrix whose bids tie (values in eighths,
+    multipliers in {0.5, 1, 1.5}), inactive campaigns, rows no campaign
+    bids on and, for S > 3, a lane whose reserve is above every bid."""
+    rng = np.random.default_rng(seed)
+    values = (rng.integers(0, 8, (n, c)) / 8).astype(np.float32)
+    values[::17] = 0.0
+    mult = rng.choice(np.float32([0.5, 1.0, 1.5]), (s, c))
+    act = rng.uniform(size=(s, c)) < 0.7
+    res = (np.arange(s) % 4 / 8).astype(np.float32)
+    if s > 3:
+        res[3] = 10.0
+    return (torch.from_numpy(values), torch.from_numpy(mult),
+            torch.from_numpy(act), torch.from_numpy(res))
+
+
+LANE_SHAPES = [   # s, n, c: the any-C back-end's shape and the layouts
+    (4, 512, 15_553),      # C = 1 (mod 4): 66 campaign chunks
+    (1, 512, 15_553),
+    (32, 700, 4_099),      # C = 3 (mod 4), 4 slots of 8 lanes
+    (37, 300, 1_000),      # C = 0 (mod 4), two passes of 32 lanes
+    (3, 40_000, 130),      # C = 2 (mod 4), one chunk
+    (5, 1, 64),
+    (2, 129, 1),
+]
+
+
+@pytest.mark.parametrize("sp", [False, True])
+@pytest.mark.parametrize("s,n,c", LANE_SHAPES)
+def test_resolve_lanes_is_the_cpu(dev, sp, s, n, c):
+    """The matrix kernel resolves every lane in one launch (one merge when
+    the columns go to several chunks): winners and prices bitwise the
+    plain version on the CPU, two launches bitwise equal."""
+    values, mult, act, res = _lane_matrix(s, n, c, seed=s + n + c)
+    want = ref.resolve_lanes_ref(values, mult, act, res, sp)
+    chunks, _ = cuda_ar.chunk_plan(
+        n, c, torch.cuda.get_device_properties(dev).multi_processor_count)
+    cuda_ar.reset_launches()
+    got = ops.resolve_lanes(values.to(dev), mult.to(dev), act.to(dev),
+                            res.to(dev), second_price=sp)
+    again = ops.resolve_lanes(values.to(dev), mult.to(dev), act.to(dev),
+                              res.to(dev), second_price=sp)
+    torch.cuda.synchronize()
+    assert cuda_ar.LAUNCHES == {"auction_resolve": 2,
+                                "auction_resolve_merge": 2 * (chunks > 1)}
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), w)
+
+
+@pytest.mark.parametrize("sp", [False, True])
+def test_resolve_chunks_and_merge_are_the_cpu(dev, sp):
+    """The two launches apart at the any-C back-end's shape: the resolve's
+    per-chunk (best, second, win) bitwise ``ref.resolve_chunks_ref`` on
+    the CPU at the card's chunk plan, and the merge of those bitwise
+    ``ref.merge_chunks_ref``."""
+    values, mult, act, res = _lane_matrix(4, 512, 15_553, seed=2)
+    chunks, cols = cuda_ar.chunk_plan(
+        512, 15_553, torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert chunks > 1
+    parts = cuda_ar.resolve_chunks_cuda(values.to(dev), mult.to(dev),
+                                        act.to(dev), res.to(dev),
+                                        second_price=sp)
+    want = ref.resolve_chunks_ref(values, mult, act, res, chunk_cols=cols)
+    for a, b in zip(parts, want):
+        assert torch.equal(a.cpu(), b)
+    merged = cuda_ar.merge_chunks_cuda(*parts, second_price=sp)
+    for a, b in zip(merged, ref.merge_chunks_ref(*want, sp)):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_resolve_lanes_refuses_an_unaligned_matrix(dev):
+    """The matrix kernel copies 16 bytes at a time: a valuation matrix that
+    starts off a 16-byte boundary (and, for one lane, an (N, C) mask off a
+    4-byte one) is refused, as the flash-attention wrapper refuses such a
+    tensor, and nothing is launched or copied."""
+    values, mult, act, res = _lane_matrix(3, 257, 99, seed=1)
+    flat = torch.zeros(257 * 99 + 1, device=dev)
+    shifted = flat[1:].view(257, 99)
+    shifted.copy_(values.to(dev))
+    cuda_ar.reset_launches()
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ops.resolve_lanes(shifted, mult.to(dev), act.to(dev), res.to(dev))
+    mask = torch.ones(257 * 99 + 1, dtype=torch.bool, device=dev)[1:].view(
+        257, 99)
+    with pytest.raises(ValueError, match="4-byte boundary"):
+        ops.resolve_masked(values.to(dev), mult[0].to(dev), mask,
+                           res[0].to(dev))
+    assert cuda_ar.LAUNCHES["auction_resolve"] == 0
 
 
 @pytest.mark.parametrize("sp", [False, True])
@@ -1168,6 +1271,16 @@ FLASH_SHAPES = [   # b, s, h, kv, dh, causal, window, dtype
     (1, 500, 16, 2, 64, True, 77, torch.bfloat16),        # GQA 8:1
     (2, 333, 8, 1, 32, False, 77, torch.bfloat16),        # GQA 8:1
     (1, 257, 2, 2, 128, False, None, torch.bfloat16),
+    # the float32 split-TF32 kernel: every head dim, S against its query
+    # tiles, a window cutting a kv tile (64 keys; 32 at dh=256), GQA 8:1,
+    # B*H past the old 65,535 limit of its grid
+    (2, 40, 4, 2, 16, True, None, torch.float32),
+    (2, 129, 4, 4, 32, True, None, torch.float32),
+    (1, 500, 16, 2, 64, True, 77, torch.float32),         # GQA 8:1
+    (1, 257, 2, 2, 128, False, None, torch.float32),
+    (1, 300, 4, 2, 256, True, 77, torch.float32),
+    (2, 100, 4, 1, 256, False, 40, torch.float32),
+    (16385, 8, 4, 1, 64, True, None, torch.float32),      # B*H = 65,540
 ]
 
 
@@ -1210,6 +1323,16 @@ def test_flash_attention_folded_heads(dev):
                                        v[:, :, None], window=77)[:, :, 0]
     want = fa_ref.flash_attention_ref(q, k, v, window=77)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_f32_refuses_an_unaligned_tensor(dev):
+    """The float32 kernel copies 16 bytes at a time too."""
+    q = torch.zeros(2 * 64 * 2 * 64 + 2, device=dev)[2:].view(2, 64, 2, 64)
+    k = torch.zeros((2, 64, 2, 64), device=dev)
+    before = cuda_fa.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fa_ops.flash_attention(q, k, k)
+    assert cuda_fa.LAUNCHES["flash_attention"] == before
 
 
 def test_flash_attention_bf16_refuses_an_unaligned_tensor(dev):

@@ -140,10 +140,11 @@ BF16_LIMITS = {   # the bf16 tensor-core route: (q, k, v), what it raises
     "query tiles at dh=256": (
         [torch.empty(1, 65535 * 64 + 1, 1, 256, dtype=torch.bfloat16,
                      device="meta")] * 3, "grid limit"),
-    # B*H is the grid's x axis here, not bounded by 65,535: the meta
-    # tensors pass every limit and are refused only as not on a card
+    # B*H is the grid's x axis of both kernels now, not bounded by
+    # 65,535: float32 meta tensors past the old float32 grid pass every
+    # limit and are refused only as not on a card
     "B*H beyond the float32 grid": (
-        [torch.empty(65536, 4, 1, 64, dtype=torch.bfloat16,
+        [torch.empty(65536, 4, 1, 64, dtype=torch.float32,
                      device="meta")] * 3, "CUDA tensors, got meta"),
     "an unaligned q": (
         [torch.zeros(2 * 8 * 2 * 64 + 1, dtype=torch.bfloat16)[1:].view(
@@ -163,14 +164,99 @@ BF16_LIMITS = {   # the bf16 tensor-core route: (q, k, v), what it raises
 @pytest.mark.parametrize("case", sorted(BF16_LIMITS))
 def test_the_bf16_route_refuses_what_it_cannot_launch(case):
     """The bf16 tensor-core kernel's own limits: its grid's y axis counts
-    query tiles of ``BF16_ROWS[dh]`` rows, and its 16-byte copies need
+    query tiles of ``ROWS[dh]`` rows, and its 16-byte copies need
     tensors that start on a 16-byte boundary. Each is refused before the
-    library is built, and nothing is counted."""
+    library is built, and nothing is counted. (The float32 kernel shares
+    the grid: B*H is not bounded in either.)"""
     cuda_fa.reset_launches()
     qkv, match = BF16_LIMITS[case]
     with pytest.raises(ValueError, match=match):
         cuda_fa.flash_attention_cuda(*qkv)
     assert cuda_fa.LAUNCHES == {"flash_attention": 0}
+
+
+F32_LIMITS = {   # the float32 split-TF32 route: (q, k, v), what it raises
+    "query tiles at dh=64": (
+        [torch.empty(1, 65535 * 128 + 1, 1, 64, device="meta")] * 3,
+        "grid limit"),
+    "query tiles at dh=256": (
+        [torch.empty(1, 65535 * 64 + 1, 1, 256, device="meta")] * 3,
+        "grid limit"),
+    "an unaligned k": (
+        [torch.zeros(2, 8, 2, 32)] + [torch.zeros(
+            2 * 8 * 2 * 32 + 2)[2:].view(2, 8, 2, 32)] + [torch.zeros(
+                2, 8, 2, 32)], "k must start on a 16-byte boundary"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(F32_LIMITS))
+def test_the_float32_route_refuses_what_it_cannot_launch(case):
+    """The float32 kernel copies 16 bytes at a time and counts query tiles
+    of ``ROWS[dh]`` rows on its grid's y axis, as the bf16 kernel does;
+    B*H is its x axis. Each limit is refused before the library is built,
+    and nothing is counted."""
+    cuda_fa.reset_launches()
+    qkv, match = F32_LIMITS[case]
+    with pytest.raises(ValueError, match=match):
+        cuda_fa.flash_attention_cuda(*qkv)
+    assert cuda_fa.LAUNCHES == {"flash_attention": 0}
+
+
+SPLIT_TF32_SHAPES = [   # chip_smoke.py's float32 rows at CPU sizes
+    (2, 256, 4, 2, 64, True, None),      # tests/test_kernels.py
+    (1, 512, 2, 2, 64, True, 128),
+    (1, 384, 3, 3, 128, True, None),
+    (1, 64, 2, 2, 16, True, 16),
+    (1, 256, 8, 8, 64, True, None),      # stablelm's prefill, cut
+    (2, 192, 4, 2, 32, False, 40),       # dh=32, a window, not causal
+    (1, 160, 2, 1, 256, True, 77),       # dh=256, a window cutting a tile
+    (2, 200, 4, 2, 128, True, None),     # ragged S
+    (1, 300, 16, 2, 64, True, 77),       # GQA 8:1, a window cutting a tile
+    (16385, 8, 4, 1, 16, True, None),    # B*H = 65,540, past the old grid
+]
+
+
+@pytest.mark.parametrize("b,s,h,kv,dh,causal,window", SPLIT_TF32_SHAPES)
+def test_split_tf32_holds_the_float32_tolerance(b, s, h, kv, dh, causal,
+                                                window):
+    """The float32 kernel's arithmetic on the CPU: split TF32 products and
+    its kv-tile order (``ref.attention_split_tf32_ref``) stay within the
+    float32 tolerance (2e-5) of ``repro``'s attention oracle on kv heads
+    repeated as ``jnp.repeat`` lays them out."""
+    q, k, v = _qkv(b, s, h, kv, dh, seed=s + h + dh)
+    got = ref.attention_split_tf32_ref(torch.from_numpy(q),
+                                       torch.from_numpy(k),
+                                       torch.from_numpy(v), causal=causal,
+                                       window=window)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, s, h, dh)
+
+    def fold(x):
+        return np.repeat(x, h // x.shape[2], axis=2).transpose(
+            0, 2, 1, 3).reshape(b * h, s, dh)
+
+    want = j_ref(jnp.asarray(fold(q)), jnp.asarray(fold(k)),
+                 jnp.asarray(fold(v)), causal=causal, window=window)
+    want = np.asarray(want).reshape(b, h, s, dh).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    """``ref.round_tf32`` keeps 10 mantissa bits, rounds to nearest and a
+    tie away from zero (``cvt.rna``), and the split hi + lo carries the
+    22 leading bits of x."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1.0, 1.0 + ulp / 2, 1.0 + ulp / 4, 1.0 + 3 * ulp / 4,
+                      -(1.0 + ulp / 2), 3.14159265, 2.0 ** -100, 0.0],
+                     dtype=torch.float32)
+    want = [1.0, 1.0 + ulp, 1.0, 1.0 + ulp, -(1.0 + ulp), 3.140625,
+            2.0 ** -100, 0.0]
+    assert ref.round_tf32(x).tolist() == want
+    y = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        1000).astype(np.float32))
+    hi = ref.round_tf32(y)
+    lo = ref.round_tf32(y - hi)
+    assert bool(((hi.view(torch.int32) & 0x1FFF) == 0).all())
+    assert float(((hi + lo - y).abs() / y.abs()).max()) <= 2.0 ** -21
 
 
 def test_a_non_cpu_tensor_goes_to_the_kernel_not_the_plain_version():

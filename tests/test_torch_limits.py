@@ -1,7 +1,8 @@
 """The paths the CUDA entry points take above their kernels' campaign
 limits, on the CPU with the limits passed in small: the round back-end
-that gives way to the per-lane ``auction_resolve`` one (``pick_resolve``),
-which gives the torch back-end's bits, the campaign-chunked
+that gives way to the any-C ``auction_resolve`` one (``pick_resolve``:
+every lane of a round in one ``ops.resolve_lanes`` call), which gives the
+torch back-end's bits, the campaign-chunked
 ``segment_partials`` (its winner remap) and the campaign-chunked EmbTile
 resolve (its exact merge), each bitwise the unchunked plain version. The
 kernels at their real limits are held on the card
@@ -46,7 +47,7 @@ ANY = executor.ANY_C_BACKEND
 ])
 def test_pick_resolve_gives_way_above_a_kernel_limit(resolve, c, want):
     """On CUDA a back-end whose kernel cannot hold C campaigns becomes the
-    per-lane ``auction_resolve`` back-end, asked for or picked by
+    any-C ``auction_resolve`` back-end, asked for or picked by
     ``"auto"``; the CPU runs the plain versions, which have no limit, and a
     call without C is not gated."""
     assert pick_resolve(resolve, "cuda", c, limits=LIMITS) == want
@@ -57,10 +58,19 @@ def test_pick_resolve_gives_way_above_a_kernel_limit(resolve, c, want):
 
 
 @pytest.mark.parametrize("kind", ["first_price", "second_price"])
-def test_any_c_backend_is_the_torch_back_end(kind):
+def test_any_c_backend_is_the_torch_back_end(kind, monkeypatch):
     """The round body of the back-end a C above the round kernels' limits
-    takes (each lane through ``resolve_masked``, on the CPU its plain
-    version) runs Algorithm 2 to the torch back-end's bits."""
+    takes (every lane of a round through one ``ops.resolve_lanes`` call,
+    on the CPU its plain version) runs Algorithm 2 to the torch
+    back-end's bits."""
+    calls = []
+    lanes = executor.resolve_ops.resolve_lanes
+
+    def spy(values, multipliers, active, reserves, **kw):
+        calls.append(tuple(active.shape))
+        return lanes(values, multipliers, active, reserves, **kw)
+
+    monkeypatch.setattr(executor.resolve_ops, "resolve_lanes", spy)
     env = make_synthetic_env(2, n_events=3000, n_campaigns=24, emb_dim=8,
                              device="cpu")
     budgets = torch.stack([env.budgets, env.budgets * 0.6])
@@ -80,6 +90,8 @@ def test_any_c_backend_is_the_torch_back_end(kind):
     for a, b in zip(out[ANY], out["torch"]):
         assert torch.equal(a, b)
     assert bool((out[ANY][2] <= 3000).any())
+    rounds = int(out[ANY][4].max())
+    assert calls == [(2, 24)] * rounds
 
 
 def _log(s, n, c, seed):
