@@ -141,7 +141,37 @@ Run from the repository root. Phases:
    The plain capped scan is one chain of small launches per event, so it
    is timed over the first 16,384 events of the full day
    (``plain_events`` in the JSON line); every other time is at the full
-   shapes.
+   shapes;
+11. chunks, naive sampling, multi-slot auctions and search at the full
+   day, both rules (``chunks_phase``): (a)
+   ``engine.sweep(grid, chunks=125_000)`` (8 chunks of 4 canonical
+   blocks) and ``sweep_state_machine`` at 125,000 with ``resolve="auto"``
+   (fused: ``2 × n_chunks`` ``sweep_partials`` launches a round, no
+   ``round_fused``) and ``"sweep_resolve"``, and at 250,000: all six
+   outputs bitwise phase 4's unchunked sweep; the torch back-end chunked
+   at ``PAPER_SYNTHETIC_CPU`` bitwise phase 3's CPU sweep; (b)
+   ``scenario_chunks=8``, alone and with ``chunks=125_000``, bitwise; (c)
+   the peak device memory of the ``sweep_resolve`` sweep unchunked and at
+   ``chunks=125_000``; (d) the chunked SORT2AGGREGATE sweep at
+   ``crossing_block=15_625`` and chunks of 125,000 and 250,000: cap times,
+   gaps and refine iterations bitwise the unchunked sweep, ``final_spend``
+   bitwise across the two sizes and within 1e-4 of the flat sums,
+   ``n_chunks`` ``segment_resolve`` and ``first_crossing`` launches a
+   pass; (e) ``first_crossing`` with a carry chunk by chunk bitwise one
+   call (cap times and the running total; a chunk boundary on a crossing;
+   two chunks of a lane bitwise the CPU), ``segment_resolve`` at a row
+   offset bitwise the rows of a whole call and its plain version, and
+   ``capped_scan`` with a scale (naive sampling's shape) bitwise its CPU
+   version, each timed beside its plain version and bound (the JSON
+   rows' ``carry_*``, ``offset_*`` and ``scaled_*`` keys); (f)
+   ``engine.simulate(method="naive_sampling", sample_size=10_000)``: one
+   ``capped_scan`` launch, bitwise the CPU's loop, its error against the
+   exact replay; (g) ``aggregate_multislot`` at the full day with 3 slots
+   bitwise the CPU (one ``first_crossing`` call), the multi-slot oracle and
+   refinement at N=2,048 bitwise the CPU; (h) ``engine.search`` over
+   reserve × budget scale (hillclimb, budget 32): the same trajectory on
+   the card and the CPU at ``PAPER_SYNTHETIC_CPU``, and its wall time at
+   the full day.
 
 Every check raises on failure and nothing is caught, so any failure exits
 non-zero. The last line is the JSON result. Without a CUDA device, or
@@ -259,6 +289,14 @@ SHORT_SUM_ROWS = (1_000, 8_192)  # short resolves with sums (phase 2)
 CPU_LANE = {"first_price": 0, "second_price": 31}
 ORACLE_TOL = 0.08               # tests/test_core_parallel.py's bound
 S2A_TOL = 0.02                  # tests/test_core_s2a.py's bound
+# phase 11: event chunks of 4 and 8 canonical blocks of the day
+# (reduce_block_size(1e6) = 31,250), the chunked SORT2AGGREGATE's crossing
+# block (8 of them a 125,000-event chunk), naive sampling's sample (rho =
+# 1%), the multi-slot oracle's reduced N
+CHUNK_EVENTS = (125_000, 250_000)
+S2A_CROSSING_BLOCK = 15_625
+NAIVE_SAMPLE = 10_000
+MULTISLOT_SMALL_N = 2_048
 KERNELS = (   # name, CUDA source, the TPU kernel (or XLA op) it replaces
     ("round_fused", "src/repro_torch/csrc/round_fused.cu",
      "src/repro/kernels/auction_resolve/round_fused.py:197"),
@@ -984,6 +1022,436 @@ def any_c_phase(dev, values_any, gen_any, ops, ref, ar_mod, timing,
     del v_day, m_day, a_day
 
 
+def chunks_phase(dev, env, small, engines, base_sweeps, small_cpu, exact,
+                 reset_counts, read_counts, equal) -> dict:
+    """Phase 11: event and scenario chunks, naive sampling, multi-slot
+    auctions and search at the §7.1 day (``CHUNK_EVENTS``,
+    ``S2A_CROSSING_BLOCK``, both rules):
+    (a) Algorithm 2 over event chunks, fused and ``sweep_resolve``, the six
+    outputs bitwise the unchunked sweep and ``2 × n_chunks`` partials
+    launches a round, no ``round_fused``; the torch back-end chunked at
+    ``PAPER_SYNTHETIC_CPU`` against the CPU; (b) scenario chunks, alone and
+    with event chunks; (c) the peak memory of the ``sweep_resolve`` sweep
+    unchunked and chunked; (d) the chunked SORT2AGGREGATE sweep against
+    the unchunked one, ``n_chunks`` ``segment_resolve`` and
+    ``first_crossing`` launches a pass; (e) ``first_crossing`` with a
+    carry, ``segment_resolve`` at a row offset and ``capped_scan`` with a
+    scale against their plain versions, timed; (f) naive sampling, one
+    ``capped_scan`` launch, bitwise the CPU's loop, its error against the
+    exact replay; (g) multi-slot auctions, bitwise the CPU; (h) search,
+    the same trajectory on the card and the CPU at the reduced size, timed
+    at the full day. Returns the new kernel modes' numbers."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.core import (AuctionRule, CounterfactualEngine,
+                                  Segments, naive_sampled_replay,
+                                  relative_error,
+                                  spend_weighted_relative_error,
+                                  sweep_sort2aggregate, sweep_state_machine)
+    from repro_torch.core import multislot
+    from repro_torch.core import segments as seg_lib
+    from repro_torch.core.sequential import inverse_rate
+    from repro_torch.kernels.auction_resolve import ref
+    from repro_torch.kernels.auction_resolve import segment_resolve as sg_mod
+    from repro_torch.kernels.auction_resolve.first_crossing import \
+        first_crossing_cuda
+    from repro_torch.kernels.capped_scan import ops as scan_ops
+    from repro_torch.kernels.capped_scan.ref import capped_scan_ref
+    from repro_torch.search import SearchSpace
+
+    t_phase = time.perf_counter()
+    n, c = env.values.shape
+    out = {}
+
+    def counted(fn):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, read_counts()
+
+    # (a) and (b): Algorithm 2 over event and scenario chunks
+    walls = {}
+    for kind in KINDS:
+        engine, grid = engines[kind]
+        base = base_sweeps[kind]
+        rounds = int(base[4].max())
+        sweep_args = (env.values, grid.budgets, grid.rules)
+        res, wall, cnt = counted(lambda: engine.sweep(
+            grid, chunks=CHUNK_EVENTS[0]))
+        k = n // CHUNK_EVENTS[0]
+        require(cnt["round_fused"] == 0
+                and cnt["sweep_partials"] == 2 * k * rounds,
+                f"[11] {kind} engine.sweep(chunks={CHUNK_EVENTS[0]}): "
+                f"launches {cnt}, expected {2 * k * rounds} partials")
+        require(torch.equal(res.results.final_spend, base[0])
+                and torch.equal(res.results.cap_times, base[1]),
+                f"[11] {kind} chunked engine.sweep differs")
+        walls[(kind, "engine", CHUNK_EVENTS[0])] = wall
+        for epc, resolve in ((CHUNK_EVENTS[0], "auto"),
+                             (CHUNK_EVENTS[0], "sweep_resolve"),
+                             (CHUNK_EVENTS[1], "auto")):
+            k = n // epc
+            got, wall, cnt = counted(lambda: sweep_state_machine(
+                *sweep_args, resolve=resolve, chunks=epc))
+            if resolve == "auto":
+                require(cnt["round_fused"] == 0
+                        and cnt["sweep_partials"] == 2 * k * rounds,
+                        f"[11] {kind} chunks={epc}: launches {cnt}")
+            else:
+                require(cnt["sweep_resolve"] == 2 * k * rounds
+                        and cnt["segment_partials"] == 2 * k * rounds,
+                        f"[11] {kind} sweep_resolve chunks={epc}: {cnt}")
+            for name, a, b in zip(OUTPUTS, got, base):
+                require(torch.equal(a, b), f"[11] {kind} {resolve} "
+                                           f"chunks={epc}: {name} differs")
+            walls[(kind, resolve, epc)] = wall
+        for kw in (dict(scenario_chunks=8),
+                   dict(scenario_chunks=8, chunks=CHUNK_EVENTS[0])):
+            got, wall, cnt = counted(lambda: sweep_state_machine(
+                *sweep_args, resolve="auto", **kw))
+            for name, a, b in zip(OUTPUTS, got, base):
+                require(torch.equal(a, b), f"[11] {kind} {kw}: {name} "
+                                           f"differs")
+            if "chunks" not in kw:
+                require(cnt["round_fused"] > rounds
+                        and cnt["sweep_partials"] == 2 * cnt["round_fused"],
+                        f"[11] {kind} {kw}: launches {cnt}")
+            walls[(kind, "scenario_chunks", kw.get("chunks"))] = wall
+        print(f"[11] (a, b) {kind}: chunked sweeps bitwise the unchunked "
+              f"one ({rounds} rounds): " + ", ".join(
+                  f"{r} chunks={e}: {w:.4f} s"
+                  for (kd, r, e), w in walls.items() if kd == kind),
+              flush=True)
+        # the torch back-end chunked at the reduced size, against the CPU
+        s_grid_rules = small_cpu[kind]["grid"]
+        got = sweep_state_machine(small.values, s_grid_rules.budgets,
+                                  s_grid_rules.rules, resolve="torch",
+                                  chunks=small.n_events // 8)
+        for name, a, b in zip(OUTPUTS, got, small_cpu[kind]["out"]):
+            require(torch.equal(a.cpu(), b),
+                    f"[11] {kind} torch chunked at N={small.n_events}: "
+                    f"{name} differs from the CPU")
+    out["walls"] = {f"{k[0]} {k[1]} {k[2]}": v for k, v in walls.items()}
+
+    # (c) peak memory of the sweep_resolve sweep, unchunked and chunked
+    engine, grid = engines[KINDS[0]]
+    peaks = {}
+    for epc in (None, CHUNK_EVENTS[0]):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sweep_state_machine(env.values, grid.budgets, grid.rules,
+                            resolve="sweep_resolve", chunks=epc)
+        torch.cuda.synchronize()
+        peaks[epc] = (torch.cuda.max_memory_allocated(),
+                      torch.cuda.max_memory_allocated() - before)
+    out["peak"] = {str(k): v for k, v in peaks.items()}
+    print(f"[11] (c) peak device memory of the sweep_resolve sweep, S=32: "
+          f"unchunked {peaks[None][0] / 2**30:.4f} GiB "
+          f"({peaks[None][1] / 2**30:.4f} GiB above its inputs), chunks="
+          f"{CHUNK_EVENTS[0]} {peaks[CHUNK_EVENTS[0]][0] / 2**30:.4f} GiB "
+          f"({peaks[CHUNK_EVENTS[0]][1] / 2**30:.4f} GiB above)", flush=True)
+
+    # (d) the chunked SORT2AGGREGATE sweep
+    s2a_walls = {}
+    mode_launches = {"first_crossing": 0, "segment_resolve": 0,
+                     "capped_scan": 0}
+    for kind in KINDS:
+        engine, grid = engines[kind]
+        caps0 = engine._base_warm_caps(grid, 0, 8, None)
+        kw = dict(cap_times_init=caps0, crossing_block=S2A_CROSSING_BLOCK)
+        s2a_args = (env.values, grid.budgets, grid.rules)
+        whole, wall, _ = counted(lambda: sweep_sort2aggregate(*s2a_args,
+                                                              **kw))
+        s2a_walls[(kind, None)] = wall
+        chunked = {}
+        for epc in CHUNK_EVENTS:
+            k = n // epc
+            got, wall, cnt = counted(lambda: sweep_sort2aggregate(
+                *s2a_args, chunks=epc, **kw))
+            passes = 8 + 1
+            require(cnt["segment_resolve"] == cnt["first_crossing"]
+                    == k * passes,
+                    f"[11] {kind} S2A chunks={epc}: launches {cnt}, "
+                    f"expected {k * passes} of each")
+            for name, a, b in (("cap times", got[0].cap_times,
+                                whole[0].cap_times),
+                               ("gaps", got[1], whole[1]),
+                               ("refine iterations", got[2], whole[2])):
+                require(torch.equal(a, b), f"[11] {kind} S2A chunks={epc}: "
+                                           f"{name} differ")
+            torch.testing.assert_close(got[0].final_spend,
+                                       whole[0].final_spend, rtol=1e-4,
+                                       atol=0.0)
+            chunked[epc] = got
+            s2a_walls[(kind, epc)] = wall
+            for name in ("first_crossing", "segment_resolve"):
+                mode_launches[name] += cnt[name]
+        require(torch.equal(chunked[CHUNK_EVENTS[0]][0].final_spend,
+                            chunked[CHUNK_EVENTS[1]][0].final_spend),
+                f"[11] {kind} S2A final spend differs between chunk sizes")
+        via_engine, wall, _ = counted(lambda: engine.sweep(
+            grid, method="sort2aggregate", chunks=CHUNK_EVENTS[0],
+            crossing_block=S2A_CROSSING_BLOCK))
+        require(torch.equal(via_engine.results.final_spend,
+                            chunked[CHUNK_EVENTS[0]][0].final_spend)
+                and torch.equal(via_engine.results.cap_times,
+                                chunked[CHUNK_EVENTS[0]][0].cap_times),
+                f"[11] {kind} engine.sweep S2A chunked differs")
+        s2a_walls[(kind, "engine")] = wall
+        rel = float(((chunked[CHUNK_EVENTS[0]][0].final_spend
+                      - whole[0].final_spend).abs()
+                     / whole[0].final_spend.abs().clamp(min=1e-9)).max())
+        print(f"[11] (d) {kind}: S2A sweep at crossing_block="
+              f"{S2A_CROSSING_BLOCK}: chunked cap times, gaps and refine "
+              f"iterations bitwise the unchunked sweep's; final spend "
+              f"bitwise across chunk sizes, max relative difference to the "
+              f"flat sums {rel:.3g}; " + ", ".join(
+                  f"chunks={e}: {w:.4f} s" for (kd, e), w in
+                  s2a_walls.items() if kd == kind), flush=True)
+        if kind == KINDS[0]:
+            s2a_segs = Segments.from_cap_times(whole[0].cap_times, n)
+            s2a_grid = grid
+    out["s2a_walls"] = {f"{k[0]} {k[1]}": v for k, v in s2a_walls.items()}
+
+    # (e) the kernel modes against their plain versions
+    grid = s2a_grid
+    seg_args = (grid.rules.multipliers, grid.rules.reserve,
+                s2a_segs.boundaries, s2a_segs.masks)
+    epc = CHUNK_EVENTS[0]
+    k_seg = s2a_segs.masks.shape[1] - 1
+    w_all, p_all = sg_mod.segment_resolve_cuda(env.values, *seg_args,
+                                               second_price=False)
+    s = w_all.shape[0]
+    # segment_resolve at an offset: the rows of the whole call
+    off = 3 * epc
+    rows = env.values[off:off + epc]
+    reset_counts()
+    w_k, p_k = sg_mod.segment_resolve_cuda(rows, *seg_args,
+                                           second_price=False, offset=off)
+    torch.cuda.synchronize()
+    require(read_counts()["segment_resolve"] == 1,
+            "[11] segment_resolve at an offset: one launch")
+    equal("winners", w_k, w_all[:, off:off + epc],
+          "segment_resolve at an offset against the whole call")
+    equal("prices", p_k, p_all[:, off:off + epc],
+          "segment_resolve at an offset against the whole call")
+    plain = ref.segment_resolve_plain(rows, *seg_args, offset=off)
+    equal("winners", w_k, plain[0], "segment_resolve at an offset, plain")
+    equal("prices", p_k, plain[1], "segment_resolve at an offset, plain")
+    del plain
+    out["segment_resolve_offset"] = dict(
+        ms=cuda_ms(lambda: sg_mod.segment_resolve_cuda(
+            rows, *seg_args, second_price=False, offset=off), 10),
+        plain_ms=cuda_ms(lambda: ref.segment_resolve_plain(
+            rows, *seg_args, offset=off), 1),
+        bound=bound_ms(epc * c * 4 + s * (epc * 8 + (k_seg + 2) * 4
+                                          + (k_seg + 1) * c + c * 4 + 4),
+                       2 * s * epc * c),
+        rows=epc, offset=off)
+    # first_crossing with a carry: chunk by chunk, one whole call's bits; a
+    # chunk boundary on a crossing
+    b = grid.budgets.clone()
+    block = S2A_CROSSING_BLOCK
+    zero = (torch.zeros((s, c), device=dev),
+            torch.full((s, c), n + 1, dtype=torch.int32, device=dev))
+    s0_first, _ = seg_lib.crossing_carry(w_all[:, :epc], p_all[:, :epc], b,
+                                         c, block, s0=zero[0], cap=zero[1],
+                                         offset=0, n_global=n)
+    lane0_w = int(w_all[0, epc - 1])
+    require(lane0_w >= 0, "[11] lane 0 sells on the first chunk's last row")
+    b[0, lane0_w] = s0_first[0, lane0_w]
+    whole_cap, _, whole_s0 = first_crossing_cuda(
+        w_all, p_all, b, num_campaigns=c, block=block,
+        carry=(zero[0], zero[1], 0, n))
+    require(int(whole_cap[0, lane0_w]) == epc,
+            "[11] the boundary crossing is at the first chunk's end")
+    carry = zero
+    reset_counts()
+    for start in range(0, n, epc):
+        carry = seg_lib.crossing_carry(
+            w_all[:, start:start + epc], p_all[:, start:start + epc], b, c,
+            block, s0=carry[0], cap=carry[1], offset=start, n_global=n)
+    torch.cuda.synchronize()
+    fc_launches = read_counts()["first_crossing"]
+    require(fc_launches == n // epc, "[11] first_crossing carry launches")
+    equal("cap times", carry[1], whole_cap, "first_crossing chunk by chunk")
+    equal("running spend", carry[0], whole_s0,
+          "first_crossing chunk by chunk")
+    # the first two chunks of lane 0 on the CPU
+    cpu = (torch.zeros((1, c)), torch.full((1, c), n + 1, dtype=torch.int32))
+    card = (zero[0][:1], zero[1][:1])
+    for start in (0, epc):
+        sl = slice(start, start + epc)
+        cpu = seg_lib.crossing_carry(w_all[:1, sl].cpu(), p_all[:1, sl].cpu(),
+                                     b[:1].cpu(), c, block, s0=cpu[0],
+                                     cap=cpu[1], offset=start, n_global=n)
+        card = seg_lib.crossing_carry(w_all[:1, sl], p_all[:1, sl], b[:1], c,
+                                      block, s0=card[0], cap=card[1],
+                                      offset=start, n_global=n)
+        equal("cap times", card[1].cpu(), cpu[1], "first_crossing carry CPU")
+        equal("running spend", card[0].cpu(), cpu[0],
+              "first_crossing carry CPU")
+    w_k, p_k = w_all[:, off:off + epc], p_all[:, off:off + epc]
+    c_args = dict(s0=carry[0], cap=zero[1], offset=off, n_global=n)
+    out["first_crossing_carry"] = dict(
+        ms=cuda_ms(lambda: seg_lib.crossing_carry(w_k, p_k, b, c, block,
+                                                  **c_args), 10),
+        plain_ms=cuda_ms(lambda: seg_lib._crossing_scan(
+            w_k, p_k, b, c, block, carry[0], zero[1], off, n + 1), 1),
+        bound=bound_ms(s * epc * 8 + s * c * 4 * 6,
+                       crossing_ops(w_k, epc, c, block)),
+        rows=epc, lanes=s)
+    del w_all, p_all, w_k, p_k, rows
+    # capped_scan with a scale: naive sampling's shape (one lane, 1%)
+    engine, grid = engines[KINDS[0]]
+    k_sample = NAIVE_SAMPLE
+    inv = float(inverse_rate(k_sample, n))
+    gen = torch.Generator().manual_seed(11)
+    idx = torch.sort(torch.randperm(n, generator=gen)[:k_sample]).values
+    sub = env.values[idx.to(dev)]
+    scan_args = (grid.budgets[:1], grid.rules.multipliers[:1],
+                 grid.rules.reserve[:1])
+    reset_counts()
+    got = scan_ops.capped_scan(sub, *scan_args, scale=inv)
+    torch.cuda.synchronize()
+    require(read_counts()["capped_scan"] == 1, "[11] scaled capped_scan")
+    want = capped_scan_ref(sub.cpu(), *(x.cpu() for x in scan_args),
+                           scale=inv)
+    for name, a, w in zip(("winners", "prices", "spend", "cap times"), got,
+                          want):
+        equal(name, a.cpu(), w, "capped_scan with a scale against the CPU")
+    scan_capped = int((want[3] <= k_sample).sum())
+    out["capped_scan_scaled"] = dict(
+        ms=cuda_ms(lambda: scan_ops.capped_scan(sub, *scan_args, scale=inv),
+                   10),
+        plain_ms=cuda_ms(lambda: capped_scan_ref(sub, *scan_args,
+                                                 scale=inv), 1),
+        bound=bound_ms(k_sample * c * 4 + c * 12 + 4 + k_sample * 8 + c * 8,
+                       k_sample * c * 3),
+        rows=k_sample, lanes=1, capped=scan_capped)
+    del sub, got, want
+
+    # (f) naive sampling: one capped_scan launch, the CPU's loop's bits
+    naive = {}
+    for kind in KINDS:
+        engine, grid = engines[kind]
+        res, wall, cnt = counted(lambda: engine.simulate(
+            method="naive_sampling", sample_size=NAIVE_SAMPLE))
+        require(cnt["capped_scan"] == 1 and sum(cnt.values()) == 1,
+                f"[11] {kind} naive sampling launches {cnt}")
+        mode_launches["capped_scan"] += cnt["capped_scan"]
+        t0 = time.perf_counter()
+        want = naive_sampled_replay(env.values.cpu(), env.budgets.cpu(),
+                                    AuctionRule(
+                                        multipliers=engine.base_rule
+                                        .multipliers.cpu(),
+                                        reserve=engine.base_rule.reserve.cpu(),
+                                        kind=kind),
+                                    prng.PRNGKey(0), NAIVE_SAMPLE)
+        cpu_wall = time.perf_counter() - t0
+        equal("spend", res.final_spend.cpu(), want.final_spend,
+              f"{kind} naive sampling against the CPU")
+        equal("cap times", res.cap_times.cpu(), want.cap_times,
+              f"{kind} naive sampling against the CPU")
+        s_ref = exact[kind]["spend"][0].cpu()
+        naive[kind] = dict(
+            wall=wall, cpu_wall=cpu_wall,
+            rel_last=float(relative_error(res.final_spend.cpu(), s_ref)),
+            swe=float(spend_weighted_relative_error(res.final_spend.cpu(),
+                                                    s_ref)),
+            capped=int((res.cap_times <= n).sum()),
+            capped_exact=int((exact[kind]["caps"][0] <= n).sum()))
+        print(f"[11] (f) {kind}: naive sampling, rho = {NAIVE_SAMPLE / n} "
+              f"({NAIVE_SAMPLE} events), one capped_scan launch, "
+              f"{wall:.4f} s, bitwise the CPU's loop ({cpu_wall:.1f} s); "
+              f"against the exact replay of the base design: relative "
+              f"error of campaign |C| {naive[kind]['rel_last']:.6f}, "
+              f"spend-weighted {naive[kind]['swe']:.6f}, capped "
+              f"{naive[kind]['capped']} (exact {naive[kind]['capped_exact']})",
+              flush=True)
+    out["naive"] = naive
+    out["mode_launches"] = mode_launches
+
+    # (g) multi-slot auctions
+    rule = multislot.MultiSlotRule.first_price(c, slots=3, device=dev)
+    rule_cpu = multislot.MultiSlotRule.first_price(c, slots=3, device="cpu")
+    segs = Segments.from_cap_times(exact[KINDS[0]]["caps"][0], n)
+    got, wall, cnt = counted(lambda: multislot.aggregate_multislot(
+        env.values, segs, env.budgets, rule))
+    require(cnt["first_crossing"] == 1, f"[11] multislot launches {cnt}")
+    t0 = time.perf_counter()
+    want = multislot.aggregate_multislot(
+        env.values.cpu(), Segments(boundaries=segs.boundaries.cpu(),
+                                   masks=segs.masks.cpu()),
+        env.budgets.cpu(), rule_cpu)
+    cpu_wall = time.perf_counter() - t0
+    for name in ("final_spend", "cap_times", "winners", "prices"):
+        equal(name, getattr(got, name).cpu(), getattr(want, name),
+              "aggregate_multislot at the full day")
+    del got, want
+    ms_n = MULTISLOT_SMALL_N
+    small_v, small_b = env.values[:ms_n], env.budgets * (ms_n / n)
+    seq = multislot.sequential_replay_multislot(small_v, small_b, rule)
+    seq_cpu = multislot.sequential_replay_multislot(small_v.cpu(),
+                                                    small_b.cpu(), rule_cpu)
+    for name in ("final_spend", "cap_times", "winners", "prices"):
+        equal(name, getattr(seq, name).cpu(), getattr(seq_cpu, name),
+              f"sequential_replay_multislot at N={ms_n}")
+    noisy = torch.clamp(seq_cpu.cap_times + 50, max=ms_n + 1)
+    ref_caps = multislot.refine_segments_multislot(small_v, small_b, rule,
+                                                   noisy)
+    ref_cpu = multislot.refine_segments_multislot(small_v.cpu(),
+                                                  small_b.cpu(), rule_cpu,
+                                                  noisy)
+    equal("cap times", ref_caps[0].cpu(), ref_cpu[0],
+          f"refine_segments_multislot at N={ms_n}")
+    require(ref_caps[1:] == ref_cpu[1:], "[11] multislot refine iterations")
+    out["multislot_wall"] = wall
+    print(f"[11] (g) aggregate_multislot, 3 slots, N={n}: {wall:.4f} s on "
+          f"the card (one first_crossing call), bitwise the CPU "
+          f"({cpu_wall:.1f} s); sequential_replay_multislot and "
+          f"refine_segments_multislot at N={ms_n} bitwise the CPU "
+          f"({int((seq.cap_times <= ms_n).sum())} campaigns capped, refine "
+          f"{ref_caps[1]} iterations, converged {ref_caps[2]})", flush=True)
+
+    # (h) search over reserve x budget scale
+    space = SearchSpace(reserve=(0.0, 0.1), budget_scale=(0.5, 1.5))
+    trajectories = []
+    for device in (dev, torch.device("cpu")):
+        eng = CounterfactualEngine(small.values, small.budgets,
+                                   device=device)
+        t0 = time.perf_counter()
+        found = eng.search(space, method="hillclimb", budget=32)
+        trajectories.append((found, time.perf_counter() - t0))
+    (card_found, card_wall), (cpu_found, cpu_wall) = trajectories
+    require(card_found.best_point == cpu_found.best_point
+            and card_found.ledger.entries == cpu_found.ledger.entries
+            and [h["points"] for h in card_found.history]
+            == [h["points"] for h in cpu_found.history],
+            "[11] search on the card and the CPU took other trajectories")
+    eng = CounterfactualEngine(env.values, env.budgets)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    day = eng.search(space, method="hillclimb", budget=32)
+    torch.cuda.synchronize()
+    day_wall = time.perf_counter() - t0
+    out["search"] = dict(small_card_wall=card_wall, small_cpu_wall=cpu_wall,
+                         day_wall=day_wall, day_evaluations=day.evaluations,
+                         day_best=day.best_point)
+    print(f"[11] (h) engine.search(reserve x budget_scale, hillclimb, "
+          f"budget 32): N={small.n_events} the same {card_found.evaluations}"
+          f"-evaluation trajectory and best point {card_found.best_point} on "
+          f"the card ({card_wall:.2f} s) and the CPU ({cpu_wall:.2f} s); the "
+          f"full day {day_wall:.4f} s, {day.evaluations} evaluations, best "
+          f"{day.best_point} = {day.best_value:.2f}", flush=True)
+    print(f"[11] phase 11: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1574,6 +2042,7 @@ def main() -> int:
     del draws, chain, warm_args, values_cpu, budgets_cpu
 
     # ---- phase 3: exactness at a reduced size ----------------------------
+    small_cpu = {}                  # phase 11 holds chunked sweeps to these
     for kind in KINDS:
         grid = base_grid(kind, small.budgets, SMALL_AXES)
         t0 = time.perf_counter()
@@ -1592,6 +2061,7 @@ def main() -> int:
                                    atol=0.0)
         bitwise = all(torch.equal(a.cpu(), b) for a, b in zip(on_card,
                                                                on_cpu))
+        small_cpu[kind] = dict(grid=grid, out=on_cpu)
         print(f"[3] {kind}: N={small.n_events} C={small.n_campaigns} S=8 "
               f"fused on the card == torch on the CPU (bitwise: {bitwise}); "
               f"rounds {on_card[4].tolist()}; {t1 - t0:.2f} s on the card, "
@@ -2326,6 +2796,21 @@ def main() -> int:
     sp_ms, _, sp_library_ms = timing["segment_partials"]
     print(f"[10] segment_partials full-window pass: {sp_ms:.4f} ms, "
           f"{sp_ms / sp_library_ms:.4f} of the index_add_ beside it")
+
+    # ---- phase 11: chunks, naive sampling, multi-slot, search ------------
+    phase11 = chunks_phase(dev, env, small, engines,
+                           {k: r["fused"] for k, r in results.items()},
+                           small_cpu, exact, reset_counts, read_counts,
+                           equal)
+    modes = {"first_crossing": ("carry", phase11["first_crossing_carry"]),
+             "segment_resolve": ("offset",
+                                 phase11["segment_resolve_offset"]),
+             "capped_scan": ("scaled", phase11["capped_scan_scaled"])}
+    for name, (mode, m) in modes.items():
+        print(f"[11] {name} ({mode}; {m['rows']} rows): {m['ms']:.4f} ms, "
+              f"plain {m['plain_ms']:.4f} ms, bound {m['bound'][0]:.4f} ms "
+              f"({m['bound'][1]}), {phase11['mode_launches'][name]} launches "
+              f"on the chunked or sampled paths")
     rows = []
     for name, src, replaces in KERNELS:
         ms, plain_ms, library_ms = timing[name]
@@ -2401,6 +2886,15 @@ def main() -> int:
         if name == "segment_resolve":
             rows[-1].update(one_lane_ms=sg1_ms, one_lane_plain_ms=sg1_plain,
                             one_lane_bound_ms=sg1_bound)
+        if name in modes:
+            mode, m = modes[name]
+            rows[-1].update({f"{mode}_ms": m["ms"],
+                             f"{mode}_plain_ms": m["plain_ms"],
+                             f"{mode}_bound_ms": m["bound"][0],
+                             f"{mode}_bound_by": m["bound"][1],
+                             f"{mode}_rows": m["rows"],
+                             f"{mode}_launches":
+                                 phase11["mode_launches"][name]})
         require(counted[name] > 0, f"{name} never launched on its path")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

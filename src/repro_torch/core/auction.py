@@ -97,3 +97,9 @@ def spend_matrix(winners: torch.Tensor, prices: torch.Tensor,
     onehot = (winners[:, None] == cols).to(prices.dtype)
     return onehot * prices[:, None]
 
+
+
+def spend_of(winners: torch.Tensor, prices: torch.Tensor, c) -> torch.Tensor:
+    """(T,) spend increments of a single campaign: its prices where it
+    won, 0 elsewhere (elementwise, no sum)."""
+    return torch.where(winners == c, prices, 0.0)

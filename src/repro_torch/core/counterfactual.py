@@ -8,15 +8,18 @@ reserves × budget scalings — which :meth:`CounterfactualEngine.sweep`
 evaluates in one batched program and summarises as a delta table against
 the base design (scenario ``base_index``, 0 by default).
 
-Ported estimators: SORT2AGGREGATE (``method="sort2aggregate"``, the
-default of ``simulate`` and ``compare``: Algorithm 4's estimate, the
-segment refinement and the aggregate pass, through the ``vi``,
+Estimators: SORT2AGGREGATE (``method="sort2aggregate"``, the default of
+``simulate`` and ``compare``: Algorithm 4's estimate, the segment
+refinement and the aggregate pass, through the ``vi``,
 ``segment_resolve`` and ``first_crossing`` kernels on the card), Algorithm 2
-(``method="parallel"``) and the exact ``"sequential"`` oracle (one
-capped-scan kernel launch on the card). ``"naive_sampling"`` raises
-``NotImplementedError`` naming the ROADMAP item that ports it. Keys are
-:mod:`repro_torch.prng` keys; the default is ``PRNGKey(0)``, as in
-``repro``.
+(``method="parallel"``), the exact ``"sequential"`` oracle (one
+capped-scan kernel launch on the card) and, for ``simulate`` only, the
+``"naive_sampling"`` baseline (one capped-scan launch with a divisor).
+Sweeps take ``chunks=`` and ``scenario_chunks=`` (bit for bit the
+unchunked sweep), and :meth:`CounterfactualEngine.search` optimises a
+design over a :class:`repro_torch.search.SearchSpace` with the parallel
+sweep as its inner loop. Keys are :mod:`repro_torch.prng` keys; the
+default is ``PRNGKey(0)``, as in ``repro``.
 """
 from __future__ import annotations
 
@@ -34,21 +37,11 @@ from repro_torch.core.executor import (SweepPlan, check_s2a_options,
                                        execute_s2a_sweep, execute_sweep,
                                        reject_unported)
 from repro_torch.core.parallel import parallel_simulate
-from repro_torch.core.sequential import sequential_replay
+from repro_torch.core.sequential import (naive_sampled_replay,
+                                         sequential_replay)
 from repro_torch.core.sort2aggregate import sort2aggregate as _sort2aggregate
 from repro_torch.core.types import AuctionRule, SimResult
 from repro_torch.device import DeviceLike, pick_device
-
-# estimators of repro's engine this port has not reached yet
-_UNPORTED_METHODS = {
-    "naive_sampling": "ROADMAP.md queue 1, item 4 (naive_sampled_replay)",
-}
-
-
-def _method_not_ported(method: str, where: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{where}(method={method!r}) is not ported to repro_torch yet; see "
-        f"{_UNPORTED_METHODS[method]}")
 
 
 @dataclasses.dataclass
@@ -203,8 +196,10 @@ class CounterfactualEngine:
         :func:`~repro_torch.core.sort2aggregate.sort2aggregate`; ``key``
         defaults to ``PRNGKey(0)``), ``"parallel"`` (Algorithm 2,
         ``**kwargs`` going to
-        :func:`~repro_torch.core.parallel.parallel_simulate`) or
-        ``"sequential"`` (the exact oracle)."""
+        :func:`~repro_torch.core.parallel.parallel_simulate`),
+        ``"sequential"`` (the exact oracle) or ``"naive_sampling"``
+        (:func:`~repro_torch.core.sequential.naive_sampled_replay`,
+        ``sample_size=`` required; ``key`` defaults to ``PRNGKey(0)``)."""
         rule = rule or self.base_rule
         budgets = self.budgets if budgets is None else budgets
         if method == "sequential":
@@ -215,8 +210,10 @@ class CounterfactualEngine:
             key = key if key is not None else prng.PRNGKey(0)
             return _sort2aggregate(self.values, budgets, rule, key,
                                    **kwargs).result
-        if method in _UNPORTED_METHODS:
-            raise _method_not_ported(method, "simulate")
+        if method == "naive_sampling":
+            key = key if key is not None else prng.PRNGKey(0)
+            return naive_sampled_replay(self.values, budgets, rule, key,
+                                        **kwargs)
         raise ValueError(f"unknown method: {method}")
 
     def compare(self, alt_rule: AuctionRule,
@@ -257,6 +254,14 @@ class CounterfactualEngine:
         ``method="sort2aggregate"`` refines every lane's segment history
         ``refine_iters`` times and aggregates it.
 
+        ``chunks`` (an int or :class:`~repro_torch.core.executor.ChunkSpec`,
+        ``"parallel"`` and ``"sort2aggregate"``) runs every round, or
+        every refine pass, over event chunks; ``scenario_chunks``
+        (``"parallel"`` only) over scenario chunks. The parallel sweep's
+        results are bit for bit the unchunked sweep's; the chunked
+        SORT2AGGREGATE sweep's cap times and gaps are too (at the same
+        ``crossing_block``), its ``final_spend`` the carried running total.
+
         ``warm_start`` (``"sort2aggregate"`` only) seeds the refinement:
         ``"base"`` (or ``True``, the default) with the base design's cap
         times from the single-design estimator; ``"per_scenario"`` with
@@ -265,7 +270,8 @@ class CounterfactualEngine:
         first-crossing scan. The result carries ``consistency_gaps`` and
         ``refine_iters`` per scenario."""
         reject_unported(mesh=mesh, tuned=tuned)
-        plan = SweepPlan(placement=driver, resolve=resolve)
+        plan = SweepPlan(placement=driver, resolve=resolve, chunks=chunks,
+                         scenario_chunks=scenario_chunks)
         if chunks is not None and method not in ("parallel",
                                                  "sort2aggregate"):
             raise ValueError(
@@ -285,8 +291,7 @@ class CounterfactualEngine:
         gaps = iters = None
         if method == "sort2aggregate":
             # fail fast before paying for a warm start
-            check_s2a_options(plan, record_events, chunks=chunks,
-                              scenario_chunks=scenario_chunks)
+            check_s2a_options(plan, record_events)
             caps0 = None
             if warm_start == "per_scenario":
                 caps0 = self._per_scenario_warm_caps(grid, key)
@@ -300,7 +305,6 @@ class CounterfactualEngine:
             return SweepResult(grid=grid, results=results,
                                n_events=self.n_events, base_index=base_index,
                                consistency_gaps=gaps, refine_iters=iters)
-        reject_unported(chunks=chunks, scenario_chunks=scenario_chunks)
         if method == "parallel":
             s_hat, cap_times, _, _, _, _ = execute_sweep(
                 self.values, grid.budgets, grid.rules, plan)
@@ -309,12 +313,86 @@ class CounterfactualEngine:
             results = sweep_lib.sweep_sequential(
                 self.values, grid.budgets, grid.rules,
                 record_events=record_events)
-        elif method in _UNPORTED_METHODS:
-            raise _method_not_ported(method, "sweep")
         else:
             raise ValueError(f"unknown sweep method: {method}")
         return SweepResult(grid=grid, results=results,
                            n_events=self.n_events, base_index=base_index)
+
+    def grid_from_points(self, points: Sequence[dict]) -> ScenarioGrid:
+        """A :class:`ScenarioGrid` from search-space points: each point a
+        ``{axis: float}`` dict over ``bid_scale`` / ``reserve`` /
+        ``budget_scale`` applied to this engine's base design (a missing
+        axis stays at the base, as in :meth:`ScenarioGrid.product`);
+        ``boost[c]`` axes multiply campaign c's bid multiplier (a float32
+        multiply) on top of ``bid_scale``."""
+        dev = self.base_rule.multipliers.device
+        f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+        scenarios, labels = [], []
+        for p in points:
+            bid = float(p.get("bid_scale", 1.0))
+            res = float(p.get("reserve", float(self.base_rule.reserve)))
+            bud = float(p.get("budget_scale", 1.0))
+            mult = self.base_rule.multipliers * f32(bid)
+            label = f"bid×{bid:g} res={res:g} bud×{bud:g}"
+            for axis in sorted(p):
+                if axis.startswith("boost[") and axis.endswith("]"):
+                    c, scale = int(axis[6:-1]), float(p[axis])
+                    mult = mult.clone()
+                    mult[c] = mult[c] * f32(scale)
+                    label += f" boost[{c}]×{scale:g}"
+                elif axis not in ("bid_scale", "reserve", "budget_scale"):
+                    raise ValueError(
+                        f"unknown grid axis: {axis!r} (use bid_scale / "
+                        "reserve / budget_scale / boost[c])")
+            rule = AuctionRule(multipliers=mult, reserve=f32(res),
+                               kind=self.base_rule.kind)
+            scenarios.append((rule, self.budgets * f32(bud)))
+            labels.append(label)
+        return ScenarioGrid.from_scenarios(scenarios, labels)
+
+    def search(self, space, *, objective="revenue", constraints=(),
+               method: str = "hillclimb", budget: int = 256,
+               resolve: str = "auto", driver: str = "batched", mesh=None,
+               chunks=None, scenario_chunks=None, **options):
+        """Optimise the design over ``space`` (a
+        :class:`repro_torch.search.SearchSpace`) with the batched parallel
+        sweep as the inner loop: ``objective`` an
+        :data:`repro_torch.search.OBJECTIVES` name or a callable
+        ``SweepResult -> (S,) scores`` (maximised), ``constraints``
+        callables ``SweepResult -> (S,) margins``; ``method``
+        ``"hillclimb"`` or ``"halving"``, ``options`` going to it.
+        ``budget`` caps the scenario evaluations, each batch charged to an
+        :class:`repro_torch.search.EvaluationLedger` before it runs.
+        ``resolve``, ``driver``, ``mesh``, ``chunks`` and
+        ``scenario_chunks`` configure the inner
+        :meth:`sweep(method="parallel") <sweep>`, validated up front with
+        the executor's errors. Returns a
+        :class:`repro_torch.search.SearchResult`."""
+        from repro_torch import search as search_lib
+        # fail fast on the execution plan before any evaluation is spent
+        reject_unported(mesh=mesh)
+        SweepPlan(placement=driver, resolve=resolve, chunks=chunks,
+                  scenario_chunks=scenario_chunks)
+        objective_fn = search_lib.as_objective(objective)
+        ledger = search_lib.EvaluationLedger(budget=int(budget))
+
+        def evaluate(points, note):
+            del note
+            swept = self.sweep(
+                self.grid_from_points(points), method="parallel",
+                resolve=resolve, driver=driver, mesh=mesh, chunks=chunks,
+                scenario_chunks=scenario_chunks)
+            return search_lib.score_sweep(swept, objective_fn, constraints)
+
+        if method == "halving":
+            return search_lib.successive_halving(evaluate, space, ledger,
+                                                 **options)
+        if method == "hillclimb":
+            return search_lib.coordinate_hillclimb(evaluate, space, ledger,
+                                                   **options)
+        names = ", ".join(repr(m) for m in search_lib.SEARCH_METHODS)
+        raise ValueError(
+            f"unknown search method: {method!r} (choose from {names})")
 
     def _base_warm_caps(self, grid: ScenarioGrid, base_index: int,
                         refine_iters: int,

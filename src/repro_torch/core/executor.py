@@ -31,24 +31,45 @@ The SORT2AGGREGATE sweep has its own entry, :func:`execute_s2a_sweep`
 (validated by :func:`check_s2a_options`): every lane refined and
 aggregated by :func:`repro_torch.core.sort2aggregate.refine_fixed_lanes`.
 
+Two axes bound the memory of a round, as in ``repro``:
+
+* **chunks** — event chunks (:class:`ChunkSpec`, ``source="device"``):
+  every round takes the two-pass shape, each pass a loop over the chunks
+  in order that adds each chunk's ``(S, 32, C)`` partials, its rows placed
+  on the global grid at ``offset = k·events_per_chunk`` (one
+  ``sweep_partials`` launch a chunk on the fused back-end; a resolve of
+  the chunk's rows and one ``segment_partials`` launch on the others).
+  Every canonical block belongs to exactly one chunk, so the sum adds
+  exact zeros and the bits are the unchunked sweep's; the per-event
+  winners and prices are (S, events_per_chunk), not (S, N).
+* **scenario_chunks** — scenario chunks (:class:`ScenarioChunkSpec`):
+  the round body and loop run for each slice of the lanes in turn and the
+  results are concatenated. Lanes never read each other, so the bits are
+  the unchunked sweep's.
+
+Both must align (:func:`check_chunks`, :func:`check_scenario_chunks`,
+``repro``'s error texts).
+
 The round loop (:func:`_run_loop`) is a Python loop that checks once per
 round whether any lane is alive — one host sync per round; capturing the
 loop in a CUDA graph is later work. Axes ``repro`` has and this port does
-not yet (event ``chunks``, ``scenario_chunks``, the ``sharded`` and
-``multihost`` placements, ``tuned`` plans, overlays) raise
-``NotImplementedError`` naming the ROADMAP item that ports them; the port
-names its resolve back-ends after what they run, so ``repro``'s ``"jnp"``
-and ``"pallas"`` are unknown options here.
+not yet (host-streamed chunks, the ``sharded`` and ``multihost``
+placements, ``tuned`` plans, overlays) raise ``NotImplementedError``
+naming the ROADMAP item that ports them; the port names its resolve
+back-ends after what they run, so ``repro``'s ``"jnp"`` and ``"pallas"``
+are unknown options here.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from repro_torch.core import auction
 from repro_torch.core import segments as seg_lib
-from repro_torch.core.sort2aggregate import refine_fixed_lanes
+from repro_torch.core.sort2aggregate import (refine_fixed_chunked,
+                                              refine_fixed_lanes)
 from repro_torch.core.types import AuctionRule, never_capped
 from repro_torch.kernels.auction_resolve import ops as resolve_ops
 
@@ -58,14 +79,18 @@ RESOLVE_BACKENDS = ("torch", "sweep_resolve", "fused")
 ANY_C_BACKEND = "auction_resolve"
 PLACEMENTS = ("device", "batched")
 SIM_DRIVERS = ("auto", "device", "host")
+CHUNK_SOURCES = ("device", "host")
 
 # axes of repro's executor this port has not reached, and where ROADMAP.md
 # queues them
 UNPORTED = {
     "placement='sharded'": "queue 1, item 8 (multi-GPU placements)",
     "placement='multihost'": "queue 1, item 8 (multi-GPU placements)",
-    "chunks": "queue 1, item 3 (execution axes on one GPU)",
-    "scenario_chunks": "queue 1, item 3 (execution axes on one GPU)",
+    "ChunkSpec(source='host')":
+        "queue 1, item 7 (the service and host streaming)",
+    "HostStream": "queue 1, item 7 (the service and host streaming)",
+    "check_append_alignment":
+        "queue 1, item 7 (the service and host streaming)",
     "tuned": "queue 1, item 9 (tuning)",
     "overlay": "queue 1, item 5 (CRN scenario families)",
     "mesh": "queue 1, item 8 (multi-GPU placements)",
@@ -119,15 +144,92 @@ def pick_resolve(resolve: str, device, n_campaigns: int | None = None, *,
 
 
 @dataclasses.dataclass(frozen=True)
+class ChunkSpec:
+    """Event-chunked execution: every round scans the log
+    ``events_per_chunk`` events at a time, adding each chunk's canonical
+    ``(S, 32, C)`` partials (its rows placed on the global grid at the
+    chunk's offset), so the per-event winners and prices exist for one
+    chunk at a time: (S, events_per_chunk), not (S, N). Bit for bit the
+    unchunked sweep for any aligned size (:func:`check_chunks`).
+
+    ``source="device"`` scans a log on the card. ``source="host"`` (the
+    log streamed from host memory) is accepted here, as ``repro`` accepts
+    it, and refused where a sweep would run it (:func:`execute_sweep`;
+    ROADMAP.md queue 1, item 7)."""
+
+    events_per_chunk: int
+    source: str = "device"
+
+    def __post_init__(self):
+        if self.events_per_chunk < 1:
+            raise ValueError(
+                f"ChunkSpec.events_per_chunk must be >= 1, got "
+                f"{self.events_per_chunk}")
+        if self.source not in CHUNK_SOURCES:
+            raise _unknown("chunk source", self.source, CHUNK_SOURCES)
+
+
+def as_chunk_spec(chunks) -> Optional[ChunkSpec]:
+    """Normalise ``None`` | int | :class:`ChunkSpec` to an optional spec."""
+    if chunks is None or isinstance(chunks, ChunkSpec):
+        return chunks
+    return ChunkSpec(events_per_chunk=int(chunks))
+
+
+@dataclasses.dataclass(frozen=True)
+class ScenarioChunkSpec:
+    """Scenario-chunked execution: the round body and the round loop run
+    for ``scenarios_per_chunk`` lanes at a time, one slice after another.
+    Lanes never read each other's state (a finished lane is frozen by a
+    select), so this is bit for bit the unchunked sweep for any size that
+    divides S (:func:`check_scenario_chunks`); per-round intermediates
+    shrink from O(S·…) to O(scenarios_per_chunk·…)."""
+
+    scenarios_per_chunk: int
+
+    def __post_init__(self):
+        if self.scenarios_per_chunk < 1:
+            raise ValueError(
+                f"ScenarioChunkSpec.scenarios_per_chunk must be >= 1, got "
+                f"{self.scenarios_per_chunk}")
+
+
+def as_scenario_chunk_spec(scenario_chunks) -> Optional[ScenarioChunkSpec]:
+    """Normalise ``None`` | int | :class:`ScenarioChunkSpec`."""
+    if scenario_chunks is None or isinstance(scenario_chunks,
+                                             ScenarioChunkSpec):
+        return scenario_chunks
+    return ScenarioChunkSpec(scenarios_per_chunk=int(scenario_chunks))
+
+
+class HostStream:
+    """``repro``'s host-resident event log; not ported (ROADMAP.md queue 1,
+    item 7)."""
+
+    def __init__(self, *args, **kwargs):
+        raise not_ported("HostStream")
+
+
+def check_append_alignment(chunks, n_new: int) -> None:
+    """``repro``'s append-side chunk contract of the streaming service;
+    not ported (ROADMAP.md queue 1, item 7)."""
+    raise not_ported("check_append_alignment")
+
+
+@dataclasses.dataclass(frozen=True)
 class SweepPlan:
     """Everything that decides which Algorithm-2 program runs:
     ``placement`` (``"batched"`` | ``"device"``), ``resolve`` (``"torch"``
-    | ``"sweep_resolve"`` | ``"fused"`` | ``"auto"``) and
-    ``skip_retired``."""
+    | ``"sweep_resolve"`` | ``"fused"`` | ``"auto"``), ``skip_retired``,
+    ``chunks`` (an optional :class:`ChunkSpec`, or an int) and
+    ``scenario_chunks`` (an optional :class:`ScenarioChunkSpec`, or an
+    int)."""
 
     placement: str = "batched"
     resolve: str = "auto"
     skip_retired: bool = True
+    chunks: Optional[ChunkSpec] = None
+    scenario_chunks: Optional[ScenarioChunkSpec] = None
 
     def __post_init__(self):
         if f"placement={self.placement!r}" in UNPORTED:
@@ -137,6 +239,113 @@ class SweepPlan:
         if self.resolve not in RESOLVE_BACKENDS + ("auto",):
             raise _unknown("resolve back-end", self.resolve,
                            RESOLVE_BACKENDS + ("auto",))
+        object.__setattr__(self, "chunks", as_chunk_spec(self.chunks))
+        object.__setattr__(self, "scenario_chunks",
+                           as_scenario_chunk_spec(self.scenario_chunks))
+
+
+def check_chunks(chunks: Optional[ChunkSpec], *, n_events: int,
+                 local_n: int) -> None:
+    """The chunk-alignment contract, with ``repro``'s texts: a chunk holds
+    whole canonical reduction blocks (so each block of the ``(32, C)``
+    partials belongs to exactly one chunk and adding the chunks' partials
+    adds exact zeros) and divides the event count (every chunk is full)."""
+    if chunks is None:
+        return
+    epc = chunks.events_per_chunk
+    block = seg_lib.reduce_block_size(n_events)
+    g = seg_lib.REDUCE_BLOCKS
+    if epc % block != 0:
+        raise ValueError(
+            f"chunk/grid misalignment: ChunkSpec(events_per_chunk={epc}) "
+            f"does not hold whole canonical reduction blocks of {block} "
+            f"events (N={n_events}, REDUCE_BLOCKS={g}); chunks must cover "
+            "whole blocks for the bit-for-bit reduction contract. Use a "
+            f"chunk size that is a multiple of {block}, pad N so the block "
+            "size divides your chunk, or drop chunks=.")
+    if local_n % epc != 0:
+        raise ValueError(
+            f"ragged chunk: {local_n} events per device do not divide into "
+            f"chunks of {epc} (remainder {local_n % epc}). Pad the event "
+            "log so every chunk is full (zero-valuation events never win, "
+            "but they DO count toward rate denominators — pad the log "
+            "upstream where that is accounted for), pick a chunk size that "
+            "divides the per-device event count, or drop chunks=.")
+
+
+def check_scenario_chunks(scenario_chunks: Optional[ScenarioChunkSpec], *,
+                          n_scenarios: int, local_s: int) -> None:
+    """The scenario-chunk contract, with ``repro``'s text: chunks divide
+    the scenario count (lanes are independent, so that is all)."""
+    if scenario_chunks is None:
+        return
+    spc = scenario_chunks.scenarios_per_chunk
+    if local_s % spc != 0:
+        raise ValueError(
+            f"ragged scenario chunk: {local_s} scenarios per device do not "
+            f"divide into chunks of {spc} (remainder {local_s % spc}). Pad "
+            "the grid with repeats of the base design (duplicate lanes run "
+            "the identical per-lane program, so they cannot change any "
+            "other lane's bits), pick a scenario-chunk size that divides "
+            "the per-device scenario count, or drop scenario_chunks=.")
+
+
+# ---------------------------------------------------------------------------
+# The fused round's gate: the resolve core's shared memory, not TPU VMEM
+# ---------------------------------------------------------------------------
+
+def round_fused_fits(n_scenarios: int, n_campaigns: int, *,
+                     limit: Optional[int] = None) -> bool:
+    """Whether the one-launch fused round (``round_fused``) holds C
+    campaigns: ``C <= limit``, by default the resolve core's own shared
+    memory (``rf_max_campaigns()``, ``csrc/round_fused.cu``: a work item
+    holds at least one lane's C-wide rows, ``rf_item_lanes(C) > 0``).
+
+    ``repro`` gates on a TPU VMEM budget that grows with S; on the H100 S
+    does not enter the gate: a work item takes at most 8 lanes, and the
+    ``(S, 32, C)`` partials live in device memory. So every S fits when C
+    fits, and when C does not fit no scenario chunk does
+    (:func:`pick_resolve` then sends the sweep to :data:`ANY_C_BACKEND`).
+    ``n_scenarios`` is taken for ``repro``'s signature."""
+    del n_scenarios
+    limit = resolve_ops.round_campaign_limits()["fused"] if limit is None \
+        else limit
+    return n_campaigns <= limit
+
+
+def fitting_scenario_chunk(n_scenarios: int, n_campaigns: int, *,
+                           limit: Optional[int] = None) -> Optional[int]:
+    """The largest divisor of ``n_scenarios`` whose fused round fits
+    (:func:`round_fused_fits`), ``None`` when even one lane does not fit.
+    On the H100 that is ``n_scenarios`` or ``None``."""
+    for spc in range(n_scenarios, 0, -1):
+        if n_scenarios % spc == 0 and \
+                round_fused_fits(spc, n_campaigns, limit=limit):
+            return spc
+    return None
+
+
+def planned_scenario_chunk(plan: SweepPlan, n_scenarios: int,
+                           n_campaigns: int, resolve: Optional[str] = None,
+                           *, device="cuda",
+                           limit: Optional[int] = None) -> Optional[int]:
+    """The scenario-chunk size ``plan`` runs at (``None`` = all lanes at
+    once). An explicit ``plan.scenario_chunks`` always wins. Otherwise, as
+    in ``repro``, a chunk is picked only where the fused one-launch round
+    would run its kernel (CUDA, no event chunks) and the whole batch does
+    not fit its gate; on the H100 the gate does not depend on S
+    (:func:`round_fused_fits`), so this never picks one. It picks nothing
+    of its own either: ``repro`` has no memory-based pick."""
+    if plan.scenario_chunks is not None:
+        return plan.scenario_chunks.scenarios_per_chunk
+    resolve = pick_resolve(plan.resolve, device) if resolve is None \
+        else resolve
+    if (resolve == "fused" and torch.device(device).type == "cuda"
+            and plan.chunks is None
+            and not round_fused_fits(n_scenarios, n_campaigns,
+                                     limit=limit)):
+        return fitting_scenario_chunk(n_scenarios, n_campaigns, limit=limit)
+    return None
 
 
 def check_sim_driver(driver: str) -> str:
@@ -220,54 +429,86 @@ def _make_round_body(plan: SweepPlan, resolve: str, *, values, rules,
                      budgets_f32, n_events: int, n_campaigns: int):
     """The per-round map ``round_body(core, keep) -> core'`` for the
     ``"torch"``, ``"sweep_resolve"`` or :data:`ANY_C_BACKEND` (resolve-once)
-    or ``"fused"`` back-end."""
+    or ``"fused"`` back-end; with ``plan.chunks``, the two-pass shape
+    (each pass a loop over the chunks) on every back-end."""
     sentinel = never_capped(n_events)
     second = rules.kind == "second_price"
     block = seg_lib.reduce_block_size(n_events)
     b = budgets_f32
     reserves = rules.reserve.to(torch.float32).expand(b.shape[0])
+    chunks = plan.chunks
 
-    def resolve_lanes(active):
-        """(S, N) winners/prices of every lane: one ``sweep_resolve`` or,
-        for :data:`ANY_C_BACKEND`, one ``auction_resolve`` launch (and its
-        chunk merge) for all lanes, or the torch path one lane at a time
-        (the bids tensor is then (N, C), never (S, N, C))."""
+    def resolve_lanes(v, active):
+        """(S, n) winners/prices of every lane over the rows ``v``: one
+        ``sweep_resolve`` or, for :data:`ANY_C_BACKEND`, one
+        ``auction_resolve`` launch (and its chunk merge) for all lanes, or
+        the torch path one lane at a time (the bids tensor is then (n, C),
+        never (S, n, C))."""
         if resolve == "sweep_resolve":
             winners, prices, _ = resolve_ops.sweep_resolve(
-                values, rules.multipliers, active, reserves,
-                second_price=second)
+                v, rules.multipliers, active, reserves, second_price=second)
             return winners, prices
         if resolve == ANY_C_BACKEND:
-            return resolve_ops.resolve_lanes(values, rules.multipliers,
-                                             active, reserves,
-                                             second_price=second)
-        out = [auction.resolve(values, active[s], AuctionRule(
+            return resolve_ops.resolve_lanes(v, rules.multipliers, active,
+                                             reserves, second_price=second)
+        out = [auction.resolve(v, active[s], AuctionRule(
             multipliers=rules.multipliers[s], reserve=reserves[s],
             kind=rules.kind)) for s in range(active.shape[0])]
         return (torch.stack([w for w, _ in out]),
                 torch.stack([p for _, p in out]))
 
-    def weighted_partials(winners, prices, lo, hi):
-        """(S, G, C) canonical partials of the events in ``[lo, hi)``."""
+    def weighted_partials(winners, prices, lo, hi, offset=0):
+        """(S, G, C) canonical partials of the events in ``[lo, hi)``, the
+        rows global events from ``offset``."""
         return seg_lib.window_partials(winners, prices, n_campaigns, lo, hi,
-                                       block_size=block)
+                                       block_size=block, index_offset=offset)
+
+    def chunked_partials(active, keep, lo, hi):
+        """The two-pass reduction: (S, G, C) partials of each lane's window
+        ``[lo, hi)``, a loop over the chunks in order adding each chunk's
+        partials (every canonical block is one chunk's, so the sum adds
+        exact zeros: ``repro``'s chunk scan)."""
+        epc = chunks.events_per_chunk
+        acc = torch.zeros((b.shape[0], seg_lib.REDUCE_BLOCKS, n_campaigns),
+                          dtype=torch.float32, device=values.device)
+        for offset in range(0, n_events, epc):
+            v = values[offset:offset + epc]
+            if resolve == "fused":
+                parts = resolve_ops.sweep_partials(
+                    v, rules.multipliers, active, reserves, lo, hi, keep,
+                    offset, n_events_global=n_events,
+                    reduce_blocks=seg_lib.REDUCE_BLOCKS,
+                    second_price=second, skip_retired=plan.skip_retired)
+            else:
+                winners, prices = resolve_lanes(v, active)
+                parts = weighted_partials(winners, prices, lo, hi, offset)
+            acc = acc + parts
+        return acc
 
     def round_body(core, keep):
         s_hat, active, cap, n_hat, rnd, retired, bnds = core
-        if resolve == "fused":
+        if resolve == "fused" and chunks is None:
             _, block_parts, c_next, no_cap, n_next = resolve_ops.round_fused(
                 values, rules.multipliers, active, reserves, b, s_hat,
                 n_hat, keep, reduce_blocks=seg_lib.REDUCE_BLOCKS,
                 second_price=second, skip_retired=plan.skip_retired)
         else:
-            winners, prices = resolve_lanes(active)
-            rate_parts = weighted_partials(winners, prices, n_hat,
-                                           torch.full_like(n_hat, n_events))
+            hi_all = torch.full_like(n_hat, n_events)
+            if chunks is None:
+                winners, prices = resolve_lanes(values, active)
+                rate_parts = weighted_partials(winners, prices, n_hat,
+                                               hi_all)
+            else:
+                rate_parts = chunked_partials(active, keep, n_hat, hi_all)
             denom = torch.clamp(n_events - n_hat, min=1).to(torch.float32)
             rates = seg_lib.fold_blocks(rate_parts) / denom[:, None]
             c_next, no_cap, n_next = lane_predict(rates, b, s_hat, active,
                                                   n_hat, n_events=n_events)
-            block_parts = weighted_partials(winners, prices, n_hat, n_next)
+            if chunks is None:
+                block_parts = weighted_partials(winners, prices, n_hat,
+                                                n_next)
+            else:
+                block_parts = chunked_partials(active, keep, n_hat, n_next)
         blk = seg_lib.fold_blocks(block_parts)
         return lane_commit(blk, c_next, no_cap, n_next, s_hat, active, cap,
                            rnd, retired, bnds, sentinel=sentinel)
@@ -311,18 +552,47 @@ def _unpack(core):
     return s_hat, cap, retired, bnds, rnd, n_hat
 
 
+def _run_lanes(plan: SweepPlan, resolve: str, *, values, rules,
+               budgets_f32, n_events: int, n_campaigns: int):
+    """Run the lanes through the round program, one scenario chunk after
+    another when the plan asks for them (``repro``'s ``_run_lanes``): each
+    chunk builds its own round body and loop over its slice of budgets,
+    multipliers and reserves, and the chunks' results are concatenated.
+    Lanes never read each other, so the bits are the unchunked sweep's."""
+    s_all = budgets_f32.shape[0]
+    reserves = rules.reserve.to(torch.float32).expand(s_all)
+
+    def run(lanes):
+        rules_c = AuctionRule(multipliers=rules.multipliers[lanes],
+                              reserve=reserves[lanes], kind=rules.kind)
+        round_body = _make_round_body(
+            plan, resolve, values=values, rules=rules_c,
+            budgets_f32=budgets_f32[lanes], n_events=n_events,
+            n_campaigns=n_campaigns)
+        return _run_loop(round_body, n_scenarios=budgets_f32[lanes].shape[0],
+                         n_events=n_events, n_campaigns=n_campaigns,
+                         device=values.device)
+
+    spc = planned_scenario_chunk(plan, s_all, n_campaigns, resolve,
+                                 device=values.device)
+    if spc is None or spc == s_all:
+        return run(slice(0, s_all))
+    outs = [run(slice(s0, s0 + spc)) for s0 in range(0, s_all, spc)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
 def _sweep_batched(values, budgets, rules, plan: SweepPlan):
     """The scenario-batched Algorithm-2 loop on one device."""
     check_batch_shapes(values, budgets, rules)
     n_events, n_campaigns = values.shape
+    n_scenarios = budgets.shape[0]
     resolve = pick_resolve(plan.resolve, values.device, n_campaigns)
-    budgets_f32 = budgets.to(torch.float32)
-    round_body = _make_round_body(
-        plan, resolve, values=values, rules=rules, budgets_f32=budgets_f32,
-        n_events=n_events, n_campaigns=n_campaigns)
-    core = _run_loop(round_body, n_scenarios=budgets.shape[0],
-                     n_events=n_events, n_campaigns=n_campaigns,
-                     device=values.device)
+    check_chunks(plan.chunks, n_events=n_events, local_n=n_events)
+    check_scenario_chunks(plan.scenario_chunks, n_scenarios=n_scenarios,
+                          local_s=n_scenarios)
+    core = _run_lanes(plan, resolve, values=values, rules=rules,
+                      budgets_f32=budgets.to(torch.float32),
+                      n_events=n_events, n_campaigns=n_campaigns)
     return _unpack(core)
 
 
@@ -334,8 +604,11 @@ def execute_sweep(values, budgets, rules, plan: SweepPlan, *, overlay=None):
     (S, C+1) int32, boundaries (S, C+2) int32, num_rounds (S,) int32,
     n_hat (S,) int32)``; ``placement="device"`` takes one scenario (budgets
     (C,), an unstacked rule) and returns the unbatched tuple.
+    ``plan.chunks`` and ``plan.scenario_chunks`` give the same bits.
     """
     reject_unported(overlay=overlay)
+    if plan.chunks is not None and plan.chunks.source == "host":
+        raise not_ported("ChunkSpec(source='host')")
     if plan.placement == "device":
         rules_b = AuctionRule(multipliers=rules.multipliers[None, :],
                               reserve=rules.reserve.reshape(1),
@@ -350,15 +623,16 @@ def execute_sweep(values, budgets, rules, plan: SweepPlan, *, overlay=None):
 # The SORT2AGGREGATE sweep
 # ---------------------------------------------------------------------------
 
-def check_s2a_options(plan: SweepPlan, record_events: bool = False, *,
-                      chunks=None, scenario_chunks=None) -> None:
+def check_s2a_options(plan: SweepPlan, record_events: bool = False) -> None:
     """Validate the SORT2AGGREGATE sweep's plan (callable up front, so an
-    engine can fail fast before paying for a warm start). ``chunks`` and
-    ``scenario_chunks`` stand for the fields of ``repro``'s plan that the
-    port's :class:`SweepPlan` does not have yet; the errors ``repro``
-    raises for them are raised with its texts, and chunked replays
-    otherwise raise ``NotImplementedError``."""
-    if chunks is not None:
+    engine can fail fast before paying for a warm start), with ``repro``'s
+    texts."""
+    if plan.chunks is not None:
+        if plan.chunks.source == "host":
+            raise ValueError(
+                "host-streamed chunks apply to method='parallel' sweeps "
+                "only; the chunked sort2aggregate replay scans a "
+                "device-resident log (ChunkSpec(source='device')).")
         if record_events:
             raise ValueError(
                 "record_events is not supported with chunks= on the "
@@ -366,8 +640,7 @@ def check_s2a_options(plan: SweepPlan, record_events: bool = False, *,
                 "whole log are the O(N·C) residency chunking avoids. Drop "
                 "record_events (spends/cap times stream fine) or drop "
                 "chunks=.")
-        reject_unported(chunks=chunks)
-    if scenario_chunks is not None:
+    if plan.scenario_chunks is not None:
         raise ValueError(
             "scenario_chunks= (scenario-chunked execution) currently "
             "applies to method='parallel' sweeps only; drop "
@@ -377,17 +650,17 @@ def check_s2a_options(plan: SweepPlan, record_events: bool = False, *,
 def execute_s2a_sweep(values, budgets, rules, plan: SweepPlan, *,
                       cap_times_init=None, refine_iters: int = 8,
                       record_events: bool = False,
-                      crossing_block: int = 4096, chunks=None,
-                      scenario_chunks=None):
+                      crossing_block: int = 4096):
     """Run the SORT2AGGREGATE scenario sweep: every lane refined from its
     warm start (``cap_times_init`` (S, C) or (C,); all-active when None)
     for ``refine_iters`` fixed-point iterations, then aggregated. Both
-    placements run the lanes batched: each pass resolves the lanes one at a
-    time and finds every lane's crossings in one launch. Returns
+    placements run the lanes batched: each pass resolves every lane (one
+    ``segment_resolve`` launch on CUDA) and finds every lane's crossings
+    in one call. With ``plan.chunks`` every pass is a loop over the chunks
+    (:func:`repro_torch.core.sort2aggregate.refine_fixed_chunked`). Returns
     ``(SimResult (S, ...), consistency_gaps (S,) float32, refine_iters_used
     (S,) int32)``."""
-    check_s2a_options(plan, record_events, chunks=chunks,
-                      scenario_chunks=scenario_chunks)
+    check_s2a_options(plan, record_events)
     check_batch_shapes(values, budgets, rules)
     n_events, n_campaigns = values.shape
     if cap_times_init is None:
@@ -395,6 +668,11 @@ def execute_s2a_sweep(values, budgets, rules, plan: SweepPlan, *,
                                     dtype=torch.int32)
     caps0 = torch.as_tensor(cap_times_init).to(values.device, torch.int32)
     caps0 = caps0.expand(budgets.shape[0], n_campaigns).contiguous()
+    if plan.chunks is not None:
+        return refine_fixed_chunked(
+            values, budgets, rules, caps0,
+            chunk_events=plan.chunks.events_per_chunk,
+            refine_iters=refine_iters, crossing_block=crossing_block)
     return refine_fixed_lanes(values, budgets, rules, caps0,
                               refine_iters=refine_iters,
                               record_events=record_events,

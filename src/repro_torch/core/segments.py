@@ -237,6 +237,28 @@ def xla_cumsum(x: torch.Tensor) -> torch.Tensor:
     return out.reshape(x.shape)[..., :n, :]
 
 
+def _crossing_scan(winners, prices, budgets, num_campaigns: int,
+                   block: int, s0: torch.Tensor, cap: torch.Tensor,
+                   offset: int, sentinel: int):
+    """The blockwise crossing scan from the carry ``(s0, cap)``: the rows
+    are global events ``[offset, offset + N)``. Returns the carry after the
+    last row."""
+    n = winners.shape[-1]
+    b = budgets.to(torch.float32)[..., None, :]
+    cols = torch.arange(num_campaigns, device=winners.device)
+    for lo in range(0, n, block):
+        w = winners[..., lo:lo + block, None]
+        p = prices[..., lo:lo + block, None].to(torch.float32)
+        cum = s0[..., None, :] + xla_cumsum((w == cols).to(p.dtype) * p)
+        crossed = cum >= b
+        first = torch.argmax(crossed.to(torch.uint8), dim=-2)
+        hit = (cap == sentinel) & crossed.any(dim=-2)
+        cap = torch.where(hit, (offset + lo + first + 1).to(torch.int32),
+                          cap)
+        s0 = cum[..., -1, :]
+    return s0, cap
+
+
 def first_crossing_ref(winners: torch.Tensor, prices: torch.Tensor,
                        budgets: torch.Tensor, num_campaigns: int,
                        block: int = 4096) -> torch.Tensor:
@@ -247,40 +269,68 @@ def first_crossing_ref(winners: torch.Tensor, prices: torch.Tensor,
     the 1-based index of its first ``cum >= budget``, else N+1."""
     n = winners.shape[-1]
     sentinel = never_capped(n)
-    lead = winners.shape[:-1]
+    shape = winners.shape[:-1] + (num_campaigns,)
     dev = winners.device
-    b = budgets.to(torch.float32)[..., None, :]
-    cols = torch.arange(num_campaigns, device=dev)
-    s0 = torch.zeros(lead + (num_campaigns,), dtype=torch.float32,
-                     device=dev)
-    cap = torch.full(lead + (num_campaigns,), sentinel, dtype=torch.int32,
-                     device=dev)
-    for lo in range(0, n, block):
-        w = winners[..., lo:lo + block, None]
-        p = prices[..., lo:lo + block, None].to(torch.float32)
-        cum = s0[..., None, :] + xla_cumsum((w == cols).to(p.dtype) * p)
-        crossed = cum >= b
-        first = torch.argmax(crossed.to(torch.uint8), dim=-2)
-        hit = (cap == sentinel) & crossed.any(dim=-2)
-        cap = torch.where(hit, (lo + first + 1).to(torch.int32), cap)
-        s0 = cum[..., -1, :]
+    _, cap = _crossing_scan(
+        winners, prices, budgets, num_campaigns, block,
+        torch.zeros(shape, dtype=torch.float32, device=dev),
+        torch.full(shape, sentinel, dtype=torch.int32, device=dev), 0,
+        sentinel)
     return torch.clamp(cap, max=sentinel)
+
+
+def _check_carry(n: int, block: int, offset: int, n_global: int) -> None:
+    if offset % block or not 0 <= offset <= n_global - n:
+        raise ValueError(
+            f"rows [{offset}, {offset + n}) of a log of {n_global} events "
+            f"must start on a crossing block of {block}")
+
+
+def crossing_carry(winners: torch.Tensor, prices: torch.Tensor,
+                   budgets: torch.Tensor, num_campaigns: int, block: int, *,
+                   s0: torch.Tensor, cap: torch.Tensor, offset: int,
+                   n_global: int):
+    """One chunk of the blockwise crossing scan: S lanes of resolved events
+    (winners/prices (S, n)), global events ``[offset, offset + n)`` of a
+    log of ``n_global``, ``offset`` a multiple of ``block``, from the
+    running spend ``s0`` and cap times ``cap`` (S, C) the earlier rows left
+    (sentinel ``n_global + 1``). Returns ``(s0, cap)`` after the last row:
+    chained over the chunks of a log, the cap times of
+    :func:`first_crossing_times` on the whole log and its running total.
+    One ``first_crossing`` call on CUDA, :func:`_crossing_scan` on the
+    CPU."""
+    _check_carry(winners.shape[-1], block, offset, n_global)
+    if winners.device.type == "cpu":
+        return _crossing_scan(winners, prices, budgets, num_campaigns, block,
+                              s0, cap, offset, never_capped(n_global))
+    cap, _, s0 = first_crossing_cuda(
+        winners.to(torch.int32).contiguous(),
+        prices.to(torch.float32).contiguous(),
+        budgets.to(torch.float32).contiguous(), num_campaigns=num_campaigns,
+        block=block, carry=(s0.contiguous(), cap.contiguous(), offset,
+                            n_global))
+    return s0, cap
 
 
 def first_crossing_blocks_ref(winners: torch.Tensor, prices: torch.Tensor,
                               budgets: torch.Tensor, num_campaigns: int,
-                              block: int = 4096):
-    """``(spend, cap times)`` of S lanes (``winners``/``prices`` (S, N),
-    ``budgets`` (S, C)) by the decomposition ``csrc/first_crossing.cu``
-    runs; for tests, bitwise :func:`first_crossing_ref` and the flat sums.
+                              block: int = 4096, *, s0=None, cap=None,
+                              offset: int = 0, n_global: int | None = None):
+    """``(spend, cap times, running spend after the last row)`` of S lanes
+    (``winners``/``prices`` (S, N), ``budgets`` (S, C)) by the
+    decomposition ``csrc/first_crossing.cu`` runs; for tests, bitwise
+    :func:`first_crossing_ref`, :func:`crossing_carry` and the flat sums.
 
     * Pass A: every block's in-block scan (:func:`xla_cumsum`) on its own,
       its total ``T[b]`` the value at its last row.
-    * Pass B: the chain ``s0[0] = 0``, ``s0[b+1] = s0[b] + T[b]``.
+    * Pass B: the chain ``s0[0] = 0`` (or the carried ``s0``),
+      ``s0[b+1] = s0[b] + T[b]``; the last is the returned running spend.
     * Pass C: ``s0[b] + scan >= budget``, tested only at the first row of
       each 16-row group and at the campaign's own sales: between those rows
       the scan does not change, so the first crossing is one of them. The
-      earliest crossing block wins.
+      earliest crossing block wins, at global time ``offset + row + 1``;
+      a campaign whose carried ``cap`` is not the sentinel ``n_global + 1``
+      keeps it.
     * Flat sums: a stable sort of each lane's events by winner, then one
       chain per (lane, campaign) over its own sales in event order, from
       0.0 (a non-sale adds +0.0, which changes nothing).
@@ -288,7 +338,9 @@ def first_crossing_blocks_ref(winners: torch.Tensor, prices: torch.Tensor,
     s, n = winners.shape
     c = num_campaigns
     dev = winners.device
-    sentinel = never_capped(n)
+    n_global = n if n_global is None else n_global
+    _check_carry(n, block, offset, n_global)
+    sentinel = never_capped(n_global)
     cols = torch.arange(c, device=dev)
     b = budgets.to(torch.float32)
     p32 = prices.to(torch.float32)
@@ -300,19 +352,22 @@ def first_crossing_blocks_ref(winners: torch.Tensor, prices: torch.Tensor,
                           * p32[:, lo:lo + block, None])
         scans.append(scan)
         totals.append(scan[:, -1, :])
-    s0 = [torch.zeros((s, c), dtype=torch.float32, device=dev)]
-    for t in totals[:-1]:                                       # pass B
-        s0.append(s0[-1] + t)
-    cap = torch.full((s, c), sentinel, dtype=torch.int32, device=dev)
+    chain = [torch.zeros((s, c), dtype=torch.float32, device=dev)
+             if s0 is None else s0]
+    for t in totals:                                            # pass B
+        chain.append(chain[-1] + t)
+    found = torch.full((s, c), sentinel, dtype=torch.int32, device=dev)
     for lo, scan, base in zip(reversed(starts), reversed(scans),
-                              reversed(s0)):                    # pass C
+                              reversed(chain[:-1])):            # pass C
         rows = torch.arange(scan.shape[1], device=dev)
         tested = (rows[None, :, None] % _GROUP == 0) | (
             winners[:, lo:lo + block, None] == cols)
         crossed = ((base[:, None, :] + scan) >= b[:, None, :]) & tested
         first = torch.argmax(crossed.to(torch.uint8), dim=1)
-        cap = torch.where(crossed.any(dim=1),
-                          (lo + first + 1).to(torch.int32), cap)
+        found = torch.where(crossed.any(dim=1),
+                            (offset + lo + first + 1).to(torch.int32),
+                            found)
+    cap = found if cap is None else torch.where(cap != sentinel, cap, found)
     # flat sums: the counting sort and the per-campaign chains
     key = torch.where(winners < 0, c, winners).long()
     order = torch.argsort(key, dim=1, stable=True)
@@ -326,7 +381,7 @@ def first_crossing_blocks_ref(winners: torch.Tensor, prices: torch.Tensor,
         live = i < counts[:, :c]
         pos = torch.clamp(first_pos[:, :c] + i, max=max(n - 1, 0))
         spend = torch.where(live, spend + sorted_p.gather(1, pos), spend)
-    return spend, cap
+    return spend, cap, chain[-1]
 
 
 def first_crossing_times(winners: torch.Tensor, prices: torch.Tensor,

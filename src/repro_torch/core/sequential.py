@@ -5,13 +5,17 @@ The ground truth every parallel method is judged against: the events in
 order, carrying the spend state and recomputing the activation vector before
 each auction. On CUDA tensors it is one launch of the capped-scan kernel
 (``csrc/capped_scan.cu``, speculative windows repaired at each cap); on
-the CPU a Python loop over events, O(N) serial and slow on purpose. ``naive_sampled_replay``
-arrives with the SORT2AGGREGATE slice.
+the CPU a Python loop over events, O(N) serial and slow on purpose.
+
+:func:`naive_sampled_replay` is the paper's Fig.-1 baseline: a sorted
+sample of the events replayed in order with every sale's spend rescaled by
+1/rho, through the same capped scan with that scale.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import prng
 from repro_torch.core import auction
 from repro_torch.core.types import AuctionRule, SimResult, never_capped
 from repro_torch.kernels.capped_scan import ops as scan_ops
@@ -69,3 +73,47 @@ def sequential_replay(values: torch.Tensor, budgets: torch.Tensor,
     return SimResult(final_spend=s, cap_times=cap,
                      winners=winners if record_events else None,
                      prices=prices if record_events else None)
+
+
+def inverse_rate(sample_size: int, n_events: int) -> torch.Tensor:
+    """``1 / rho`` as ``repro``'s compiled replay computes it: rho = K / N
+    is a constant there, and XLA's simplifier turns a division by a
+    constant into a multiply by its float32 reciprocal,
+    ``float32(1) / float32(rho)``."""
+    one = torch.tensor(1.0, dtype=torch.float32)
+    return one / torch.tensor(sample_size / n_events, dtype=torch.float32)
+
+
+def sampled_cap_times(cap_sub: torch.Tensor, sample_size: int,
+                      n_events: int) -> torch.Tensor:
+    """A sampled replay's 1-based cap times in its K = ``sample_size``
+    events (K+1 = never) mapped to approximate times in the log of N, as
+    ``repro`` maps them: ``int32(float32(cap_sub) * (1 / rho))``
+    (:func:`inverse_rate`), never-capped to ``never_capped(N)``."""
+    inv = inverse_rate(sample_size, n_events).to(cap_sub.device)
+    approx = (cap_sub.to(torch.float32) * inv).to(torch.int32)
+    return torch.where(cap_sub > sample_size, never_capped(n_events),
+                       approx)
+
+
+def naive_sampled_replay(values: torch.Tensor, budgets: torch.Tensor,
+                         rule: AuctionRule, key: torch.Tensor,
+                         sample_size: int) -> SimResult:
+    """The Fig.-1 baseline the paper warns about: replay ``sample_size``
+    events drawn without replacement (``prng.choice``, sorted, so in log
+    order) sequentially, each sale's spend increment rescaled by ``1 / rho``
+    (rho = sample_size / N; the float32 multiply of :func:`inverse_rate`),
+    a cap time mapped back to the log as :func:`sampled_cap_times` does.
+    Scales (the chain is rho·N long) but misplaces cap-outs. The sampled
+    rows go through the capped scan with that scale: one ``capped_scan``
+    launch on CUDA, its plain loop on the CPU. No winners or prices are
+    kept."""
+    n_events = values.shape[0]
+    idx = torch.sort(prng.choice(key, n_events, sample_size)).values
+    _, _, spend, cap_sub = scan_ops.capped_scan(
+        values[idx.to(values.device)], budgets, rule.multipliers,
+        rule.reserve, second_price=second_price(rule.kind),
+        scale=float(inverse_rate(sample_size, n_events)))
+    return SimResult(final_spend=spend,
+                     cap_times=sampled_cap_times(cap_sub, sample_size,
+                                                 n_events))

@@ -15,8 +15,10 @@ crossings in ``repro``'s float order (the ``first_crossing`` kernel on
 CUDA), so on the CPU every cap time, gap and spend is ``repro``'s bit for
 bit, and the card gives the CPU's bits.
 
-The event-chunked spine ``refine_fixed_chunked`` waits for the chunk axis
-(ROADMAP.md queue 1, item 3).
+The event-chunked spine :func:`refine_fixed_chunked` runs every pass as a
+loop over chunks of the log, carrying each lane's running spend and cap
+times from one chunk to the next (on CUDA one ``segment_resolve`` launch
+and one ``first_crossing`` call a chunk, for every lane).
 """
 from __future__ import annotations
 
@@ -123,6 +125,83 @@ def refine_fixed_lanes(values: torch.Tensor, budgets: torch.Tensor,
     final = SimResult(final_spend=spend, cap_times=cap,
                       winners=winners if record_events else None,
                       prices=prices if record_events else None,
+                      segments=Segments.from_cap_times(caps, n_events))
+    return final, gap, moved
+
+
+def _replay_chunked(values: torch.Tensor, caps: torch.Tensor,
+                    budgets: torch.Tensor, rules: AuctionRule, *,
+                    chunk_events: int, crossing_block: int):
+    """One replay of S lanes under their segment histories, chunk by
+    chunk: each chunk's rows resolved for every lane at the chunk's global
+    offset (one ``segment_resolve`` launch on CUDA), then one crossing
+    call for every lane that carries the running spend and the cap times
+    from the previous chunk (:func:`~repro_torch.core.segments.
+    crossing_carry`). Returns ``(running spend (S, C), cap times (S, C))``
+    after the last chunk."""
+    n_events, n_campaigns = values.shape
+    sentinel = n_events + 1
+    segs = Segments.from_cap_times(caps, n_events)
+    dev = values.device
+    s0 = torch.zeros(caps.shape, dtype=torch.float32, device=dev)
+    cap = torch.full(caps.shape, sentinel, dtype=torch.int32, device=dev)
+    b = budgets.to(torch.float32)
+    for offset in range(0, n_events, chunk_events):
+        winners, prices = resolve_ops.segment_resolve(
+            values[offset:offset + chunk_events], rules.multipliers,
+            rules.reserve, segs.boundaries, segs.masks,
+            second_price=rules.kind == "second_price", offset=offset)
+        s0, cap = seg_lib.crossing_carry(
+            winners, prices, b, n_campaigns, crossing_block, s0=s0, cap=cap,
+            offset=offset, n_global=n_events)
+    return s0, torch.clamp(cap, max=sentinel)
+
+
+def refine_fixed_chunked(values: torch.Tensor, budgets: torch.Tensor,
+                         rules: AuctionRule, cap_times0: torch.Tensor, *,
+                         chunk_events: int, refine_iters: int = 8,
+                         crossing_block: int = 4096):
+    """:func:`refine_fixed_lanes` with every replay pass run chunk by
+    chunk over the log (``repro``'s ``refine_fixed_chunked``, all S lanes
+    at once): the per-event winners and prices exist for one chunk at a
+    time, (S, chunk_events), not (S, N).
+
+    Chunks must hold whole crossing blocks and tile the log (``repro``'s
+    texts). Every chunk then runs the same blockwise crossing steps as the
+    unchunked scan with the same ``crossing_block``, so the cap times, the
+    gaps and the iterations are bit for bit :func:`refine_fixed_lanes`'s;
+    ``final_spend`` is the carried running total after the last chunk,
+    bit for bit the same at every aligned chunk size and equal to the
+    unchunked flat sum up to float association. Returns ``(SimResult,
+    gaps (S,) float32, iters_used (S,) int32)``."""
+    n_events = values.shape[0]
+    if chunk_events % crossing_block != 0:
+        raise ValueError(
+            f"chunk/grid misalignment: chunks of {chunk_events} events do "
+            f"not hold whole crossing blocks of {crossing_block} "
+            "(first_crossing_times' blockwise scan); chunks must cover "
+            "whole blocks for the bit-for-bit crossing contract. Use a "
+            f"chunk size that is a multiple of {crossing_block}, or pass a "
+            "crossing_block= that divides your chunk (both paths must use "
+            "the same block).")
+    if n_events % chunk_events != 0:
+        raise ValueError(
+            f"ragged chunk: {n_events} events do not divide into chunks of "
+            f"{chunk_events} (remainder {n_events % chunk_events}). Pad the "
+            "event log so every chunk is full, pick a chunk size that "
+            "divides the event count, or drop chunks=.")
+    sentinel = n_events + 1
+    caps = torch.clamp(cap_times0.to(torch.int32), max=sentinel)
+    moved = torch.zeros(caps.shape[0], dtype=torch.int32, device=caps.device)
+    kw = dict(chunk_events=chunk_events, crossing_block=crossing_block)
+    for _ in range(refine_iters):
+        _, new = _replay_chunked(values, caps, budgets, rules, **kw)
+        moved = moved + (new != caps).any(-1).to(torch.int32)
+        caps = new
+    spend, cap = _replay_chunked(values, caps, budgets, rules, **kw)
+    gap = (cap - caps).abs().to(torch.float32).amax(-1)
+    final = SimResult(final_spend=spend, cap_times=cap, winners=None,
+                      prices=None,
                       segments=Segments.from_cap_times(caps, n_events))
     return final, gap, moved
 

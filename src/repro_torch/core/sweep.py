@@ -66,11 +66,14 @@ def sweep_parallel(values: torch.Tensor, budgets: torch.Tensor,
     """Algorithm 2 over a scenario batch: one loop, serial depth
     ``max_s K_s`` rounds. ``driver`` is the placement (``"batched"``);
     ``resolve`` the per-round back-end (``"auto"`` = the CUDA fused round
-    on CUDA tensors, the torch path on CPU tensors)."""
-    reject_unported(mesh=mesh, chunks=chunks,
-                    scenario_chunks=scenario_chunks)
+    on CUDA tensors, the torch path on CPU tensors); ``chunks`` (an int or
+    :class:`~repro_torch.core.executor.ChunkSpec`) and ``scenario_chunks``
+    (an int or :class:`~repro_torch.core.executor.ScenarioChunkSpec`) run
+    it over event and scenario chunks, bit for bit the unchunked sweep."""
+    reject_unported(mesh=mesh)
     plan = SweepPlan(placement=driver, resolve=resolve,
-                     skip_retired=skip_retired)
+                     skip_retired=skip_retired, chunks=chunks,
+                     scenario_chunks=scenario_chunks)
     s_hat, cap_times, _, _, _, _ = execute_sweep(values, budgets, rules,
                                                  plan, overlay=overlay)
     return SimResult(final_spend=s_hat, cap_times=cap_times)
@@ -86,11 +89,12 @@ def sweep_state_machine(values: torch.Tensor, budgets: torch.Tensor,
     boundaries (S, C+2), num_rounds (S,), n_hat (S,))``. The default
     back-end is ``"sweep_resolve"``, the counterpart of ``repro``'s Pallas
     resolve: one resolve of all lanes per round, two canonical partials of
-    its winners and prices.
+    its winners and prices. ``chunks`` and ``scenario_chunks`` as in
+    :func:`sweep_parallel`.
     """
-    reject_unported(chunks=chunks, scenario_chunks=scenario_chunks)
     plan = SweepPlan(placement="batched", resolve=resolve,
-                     skip_retired=skip_retired)
+                     skip_retired=skip_retired, chunks=chunks,
+                     scenario_chunks=scenario_chunks)
     return execute_sweep(values, budgets, rules, plan, overlay=overlay)
 
 
@@ -106,10 +110,14 @@ def sweep_sort2aggregate(values: torch.Tensor, budgets: torch.Tensor,
     events, ``refine_iters_used[s]`` the iterations that moved lane s's cap
     times. Each lane's bits are its single-design
     :func:`~repro_torch.core.sort2aggregate.refine_fixed_device`'s.
-    ``chunks`` (the chunked replay) is not ported yet."""
+    ``chunks`` (an int or :class:`~repro_torch.core.executor.ChunkSpec`)
+    runs every pass chunk by chunk
+    (:func:`~repro_torch.core.sort2aggregate.refine_fixed_chunked`): cap
+    times and gaps bit for bit the unchunked sweep's at the same
+    ``crossing_block``, ``final_spend`` the carried running total."""
     return execute_s2a_sweep(values, budgets, rules,
-                             SweepPlan(placement="batched"),
+                             SweepPlan(placement="batched", chunks=chunks),
                              cap_times_init=cap_times_init,
                              refine_iters=refine_iters,
                              record_events=record_events,
-                             crossing_block=crossing_block, chunks=chunks)
+                             crossing_block=crossing_block)

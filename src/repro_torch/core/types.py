@@ -85,9 +85,10 @@ class Segments:
     def num_segments(self) -> int:
         return self.masks.shape[0]
 
-    def seg_ids(self, n_events: int) -> torch.Tensor:
-        """Segment id of each event index (0-based), int32."""
-        idx = torch.arange(n_events, dtype=torch.int32,
+    def seg_ids(self, n_events: int, offset: int = 0) -> torch.Tensor:
+        """Segment id of each event index (0-based), int32: of events
+        ``offset .. offset + n_events - 1``."""
+        idx = torch.arange(offset, offset + n_events, dtype=torch.int32,
                            device=self.boundaries.device)
         return torch.searchsorted(self.boundaries[1:-1].contiguous(), idx,
                                   right=True).to(torch.int32)

@@ -68,6 +68,14 @@
 // runs. A budget <= 0 caps at event 1 without a sale; a NaN budget is never
 // active and never caps.
 //
+// A scale (naive sampling's sampled replay, repro/core/sequential.py:68):
+// with `scale` r != 1 each sale adds p * r to its spend, one float32
+// multiply then the add. The reference writes `where(w >= 0, p, 0) / rho`
+// with rho a constant, which XLA's simplifier turns into a multiply by the
+// float32 reciprocal 1 / rho; the caller passes that reciprocal. The
+// stored prices stay p. The exact replay passes 1 and keeps its code and
+// bits (a template parameter).
+//
 // Bids are compared as floats in a thread's scan, and as keys in the merge,
 // where -0.0 orders below +0.0; the two differ only for a zero bid under a
 // negative reserve.
@@ -190,10 +198,16 @@ __device__ __forceinline__ void group_window(const int32_t* w_buf,
 // and the walk stops at the first row after which a spend is no longer
 // below its budget (that step's adds are made again up to the row).
 // Returns that row, or kNone; the spends stand as after it.
+template <bool kScaled>
 __device__ __forceinline__ int walk_window(const int32_t* w_buf,
                                            const float* p_buf,
                                            const unsigned* g_buf, int len,
-                                           float* sp, const float* bud) {
+                                           float* sp, const float* bud,
+                                           float scale) {
+  // a sale's spend increment
+  const auto inc = [&](int i) {
+    return kScaled ? p_buf[i] * scale : p_buf[i];
+  };
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
   int first = kNone;
@@ -208,7 +222,7 @@ __device__ __forceinline__ int walk_window(const int32_t* w_buf,
       acc = sp[w];
       for (unsigned m = peers; m != 0u; m &= m - 1u) {
         const int i = r + __ffs(m) - 1;
-        acc = acc + p_buf[i];
+        acc = acc + inc(i);
         if (!(acc < b)) {
           cross = i;
           break;
@@ -221,7 +235,7 @@ __device__ __forceinline__ int walk_window(const int32_t* w_buf,
       for (unsigned m = peers; m != 0u; m &= m - 1u) {
         const int i = r + __ffs(m) - 1;
         if (i > first) break;
-        acc = acc + p_buf[i];
+        acc = acc + inc(i);
       }
     }
     if (leader) sp[w] = acc;
@@ -229,7 +243,7 @@ __device__ __forceinline__ int walk_window(const int32_t* w_buf,
   return first;
 }
 
-template <bool kSecond, bool kShared>
+template <bool kSecond, bool kShared, bool kScaled>
 __global__ void __launch_bounds__(kThreads, 1)
 capped_scan_kernel(const float* __restrict__ values,     // (N, C)
                    const float* __restrict__ budgets,    // (S, C)
@@ -240,7 +254,7 @@ capped_scan_kernel(const float* __restrict__ values,     // (N, C)
                    float* __restrict__ spend,            // (S, C)
                    int32_t* __restrict__ cap,            // (S, C)
                    float* __restrict__ scratch,          // (S, C) or null
-                   int N, int C) {
+                   int N, int C, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int kmin;
   // two window buffers, each winners, prices and same-winner masks
@@ -302,7 +316,8 @@ capped_scan_kernel(const float* __restrict__ values,     // (N, C)
     const int next0 = n0 + len;
     const int next_len = min(kWindow, N - next0);
     if (warp == 0) {
-      const int k = walk_window(w_s(cur), p_s(cur), g_s(cur), len, sp, bud);
+      const int k = walk_window<kScaled>(w_s(cur), p_s(cur), g_s(cur), len,
+                                         sp, bud, scale);
       if (lane == 0) kmin = k;
     } else if (next_len > 0) {
       resolve_window<kSecond>(values, em, reserve, next0, next_len, C,
@@ -350,57 +365,66 @@ capped_scan_kernel(const float* __restrict__ values,     // (N, C)
   }
 }
 
-template <bool kSecond, bool kShared>
-int launch(const float* values, const float* budgets, const float* mult,
-           const float* reserves, int32_t* winners, float* prices,
-           float* spend, int32_t* cap, float* scratch, int S, int N, int C,
-           cudaStream_t stream) {
+struct Launch {
+  const float *values, *budgets, *mult, *reserves;
+  int32_t* winners;
+  float *prices, *spend;
+  int32_t* cap;
+  float* scratch;
+  int S, N, C;
+  float scale;
+};
+
+template <bool kSecond, bool kShared, bool kScaled>
+int launch(const Launch& a, cudaStream_t stream) {
   const size_t dyn =
-      2 * kWindowBytes + (kShared ? (size_t)C * kStateBytes : 0);
+      2 * kWindowBytes + (kShared ? (size_t)a.C * kStateBytes : 0);
   if (dyn > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        capped_scan_kernel<kSecond, kShared>,
+        capped_scan_kernel<kSecond, kShared, kScaled>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
     if (err != cudaSuccess) return (int)err;
   }
-  capped_scan_kernel<kSecond, kShared><<<S, kThreads, dyn, stream>>>(
-      values, budgets, mult, reserves, winners, prices, spend, cap, scratch,
-      N, C);
+  capped_scan_kernel<kSecond, kShared, kScaled>
+      <<<a.S, kThreads, dyn, stream>>>(a.values, a.budgets, a.mult,
+                                       a.reserves, a.winners, a.prices,
+                                       a.spend, a.cap, a.scratch, a.N, a.C,
+                                       a.scale);
   return (int)cudaGetLastError();
 }
 
+template <bool kSecond, bool kScaled>
+int launch_state(const Launch& a, cudaStream_t stream) {
+  if (a.C <= max_shared_campaigns())
+    return launch<kSecond, true, kScaled>(a, stream);
+  if (a.scratch == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<kSecond, false, kScaled>(a, stream);
+}
+
 template <bool kSecond>
-int launch_rule(const float* values, const float* budgets, const float* mult,
-                const float* reserves, int32_t* winners, float* prices,
-                float* spend, int32_t* cap, float* scratch, int S, int N,
-                int C, cudaStream_t stream) {
-  if (C <= max_shared_campaigns())
-    return launch<kSecond, true>(values, budgets, mult, reserves, winners,
-                                 prices, spend, cap, scratch, S, N, C,
-                                 stream);
-  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-  return launch<kSecond, false>(values, budgets, mult, reserves, winners,
-                                prices, spend, cap, scratch, S, N, C, stream);
+int launch_rule(const Launch& a, cudaStream_t stream) {
+  return a.scale != 1.0f ? launch_state<kSecond, true>(a, stream)
+                         : launch_state<kSecond, false>(a, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// S exact replays, one CTA each. `scratch` holds S * C floats when C is
+// S replays, one CTA each: exact with `scale` 1, each sale's spend
+// increment p * scale otherwise. `scratch` holds S * C floats when C is
 // above cs_max_shared_campaigns() (null otherwise). Returns the cudaError_t
 // of the launch.
 int cs_capped_scan(const float* values, const float* budgets,
                    const float* mult, const float* reserves, int32_t* winners,
                    float* prices, float* spend, int32_t* cap, float* scratch,
-                   int S, int N, int C, int second_price,
+                   int S, int N, int C, int second_price, float scale,
                    cudaStream_t stream) {
-  return second_price
-             ? launch_rule<true>(values, budgets, mult, reserves, winners,
-                                 prices, spend, cap, scratch, S, N, C, stream)
-             : launch_rule<false>(values, budgets, mult, reserves, winners,
-                                  prices, spend, cap, scratch, S, N, C,
-                                  stream);
+  if (!(scale > 0.0f) || isinf(scale)) return (int)cudaErrorInvalidValue;
+  const Launch a{values, budgets, mult, reserves, winners, prices,
+                 spend,  cap,     scratch, S,     N,       C, scale};
+  return second_price ? launch_rule<true>(a, stream)
+                      : launch_rule<false>(a, stream);
 }
 
 // Largest C whose state the kernel keeps in shared memory; above it the

@@ -66,6 +66,17 @@
 // (80GB HBM3, 700 W), the first design's single kernel 0.0608 ms, so
 // small calls need no path of their own. fc_device_kernels() counts the
 // device kernels the calls launched.
+//
+// A carry (the chunked SORT2AGGREGATE replay). A call may take the rows
+// [offset, offset + N) of a longer log of n_global events, offset a
+// multiple of `block`, with the running spend s0_in (S, C) and the cap
+// times cap_in (S, C) that the earlier rows left (sentinel n_global + 1 =
+// not capped). Pass B's chain then starts at s0_in, a crossing's time is
+// offset + row + 1, a campaign already capped keeps its time, and s0_out
+// gets the running spend after the call's last row. Every block is the
+// same block of the whole log, so a log replayed chunk by chunk gives the
+// cap times of one call and its running total. With no carry (s0_in and
+// cap_in null, offset 0, sentinel N + 1) the bits are a plain call's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -146,8 +157,10 @@ __global__ void __launch_bounds__(kThreads)
 block_kernel(const int32_t* __restrict__ winners,   // (S, N)
              const float* __restrict__ prices,      // (S, N)
              const float* __restrict__ budgets,     // (S, C)
+             const int32_t* __restrict__ cap_in,    // (S, C) or null
              int32_t* __restrict__ cap_out,         // (S, C)
-             Scratch scr, int N, int C, int block, int levels) {
+             Scratch scr, int N, int C, int block, int levels,
+             int offset, int sentinel) {
   __shared__ float p_s[kStage];
   // hit_s[span * kThreads + t]: the rows of 32-row span `span` of the stage
   // that campaign c0 + t won, as a bit mask
@@ -167,6 +180,10 @@ block_kernel(const int32_t* __restrict__ winners,   // (S, N)
   float s0 = 0.0f, budget = 0.0f;
   int pos = 0;                       // pass C: the next place in the list
   float* list = scr.list + (size_t)s * N;
+  // a campaign the earlier rows capped keeps its time (read from the
+  // input: the output is written by other blocks meanwhile)
+  bool crossed = kPassC && valid && cap_in != nullptr &&
+                 cap_in[(size_t)s * C + c] != sentinel;
   if (kPassC && valid) {
     if (kCross) {
       s0 = scr.t_s0[cell];
@@ -174,7 +191,6 @@ block_kernel(const int32_t* __restrict__ winners,   // (S, N)
     }
     pos = scr.start[(size_t)s * (C + 1) + c] + scr.cnt_off[cell];
   }
-  bool crossed = false;
   int count = 0;
   float last = 0.0f;                 // the value at the block's last row
   BlockScan scan;
@@ -211,7 +227,7 @@ block_kernel(const int32_t* __restrict__ winners,   // (S, N)
         if (cum >= budget) {
           crossed = true;
           atomicMin(cap_out + (size_t)s * C + c,
-                    (int)(row0 + base + r0) + 1);
+                    offset + (int)(row0 + base + r0) + 1);
         }
       }
       if (hits & 1u) {
@@ -230,7 +246,7 @@ block_kernel(const int32_t* __restrict__ winners,   // (S, N)
           if (cum >= budget) {
             crossed = true;
             atomicMin(cap_out + (size_t)s * C + c,
-                      (int)(row0 + base + r) + 1);
+                      offset + (int)(row0 + base + r) + 1);
           }
         }
       }
@@ -248,12 +264,14 @@ block_kernel(const int32_t* __restrict__ winners,   // (S, N)
   }
 }
 
-// Pass B, one CTA per lane: the s0 chains, the block offsets, each
-// campaign's place in the list, and the cap times reset to N+1.
+// Pass B, one CTA per lane: the s0 chains (from s0_in when given, the
+// last value to s0_out), the block offsets, each campaign's place in the
+// list, and the cap times set to cap_in (the sentinel without a carry).
 template <bool kCross>
 __global__ void __launch_bounds__(kChainThreads)
-chain_kernel(Scratch scr, int32_t* __restrict__ cap_out, int N, int C,
-             int nb) {
+chain_kernel(Scratch scr, const float* __restrict__ s0_in,
+             const int32_t* __restrict__ cap_in, float* __restrict__ s0_out,
+             int32_t* __restrict__ cap_out, int C, int nb, int sentinel) {
   __shared__ int32_t warp_sums[kChainThreads / 32];
   __shared__ int32_t carry;
   const int s = blockIdx.x;
@@ -263,7 +281,8 @@ chain_kernel(Scratch scr, int32_t* __restrict__ cap_out, int N, int C,
     const int c = c0 + threadIdx.x;
     int total = 0;
     if (c < C) {
-      float s0 = 0.0f;
+      float s0 = kCross && s0_in != nullptr ? s0_in[(size_t)s * C + c]
+                                            : 0.0f;
       const size_t first = (size_t)s * nb * C + c;
       for (int b0 = 0; b0 < nb; b0 += kChainAhead) {
         int n_b[kChainAhead];      // loads first, then the chain
@@ -285,7 +304,11 @@ chain_kernel(Scratch scr, int32_t* __restrict__ cap_out, int N, int C,
           }
         }
       }
-      if (kCross) cap_out[(size_t)s * C + c] = N + 1;
+      if (kCross) {
+        cap_out[(size_t)s * C + c] =
+            cap_in != nullptr ? cap_in[(size_t)s * C + c] : sentinel;
+        if (s0_out != nullptr) s0_out[(size_t)s * C + c] = s0;
+      }
     }
     // exclusive scan of the totals over this tile of campaigns
     int incl = total;
@@ -365,8 +388,10 @@ int crossing_levels(int block) {
 
 template <bool kCross>
 int launch_blocked(const int32_t* winners, const float* prices,
-                   const float* budgets, int32_t* cap, float* spend,
-                   void* scratch, int S, int N, int C, int block, int levels,
+                   const float* budgets, const float* s0_in,
+                   const int32_t* cap_in, int32_t* cap, float* spend,
+                   float* s0_out, void* scratch, int S, int N, int C,
+                   int block, int levels, int offset, int sentinel,
                    cudaStream_t stream) {
   const int nb = (int)(((long long)N + block - 1) / block);
   Scratch scr;
@@ -374,13 +399,16 @@ int launch_blocked(const int32_t* winners, const float* prices,
   const dim3 grid(nb, S, (C + kThreads - 1) / kThreads);
   if (nb > 0) {                      // N = 0: no block to walk
     block_kernel<kCross, false><<<grid, kThreads, 0, stream>>>(
-        winners, prices, budgets, cap, scr, N, C, block, levels);
+        winners, prices, budgets, cap_in, cap, scr, N, C, block, levels,
+        offset, sentinel);
     g_device_kernels += 1;
   }
-  chain_kernel<kCross><<<S, kChainThreads, 0, stream>>>(scr, cap, N, C, nb);
+  chain_kernel<kCross><<<S, kChainThreads, 0, stream>>>(
+      scr, s0_in, cap_in, s0_out, cap, C, nb, sentinel);
   if (nb > 0) {
     block_kernel<kCross, true><<<grid, kThreads, 0, stream>>>(
-        winners, prices, budgets, cap, scr, N, C, block, levels);
+        winners, prices, budgets, cap_in, cap, scr, N, C, block, levels,
+        offset, sentinel);
     g_device_kernels += 1;
   }
   const long long chains = (long long)S * C;
@@ -402,19 +430,31 @@ long long fc_scratch_bytes(int S, int N, int C, int block) {
 
 // Spend totals (and, when `budgets` is not null, cap times) of S lanes.
 // `block` is the crossing block (events); the number of grouped levels of
-// XLA's scan is derived from it here. `scratch` holds fc_scratch_bytes()
-// bytes. Returns the cudaError_t of the launches.
+// XLA's scan is derived from it here. The carry (with budgets only):
+// `s0_in`, `cap_in` and `s0_out` (S, C) or null, the rows' global
+// `offset` (a multiple of `block`) and the cap-time `sentinel` (n_global +
+// 1; N + 1 without a carry). `scratch` holds fc_scratch_bytes() bytes.
+// Returns the cudaError_t of the launches.
 int fc_first_crossing(const int32_t* winners, const float* prices,
-                      const float* budgets, int32_t* cap, float* spend,
-                      void* scratch, int S, int N, int C, int block,
+                      const float* budgets, const float* s0_in,
+                      const int32_t* cap_in, int32_t* cap, float* spend,
+                      float* s0_out, void* scratch, int S, int N, int C,
+                      int block, int offset, int sentinel,
                       cudaStream_t stream) {
   const int levels = crossing_levels(block);
-  if (levels >= kMaxLevels) return (int)cudaErrorInvalidValue;
+  if (levels >= kMaxLevels || offset < 0 || offset % block != 0 ||
+      (long long)offset + N >= (long long)sentinel)
+    return (int)cudaErrorInvalidValue;
+  if (budgets == nullptr &&
+      (s0_in != nullptr || cap_in != nullptr || s0_out != nullptr))
+    return (int)cudaErrorInvalidValue;
   return budgets != nullptr
-             ? launch_blocked<true>(winners, prices, budgets, cap, spend,
-                                    scratch, S, N, C, block, levels, stream)
-             : launch_blocked<false>(winners, prices, budgets, cap, spend,
-                                     scratch, S, N, C, block, levels, stream);
+             ? launch_blocked<true>(winners, prices, budgets, s0_in, cap_in,
+                                    cap, spend, s0_out, scratch, S, N, C,
+                                    block, levels, offset, sentinel, stream)
+             : launch_blocked<false>(winners, prices, budgets, s0_in, cap_in,
+                                     cap, spend, s0_out, scratch, S, N, C,
+                                     block, levels, offset, sentinel, stream);
 }
 
 // Device kernels fc_first_crossing has launched in this process.

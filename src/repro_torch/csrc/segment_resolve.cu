@@ -43,6 +43,11 @@
 // mask is never built and the valuations are read once a tile. The wide
 // tile needs C*128 floats of shared memory: above `sg_max_campaigns()`,
 // `kernels/auction_resolve/ops.py` takes the per-lane MatrixTile route.
+//
+// At a row offset (the chunked SORT2AGGREGATE replay): row n of `values`
+// is global event offset + n, its segment counted against the global
+// boundaries and the last segment ending at offset + N, so a chunk's rows
+// get the bits of the same rows of a call over the whole log.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -67,6 +72,7 @@ struct Args {
   int32_t* winners;        // (S, N)
   float* prices;           // (S, N)
   int S, N, C, K;
+  int offset;              // global index of row 0
 };
 
 // A multiplier vector's floats (C up to a multiple of 4, NaN past C).
@@ -171,8 +177,9 @@ __device__ __forceinline__ void scan_first_pieces(const Args& a,
     const int j = j_lo[l];
     const long long end =
         j < a.K ? (long long)a.bounds[(size_t)(s + l) * (a.K + 2) + j + 1]
-                : (long long)a.N;
-    if (row < end) store(a, s + l, row, win[l], best[l], second[l], kSecond);
+                : (long long)a.offset + a.N;
+    if (a.offset + row < end)
+      store(a, s + l, row, win[l], best[l], second[l], kSecond);
   }
 }
 
@@ -191,6 +198,8 @@ segment_resolve_kernel(Args a) {
   const long long r0 = (long long)blockIdx.x * kRows;
   const int rows = (int)min((long long)kRows, (long long)a.N - r0);
   const long long row = r0 + tid;
+  const long long g0 = a.offset + r0;           // the tile's global rows
+  const long long g_end = (long long)a.offset + a.N;
   const bool row_ok = tid < rows;
   const float* v = tile + (size_t)tid * stride;
 
@@ -223,9 +232,9 @@ segment_resolve_kernel(Args a) {
       for (int i0 = 1; i0 <= K; i0 += 32) {
         const int i = i0 + lane;
         const long long x = i <= K ? (long long)b[i] : 0;
-        lo += __popc(__ballot_sync(0xffffffffu, i <= K && x <= r0));
+        lo += __popc(__ballot_sync(0xffffffffu, i <= K && x <= g0));
         hi += __popc(__ballot_sync(0xffffffffu,
-                                   i <= K && x <= r0 + rows - 1));
+                                   i <= K && x <= g0 + rows - 1));
       }
       if (lane == 0) {
         j_lo[l] = lo;
@@ -266,15 +275,15 @@ segment_resolve_kernel(Args a) {
       const int s = s0 + l;
       const int32_t* b = a.bounds + (size_t)s * (K + 2);
       for (int j = j_lo[l] + 1; j <= j_hi[l]; ++j) {
-        const long long p0 = max((long long)b[j], r0);
+        const long long p0 = max((long long)b[j], g0);
         const long long p1 =
-            min(j < K ? (long long)b[j + 1] : (long long)a.N, r0 + rows);
+            min(j < K ? (long long)b[j + 1] : g_end, g0 + rows);
         if (p0 >= p1) continue;                // an empty segment
         __syncthreads();                       // the last vector is read
         for (int c = tid; c < cp; c += kThreads)
           cut_vec[c] = masked_mult(a, s, j, c);
         __syncthreads();
-        if (row_ok && row >= p0 && row < p1) {
+        if (row_ok && a.offset + row >= p0 && a.offset + row < p1) {
           float best[1] = {a.reserves[s]}, second[1] = {a.reserves[s]};
           int win[1] = {-1};
           scan<1, kSecond>(v, cut_vec, cp, cp / 4, best, second, win);
@@ -314,18 +323,20 @@ int sg_max_campaigns(void) {
 }
 
 // Resolve N events for S lanes under their segment tables: `bounds` (S,
-// K+2) int32, each row sorted, `masks` (S, K+1, C) bool. Writes winners
-// (S, N) int32 and prices (S, N) float32. Returns the launch's cudaError_t.
+// K+2) int32, each row sorted, `masks` (S, K+1, C) bool; row n is global
+// event offset + n. Writes winners (S, N) int32 and prices (S, N) float32.
+// Returns the launch's cudaError_t.
 int sg_segment_resolve(const float* values, const float* mult,
                        const float* reserves, const int32_t* bounds,
                        const uint8_t* masks, int32_t* winners, float* prices,
-                       int S, int N, int C, int K, int second_price,
-                       cudaStream_t stream) {
+                       int S, int N, int C, int K, int offset,
+                       int second_price, cudaStream_t stream) {
   if (S <= 0 || N <= 0) return 0;
-  if (C <= 0 || K < 0 || smem_bytes(C) > auction_tile::kMaxSmem)
+  if (C <= 0 || K < 0 || offset < 0 ||
+      smem_bytes(C) > auction_tile::kMaxSmem)
     return (int)cudaErrorInvalidValue;
   const Args a{values, mult, reserves, bounds, masks, winners, prices,
-               S,      N,    C,        K};
+               S,      N,    C,        K,      offset};
   return second_price ? launch_as<true>(a, stream)
                       : launch_as<false>(a, stream);
 }

@@ -213,10 +213,11 @@ def resolve_lanes(values: torch.Tensor, multipliers: torch.Tensor,
 
 def segment_resolve(values: torch.Tensor, multipliers: torch.Tensor,
                     reserves, boundaries: torch.Tensor, masks: torch.Tensor,
-                    *, second_price: bool = False):
+                    *, second_price: bool = False, offset: int = 0):
     """Every event resolved for S lanes, each under its own segment table:
-    event n of lane s under ``masks[s][j]``, j its segment in
-    ``boundaries[s]`` (``Segments.seg_ids``). ``multipliers`` (S, C),
+    row n of lane s under ``masks[s][j]``, j the segment of global event
+    ``offset + n`` in ``boundaries[s]`` (``Segments.seg_ids``), so a chunk
+    of the log gets the rows of a whole-log call. ``multipliers`` (S, C),
     ``reserves`` (S,) or a scalar, ``boundaries`` (S, K+2), ``masks`` (S,
     K+1, C). Returns ``(winners (S, N) int32, prices (S, N) float32)``, bit
     for bit each lane's ``resolve_masked`` on its gathered (N, C) mask. On
@@ -231,19 +232,22 @@ def segment_resolve(values: torch.Tensor, multipliers: torch.Tensor,
     m = masks.to(device=dev, dtype=torch.bool).contiguous()
     if dev.type == "cpu":
         return ref.segment_resolve_plain(values, mult, res, bounds, m,
-                                         second_price)
+                                         second_price, offset=offset)
     v = values.to(torch.float32).contiguous()
     if values.shape[1] > sg_kernel.max_campaigns():
         PATHS["segment_resolve_per_lane"] += 1
         return segment_resolve_per_lane(v, mult, res, bounds, m,
-                                        second_price=second_price)
+                                        second_price=second_price,
+                                        offset=offset)
     return sg_kernel.segment_resolve_cuda(v, mult, res, bounds, m,
-                                          second_price=second_price)
+                                          second_price=second_price,
+                                          offset=offset)
 
 
 def segment_resolve_per_lane(values: torch.Tensor, mult: torch.Tensor,
                              reserves: torch.Tensor, boundaries: torch.Tensor,
-                             masks: torch.Tensor, *, second_price: bool):
+                             masks: torch.Tensor, *, second_price: bool,
+                             offset: int = 0):
     """:func:`segment_resolve` one lane at a time: each lane's (N, C) mask
     gathered from its table and one :func:`resolve_masked` (the MatrixTile
     kernel on CUDA). The route above the segment kernel's shared memory."""
@@ -251,7 +255,7 @@ def segment_resolve_per_lane(values: torch.Tensor, mult: torch.Tensor,
     out = []
     for s in range(mult.shape[0]):
         seg_ids = Segments(boundaries=boundaries[s],
-                           masks=masks[s]).seg_ids(n)
+                           masks=masks[s]).seg_ids(n, offset)
         out.append(resolve_masked(values, mult[s], masks[s][seg_ids],
                                   reserves[s], second_price=second_price,
                                   sums=False)[:2])

@@ -369,17 +369,19 @@ def lane_resolve_ref(values: torch.Tensor, multipliers: torch.Tensor,
 
 def segment_resolve_plain(values: torch.Tensor, multipliers: torch.Tensor,
                           reserves: torch.Tensor, boundaries: torch.Tensor,
-                          masks: torch.Tensor, second_price: bool = False):
+                          masks: torch.Tensor, second_price: bool = False, *,
+                          offset: int = 0):
     """The plain version of ``csrc/segment_resolve.cu``: each lane's (N, C)
-    mask gathered from its segment table (``masks[s][seg_ids]``) and the
-    events resolved under it, one lane at a time. ``multipliers`` (S, C),
-    ``reserves`` (S,), ``boundaries`` (S, K+2), ``masks`` (S, K+1, C).
-    Returns ``(winners (S, N) int32, prices (S, N) float32)``."""
+    mask gathered from its segment table (``masks[s][seg_ids]``, row n
+    being global event ``offset + n``) and the events resolved under it,
+    one lane at a time. ``multipliers`` (S, C), ``reserves`` (S,),
+    ``boundaries`` (S, K+2), ``masks`` (S, K+1, C). Returns ``(winners (S,
+    N) int32, prices (S, N) float32)``."""
     n = values.shape[0]
     out = []
     for s in range(multipliers.shape[0]):
         seg_ids = Segments(boundaries=boundaries[s],
-                           masks=masks[s]).seg_ids(n)
+                           masks=masks[s]).seg_ids(n, offset)
         out.append(_resolve_rows(values, multipliers[s], masks[s][seg_ids],
                                  reserves[s], second_price))
     return (torch.stack([w for w, _ in out]),
@@ -390,14 +392,15 @@ def segment_resolve_ref(values: torch.Tensor, multipliers: torch.Tensor,
                         reserves: torch.Tensor, boundaries: torch.Tensor,
                         masks: torch.Tensor, second_price: bool = False, *,
                         tile: int = SEGMENT_TILE,
-                        lanes: int = SEGMENT_LANES):
+                        lanes: int = SEGMENT_LANES, offset: int = 0):
     """What ``csrc/segment_resolve.cu`` computes, by its split, for tests
     (bitwise :func:`segment_resolve_plain`): tiles of ``tile`` rows; per
     tile, lanes ``lanes`` at a time; a lane's segments in the tile j_lo ..
-    j_hi (the inner boundaries at or below its first and last rows); its
-    first piece, segment j_lo up to the next boundary, resolved under that
-    segment's (C,) mask; each later non-empty piece on its own. Rows no
-    piece covers keep winner -2 and a NaN price."""
+    j_hi (the inner boundaries at or below its first and last rows, as
+    global events ``offset + row``); its first piece, segment j_lo up to
+    the next boundary, resolved under that segment's (C,) mask; each later
+    non-empty piece on its own. Rows no piece covers keep winner -2 and a
+    NaN price."""
     n, _ = values.shape
     s_count, k2 = boundaries.shape
     k = k2 - 2
@@ -413,6 +416,7 @@ def segment_resolve_ref(values: torch.Tensor, multipliers: torch.Tensor,
         winners[s, p0:p1] = w
         prices[s, p0:p1] = p
 
+    bounds = bounds - offset           # global events to local rows
     for t0 in range(0, n, tile):
         t1 = min(t0 + tile, n)
         for s0 in range(0, s_count, lanes):

@@ -25,7 +25,7 @@ ROWS_PER_CTA = 128        # kRows of the kernel: a tile, one thread a row
 LANE_CHUNK = 32           # kLaneChunk: lanes whose first pieces are staged
 
 _SIGNATURES = {
-    "sg_segment_resolve": [_P] * 7 + [_I] * 5 + [_P],
+    "sg_segment_resolve": [_P] * 7 + [_I] * 6 + [_P],
     "sg_max_campaigns": [],
 }
 
@@ -47,12 +47,14 @@ def max_campaigns() -> int:
 
 def segment_resolve_cuda(values: torch.Tensor, mult: torch.Tensor,
                          reserves: torch.Tensor, boundaries: torch.Tensor,
-                         masks: torch.Tensor, *, second_price: bool):
+                         masks: torch.Tensor, *, second_price: bool,
+                         offset: int = 0):
     """Resolve the N events of ``values`` (N, C) for S lanes, event n of
-    lane s under ``masks[s, j]`` with j its segment in ``boundaries[s]``
-    (``Segments.seg_ids``). ``mult`` (S, C), ``reserves`` (S,),
-    ``boundaries`` (S, K+2) int32 (each row sorted), ``masks`` (S, K+1, C)
-    bool. Returns ``(winners (S, N) int32, prices (S, N) float32)``."""
+    lane s under ``masks[s, j]`` with j the segment of global event
+    ``offset + n`` in ``boundaries[s]`` (``Segments.seg_ids``). ``mult``
+    (S, C), ``reserves`` (S,), ``boundaries`` (S, K+2) int32 (each row
+    sorted), ``masks`` (S, K+1, C) bool. Returns ``(winners (S, N) int32,
+    prices (S, N) float32)``."""
     binding.require_cuda(values)
     lib = _lib()
     n, c = values.shape
@@ -66,11 +68,14 @@ def segment_resolve_cuda(values: torch.Tensor, mult: torch.Tensor,
         _check("boundaries", boundaries, torch.int32, (s, k2), dev),
         _check("masks", masks, torch.bool, (s, k2 - 1, c), dev),
     ]
+    if offset < 0:
+        raise ValueError(f"row offset must be >= 0, got {offset}")
     winners = torch.empty((s, n), dtype=torch.int32, device=dev)
     prices = torch.empty((s, n), dtype=torch.float32, device=dev)
     err = lib.sg_segment_resolve(*ptrs, winners.data_ptr(),
                                  prices.data_ptr(), s, n, c, k2 - 2,
-                                 int(second_price), binding.stream(dev))
+                                 int(offset), int(second_price),
+                                 binding.stream(dev))
     binding.raise_on(err, "segment_resolve_kernel")
     if s > 0 and n > 0:
         LAUNCHES["segment_resolve"] += 1

@@ -5,6 +5,7 @@ It follows :mod:`repro_torch.kernels.binding` and counts its launches in
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -15,7 +16,7 @@ from repro_torch.kernels.binding import I as _I, P as _P, check as _check
 LAUNCHES = {"capped_scan": 0}
 
 _SIGNATURES = {
-    "cs_capped_scan": [_P] * 9 + [_I] * 4 + [_P],
+    "cs_capped_scan": [_P] * 9 + [_I] * 4 + [ctypes.c_float, _P],
     "cs_max_shared_campaigns": [],
 }
 
@@ -31,12 +32,14 @@ def _lib():
 
 def capped_scan_cuda(values: torch.Tensor, budgets: torch.Tensor,
                      mult: torch.Tensor, reserves: torch.Tensor, *,
-                     second_price: bool):
+                     second_price: bool, scale: float = 1.0):
     """S exact replays in one launch, one CTA per lane, any C: the lane's
     state lives in shared memory up to ``cs_max_shared_campaigns()``
     campaigns and in device memory (a scratch buffer and the outputs)
-    above. Returns ``(winners (S, N) int32, prices (S, N) float32, spend
-    (S, C) float32, cap times (S, C) int32)``."""
+    above. ``scale`` (a float32 > 0) multiplies each sale's spend
+    increment (naive sampling's 1/rho); 1 is the exact replay. Returns
+    ``(winners (S, N) int32, prices (S, N) float32, spend (S, C) float32,
+    cap times (S, C) int32)``."""
     binding.require_cuda(values)
     lib = _lib()
     n, c = values.shape
@@ -58,7 +61,7 @@ def capped_scan_cuda(values: torch.Tensor, budgets: torch.Tensor,
     err = lib.cs_capped_scan(
         *ptrs, winners.data_ptr(), prices.data_ptr(), spend.data_ptr(),
         cap.data_ptr(), None if scratch is None else scratch.data_ptr(), s,
-        n, c, int(second_price), binding.stream(dev))
+        n, c, int(second_price), float(scale), binding.stream(dev))
     binding.raise_on(err, "capped_scan_kernel")
     LAUNCHES["capped_scan"] += 1
     return winners, prices, spend, cap

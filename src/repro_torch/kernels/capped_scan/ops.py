@@ -16,7 +16,7 @@ from repro_torch.kernels.capped_scan.ref import capped_scan_ref
 
 def capped_scan(values: torch.Tensor, budgets: torch.Tensor,
                 multipliers: torch.Tensor | None = None, reserve=0.0, *,
-                second_price: bool = False):
+                second_price: bool = False, scale: float = 1.0):
     """Exact budget-capped sequential replay of ``values`` (N, C).
 
     One lane: ``budgets`` and ``multipliers`` (C,), ``reserve`` a scalar;
@@ -25,7 +25,9 @@ def capped_scan(values: torch.Tensor, budgets: torch.Tensor,
     and N+1 for never. S lanes: budgets and multipliers (S, C), reserves a
     scalar or (S,); every output gains a leading (S,) axis. ``multipliers``
     defaults to ones. First price is ``repro``'s ``capped_scan``; second
-    price pays max(second-highest eligible bid, reserve).
+    price pays max(second-highest eligible bid, reserve). ``scale``
+    (float32) multiplies each sale's spend increment, ``p * scale``, as
+    naive sampling rescales its sampled sales; the default 1 is exact.
     """
     one_lane = budgets.ndim == 1
     dev = values.device
@@ -38,9 +40,10 @@ def capped_scan(values: torch.Tensor, budgets: torch.Tensor,
     res = torch.as_tensor(reserve, dtype=torch.float32, device=dev)
     res = res.reshape(-1).expand(s).contiguous()
     if dev.type == "cpu":
-        out = capped_scan_ref(values, b, mult, res, second_price=second_price)
+        out = capped_scan_ref(values, b, mult, res, second_price=second_price,
+                              scale=scale)
     else:
         out = capped_scan_cuda(values.contiguous(), b.contiguous(),
                                mult.contiguous(), res,
-                               second_price=second_price)
+                               second_price=second_price, scale=scale)
     return tuple(x[0] for x in out) if one_lane else out

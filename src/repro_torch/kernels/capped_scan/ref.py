@@ -15,13 +15,23 @@ import torch
 NEG_INF = float("-inf")
 
 
+def _float32(scale: float) -> torch.Tensor | None:
+    """The float32 scale of a sale's spend increment; None for 1 (the
+    exact replay adds the price itself)."""
+    r = torch.tensor(scale, dtype=torch.float32)
+    if not bool((r > 0) & torch.isfinite(r)):
+        raise ValueError(f"the scale must be finite and > 0, got {scale}")
+    return None if bool(r == 1) else r
+
+
 def capped_scan_ref(values: torch.Tensor, budgets: torch.Tensor,
                     multipliers: torch.Tensor, reserves: torch.Tensor,
-                    second_price: bool = False):
+                    second_price: bool = False, scale: float = 1.0):
     """S exact replays of ``values`` (N, C) under budgets and multipliers
     (S, C) and reserves (S,). Returns ``(winners (S, N) int32 [-1 = no
     sale], prices (S, N) float32, final spend (S, C) float32, cap times
-    (S, C) int32)``; a cap time is 1-based, N+1 = never."""
+    (S, C) int32)``; a cap time is 1-based, N+1 = never. A ``scale``
+    other than 1 adds ``price * scale`` (float32) to the spend."""
     n, c = values.shape
     s_count = budgets.shape[0]
     dev = values.device
@@ -29,6 +39,8 @@ def capped_scan_ref(values: torch.Tensor, budgets: torch.Tensor,
     b = budgets.to(torch.float32)
     mult = multipliers.to(torch.float32)
     res = reserves.to(torch.float32).reshape(s_count, 1)
+    r = _float32(scale)
+    r = None if r is None else r.to(dev)
     spend = torch.zeros((s_count, c), dtype=torch.float32, device=dev)
     cap = torch.full((s_count, c), sentinel, dtype=torch.int32, device=dev)
     winners = torch.empty((s_count, n), dtype=torch.int32, device=dev)
@@ -47,7 +59,7 @@ def capped_scan_ref(values: torch.Tensor, budgets: torch.Tensor,
             price = torch.where(sale, top, 0.0)
         # one add per lane; no sale adds +0.0 to the argmax column, an
         # exact no-op
-        spend.scatter_add_(1, w, price[:, None])
+        spend.scatter_add_(1, w, (price if r is None else price * r)[:, None])
         cap.masked_fill_((spend >= b) & (cap == sentinel), i + 1)
         winners[:, i] = torch.where(sale, w[:, 0].to(torch.int32), -1)
         prices[:, i] = price
@@ -76,7 +88,8 @@ def _resolve_rows(rows: torch.Tensor, mult: torch.Tensor,
 def capped_scan_windows_ref(values: torch.Tensor, budgets: torch.Tensor,
                             multipliers: torch.Tensor,
                             reserves: torch.Tensor,
-                            second_price: bool = False, *, window: int):
+                            second_price: bool = False, *, window: int,
+                            scale: float = 1.0):
     """:func:`capped_scan_ref` by the decomposition ``csrc/capped_scan.cu``
     runs, for tests: speculative windows against a frozen active set,
     repaired at the first cap.
@@ -88,13 +101,16 @@ def capped_scan_windows_ref(values: torch.Tensor, budgets: torch.Tensor,
     ``k`` after which a spend is no longer below its budget. Events ``[n0,
     k]`` are exactly the sequential replay's; the lane commits them (the
     whole window if nothing capped), sets the cap time ``k + 1`` and
-    restarts at ``k + 1``. A budget <= 0 caps at event 1, unsold."""
+    restarts at ``k + 1``. A budget <= 0 caps at event 1, unsold. A
+    ``scale`` other than 1 adds ``price * scale`` (float32), as the
+    kernel's scaled walk does."""
     n, c = values.shape
     s_count = budgets.shape[0]
     dev = values.device
     b = budgets.to(torch.float32)
     mult = multipliers.to(torch.float32)
     res = reserves.to(torch.float32)
+    factor = _float32(scale)
     winners = torch.empty((s_count, n), dtype=torch.int32, device=dev)
     prices = torch.empty((s_count, n), dtype=torch.float32, device=dev)
     spend = torch.zeros((s_count, c), dtype=torch.float32, device=dev)
@@ -111,7 +127,7 @@ def capped_scan_windows_ref(values: torch.Tensor, budgets: torch.Tensor,
             for r, wr in enumerate(w.tolist()):   # the ordered sums
                 if wr < 0:
                     continue
-                trial[wr] += p[r]
+                trial[wr] += p[r] if factor is None else p[r] * factor
                 if not bool(trial[wr] < bl[wr]):
                     k = r
                     if bool(trial[wr] >= bl[wr]):

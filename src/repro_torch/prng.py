@@ -10,7 +10,9 @@ so it gives the same bits on the CPU and on CUDA.
 * :func:`PRNGKey`, :func:`split`, :func:`fold_in` — keys;
 * :func:`random_bits` — uint32 words (returned as int64);
 * :func:`uniform` — float32 in ``[minval, maxval)`` by the mantissa
-  transform;
+  transform; :func:`bernoulli` — ``uniform < p`` in float32;
+* :func:`randint` — int32 in ``[minval, maxval)`` from two 32-bit words
+  combined modulo the span;
 * :func:`permutation` and :func:`choice` (``replace=False``) — the
   multi-round stable sort by fresh 32-bit keys of ``jax.random``'s
   ``_shuffle``.
@@ -114,6 +116,33 @@ def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
     # XLA's CPU backend fuses the scale and shift (one rounding)
     return torch.maximum(lo, fma(floats, hi - lo, lo))
+
+
+def bernoulli(key: torch.Tensor, p: float = 0.5, shape=()) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` for a float ``p``: a float32
+    :func:`uniform` below ``float32(p)``."""
+    p32 = torch.tensor(p, dtype=torch.float32, device=key.device)
+    return uniform(key, shape) < p32
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int
+            ) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32) for
+    int32 bounds: two words from the keys of a :func:`split` (high, low),
+    each reduced modulo the span ``maxval - minval`` (1 when ``maxval <=
+    minval``), combined as ``(hi % span) * (2**32 % span) + lo % span``
+    in uint32 arithmetic (wrapping), modulo the span once more."""
+    if not (-2 ** 31 <= minval < 2 ** 31 and -2 ** 31 <= maxval < 2 ** 31):
+        raise ValueError("randint takes int32 bounds")
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    span = 1 if maxval <= minval else (maxval - minval) & MASK
+    multiplier = (((2 ** 16 % span) ** 2) & MASK) % span
+    offset = (((higher % span) * multiplier) & MASK) + lower % span
+    offset = (offset & MASK) % span
+    # int32 result: minval + offset wraps as jnp's int32 add does
+    out = (minval + offset) & MASK
+    return torch.where(out >= 2 ** 31, out - 2 ** 32, out).to(torch.int32)
 
 
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:

@@ -15,8 +15,9 @@ from repro.core.executor import _unknown as j_unknown  # noqa: E402
 from repro_torch import pick_device  # noqa: E402
 from repro_torch.configs.paper_auction import (PAPER_SYNTHETIC_CPU,  # noqa: E402
                                                PAPER_SYNTHETIC_FULL)
-from repro_torch.core import (AuctionRule, CounterfactualEngine,  # noqa: E402
-                              ScenarioGrid, SimResult, SweepPlan,
+from repro_torch.core import (AuctionRule, ChunkSpec,  # noqa: E402
+                              CounterfactualEngine, ScenarioGrid, SimResult,
+                              SweepPlan,
                               execute_sweep, pick_resolve, sequential_replay,
                               sweep_parallel, sweep_state_machine)
 from repro_torch.core.executor import _unknown  # noqa: E402
@@ -98,10 +99,9 @@ def small():
 
 
 @pytest.mark.parametrize("axis", [
-    dict(method="naive_sampling"), dict(driver="sharded"),
-    dict(driver="multihost"),
-    dict(chunks=128), dict(scenario_chunks=1), dict(tuned=True),
-    dict(mesh=object()),
+    dict(driver="sharded"), dict(driver="multihost"),
+    dict(chunks=ChunkSpec(events_per_chunk=128, source="host")),
+    dict(tuned=True), dict(mesh=object()),
 ])
 def test_unported_sweep_axes_raise(small, axis):
     _, engine, grid = small
@@ -111,14 +111,18 @@ def test_unported_sweep_axes_raise(small, axis):
 
 def test_unported_entry_points_raise(small):
     env, engine, grid = small
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError) as err:
         engine.sweep(grid, method="naive_sampling")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        engine.simulate(method="naive_sampling")
+    assert str(err.value) == "unknown sweep method: naive_sampling"
+    with pytest.raises(NotImplementedError, match="item 7"):
+        engine.sweep(grid, chunks=ChunkSpec(128, source="host"))
     with pytest.raises(NotImplementedError, match="item 5"):
         sweep_parallel(env.values, grid.budgets, grid.rules, overlay=object())
-    with pytest.raises(NotImplementedError, match="item 3"):
-        sweep_state_machine(env.values, grid.budgets, grid.rules, chunks=64)
+    chunked = sweep_state_machine(env.values, grid.budgets, grid.rules,
+                                  chunks=64)
+    for a, b in zip(sweep_state_machine(env.values, grid.budgets,
+                                        grid.rules), chunked):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="unknown sweep method"):
         engine.sweep(grid, method="magic")
 

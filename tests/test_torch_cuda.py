@@ -20,7 +20,7 @@ from repro_torch import prng  # noqa: E402
 from repro_torch.core import (AuctionRule, CounterfactualEngine,  # noqa: E402
                               Segments, auction, executor, parallel_simulate,
                               segments, sequential_replay, sweep_sequential,
-                              sweep_state_machine, vi)
+                              sweep_sort2aggregate, sweep_state_machine, vi)
 from repro_torch.core.segments import REDUCE_BLOCKS as G  # noqa: E402
 from repro_torch.data import make_synthetic_env  # noqa: E402
 from repro_torch.kernels.auction_resolve import ops, ref  # noqa: E402
@@ -1377,3 +1377,176 @@ def test_lm_entry_points_default_to_the_card():
     model = build_model(reduced_config("stablelm-1.6b"))
     assert model.device.type == "cuda"
     assert get_config("stablelm-1.6b").d_model == 2048
+
+
+# ---------------------------------------------------------------------------
+# The chunked replays' kernel modes: first_crossing with a carry,
+# segment_resolve at a row offset, capped_scan with a scale
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("block,epc", [(16, 16), (1, 7), (4096, 8192),
+                                       (17, 1020), (1000, 3000)])
+@pytest.mark.parametrize("c", [12, 150])
+def test_first_crossing_carry_is_one_call_and_the_cpu(dev, block, epc, c):
+    """Chunk by chunk with a carry (chunks of one block, a chunk of one
+    event, blocks of <= 16 rows, C past one CTA's 128 campaigns), the
+    card's cap times and running spend are one whole-log call's and the
+    CPU's chunk by chunk; a chunk boundary falls on a crossing (lane 0,
+    campaign 0 reaches its budget on the first chunk's last row) and
+    campaigns capped in an earlier chunk keep their time."""
+    s, n = 3, 12_000 - 12_000 % epc
+    winners, prices, budgets = _crossing_log(s, n, c, block, seed=epc + c)
+    winners[0, epc - 1], prices[0, epc - 1] = 0, 0.75
+    s0, _ = segments.crossing_carry(
+        winners[:, :epc], prices[:, :epc], budgets, c, block,
+        s0=torch.zeros((s, c)), cap=torch.full((s, c), n + 1,
+                                               dtype=torch.int32),
+        offset=0, n_global=n)
+    budgets[0, 0] = s0[0, 0]
+    _, whole = segments.crossing_and_spend(winners.to(dev), prices.to(dev),
+                                           budgets.to(dev), c, block)
+    assert int(whole[0, 0]) == epc
+    card = (torch.zeros((s, c), device=dev),
+            torch.full((s, c), n + 1, dtype=torch.int32, device=dev))
+    cpu = (torch.zeros((s, c)), torch.full((s, c), n + 1, dtype=torch.int32))
+    cuda_fc.reset_launches()
+    for off in range(0, n, epc):
+        sl = slice(off, off + epc)
+        card = segments.crossing_carry(
+            winners[:, sl].to(dev), prices[:, sl].to(dev), budgets.to(dev),
+            c, block, s0=card[0], cap=card[1], offset=off, n_global=n)
+        cpu = segments.crossing_carry(
+            winners[:, sl], prices[:, sl], budgets, c, block, s0=cpu[0],
+            cap=cpu[1], offset=off, n_global=n)
+        assert torch.equal(card[0].cpu(), cpu[0])
+        assert torch.equal(card[1].cpu(), cpu[1])
+    torch.cuda.synchronize()
+    assert cuda_fc.LAUNCHES["first_crossing"] == n // epc
+    assert torch.equal(card[1], whole)
+    assert bool((whole < n).sum() > 2)
+
+
+@pytest.mark.parametrize("sp", [False, True])
+@pytest.mark.parametrize("offset,rows", [(0, 1000), (128, 256), (1, 129),
+                                         (2871, 129), (1000, 2000)])
+def test_segment_resolve_at_an_offset_is_the_whole_calls_rows(dev, sp,
+                                                              offset, rows):
+    """A chunk of rows at a global offset (on and off the 128-row tile,
+    boundaries at the chunk's first row, duplicates, S=33 past the 32
+    lanes staged together): the same rows of a whole-log call on the card,
+    and the CPU's plain version at the offset."""
+    values, mult, res, bounds, masks = _segment_inputs("duplicates", 33,
+                                                       3000, 100, seed=rows)
+    bounds = bounds.clone()
+    bounds[0, 3] = offset
+    bounds[1, 1:4] = offset + 1
+    bounds = torch.sort(bounds, dim=1).values
+    whole = ops.segment_resolve(values.to(dev), mult.to(dev), res.to(dev),
+                                bounds.to(dev), masks.to(dev),
+                                second_price=sp)
+    sl = slice(offset, offset + rows)
+    cuda_sg.reset_launches()
+    got = ops.segment_resolve(values[sl].to(dev), mult.to(dev), res.to(dev),
+                              bounds.to(dev), masks.to(dev),
+                              second_price=sp, offset=offset)
+    want = ref.segment_resolve_plain(values[sl], mult, res, bounds, masks,
+                                     sp, offset=offset)
+    torch.cuda.synchronize()
+    assert cuda_sg.LAUNCHES["segment_resolve"] == 1
+    for a, w, b in zip(got, whole, want):
+        assert torch.equal(a, w[:, sl])
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("c", [64, "past_shared"])
+@pytest.mark.parametrize("sp", [False, True])
+def test_capped_scan_with_a_scale_is_the_cpu(dev, c, sp):
+    """The sampled replay's capped scan, each sale's increment times 1/rho
+    (rho = 1% and 3/7), bitwise the plain version on the CPU; with the
+    lane state in shared memory and, past its limit, in device memory. A
+    scale of 1 is the exact replay's launch, bit for bit."""
+    if c == "past_shared":
+        c = cuda_cs._lib().cs_max_shared_campaigns() + 1
+    n, s = 2000, 3
+    rng = np.random.default_rng(c)
+    values = torch.from_numpy(rng.random((n, c), dtype=np.float32))
+    mult = torch.from_numpy(rng.uniform(0.5, 1.5, (s, c)).astype(np.float32))
+    res = torch.tensor([0.0, 0.05, 0.1])
+    for scale in (100.0, 7 / 3, 1.0):
+        b = torch.from_numpy(rng.uniform(1.0, 6.0, (s, c)).astype(
+            np.float32)) * scale * 400 / c
+        b[0, 0] = 0.0
+        want = scan_ops.capped_scan(values, b, mult, res, second_price=sp,
+                                    scale=scale)
+        got = scan_ops.capped_scan(values.to(dev), b.to(dev), mult.to(dev),
+                                   res.to(dev), second_price=sp, scale=scale)
+        for a, w in zip(got, want):
+            assert torch.equal(a.cpu(), w)
+        assert int((want[3] <= n).sum()) > s
+    exact = scan_ops.capped_scan(values.to(dev), b.to(dev), mult.to(dev),
+                                 res.to(dev), second_price=sp)
+    for a, w in zip(exact, got):
+        assert torch.equal(a, w)
+
+
+def test_naive_sampling_on_the_card_is_the_cpu(dev):
+    env = make_synthetic_env(6, n_events=20_000, n_campaigns=24, emb_dim=6,
+                             device="cpu")
+    for kind in ("first_price", "second_price"):
+        rule = AuctionRule(multipliers=env.rule.multipliers * 1.1,
+                           reserve=torch.tensor(0.02), kind=kind)
+        want = CounterfactualEngine(env.values, env.budgets * 0.4, rule,
+                                    device="cpu").simulate(
+            method="naive_sampling", sample_size=500)
+        cuda_cs.reset_launches()
+        got = CounterfactualEngine(env.values, env.budgets * 0.4,
+                                   _on(dev, rule), device=dev).simulate(
+            method="naive_sampling", sample_size=500)
+        torch.cuda.synchronize()
+        assert cuda_cs.LAUNCHES["capped_scan"] == 1
+        assert torch.equal(got.final_spend.cpu(), want.final_spend)
+        assert torch.equal(got.cap_times.cpu(), want.cap_times)
+        assert int((want.cap_times <= 20_000).sum()) > 0
+
+
+@pytest.mark.parametrize("resolve", ["auto", "sweep_resolve", "torch"])
+def test_chunked_sweeps_on_the_card_are_the_cpu(dev, resolve):
+    """Event and scenario chunks on every back-end on the card: the six
+    outputs of the CPU's unchunked sweep; the fused back-end makes two
+    ``sweep_partials`` launches a chunk a round and no ``round_fused``."""
+    env, budgets, rules = _grid_env()
+    want = sweep_state_machine(env.values, budgets, rules, resolve="torch")
+    cuda_rf.reset_launches()
+    got = sweep_state_machine(env.values.to(dev), budgets.to(dev),
+                              _on(dev, rules), resolve=resolve, chunks=1024)
+    torch.cuda.synchronize()
+    rounds = int(want[4].max())
+    if resolve == "auto":
+        assert cuda_rf.LAUNCHES["round_fused"] == 0
+        assert cuda_rf.LAUNCHES["sweep_partials"] == 2 * 4 * rounds
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    got = sweep_state_machine(env.values.to(dev), budgets.to(dev),
+                              _on(dev, rules), resolve=resolve, chunks=512,
+                              scenario_chunks=1)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_chunked_s2a_sweep_on_the_card_is_the_cpu(dev):
+    env, budgets, rules = _grid_env()
+    kw = dict(refine_iters=3, chunks=1024, crossing_block=256)
+    want = executor.execute_s2a_sweep(env.values, budgets, rules,
+                                      executor.SweepPlan(chunks=1024),
+                                      refine_iters=3, crossing_block=256)
+    cuda_sg.reset_launches()
+    cuda_fc.reset_launches()
+    got = sweep_sort2aggregate(env.values.to(dev), budgets.to(dev),
+                               _on(dev, rules), **kw)
+    torch.cuda.synchronize()
+    assert cuda_sg.LAUNCHES["segment_resolve"] == \
+        cuda_fc.LAUNCHES["first_crossing"] == 4 * 4
+    for a, b in zip((got[0].final_spend, got[0].cap_times, got[1], got[2]),
+                    (want[0].final_spend, want[0].cap_times, want[1],
+                     want[2])):
+        assert torch.equal(a.cpu(), b)

@@ -28,6 +28,7 @@ from repro.core.executor import ChunkSpec  # noqa: E402
 from repro.core.executor import SweepPlan as JPlan  # noqa: E402
 from repro.core.executor import check_s2a_options as j_check  # noqa: E402
 from repro.data import make_synthetic_env  # noqa: E402
+from repro_torch.core import ChunkSpec as PortChunkSpec  # noqa: E402
 from repro_torch.core import (AuctionRule, CounterfactualEngine,  # noqa: E402
                               Segments, SweepPlan, check_s2a_options,
                               metrics, refine_fixed_device, refine_segments,
@@ -181,7 +182,7 @@ def test_first_crossing_blocks_ref_is_the_plain_version(block):
         budgets[k] = cum[rows, np.arange(c)]
     budgets[1] = np.nextafter(budgets[1], np.float32(np.inf))
     budgets[:, -2:] = [0.0, -1.0]
-    got_spend, got_cap = segments.first_crossing_blocks_ref(
+    got_spend, got_cap, _ = segments.first_crossing_blocks_ref(
         _t(w), _t(p), _t(budgets), c, block)
     _same(segments.first_crossing_ref(_t(w), _t(p), _t(budgets), c, block),
           got_cap)
@@ -433,15 +434,18 @@ def _message(fn):
 def test_check_s2a_options_error_texts():
     check_s2a_options(SweepPlan(), record_events=True)
     check_s2a_options(SweepPlan(placement="device"))
+    check_s2a_options(SweepPlan(chunks=1024))
     chunks = ChunkSpec(events_per_chunk=1024)
     assert _message(lambda: check_s2a_options(
-        SweepPlan(), True, chunks=1024)) == _message(
+        SweepPlan(chunks=1024), True)) == _message(
         lambda: j_check(JPlan(chunks=chunks), True))
     assert _message(lambda: check_s2a_options(
-        SweepPlan(), scenario_chunks=2)) == _message(
+        SweepPlan(scenario_chunks=2))) == _message(
         lambda: j_check(JPlan(scenario_chunks=2)))
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        check_s2a_options(SweepPlan(), chunks=1024)
+    host = dict(events_per_chunk=1024, source="host")
+    assert _message(lambda: check_s2a_options(
+        SweepPlan(chunks=PortChunkSpec(**host)))) == _message(
+        lambda: j_check(JPlan(chunks=ChunkSpec(**host))))
 
 
 def test_engine_sweep_rejects_what_repro_rejects(env):
@@ -455,8 +459,8 @@ def test_engine_sweep_rejects_what_repro_rejects(env):
                     chunks=1024)):
         assert _message(lambda: t_engine.sweep(grid, **kw)) == \
             _message(lambda: j_engine.sweep(j_grid, **kw))
-    with pytest.raises(NotImplementedError, match="naive_sampled_replay"):
-        t_engine.simulate(method="naive_sampling")
+    assert _message(lambda: t_engine.sweep(grid, method="naive_sampling")) \
+        == _message(lambda: j_engine.sweep(j_grid, method="naive_sampling"))
     with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         vi.estimate_pi(_t(env.values), _t(env.budgets),
                        _port_rule(_design("first_price")),
