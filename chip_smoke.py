@@ -171,7 +171,29 @@ Run from the repository root. Phases:
    refinement at N=2,048 bitwise the CPU; (h) ``engine.search`` over
    reserve × budget scale (hillclimb, budget 32): the same trajectory on
    the card and the CPU at ``PAPER_SYNTHETIC_CPU``, and its wall time at
-   the full day.
+   the full day;
+12. CRN scenario families at the full day, both rules (``crn_phase``): (a)
+   the day's bid-noise normals and participation uniforms, one
+   ``crn_cells`` launch each, ``CRN_CHECK_ROWS`` bitwise the CPU's draws,
+   naive sampling's sample drawn on the card from a key made on the CPU
+   bitwise the CPU's; ``crn_cells`` and ``bid_noise`` timed beside their
+   plain versions; (b) a static family of 32 lanes (pauses, boosts,
+   budget scales, reserves, a full-window entrant: C=101) on ``"auto"``
+   (the fused round) bitwise the family on ``resolve="torch"`` and at
+   ``chunks=125_000``; paused campaigns spend 0 and never cap; one lane
+   of each kind (``CRN_CPU_LANES``) at ``PAPER_SYNTHETIC_CPU`` bitwise the
+   CPU; (c) a per-event family of 8 lanes (bid noise 0.2, participation
+   0.9, a pacing window over the middle half, their pairs, a sigma=0 /
+   p=1 lane) on ``resolve="torch"``: the last lane bitwise the base lane,
+   two identical specs bitwise each other, ``chunks=125_000`` bitwise,
+   bitwise the CPU at ``PAPER_SYNTHETIC_CPU`` (first price), its wall time,
+   ``segment_partials`` launches and peak memory above the inputs;
+   ``"fused"`` refuses it with ``check_overlay``'s text; (d)
+   ``engine.attribute`` over pause[3], the noise and the pacing window (8
+   lanes): Shapley values and efficiency gap; (e) the warm start's VI with
+   the per-event overlay, S=8 in one ``vi`` launch, bitwise the CPU's loop
+   on the same inputs at ``VI_SWEEP_CPU_EPOCHS``, the kernel timed at the
+   full warm start (the JSON ``vi`` row's ``overlay_*`` keys).
 
 Every check raises on failure and nothing is caught, so any failure exits
 non-zero. The last line is the JSON result. Without a CUDA device, or
@@ -297,6 +319,29 @@ CHUNK_EVENTS = (125_000, 250_000)
 S2A_CROSSING_BLOCK = 15_625
 NAIVE_SAMPLE = 10_000
 MULTISLOT_SMALL_N = 2_048
+# phase 12: CRN scenario families at the §7.1 day. The day's CRN draws are
+# held against the CPU on CRN_CHECK_ROWS; the static family's 32 lanes are
+# cut to one lane of each intervention kind (CRN_CPU_LANES with the base) at
+# PAPER_SYNTHETIC_CPU, where the card is held against the CPU port; the
+# per-event family (8 lanes) runs whole there, under the first rule (the
+# CPU's masked resolves take ~20 s a rule). The warm start's VI with the
+# per-event overlay is held against the CPU's loop at VI_SWEEP_CPU_EPOCHS
+CRN_CHECK_ROWS = ((0, 16_384), (500_000, 516_384))
+CRN_CPU_LANES = 8
+# operations a cell of crn_cells: three Threefry hashes (20 rounds of an
+# add, a rotate and a xor, 5 key injections of three adds, the key
+# schedule's two xors: 77 each) and the mantissa transform (4); a normal
+# adds the uniform's multiply-add and clamp (2), -x*x (1), both branches of
+# log1p (24 and 20) and the select (1), erf_inv's compare, subtract and
+# square root (4), its coefficient selects, 8 multiply-adds and the end
+# point test (18) and the scale (1). Integer and float32 operations are
+# counted at the card's float32 rate, which no integer pipe exceeds
+CRN_CELL_OPS = {"uniform": 3 * 77 + 4 + 2,
+                "normal": 3 * 77 + 4 + 2 + 1 + 45 + 4 + 18 + 1}
+# bid_noise a cell: sigma * z, exp's two clamps, floor, two clamps, 7
+# multiply-adds, r * r, the add of 1, the exponent's three integer
+# operations, the scale, the flush test and select, and the final multiply
+BID_NOISE_OPS = 1 + 2 + 1 + 2 + 7 + 1 + 1 + 3 + 1 + 2 + 1
 KERNELS = (   # name, CUDA source, the TPU kernel (or XLA op) it replaces
     ("round_fused", "src/repro_torch/csrc/round_fused.cu",
      "src/repro/kernels/auction_resolve/round_fused.py:197"),
@@ -323,6 +368,11 @@ KERNELS = (   # name, CUDA source, the TPU kernel (or XLA op) it replaces
      "src/repro/kernels/auction_resolve/auction_resolve.py:80"),
     ("segment_resolve", "src/repro_torch/csrc/segment_resolve.cu",
      "src/repro/kernels/auction_resolve/auction_resolve.py:80"),
+    # no Pallas: the CRN draws (jax.random.normal and uniform of every
+    # (event, campaign) cell) and the bid noise's fused v * exp(sigma * z)
+    ("crn_cells", "src/repro_torch/csrc/crn.cu", "src/repro/core/crn.py:67"),
+    ("bid_noise", "src/repro_torch/csrc/crn.cu",
+     "src/repro/core/executor.py:914"),
 )
 LM_ARCH = "stablelm-1.6b"
 LM_REQUESTS, LM_PROMPT, LM_STEPS = 8, 2048, 32
@@ -1452,6 +1502,400 @@ def chunks_phase(dev, env, small, engines, base_sweeps, small_cpu, exact,
     return out
 
 
+def crn_phase(dev, env, small, reset_counts, read_counts, equal, *,
+              seed: int, chunk: int = CHUNK_EVENTS[0],
+              check_rows=CRN_CHECK_ROWS, sample: int = NAIVE_SAMPLE,
+              vi_warm=VI_WARM, vi_cpu_epochs: int = VI_SWEEP_CPU_EPOCHS,
+              clock_hz: float = 1.98e9) -> dict:
+    """Phase 12: CRN scenario families at the §7.1 day, both rules:
+    (a) the day's bid-noise normals and participation uniforms in one
+    ``crn_cells`` launch each, ``check_rows`` bitwise the CPU's draws, and
+    naive sampling's sample drawn on the card from a key made on the CPU
+    bitwise the CPU's; (b) a static family of 32 lanes (pauses, boosts,
+    per-campaign and all-campaign budget scales, reserves, a full-window
+    entrant: C becomes C+1) on ``"auto"`` (the fused round), bitwise the
+    family on ``resolve="torch"`` and with ``chunks``; paused campaigns
+    spend 0 and never cap; one lane of each kind at ``small``'s size
+    bitwise the CPU port; (c) a per-event family of 8 lanes (bid noise,
+    participation, a pacing window, their pairs, a sigma=0 / p=1 lane) on
+    ``resolve="torch"``: the sigma=0 / p=1 lane bitwise the base lane, two
+    identical specs bitwise each other, ``chunks`` bitwise the unchunked
+    run, bitwise the CPU at ``small``'s size under the first rule (the
+    CPU's per-lane masks take ~20 s a rule there); its wall time,
+    ``segment_partials`` launches and peak memory above the inputs;
+    ``"fused"`` refuses it with ``check_overlay``'s text; (d)
+    ``engine.attribute`` over a pause, the noise and the pacing window (8
+    lanes), its Shapley values and efficiency gap; (e) the per-scenario
+    warm start's VI (``vi_warm``'s sample) with the per-event overlay, S=8
+    in one ``vi`` launch, bitwise the CPU's loop on the same inputs at
+    ``vi_cpu_epochs``, and the kernel timed at the full warm start. Returns
+    the kernels' timings, bounds and main-path launches."""
+    import numpy as np
+    import torch
+    from repro_torch import prng, scenarios as sc
+    from repro_torch.core import (AuctionRule, CounterfactualEngine,
+                                  ScenarioGrid, crn)
+    from repro_torch.core import vi as vi_lib
+    from repro_torch.kernels import crn as crn_ops
+    from repro_torch.kernels.auction_resolve import ref
+    from repro_torch.kernels.auction_resolve import vi as vi_mod
+    from repro_torch.scenarios import CompiledFamily
+
+    t_phase = time.perf_counter()
+    n, c = env.values.shape
+    out = {"counted": {}, "timing": {}}
+    counted = out["counted"]
+
+    def count(cnt, *names):
+        for name in names:
+            counted[name] = counted.get(name, 0) + cnt[name]
+
+    def run(fn):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, read_counts()
+
+    def same(a, b, what):
+        require(torch.equal(a.results.final_spend.cpu(),
+                            b.results.final_spend.cpu())
+                and torch.equal(a.results.cap_times.cpu(),
+                                b.results.cap_times.cpu()), what)
+
+    key = prng.PRNGKey(seed + 12)             # made on the CPU
+    key_z = crn.stream_key(key, "bid_noise")
+    key_u = crn.stream_key(key, "participation")
+
+    # (a) the day's draws on the card, a slice of each against the CPU
+    gidx = torch.arange(n, dtype=torch.int32, device=dev)
+    (z, u), draw_s, cnt = run(lambda: (
+        crn.event_campaign_normals(key_z, gidx, c),
+        crn.event_campaign_uniforms(key_u, gidx, c)))
+    require(cnt["crn_cells"] == 2 and z.device.type == dev.type
+            and bool(torch.isfinite(z).all()) and bool((u >= 0).all())
+            and bool((u < 1).all()), f"[12] (a) the day's draws: {cnt}")
+    t0 = time.perf_counter()
+    for lo, hi in check_rows:
+        rows = torch.arange(lo, hi)
+        equal("crn_cells", z[lo:hi].cpu(),
+              crn.event_campaign_normals(key_z, rows, c),
+              f"[12] (a) bid-noise normals of events [{lo}, {hi})")
+        equal("crn_cells", u[lo:hi].cpu(),
+              crn.event_campaign_uniforms(key_u, rows, c),
+              f"[12] (a) participation uniforms of events [{lo}, {hi})")
+    sample_card = prng.choice(key.to(dev), n, sample)
+    equal("naive sample", sample_card.cpu(), prng.choice(key, n, sample),
+          "[12] (a) naive sampling's sample drawn on the card")
+    cpu_s = time.perf_counter() - t0
+    zbuf = torch.empty_like(z)
+    cells_ms = cuda_ms(lambda: crn.event_campaign_normals(
+        key_z, gidx, c, out=zbuf), 3)
+    rows0 = check_rows[0][1] - check_rows[0][0]
+    part = gidx[:rows0]
+    cells_part_ms = cuda_ms(lambda: crn.event_campaign_normals(
+        key_z, part, c, out=zbuf[:rows0]), 3)
+    cells_plain_ms = cuda_ms(lambda: crn_ops.cells_plain(
+        key_z, part.to(torch.int64), c, True), 1)
+    equal("crn_cells", crn_ops.cells_plain(key_z, part.to(torch.int64), c,
+                                           True), z[:rows0],
+          "[12] (a) crn_cells against its plain version on the card")
+    out["timing"]["crn_cells"] = (cells_ms, cells_plain_ms, None)
+    out["timing"]["crn_cells_bound"] = bound_ms(
+        n * 4 + n * c * 4, n * c * CRN_CELL_OPS["normal"])
+    out["crn_cells_part"] = (rows0, cells_part_ms)
+    sigma = torch.full((1, c), 0.2, device=dev)
+    noise_ms = cuda_ms(lambda: crn_ops.bid_noise(env.values, z, sigma), 3)
+    noise_plain_ms = cuda_ms(lambda: crn_ops.bid_noise_plain(
+        env.values, z, sigma), 1)
+    equal("bid_noise", crn_ops.bid_noise(env.values, z, sigma),
+          crn_ops.bid_noise_plain(env.values, z, sigma),
+          "[12] (a) bid_noise against its plain version on the card")
+    out["timing"]["bid_noise"] = (noise_ms, noise_plain_ms, None)
+    out["timing"]["bid_noise_bound"] = bound_ms(
+        n * c * 12 + c * 4, n * c * BID_NOISE_OPS)
+    del z, u, zbuf, sigma
+    print(f"[12] (a) the day's CRN draws (N={n} x C={c}, bid-noise normals "
+          f"and participation uniforms), one crn_cells launch each: "
+          f"{draw_s:.4f} s; events {list(check_rows)} and naive sampling's "
+          f"{sample}-event sample drawn on the card from a key made on the "
+          f"CPU bitwise the CPU's ({cpu_s:.1f} s on the CPU); crn_cells "
+          f"{cells_ms:.4f} ms a day of normals ({rows0} events "
+          f"{cells_part_ms:.4f} ms, plain {cells_plain_ms:.4f} ms), "
+          f"bid_noise {noise_ms:.4f} ms a lane of the day (plain "
+          f"{noise_plain_ms:.4f} ms)", flush=True)
+
+    def engine_of(values, budgets, kind, where):
+        base = AuctionRule(multipliers=torch.ones(values.shape[1],
+                                                  device=where),
+                           reserve=torch.zeros((), device=where), kind=kind)
+        return CounterfactualEngine(values, budgets, base_rule=base,
+                                    device=where)
+
+    def static_groups(nc, entrant_budget):
+        entrant = sc.AddEntrant(budget=entrant_budget, value_scale=0.5)
+        return [
+            [sc.PauseCampaign(i) for i in (0, 3, nc // 6, nc // 3, nc // 2,
+                                           nc - 1)],
+            [sc.BoostCampaign(i, m) for i, m in (
+                (1, 1.5), (5, 2.0), (nc // 5, 1.25), (nc // 2, 0.8),
+                (3 * nc // 4, 3.0))],
+            [sc.ScaleBudget(i, m) for i, m in (
+                (2, 0.5), (nc // 10, 2.0), (nc // 3, 0.25), (3 * nc // 5, 1.5),
+                (9 * nc // 10, 0.75))],
+            [sc.ScaleBudgets(m) for m in (0.5, 0.8, 1.25, 2.0)],
+            [sc.SetReserve(0.02), sc.SetReserve(0.05)],
+            [entrant, [entrant, sc.PauseCampaign(3)],
+             [entrant, sc.ScaleBudgets(0.8)]],
+            [[sc.PauseCampaign(0), sc.BoostCampaign(5, 2.0)],
+             [sc.ScaleBudgets(0.8), sc.SetReserve(0.02)],
+             [sc.BoostCampaign(1, 1.5), sc.ScaleBudget(2, 0.5)],
+             [sc.PauseCampaign(nc // 6), entrant], [sc.ScaleBids(1.1)],
+             [sc.ScaleBids(0.9), sc.PauseCampaign(nc // 3)]]]
+
+    def paused(spec):
+        specs = spec if isinstance(spec, list) else [spec]
+        return [iv.campaign for iv in specs
+                if isinstance(iv, sc.PauseCampaign)]
+
+    def per_event_specs(nn, pace):
+        noise, part = sc.BidNoise(0.2), sc.ParticipationJitter(0.9)
+        pacing = sc.BudgetPacing(pace, nn // 4, 3 * nn // 4)
+        null = [sc.BidNoise(0.0), sc.ParticipationJitter(1.0)]
+        return [noise, part, pacing, [noise, part], [noise, pacing],
+                [part, pacing], null]
+
+    pace = 3
+    small_cpu = (small.values.cpu(), small.budgets.cpu())
+    results = {}
+    for kind in KINDS:
+        eng = engine_of(env.values, env.budgets, kind, dev)
+        # (b) the static family
+        groups = static_groups(c, float(env.budgets.mean()))
+        specs = [s for g in groups for s in g]
+        fam = sc.compile_family(eng.values, eng.budgets, eng.base_rule, specs,
+                                key=key)
+        require(fam.num_scenarios == 32 and fam.values.shape[1] == c + 1
+                and fam.overlay is not None and not fam.overlay.per_event,
+                f"[12] (b) {kind}: the static family's shape")
+        auto, auto_s, cnt = run(lambda: eng.sweep(fam))
+        require(cnt["round_fused"] > 0 and cnt["segment_partials"] == 0,
+                f"[12] (b) {kind} auto: {cnt}")
+        count(cnt, "round_fused", "sweep_partials")
+        torch_run, torch_s, cnt = run(lambda: eng.sweep(fam,
+                                                        resolve="torch"))
+        count(cnt, "segment_partials")
+        same(auto, torch_run, f"[12] (b) {kind}: torch differs from auto")
+        chunked, chunked_s, cnt = run(lambda: eng.sweep(fam, chunks=chunk))
+        count(cnt, "sweep_partials")
+        same(auto, chunked, f"[12] (b) {kind}: chunks={chunk} differ")
+        spend, caps = auto.results.final_spend, auto.results.cap_times
+        for lane, spec in enumerate(specs, start=1):
+            for pc in paused(spec):
+                require(float(spend[lane, pc]) == 0.0
+                        and int(caps[lane, pc]) == n + 1,
+                        f"[12] (b) {kind}: paused campaign {pc} of lane "
+                        f"{lane} spent or capped")
+        require(bool(torch.isfinite(spend).all()) and float(spend[0, c]) == 0
+                and float(spend[specs.index(groups[5][0]) + 1, c]) > 0,
+                f"[12] (b) {kind}: spends not finite, or the entrant's "
+                f"column wrong")
+        s_card = engine_of(small.values, small.budgets, kind, dev)
+        s_cpu = engine_of(*small_cpu, kind, "cpu")
+        s_groups = static_groups(small.values.shape[1],
+                                 float(small.budgets.mean()))
+        cut = [g[0] for g in s_groups]
+        t0 = time.perf_counter()
+        want = s_cpu.sweep(sc.compile_family(
+            s_cpu.values, s_cpu.budgets, s_cpu.base_rule, cut, key=key))
+        small_cpu_s = time.perf_counter() - t0
+        same(s_card.sweep(sc.compile_family(
+            s_card.values, s_card.budgets, s_card.base_rule, cut, key=key)),
+            want, f"[12] (b) {kind}: the card differs from the CPU at "
+                  f"N={small.values.shape[0]}")
+        print(f"[12] (b) {kind}: static family S={fam.num_scenarios} "
+              f"C={c}+1: auto (fused) {auto_s:.4f} s, bitwise torch "
+              f"({torch_s:.4f} s) and chunks={chunk} ({chunked_s:.4f} s); "
+              f"paused campaigns spend 0 and never cap; "
+              f"{len(cut) + 1} lanes at N={small.values.shape[0]} bitwise "
+              f"the CPU ({small_cpu_s:.1f} s on the CPU)", flush=True)
+
+        # (c) the per-event family
+        pfam = sc.compile_family(eng.values, eng.budgets, eng.base_rule,
+                                 per_event_specs(n, pace), key=key)
+        require(pfam.num_scenarios == 8 and pfam.overlay.per_event,
+                f"[12] (c) {kind}: the per-event family's shape")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        pev, pev_s, cnt = run(lambda: eng.sweep(pfam, resolve="torch"))
+        peak_above = torch.cuda.max_memory_allocated() - base_mem
+        require(cnt["crn_cells"] == 2 and cnt["bid_noise"] == 1
+                and cnt["segment_partials"] > 0 and cnt["round_fused"] == 0,
+                f"[12] (c) {kind}: launches {cnt}")
+        count(cnt, "crn_cells", "bid_noise", "segment_partials")
+        sp_launches = cnt["segment_partials"]
+        spend = pev.results.final_spend
+        require(torch.equal(spend[7], spend[0])
+                and torch.equal(pev.results.cap_times[7],
+                                pev.results.cap_times[0])
+                and all(not torch.equal(spend[i], spend[0])
+                        for i in range(1, 7)),
+                f"[12] (c) {kind}: the sigma=0 / p=1 lane is not the base "
+                f"lane, or an intervention moved nothing")
+        pch, pch_s, cnt = run(lambda: eng.sweep(pfam, resolve="torch",
+                                                chunks=chunk))
+        count(cnt, "crn_cells", "bid_noise", "segment_partials")
+        same(pev, pch, f"[12] (c) {kind}: chunks={chunk} differ")
+        twin = sc.compile_family(eng.values, eng.budgets, eng.base_rule,
+                                 [sc.BidNoise(0.2), sc.BidNoise(0.2)],
+                                 key=key)
+        tw = eng.sweep(twin, resolve="torch").results
+        require(torch.equal(tw.final_spend[1], tw.final_spend[2])
+                and torch.equal(tw.cap_times[1], tw.cap_times[2])
+                and torch.equal(tw.final_spend[1], spend[1]),
+                f"[12] (c) {kind}: identical specs differ")
+        try:
+            eng.sweep(pfam, resolve="fused")
+            refused = ""
+        except ValueError as err:
+            refused = str(err)
+        require("torch resolve path only" in refused,
+                f"[12] (c) {kind}: fused did not refuse the per-event "
+                f"family: {refused!r}")
+        cpu_note = "the CPU comparison under the first rule only"
+        if kind == KINDS[0]:
+            s_card = engine_of(small.values, small.budgets, kind, dev)
+            s_cpu = engine_of(*small_cpu, kind, "cpu")
+            specs_small = per_event_specs(small.values.shape[0], pace)
+            t0 = time.perf_counter()
+            want = s_cpu.sweep(sc.compile_family(
+                s_cpu.values, s_cpu.budgets, s_cpu.base_rule, specs_small,
+                key=key), resolve="torch")
+            cpu_note = (f"bitwise the CPU at N={small.values.shape[0]} "
+                        f"({time.perf_counter() - t0:.1f} s on the CPU)")
+            same(s_card.sweep(sc.compile_family(
+                s_card.values, s_card.budgets, s_card.base_rule,
+                specs_small, key=key), resolve="torch"), want,
+                f"[12] (c) {kind}: the card differs from the CPU at "
+                f"N={small.values.shape[0]}")
+        results[kind] = dict(per_event_s=pev_s, chunked_s=pch_s,
+                             sp_launches=sp_launches, peak=peak_above,
+                             static_s=auto_s, static_torch_s=torch_s,
+                             static_chunked_s=chunked_s)
+        print(f"[12] (c) {kind}: per-event family S=8 on resolve='torch': "
+              f"{pev_s:.4f} s, {sp_launches} segment_partials launches, "
+              f"peak {peak_above / 2**30:.4f} GiB above the inputs; "
+              f"chunks={chunk} bitwise ({pch_s:.4f} s); the sigma=0 / p=1 "
+              f"lane bitwise the base lane and two identical specs bitwise "
+              f"each other; {cpu_note}; 'fused' refuses it: "
+              f"{refused[:60]}...", flush=True)
+
+        # (d) attribution
+        att, att_s, cnt = run(lambda: eng.attribute(
+            {"pause3": sc.PauseCampaign(3), "noise": sc.BidNoise(0.2),
+             "pacing": sc.BudgetPacing(pace, n // 4, 3 * n // 4)},
+            key=key, resolve="torch"))
+        count(cnt, "crn_cells", "bid_noise", "segment_partials")
+        require(len(att.subset_values) == 8 and att.efficiency_gap
+                <= 1e-6 * max(1.0, abs(att.total_delta)),
+                f"[12] (d) {kind}: attribution over {att.subset_values}")
+        results[kind].update(phi=att.phi, gap=att.efficiency_gap,
+                             total_delta=att.total_delta, att_s=att_s)
+        print(f"[12] (d) {kind}: engine.attribute over pause[3], noise "
+              f"sigma=0.2 and pacing (8 lanes) in {att_s:.4f} s: phi "
+              + ", ".join(f"{a} {v:+.4f}" for a, v in att.phi.items())
+              + f"; total delta {att.total_delta:+.4f}, efficiency gap "
+              f"{att.efficiency_gap:.3g}", flush=True)
+
+        # (e) the warm start's VI with the per-event overlay
+        k_warm = max(int(round(n * vi_warm["sample_rate"])),
+                     vi_warm["batch_size"])
+        warm_kw = dict(sample_size=k_warm, batch_size=vi_warm["batch_size"])
+        est, est_s, cnt = run(lambda: vi_lib.estimate_pi_sweep(
+            pfam.values, pfam.grid.budgets, pfam.grid.rules, key,
+            num_iters=vi_cpu_epochs, eta_decay=vi_warm["eta_decay"],
+            overlay=pfam.overlay, **warm_kw))
+        require(cnt["vi"] == 1, f"[12] (e) {kind}: launches {cnt}")
+        count(cnt, "vi")
+        draws = vi_lib._draws(key, n, c, num_iters=vi_cpu_epochs,
+                              coupling="shared", device=dev, **warm_kw)
+        chain = vi_lib._chain(pfam.values, pfam.grid.budgets, draws,
+                              eta=0.5, eta_decay=vi_warm["eta_decay"],
+                              overlay=pfam.overlay, **warm_kw)
+        draws_cpu = vi_lib._Draws(idx=draws.idx.cpu(), u=draws.u.cpu(),
+                                  n_batches=draws.n_batches)
+        chain_cpu = vi_lib._Chain(**{
+            f: None if getattr(chain, f) is None else getattr(chain, f).cpu()
+            for f in ("sampled", "live", "denom", "btilde", "step",
+                      "elig")})
+        t0 = time.perf_counter()
+        lanes = [vi_lib._iterate(chain_cpu.lane(s), AuctionRule(
+            multipliers=pfam.grid.rules.multipliers[s].cpu(),
+            reserve=pfam.grid.rules.reserve[s].cpu(), kind=kind), draws_cpu,
+            sample_size=k_warm, batch_size=vi_warm["batch_size"], pi0=None,
+            track_every=0).pi for s in range(8)]
+        vi_cpu_s = time.perf_counter() - t0
+        equal("pi", est.pi.cpu(), torch.stack(lanes),
+              f"[12] (e) {kind}: the vi kernel with the overlay against the "
+              f"CPU's loop")
+        plain = vi_lib.estimate_pi_sweep(
+            pfam.values, pfam.grid.budgets, pfam.grid.rules, key,
+            num_iters=vi_cpu_epochs, eta_decay=vi_warm["eta_decay"],
+            **warm_kw)
+        require(not torch.equal(plain.pi, est.pi),
+                f"[12] (e) {kind}: the overlay moved no pi")
+        print(f"[12] (e) {kind}: estimate_pi_sweep(overlay=) S=8, {k_warm} "
+              f"sampled rows, {vi_cpu_epochs} epoch(s): one vi launch "
+              f"({est_s:.4f} s), bitwise the CPU's loop on the same inputs "
+              f"({vi_cpu_s:.1f} s on the CPU)", flush=True)
+        if kind == KINDS[0]:
+            full = vi_lib._draws(key, n, c, num_iters=vi_warm["num_iters"],
+                                 coupling="shared", device=dev, **warm_kw)
+            fchain = vi_lib._chain(pfam.values, pfam.grid.budgets, full,
+                                   eta=0.5, eta_decay=vi_warm["eta_decay"],
+                                   overlay=pfam.overlay, **warm_kw)
+            args = (fchain.sampled.contiguous(), full.u, fchain.step,
+                    fchain.denom, fchain.btilde.contiguous(),
+                    pfam.grid.rules.multipliers.contiguous(),
+                    pfam.grid.rules.reserve.contiguous(),
+                    torch.ones((8, c), device=dev))
+            ov_ms = cuda_ms(lambda: vi_mod.vi_cuda(
+                *args, sample_size=k_warm, second_price=False,
+                elig=fchain.elig.contiguous()), 3)
+            p_args = (chain.sampled, draws.u, chain.step, chain.denom,
+                      chain.btilde, pfam.grid.rules.multipliers,
+                      pfam.grid.rules.reserve, torch.ones((8, c), device=dev))
+            ov_plain_ms = cuda_ms(lambda: ref.vi_chain_ref(
+                *p_args, sample_size=k_warm, elig=chain.elig), 1)
+            total, b = full.u.shape[0], vi_warm["batch_size"]
+            eb = -(-b * c // 16) * 16
+            v_bytes, v_ops, v_floor = vi_cost(full.n_batches, b, c, 1, total,
+                                              8, clock_hz)
+            v_bytes += 4 * 7 * full.n_batches * b * c \
+                + 8 * full.n_batches * eb
+            out["vi_overlay"] = dict(
+                ms=ov_ms, plain_ms=ov_plain_ms, plain_steps=draws.u.shape[0],
+                bound=bound_ms(v_bytes, v_ops), chain_floor_ms=v_floor,
+                steps=total, lanes=8,
+                staged=vi_mod.staged(b, c, 1, True))
+            del full, fchain, args, p_args
+        del chain, chain_cpu, draws, draws_cpu, est, plain
+    out["results"] = results
+    vo = out["vi_overlay"]
+    print(f"[12] (e) vi with the overlay at the full warm start (S=8, "
+          f"{vo['steps']} steps a lane, per-lane rows and eligibility, "
+          f"staged {vo['staged']}): {vo['ms']:.4f} ms, plain "
+          f"(ref.vi_chain_ref on the card, {vo['plain_steps']} steps) "
+          f"{vo['plain_ms']:.4f} ms, bound {vo['bound'][0]:.4f} ms "
+          f"({vo['bound'][1]}), chain floor {vo['chain_floor_ms']:.4f} ms",
+          flush=True)
+    print(f"[12] phase 12: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1494,9 +1938,10 @@ def main() -> int:
     from repro_torch.kernels.capped_scan import ops as scan_ops
     from repro_torch.kernels.capped_scan.ref import capped_scan_ref
     from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+    from repro_torch.kernels import crn as crn_mod
 
     counters = (rf_mod, sr_mod, sp_mod, cs_mod, ar_mod, fc_mod, fa_mod,
-                vi_mod, sg_mod)
+                vi_mod, sg_mod, crn_mod)
 
     def reset_counts():
         for mod in counters:
@@ -1517,7 +1962,8 @@ def main() -> int:
     built = build.build_all(["round_fused", "sweep_resolve",
                              "segment_partials", "capped_scan",
                              "auction_resolve", "first_crossing",
-                             "flash_attention", "vi", "segment_resolve"])
+                             "flash_attention", "vi", "segment_resolve",
+                             "crn"])
     print(f"[1] built {len(built)} libraries in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, (lib_path, log, seconds) in built.items():
@@ -2811,6 +3257,14 @@ def main() -> int:
               f"plain {m['plain_ms']:.4f} ms, bound {m['bound'][0]:.4f} ms "
               f"({m['bound'][1]}), {phase11['mode_launches'][name]} launches "
               f"on the chunked or sampled paths")
+    # ---- phase 12: CRN scenario families ---------------------------------
+    phase12 = crn_phase(dev, env, small, reset_counts, read_counts, equal,
+                        seed=args.seed, clock_hz=clock_hz)
+    timing.update(phase12["timing"])
+    for name, launches in phase12["counted"].items():
+        counted[name] += launches
+    vo = phase12["vi_overlay"]
+    part_rows, part_ms = phase12["crn_cells_part"]
     rows = []
     for name, src, replaces in KERNELS:
         ms, plain_ms, library_ms = timing[name]
@@ -2827,9 +3281,13 @@ def main() -> int:
                          plain_events=(PLAIN_EVENTS if name == "capped_scan"
                                        else ar_rows
                                        if name.startswith("auction_resolve")
+                                       else part_rows if name == "crn_cells"
                                        else None if name in ("flash_attention",
                                                              "vi")
                                        else n)))
+        if name == "crn_cells":
+            # the kernel at the plain version's rows, like for like
+            rows[-1].update(plain_events_ms=part_ms)
         if name == "sweep_partials":
             rows[-1].update(late_ms=timing["sweep_partials_late"],
                             late_bound_ms=late_bound,
@@ -2882,7 +3340,17 @@ def main() -> int:
                             warm_start_ms=warm_ms,
                             warm_start_bound_ms=warm_bound,
                             warm_start_chain_floor_ms=warm_floor,
-                            warm_start_steps=warm_steps)
+                            warm_start_steps=warm_steps,
+                            overlay_ms=vo["ms"],
+                            overlay_plain_ms=vo["plain_ms"],
+                            overlay_plain_steps=vo["plain_steps"],
+                            overlay_bound_ms=vo["bound"][0],
+                            overlay_bound_by=vo["bound"][1],
+                            overlay_chain_floor_ms=vo["chain_floor_ms"],
+                            overlay_steps=vo["steps"],
+                            overlay_lanes=vo["lanes"],
+                            overlay_staged=vo["staged"],
+                            overlay_launches=phase12["counted"]["vi"])
         if name == "segment_resolve":
             rows[-1].update(one_lane_ms=sg1_ms, one_lane_plain_ms=sg1_plain,
                             one_lane_bound_ms=sg1_bound)

@@ -18,8 +18,14 @@ capped-scan kernel launch on the card) and, for ``simulate`` only, the
 Sweeps take ``chunks=`` and ``scenario_chunks=`` (bit for bit the
 unchunked sweep), and :meth:`CounterfactualEngine.search` optimises a
 design over a :class:`repro_torch.search.SearchSpace` with the parallel
-sweep as its inner loop. Keys are :mod:`repro_torch.prng` keys; the
-default is ``PRNGKey(0)``, as in ``repro``.
+sweep as its inner loop. A sweep also takes a compiled scenario family
+(:func:`repro_torch.scenarios.compile_family`: typed interventions lowered
+to a grid and an intervention overlay on common random numbers), and
+:meth:`CounterfactualEngine.attribute` splits a family's revenue delta
+into exact Shapley values over named intervention axes. Keys are
+:mod:`repro_torch.prng` keys; the default is ``PRNGKey(0)``, as in
+``repro``; a draw runs on the engine's device whatever device the key was
+made on.
 """
 from __future__ import annotations
 
@@ -187,6 +193,11 @@ class CounterfactualEngine:
         self.base_rule = base_rule or AuctionRule.first_price(
             self.n_campaigns, device=self.device)
 
+    def _default_key(self) -> torch.Tensor:
+        """``PRNGKey(0)`` on the engine's device: draws run where the
+        values are."""
+        return prng.PRNGKey(0, device=self.device)
+
     def simulate(self, rule: Optional[AuctionRule] = None,
                  budgets: Optional[torch.Tensor] = None,
                  method: str = "sort2aggregate",
@@ -207,11 +218,11 @@ class CounterfactualEngine:
         if method == "parallel":
             return parallel_simulate(self.values, budgets, rule, **kwargs)
         if method == "sort2aggregate":
-            key = key if key is not None else prng.PRNGKey(0)
+            key = key if key is not None else self._default_key()
             return _sort2aggregate(self.values, budgets, rule, key,
                                    **kwargs).result
         if method == "naive_sampling":
-            key = key if key is not None else prng.PRNGKey(0)
+            key = key if key is not None else self._default_key()
             return naive_sampled_replay(self.values, budgets, rule, key,
                                         **kwargs)
         raise ValueError(f"unknown method: {method}")
@@ -223,8 +234,8 @@ class CounterfactualEngine:
                 **kwargs) -> CounterfactualDelta:
         """The base design against ``alt_rule``/``alt_budgets``, each
         simulated with its half of a split of ``key``."""
-        key = key if key is not None else prng.PRNGKey(0)
-        k1, k2 = prng.split(key)
+        key = key if key is not None else self._default_key()
+        k1, k2 = prng.split(key.to(self.device))
         base = self.simulate(method=method, key=k1, **kwargs)
         alt = self.simulate(rule=alt_rule, budgets=alt_budgets,
                             method=method, key=k2, **kwargs)
@@ -238,7 +249,7 @@ class CounterfactualEngine:
         design."""
         return ScenarioGrid.product(self.base_rule, self.budgets, **kwargs)
 
-    def sweep(self, grid: ScenarioGrid, method: str = "parallel",
+    def sweep(self, grid, method: str = "parallel",
               base_index: int = 0, record_events: bool = False,
               resolve: str = "auto", driver: str = "batched", *,
               warm_start="base", refine_iters: int = 8,
@@ -246,6 +257,14 @@ class CounterfactualEngine:
               mesh=None, chunks=None, scenario_chunks=None,
               tuned: bool = False) -> SweepResult:
         """Evaluate every scenario in ``grid`` in one batched program.
+
+        ``grid`` is a :class:`ScenarioGrid` or a
+        :class:`repro_torch.scenarios.CompiledFamily`, whose extended
+        valuations (entrant columns) and intervention overlay go through
+        the executor; a family with an overlay (live windows, CRN bid noise
+        or participation) runs on ``method="parallel"`` only, and a
+        per-event overlay on ``resolve="torch"`` only
+        (:func:`~repro_torch.core.executor.check_overlay`).
 
         ``method="parallel"`` runs Algorithm 2 through the executor
         (``resolve="auto"``: the CUDA fused round on the card, the torch
@@ -269,6 +288,18 @@ class CounterfactualEngine:
         (or None) from the all-active state. ``crossing_block`` sizes the
         first-crossing scan. The result carries ``consistency_gaps`` and
         ``refine_iters`` per scenario."""
+        from repro_torch.scenarios.family import CompiledFamily
+        values, overlay = self.values, None
+        if isinstance(grid, CompiledFamily):
+            family = grid
+            grid, values, overlay = family.grid, family.values, \
+                family.overlay
+            base_index = family.base_index
+        if overlay is not None and method != "parallel":
+            raise ValueError(
+                "scenario families with an intervention overlay (live "
+                "windows / CRN stochastic axes) run on the parallel "
+                f"executor only; use method='parallel', not {method!r}.")
         reject_unported(mesh=mesh, tuned=tuned)
         plan = SweepPlan(placement=driver, resolve=resolve, chunks=chunks,
                          scenario_chunks=scenario_chunks)
@@ -294,12 +325,13 @@ class CounterfactualEngine:
             check_s2a_options(plan, record_events)
             caps0 = None
             if warm_start == "per_scenario":
-                caps0 = self._per_scenario_warm_caps(grid, key)
+                caps0 = self._per_scenario_warm_caps(grid, key,
+                                                     values=values)
             elif warm_start == "base":
                 caps0 = self._base_warm_caps(grid, base_index, refine_iters,
-                                             key)
+                                             key, values=values)
             results, gaps, iters = execute_s2a_sweep(
-                self.values, grid.budgets, grid.rules, plan,
+                values, grid.budgets, grid.rules, plan,
                 cap_times_init=caps0, refine_iters=refine_iters,
                 record_events=record_events, crossing_block=crossing_block)
             return SweepResult(grid=grid, results=results,
@@ -307,11 +339,11 @@ class CounterfactualEngine:
                                consistency_gaps=gaps, refine_iters=iters)
         if method == "parallel":
             s_hat, cap_times, _, _, _, _ = execute_sweep(
-                self.values, grid.budgets, grid.rules, plan)
+                values, grid.budgets, grid.rules, plan, overlay=overlay)
             results = SimResult(final_spend=s_hat, cap_times=cap_times)
         elif method == "sequential":
             results = sweep_lib.sweep_sequential(
-                self.values, grid.budgets, grid.rules,
+                values, grid.budgets, grid.rules,
                 record_events=record_events)
         else:
             raise ValueError(f"unknown sweep method: {method}")
@@ -394,15 +426,32 @@ class CounterfactualEngine:
         raise ValueError(
             f"unknown search method: {method!r} (choose from {names})")
 
+    def attribute(self, axes, *, objective="revenue",
+                  key: Optional[torch.Tensor] = None, **sweep_kwargs):
+        """Shapley-attribute a revenue delta across intervention axes:
+        ``axes`` maps axis names to intervention specs, the 2^k subset
+        lattice is compiled into one family on common random numbers
+        (``key`` its CRN root) and swept in one batched program
+        (``sweep_kwargs`` going to :meth:`sweep`), and the total delta is
+        split into per-axis Shapley values that add up to it exactly
+        (:func:`repro_torch.scenarios.attribute`). Returns a
+        :class:`repro_torch.scenarios.ShapleyAttribution`."""
+        from repro_torch.scenarios import attribution as attribution_lib
+        return attribution_lib.attribute(self, axes, objective=objective,
+                                         key=key, **sweep_kwargs)
+
     def _base_warm_caps(self, grid: ScenarioGrid, base_index: int,
-                        refine_iters: int,
-                        key: Optional[torch.Tensor]) -> torch.Tensor:
+                        refine_iters: int, key: Optional[torch.Tensor], *,
+                        values: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
         """(C,) warm-start cap times from the base design (the paper's
         previous-day trick): the single-design SORT2AGGREGATE of scenario
-        ``base_index``."""
+        ``base_index`` over ``values`` (a family's; the engine's by
+        default)."""
+        values = self.values if values is None else values
         base_rule, base_budgets = grid.scenario(base_index)
-        key = key if key is not None else prng.PRNGKey(0)
-        base = _sort2aggregate(self.values, base_budgets, base_rule, key,
+        key = key if key is not None else self._default_key()
+        base = _sort2aggregate(values, base_budgets, base_rule, key,
                                refine_iters=refine_iters)
         return base.result.cap_times
 
@@ -411,16 +460,20 @@ class CounterfactualEngine:
                                 sample_rate: float = 0.1,
                                 vi_iters: int = 80,
                                 vi_batch_size: int = 64,
-                                vi_eta_decay: float = 0.05) -> torch.Tensor:
+                                vi_eta_decay: float = 0.05, *,
+                                values: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
         """(S, C) warm-start cap times: Algorithm 4 for every scenario on
         the same sample and draws (common random numbers), each under its
         own design, with a larger VI budget than the single-design default
         (10% sample, 80 epochs, decayed steps), as in ``repro``."""
-        sample_size = max(int(round(self.n_events * sample_rate)),
+        values = self.values if values is None else values
+        n_events = values.shape[0]
+        sample_size = max(int(round(n_events * sample_rate)),
                           vi_batch_size)
         est = vi_lib.estimate_pi_sweep(
-            self.values, grid.budgets, grid.rules,
-            key if key is not None else prng.PRNGKey(0),
+            values, grid.budgets, grid.rules,
+            key if key is not None else self._default_key(),
             sample_size=sample_size, num_iters=vi_iters,
             batch_size=vi_batch_size, eta_decay=vi_eta_decay)
-        return vi_lib.pi_to_cap_times(est.pi, self.n_events)
+        return vi_lib.pi_to_cap_times(est.pi, n_events)

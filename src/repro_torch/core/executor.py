@@ -50,14 +50,23 @@ Two axes bound the memory of a round, as in ``repro``:
 Both must align (:func:`check_chunks`, :func:`check_scenario_chunks`,
 ``repro``'s error texts).
 
+A :class:`~repro_torch.core.types.ScenarioOverlay` (the lowering target
+of :mod:`repro_torch.scenarios`) threads through the round body as in
+``repro`` (:func:`check_overlay`): static live windows fold into the
+activation mask every back-end sees; per-event overlays (bid noise,
+participation, time-varying windows) take the ``"torch"`` back-end, which
+perturbs each lane's rows by the CRN draws of their global events
+(:func:`_overlay_noise`, drawn once a sweep) and masks them before it
+resolves; event chunks slice the draws, scenario chunks the overlay.
+
 The round loop (:func:`_run_loop`) is a Python loop that checks once per
 round whether any lane is alive — one host sync per round; capturing the
 loop in a CUDA graph is later work. Axes ``repro`` has and this port does
 not yet (host-streamed chunks, the ``sharded`` and ``multihost``
-placements, ``tuned`` plans, overlays) raise ``NotImplementedError``
-naming the ROADMAP item that ports them; the port names its resolve
-back-ends after what they run, so ``repro``'s ``"jnp"`` and ``"pallas"``
-are unknown options here.
+placements, ``tuned`` plans) raise ``NotImplementedError`` naming the
+ROADMAP item that ports them; the port names its resolve back-ends after
+what they run, so ``repro``'s ``"jnp"`` and ``"pallas"`` are unknown
+options here.
 """
 from __future__ import annotations
 
@@ -66,11 +75,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import auction
+from repro_torch.core import auction, crn
 from repro_torch.core import segments as seg_lib
 from repro_torch.core.sort2aggregate import (refine_fixed_chunked,
                                               refine_fixed_lanes)
-from repro_torch.core.types import AuctionRule, never_capped
+from repro_torch.core.types import (AuctionRule, ScenarioOverlay,
+                                    never_capped)
+from repro_torch.kernels import crn as crn_ops
 from repro_torch.kernels.auction_resolve import ops as resolve_ops
 
 RESOLVE_BACKENDS = ("torch", "sweep_resolve", "fused")
@@ -92,7 +103,6 @@ UNPORTED = {
     "check_append_alignment":
         "queue 1, item 7 (the service and host streaming)",
     "tuned": "queue 1, item 9 (tuning)",
-    "overlay": "queue 1, item 5 (CRN scenario families)",
     "mesh": "queue 1, item 8 (multi-GPU placements)",
 }
 
@@ -375,6 +385,75 @@ def check_batch_shapes(values, budgets, rules) -> None:
                              f"{values.device}; put a sweep on one device")
 
 
+def check_overlay(overlay: Optional[ScenarioOverlay], *, n_scenarios: int,
+                  n_campaigns: int, resolve: str) -> None:
+    """The :class:`~repro_torch.core.types.ScenarioOverlay` contract, with
+    ``repro``'s texts: fields are (S, C); live windows come in pairs;
+    stochastic fields need the family key; and per-event overlays (bid
+    noise, participation jitter, time-varying windows) run on the
+    ``"torch"`` back-end only, so a kernel back-end (``"fused"``, which
+    ``"auto"`` picks on CUDA, ``"sweep_resolve"`` or
+    :data:`ANY_C_BACKEND`) refuses them rather than ignore them. Static
+    windows fold into the activation mask and run everywhere."""
+    if overlay is None:
+        return
+    shape = (n_scenarios, n_campaigns)
+    for name in ScenarioOverlay.FIELDS:
+        arr = getattr(overlay, name)
+        if arr is not None and tuple(arr.shape) != shape:
+            raise ValueError(
+                f"ScenarioOverlay.{name} must be (S, C)={shape}, got "
+                f"{tuple(arr.shape)}")
+    if (overlay.live_start is None) != (overlay.live_stop is None):
+        raise ValueError(
+            "ScenarioOverlay live windows need BOTH live_start and "
+            "live_stop (half-open [start, stop) per scenario×campaign)")
+    if overlay.time_varying and overlay.live_start is None:
+        raise ValueError(
+            "ScenarioOverlay.time_varying=True without live windows; "
+            "time_varying only qualifies live_start/live_stop")
+    if (overlay.bid_sigma is not None or overlay.part_prob is not None) \
+            and overlay.key is None:
+        raise ValueError(
+            "stochastic overlay fields (bid_sigma / part_prob) need "
+            "ScenarioOverlay.key — the family PRNG key their CRN streams "
+            "derive from (repro_torch.core.crn)")
+    if overlay.per_event and resolve != "torch":
+        raise ValueError(
+            "per-event scenario overlays (bid noise, participation jitter, "
+            "time-varying live windows) run on the torch resolve path only; "
+            "use resolve='torch' (or 'auto' off-CUDA, which lowers to the "
+            "identical torch program). Static pause/boost overlays compose "
+            "with every kernel back-end.")
+
+
+def _overlay_noise(overlay: Optional[ScenarioOverlay], n_events: int,
+                   n_campaigns: int, device):
+    """The overlay's (N, C) CRN noise fields on ``device``, drawn ONCE over
+    global event indices (scenario-independent: every lane shares them,
+    chunks slice them)."""
+    if overlay is None:
+        return None, None
+    gidx = torch.arange(n_events, dtype=torch.int32, device=device)
+    z = u = None
+    if overlay.bid_sigma is not None:
+        z = crn.event_campaign_normals(
+            crn.stream_key(overlay.key, "bid_noise"), gidx, n_campaigns)
+    if overlay.part_prob is not None:
+        u = crn.event_campaign_uniforms(
+            crn.stream_key(overlay.key, "participation"), gidx, n_campaigns)
+    return z, u
+
+
+def _local_overlay(overlay: Optional[ScenarioOverlay]):
+    """The overlay without its key: the per-lane form the round program
+    takes (the noise is drawn already, only (S, C) fields remain, so a
+    scenario chunk slices every field alike)."""
+    if overlay is None:
+        return None
+    return dataclasses.replace(overlay, key=None)
+
+
 # ---------------------------------------------------------------------------
 # Per-lane logic, batched over lanes (repro's bit-for-bit contract)
 # ---------------------------------------------------------------------------
@@ -426,11 +505,15 @@ def lane_commit(blk, c_next, no_cap, n_next, s_hat, active, cap, rnd,
 # ---------------------------------------------------------------------------
 
 def _make_round_body(plan: SweepPlan, resolve: str, *, values, rules,
-                     budgets_f32, n_events: int, n_campaigns: int):
+                     budgets_f32, n_events: int, n_campaigns: int,
+                     overlay: Optional[ScenarioOverlay] = None,
+                     noise=(None, None)):
     """The per-round map ``round_body(core, keep) -> core'`` for the
     ``"torch"``, ``"sweep_resolve"`` or :data:`ANY_C_BACKEND` (resolve-once)
     or ``"fused"`` back-end; with ``plan.chunks``, the two-pass shape
-    (each pass a loop over the chunks) on every back-end."""
+    (each pass a loop over the chunks) on every back-end. ``overlay`` holds
+    these lanes' (S, C) intervention fields (key stripped), ``noise`` the
+    (N, C) CRN draws ``(z, u)`` of every event."""
     sentinel = never_capped(n_events)
     second = rules.kind == "second_price"
     block = seg_lib.reduce_block_size(n_events)
@@ -438,12 +521,60 @@ def _make_round_body(plan: SweepPlan, resolve: str, *, values, rules,
     reserves = rules.reserve.to(torch.float32).expand(b.shape[0])
     chunks = plan.chunks
 
-    def resolve_lanes(v, active):
+    ol = overlay
+    z_all, u_all = noise
+    per_event = ol is not None and ol.per_event
+    live_static = None
+    if ol is not None and ol.live_start is not None and not per_event:
+        # time_varying=False promises every window is empty or full: the
+        # windows fold into the activation mask every back-end sees
+        live_static = ol.live_stop > ol.live_start
+
+    # the lanes' perturbed valuations do not change from round to round:
+    # an unchunked sweep draws them once ((S, N, C), one bid_noise launch
+    # on CUDA); a chunked one perturbs each chunk's rows every round, so
+    # its memory stays a chunk's
+    noisy = None
+    if per_event and ol.bid_sigma is not None and chunks is None:
+        noisy = crn_ops.bid_noise(values, z_all, ol.bid_sigma)
+
+    def resolve_per_event(v, active, offset):
+        """(S, n) winners/prices of the rows ``v`` (global events from
+        ``offset``) under the per-event overlay, one lane at a time: the
+        rows perturbed by the lane's bid noise, the lane's mask ANDed with
+        its live windows on the global indices and with its participation
+        draws, then the torch resolve."""
+        n = v.shape[0]
+        gidx = offset + torch.arange(n, dtype=torch.int32, device=v.device)
+        z = None if z_all is None else z_all[offset:offset + n]
+        u = None if u_all is None else u_all[offset:offset + n]
+        out = []
+        for s in range(active.shape[0]):
+            vv = v
+            if noisy is not None:
+                vv = noisy[s]
+            elif ol.bid_sigma is not None:
+                vv = crn_ops.bid_noise(v, z, ol.bid_sigma[s:s + 1])[0]
+            m = active[s][None, :].expand(n, n_campaigns)
+            if ol.live_start is not None:
+                m = m & (gidx[:, None] >= ol.live_start[s][None, :]) \
+                    & (gidx[:, None] < ol.live_stop[s][None, :])
+            if ol.part_prob is not None:
+                m = m & (u < ol.part_prob[s][None, :])
+            out.append(auction.resolve(vv, m, AuctionRule(
+                multipliers=rules.multipliers[s], reserve=reserves[s],
+                kind=rules.kind)))
+        return (torch.stack([w for w, _ in out]),
+                torch.stack([p for _, p in out]))
+
+    def resolve_lanes(v, active, offset=0):
         """(S, n) winners/prices of every lane over the rows ``v``: one
         ``sweep_resolve`` or, for :data:`ANY_C_BACKEND`, one
         ``auction_resolve`` launch (and its chunk merge) for all lanes, or
         the torch path one lane at a time (the bids tensor is then (n, C),
-        never (S, n, C))."""
+        never (S, n, C)), under a per-event overlay when there is one."""
+        if per_event:
+            return resolve_per_event(v, active, offset)
         if resolve == "sweep_resolve":
             winners, prices, _ = resolve_ops.sweep_resolve(
                 v, rules.multipliers, active, reserves, second_price=second)
@@ -480,26 +611,30 @@ def _make_round_body(plan: SweepPlan, resolve: str, *, values, rules,
                     reduce_blocks=seg_lib.REDUCE_BLOCKS,
                     second_price=second, skip_retired=plan.skip_retired)
             else:
-                winners, prices = resolve_lanes(v, active)
+                winners, prices = resolve_lanes(v, active, offset)
                 parts = weighted_partials(winners, prices, lo, hi, offset)
             acc = acc + parts
         return acc
 
     def round_body(core, keep):
         s_hat, active, cap, n_hat, rnd, retired, bnds = core
+        # static live windows AND into the mask every resolve sees;
+        # lane_predict keeps the carried `active` (a masked-off campaign
+        # never wins, so its rate is 0 and its ttl inf either way)
+        act = active if live_static is None else active & live_static
         if resolve == "fused" and chunks is None:
             _, block_parts, c_next, no_cap, n_next = resolve_ops.round_fused(
-                values, rules.multipliers, active, reserves, b, s_hat,
+                values, rules.multipliers, act, reserves, b, s_hat,
                 n_hat, keep, reduce_blocks=seg_lib.REDUCE_BLOCKS,
                 second_price=second, skip_retired=plan.skip_retired)
         else:
             hi_all = torch.full_like(n_hat, n_events)
             if chunks is None:
-                winners, prices = resolve_lanes(values, active)
+                winners, prices = resolve_lanes(values, act)
                 rate_parts = weighted_partials(winners, prices, n_hat,
                                                hi_all)
             else:
-                rate_parts = chunked_partials(active, keep, n_hat, hi_all)
+                rate_parts = chunked_partials(act, keep, n_hat, hi_all)
             denom = torch.clamp(n_events - n_hat, min=1).to(torch.float32)
             rates = seg_lib.fold_blocks(rate_parts) / denom[:, None]
             c_next, no_cap, n_next = lane_predict(rates, b, s_hat, active,
@@ -508,7 +643,7 @@ def _make_round_body(plan: SweepPlan, resolve: str, *, values, rules,
                 block_parts = weighted_partials(winners, prices, n_hat,
                                                 n_next)
             else:
-                block_parts = chunked_partials(active, keep, n_hat, n_next)
+                block_parts = chunked_partials(act, keep, n_hat, n_next)
         blk = seg_lib.fold_blocks(block_parts)
         return lane_commit(blk, c_next, no_cap, n_next, s_hat, active, cap,
                            rnd, retired, bnds, sentinel=sentinel)
@@ -553,22 +688,27 @@ def _unpack(core):
 
 
 def _run_lanes(plan: SweepPlan, resolve: str, *, values, rules,
-               budgets_f32, n_events: int, n_campaigns: int):
+               budgets_f32, n_events: int, n_campaigns: int,
+               overlay: Optional[ScenarioOverlay] = None,
+               noise=(None, None)):
     """Run the lanes through the round program, one scenario chunk after
     another when the plan asks for them (``repro``'s ``_run_lanes``): each
     chunk builds its own round body and loop over its slice of budgets,
-    multipliers and reserves, and the chunks' results are concatenated.
-    Lanes never read each other, so the bits are the unchunked sweep's."""
+    multipliers, reserves and overlay fields (the (N, C) noise is every
+    chunk's), and the chunks' results are concatenated. Lanes never read
+    each other, so the bits are the unchunked sweep's."""
     s_all = budgets_f32.shape[0]
     reserves = rules.reserve.to(torch.float32).expand(s_all)
 
     def run(lanes):
         rules_c = AuctionRule(multipliers=rules.multipliers[lanes],
                               reserve=reserves[lanes], kind=rules.kind)
+        ol_c = None if overlay is None else \
+            overlay.map_fields(lambda x: x[lanes])
         round_body = _make_round_body(
             plan, resolve, values=values, rules=rules_c,
             budgets_f32=budgets_f32[lanes], n_events=n_events,
-            n_campaigns=n_campaigns)
+            n_campaigns=n_campaigns, overlay=ol_c, noise=noise)
         return _run_loop(round_body, n_scenarios=budgets_f32[lanes].shape[0],
                          n_events=n_events, n_campaigns=n_campaigns,
                          device=values.device)
@@ -581,22 +721,30 @@ def _run_lanes(plan: SweepPlan, resolve: str, *, values, rules,
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
-def _sweep_batched(values, budgets, rules, plan: SweepPlan):
+def _sweep_batched(values, budgets, rules, plan: SweepPlan,
+                   overlay: Optional[ScenarioOverlay] = None):
     """The scenario-batched Algorithm-2 loop on one device."""
     check_batch_shapes(values, budgets, rules)
     n_events, n_campaigns = values.shape
     n_scenarios = budgets.shape[0]
     resolve = pick_resolve(plan.resolve, values.device, n_campaigns)
+    check_overlay(overlay, n_scenarios=n_scenarios, n_campaigns=n_campaigns,
+                  resolve=resolve)
     check_chunks(plan.chunks, n_events=n_events, local_n=n_events)
     check_scenario_chunks(plan.scenario_chunks, n_scenarios=n_scenarios,
                           local_s=n_scenarios)
+    if overlay is not None:
+        overlay = overlay.map_fields(lambda x: x.to(values.device))
+    noise = _overlay_noise(overlay, n_events, n_campaigns, values.device)
     core = _run_lanes(plan, resolve, values=values, rules=rules,
                       budgets_f32=budgets.to(torch.float32),
-                      n_events=n_events, n_campaigns=n_campaigns)
+                      n_events=n_events, n_campaigns=n_campaigns,
+                      overlay=_local_overlay(overlay), noise=noise)
     return _unpack(core)
 
 
-def execute_sweep(values, budgets, rules, plan: SweepPlan, *, overlay=None):
+def execute_sweep(values, budgets, rules, plan: SweepPlan, *,
+                  overlay: Optional[ScenarioOverlay] = None):
     """Run the Algorithm-2 sweep program described by ``plan``.
 
     ``placement="batched"`` takes budgets (S, C) and a stacked rule and
@@ -605,18 +753,25 @@ def execute_sweep(values, budgets, rules, plan: SweepPlan, *, overlay=None):
     n_hat (S,) int32)``; ``placement="device"`` takes one scenario (budgets
     (C,), an unstacked rule) and returns the unbatched tuple.
     ``plan.chunks`` and ``plan.scenario_chunks`` give the same bits.
+
+    ``overlay`` threads a :class:`~repro_torch.core.types.ScenarioOverlay`
+    through the round body (:func:`check_overlay`); ``None`` runs the
+    overlay-free program. For ``placement="device"`` its fields are (C,)
+    rows, like the unbatched budgets and rule.
     """
-    reject_unported(overlay=overlay)
     if plan.chunks is not None and plan.chunks.source == "host":
         raise not_ported("ChunkSpec(source='host')")
     if plan.placement == "device":
         rules_b = AuctionRule(multipliers=rules.multipliers[None, :],
                               reserve=rules.reserve.reshape(1),
                               kind=rules.kind)
+        if overlay is not None:
+            overlay = overlay.map_fields(lambda x: x[None])
         out = _sweep_batched(values, budgets[None, :], rules_b,
-                             dataclasses.replace(plan, placement="batched"))
+                             dataclasses.replace(plan, placement="batched"),
+                             overlay)
         return tuple(x[0] for x in out)
-    return _sweep_batched(values, budgets, rules, plan)
+    return _sweep_batched(values, budgets, rules, plan, overlay)
 
 
 # ---------------------------------------------------------------------------

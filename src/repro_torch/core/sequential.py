@@ -104,14 +104,18 @@ def naive_sampled_replay(values: torch.Tensor, budgets: torch.Tensor,
     order) sequentially, each sale's spend increment rescaled by ``1 / rho``
     (rho = sample_size / N; the float32 multiply of :func:`inverse_rate`),
     a cap time mapped back to the log as :func:`sampled_cap_times` does.
-    Scales (the chain is rho·N long) but misplaces cap-outs. The sampled
-    rows go through the capped scan with that scale: one ``capped_scan``
-    launch on CUDA, its plain loop on the CPU. No winners or prices are
-    kept."""
+    Scales (the chain is rho·N long) but misplaces cap-outs. The sample is
+    drawn on the values' device, whatever device ``key`` was made on. The
+    sampled rows go through the capped scan with that scale: one
+    ``capped_scan`` launch on CUDA, its plain loop on the CPU. No winners
+    or prices are kept."""
     n_events = values.shape[0]
+    # drawn where the values are: threefry is integer arithmetic and the
+    # sort stable, so the card's sample is the CPU's
+    key = key.to(values.device)
     idx = torch.sort(prng.choice(key, n_events, sample_size)).values
     _, _, spend, cap_sub = scan_ops.capped_scan(
-        values[idx.to(values.device)], budgets, rule.multipliers,
+        values[idx], budgets, rule.multipliers,
         rule.reserve, second_price=second_price(rule.kind),
         scale=float(inverse_rate(sample_size, n_events)))
     return SimResult(final_spend=spend,

@@ -61,9 +61,10 @@ def estimate_gamma(values: torch.Tensor, rule: AuctionRule,
     n_campaigns = values.shape[1]
     dev = values.device
     gammas = []
+    key = key.to(dev)
     for _ in range(num_probes):
         k1, k2, key = prng.split(key, 3)
-        a = prng.bernoulli(k1, 0.8, (n_campaigns,)).to(dev)
+        a = prng.bernoulli(k1, 0.8, (n_campaigns,))
         c = int(prng.randint(k2, (), 0, n_campaigns))
         a[c] = True
         w0, p0 = auction.resolve(values, a, rule)

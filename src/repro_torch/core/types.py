@@ -70,6 +70,68 @@ class AuctionRule:
 
 
 @dataclasses.dataclass(frozen=True)
+class ScenarioOverlay:
+    """Per-scenario intervention overlay for the sweep executor.
+
+    A :class:`~repro_torch.core.counterfactual.ScenarioGrid` carries
+    per-scenario *designs*; an overlay carries what a design cannot:
+    per-scenario **eligibility** and **stochastic bid perturbations**, the
+    lowering target of :mod:`repro_torch.scenarios`. Every field is
+    optional (``None`` = axis absent) and scenario-batched ``(S, C)``:
+
+    * ``live_start`` / ``live_stop`` (int32) — the half-open global event
+      window ``[start, stop)`` outside which campaign ``c`` is ineligible in
+      scenario ``s``; ``(0, 0)`` pauses it, ``(0, N)`` is the identity.
+      Present together or not at all.
+    * ``bid_sigma`` (float32) — log-normal bid noise: effective values are
+      ``values * exp(sigma[s, c] * z[n, c])`` with ``z`` the family
+      ``key``'s ``"bid_noise"`` CRN stream (:mod:`repro_torch.core.crn`),
+      one draw per (event, campaign) shared by every scenario.
+    * ``part_prob`` (float32) — campaign ``c`` is eligible at event ``n``
+      iff ``u[n, c] < prob[s, c]``, ``u`` the ``"participation"`` stream.
+    * ``key`` — the family :mod:`repro_torch.prng` key the streams derive
+      from (required with ``bid_sigma`` or ``part_prob``).
+    * ``time_varying`` — whether any live window is a proper subrange of
+      the log. ``False`` promises every window is empty or full, so the
+      executor folds the windows into the activation mask and every kernel
+      back-end runs; ``True`` takes the per-event path.
+
+    A null overlay (full windows, ``sigma=0``, ``prob=1``) is bitwise the
+    overlay-free program, and overlays compose bit for bit with every
+    placement and chunking (``repro``'s contract).
+    """
+
+    live_start: Optional[torch.Tensor] = None   # (S, C) int32
+    live_stop: Optional[torch.Tensor] = None    # (S, C) int32
+    bid_sigma: Optional[torch.Tensor] = None    # (S, C) float32
+    part_prob: Optional[torch.Tensor] = None    # (S, C) float32
+    key: Optional[torch.Tensor] = None          # the CRN streams' key
+    time_varying: bool = False
+
+    FIELDS = ("live_start", "live_stop", "bid_sigma", "part_prob")
+
+    @property
+    def per_event(self) -> bool:
+        """Whether the overlay needs per-event eligibility or noise (the
+        torch resolve path) rather than a fold into the activation mask."""
+        return (self.bid_sigma is not None or self.part_prob is not None
+                or self.time_varying)
+
+    @property
+    def num_scenarios(self) -> Optional[int]:
+        for f in (self.live_start, self.bid_sigma, self.part_prob):
+            if f is not None:
+                return f.shape[0]
+        return None
+
+    def map_fields(self, fn) -> "ScenarioOverlay":
+        """The overlay with ``fn`` applied to every present (S, C) field."""
+        return dataclasses.replace(self, **{
+            name: None if getattr(self, name) is None
+            else fn(getattr(self, name)) for name in self.FIELDS})
+
+
+@dataclasses.dataclass(frozen=True)
 class Segments:
     """A piecewise-constant activation history.
 

@@ -20,6 +20,14 @@ then one ``resolve_masked`` (padded rows dead through ``live``) and a few
 (C,) updates, a loop on the host: the plain version. On CUDA every batch of
 every lane is one launch of the ``vi`` kernel (``csrc/vi.cu``), which
 gives the loop's bits.
+
+A scenario overlay (``overlay_row`` of one design, ``overlay`` of a sweep;
+:class:`~repro_torch.core.types.ScenarioOverlay`) makes the estimate see
+the scenario's random world, as in ``repro``: each lane's sampled rows
+perturbed by the ``"bid_noise"`` CRN stream at the sampled events' global
+indices, and a per-lane eligibility (live windows on those indices, the
+``"participation"`` stream) ANDed into every activation. The draws are
+the executor's (:mod:`repro_torch.core.crn`), made on the values' device.
 """
 from __future__ import annotations
 
@@ -30,13 +38,11 @@ import torch
 
 from repro_torch import prng
 from repro_torch.floats import fma
-from repro_torch.core.types import AuctionRule, never_capped
+from repro_torch.core import crn
+from repro_torch.core.types import AuctionRule, ScenarioOverlay, never_capped
+from repro_torch.kernels import crn as crn_ops
 from repro_torch.kernels.auction_resolve import ops as resolve_ops
 from repro_torch.kernels.auction_resolve.vi import vi_cuda
-
-_OVERLAYS = ("overlay_row/overlay (intervention semantics in the VI) is not "
-             "ported to repro_torch yet; see ROADMAP.md queue 1, item 5 (CRN "
-             "scenario families)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,17 +97,67 @@ def _draws(key: torch.Tensor, n_events: int, n_campaigns: int, *,
 @dataclasses.dataclass(frozen=True)
 class _Chain:
     """What every batch step reads besides pi: the sampled rows (padded to
-    whole batches with dead zero rows), the live rows, each batch's live
-    count, the per-event budgets and each step's size."""
-    sampled: torch.Tensor      # (n_batches * B, C)
+    whole batches with dead zero rows; with an overlay's bid noise, a set
+    a lane), the live rows, each batch's live count, the per-event
+    budgets, each step's size and an overlay's eligibility."""
+    sampled: torch.Tensor      # ([S,] n_batches * B, C)
     live: torch.Tensor         # (n_batches * B,) bool
     denom: torch.Tensor        # (n_batches,) float32, at least 1
     btilde: torch.Tensor       # (..., C) budgets / N
     step: torch.Tensor         # (total,) float32
+    elig: Optional[torch.Tensor] = None   # ([S,] n_batches * B, C) bool
+
+    def lane(self, s: int) -> "_Chain":
+        """Lane ``s``'s chain of a chain built for several lanes."""
+        return dataclasses.replace(
+            self, btilde=self.btilde[s],
+            sampled=self.sampled[s] if self.sampled.ndim == 3
+            else self.sampled,
+            elig=None if self.elig is None else self.elig[s])
+
+
+def _overlay_inputs(values, draws: _Draws, overlay: ScenarioOverlay, *,
+                    rows: int):
+    """(S, rows, C) perturbed sampled rows (None without bid noise) and
+    (S, rows, C) eligibility (None without windows or participation) of
+    the (S, C) overlay at the sampled events; padded rows zero and
+    ineligible, as ``jnp.pad`` pads them."""
+    if (overlay.bid_sigma is not None or overlay.part_prob is not None) \
+            and overlay.key is None:
+        raise ValueError(
+            "overlay_row carries stochastic fields but no CRN key")
+    dev = values.device
+    ol = overlay.map_fields(lambda x: x.to(dev))
+    n_campaigns = values.shape[1]
+    idx = draws.idx
+    k = idx.shape[0]
+    s = ol.num_scenarios
+    sampled = elig = None
+    if ol.bid_sigma is not None:
+        z = crn.event_campaign_normals(crn.stream_key(ol.key, "bid_noise"),
+                                       idx, n_campaigns)
+        sampled = torch.zeros((s, rows, n_campaigns), dtype=torch.float32,
+                              device=dev)
+        sampled[:, :k] = crn_ops.bid_noise(values[idx], z, ol.bid_sigma)
+    if ol.live_start is not None or ol.part_prob is not None:
+        elig = torch.zeros((s, rows, n_campaigns), dtype=torch.bool,
+                           device=dev)
+        e = torch.ones((s, k, n_campaigns), dtype=torch.bool, device=dev)
+        if ol.live_start is not None:
+            gi = idx.to(torch.int32)[None, :, None]
+            e = e & (gi >= ol.live_start[:, None, :]) \
+                & (gi < ol.live_stop[:, None, :])
+        if ol.part_prob is not None:
+            u_p = crn.event_campaign_uniforms(
+                crn.stream_key(ol.key, "participation"), idx, n_campaigns)
+            e = e & (u_p[None] < ol.part_prob[:, None, :])
+        elig[:, :k] = e
+    return sampled, elig
 
 
 def _chain(values, budgets, draws: _Draws, *, sample_size: int,
-           batch_size: int, eta: float, eta_decay: float) -> _Chain:
+           batch_size: int, eta: float, eta_decay: float,
+           overlay: Optional[ScenarioOverlay] = None) -> _Chain:
     n_events, n_campaigns = values.shape
     dev = values.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -119,8 +175,13 @@ def _chain(values, budgets, draws: _Draws, *, sample_size: int,
     eta_t = torch.tensor(eta, **f32) / fma(
         torch.tensor(eta_decay, **f32), epoch, torch.ones((), **f32))
     step = eta_t * torch.tensor(float(batch_size), **f32)      # (total,)
+    elig = None
+    if overlay is not None:
+        noisy, elig = _overlay_inputs(values, draws, overlay, rows=rows)
+        if noisy is not None:
+            sampled = noisy
     return _Chain(sampled=sampled, live=live, denom=denom, btilde=btilde,
-                  step=step)
+                  step=step, elig=elig)
 
 
 def _run_cuda(chain: _Chain, rules: AuctionRule, draws: _Draws, pi0, *,
@@ -133,24 +194,35 @@ def _run_cuda(chain: _Chain, rules: AuctionRule, draws: _Draws, pi0, *,
     pi = torch.ones((s, c), dtype=torch.float32, device=dev) \
         if pi0 is None else pi0.to(device=dev, dtype=torch.float32)
     return vi_cuda(
-        chain.sampled, draws.u.contiguous(), chain.step.contiguous(),
-        chain.denom.contiguous(), chain.btilde.contiguous(),
+        chain.sampled.contiguous(), draws.u.contiguous(),
+        chain.step.contiguous(), chain.denom.contiguous(),
+        chain.btilde.contiguous(),
         rules.multipliers.to(device=dev, dtype=torch.float32).contiguous(),
         torch.as_tensor(rules.reserve, dtype=torch.float32,
                         device=dev).reshape(s).contiguous(), pi,
         sample_size=sample_size, second_price=rules.kind == "second_price",
-        track_every=track_every)
+        track_every=track_every,
+        elig=None if chain.elig is None else chain.elig.contiguous())
 
 
 def _run(values, budgets, rule: AuctionRule, draws: _Draws, *,
          sample_size: int, batch_size: int, eta: float, eta_decay: float,
          pi0, track_every: int) -> PiEstimate:
-    """The VI iteration of one design on given draws: one ``vi`` launch on
-    CUDA, the host loop (the plain version) on the CPU."""
-    n_campaigns = values.shape[1]
-    dev = values.device
+    """The VI iteration of one design on given draws, without an
+    overlay."""
     chain = _chain(values, budgets, draws, sample_size=sample_size,
                    batch_size=batch_size, eta=eta, eta_decay=eta_decay)
+    return _iterate(chain, rule, draws, sample_size=sample_size,
+                    batch_size=batch_size, pi0=pi0, track_every=track_every)
+
+
+def _iterate(chain: _Chain, rule: AuctionRule, draws: _Draws, *,
+             sample_size: int, batch_size: int, pi0,
+             track_every: int) -> PiEstimate:
+    """The VI iteration of one design on given draws and chain: one ``vi``
+    launch on CUDA, the host loop (the plain version) on the CPU."""
+    n_campaigns = chain.btilde.shape[-1]
+    dev = chain.step.device
     total = draws.u.shape[0]
     updates = torch.tensor(total, dtype=torch.int32)
     if dev.type == "cuda":
@@ -158,7 +230,9 @@ def _run(values, budgets, rule: AuctionRule, draws: _Draws, *,
                            reserve=torch.as_tensor(rule.reserve).reshape(1),
                            kind=rule.kind)
         pi, hist = _run_cuda(
-            dataclasses.replace(chain, btilde=chain.btilde.reshape(1, -1)),
+            dataclasses.replace(
+                chain, btilde=chain.btilde.reshape(1, -1),
+                elig=None if chain.elig is None else chain.elig[None]),
             lane, draws, None if pi0 is None else pi0.reshape(1, -1),
             sample_size=sample_size, track_every=track_every)
         return PiEstimate(pi=pi[0], history=None if hist is None
@@ -171,6 +245,8 @@ def _run(values, budgets, rule: AuctionRule, draws: _Draws, *,
         b = t % draws.n_batches
         lo = b * batch_size
         active = draws.u[t] < pi[None, :]                      # (B, C)
+        if chain.elig is not None:
+            active = active & chain.elig[lo:lo + batch_size]
         _, _, sums = resolve_ops.resolve_masked(
             chain.sampled[lo:lo + batch_size], rule.multipliers, active,
             rule.reserve, chain.live[lo:lo + batch_size],
@@ -195,16 +271,23 @@ def estimate_pi(values: torch.Tensor, budgets: torch.Tensor,
     epochs of minibatches of ``batch_size`` events, step ``eta / (1 +
     eta_decay * epoch)``. ``coupling="shared"`` draws one uniform per event
     (``a_c = 1{u < pi_c}``), ``"independent"`` one per (event, campaign).
-    ``track_every`` records pi every that many batches."""
-    if overlay_row is not None:
-        raise NotImplementedError(_OVERLAYS)
+    ``track_every`` records pi every that many batches. ``overlay_row``
+    (a :class:`~repro_torch.core.types.ScenarioOverlay` with (C,) fields)
+    estimates pi under one scenario's intervention semantics (the module
+    docstring)."""
     n_events, n_campaigns = values.shape
     draws = _draws(key, n_events, n_campaigns, sample_size=sample_size,
                    num_iters=num_iters, batch_size=batch_size,
                    coupling=coupling, device=values.device)
-    return _run(values, budgets, rule, draws, sample_size=sample_size,
-                batch_size=batch_size, eta=eta, eta_decay=eta_decay,
-                pi0=pi0, track_every=track_every)
+    overlay = None if overlay_row is None else \
+        overlay_row.map_fields(lambda x: x[None])
+    chain = _chain(values, budgets, draws, sample_size=sample_size,
+                   batch_size=batch_size, eta=eta, eta_decay=eta_decay,
+                   overlay=overlay)
+    if overlay is not None:
+        chain = dataclasses.replace(chain.lane(0), btilde=chain.btilde)
+    return _iterate(chain, rule, draws, sample_size=sample_size,
+                batch_size=batch_size, pi0=pi0, track_every=track_every)
 
 
 def estimate_pi_sweep(values: torch.Tensor, budgets: torch.Tensor,
@@ -216,28 +299,31 @@ def estimate_pi_sweep(values: torch.Tensor, budgets: torch.Tensor,
     """Algorithm 4 over a scenario batch (budgets (S, C), a stacked rule)
     with ONE key: every lane sees the same sampled events and the same
     uniforms (common random numbers), so pi deltas across scenarios are
-    design effects. On CUDA every lane runs in one ``vi`` kernel launch;
-    on the CPU the lanes run one after another on the shared draws.
-    Returns a :class:`PiEstimate` whose ``pi`` is (S, C)."""
-    if overlay is not None:
-        raise NotImplementedError(_OVERLAYS)
+    design effects. ``overlay`` (a scenario-batched
+    :class:`~repro_torch.core.types.ScenarioOverlay`) estimates each lane
+    under its intervention semantics, on the same CRN draws. On CUDA every
+    lane runs in one ``vi`` kernel launch (each lane's perturbed rows and
+    eligibility with it); on the CPU the lanes run one after another on
+    the shared draws. Returns a :class:`PiEstimate` whose ``pi`` is (S,
+    C)."""
     n_events, n_campaigns = values.shape
     draws = _draws(key, n_events, n_campaigns, sample_size=sample_size,
                    num_iters=num_iters, batch_size=batch_size,
                    coupling=coupling, device=values.device)
+    chain = _chain(values, budgets, draws, sample_size=sample_size,
+                   batch_size=batch_size, eta=eta, eta_decay=eta_decay,
+                   overlay=overlay)
     if values.device.type == "cuda":
-        chain = _chain(values, budgets, draws, sample_size=sample_size,
-                       batch_size=batch_size, eta=eta, eta_decay=eta_decay)
         pi, _ = _run_cuda(chain, rules, draws, pi0, sample_size=sample_size,
                           track_every=0)
         return PiEstimate(pi=pi, history=None, num_updates=torch.full(
             (budgets.shape[0],), draws.u.shape[0], dtype=torch.int32))
     lanes = [
-        _run(values, budgets[s], AuctionRule(
+        _iterate(chain.lane(s), AuctionRule(
             multipliers=rules.multipliers[s], reserve=rules.reserve[s],
             kind=rules.kind), draws, sample_size=sample_size,
-            batch_size=batch_size, eta=eta, eta_decay=eta_decay,
-            pi0=None if pi0 is None else pi0[s], track_every=0)
+            batch_size=batch_size, pi0=None if pi0 is None else pi0[s],
+            track_every=0)
         for s in range(budgets.shape[0])]
     return PiEstimate(pi=torch.stack([e.pi for e in lanes]), history=None,
                       num_updates=torch.stack([e.num_updates

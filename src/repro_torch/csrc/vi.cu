@@ -43,6 +43,14 @@
 // does not fit in shared memory (B*(C + W) and C large), the same code runs
 // with the state in device memory (a scratch buffer and the output pi) and
 // reads the batch from device memory, unstaged.
+//
+// With a scenario overlay (repro's `estimate_pi(overlay_row=)`, vmapped by
+// `estimate_pi_sweep(overlay=)`) two inputs change, and nothing else:
+// `sampled` may hold one lane's perturbed rows after another (a lane
+// stride of n_batches*B*C floats; 0 = one set of rows shared by every
+// lane), and an optional per-lane eligibility (S, n_batches, EB) bytes (EB
+// = B*C rounded up to 16; padded rows 0) is ANDed into u < pi. The mask is
+// staged with its batch (16-byte copies), and counts in the staged size.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -55,7 +63,8 @@ namespace {
 constexpr int kThreads = 512;
 
 struct Args {
-  const float* sampled;    // (n_batches * B, C), rows past sample_size zero
+  const float* sampled;    // (n_batches * B, C) a lane, rows past
+                           // sample_size zero; lanes sampled_stride apart
   const float* u;          // (total, B, W)
   const float* step;       // (total,)
   const float* denom;      // (n_batches,)
@@ -65,22 +74,33 @@ struct Args {
   float* pi;               // (S, C): the initial pi in, the estimate out
   float* history;          // (S, n_tracked, C) or null
   float* scratch;          // (S, 2B) when the state is in device memory
+  const uint8_t* elig;     // (S, n_batches, EB) eligibility, or null
   int S, C, B, W, n_batches, total, sample_size, track_every;
+  long long sampled_stride;  // floats between lanes' rows; 0 = shared
 };
 
 __host__ __device__ inline long long round4(long long n) {
   return (n + 3) & ~3LL;
 }
 
-// Shared memory of the staged state, in floats: two batch buffers (B*C
-// valuations and B*W uniforms each), pi, btilde and the multipliers (C
-// each), the rows' winners and prices (B each); every region starts on 16
-// bytes.
-__host__ __device__ inline long long batch_floats(int B, int C, int W) {
-  return round4((long long)B * C) + round4((long long)B * W);
+// Bytes of one batch's eligibility: B*C rounded up to 16, so every
+// batch's mask starts on 16 bytes.
+__host__ __device__ inline long long elig_bytes(int B, int C) {
+  return ((long long)B * C + 15) & ~15LL;
 }
-inline long long staged_bytes(int B, int C, int W) {
-  return 4 * (2 * batch_floats(B, C, W) + 3 * round4(C) + 2 * round4(B));
+
+// Shared memory of the staged state, in floats: two batch buffers (B*C
+// valuations, B*W uniforms and, with an overlay, the batch's eligibility
+// bytes each), pi, btilde and the multipliers (C each), the rows' winners
+// and prices (B each); every region starts on 16 bytes.
+__host__ __device__ inline long long batch_floats(int B, int C, int W,
+                                                  bool elig) {
+  return round4((long long)B * C) + round4((long long)B * W) +
+         (elig ? elig_bytes(B, C) / 4 : 0);
+}
+inline long long staged_bytes(int B, int C, int W, bool elig) {
+  return 4 * (2 * batch_floats(B, C, W, elig) + 3 * round4(C) +
+              2 * round4(B));
 }
 
 // Threads per batch row: the most, a power of two up to 32, that B rows
@@ -134,7 +154,36 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src,
     cp_async4(dst + i, src + i);
 }
 
-template <bool kSecond, bool kStaged>
+// n bytes (a multiple of 16, both ends on 16 bytes) by 16-byte cp.async.
+__device__ __forceinline__ void copy_async_bytes(uint8_t* dst,
+                                                 const uint8_t* src,
+                                                 long long n) {
+  for (long long q = threadIdx.x; q < (n >> 4); q += kThreads)
+    cp_async16(dst + 16 * q, src + 16 * q);
+}
+
+// Stage step t's batch (its valuation rows, its uniforms and, with an
+// overlay, its eligibility bytes) into buffer t & 1 by cp.async. Scalars
+// by value: a reference to the kernel's parameters would copy them to the
+// stack.
+template <bool kElig>
+__device__ __forceinline__ void prefetch_batch(
+    float* smem, int t, long long nbuf, long long rv, long long ru,
+    long long eb, const float* lane_sampled, const uint8_t* lane_elig,
+    const float* u, int n_batches, int B, int C, int W) {
+  float* dst = smem + (t & 1) * nbuf;
+  const int b = t % n_batches;
+  copy_async(dst, lane_sampled + (size_t)b * B * C, (long long)B * C);
+  copy_async(dst + rv, u + (size_t)t * B * W, (long long)B * W);
+  if (kElig)
+    copy_async_bytes(reinterpret_cast<uint8_t*>(dst + ru),
+                     lane_elig + (size_t)b * eb, eb);
+  cp_commit();
+}
+
+// kElig: the run has an overlay's eligibility (a separate instantiation, so
+// the runs without one compile to the scan they had before)
+template <bool kSecond, bool kStaged, bool kElig>
 __global__ void __launch_bounds__(kThreads) vi_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
   const int s = blockIdx.x;
@@ -142,8 +191,14 @@ __global__ void __launch_bounds__(kThreads) vi_kernel(Args a) {
   const int C = a.C, B = a.B, W = a.W;
   const float reserve = a.reserves[s];
   float* pi_out = a.pi + (size_t)s * C;
-  const long long nbuf = batch_floats(B, C, W);
+  constexpr bool has_elig = kElig;
+  const long long nbuf = batch_floats(B, C, W, has_elig);
   const long long rv = round4((long long)B * C);
+  const long long ru = rv + round4((long long)B * W);   // the mask's start
+  const long long eb = elig_bytes(B, C);
+  const float* lane_sampled = a.sampled + (size_t)s * a.sampled_stride;
+  const uint8_t* lane_elig =
+      has_elig ? a.elig + (size_t)s * a.n_batches * eb : nullptr;
   const long long n_tracked =
       a.track_every > 0 ? (a.total + a.track_every - 1) / a.track_every : 0;
 
@@ -179,14 +234,9 @@ __global__ void __launch_bounds__(kThreads) vi_kernel(Args a) {
   const int tpr = threads_per_row(B);
   const int rows_per_pass = kThreads / tpr;
   const int k = tid & (tpr - 1);             // this thread's column slice
-  auto prefetch = [&](int t) {
-    float* dst = smem + (t & 1) * nbuf;
-    const int b = t % a.n_batches;
-    copy_async(dst, a.sampled + (size_t)b * B * C, (long long)B * C);
-    copy_async(dst + rv, a.u + (size_t)t * B * W, (long long)B * W);
-    cp_commit();
-  };
-  if (kStaged) prefetch(0);
+  if (kStaged)
+    prefetch_batch<kElig>(smem, 0, nbuf, rv, ru, eb, lane_sampled,
+                          lane_elig, a.u, a.n_batches, B, C, W);
 
   // each step's size and batch count, loaded a step ahead
   float st = a.step[0], dn = a.denom[0];
@@ -196,16 +246,21 @@ __global__ void __launch_bounds__(kThreads) vi_kernel(Args a) {
     const float st_next = more ? a.step[t + 1] : 0.0f;
     const float dn_next = more ? a.denom[(t + 1) % a.n_batches] : 0.0f;
     const float *v, *u;
+    const uint8_t* el = nullptr;
     if (kStaged) {
       cp_wait_all();
       __syncthreads();       // batch t is in; step t-1's update is done
-      if (t + 1 < a.total) prefetch(t + 1);
+      if (t + 1 < a.total)
+        prefetch_batch<kElig>(smem, t + 1, nbuf, rv, ru, eb, lane_sampled,
+                              lane_elig, a.u, a.n_batches, B, C, W);
       v = smem + (t & 1) * nbuf;
       u = v + rv;
+      if (has_elig) el = reinterpret_cast<const uint8_t*>(v + ru);
     } else {
       __syncthreads();
-      v = a.sampled + (size_t)b * B * C;
+      v = lane_sampled + (size_t)b * B * C;
       u = a.u + (size_t)t * B * W;
+      if (has_elig) el = lane_elig + (size_t)b * eb;
     }
 
     // resolve: the warp-uniform loop keeps every lane of a warp in the
@@ -218,12 +273,14 @@ __global__ void __launch_bounds__(kThreads) vi_kernel(Args a) {
       if (row_ok && (long long)b * B + r < a.sample_size) {
         const float* vr = v + (size_t)r * C;
         const float* ur = u + (size_t)r * W;
+        const uint8_t* er = kElig ? el + (size_t)r * C : nullptr;
         const float u0 = ur[0];
 #pragma unroll 4
         for (int c = k; c < C; c += tpr) {
           const float uu = W == 1 ? u0 : ur[c];
+          const bool on = kElig ? uu < pi[c] && er[c] != 0 : uu < pi[c];
           // an inactive campaign's NaN bid never compares true
-          const float bid = uu < pi[c] ? vr[c] * mult[c] : nanf("");
+          const float bid = on ? vr[c] * mult[c] : nanf("");
           const bool gt = bid > best;          // strict: first index wins
           if (kSecond) second = gt ? best : fmaxf(second, bid);
           best = gt ? bid : best;
@@ -292,9 +349,9 @@ __global__ void __launch_bounds__(kThreads) vi_kernel(Args a) {
   }
 }
 
-template <bool kSecond, bool kStaged>
+template <bool kSecond, bool kStaged, bool kElig>
 int launch_as(const Args& a, size_t dyn, cudaStream_t stream) {
-  auto kernel = vi_kernel<kSecond, kStaged>;
+  auto kernel = vi_kernel<kSecond, kStaged, kElig>;
   if (dyn > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
@@ -304,43 +361,59 @@ int launch_as(const Args& a, size_t dyn, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-bool fits(int B, int C, int W) {
-  return staged_bytes(B, C, W) <= (long long)auction_tile::kMaxSmem;
+template <bool kStaged>
+int launch_rule(const Args& a, bool second, bool elig, size_t dyn,
+                cudaStream_t stream) {
+  if (second)
+    return elig ? launch_as<true, kStaged, true>(a, dyn, stream)
+                : launch_as<true, kStaged, false>(a, dyn, stream);
+  return elig ? launch_as<false, kStaged, true>(a, dyn, stream)
+              : launch_as<false, kStaged, false>(a, dyn, stream);
+}
+
+bool fits(int B, int C, int W, bool elig) {
+  return staged_bytes(B, C, W, elig) <= (long long)auction_tile::kMaxSmem;
 }
 
 }  // namespace
 
 extern "C" {
 
-// 1 when the staged state of a (B, C, W) run fits in shared memory, 0 when
-// the run keeps it in device memory (and needs `scratch`).
-int vi_staged(int B, int C, int W) { return fits(B, C, W) ? 1 : 0; }
+// 1 when the staged state of a (B, C, W) run (with a per-lane eligibility
+// when `elig` is 1) fits in shared memory, 0 when the run keeps it in
+// device memory (and needs `scratch`).
+int vi_staged(int B, int C, int W, int elig) {
+  return fits(B, C, W, elig != 0) ? 1 : 0;
+}
 
 // Run Algorithm 4 for S lanes, one CTA each. `pi` (S, C) holds the initial
 // pi and receives the estimate; `history` (S, ceil(total / track_every),
-// C) may be null; `scratch` (S, 2B) is required when vi_staged() is 0.
-// Returns the cudaError_t of the launch.
+// C) may be null; `scratch` (S, 2B) is required when vi_staged() is 0;
+// `elig` (S, n_batches, EB) bytes may be null; `sampled_stride` is 0 (one
+// set of rows) or n_batches*B*C (a set a lane). Returns the cudaError_t of
+// the launch.
 int vi_run(const float* sampled, const float* u, const float* step,
            const float* denom, const float* btilde, const float* mult,
            const float* reserves, float* pi, float* history, float* scratch,
-           int S, int C, int B, int W, int n_batches, int total,
-           int sample_size, int track_every, int second_price,
-           cudaStream_t stream) {
+           const unsigned char* elig, int S, int C, int B, int W,
+           int n_batches, int total, int sample_size, int track_every,
+           int second_price, long long sampled_stride, cudaStream_t stream) {
   if (S <= 0 || total <= 0) return 0;
   if (B <= 0 || C <= 0 || (W != 1 && W != C) || n_batches <= 0 ||
-      (history != nullptr && track_every <= 0))
+      (history != nullptr && track_every <= 0) ||
+      (sampled_stride != 0 &&
+       sampled_stride != (long long)n_batches * B * C))
     return (int)cudaErrorInvalidValue;
   const Args a{sampled, u, step, denom, btilde, mult, reserves, pi,
-               history, scratch, S, C, B, W, n_batches, total, sample_size,
-               track_every};
-  if (fits(B, C, W)) {
-    const size_t dyn = (size_t)staged_bytes(B, C, W);
-    return second_price ? launch_as<true, true>(a, dyn, stream)
-                        : launch_as<false, true>(a, dyn, stream);
+               history, scratch, elig, S, C, B, W, n_batches, total,
+               sample_size, track_every, sampled_stride};
+  const bool has_elig = elig != nullptr;
+  if (fits(B, C, W, has_elig)) {
+    const size_t dyn = (size_t)staged_bytes(B, C, W, has_elig);
+    return launch_rule<true>(a, second_price != 0, has_elig, dyn, stream);
   }
   if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-  return second_price ? launch_as<true, false>(a, 0, stream)
-                      : launch_as<false, false>(a, 0, stream);
+  return launch_rule<false>(a, second_price != 0, has_elig, 0, stream);
 }
 
 }  // extern "C"

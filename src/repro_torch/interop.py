@@ -1,9 +1,12 @@
-"""Carry a scenario batch, a random key, or a language model's parameters
-from the reference package's arrays into the port.
+"""Carry a scenario batch, a random key, a scenario family or its overlay,
+or a language model's parameters from the reference package's arrays into
+the port.
 
 The reference (JAX) package's arrays reach the port as numpy arrays — what
 ``np.asarray`` gives for them. Those are often read-only views, so they are
-copied before torch takes them.
+copied before torch takes them. A reference family or overlay is read by
+its attribute names only (its fields go through ``np.asarray``), so this
+module imports nothing of the reference.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import torch
 
 from repro_torch.core.counterfactual import ScenarioGrid
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.types import AuctionRule
+from repro_torch.core.types import AuctionRule, ScenarioOverlay
 from repro_torch.device import DeviceLike, pick_device
 from repro_torch.models.model import Model
 
@@ -51,6 +54,48 @@ def key_from_reference(key_data, *, device: DeviceLike = "cpu"
         raise ValueError(f"a threefry key has two uint32 words, got shape "
                          f"{words.shape}")
     return torch.from_numpy(words.astype(np.int64)).to(pick_device(device))
+
+
+_OVERLAY_TYPES = {"live_start": np.int32, "live_stop": np.int32,
+                  "bid_sigma": np.float32, "part_prob": np.float32}
+
+
+def overlay_from_reference(overlay, *, device: DeviceLike = None
+                           ) -> Optional[ScenarioOverlay]:
+    """The port's :class:`ScenarioOverlay` of a reference overlay (anything
+    with its fields ``live_start``, ``live_stop``, ``bid_sigma``,
+    ``part_prob`` (numpy-convertible or None), ``key`` (the key's two
+    uint32 words or None) and ``time_varying``): the same values, bit for
+    bit. ``None`` gives ``None``."""
+    if overlay is None:
+        return None
+    dev = pick_device(device)
+    fields = {name: None if getattr(overlay, name) is None
+              else _tensor(getattr(overlay, name), dtype, dev)
+              for name, dtype in _OVERLAY_TYPES.items()}
+    key = None if overlay.key is None else \
+        key_from_reference(np.asarray(overlay.key), device=dev)
+    return ScenarioOverlay(key=key, time_varying=bool(overlay.time_varying),
+                           **fields)
+
+
+def family_from_reference(family, *, device: DeviceLike = None):
+    """The port's :class:`repro_torch.scenarios.CompiledFamily` of a
+    reference compiled family (read by attribute: ``values``, ``grid``
+    with ``rules`` (``multipliers``, ``reserve``, ``kind``), ``budgets``
+    and ``labels``, ``overlay``, ``entrant_slots``, ``base_index``), so
+    both packages sweep the same family."""
+    from repro_torch.scenarios.family import CompiledFamily
+    grid = family.grid
+    values, port_grid = from_reference(
+        np.asarray(family.values), np.asarray(grid.budgets),
+        np.asarray(grid.rules.multipliers), np.asarray(grid.rules.reserve),
+        grid.rules.kind, grid.labels, device=device)
+    return CompiledFamily(
+        values=values, grid=port_grid,
+        overlay=overlay_from_reference(family.overlay, device=device),
+        entrant_slots=dict(family.entrant_slots),
+        base_index=int(family.base_index))
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:

@@ -465,10 +465,13 @@ def vi_chain_ref(sampled: torch.Tensor, u: torch.Tensor, step: torch.Tensor,
                  denom: torch.Tensor, btilde: torch.Tensor,
                  multipliers: torch.Tensor, reserves: torch.Tensor,
                  pi0: torch.Tensor, *, sample_size: int,
-                 second_price: bool = False, track_every: int = 0):
+                 second_price: bool = False, track_every: int = 0,
+                 elig: torch.Tensor | None = None):
     """What ``csrc/vi.cu`` computes from its own inputs, by its split, for
     tests (bitwise ``core.vi``'s loop and ``repro``'s ``estimate_pi``), all
-    lanes at once: ``sampled`` (n_batches·B, C), ``u`` (total, B, 1 or C),
+    lanes at once: ``sampled`` (n_batches·B, C) shared or (S, n_batches·B,
+    C) a lane, ``elig`` (S, n_batches·B, C) bool ANDed into the
+    activations or None, ``u`` (total, B, 1 or C),
     ``step`` (total,), ``denom`` (n_batches,), ``btilde``, ``multipliers``,
     ``pi0`` (S, C), ``reserves`` (S,). Per step: the batch's rows resolved
     by :func:`vi_threads_per_row` interleaved column slices, each scanned
@@ -479,7 +482,7 @@ def vi_chain_ref(sampled: torch.Tensor, u: torch.Tensor, step: torch.Tensor,
     btilde - sums / denom, pi), 0, 1)``. Returns ``(pi (S, C), history (S,
     ceil(total / track_every), C) or None)``."""
     total, b, w = u.shape
-    n_batches = sampled.shape[0] // b
+    n_batches = sampled.shape[-2] // b
     s_count, c = multipliers.shape
     dev = sampled.device
     tpr = vi_threads_per_row(b)
@@ -489,10 +492,13 @@ def vi_chain_ref(sampled: torch.Tensor, u: torch.Tensor, step: torch.Tensor,
     history = []
     for t in range(total):
         bi = t % n_batches
-        v = sampled[bi * b:(bi + 1) * b]                       # (B, C)
+        rows = slice(bi * b, (bi + 1) * b)
+        v = sampled[..., rows, :]                    # (B, C) or (S, B, C)
         active = u[t][None] < pi[:, None, :]                   # (S, B, C)
-        bids = torch.where(active, v[None] * multipliers[:, None, :],
-                           float("nan"))
+        if elig is not None:
+            active = active & elig[:, rows]
+        bids = torch.where(active, (v if v.ndim == 3 else v[None])
+                           * multipliers[:, None, :], float("nan"))
         live = (bi * b + torch.arange(b, device=dev)) < sample_size
         parts = []
         for k in range(tpr):

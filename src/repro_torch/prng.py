@@ -11,14 +11,18 @@ so it gives the same bits on the CPU and on CUDA.
 * :func:`random_bits` — uint32 words (returned as int64);
 * :func:`uniform` — float32 in ``[minval, maxval)`` by the mantissa
   transform; :func:`bernoulli` — ``uniform < p`` in float32;
+* :func:`normal` — ``sqrt(2) * erf_inv(u)`` of a uniform ``u`` in
+  ``[nextafter(-1, 0), 1)``, with XLA's single-precision ``erf_inv``
+  (:func:`erf_inv`) on XLA CPU's float32 ``log1p``
+  (:func:`repro_torch.floats.log1p`), so bit for bit
+  ``jax.random.normal``;
 * :func:`randint` — int32 in ``[minval, maxval)`` from two 32-bit words
   combined modulo the span;
 * :func:`permutation` and :func:`choice` (``replace=False``) — the
   multi-round stable sort by fresh 32-bit keys of ``jax.random``'s
   ``_shuffle``.
 
-``normal`` (through erfinv) is not here yet; it arrives with the
-common-random-numbers scenario families (ROADMAP.md queue 1, item 5).
+A key may live on any device; every function draws on the key's device.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike
-from repro_torch.floats import fma
+from repro_torch.floats import fma, log1p
 
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -88,11 +92,15 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
-def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in``: the hash of the count pair ``(0, data)``."""
-    zero = torch.zeros((), dtype=torch.int64, device=key.device)
-    b1, b2 = threefry2x32(key[..., 0], key[..., 1], zero,
-                          zero + (int(data) & MASK))
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in``: the hash of the count pair ``(0, data)``.
+    ``data`` is an int or an int64 tensor of words, broadcast with the
+    key's batch axes (``key[..., None, :]`` and (C,) words give (..., C,
+    2))."""
+    words = torch.as_tensor(data, dtype=torch.int64,
+                            device=key.device) & MASK
+    b1, b2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(words),
+                          words)
     return torch.stack([b1, b2], dim=-1)
 
 
@@ -116,6 +124,49 @@ def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
     # XLA's CPU backend fuses the scale and shift (one rounding)
     return torch.maximum(lo, fma(floats, hi - lo, lo))
+
+
+# Giles' single-precision erf_inv polynomials (XLA's ErfInv32), highest
+# degree first: for w < 5 in w - 2.5, else in sqrt(w) - 3
+_ERF_INV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                -4.39150654e-06, 0.00021858087, -0.00125372503,
+                -0.00417768164, 0.246640727, 1.50140941)
+_ERF_INV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                -0.00367342844, 0.00573950773, -0.0076224613,
+                0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """``jax.lax.erf_inv`` of float32 ``x`` as XLA's CPU backend computes
+    it: ``w = -log1p(-x * x)``, Giles' polynomial in ``w - 2.5`` (``w <
+    5``) or ``sqrt(w) - 3``, Horner with one rounding a step, times ``x``;
+    ``+-inf`` at ``x = +-1``."""
+    x = x.to(torch.float32)
+    w = -log1p(x * -x)
+    lt = w < 5.0
+    # float64's square root rounded to float32 is the correctly rounded
+    # float32 one (torch's float32 sqrt on the CPU is not always)
+    t = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
+    dev = x.device
+    coef = lambda i: torch.where(
+        lt, torch.tensor(_ERF_INV_LT5[i], dtype=torch.float32, device=dev),
+        torch.tensor(_ERF_INV_GE5[i], dtype=torch.float32, device=dev))
+    p = coef(0)
+    for i in range(1, len(_ERF_INV_LT5)):
+        p = fma(p, t, coef(i))
+    return torch.where(torch.abs(x) == 1.0, x * float("inf"), p * x)
+
+
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+
+
+def normal(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in float32: ``float32(sqrt(2)) *
+    erf_inv(u)`` with ``u`` the :func:`uniform` in ``[nextafter(-1, 0),
+    1)``. A batch of keys (K, 2) gives (K, *shape)."""
+    u = uniform(key, shape, minval=_NORMAL_LO, maxval=1.0)
+    sqrt2 = torch.tensor(np.sqrt(2.0), dtype=torch.float32, device=u.device)
+    return erf_inv(u) * sqrt2
 
 
 def bernoulli(key: torch.Tensor, p: float = 0.5, shape=()) -> torch.Tensor:

@@ -21,6 +21,7 @@ from repro_torch.core import (AuctionRule, ChunkSpec,  # noqa: E402
                               execute_sweep, pick_resolve, sequential_replay,
                               sweep_parallel, sweep_state_machine)
 from repro_torch.core.executor import _unknown  # noqa: E402
+from repro_torch.core.types import ScenarioOverlay  # noqa: E402
 from repro_torch.data import make_synthetic_env  # noqa: E402
 from repro_torch.interop import from_reference  # noqa: E402
 
@@ -116,8 +117,37 @@ def test_unported_entry_points_raise(small):
     assert str(err.value) == "unknown sweep method: naive_sampling"
     with pytest.raises(NotImplementedError, match="item 7"):
         engine.sweep(grid, chunks=ChunkSpec(128, source="host"))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        sweep_parallel(env.values, grid.budgets, grid.rules, overlay=object())
+    # the overlay is ported: a pause and a participation coin run as
+    # repro runs them, bit for bit
+    import jax.numpy as jnp
+    from repro.core import AuctionRule as JRule
+    from repro.core import ScenarioOverlay as JOverlay
+    from repro.core import sweep_parallel as j_sweep_parallel
+    n, c = env.values.shape
+    stop = np.full((2, c), n, np.int32)
+    stop[1, 1] = 0
+    prob = np.full((2, c), 0.7, np.float32)
+    key = np.array([0, 7], np.uint32)
+    got = sweep_parallel(
+        env.values, grid.budgets, grid.rules, resolve="torch",
+        overlay=ScenarioOverlay(
+            live_start=torch.zeros((2, c), dtype=torch.int32),
+            live_stop=torch.from_numpy(stop),
+            part_prob=torch.from_numpy(prob),
+            key=torch.from_numpy(key.astype(np.int64))))
+    want = j_sweep_parallel(
+        jnp.asarray(env.values.numpy()), jnp.asarray(grid.budgets.numpy()),
+        JRule(multipliers=jnp.asarray(grid.rules.multipliers.numpy()),
+              reserve=jnp.asarray(grid.rules.reserve.numpy()),
+              kind=grid.rules.kind), resolve="jnp",
+        overlay=JOverlay(live_start=jnp.zeros((2, c), jnp.int32),
+                         live_stop=jnp.asarray(stop),
+                         part_prob=jnp.asarray(prob), key=jnp.asarray(key)))
+    np.testing.assert_array_equal(got.final_spend.numpy(),
+                                  np.asarray(want.final_spend))
+    np.testing.assert_array_equal(got.cap_times.numpy(),
+                                  np.asarray(want.cap_times))
+    assert got.final_spend[1, 1] == 0
     chunked = sweep_state_machine(env.values, grid.budgets, grid.rules,
                                   chunks=64)
     for a, b in zip(sweep_state_machine(env.values, grid.budgets,

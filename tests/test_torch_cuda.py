@@ -1550,3 +1550,169 @@ def test_chunked_s2a_sweep_on_the_card_is_the_cpu(dev):
                     (want[0].final_spend, want[0].cap_times, want[1],
                      want[2])):
         assert torch.equal(a.cpu(), b)
+
+
+# ---------------------------------------------------------------------------
+# CRN scenario families: the draws, the bid noise, the VI and the sweeps
+# ---------------------------------------------------------------------------
+
+from repro_torch import scenarios as sc  # noqa: E402
+from repro_torch.core import crn  # noqa: E402
+from repro_torch.kernels import crn as cuda_crn  # noqa: E402
+
+
+@pytest.mark.parametrize("normal", [True, False])
+@pytest.mark.parametrize("scattered", [False, True])
+def test_crn_cells_kernel_is_the_cpu(dev, normal, scattered):
+    """One ``crn_cells`` launch draws the CPU's bits, from a key made on
+    the CPU, at a range of global events or at scattered ones."""
+    n, c = 3001, 37
+    idx = torch.arange(250_000, 250_000 + n)
+    if scattered:
+        idx = torch.from_numpy(np.random.default_rng(1).permutation(
+            1_000_000)[:n].astype(np.int64))
+    key = crn.stream_key(prng.PRNGKey(8), "bid_noise")
+    draw = crn.event_campaign_normals if normal else \
+        crn.event_campaign_uniforms
+    want = draw(key, idx, c)
+    cuda_crn.reset_launches()
+    got = draw(key, idx.to(dev), c)
+    torch.cuda.synchronize()
+    assert cuda_crn.LAUNCHES["crn_cells"] == 1
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+
+
+def test_bid_noise_kernel_is_the_cpu(dev):
+    rng = np.random.default_rng(2)
+    s, t, c = 3, 5000, 41
+    v = torch.from_numpy(rng.uniform(0, 1, (t, c)).astype(np.float32))
+    z = crn.event_campaign_normals(prng.PRNGKey(1), torch.arange(t), c)
+    sigma = torch.from_numpy(rng.uniform(0, 1.5, (s, c)).astype(np.float32))
+    sigma[0] = 0.0
+    want = cuda_crn.bid_noise(v, z, sigma)
+    cuda_crn.reset_launches()
+    got = cuda_crn.bid_noise(v.to(dev), z.to(dev), sigma.to(dev))
+    torch.cuda.synchronize()
+    assert cuda_crn.LAUNCHES["bid_noise"] == 1
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(want[0], v)
+
+
+def _family_engines(dev, n=4096, c=16):
+    env = make_synthetic_env(9, n_events=n, n_campaigns=c, emb_dim=6,
+                             device="cpu")
+    return {str(where): CounterfactualEngine(
+        env.values, env.budgets, AuctionRule.first_price(c, device=where),
+        device=where) for where in ("cpu", dev)}
+
+
+def _family(engine, specs, seed=5):
+    return sc.compile_family(engine.values, engine.budgets,
+                             engine.base_rule, specs,
+                             key=prng.PRNGKey(seed))
+
+
+STATIC_SPECS = [sc.PauseCampaign(3), sc.BoostCampaign(1, 1.5),
+                [sc.ScaleBudgets(0.5), sc.SetReserve(0.02)],
+                sc.AddEntrant(budget=3.0, value_scale=0.9)]
+PER_EVENT_SPECS = [sc.BidNoise(0.2), sc.ParticipationJitter(0.9),
+                   sc.BudgetPacing(2, 1000, 3000),
+                   [sc.BidNoise(0.2), sc.BudgetPacing(2, 1000, 3000)],
+                   [sc.BidNoise(0.0), sc.ParticipationJitter(1.0)]]
+
+
+@pytest.mark.parametrize("resolve", ["auto", "sweep_resolve", "torch"])
+def test_static_family_on_the_card_is_the_cpu(dev, resolve):
+    """A static family (pauses, boosts, budgets, a reserve, a full-window
+    entrant) on every back-end on the card, chunked too: the CPU's bits;
+    ``"auto"`` takes the fused round kernel."""
+    engines = _family_engines(dev)
+    want = engines["cpu"].sweep(_family(engines["cpu"], STATIC_SPECS),
+                                resolve="torch")
+    fam = _family(engines[str(dev)], STATIC_SPECS)
+    assert fam.values.shape[1] == 17 and not fam.overlay.per_event
+    cuda_rf.reset_launches()
+    for kw in (dict(), dict(chunks=1024)):
+        got = engines[str(dev)].sweep(fam, resolve=resolve, **kw)
+        assert torch.equal(got.results.final_spend.cpu(),
+                           want.results.final_spend)
+        assert torch.equal(got.results.cap_times.cpu(),
+                           want.results.cap_times)
+    if resolve == "auto":
+        assert cuda_rf.LAUNCHES["round_fused"] > 0
+    assert float(want.results.final_spend[1, 3]) == 0.0
+
+
+def test_per_event_family_on_the_card_is_the_cpu(dev):
+    """Bid noise, participation and a pacing window on ``resolve="torch"``
+    on the card (one ``bid_noise`` launch a noisy lane a round, the
+    partials through ``segment_partials``), chunked too: the CPU's bits;
+    the kernel back-ends refuse the family."""
+    engines = _family_engines(dev)
+    want = engines["cpu"].sweep(_family(engines["cpu"], PER_EVENT_SPECS),
+                                resolve="torch")
+    fam = _family(engines[str(dev)], PER_EVENT_SPECS)
+    assert fam.overlay.per_event
+    cuda_crn.reset_launches()
+    cuda_sp.reset_launches()
+    for kw in (dict(), dict(chunks=1024, scenario_chunks=2)):
+        got = engines[str(dev)].sweep(fam, resolve="torch", **kw)
+        assert torch.equal(got.results.final_spend.cpu(),
+                           want.results.final_spend)
+        assert torch.equal(got.results.cap_times.cpu(),
+                           want.results.cap_times)
+    assert cuda_crn.LAUNCHES["crn_cells"] == 4
+    assert cuda_crn.LAUNCHES["bid_noise"] > 0
+    assert cuda_sp.LAUNCHES["segment_partials"] > 0
+    assert torch.equal(want.results.final_spend[5],
+                       want.results.final_spend[0])
+    for resolve in ("auto", "fused", "sweep_resolve"):
+        with pytest.raises(ValueError, match="torch resolve path only"):
+            engines[str(dev)].sweep(fam, resolve=resolve)
+
+
+@pytest.mark.parametrize("c", [16, "device_state"])
+def test_vi_kernel_with_an_overlay_is_the_cpu(dev, c):
+    """estimate_pi_sweep with a per-event overlay: every lane's perturbed
+    rows and eligibility in one vi launch, the CPU's lane loop bit for bit
+    (also where the staged state with the mask does not fit in shared
+    memory)."""
+    if c == "device_state":
+        c = 16
+        while cuda_vi.staged(64, c + 1, 1, True):
+            c += 1
+        c += 1
+    engines = _family_engines(dev, c=c)
+    out, staged = {}, None
+    for where, eng in engines.items():
+        fam = _family(eng, PER_EVENT_SPECS)
+        cuda_vi.reset_launches()
+        out[where] = vi.estimate_pi_sweep(
+            fam.values, fam.grid.budgets, fam.grid.rules,
+            prng.PRNGKey(4), overlay=fam.overlay, sample_size=400,
+            num_iters=3, batch_size=64)
+        staged = dict(cuda_vi.LAUNCHES)
+    assert staged["vi"] == 1
+    assert staged["vi_device_state"] == int(not cuda_vi.staged(64, c, 1,
+                                                                True))
+    assert torch.equal(out[str(dev)].pi.cpu(), out["cpu"].pi)
+
+
+def test_draws_follow_the_values_not_the_key(dev):
+    """Naive sampling's permutation and a family's CRN draws run on the
+    card when the values are there, from a key made on the CPU, and give
+    the CPU's bits."""
+    values = torch.rand(5000, 8)
+    key = prng.PRNGKey(3)
+    want = prng.choice(key, 5000, 700)
+    got = prng.choice(key.to(dev), 5000, 700)
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    eng = CounterfactualEngine(values, torch.full((8,), 5.0), device=dev)
+    res = eng.simulate(method="naive_sampling", sample_size=700, key=key)
+    ref_res = CounterfactualEngine(values, torch.full((8,), 5.0),
+                                   device="cpu").simulate(
+        method="naive_sampling", sample_size=700, key=key)
+    assert torch.equal(res.final_spend.cpu(), ref_res.final_spend)
+    z = crn.event_campaign_normals(key, torch.arange(5000, device=dev), 8)
+    assert z.device.type == "cuda"

@@ -394,7 +394,8 @@ def test_engine_sweep_sort2aggregate(env, kind, warm_start):
     _same(want.refine_iters, got.refine_iters)
     for t_row, j_row in zip(got.delta_table(), want.delta_table()):
         # revenue is the float32 sum of final_spend over campaigns, which
-        # torch and XLA add in different orders (ROADMAP.md §4)
+        # torch and XLA add in different orders (ROADMAP.md §3, "XLA CPU
+        # float orders")
         np.testing.assert_allclose(t_row.pop("revenue"), j_row.pop("revenue"),
                                    rtol=1e-6)
         np.testing.assert_allclose(t_row.pop("revenue_lift"),
@@ -461,8 +462,27 @@ def test_engine_sweep_rejects_what_repro_rejects(env):
             _message(lambda: j_engine.sweep(j_grid, **kw))
     assert _message(lambda: t_engine.sweep(grid, method="naive_sampling")) \
         == _message(lambda: j_engine.sweep(j_grid, method="naive_sampling"))
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        vi.estimate_pi(_t(env.values), _t(env.budgets),
-                       _port_rule(_design("first_price")),
-                       key_from_reference(np.asarray(jax.random.PRNGKey(0))),
-                       sample_size=64, overlay_row=object())
+    # the VI's overlay is ported: a paced campaign and bid noise at the
+    # sampled events, bit for bit repro's estimate
+    from repro.core.types import ScenarioOverlay as JOverlay
+    from repro_torch.core.types import ScenarioOverlay
+    c = env.values.shape[1]
+    start = np.zeros(c, np.int32)
+    start[1] = env.values.shape[0] // 2
+    stop = np.full(c, env.values.shape[0], np.int32)
+    sigma = np.full(c, 0.25, np.float32)
+    key = jax.random.PRNGKey(3)
+    kw = dict(sample_size=64, num_iters=3, batch_size=16)
+    want = j_vi.estimate_pi(
+        env.values, env.budgets, _design("first_price"),
+        jax.random.PRNGKey(0), overlay_row=JOverlay(
+            live_start=jnp.asarray(start), live_stop=jnp.asarray(stop),
+            bid_sigma=jnp.asarray(sigma), key=key, time_varying=True), **kw)
+    got = vi.estimate_pi(
+        _t(env.values), _t(env.budgets), _port_rule(_design("first_price")),
+        key_from_reference(np.asarray(jax.random.PRNGKey(0))),
+        overlay_row=ScenarioOverlay(
+            live_start=_t(start), live_stop=_t(stop), bid_sigma=_t(sigma),
+            key=key_from_reference(np.asarray(key)), time_varying=True),
+        **kw)
+    _same(want.pi, got.pi)
