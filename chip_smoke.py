@@ -27,7 +27,8 @@ Run from the repository root. Phases:
    (``csrc/lane_resolve.cuh``) at its edges (``PARTIALS_EDGES``,
    ``SWEEP_RESOLVE_EDGES``: windows starting and ending inside a tile,
    inside one canonical block, on block edges, retired lanes, an offset
-   slice, S no multiple of the lanes per item, C of 1, 100, 129 and either
+   slice, a resumable fold's slab from a mid-block offset to the log's end,
+   S no multiple of the lanes per item, C of 1, 100, 129 and either
    side of the 8-lane item's shared memory, a per-event mask), bitwise
    the plain versions on the CPU under both pricing rules;
    ``segment_resolve`` at hand-built edge tables (``SEGMENT_EDGES``:
@@ -51,7 +52,7 @@ Run from the repository root. Phases:
    on the CPU;
 5. run the exact replay, ``engine.sweep(grid, method="sequential")``, at
    full width for both rules: one ``capped_scan`` launch each, a second
-   launch gives the same bits, the first 131,072 events of lane 0
+   launch gives the same bits, the first 65,536 events of lane 0
    (first price) and lane 31 (second price) are bitwise the plain version
    on the CPU, and every lane at full width is the exact replay: its events
    resolved against its own cap times (MatrixTile, an (N, C) mask) give its
@@ -170,8 +171,8 @@ Run from the repository root. Phases:
    bitwise the CPU (one ``first_crossing`` call), the multi-slot oracle and
    refinement at N=2,048 bitwise the CPU; (h) ``engine.search`` over
    reserve × budget scale (hillclimb, budget 32): the same trajectory on
-   the card and the CPU at ``PAPER_SYNTHETIC_CPU``, and its wall time at
-   the full day;
+   the card and the CPU over the first ``CPU_CUT_EVENTS`` events of
+   ``PAPER_SYNTHETIC_CPU``, and its wall time at the full day;
 12. CRN scenario families at the full day, both rules (``crn_phase``): (a)
    the day's bid-noise normals and participation uniforms, one
    ``crn_cells`` launch each, ``CRN_CHECK_ROWS`` bitwise the CPU's draws,
@@ -186,14 +187,38 @@ Run from the repository root. Phases:
    0.9, a pacing window over the middle half, their pairs, a sigma=0 /
    p=1 lane) on ``resolve="torch"``: the last lane bitwise the base lane,
    two identical specs bitwise each other, ``chunks=125_000`` bitwise,
-   bitwise the CPU at ``PAPER_SYNTHETIC_CPU`` (first price), its wall time,
+   bitwise the CPU over the first ``CPU_CUT_EVENTS`` events of
+   ``PAPER_SYNTHETIC_CPU`` (first price), its wall time,
    ``segment_partials`` launches and peak memory above the inputs;
    ``"fused"`` refuses it with ``check_overlay``'s text; (d)
    ``engine.attribute`` over pause[3], the noise and the pacing window (8
    lanes): Shapley values and efficiency gap; (e) the warm start's VI with
    the per-event overlay, S=8 in one ``vi`` launch, bitwise the CPU's loop
    on the same inputs at ``VI_SWEEP_CPU_EPOCHS``, the kernel timed at the
-   full warm start (the JSON ``vi`` row's ``overlay_*`` keys).
+   full warm start (the JSON ``vi`` row's ``overlay_*`` keys);
+13. the always-on counterfactual service at the full day, both rules
+   (``service_phase``): appends of 200,000 + 300,000 + 500,000 rows
+   (chunks of 100,000; the second fold starts inside a canonical block)
+   with two of phase 4's lanes registered for streaming; (a) the device
+   store: each fold's wall, rounds and launches (the first fold's fused
+   round, then two ``sweep_partials`` launches a round at the offset),
+   four ``ask`` tickets in one flush, ``sweep(grid)``, a repeated sweep
+   (all cache hits) and ``engine().sweep(grid)``, each bitwise phase 4's
+   fused sweep; (b) the host store (pinned slabs, a copy stream): the same
+   folds, answers and frontiers bitwise the device store's, the peak
+   device memory of both stores' replays, the replay with ``prefetch`` on
+   and off, and one streamed pass's time and bytes beside its copies alone
+   and its PCIe bound; (c) a one-append frontier bitwise phase 4's sweep,
+   the three-fold frontier at ``PAPER_SYNTHETIC_CPU`` on the card (both
+   stores) bitwise the CPU service, the mid-block fold at full width
+   bitwise the CPU's fold (first price); (d) save after two appends, load,
+   append: bitwise the uninterrupted service, the save and load seconds;
+   and ``sweep_partials`` at the mid-block fold's shape timed beside its
+   plain version and bound (the JSON row's ``resume_*`` keys, whose
+   ``resume_launches`` counts the launches of the folds resumed at a
+   non-zero offset, both stores and rules; ``host_pass_*``, whose
+   ``host_pass_launches`` is read from the counters around one streamed
+   pass).
 
 Every check raises on failure and nothing is caught, so any failure exits
 non-zero. The last line is the JSON result. Without a CUDA device, or
@@ -203,16 +228,22 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
+PCIE_BYTES_PER_S = 64e9         # PCIe 5.0 x16, one direction
 FP32_OPS_PER_S = 67e12          # H100 SXM fp32, non-tensor (data sheet)
+# 32-bit integer add, logic and shift issue at 64 a cycle an SM on Hopper
+# (half the float32 rate); the rate is this times the SMs and the max clock
+INT32_LANES_PER_SM = 64
 BF16_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
 TF32_OPS_PER_S = 495e12         # H100 SXM TF32 tensor cores, dense
 GRID_AXES = dict(bid_scales=(1.0, 0.9, 1.1, 1.3), reserves=(0.0, 0.05),
@@ -223,7 +254,7 @@ KINDS = ("first_price", "second_price")
 RESOLVES = ("torch", "sweep_resolve", "fused")
 OUTPUTS = ("final_spend", "cap_times", "retired", "boundaries", "num_rounds",
            "n_hat")
-PREFIX = 131_072                # events of the exact replay checked on the CPU
+PREFIX = 65_536                 # events of the exact replay checked on the CPU
 WIDE_CAMPAIGNS = (257, 1000)    # capped_scan past the first design's limit
 WIDE_EVENTS = 4096
 # the first designs' times, measured by this script on an NVIDIA H100 80GB
@@ -258,6 +289,8 @@ PARTIALS_EDGES = (
     ("C=129", 3, 5_000, 129, "retired_offset"),
     ("C=t8", 8, 3_000, "t8", "mid_tile"),
     ("C=t8+1", 8, 3_000, "t8+1", "mid_tile"),
+    ("a resumable fold: the slab from a mid-block offset to the log's end",
+     6, 20_000, 100, "resume"),
 )
 SWEEP_RESOLVE_EDGES = (   # name, S, N, C, per-event mask
     ("N below one tile", 3, 100, 37, False),
@@ -319,6 +352,17 @@ CHUNK_EVENTS = (125_000, 250_000)
 S2A_CROSSING_BLOCK = 15_625
 NAIVE_SAMPLE = 10_000
 MULTISLOT_SMALL_N = 2_048
+# phase 13: the service's appends (whole chunks of SERVICE_EPC, a multiple
+# of REDUCE_BLOCKS, so the host store takes it; the second fold starts at
+# 200,000 of 500,000, inside block 12 of 15,625), the grid lanes asked for
+# and registered for streaming, and the three-fold comparison with the CPU
+# at PAPER_SYNTHETIC_CPU (its second fold starts inside a block too)
+SERVICE_EPC = 100_000
+SERVICE_SLABS = (200_000, 300_000, 500_000)
+SERVICE_ASK_LANES = (0, 5, 17, 31)
+SERVICE_STREAM_LANES = {"base": 0, "lane21": 21}
+SERVICE_SMALL_EPC = 4_096
+SERVICE_SMALL_SLABS = (16_384, 20_480, 28_672)
 # phase 12: CRN scenario families at the §7.1 day. The day's CRN draws are
 # held against the CPU on CRN_CHECK_ROWS; the static family's 32 lanes are
 # cut to one lane of each intervention kind (CRN_CPU_LANES with the base) at
@@ -328,16 +372,21 @@ MULTISLOT_SMALL_N = 2_048
 # per-event overlay is held against the CPU's loop at VI_SWEEP_CPU_EPOCHS
 CRN_CHECK_ROWS = ((0, 16_384), (500_000, 516_384))
 CRN_CPU_LANES = 8
-# operations a cell of crn_cells: three Threefry hashes (20 rounds of an
-# add, a rotate and a xor, 5 key injections of three adds, the key
-# schedule's two xors: 77 each) and the mantissa transform (4); a normal
-# adds the uniform's multiply-add and clamp (2), -x*x (1), both branches of
-# log1p (24 and 20) and the select (1), erf_inv's compare, subtract and
-# square root (4), its coefficient selects, 8 multiply-adds and the end
-# point test (18) and the scale (1). Integer and float32 operations are
-# counted at the card's float32 rate, which no integer pipe exceeds
-CRN_CELL_OPS = {"uniform": 3 * 77 + 4 + 2,
-                "normal": 3 * 77 + 4 + 2 + 1 + 45 + 4 + 18 + 1}
+# events of PAPER_SYNTHETIC_CPU over which phase 11's search and phase 12's
+# per-event family are held against the CPU (~9 s and ~10 s there)
+CPU_CUT_EVENTS = 32_768
+# operations a cell of crn_cells, (32-bit integer, float32): three
+# Threefry hashes (20 rounds of an add, a rotate and a xor, 5 key
+# injections of three adds, the key schedule's two xors: 77 each) and the
+# mantissa transform's shift and or, all integer; the transform's subtract
+# and scale (2) and the uniform's multiply-add and clamp (2); a normal adds
+# -x*x (1), both branches of log1p (24 and 20) and the select (1), erf_inv's
+# compare, subtract and square root (4), its coefficient selects, 8
+# multiply-adds and the end point test (18) and the scale (1). The integer
+# ones go at the integer rate (INT32_LANES_PER_SM), the float32 ones at the
+# float32 rate (bound_ms)
+CRN_CELL_OPS = {"uniform": (3 * 77 + 2, 2 + 2),
+                "normal": (3 * 77 + 2, 2 + 2 + 1 + 45 + 4 + 18 + 1)}
 # bid_noise a cell: sigma * z, exp's two clamps, floor, two clamps, 7
 # multiply-adds, r * r, the add of 1, the exponent's three integer
 # operations, the scale, the flush test and select, and the final multiply
@@ -446,12 +495,16 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S):
-    """The least time the card could take: the larger of bytes over HBM
-    bandwidth and operations over the card's peak rate for their type
-    (fp32 unless said)."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / ops_per_s * 1e3
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S,
+             *, int_ops: float = 0, int_ops_per_s: float = 1.0,
+             bytes_per_s: float = HBM_BYTES_PER_S):
+    """The least time the card could take: the larger of bytes over the
+    memory rate (HBM unless said) and operations over the card's peak rate
+    for their type (fp32 unless said; ``int_ops`` 32-bit integer operations
+    at ``int_ops_per_s``, a pipe of their own, so the slower of the two
+    pipes bounds)."""
+    t_bytes = n_bytes / bytes_per_s * 1e3
+    t_ops = max(n_ops / ops_per_s, int_ops / int_ops_per_s) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -565,6 +618,13 @@ def edge_windows(kind: str, s: int, n: int, n_blocks: int):
     elif kind == "block_edges":
         lo = (ar + 1) * block
         hi = torch.clamp((ar + 3) * block, max=n)
+    elif kind == "resume":
+        # a fold's slab: rows from 40% of the log (inside a canonical
+        # block) to its end, every lane's frontier at the offset or past it
+        offset = 2 * n // 5
+        n_local = n - offset
+        lo = offset + 97 * (ar % 3)
+        hi = torch.where(ar % 2 == 0, n, n - 1000 - 61 * ar)
     else:
         offset, n_local = 1000, n - 3000
         lo = 900 + ar * 333
@@ -1471,8 +1531,8 @@ def chunks_phase(dev, env, small, engines, base_sweeps, small_cpu, exact,
     space = SearchSpace(reserve=(0.0, 0.1), budget_scale=(0.5, 1.5))
     trajectories = []
     for device in (dev, torch.device("cpu")):
-        eng = CounterfactualEngine(small.values, small.budgets,
-                                   device=device)
+        eng = CounterfactualEngine(small.values[:CPU_CUT_EVENTS],
+                                   small.budgets, device=device)
         t0 = time.perf_counter()
         found = eng.search(space, method="hillclimb", budget=32)
         trajectories.append((found, time.perf_counter() - t0))
@@ -1492,7 +1552,7 @@ def chunks_phase(dev, env, small, engines, base_sweeps, small_cpu, exact,
                          day_wall=day_wall, day_evaluations=day.evaluations,
                          day_best=day.best_point)
     print(f"[11] (h) engine.search(reserve x budget_scale, hillclimb, "
-          f"budget 32): N={small.n_events} the same {card_found.evaluations}"
+          f"budget 32): N={CPU_CUT_EVENTS} the same {card_found.evaluations}"
           f"-evaluation trajectory and best point {card_found.best_point} on "
           f"the card ({card_wall:.2f} s) and the CPU ({cpu_wall:.2f} s); the "
           f"full day {day_wall:.4f} s, {day.evaluations} evaluations, best "
@@ -1602,8 +1662,11 @@ def crn_phase(dev, env, small, reset_counts, read_counts, equal, *,
                                            True), z[:rows0],
           "[12] (a) crn_cells against its plain version on the card")
     out["timing"]["crn_cells"] = (cells_ms, cells_plain_ms, None)
+    int_ops, f32_ops = CRN_CELL_OPS["normal"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out["timing"]["crn_cells_bound"] = bound_ms(
-        n * 4 + n * c * 4, n * c * CRN_CELL_OPS["normal"])
+        n * 4 + n * c * 4, n * c * f32_ops, int_ops=n * c * int_ops,
+        int_ops_per_s=INT32_LANES_PER_SM * sms * clock_hz)
     out["crn_cells_part"] = (rows0, cells_part_ms)
     sigma = torch.full((1, c), 0.2, device=dev)
     noise_ms = cuda_ms(lambda: crn_ops.bid_noise(env.values, z, sigma), 3)
@@ -1766,20 +1829,23 @@ def crn_phase(dev, env, small, reset_counts, read_counts, equal, *,
                 f"family: {refused!r}")
         cpu_note = "the CPU comparison under the first rule only"
         if kind == KINDS[0]:
-            s_card = engine_of(small.values, small.budgets, kind, dev)
-            s_cpu = engine_of(*small_cpu, kind, "cpu")
-            specs_small = per_event_specs(small.values.shape[0], pace)
+            cut_n = CPU_CUT_EVENTS
+            s_card = engine_of(small.values[:cut_n], small.budgets, kind,
+                               dev)
+            s_cpu = engine_of(small_cpu[0][:cut_n], small_cpu[1], kind,
+                              "cpu")
+            specs_small = per_event_specs(cut_n, pace)
             t0 = time.perf_counter()
             want = s_cpu.sweep(sc.compile_family(
                 s_cpu.values, s_cpu.budgets, s_cpu.base_rule, specs_small,
                 key=key), resolve="torch")
-            cpu_note = (f"bitwise the CPU at N={small.values.shape[0]} "
+            cpu_note = (f"bitwise the CPU at N={cut_n} "
                         f"({time.perf_counter() - t0:.1f} s on the CPU)")
             same(s_card.sweep(sc.compile_family(
                 s_card.values, s_card.budgets, s_card.base_rule,
                 specs_small, key=key), resolve="torch"), want,
                 f"[12] (c) {kind}: the card differs from the CPU at "
-                f"N={small.values.shape[0]}")
+                f"N={cut_n}")
         results[kind] = dict(per_event_s=pev_s, chunked_s=pch_s,
                              sp_launches=sp_launches, peak=peak_above,
                              static_s=auto_s, static_torch_s=torch_s,
@@ -1892,6 +1958,413 @@ def crn_phase(dev, env, small, reset_counts, read_counts, equal, *,
           f"({vo['bound'][1]}), chain floor {vo['chain_floor_ms']:.4f} ms",
           flush=True)
     print(f"[12] phase 12: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
+def service_phase(dev, env, small, engines, base_sweeps, reset_counts,
+                  read_counts, *, epc: int = SERVICE_EPC,
+                  slabs=SERVICE_SLABS, small_epc: int = SERVICE_SMALL_EPC,
+                  small_slabs=SERVICE_SMALL_SLABS,
+                  ask_lanes=SERVICE_ASK_LANES,
+                  stream_lanes=SERVICE_STREAM_LANES,
+                  ckpt_root: Path = ROOT / "build" / "service_ckpt") -> dict:
+    """Phase 13: the always-on counterfactual service
+    (``repro_torch.serve.CounterfactualService``) on the §7.1 day, both
+    rules, with appends of ``slabs`` rows in chunks of ``epc`` (the second
+    fold starts inside a canonical block) and ``stream_lanes`` of phase 4's
+    grid registered for streaming before them. (a) The device store: each
+    fold's wall, rounds and ``sweep_partials`` launches; ``ask`` tickets
+    for ``ask_lanes``, ``sweep(grid)``, a repeated sweep (all cache hits)
+    and ``engine().sweep(grid)``, each bitwise phase 4's one-shot fused
+    sweep. (b) The host store: the same folds, exact answers and streaming
+    frontiers bitwise the device store's; the peak device memory above the
+    inputs of both stores' grid replays; the host-streamed replay with
+    ``prefetch`` on and off (bitwise); the H2D bytes and time of one
+    streamed pass, and of its copies alone. (c) A one-append service's
+    frontier bitwise phase 4's sweep; the three-fold frontier at
+    ``small``'s size (slabs ``small_slabs`` of whole ``small_epc`` chunks)
+    on the card, device and host stores, bitwise the port's CPU service;
+    the mid-block fold at full width bitwise the CPU's fold (first price).
+    (d) Save after two appends, load, append the last slab: bitwise the
+    uninterrupted service; the save and load seconds. ``sweep_partials`` at
+    the mid-block fold's shape is timed beside its plain version and bound.
+    Returns the numbers and the main path's launches."""
+    import shutil
+    import torch
+    from repro_torch.core import AuctionRule, ScenarioGrid, scenario_rule
+    from repro_torch.core import executor
+    from repro_torch.kernels.auction_resolve import ops, ref
+    from repro_torch.serve import CounterfactualService
+    from repro_torch.serve import counterfactual as svc_mod
+
+    t_phase = time.perf_counter()
+    n, c = env.values.shape
+    out = {"counted": {"round_fused": 0, "sweep_partials": 0,
+                       "segment_partials": 0}, "folds": {},
+           "resume_launches": 0}
+    fold_rounds = []
+    fold = svc_mod.execute_sweep_resumable
+
+    def recorded_fold(*args, **kwargs):
+        res, carry = fold(*args, **kwargs)
+        fold_rounds.append(int(res[4].max()))
+        return res, carry
+
+    def count(cnt):
+        for name in out["counted"]:
+            out["counted"][name] += cnt[name]
+
+    def timed(fn):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cnt = read_counts()
+        count(cnt)
+        return res, wall, cnt
+
+    def make(store, e=env, grid=None, size_epc=epc):
+        svc = CounterfactualService(e.budgets, grid.scenario(0)[0],
+                                    events_per_chunk=size_epc, store=store,
+                                    device=e.values.device)
+        for label, lane in stream_lanes.items():
+            svc.register(label, *grid.scenario(lane))
+        return svc
+
+    def appends(svc, values, sizes, tag):
+        walls, start = [], 0
+        for k, size in enumerate(sizes):
+            fold_rounds.clear()
+            _, wall, cnt = timed(lambda: svc.append(values[start:start + size]))
+            rounds = max(fold_rounds)
+            walls.append(wall)
+            if start > 0:               # a fold resumed at a row offset
+                out["resume_launches"] += cnt["sweep_partials"]
+            print(f"[13] {tag}: fold {k + 1} (events [{start}, "
+                  f"{start + size}) of {start + size}, block "
+                  f"{-(-(start + size) // 32)}, offset inside a block: "
+                  f"{start % -(-(start + size) // 32) != 0}): "
+                  f"{wall:.4f} s, {rounds} rounds, "
+                  f"{cnt['sweep_partials']} sweep_partials and "
+                  f"{cnt['round_fused']} round_fused launches", flush=True)
+            start += size
+        return walls
+
+    def frontier_equal(a, b, labels, what):
+        for label in labels:
+            x, y = a.streaming(label), b.streaming(label)
+            require(torch.equal(x.final_spend.cpu(), y.final_spend.cpu())
+                    and torch.equal(x.cap_times.cpu(), y.cap_times.cpu()),
+                    f"{what}: streaming {label!r} differs")
+
+    svc_mod.execute_sweep_resumable = recorded_fold
+    try:
+        for kind in KINDS:
+            engine, grid = engines[kind]
+            want_spend, want_caps = base_sweeps[kind][0], base_sweeps[kind][1]
+
+            def same_rows(spend, caps, lanes, what):
+                require(torch.equal(spend, want_spend[lanes])
+                        and torch.equal(caps, want_caps[lanes]),
+                        f"{kind}: {what} differs from phase 4's fused sweep")
+
+            every = list(range(grid.num_scenarios))
+            # (a) the device store
+            dev_svc = make("device", grid=grid)
+            walls = appends(dev_svc, env.values, slabs, f"{kind} device store")
+            tickets = [dev_svc.ask(*grid.scenario(s)) for s in ask_lanes]
+            _, ask_wall, ask_cnt = timed(dev_svc.flush)
+            for s, t in zip(ask_lanes, tickets):
+                a = t.result()
+                same_rows(a.final_spend, a.cap_times, s, f"ask of lane {s}")
+            require(ask_cnt["round_fused"] > 0
+                    and dev_svc.stats["batches"] == 1,
+                    f"{kind}: the asks did not run one fused replay")
+            dev_svc.values                   # the concatenated log
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            swept, sweep_wall, _ = timed(lambda: dev_svc.sweep(grid))
+            dev_peak = torch.cuda.max_memory_allocated() - before
+            same_rows(swept.results.final_spend, swept.results.cap_times,
+                      every, "service.sweep(grid)")
+            stats = dict(dev_svc.stats)
+            again, _, _ = timed(lambda: dev_svc.sweep(grid))
+            bound, _, _ = timed(lambda: dev_svc.engine().sweep(grid))
+            require(dev_svc.stats["batches"] == stats["batches"]
+                    and dev_svc.stats["hits"] == stats["hits"]
+                    + 2 * grid.num_scenarios,
+                    f"{kind}: a repeated sweep was not all cache hits")
+            for res, what in ((again, "the repeated sweep"),
+                              (bound, "engine().sweep(grid)")):
+                same_rows(res.results.final_spend, res.results.cap_times,
+                          every, what)
+            log_bytes = sum(x.numel() * 4 for x in dev_svc._slabs) + \
+                dev_svc.values.numel() * 4
+            print(f"[13] {kind} (a): {len(ask_lanes)} asks in one flush "
+                  f"({ask_wall:.4f} s, {ask_cnt['round_fused']} round_fused "
+                  f"launches), sweep(grid) ({stats['misses'] - len(ask_lanes)}"
+                  f" misses, {sweep_wall:.4f} s), a repeated sweep and "
+                  f"engine().sweep(grid) (all hits): bitwise phase 4's fused "
+                  f"sweep; the log on the card {log_bytes / 2**30:.4f} GiB "
+                  f"(slabs and their concatenation)", flush=True)
+            # (b) the host store
+            host_svc = make("host", grid=grid)
+            host_walls = appends(host_svc, env.values, slabs,
+                                 f"{kind} host store")
+            frontier_equal(host_svc, dev_svc, stream_lanes,
+                           f"{kind} (b) host store against device store")
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            executor.reset_h2d()
+            h_swept, h_wall, h_cnt = timed(lambda: host_svc.sweep(grid))
+            host_peak = torch.cuda.max_memory_allocated() - before
+            h2d = dict(executor.H2D)
+            same_rows(h_swept.results.final_spend, h_swept.results.cap_times,
+                      every, "the host store's sweep(grid)")
+            stream = host_svc.values
+            plan, _ = host_svc._batch_plan(grid.num_scenarios)
+            walls_pf = {}
+            for prefetch in (True, False):
+                p_plan = dataclasses.replace(plan, chunks=dataclasses.replace(
+                    plan.chunks, prefetch=prefetch))
+                res, walls_pf[prefetch], _ = timed(
+                    lambda: executor.execute_sweep(stream, grid.budgets,
+                                                   grid.rules, p_plan))
+                same_rows(res[0], res[1], every,
+                          f"the host-streamed replay, prefetch {prefetch}")
+            epc_h = plan.chunks.events_per_chunk
+            rounds = int(base_sweeps[kind][4].max())
+            print(f"[13] {kind} (b): host store sweep(grid) {h_wall:.4f} s "
+                  f"(chunks of {epc_h}, {h2d['copies']} copies, "
+                  f"{h2d['bytes'] / 1e9:.4f} GB to the card, "
+                  f"{h2d['staged']} staged; {h_cnt['sweep_partials']} "
+                  f"sweep_partials launches for {rounds} rounds), bitwise "
+                  f"the device store; replay prefetch on {walls_pf[True]:.4f}"
+                  f" s, off {walls_pf[False]:.4f} s; peak device memory "
+                  f"above the inputs: device store {dev_peak / 2**30:.4f} "
+                  f"GiB, host store {host_peak / 2**30:.4f} GiB", flush=True)
+            out["folds"][kind] = dict(device=walls, host=host_walls)
+            out.setdefault("replay", {})[kind] = dict(
+                host=h_wall, prefetch_on=walls_pf[True],
+                prefetch_off=walls_pf[False], device=sweep_wall,
+                dev_peak=dev_peak, host_peak=host_peak, h2d=h2d,
+                rounds=rounds)
+            # one streamed pass of the day, S=32, every lane's window the
+            # whole log, and its copies alone
+            if kind == "first_price":
+                mult, res_ = grid.rules.multipliers, grid.rules.reserve
+                act = torch.ones_like(mult, dtype=torch.bool)
+                lo = torch.zeros(grid.num_scenarios, dtype=torch.int32,
+                                 device=dev)
+                hi = torch.full_like(lo, n)
+                alive = torch.ones_like(lo, dtype=torch.bool)
+
+                def one_pass(compute):
+                    pipe = executor._HostPipeline(stream, epc_h, 0, dev,
+                                                  True)
+                    for off, rows in pipe.rows():
+                        if compute:
+                            ops.sweep_partials(
+                                rows, mult, act, res_, lo, hi, alive, off,
+                                n_events_global=n, reduce_blocks=32)
+
+                pass_s = {}
+                for compute in (True, False):
+                    times = []
+                    for _ in range(4):
+                        executor.reset_h2d()
+                        reset_counts()
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        one_pass(compute)
+                        torch.cuda.synchronize()
+                        times.append(time.perf_counter() - t0)
+                        if compute:
+                            pass_launches = read_counts()["sweep_partials"]
+                    pass_s[compute] = statistics.median(times[1:])
+                require(pass_launches == -(-n // epc_h),
+                        f"a streamed pass made {pass_launches} sweep_partials"
+                        f" launches for {-(-n // epc_h)} chunks")
+                pass_bytes = executor.H2D["bytes"]
+                part_bound = bound_ms(*resolve_cost(
+                    n, c, grid.num_scenarios, grid.num_scenarios * n, False,
+                    grid.num_scenarios * 32 * c * 4))
+                pcie_bound = bound_ms(pass_bytes, 0,
+                                      bytes_per_s=PCIE_BYTES_PER_S)
+                out["pass"] = dict(ms=pass_s[True] * 1e3,
+                                   copy_ms=pass_s[False] * 1e3,
+                                   bytes=pass_bytes,
+                                   bound_ms=max(part_bound[0], pcie_bound[0]),
+                                   partials_bound_ms=part_bound[0],
+                                   pcie_bound_ms=pcie_bound[0],
+                                   launches=pass_launches)
+                print(f"[13] one host-streamed pass (S=32, N={n}, chunks "
+                      f"of {epc_h}): {pass_s[True] * 1e3:.4f} ms, its "
+                      f"copies alone {pass_s[False] * 1e3:.4f} ms, "
+                      f"{pass_bytes / 1e9:.4f} GB to the card "
+                      f"({pass_bytes / pass_s[False] / 1e9:.2f} GB/s), "
+                      f"{pass_launches} sweep_partials launches; "
+                      f"bound {out['pass']['bound_ms']:.4f} ms (PCIe "
+                      f"{pcie_bound[0]:.4f}, partials over HBM "
+                      f"{part_bound[0]:.4f})", flush=True)
+            del host_svc, stream
+            # (c) streaming
+            lanes = list(stream_lanes.values())
+            one = make("device", grid=grid)
+            timed(lambda: one.append(env.values))
+            for label, lane in stream_lanes.items():
+                a = one.streaming(label)
+                same_rows(a.final_spend, a.cap_times, lane,
+                          f"the one-append frontier of {label!r}")
+            del one
+            s_grid = ScenarioGrid.product(
+                AuctionRule(multipliers=torch.ones(small.values.shape[1],
+                                                   device=dev),
+                            reserve=torch.zeros((), device=dev), kind=kind),
+                small.budgets, **GRID_AXES)
+            s_cpu = types.SimpleNamespace(values=small.values.cpu(),
+                                          budgets=small.budgets.cpu())
+            cpu_grid = ScenarioGrid(
+                rules=AuctionRule(multipliers=s_grid.rules.multipliers.cpu(),
+                                  reserve=s_grid.rules.reserve.cpu(),
+                                  kind=kind),
+                budgets=s_grid.budgets.cpu(), labels=s_grid.labels)
+            small_svcs = {}
+            for store, e, g in (("device", small, s_grid),
+                                ("host", small, s_grid),
+                                ("cpu", s_cpu, cpu_grid)):
+                svc = make("device" if store == "cpu" else store, e=e,
+                           grid=g, size_epc=small_epc)
+                start = 0
+                for size in small_slabs:
+                    svc.append(e.values[start:start + size])
+                    start += size
+                small_svcs[store] = svc
+            frontier_equal(small_svcs["device"], small_svcs["cpu"],
+                           stream_lanes, f"{kind} (c) small, card vs CPU")
+            frontier_equal(small_svcs["host"], small_svcs["cpu"],
+                           stream_lanes, f"{kind} (c) small, host vs CPU")
+            del small_svcs
+            mid_cpu = ""
+            if kind == "first_price":
+                # the mid-block fold at full width against the CPU's fold
+                budgets = grid.budgets[lanes]
+                rules = AuctionRule(multipliers=grid.rules.multipliers[lanes],
+                                    reserve=grid.rules.reserve[lanes],
+                                    kind=kind)
+                plan = executor.SweepPlan()
+                _, carry = executor.execute_sweep_resumable(
+                    env.values[:slabs[0]], budgets, rules, plan)
+                stop = slabs[0] + slabs[1]
+                got, got_carry = executor.execute_sweep_resumable(
+                    env.values[slabs[0]:stop], budgets, rules, plan,
+                    carry=carry)
+                t0 = time.perf_counter()
+                want, want_carry = executor.execute_sweep_resumable(
+                    env.values[slabs[0]:stop].cpu(), budgets.cpu(),
+                    AuctionRule(multipliers=rules.multipliers.cpu(),
+                                reserve=rules.reserve.cpu(), kind=kind),
+                    executor.SweepPlan(resolve="torch"),
+                    carry=carry.to("cpu"))
+                cpu_s = time.perf_counter() - t0
+                for name, a, b in zip(OUTPUTS, got, want):
+                    require(torch.equal(a.cpu(), b),
+                            f"{kind}: the mid-block fold's {name} differs "
+                            f"from the CPU's")
+                require(torch.equal(got_carry.cap_times.cpu(),
+                                    want_carry.cap_times),
+                        f"{kind}: the mid-block fold's carry differs")
+                mid_cpu = (f"; the mid-block fold ([{slabs[0]}, {stop}) of "
+                           f"{stop}, {int(got[4].max())} rounds) bitwise "
+                           f"the CPU's fold ({cpu_s:.1f} s on the CPU)")
+            print(f"[13] {kind} (c): the one-append frontier bitwise phase "
+                  f"4's sweep ({len(lanes)} lanes); the three-fold frontier "
+                  f"at N={small.values.shape[0]} (slabs {small_slabs}) on "
+                  f"the card, device and host stores, bitwise the CPU "
+                  f"service{mid_cpu}", flush=True)
+            # (d) checkpoints: save after two appends, load, append
+            shutil.rmtree(ckpt_root, ignore_errors=True)
+            part = make("device", grid=grid)
+            start = 0
+            for size in slabs[:-1]:
+                part.append(env.values[start:start + size])
+                start += size
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            part.save(ckpt_root)
+            save_s = time.perf_counter() - t0
+            del part
+            t0 = time.perf_counter()
+            restored = CounterfactualService.load(ckpt_root, device=dev)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            ckpt_bytes = sum(f.stat().st_size for f in ckpt_root.rglob("*")
+                             if f.is_file())
+            timed(lambda: restored.append(env.values[start:]))
+            frontier_equal(restored, dev_svc, stream_lanes,
+                           f"{kind} (d) save, load, append")
+            lane = ask_lanes[-1]
+            a = restored.ask(*grid.scenario(lane)).result()
+            same_rows(a.final_spend, a.cap_times, lane,
+                      "the restored service's ask")
+            shutil.rmtree(ckpt_root, ignore_errors=True)
+            out.setdefault("ckpt", {})[kind] = (save_s, load_s, ckpt_bytes)
+            print(f"[13] {kind} (d): saved after {start} events in "
+                  f"{save_s:.4f} s ({ckpt_bytes / 1e6:.1f} MB), loaded in "
+                  f"{load_s:.4f} s, the last slab appended: streaming and "
+                  f"an ask bitwise the uninterrupted service", flush=True)
+            del restored, dev_svc
+    finally:
+        svc_mod.execute_sweep_resumable = fold
+    # sweep_partials at the mid-block fold's shape: rows [200,000, 500,000)
+    # of a 500,000-event log (block 15,625), 32 lanes, every window from
+    # the offset to the end; two lanes held against the CPU
+    engine, grid = engines["first_price"]
+    lo_row, n_glob = slabs[0], slabs[0] + slabs[1]
+    s = grid.num_scenarios
+    rows = env.values[lo_row:n_glob]
+    mult, res_ = grid.rules.multipliers, grid.rules.reserve
+    act = torch.ones_like(mult, dtype=torch.bool)
+    lo = torch.full((s,), lo_row, dtype=torch.int32, device=dev)
+    hi = torch.full((s,), n_glob, dtype=torch.int32, device=dev)
+    alive = torch.ones(s, dtype=torch.bool, device=dev)
+    block = -(-n_glob // 32)
+
+    def kernel():
+        return ops.sweep_partials(rows, mult, act, res_, lo, hi, alive,
+                                  lo_row, n_events_global=n_glob,
+                                  reduce_blocks=32)
+
+    def plain(sl=slice(None), where=dev):
+        return ref.fused_partials_ref(
+            rows.to(where), mult[sl].to(where), act[sl].to(where),
+            res_[sl].to(where), lo[sl].to(where), hi[sl].to(where),
+            block_size=block, index_offset=lo_row)
+
+    got = kernel()
+    for lane in (0, s - 1):
+        want = plain(slice(lane, lane + 1), "cpu")
+        require(torch.equal(got[lane:lane + 1].cpu(), want),
+                f"sweep_partials at a mid-block offset, lane {lane}, "
+                f"differs from its plain version on the CPU")
+    out["resume"] = dict(
+        ms=cuda_ms(kernel, 10), plain_ms=cuda_ms(plain, 3),
+        bound=bound_ms(*resolve_cost(n_glob - lo_row, c, s,
+                                     s * (n_glob - lo_row), False,
+                                     s * 32 * c * 4)),
+        rows=n_glob - lo_row,
+        launches=out["resume_launches"])
+    print(f"[13] sweep_partials at the mid-block fold's shape (rows "
+          f"[{lo_row}, {n_glob}) of {n_glob}, block {block}, S={s}): "
+          f"{out['resume']['ms']:.4f} ms, plain {out['resume']['plain_ms']:.4f}"
+          f" ms, bound {out['resume']['bound'][0]:.4f} ms; lanes 0 and "
+          f"{s - 1} bitwise the plain version on the CPU; "
+          f"{out['resume_launches']} launches in the folds resumed at an "
+          f"offset", flush=True)
+    print(f"[13] phase 13: {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return out
 
@@ -3248,15 +3721,16 @@ def main() -> int:
                            {k: r["fused"] for k, r in results.items()},
                            small_cpu, exact, reset_counts, read_counts,
                            equal)
-    modes = {"first_crossing": ("carry", phase11["first_crossing_carry"]),
-             "segment_resolve": ("offset",
-                                 phase11["segment_resolve_offset"]),
-             "capped_scan": ("scaled", phase11["capped_scan_scaled"])}
-    for name, (mode, m) in modes.items():
+    modes = {name: (mode, phase11[key], phase11["mode_launches"][name])
+             for name, mode, key in (
+                 ("first_crossing", "carry", "first_crossing_carry"),
+                 ("segment_resolve", "offset", "segment_resolve_offset"),
+                 ("capped_scan", "scaled", "capped_scan_scaled"))}
+    for name, (mode, m, launches) in modes.items():
         print(f"[11] {name} ({mode}; {m['rows']} rows): {m['ms']:.4f} ms, "
               f"plain {m['plain_ms']:.4f} ms, bound {m['bound'][0]:.4f} ms "
-              f"({m['bound'][1]}), {phase11['mode_launches'][name]} launches "
-              f"on the chunked or sampled paths")
+              f"({m['bound'][1]}), {launches} launches on the chunked or "
+              f"sampled paths")
     # ---- phase 12: CRN scenario families ---------------------------------
     phase12 = crn_phase(dev, env, small, reset_counts, read_counts, equal,
                         seed=args.seed, clock_hz=clock_hz)
@@ -3265,6 +3739,14 @@ def main() -> int:
         counted[name] += launches
     vo = phase12["vi_overlay"]
     part_rows, part_ms = phase12["crn_cells_part"]
+    # ---- phase 13: the always-on counterfactual service ------------------
+    phase13 = service_phase(dev, env, small, engines,
+                            {k: r["fused"] for k, r in results.items()},
+                            reset_counts, read_counts)
+    for name, launches in phase13["counted"].items():
+        counted[name] += launches
+    resume = phase13["resume"]
+    modes["sweep_partials"] = ("resume", resume, resume["launches"])
     rows = []
     for name, src, replaces in KERNELS:
         ms, plain_ms, library_ms = timing[name]
@@ -3355,14 +3837,21 @@ def main() -> int:
             rows[-1].update(one_lane_ms=sg1_ms, one_lane_plain_ms=sg1_plain,
                             one_lane_bound_ms=sg1_bound)
         if name in modes:
-            mode, m = modes[name]
+            mode, m, launches = modes[name]
             rows[-1].update({f"{mode}_ms": m["ms"],
                              f"{mode}_plain_ms": m["plain_ms"],
                              f"{mode}_bound_ms": m["bound"][0],
                              f"{mode}_bound_by": m["bound"][1],
                              f"{mode}_rows": m["rows"],
-                             f"{mode}_launches":
-                                 phase11["mode_launches"][name]})
+                             f"{mode}_launches": launches})
+        if name == "sweep_partials":
+            hp = phase13["pass"]
+            rows[-1].update(host_pass_ms=hp["ms"],
+                            host_pass_copy_ms=hp["copy_ms"],
+                            host_pass_bytes=hp["bytes"],
+                            host_pass_bound_ms=hp["bound_ms"],
+                            host_pass_pcie_bound_ms=hp["pcie_bound_ms"],
+                            host_pass_launches=hp["launches"])
         require(counted[name] > 0, f"{name} never launched on its path")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Core library (port of ``repro.core``): SORT2AGGREGATE with Algorithm 4,
 Algorithm 2 for one design and for a scenario sweep (over event and
-scenario chunks too), the exact sequential oracle and the naive sampled
+scenario chunks too, from a log in host memory, and as resumable folds of
+a growing log), the exact sequential oracle and the naive sampled
 replay; :mod:`.theory` and :mod:`.multislot` are imported by name."""
 from repro_torch.core.types import (AuctionRule, Segments, SimResult,
                                     never_capped)
@@ -13,10 +14,12 @@ from repro_torch.core.segments import (REDUCE_BLOCKS, aggregate,
                                        first_crossing_times, fold_blocks,
                                        masked_rate, partial_spend_sums,
                                        window_partials)
-from repro_torch.core.executor import (ChunkSpec, ScenarioChunkSpec,
+from repro_torch.core.executor import (ChunkSpec, HostStream,
+                                       ScenarioChunkSpec, SweepCarry,
                                        SweepPlan, check_s2a_options,
                                        execute_s2a_sweep, execute_sweep,
-                                       pick_resolve)
+                                       execute_sweep_resumable,
+                                       initial_carry, pick_resolve)
 from repro_torch.core.metrics import (cap_time_error, relative_error,
                                       relative_error_cdf,
                                       spend_weighted_relative_error)
@@ -43,7 +46,8 @@ __all__ = [
     "REDUCE_BLOCKS", "fold_blocks", "partial_spend_sums", "window_partials",
     "masked_rate", "block_spend_sums", "aggregate", "first_crossing_times",
     "SweepPlan", "ChunkSpec", "ScenarioChunkSpec", "execute_sweep",
-    "pick_resolve", "check_s2a_options",
+    "pick_resolve", "check_s2a_options", "HostStream", "SweepCarry",
+    "initial_carry", "execute_sweep_resumable",
     "execute_s2a_sweep",
     "relative_error", "spend_weighted_relative_error", "relative_error_cdf",
     "cap_time_error",

@@ -39,9 +39,9 @@ import torch
 from repro_torch import prng
 from repro_torch.core import sweep as sweep_lib
 from repro_torch.core import vi as vi_lib
-from repro_torch.core.executor import (SweepPlan, check_s2a_options,
-                                       execute_s2a_sweep, execute_sweep,
-                                       reject_unported)
+from repro_torch.core.executor import (HostStream, SweepPlan,
+                                       check_s2a_options, execute_s2a_sweep,
+                                       execute_sweep, reject_unported)
 from repro_torch.core.parallel import parallel_simulate
 from repro_torch.core.sequential import (naive_sampled_replay,
                                          sequential_replay)
@@ -180,18 +180,27 @@ class SweepResult:
 
 class CounterfactualEngine:
     """An event log (``values`` (N, C)) and budgets (C,) on one device —
-    the CUDA card unless ``device`` says otherwise."""
+    the CUDA card unless ``device`` says otherwise.
+
+    ``service`` binds the engine to a
+    :class:`repro_torch.serve.CounterfactualService`
+    (``service.engine()``): its parallel sweeps, and so :meth:`search`, go
+    through the service's admission batch and cache, with the same bits.
+    ``values`` may then be the service's host-resident
+    :class:`~repro_torch.core.executor.HostStream`."""
 
     def __init__(self, values, budgets,
                  base_rule: Optional[AuctionRule] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, service=None):
         self.device = pick_device(device)
-        self.values = torch.as_tensor(values).to(self.device, torch.float32)
+        self.values = values if isinstance(values, HostStream) else \
+            torch.as_tensor(values).to(self.device, torch.float32)
         self.budgets = torch.as_tensor(budgets).to(self.device,
                                                    torch.float32)
         self.n_events, self.n_campaigns = self.values.shape
         self.base_rule = base_rule or AuctionRule.first_price(
             self.n_campaigns, device=self.device)
+        self.service = service
 
     def _default_key(self) -> torch.Tensor:
         """``PRNGKey(0)`` on the engine's device: draws run where the
@@ -280,6 +289,9 @@ class CounterfactualEngine:
         results are bit for bit the unchunked sweep's; the chunked
         SORT2AGGREGATE sweep's cap times and gaps are too (at the same
         ``crossing_block``), its ``final_spend`` the carried running total.
+        ``ChunkSpec(..., source="host")`` (``"parallel"`` only) streams the
+        log from host memory chunk by chunk, with the same bits. A
+        service-bound engine's parallel sweep goes through its service.
 
         ``warm_start`` (``"sort2aggregate"`` only) seeds the refinement:
         ``"base"`` (or ``True``, the default) with the base design's cap
@@ -289,6 +301,7 @@ class CounterfactualEngine:
         first-crossing scan. The result carries ``consistency_gaps`` and
         ``refine_iters`` per scenario."""
         from repro_torch.scenarios.family import CompiledFamily
+        request = grid
         values, overlay = self.values, None
         if isinstance(grid, CompiledFamily):
             family = grid
@@ -314,6 +327,17 @@ class CounterfactualEngine:
                 "scenario_chunks= (scenario-chunked execution) currently "
                 "applies to method='parallel' sweeps only; drop "
                 f"scenario_chunks= for method={method!r}.")
+        if self.service is not None and method == "parallel":
+            # a service-bound engine answers through the service's batch and
+            # cache; the service's plan wins over driver=/resolve=/chunks=
+            # (every plan gives the same bits)
+            if self.service.n_events != self.n_events:
+                raise ValueError(
+                    f"stale service-bound engine: the service log has "
+                    f"{self.service.n_events} events but this engine wraps "
+                    f"{self.n_events}; re-create it via service.engine() "
+                    "after append().")
+            return self.service.sweep(request, base_index=base_index)
         warm_start = {True: "base", False: None}.get(warm_start, warm_start)
         if warm_start not in (None, "base", "per_scenario"):
             raise ValueError(

@@ -59,17 +59,28 @@ perturbs each lane's rows by the CRN draws of their global events
 (:func:`_overlay_noise`, drawn once a sweep) and masks them before it
 resolves; event chunks slice the draws, scenario chunks the overlay.
 
+The log may also live in host memory (:class:`HostStream`, or
+``ChunkSpec(source="host")``): every pass then streams it chunk by chunk
+through two device buffers, the copies on a stream of their own
+(:class:`_HostPipeline`), and runs the same per-chunk program as the
+device-resident chunk loop, so the bits are the device-resident sweep's.
+
+A resumable fold (:func:`execute_sweep_resumable`) runs the round program
+over NEW rows only, from a carried :class:`SweepCarry`, the rows placed on
+the global grid at the rows already seen: the streaming service's causal
+estimate (:mod:`repro_torch.serve.counterfactual`).
+
 The round loop (:func:`_run_loop`) is a Python loop that checks once per
 round whether any lane is alive — one host sync per round; capturing the
 loop in a CUDA graph is later work. Axes ``repro`` has and this port does
-not yet (host-streamed chunks, the ``sharded`` and ``multihost``
-placements, ``tuned`` plans) raise ``NotImplementedError`` naming the
-ROADMAP item that ports them; the port names its resolve back-ends after
-what they run, so ``repro``'s ``"jnp"`` and ``"pallas"`` are unknown
-options here.
+not yet (the ``sharded`` and ``multihost`` placements, ``tuned`` plans)
+raise ``NotImplementedError`` naming the ROADMAP item that ports them; the
+port names its resolve back-ends after what they run, so ``repro``'s
+``"jnp"`` and ``"pallas"`` are unknown options here.
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 from typing import Optional
 
@@ -81,6 +92,7 @@ from repro_torch.core.sort2aggregate import (refine_fixed_chunked,
                                               refine_fixed_lanes)
 from repro_torch.core.types import (AuctionRule, ScenarioOverlay,
                                     never_capped)
+from repro_torch.device import DeviceLike, pick_device
 from repro_torch.kernels import crn as crn_ops
 from repro_torch.kernels.auction_resolve import ops as resolve_ops
 
@@ -97,11 +109,6 @@ CHUNK_SOURCES = ("device", "host")
 UNPORTED = {
     "placement='sharded'": "queue 1, item 8 (multi-GPU placements)",
     "placement='multihost'": "queue 1, item 8 (multi-GPU placements)",
-    "ChunkSpec(source='host')":
-        "queue 1, item 7 (the service and host streaming)",
-    "HostStream": "queue 1, item 7 (the service and host streaming)",
-    "check_append_alignment":
-        "queue 1, item 7 (the service and host streaming)",
     "tuned": "queue 1, item 9 (tuning)",
     "mesh": "queue 1, item 8 (multi-GPU placements)",
 }
@@ -162,13 +169,18 @@ class ChunkSpec:
     chunk at a time: (S, events_per_chunk), not (S, N). Bit for bit the
     unchunked sweep for any aligned size (:func:`check_chunks`).
 
-    ``source="device"`` scans a log on the card. ``source="host"`` (the
-    log streamed from host memory) is accepted here, as ``repro`` accepts
-    it, and refused where a sweep would run it (:func:`execute_sweep`;
-    ROADMAP.md queue 1, item 7)."""
+    ``source="device"`` scans a log on the card. ``source="host"`` streams
+    it from host memory (:class:`HostStream`) through two device buffers a
+    chunk at a time, so the card holds two chunks of the log and N is bound
+    by host memory. ``prefetch=True`` overlaps chunk k+1's copy, on a
+    stream of its own, with chunk k's partials; ``prefetch=False`` copies,
+    then computes, one chunk after another (the baseline). Both run the
+    same per-chunk program, so both give the device-resident sweep's
+    bits."""
 
     events_per_chunk: int
     source: str = "device"
+    prefetch: bool = True
 
     def __post_init__(self):
         if self.events_per_chunk < 1:
@@ -213,17 +225,126 @@ def as_scenario_chunk_spec(scenario_chunks) -> Optional[ScenarioChunkSpec]:
 
 
 class HostStream:
-    """``repro``'s host-resident event log; not ported (ROADMAP.md queue 1,
-    item 7)."""
+    """An event log in host memory: float32 CPU slabs (n_i, C), streamed to
+    the card a chunk at a time.
 
-    def __init__(self, *args, **kwargs):
-        raise not_ported("HostStream")
+    The slabs are kept as given (the service's append slabs) and never
+    concatenated. Where CUDA is present they are pinned (a slab that is not
+    is copied once into pinned memory), so a chunk's copy to the card is
+    asynchronous. :meth:`chunk` gives rows ``[start, stop)``: a view of one
+    slab when the window lies inside it, else the pieces put together in
+    ``out`` (a pinned staging buffer) or a new tensor."""
+
+    def __init__(self, slabs):
+        slabs = [torch.as_tensor(s, dtype=torch.float32) for s in slabs]
+        if not slabs:
+            raise ValueError("HostStream needs at least one event slab")
+        n_campaigns = slabs[0].shape[1] if slabs[0].ndim == 2 else -1
+        for s in slabs:
+            if s.ndim != 2 or s.shape[1] != n_campaigns or s.shape[0] < 1:
+                raise ValueError(
+                    "HostStream slabs must be non-empty (n, C) valuation "
+                    f"blocks with one shared C; got shapes "
+                    f"{[tuple(x.shape) for x in slabs]}")
+        self._slabs = [host_slab(s) for s in slabs]
+        self._starts = [0]
+        for s in self._slabs:
+            self._starts.append(self._starts[-1] + s.shape[0])
+
+    @classmethod
+    def from_array(cls, values) -> "HostStream":
+        """Wrap an in-memory (N, C) log, copied to host memory once."""
+        return cls([torch.as_tensor(values).detach().cpu()])
+
+    @property
+    def shape(self):
+        return (self._starts[-1], self._slabs[0].shape[1])
+
+    @property
+    def ndim(self) -> int:
+        return 2
+
+    @property
+    def n_events(self) -> int:
+        return self._starts[-1]
+
+    @property
+    def n_campaigns(self) -> int:
+        return self._slabs[0].shape[1]
+
+    def straddles(self, start: int, stop: int) -> bool:
+        """Whether rows ``[start, stop)`` span more than one slab."""
+        i = bisect.bisect_right(self._starts, start) - 1
+        return stop > self._starts[i + 1]
+
+    def chunk(self, start: int, stop: int,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Rows ``[start, stop)``: a view of one slab when the window lies
+        inside it (always so when the slabs hold whole chunks), else the
+        pieces put together in a new tensor. With ``out``, the rows are
+        written into ``out[:stop - start]``, which is returned."""
+        if not 0 <= start < stop <= self.n_events:
+            raise ValueError(
+                f"chunk window [{start}, {stop}) outside the stream's "
+                f"{self.n_events} events")
+        i = bisect.bisect_right(self._starts, start) - 1
+        pieces = []
+        while start < stop:
+            s0 = self._starts[i]
+            slab = self._slabs[i]
+            take = min(stop, s0 + slab.shape[0])
+            pieces.append(slab[start - s0:take - s0])
+            start = take
+            i += 1
+        if out is not None:
+            return torch.cat(pieces, out=out[:sum(p.shape[0] for p in pieces)])
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
 
 
-def check_append_alignment(chunks, n_new: int) -> None:
-    """``repro``'s append-side chunk contract of the streaming service;
-    not ported (ROADMAP.md queue 1, item 7)."""
-    raise not_ported("check_append_alignment")
+def host_slab(slab: torch.Tensor) -> torch.Tensor:
+    """A slab in host memory, contiguous, and pinned where CUDA is
+    present."""
+    slab = slab.detach().cpu().contiguous()
+    if torch.cuda.is_available() and not slab.is_pinned():
+        slab = slab.pin_memory()
+    return slab
+
+
+def check_append_alignment(chunks: Optional[ChunkSpec], n_new: int) -> None:
+    """The append-side chunk contract: a slab appended to a growing log
+    holds whole chunks. Raises :func:`check_chunks`' "ragged chunk" text
+    (``repro``'s); the block-alignment branch is a property of the whole
+    log at sweep time, so the check builds an ``n_events`` whose block is
+    the chunk and only the ragged branch can fire."""
+    if chunks is None:
+        return
+    check_chunks(chunks,
+                 n_events=chunks.events_per_chunk * seg_lib.REDUCE_BLOCKS,
+                 local_n=n_new)
+
+
+def check_host_stream(plan: "SweepPlan", *,
+                      overlay: Optional[ScenarioOverlay] = None) -> None:
+    """The host-streamed execution contract, with ``repro``'s texts: an
+    explicit chunk size, no scenario chunks, no overlay. Alignment itself is
+    :func:`check_chunks`."""
+    if plan.chunks is None:
+        raise ValueError(
+            "host-streamed execution needs chunks=: the log is fed to the "
+            "device one chunk at a time, so ChunkSpec(events_per_chunk=..., "
+            "source='host') (or an aligned int chunk size alongside a "
+            "HostStream log) must state the working-set size.")
+    if plan.scenario_chunks is not None:
+        raise ValueError(
+            "scenario_chunks= does not compose with host-streamed chunks; "
+            "drop scenario_chunks= (the host pipeline already bounds "
+            "per-round intermediates by the event chunk).")
+    if overlay is not None:
+        raise ValueError(
+            "overlays are not supported with host-streamed chunks; replay "
+            "overlay families from a device-resident log "
+            "(ChunkSpec(source='device') bounds their per-event "
+            "intermediates the same way).")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -378,11 +499,14 @@ def check_batch_shapes(values, budgets, rules) -> None:
             f"scenario batch mismatch: values C={n_campaigns}, multipliers "
             f"{tuple(rules.multipliers.shape)}, budgets "
             f"{tuple(budgets.shape)}")
+    # a host-streamed log is computed on where the budgets are
+    where, dev = (("budgets", budgets.device) if isinstance(values, HostStream)
+                  else ("values", values.device))
     for name, t in (("budgets", budgets), ("multipliers", rules.multipliers),
                     ("reserve", rules.reserve)):
-        if t.device != values.device:
-            raise ValueError(f"{name} is on {t.device} but values are on "
-                             f"{values.device}; put a sweep on one device")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device} but {where} are on "
+                             f"{dev}; put a sweep on one device")
 
 
 def check_overlay(overlay: Optional[ScenarioOverlay], *, n_scenarios: int,
@@ -507,19 +631,31 @@ def lane_commit(blk, c_next, no_cap, n_next, s_hat, active, cap, rnd,
 def _make_round_body(plan: SweepPlan, resolve: str, *, values, rules,
                      budgets_f32, n_events: int, n_campaigns: int,
                      overlay: Optional[ScenarioOverlay] = None,
-                     noise=(None, None)):
+                     noise=(None, None), resume_offset: int = 0,
+                     chunk_rows=None):
     """The per-round map ``round_body(core, keep) -> core'`` for the
     ``"torch"``, ``"sweep_resolve"`` or :data:`ANY_C_BACKEND` (resolve-once)
     or ``"fused"`` back-end; with ``plan.chunks``, the two-pass shape
     (each pass a loop over the chunks) on every back-end. ``overlay`` holds
     these lanes' (S, C) intervention fields (key stripped), ``noise`` the
-    (N, C) CRN draws ``(z, u)`` of every event."""
+    (N, C) CRN draws ``(z, u)`` of every event.
+
+    ``values`` are the rows of global events ``[resume_offset, n_events)``
+    (a resumable fold's new rows; the whole log otherwise). A non-zero
+    offset rules out the one-launch fused round, whose launch assumes its
+    rows start the log: the fused back-end then takes two ``sweep_partials``
+    passes over the rows at that offset, and the others place their
+    partials there. ``chunk_rows()``, when given, yields the chunk loop's
+    ``(global offset, rows)`` pairs in order (a host-streamed log); by
+    default the chunks are slices of ``values``, or ``values`` whole when
+    the plan has no chunks."""
     sentinel = never_capped(n_events)
     second = rules.kind == "second_price"
     block = seg_lib.reduce_block_size(n_events)
     b = budgets_f32
     reserves = rules.reserve.to(torch.float32).expand(b.shape[0])
     chunks = plan.chunks
+    one_launch = resolve == "fused" and chunks is None and resume_offset == 0
 
     ol = overlay
     z_all, u_all = noise
@@ -594,27 +730,44 @@ def _make_round_body(plan: SweepPlan, resolve: str, *, values, rules,
         return seg_lib.window_partials(winners, prices, n_campaigns, lo, hi,
                                        block_size=block, index_offset=offset)
 
-    def chunked_partials(active, keep, lo, hi):
-        """The two-pass reduction: (S, G, C) partials of each lane's window
-        ``[lo, hi)``, a loop over the chunks in order adding each chunk's
-        partials (every canonical block is one chunk's, so the sum adds
-        exact zeros: ``repro``'s chunk scan)."""
+    def device_rows():
+        if chunks is None:
+            yield resume_offset, values
+            return
         epc = chunks.events_per_chunk
-        acc = torch.zeros((b.shape[0], seg_lib.REDUCE_BLOCKS, n_campaigns),
-                          dtype=torch.float32, device=values.device)
-        for offset in range(0, n_events, epc):
-            v = values[offset:offset + epc]
+        for offset in range(resume_offset, n_events, epc):
+            yield offset, values[offset - resume_offset:
+                                 offset - resume_offset + epc]
+
+    rows_of = device_rows if chunk_rows is None else chunk_rows
+
+    def fused_partials(v, active, keep, lo, hi, offset):
+        return resolve_ops.sweep_partials(
+            v, rules.multipliers, active, reserves, lo, hi, keep, offset,
+            n_events_global=n_events, reduce_blocks=seg_lib.REDUCE_BLOCKS,
+            second_price=second, skip_retired=plan.skip_retired)
+
+    def window_partials(active, keep, lo, hi):
+        """One pass of the two-pass shape: (S, G, C) partials of each
+        lane's window ``[lo, hi)``, a loop over the chunks in order adding
+        each chunk's partials (``repro``'s chunk scan; one pass over
+        ``values`` when the plan has no chunks). Where every chunk starts on
+        a canonical block, each block is one chunk's and the sum adds exact
+        zeros: the bits are the unchunked sweep's. A resumable fold whose
+        offset is not on a block lets a block straddle two chunks; its sum
+        is then regrouped, bitwise ``repro``'s chunked fold but not the
+        unchunked one."""
+        acc = None
+        for offset, v in rows_of():
             if resolve == "fused":
-                parts = resolve_ops.sweep_partials(
-                    v, rules.multipliers, active, reserves, lo, hi, keep,
-                    offset, n_events_global=n_events,
-                    reduce_blocks=seg_lib.REDUCE_BLOCKS,
-                    second_price=second, skip_retired=plan.skip_retired)
+                parts = fused_partials(v, active, keep, lo, hi, offset)
             else:
                 winners, prices = resolve_lanes(v, active, offset)
                 parts = weighted_partials(winners, prices, lo, hi, offset)
-            acc = acc + parts
+            acc = parts if acc is None else acc + parts
         return acc
+
+    two_pass = chunks is not None or resolve == "fused"
 
     def round_body(core, keep):
         s_hat, active, cap, n_hat, rnd, retired, bnds = core
@@ -622,28 +775,28 @@ def _make_round_body(plan: SweepPlan, resolve: str, *, values, rules,
         # lane_predict keeps the carried `active` (a masked-off campaign
         # never wins, so its rate is 0 and its ttl inf either way)
         act = active if live_static is None else active & live_static
-        if resolve == "fused" and chunks is None:
+        if one_launch:
             _, block_parts, c_next, no_cap, n_next = resolve_ops.round_fused(
                 values, rules.multipliers, act, reserves, b, s_hat,
                 n_hat, keep, reduce_blocks=seg_lib.REDUCE_BLOCKS,
                 second_price=second, skip_retired=plan.skip_retired)
         else:
             hi_all = torch.full_like(n_hat, n_events)
-            if chunks is None:
-                winners, prices = resolve_lanes(values, act)
-                rate_parts = weighted_partials(winners, prices, n_hat,
-                                               hi_all)
+            if two_pass:
+                rate_parts = window_partials(act, keep, n_hat, hi_all)
             else:
-                rate_parts = chunked_partials(act, keep, n_hat, hi_all)
+                winners, prices = resolve_lanes(values, act, resume_offset)
+                rate_parts = weighted_partials(winners, prices, n_hat,
+                                               hi_all, resume_offset)
             denom = torch.clamp(n_events - n_hat, min=1).to(torch.float32)
             rates = seg_lib.fold_blocks(rate_parts) / denom[:, None]
             c_next, no_cap, n_next = lane_predict(rates, b, s_hat, active,
                                                   n_hat, n_events=n_events)
-            if chunks is None:
-                block_parts = weighted_partials(winners, prices, n_hat,
-                                                n_next)
+            if two_pass:
+                block_parts = window_partials(act, keep, n_hat, n_next)
             else:
-                block_parts = chunked_partials(act, keep, n_hat, n_next)
+                block_parts = weighted_partials(winners, prices, n_hat,
+                                                n_next, resume_offset)
         blk = seg_lib.fold_blocks(block_parts)
         return lane_commit(blk, c_next, no_cap, n_next, s_hat, active, cap,
                            rnd, retired, bnds, sentinel=sentinel)
@@ -657,13 +810,15 @@ def _alive(core, *, n_events: int, n_campaigns: int) -> torch.Tensor:
 
 
 def _run_loop(round_body, *, n_scenarios: int, n_events: int,
-              n_campaigns: int, device):
+              n_campaigns: int, device, init_core=None):
     """Run rounds until every lane has retired its last cap-out (at most
     C+1), freezing finished lanes with ``torch.where``. One host sync per
-    round, for the alive check. Returns the carried core state."""
+    round, for the alive check. Returns the carried core state.
+    ``init_core`` replaces the fresh initial state (a resumable fold's
+    carried state, :func:`_carried_core`)."""
     s, c = n_scenarios, n_campaigns
     i32 = dict(dtype=torch.int32, device=device)
-    core = (
+    core = init_core if init_core is not None else (
         torch.zeros((s, c), dtype=torch.float32, device=device),   # s_hat
         torch.ones((s, c), dtype=torch.bool, device=device),       # active
         torch.full((s, c), never_capped(n_events), **i32),         # cap
@@ -743,6 +898,21 @@ def _sweep_batched(values, budgets, rules, plan: SweepPlan,
     return _unpack(core)
 
 
+def _as_host_stream(values, plan: SweepPlan, *,
+                    overlay: Optional[ScenarioOverlay] = None
+                    ) -> Optional[HostStream]:
+    """``values`` as a :class:`HostStream` when the sweep is host-streamed
+    (a ``HostStream``, or ``chunks.source="host"``, which copies an
+    in-memory log to host memory once), after :func:`check_host_stream`;
+    None for a device-resident sweep."""
+    if not (isinstance(values, HostStream) or (
+            plan.chunks is not None and plan.chunks.source == "host")):
+        return None
+    check_host_stream(plan, overlay=overlay)
+    return values if isinstance(values, HostStream) \
+        else HostStream.from_array(values)
+
+
 def execute_sweep(values, budgets, rules, plan: SweepPlan, *,
                   overlay: Optional[ScenarioOverlay] = None):
     """Run the Algorithm-2 sweep program described by ``plan``.
@@ -758,20 +928,304 @@ def execute_sweep(values, budgets, rules, plan: SweepPlan, *,
     through the round body (:func:`check_overlay`); ``None`` runs the
     overlay-free program. For ``placement="device"`` its fields are (C,)
     rows, like the unbatched budgets and rule.
+
+    A :class:`HostStream` ``values`` (or ``chunks.source="host"``, which
+    copies an in-memory ``values`` to host memory once) runs the
+    host-streamed sweep on the budgets' device (:func:`_sweep_hoststream`),
+    bit for bit the device-resident sweep on aligned chunk sizes.
     """
-    if plan.chunks is not None and plan.chunks.source == "host":
-        raise not_ported("ChunkSpec(source='host')")
-    if plan.placement == "device":
-        rules_b = AuctionRule(multipliers=rules.multipliers[None, :],
-                              reserve=rules.reserve.reshape(1),
-                              kind=rules.kind)
+    stream = _as_host_stream(values, plan, overlay=overlay)
+    unbatched = plan.placement == "device"
+    if unbatched:
+        budgets = budgets[None, :]
+        rules = AuctionRule(multipliers=rules.multipliers[None, :],
+                            reserve=rules.reserve.reshape(1), kind=rules.kind)
         if overlay is not None:
             overlay = overlay.map_fields(lambda x: x[None])
-        out = _sweep_batched(values, budgets[None, :], rules_b,
-                             dataclasses.replace(plan, placement="batched"),
-                             overlay)
-        return tuple(x[0] for x in out)
-    return _sweep_batched(values, budgets, rules, plan, overlay)
+        plan = dataclasses.replace(plan, placement="batched")
+    if stream is not None:
+        out = _unpack(_sweep_hoststream(stream, budgets, rules, plan))
+    else:
+        out = _sweep_batched(values, budgets, rules, plan, overlay)
+    return tuple(x[0] for x in out) if unbatched else out
+
+
+# ---------------------------------------------------------------------------
+# The host-streamed log: two device buffers and a copy stream
+# ---------------------------------------------------------------------------
+
+# what the host pipeline copied to the card since the last reset: chunk
+# copies, their bytes, and the copies of chunks put together in a staging
+# buffer (a window across two slabs)
+H2D = {"copies": 0, "bytes": 0, "staged": 0}
+
+
+def reset_h2d() -> None:
+    for name in H2D:
+        H2D[name] = 0
+
+
+class _HostPipeline:
+    """Streams a :class:`HostStream`'s rows ``[0, n)``, which are global
+    events ``[offset, offset + n)``, to ``device`` in chunks of ``epc``.
+
+    On CUDA it holds two chunk buffers on the card and, for chunks that
+    straddle two slabs, two pinned staging buffers. With ``prefetch`` the
+    copy of chunk k+1 runs on a copy stream while chunk k is reduced on the
+    current stream: the compute waits for the copy into its buffer (an
+    event), and the copy into a buffer waits for the compute that last read
+    it (another event); the host waits for a staging buffer's last copy
+    before it writes the buffer again. Without ``prefetch`` each chunk is
+    copied and reduced on the current stream, and the host waits for both.
+    On the CPU the chunks are the slabs' rows themselves."""
+
+    def __init__(self, stream: HostStream, epc: int, offset: int, device,
+                 prefetch: bool):
+        self.stream, self.epc, self.offset = stream, epc, offset
+        self.device, self.prefetch = torch.device(device), prefetch
+        self.n_chunks = stream.n_events // epc
+        if self.device.type != "cuda":
+            return
+        shape = (epc, stream.n_campaigns)
+        self.bufs = [torch.empty(shape, dtype=torch.float32,
+                                 device=self.device) for _ in range(2)]
+        self.staging = [None, None]
+        self.copy_stream = torch.cuda.Stream(self.device)
+        self.copied = [torch.cuda.Event() for _ in range(2)]
+        self.read = [torch.cuda.Event() for _ in range(2)]
+
+    def _host_rows(self, k: int) -> torch.Tensor:
+        i, start, stop = k % 2, k * self.epc, (k + 1) * self.epc
+        if not self.stream.straddles(start, stop):
+            rows = self.stream.chunk(start, stop)
+            if rows.is_pinned():
+                return rows
+        # put together in a pinned staging buffer (from unpinned memory the
+        # copy would be synchronous), once the buffer's last copy has left
+        if self.staging[i] is None:
+            self.staging[i] = torch.empty(tuple(self.bufs[i].shape),
+                                          dtype=torch.float32,
+                                          pin_memory=True)
+        self.copied[i].synchronize()
+        H2D["staged"] += 1
+        return self.stream.chunk(start, stop, out=self.staging[i])
+
+    def _copy(self, k: int) -> None:
+        i = k % 2
+        rows = self._host_rows(k)
+        H2D["copies"] += 1
+        H2D["bytes"] += rows.numel() * rows.element_size()
+        if not self.prefetch:
+            self.bufs[i].copy_(rows)
+            return
+        with torch.cuda.stream(self.copy_stream):
+            self.copy_stream.wait_event(self.read[i])
+            self.bufs[i].copy_(rows, non_blocking=True)
+            self.copied[i].record(self.copy_stream)
+
+    def rows(self):
+        """Yield ``(global offset, rows on the device)`` for every chunk, in
+        order; the caller's work on a chunk is enqueued before the next one
+        is asked for."""
+        epc, n = self.epc, self.n_chunks
+        if self.device.type != "cuda":
+            for k in range(n):
+                yield (self.offset + k * epc,
+                       self.stream.chunk(k * epc, (k + 1) * epc))
+            return
+        compute = torch.cuda.current_stream(self.device)
+        if self.prefetch:
+            self._copy(0)
+        for k in range(n):
+            i = k % 2
+            if not self.prefetch:
+                self._copy(k)
+            elif k + 1 < n:
+                self._copy(k + 1)
+            if self.prefetch:
+                compute.wait_event(self.copied[i])
+            yield self.offset + k * epc, self.bufs[i]
+            if self.prefetch:
+                self.read[i].record(compute)
+            else:
+                compute.synchronize()
+
+
+def _sweep_hoststream(stream: HostStream, budgets, rules, plan: SweepPlan,
+                      *, carry: Optional["SweepCarry"] = None):
+    """The host-streamed Algorithm-2 loop on the budgets' device (``repro``'s
+    ``_sweep_hoststream``): the chunked two-pass round program, its chunk
+    loop fed by :class:`_HostPipeline`, so the bits are the device-resident
+    chunked sweep's on aligned sizes. ``carry`` seeds a resumable fold at
+    global offset ``carry.n_events_seen``, as :func:`_resume_batched` does.
+    Returns the core state."""
+    check_batch_shapes(stream, budgets, rules)
+    n_new, n_campaigns = stream.shape
+    device = budgets.device
+    resolve = pick_resolve(plan.resolve, device, n_campaigns)
+    n_seen = 0 if carry is None else carry.n_events_seen
+    n_events = n_seen + n_new
+    check_chunks(plan.chunks, n_events=n_events, local_n=n_new)
+    pipeline = _HostPipeline(stream, plan.chunks.events_per_chunk, n_seen,
+                             device, plan.chunks.prefetch)
+    round_body = _make_round_body(
+        plan, resolve, values=None, rules=rules,
+        budgets_f32=budgets.to(torch.float32), n_events=n_events,
+        n_campaigns=n_campaigns, resume_offset=n_seen,
+        chunk_rows=pipeline.rows)
+    return _run_loop(round_body, n_scenarios=budgets.shape[0],
+                     n_events=n_events, n_campaigns=n_campaigns,
+                     device=device,
+                     init_core=None if carry is None
+                     else _carried_core(carry, n_events, device))
+
+
+# ---------------------------------------------------------------------------
+# Resumable execution: fold new event slabs into carried burnout state
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SweepCarry:
+    """The per-scenario burnout state carried between resumable folds
+    (``repro``'s ``SweepCarry``): ``s_hat`` (S, C) float32 spend so far,
+    ``active`` (S, C) bool not-yet-capped campaigns, ``cap_times`` (S, C)
+    int32 global cap indices (``never_capped(n_events_seen)`` for campaigns
+    not capped), ``n_hat`` (S,) int32 each lane's frontier, and
+    ``n_events_seen``, the events folded in so far (the next fold's global
+    offset).
+
+    A fold's predictions see only the events folded so far, so the carry is
+    the causal (streaming) estimate of the growing log: bitwise the
+    one-shot sweep when the whole log arrives in one fold."""
+
+    s_hat: torch.Tensor
+    active: torch.Tensor
+    cap_times: torch.Tensor
+    n_hat: torch.Tensor
+    n_events_seen: int
+
+    @property
+    def num_scenarios(self) -> int:
+        return self.s_hat.shape[0]
+
+    @property
+    def num_campaigns(self) -> int:
+        return self.s_hat.shape[1]
+
+    def to(self, device) -> "SweepCarry":
+        """The same carry on ``device``."""
+        return dataclasses.replace(
+            self, s_hat=self.s_hat.to(device), active=self.active.to(device),
+            cap_times=self.cap_times.to(device), n_hat=self.n_hat.to(device))
+
+
+def initial_carry(n_scenarios: int, n_campaigns: int, *,
+                  device: DeviceLike = None) -> SweepCarry:
+    """The empty log's carry on ``device`` (the card by default): nothing
+    spent, every campaign active, every frontier at 0."""
+    dev = pick_device(device)
+    shape = (n_scenarios, n_campaigns)
+    return SweepCarry(
+        s_hat=torch.zeros(shape, dtype=torch.float32, device=dev),
+        active=torch.ones(shape, dtype=torch.bool, device=dev),
+        cap_times=torch.full(shape, never_capped(0), dtype=torch.int32,
+                             device=dev),
+        n_hat=torch.zeros(n_scenarios, dtype=torch.int32, device=dev),
+        n_events_seen=0)
+
+
+def _carried_core(carry: SweepCarry, n_events: int, device):
+    """The round loop's initial state of a fold over a log that will hold
+    ``n_events``: the carried burnout state, not-yet-capped campaigns moved
+    to the grown log's sentinel, and a fresh round log (every fold has its
+    C+1 rounds; active lanes leave a fold with ``n_hat`` at the events
+    seen)."""
+    carry = carry.to(device)
+    s, c = carry.s_hat.shape
+    active = carry.active.to(torch.bool)
+    n_hat = carry.n_hat.to(torch.int32)
+    bnds = torch.zeros((s, c + 2), dtype=torch.int32, device=device)
+    bnds[:, 0] = n_hat
+    return (carry.s_hat.to(torch.float32), active,
+            torch.where(active, never_capped(n_events),
+                        carry.cap_times.to(torch.int32)),
+            n_hat,
+            torch.zeros(s, dtype=torch.int32, device=device),
+            torch.full((s, c + 1), -1, dtype=torch.int32, device=device),
+            bnds)
+
+
+def _resume_batched(values_new, budgets, rules, plan: SweepPlan,
+                    carry: SweepCarry):
+    """One resumable fold on the values' device: the batched round program
+    over the new rows only, from the carried state, the rows placed on the
+    global grid at ``carry.n_events_seen``."""
+    n_new, n_campaigns = values_new.shape
+    n_seen = carry.n_events_seen
+    n_total = n_seen + n_new
+    device = values_new.device
+    resolve = pick_resolve(plan.resolve, device, n_campaigns)
+    check_chunks(plan.chunks, n_events=n_total, local_n=n_new)
+    round_body = _make_round_body(
+        plan, resolve, values=values_new, rules=rules,
+        budgets_f32=budgets.to(torch.float32), n_events=n_total,
+        n_campaigns=n_campaigns, resume_offset=n_seen)
+    return _run_loop(round_body, n_scenarios=budgets.shape[0],
+                     n_events=n_total, n_campaigns=n_campaigns,
+                     device=device,
+                     init_core=_carried_core(carry, n_total, device))
+
+
+def execute_sweep_resumable(values_new, budgets, rules, plan: SweepPlan, *,
+                            carry: Optional[SweepCarry] = None):
+    """Fold a slab of NEW event rows into carried per-scenario burnout state.
+
+    Returns ``(outputs, new_carry)``: ``outputs`` is :func:`execute_sweep`'s
+    batched 6-tuple for the updated state (``s_hat`` and ``cap_times``
+    cumulative over every fold; ``retired``, ``boundaries`` and
+    ``num_rounds`` this fold's rounds only), ``new_carry`` the
+    :class:`SweepCarry` to pass back with the next slab. ``carry=None``
+    starts from the empty log, so one fold over the whole log is bitwise
+    :func:`execute_sweep`; each later fold works on the new rows only.
+    ``placement="batched"`` only, any resolve back-end, event ``chunks=``
+    within a slab, a :class:`HostStream` slab or ``chunks.source="host"``
+    (folded without the new rows ever on the card at once); no scenario
+    chunks. ``repro``'s texts for every error."""
+    if plan.placement != "batched":
+        raise ValueError(
+            "execute_sweep_resumable runs placement='batched' only (the "
+            f"streaming fold is a single-device program), got "
+            f"{plan.placement!r}; use the exact replay path "
+            "(execute_sweep) for sharded placements.")
+    if plan.scenario_chunks is not None:
+        raise ValueError(
+            "scenario_chunks= is not supported by execute_sweep_resumable; "
+            "fold scenario groups separately instead.")
+    stream = _as_host_stream(values_new, plan)
+    if stream is not None:
+        values_new = stream
+    check_batch_shapes(values_new, budgets, rules)
+    n_new, n_campaigns = values_new.shape
+    if n_new < 1:
+        raise ValueError("resumable fold needs at least one new event row")
+    n_scenarios = budgets.shape[0]
+    if carry is None:
+        carry = initial_carry(n_scenarios, n_campaigns,
+                              device=budgets.device)
+    if tuple(carry.s_hat.shape) != (n_scenarios, n_campaigns):
+        raise ValueError(
+            f"carry/batch mismatch: carry holds "
+            f"{tuple(carry.s_hat.shape)} lanes but the fold got "
+            f"(S, C)=({n_scenarios}, {n_campaigns})")
+    if stream is not None:
+        core = _sweep_hoststream(stream, budgets, rules, plan, carry=carry)
+    else:
+        core = _resume_batched(values_new, budgets, rules, plan, carry)
+    s_hat, active, cap, n_hat, _, _, _ = core
+    new_carry = SweepCarry(s_hat=s_hat, active=active, cap_times=cap,
+                           n_hat=n_hat,
+                           n_events_seen=carry.n_events_seen + n_new)
+    return _unpack(core), new_carry
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Carry a scenario batch, a random key, a scenario family or its overlay,
-or a language model's parameters from the reference package's arrays into
-the port.
+a resumable fold's carry, or a language model's parameters from the
+reference package's arrays into the port.
 
 The reference (JAX) package's arrays reach the port as numpy arrays — what
 ``np.asarray`` gives for them. Those are often read-only views, so they are
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.counterfactual import ScenarioGrid
+from repro_torch.core.executor import SweepCarry
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import AuctionRule, ScenarioOverlay
 from repro_torch.device import DeviceLike, pick_device
@@ -96,6 +97,20 @@ def family_from_reference(family, *, device: DeviceLike = None):
         overlay=overlay_from_reference(family.overlay, device=device),
         entrant_slots=dict(family.entrant_slots),
         base_index=int(family.base_index))
+
+
+def carry_from_reference(carry, *, device: DeviceLike = None):
+    """The port's :class:`~repro_torch.core.executor.SweepCarry` of a
+    reference carry (read by attribute: ``s_hat``, ``active``,
+    ``cap_times``, ``n_hat`` numpy-convertible, ``n_events_seen``): the
+    same values, bit for bit, on ``device``."""
+    dev = pick_device(device)
+    return SweepCarry(
+        s_hat=_tensor(carry.s_hat, np.float32, dev),
+        active=_tensor(carry.active, np.bool_, dev),
+        cap_times=_tensor(carry.cap_times, np.int32, dev),
+        n_hat=_tensor(carry.n_hat, np.int32, dev),
+        n_events_seen=int(carry.n_events_seen))
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:

@@ -101,7 +101,6 @@ def small():
 
 @pytest.mark.parametrize("axis", [
     dict(driver="sharded"), dict(driver="multihost"),
-    dict(chunks=ChunkSpec(events_per_chunk=128, source="host")),
     dict(tuned=True), dict(mesh=object()),
 ])
 def test_unported_sweep_axes_raise(small, axis):
@@ -110,13 +109,38 @@ def test_unported_sweep_axes_raise(small, axis):
         engine.sweep(grid, **axis)
 
 
+@pytest.mark.parametrize("prefetch", [True, False])
+def test_host_streamed_engine_sweep_is_repros(small, prefetch):
+    """``engine.sweep(grid, chunks=ChunkSpec(..., source="host"))``: the
+    log copied to host memory once and streamed back chunk by chunk, the
+    answers ``repro``'s host-streamed sweep's bits."""
+    import jax.numpy as jnp
+    from repro.core import AuctionRule as JRule
+    from repro.core import CounterfactualEngine as JEngine
+    from repro.core import ScenarioGrid as JGrid
+    from repro.core.executor import ChunkSpec as JChunkSpec
+    env, engine, grid = small
+    got = engine.sweep(grid, chunks=ChunkSpec(128, source="host",
+                                              prefetch=prefetch))
+    j_grid = JGrid(rules=JRule(
+        multipliers=jnp.asarray(grid.rules.multipliers.numpy()),
+        reserve=jnp.asarray(grid.rules.reserve.numpy()),
+        kind=grid.rules.kind), budgets=jnp.asarray(grid.budgets.numpy()),
+        labels=grid.labels)
+    want = JEngine(jnp.asarray(env.values.numpy()),
+                   jnp.asarray(env.budgets.numpy())).sweep(
+        j_grid, chunks=JChunkSpec(128, source="host"))
+    np.testing.assert_array_equal(got.results.final_spend.numpy(),
+                                  np.asarray(want.results.final_spend))
+    np.testing.assert_array_equal(got.results.cap_times.numpy(),
+                                  np.asarray(want.results.cap_times))
+
+
 def test_unported_entry_points_raise(small):
     env, engine, grid = small
     with pytest.raises(ValueError) as err:
         engine.sweep(grid, method="naive_sampling")
     assert str(err.value) == "unknown sweep method: naive_sampling"
-    with pytest.raises(NotImplementedError, match="item 7"):
-        engine.sweep(grid, chunks=ChunkSpec(128, source="host"))
     # the overlay is ported: a pause and a participation coin run as
     # repro runs them, bit for bit
     import jax.numpy as jnp

@@ -221,15 +221,28 @@ def test_s2a_alignment_and_plan_errors_are_repros(env, sweeps):
             _message(lambda: j_check(j_plan, rec))
 
 
-def test_host_streaming_is_not_ported(sweeps):
-    _, values, t_grid, _ = sweeps["first_price"]
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        sweep_state_machine(values, t_grid.budgets, t_grid.rules,
-                            chunks=ChunkSpec(1024, source="host"))
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        executor.HostStream([np.zeros((4, 2), np.float32)])
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        executor.check_append_alignment(ChunkSpec(128), 256)
+@pytest.mark.parametrize("kind", KINDS)
+def test_host_streamed_sweep_is_repros(env, sweeps, kind):
+    """The log streamed from host memory in chunks of 1,024 (an in-memory
+    log copied once, and a ``HostStream`` of three slabs, one chunk
+    straddling two of them): every output bitwise ``repro``'s
+    host-streamed sweep and the port's unchunked one."""
+    from repro.core.executor import ChunkSpec as JChunkSpec
+    from repro.core.executor import SweepPlan as JPlan
+    from repro.core.executor import execute_sweep as j_execute_sweep
+    grid, values, t_grid, ref_port = sweeps[kind]
+    want = j_execute_sweep(env.values, grid.budgets, grid.rules, JPlan(
+        chunks=JChunkSpec(1024, source="host")))
+    got = sweep_state_machine(values, t_grid.budgets, t_grid.rules,
+                              chunks=ChunkSpec(1024, source="host"))
+    stream = executor.HostStream([values[:1500], values[1500:3000],
+                                  values[3000:]])
+    from_slabs = executor.execute_sweep(stream, t_grid.budgets,
+                                        t_grid.rules, SweepPlan(chunks=1024))
+    for a, b, c, d in zip(want, got, from_slabs, ref_port):
+        _same(a, b)
+        _same(a, c)
+        _same(a, d)
 
 
 def test_planned_scenario_chunk_on_the_hopper_gate():

@@ -1716,3 +1716,111 @@ def test_draws_follow_the_values_not_the_key(dev):
     assert torch.equal(res.final_spend.cpu(), ref_res.final_spend)
     z = crn.event_campaign_normals(key, torch.arange(5000, device=dev), 8)
     assert z.device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# The service's paths: host-streamed logs, resumable folds
+# ---------------------------------------------------------------------------
+
+def _day(n, c, seed=6):
+    env = make_synthetic_env(seed, n_events=n, n_campaigns=c, emb_dim=8,
+                             device="cpu")
+    budgets = torch.stack([env.budgets * m for m in (1.0, 0.6, 1.4, 0.8)])
+    mult = torch.stack([env.rule.multipliers * m
+                        for m in (1.0, 1.2, 0.9, 1.1)])
+    return env.values, budgets, mult
+
+
+@pytest.mark.parametrize("prefetch", [True, False])
+@pytest.mark.parametrize("kind", ["first_price", "second_price"])
+def test_host_streamed_sweep_is_the_device_chunked_sweep(dev, prefetch,
+                                                         kind):
+    """A log of three pinned slabs streamed to the card in chunks of 4,096
+    (one chunk straddles two slabs and is staged), with and without the
+    copy stream: every output bitwise the device-resident chunked sweep
+    and the unchunked fused one; two ``sweep_partials`` launches a chunk
+    a round, and every chunk of every pass copied once."""
+    values, budgets, mult = _day(32_768, 24)
+    rules = AuctionRule(multipliers=mult.to(dev),
+                        reserve=torch.tensor([0.0, 0.02, 0.0, 0.05],
+                                             device=dev), kind=kind)
+    b = budgets.to(dev)
+    want = executor.execute_sweep(values.to(dev), b, rules,
+                                  executor.SweepPlan(chunks=4096))
+    fused = executor.execute_sweep(values.to(dev), b, rules,
+                                   executor.SweepPlan())
+    stream = executor.HostStream([values[:10_000], values[10_000:18_000],
+                                  values[18_000:]])
+    assert all(s.is_pinned() for s in stream._slabs)
+    executor.reset_h2d()
+    cuda_rf.reset_launches()
+    got = executor.execute_sweep(stream, b, rules, executor.SweepPlan(
+        chunks=executor.ChunkSpec(4096, source="host", prefetch=prefetch)))
+    torch.cuda.synchronize()
+    rounds = int(got[4].max())
+    for a, w, f in zip(got, want, fused):
+        assert a.device.type == "cuda"
+        assert torch.equal(a, w) and torch.equal(a, f)
+    assert cuda_rf.LAUNCHES["sweep_partials"] == 2 * 8 * rounds
+    assert executor.H2D["copies"] == 2 * 8 * rounds
+    assert executor.H2D["bytes"] == 2 * rounds * 32_768 * 24 * 4
+    # chunks 2 and 4 ([8192, 12288) and [16384, 20480)) straddle slabs
+    assert executor.H2D["staged"] == 2 * 2 * rounds
+
+
+@pytest.mark.parametrize("resolve", ["fused", "torch", "sweep_resolve"])
+def test_mid_block_fold_is_the_cpu_fold(dev, resolve):
+    """Folds of 12,000, 9,000 and 11,768 rows of a 32,768-event day: the
+    second starts inside block 18 of the grown log's 657-event grid, the
+    third inside block 20 of 1,024. Every fold's outputs and carry on the
+    card bitwise the CPU's plain fold; the fused back-end makes no
+    ``round_fused`` launch after the first fold."""
+    values, budgets, mult = _day(32_768, 24, seed=7)
+    rules_cpu = AuctionRule(multipliers=mult, reserve=torch.zeros(4),
+                            kind="second_price")
+    rules = AuctionRule(multipliers=mult.to(dev),
+                        reserve=torch.zeros(4, device=dev),
+                        kind="second_price")
+    carry = carry_cpu = None
+    start = 0
+    for n in (12_000, 9_000, 11_768):
+        cuda_rf.reset_launches()
+        out, carry = executor.execute_sweep_resumable(
+            values[start:start + n].to(dev), budgets.to(dev), rules,
+            executor.SweepPlan(resolve=resolve), carry=carry)
+        torch.cuda.synchronize()
+        if resolve == "fused" and start:
+            assert cuda_rf.LAUNCHES["round_fused"] == 0
+            assert cuda_rf.LAUNCHES["sweep_partials"] == 2 * int(
+                out[4].max())
+        want, carry_cpu = executor.execute_sweep_resumable(
+            values[start:start + n], budgets, rules_cpu,
+            executor.SweepPlan(resolve="torch"), carry=carry_cpu)
+        for a, b in zip(out, want):
+            assert torch.equal(a.cpu(), b)
+        start += n
+    assert carry.n_events_seen == carry_cpu.n_events_seen == 32_768
+    for name in ("s_hat", "active", "cap_times", "n_hat"):
+        assert torch.equal(getattr(carry, name).cpu(),
+                           getattr(carry_cpu, name))
+
+
+def test_straddling_chunk_is_staged_in_pinned_memory(dev):
+    """A chunk across two slabs is put together in the pipeline's pinned
+    staging buffer and copied from there asynchronously: the rows on the
+    card are the log's, and a slab that was not pinned is pinned once."""
+    values = torch.rand(3000, 5)
+    stream = executor.HostStream([values[:1700], values[1700:]])
+    assert all(s.is_pinned() for s in stream._slabs)
+    pipe = executor._HostPipeline(stream, 1000, 500, dev, prefetch=True)
+    executor.reset_h2d()
+    seen = []
+    for offset, rows in pipe.rows():
+        seen.append((offset, rows.clone()))
+    torch.cuda.synchronize()
+    assert [o for o, _ in seen] == [500, 1500, 2500]
+    for k, (_, rows) in enumerate(seen):
+        assert torch.equal(rows.cpu(), values[k * 1000:(k + 1) * 1000])
+    assert executor.H2D == {"copies": 3, "bytes": 3 * 1000 * 5 * 4,
+                            "staged": 1}
+    assert pipe.staging[1] is not None and pipe.staging[1].is_pinned()
