@@ -218,7 +218,33 @@ Run from the repository root. Phases:
    ``resume_launches`` counts the launches of the folds resumed at a
    non-zero offset, both stores and rules; ``host_pass_*``, whose
    ``host_pass_launches`` is read from the counters around one streamed
-   pass).
+   pass);
+14. the multi-GPU placements at the full day, both rules
+   (``sharded_phase``), with ``SHARDS`` event shards of 250,000 rows on
+   this one card (a mesh may name a device more than once; the shards are
+   views of the day): (a) ``engine.sweep(grid, driver="sharded")`` (``2 ×
+   SHARDS`` ``sweep_partials`` launches a round, no ``round_fused``, no
+   ``index_add_``), the ``sweep_resolve`` back-end, a 2 × 2 event ×
+   scenario mesh and ``chunks=125_000`` within each shard, all six outputs
+   bitwise phase 4, each wall and peak memory above the inputs; (b) the
+   multihost sweep as two processes on the card over ``gloo``, each
+   holding its 500,000 rows (``MULTIHOST_WORKER``; NCCL with one card a
+   rank too where more cards are visible): two all-reduces a round, every
+   rank's outputs bitwise phase 4; (c) the sharded SORT2AGGREGATE sweep
+   with the base warm start (``estimate_pi_sharded``: one MatrixTile
+   ``auction_resolve`` and one ``first_crossing`` a step; then one
+   ``segment_resolve`` and one ``first_crossing`` at ``block = local_n``
+   a shard a pass), its spend-weighted error against phase 5's exact
+   replay and its consistency gaps, and at ``PAPER_SYNTHETIC_CPU``
+   (``SHARDED_CPU_LANES`` lanes) the card bitwise the CPU at ``SHARDS``
+   shards; (d) a ``CounterfactualService(placement="sharded", mesh=...)``
+   whose asks and ``sweep(grid)`` are bitwise phase 4, saved and loaded
+   onto 2 shards, and a log saved from ``SHARDS`` shards restored onto 2
+   (the elastic restore), both sweeping bitwise phase 4; then
+   ``sweep_partials`` at a shard's offset, ``first_crossing`` with a carry
+   at ``block = local_n`` and ``segment_resolve`` at a shard offset, each
+   against its plain version and timed (the JSON rows' ``shard_*``,
+   ``shard_carry_*`` and ``shard_offset_*`` keys).
 
 Every check raises on failure and nothing is caught, so any failure exits
 non-zero. The last line is the JSON result. Without a CUDA device, or
@@ -375,6 +401,11 @@ CRN_CPU_LANES = 8
 # events of PAPER_SYNTHETIC_CPU over which phase 11's search and phase 12's
 # per-event family are held against the CPU (~9 s and ~10 s there)
 CPU_CUT_EVENTS = 32_768
+# phase 14: event shards of the day on one card (a mesh may name a device
+# more than once), and the lanes of the small sharded S2A sweep held
+# against the CPU
+SHARDS = 4
+SHARDED_CPU_LANES = 4
 # operations a cell of crn_cells, (32-bit integer, float32): three
 # Threefry hashes (20 rounds of an add, a rotate and a xor, 5 key
 # injections of three adds, the key schedule's two xors: 77 each) and the
@@ -2369,7 +2400,521 @@ def service_phase(dev, env, small, engines, base_sweeps, reset_counts,
     return out
 
 
+def sharded_phase(dev, env, small, engines, base_sweeps, exact,
+                  reset_counts, read_counts, equal, *, env_args: dict,
+                  shards: int = SHARDS, chunk_events: int = CHUNK_EVENTS[0],
+                  epc: int = SERVICE_EPC, ask_lanes=SERVICE_ASK_LANES,
+                  cpu_lanes: int = SHARDED_CPU_LANES,
+                  ckpt_root: Path = ROOT / "build" / "sharded_ckpt") -> dict:
+    """Phase 14: the multi-GPU placements on the card, the §7.1 day, both
+    rules. ``shards`` event shards on this one card (a mesh may name a
+    device more than once: the shards are views of the day). (a)
+    ``engine.sweep(grid, driver="sharded")`` (fused: two ``sweep_partials``
+    launches a shard a round, no ``round_fused``), the ``sweep_resolve``
+    back-end, a 2 × 2 event × scenario mesh and ``chunks=chunk_events``
+    within each shard, each bitwise phase 4's sweep; (b) the multihost
+    sweep as two processes on the card over ``gloo`` (each holding its
+    half of the day; NCCL with one card a rank where more are visible),
+    bitwise phase 4; (c) the sharded SORT2AGGREGATE sweep with the base
+    warm start (``estimate_pi_sharded``, then the sharded refine) timed,
+    its spend-weighted error against phase 5's exact replay and its
+    consistency gaps, and at ``small``'s size the card bitwise the CPU at
+    ``shards`` shards; (d) a ``CounterfactualService`` on the mesh (asks
+    and ``sweep(grid)`` bitwise phase 4), saved and loaded onto 2 shards,
+    and a log saved from ``shards`` shards restored onto 2 (the elastic
+    restore), each answering bitwise phase 4. Then ``sweep_partials`` at a
+    shard's offset, ``first_crossing`` with a carry at ``block = local_n``
+    and ``segment_resolve`` at a shard offset, each against its plain
+    version and timed. Returns the numbers and the launches."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.core import (AuctionRule, CounterfactualEngine,
+                                  Segments, SweepPlan, execute_sweep,
+                                  spend_weighted_relative_error,
+                                  sweep_state_machine)
+    from repro_torch.core import segments as seg_lib
+    from repro_torch.kernels.auction_resolve import ops, ref
+    from repro_torch.kernels.auction_resolve import segment_resolve as sg_mod
+    from repro_torch.launch.mesh import SweepMeshSpec, event_sharding
+    from repro_torch.serve import CounterfactualService
+
+    t_phase = time.perf_counter()
+    n, c = env.values.shape
+    local_n = n // shards
+    mesh = SweepMeshSpec.for_devices(devices=[dev] * shards)
+    mesh22 = SweepMeshSpec.for_devices(2, 2, devices=[dev] * 4)
+    mesh2 = SweepMeshSpec.for_devices(devices=[dev] * 2)
+    out = {"counted": {"sweep_partials": 0, "segment_resolve": 0,
+                       "first_crossing": 0, "auction_resolve": 0},
+           "walls": {}}
+
+    plain_index_add = torch.Tensor.index_add_
+    index_adds = [0]
+
+    def counting_index_add(self, *a, **k):
+        index_adds[0] += 1
+        return plain_index_add(self, *a, **k)
+
+    def timed(fn):
+        """``fn()`` with the kernel counts and a count of ``index_add_``
+        calls set to 0 just before: ``(result, wall seconds, counts, peak
+        GiB above what was allocated before)``."""
+        reset_counts()
+        index_adds[0] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        torch.Tensor.index_add_ = counting_index_add
+        try:
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            torch.Tensor.index_add_ = plain_index_add
+        cnt = dict(read_counts(), index_add_=index_adds[0])
+        return (res, wall, cnt,
+                (torch.cuda.max_memory_allocated() - before) / 2 ** 30)
+
+    def same_six(got, want, what):
+        for name, a, b in zip(OUTPUTS, got, want):
+            require(torch.equal(a, b), f"[14] {what}: {name} differs from "
+                    f"phase 4's sweep")
+
+    # (a) Algorithm 2, event-sharded
+    for kind in KINDS:
+        engine, grid = engines[kind]
+        want = base_sweeps[kind]
+        rounds = int(want[4].max())
+        sweep, wall, cnt, peak = timed(
+            lambda: engine.sweep(grid, driver="sharded", mesh=mesh))
+        require(torch.equal(sweep.results.final_spend, want[0])
+                and torch.equal(sweep.results.cap_times, want[1]),
+                f"[14] {kind}: the sharded engine.sweep differs from phase "
+                f"4's sweep")
+        require(cnt["sweep_partials"] == 2 * shards * rounds
+                and cnt["round_fused"] == 0 and cnt["segment_partials"] == 0
+                and cnt["index_add_"] == 0,
+                f"[14] {kind}: the sharded fused sweep made "
+                f"{cnt['sweep_partials']} sweep_partials, "
+                f"{cnt['round_fused']} round_fused and "
+                f"{cnt['segment_partials']} segment_partials launches and "
+                f"{cnt['index_add_']} index_add_ calls for {rounds} rounds "
+                f"of {shards} shards")
+        out["counted"]["sweep_partials"] += cnt["sweep_partials"]
+        line = [f"engine.sweep {wall:.4f} s ({cnt['sweep_partials']} "
+                f"sweep_partials = 2 x {shards} x {rounds} rounds, 0 "
+                f"round_fused, 0 index_add_, peak {peak:.4f} GiB above the "
+                f"inputs)"]
+        out["walls"][f"{kind} fused"] = wall
+        cells = (("sweep_resolve", mesh, None), ("fused 2x2", mesh22, None),
+                 (f"fused chunks={chunk_events}", mesh, chunk_events))
+        for tag, spec, chunks in cells:
+            got, wall, cnt, peak = timed(lambda: sweep_state_machine(
+                env.values, grid.budgets, grid.rules,
+                resolve=tag.split()[0], driver="sharded", mesh=spec,
+                chunks=chunks))
+            same_six(got, want, f"{kind} {tag}")
+            per = shards * (local_n // chunks if chunks else 1)
+            if tag == "sweep_resolve":
+                require(cnt["sweep_resolve"] == shards * rounds
+                        and cnt["segment_partials"] == 2 * shards * rounds,
+                        f"[14] {kind} sweep_resolve: {cnt}")
+            elif spec is mesh22:
+                half = grid.num_scenarios // 2
+                g_rounds = sum(int(got[4][g * half:(g + 1) * half].max())
+                               for g in range(2))
+                require(cnt["sweep_partials"] == 2 * 2 * g_rounds,
+                        f"[14] {kind} 2x2: {cnt['sweep_partials']} launches "
+                        f"for {g_rounds} rounds of the two scenario groups")
+            else:
+                require(cnt["sweep_partials"] == 2 * per * rounds,
+                        f"[14] {kind} chunked: {cnt['sweep_partials']} "
+                        f"launches for {rounds} rounds of {per} parts")
+            out["walls"][f"{kind} {tag}"] = wall
+            line.append(f"{tag} {wall:.4f} s (peak {peak:.4f} GiB)")
+        print(f"[14] {kind} (a): {shards} shards of {local_n} rows on one "
+              f"card, all bitwise phase 4: " + "; ".join(line), flush=True)
+
+    # (b) multihost: two processes on the card
+    runs = [("gloo", 2)]
+    if torch.cuda.is_available() and torch.cuda.device_count() > 1:
+        runs.append(("nccl", torch.cuda.device_count()))
+    for backend, world in runs:
+        got, took = run_multihost(backend, world, env_args, dev)
+        for rank, res in enumerate(got):
+            for kind in KINDS:
+                outs, wall, launches, coll = res[kind]
+                same_six([x.to(dev) for x in outs], base_sweeps[kind],
+                         f"multihost {backend} rank {rank} {kind}")
+                rounds = int(outs[4].max())
+                require(coll["all_reduce"] == 2 * rounds,
+                        f"[14] multihost {backend}: {coll} all-reduces for "
+                        f"{rounds} rounds")
+                print(f"[14] {kind} (b): multihost {backend}, rank {rank} of "
+                      f"{world}, {n // world} rows: {wall:.4f} s, "
+                      f"{launches['sweep_partials']} sweep_partials "
+                      f"launches, {coll['all_reduce']} all-reduces of the "
+                      f"(32, 32, C) partials, bitwise phase 4", flush=True)
+                out["walls"][f"{kind} multihost {backend} rank {rank}"] = wall
+        print(f"[14] (b) {backend}: {world} processes, {took:.1f} s with "
+              f"their start-up", flush=True)
+
+    # (c) the sharded SORT2AGGREGATE sweep
+    s2a = {}
+    for kind in KINDS:
+        engine, grid = engines[kind]
+        sweep, wall, cnt, peak = timed(lambda: engine.sweep(
+            grid, method="sort2aggregate", driver="sharded", mesh=mesh))
+        res = sweep.results
+        s = grid.num_scenarios
+        # the base design's refine and the lanes': 8 refine passes and the
+        # aggregate each; Algorithm 4's steps at estimate_pi_sharded's
+        # defaults, one MatrixTile resolve and one flat sum a step
+        passes, vi_steps = 9 + 9, 200
+        require(bool(torch.isfinite(res.final_spend).all())
+                and tuple(res.final_spend.shape) == (s, c),
+                f"[14] {kind}: sharded S2A spends not finite or mis-shaped")
+        require(cnt["segment_resolve"] == shards * passes
+                and cnt["first_crossing"] == shards * passes + vi_steps
+                and cnt["auction_resolve"] == vi_steps and cnt["vi"] == 0
+                and cnt["segment_partials"] == 0 and cnt["index_add_"] == 0,
+                f"[14] {kind}: sharded S2A launches {cnt}")
+        for name in ("segment_resolve", "first_crossing", "auction_resolve"):
+            out["counted"][name] += cnt[name]
+        # the crossings at block = local_n: the calls not Algorithm 4's
+        out["shard_carry_launches"] = out.get("shard_carry_launches", 0) + \
+            cnt["first_crossing"] - cnt["auction_resolve"]
+        oracle = exact[kind]
+        s_hat, s_ref = res.final_spend.cpu(), oracle["spend"].cpu()
+        swe = torch.stack([spend_weighted_relative_error(s_hat[k], s_ref[k])
+                           for k in range(s)])
+        gaps = sweep.consistency_gaps.cpu()
+        converged = gaps == 0
+        out["walls"][f"{kind} s2a"] = wall
+        s2a[kind] = dict(wall=wall, swe_max=float(swe.max()),
+                         swe_mean=float(swe.mean()),
+                         gap_max=float(gaps.max()),
+                         converged=int(converged.sum()))
+        if kind == KINDS[0]:
+            out["s2a_caps"] = (grid, res.cap_times.clone())
+        print(f"[14] {kind} (c): sharded SORT2AGGREGATE S={s}, {shards} "
+              f"shards: {wall:.4f} s (launches: {cnt['auction_resolve']} "
+              f"auction_resolve (Algorithm 4's steps), "
+              f"{cnt['segment_resolve']} segment_resolve, "
+              f"{cnt['first_crossing']} first_crossing, 0 vi, 0 "
+              f"segment_partials, 0 index_add_; peak {peak:.4f} GiB); "
+              f"against phase 5's "
+              f"exact replay: spend-weighted error max "
+              f"{float(swe.max()):.6f}, mean {float(swe.mean()):.6f}; "
+              f"consistency gap max {float(gaps.max()):.0f}, "
+              f"{int(converged.sum())} of {s} lanes at 0", flush=True)
+    out["s2a"] = s2a
+    # the same sweep at small's size: the card bitwise the CPU
+    cpu_mesh = SweepMeshSpec.for_devices(devices=["cpu"] * shards)
+    for kind in KINDS:
+        base = AuctionRule(multipliers=torch.ones(small.n_campaigns,
+                                                  device=dev),
+                           reserve=torch.zeros((), device=dev), kind=kind)
+        card = CounterfactualEngine(small.values, small.budgets,
+                                    base_rule=base, device=dev)
+        grid = card.grid(**SMALL_AXES)
+        lanes = slice(0, cpu_lanes)
+        grid_s = dataclasses.replace(
+            grid, rules=AuctionRule(multipliers=grid.rules.multipliers[lanes],
+                                    reserve=grid.rules.reserve[lanes],
+                                    kind=kind),
+            budgets=grid.budgets[lanes], labels=grid.labels[lanes])
+        got = card.sweep(grid_s, method="sort2aggregate", driver="sharded",
+                         mesh=mesh)
+        t0 = time.perf_counter()
+        cpu = CounterfactualEngine(
+            small.values.cpu(), small.budgets.cpu(),
+            base_rule=AuctionRule(multipliers=base.multipliers.cpu(),
+                                  reserve=base.reserve.cpu(), kind=kind),
+            device="cpu")
+        cpu_grid = dataclasses.replace(
+            grid_s, rules=AuctionRule(
+                multipliers=grid_s.rules.multipliers.cpu(),
+                reserve=grid_s.rules.reserve.cpu(), kind=kind),
+            budgets=grid_s.budgets.cpu())
+        want = cpu.sweep(cpu_grid, method="sort2aggregate", driver="sharded",
+                         mesh=cpu_mesh)
+        cpu_wall = time.perf_counter() - t0
+        for name, a, b in (("final_spend", got.results.final_spend,
+                            want.results.final_spend),
+                           ("cap_times", got.results.cap_times,
+                            want.results.cap_times),
+                           ("consistency_gaps", got.consistency_gaps,
+                            want.consistency_gaps),
+                           ("refine_iters", got.refine_iters,
+                            want.refine_iters)):
+            equal(name, a.cpu(), b, f"[14] {kind} sharded S2A at "
+                  f"N={small.n_events} against the CPU")
+        print(f"[14] {kind} (c): N={small.n_events} C={small.n_campaigns} "
+              f"S={cpu_lanes}, {shards} shards: the card bitwise the CPU "
+              f"(spends, cap times, gaps, iterations; {cpu_wall:.1f} s on "
+              f"the CPU)", flush=True)
+
+    # (d) the service on the mesh, and the elastic restore
+    for kind in KINDS:
+        engine, grid = engines[kind]
+        want = base_sweeps[kind]
+        svc = CounterfactualService(env.budgets, grid.scenario(0)[0],
+                                    events_per_chunk=epc,
+                                    placement="sharded", mesh=mesh,
+                                    device=dev)
+        svc.append(env.values)
+        tickets = [svc.ask(*grid.scenario(s)) for s in ask_lanes]
+        _, ask_wall, cnt, _ = timed(svc.flush)
+        for s, t in zip(ask_lanes, tickets):
+            ans = t.result()
+            require(torch.equal(ans.final_spend, want[0][s])
+                    and torch.equal(ans.cap_times, want[1][s]),
+                    f"[14] {kind}: the sharded service's ask {s} differs "
+                    f"from phase 4")
+        swept, sweep_wall, _, _ = timed(lambda: svc.sweep(grid))
+        require(torch.equal(swept.results.final_spend, want[0])
+                and torch.equal(swept.results.cap_times, want[1]),
+                f"[14] {kind}: the sharded service's sweep differs")
+        line = (f"[14] {kind} (d): service on {shards} shards: "
+                f"{len(ask_lanes)} asks {ask_wall:.4f} s "
+                f"({cnt['sweep_partials']} sweep_partials), sweep(grid) "
+                f"{sweep_wall:.4f} s, bitwise phase 4")
+        if kind == KINDS[0]:
+            shutil.rmtree(ckpt_root, ignore_errors=True)
+            t0 = time.perf_counter()
+            svc.save(ckpt_root / "service")
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loaded = CounterfactualService.load(
+                ckpt_root / "service", placement="sharded", mesh=mesh2,
+                device=dev)
+            load_s = time.perf_counter() - t0
+            again = loaded.sweep(grid)
+            require(torch.equal(again.results.final_spend, want[0])
+                    and torch.equal(again.results.cap_times, want[1]),
+                    f"[14] {kind}: the service loaded onto 2 shards differs")
+            log = event_sharding(mesh).place(env.values)
+            save_checkpoint(ckpt_root / "log", 0, {"values": log})
+            t0 = time.perf_counter()
+            tree, _ = restore_checkpoint(
+                ckpt_root / "log", {"values": 0},
+                shardings={"values": event_sharding(mesh2)})
+            elastic_s = time.perf_counter() - t0
+            restored = tree["values"]
+            require(len(restored.shards) == 2
+                    and torch.equal(restored.shards[1], env.values[n // 2:]),
+                    "[14] the elastic restore's shards")
+            got = execute_sweep(restored, grid.budgets, grid.rules,
+                                SweepPlan(placement="sharded", mesh=mesh2))
+            same_six(got, want, f"{kind} elastic restore onto 2 shards")
+            shutil.rmtree(ckpt_root, ignore_errors=True)
+            line += (f"; saved {save_s:.4f} s, loaded onto 2 shards "
+                     f"{load_s:.4f} s, its sweep bitwise; a log saved from "
+                     f"{shards} shards restored onto 2 in {elastic_s:.4f} s, "
+                     f"its sharded sweep bitwise phase 4")
+            del loaded, again, log, tree, restored, got
+        print(line, flush=True)
+        del svc
+
+    # the kernel modes at a shard: rows [local_n, 2 local_n), S=32
+    grid, caps = out.pop("s2a_caps")
+    s = grid.num_scenarios
+    mult, res_ = grid.rules.multipliers, grid.rules.reserve
+    segs = Segments.from_cap_times(caps, n)
+    seg_args = (mult, res_, segs.boundaries, segs.masks)
+    k_seg = segs.masks.shape[1] - 1
+    off = local_n
+    rows = env.values[off:off + local_n]
+    w0, p0 = sg_mod.segment_resolve_cuda(env.values[:local_n], *seg_args,
+                                         second_price=False)
+    reset_counts()
+    w1, p1 = sg_mod.segment_resolve_cuda(rows, *seg_args, second_price=False,
+                                         offset=off)
+    torch.cuda.synchronize()
+    require(read_counts()["segment_resolve"] == 1,
+            "[14] segment_resolve at a shard offset: one launch")
+    plain = ref.segment_resolve_plain(rows, *seg_args, offset=off)
+    equal("winners", w1, plain[0], "[14] segment_resolve at a shard offset")
+    equal("prices", p1, plain[1], "[14] segment_resolve at a shard offset")
+    del plain
+    out["segment_resolve_shard"] = dict(
+        ms=cuda_ms(lambda: sg_mod.segment_resolve_cuda(
+            rows, *seg_args, second_price=False, offset=off), 10),
+        plain_ms=cuda_ms(lambda: ref.segment_resolve_plain(
+            rows, *seg_args, offset=off), 1),
+        bound=bound_ms(local_n * c * 4 + s * (local_n * 8 + (k_seg + 2) * 4
+                                              + (k_seg + 1) * c + c * 4 + 4),
+                       2 * s * local_n * c),
+        rows=local_n, offset=off,
+        launches=out["counted"]["segment_resolve"])
+    # first_crossing with a carry at block = local_n: shard 1 from shard 0
+    b = grid.budgets.to(torch.float32)
+    zero = (torch.zeros((s, c), device=dev),
+            torch.full((s, c), n + 1, dtype=torch.int32, device=dev))
+    s0, cap0 = seg_lib.shard_crossing(w0, p0, b, c, s0=zero[0], cap=zero[1],
+                                      offset=0, n_global=n)
+    reset_counts()
+    spend1, cap1 = seg_lib.shard_crossing(w1, p1, b, c, s0=s0, cap=cap0,
+                                          offset=off, n_global=n)
+    torch.cuda.synchronize()
+    require(read_counts()["first_crossing"] == 1,
+            "[14] first_crossing at block = local_n: one call")
+    _, plain_cap = seg_lib._crossing_scan(w1, p1, b, c, local_n, s0, cap0,
+                                          off, n + 1)
+    equal("cap times", cap1, plain_cap,
+          "[14] first_crossing with a carry at block = local_n")
+    del plain_cap
+    lane = 0
+    cpu_spend, cpu_cap = seg_lib.shard_crossing(
+        w1[lane:lane + 1].cpu(), p1[lane:lane + 1].cpu(),
+        b[lane:lane + 1].cpu(), c, s0=s0[lane:lane + 1].cpu(),
+        cap=cap0[lane:lane + 1].cpu(), offset=off, n_global=n)
+    equal("cap times", cap1[lane:lane + 1].cpu(), cpu_cap,
+          "[14] first_crossing at block = local_n, lane 0 against the CPU")
+    equal("flat sums", spend1[lane:lane + 1].cpu(), cpu_spend,
+          "[14] first_crossing at block = local_n, lane 0 against the CPU")
+    out["first_crossing_shard"] = dict(
+        ms=cuda_ms(lambda: seg_lib.shard_crossing(
+            w1, p1, b, c, s0=s0, cap=cap0, offset=off, n_global=n), 5),
+        plain_ms=cuda_ms(lambda: seg_lib._crossing_scan(
+            w1, p1, b, c, local_n, s0, cap0, off, n + 1), 1),
+        bound=bound_ms(s * local_n * 8 + s * c * 4 * 6,
+                       crossing_ops(w1, local_n, c, local_n)),
+        rows=local_n, lanes=s, launches=out["shard_carry_launches"])
+    del w0, p0, w1, p1
+    # sweep_partials at a shard's offset, a fresh round's windows
+    act = torch.ones_like(mult, dtype=torch.bool)
+    lo = torch.zeros(s, dtype=torch.int32, device=dev)
+    hi = torch.full((s,), n, dtype=torch.int32, device=dev)
+    alive = torch.ones(s, dtype=torch.bool, device=dev)
+    block = -(-n // 32)
+
+    def kernel():
+        return ops.sweep_partials(rows, mult, act, res_, lo, hi, alive, off,
+                                  n_events_global=n, reduce_blocks=32)
+
+    def plain_partials(sl=slice(None), where=dev):
+        return ref.fused_partials_ref(
+            rows.to(where), mult[sl].to(where), act[sl].to(where),
+            res_[sl].to(where), lo[sl].to(where), hi[sl].to(where),
+            block_size=block, index_offset=off)
+
+    got = kernel()
+    for ln in (0, s - 1):
+        require(torch.equal(got[ln:ln + 1].cpu(),
+                            plain_partials(slice(ln, ln + 1), "cpu")),
+                f"[14] sweep_partials at a shard's offset, lane {ln}, "
+                f"differs from its plain version on the CPU")
+    out["sweep_partials_shard"] = dict(
+        ms=cuda_ms(kernel, 10), plain_ms=cuda_ms(plain_partials, 3),
+        bound=bound_ms(*resolve_cost(local_n, c, s, s * local_n, False,
+                                     s * 32 * c * 4)),
+        rows=local_n, offset=off,
+        launches=out["counted"]["sweep_partials"])
+    for name, key in (("sweep_partials", "sweep_partials_shard"),
+                      ("first_crossing", "first_crossing_shard"),
+                      ("segment_resolve", "segment_resolve_shard")):
+        m = out[key]
+        print(f"[14] {name} at a shard ({m['rows']} rows, S={s}): "
+              f"{m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound "
+              f"{m['bound'][0]:.4f} ms ({m['bound'][1]}), {m['launches']} "
+              f"launches on the sharded paths", flush=True)
+    out["wall"] = time.perf_counter() - t_phase
+    print(f"[14] phase 14: {out['wall']:.1f} s", flush=True)
+    return out
+
+
+MULTIHOST_WORKER = """
+import json, sys, time
+import torch
+rank, world, address, backend, device, src, out_path, spec = sys.argv[1:9]
+rank, world, spec = int(rank), int(world), json.loads(spec)
+sys.path.insert(0, src)
+from repro_torch.core import (AuctionRule, ScenarioGrid, SweepPlan,
+                              execute_sweep, executor)
+from repro_torch.data import make_synthetic_env
+from repro_torch.kernels.auction_resolve import round_fused as rf
+from repro_torch.launch.mesh import SweepMeshSpec, distributed_initialize
+if device == "cuda":
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+else:
+    dev = torch.device(device)
+used = distributed_initialize(address, world, rank, backend=backend,
+                              device=dev)
+mesh = SweepMeshSpec.for_processes(device=dev)
+env = make_synthetic_env(spec["seed"], spec["n_events"], spec["n_campaigns"],
+                         spec["emb_dim"], b_base=spec["b_base"], device=dev)
+half = spec["n_events"] // world
+# this rank keeps its own rows of the day only
+local = env.values[rank * half:(rank + 1) * half].clone()
+budgets = env.budgets
+del env
+out = {}
+for kind in ("first_price", "second_price"):
+    c = spec["n_campaigns"]
+    base = AuctionRule(multipliers=torch.ones(c, device=dev),
+                       reserve=torch.zeros((), device=dev), kind=kind)
+    grid = ScenarioGrid.product(base, budgets, **spec["axes"])
+    rf.reset_launches()
+    executor.reset_collectives()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = execute_sweep(local, grid.budgets, grid.rules,
+                        SweepPlan(placement="multihost", mesh=mesh))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out[kind] = ([x.cpu() for x in res], wall, dict(rf.LAUNCHES),
+                 dict(executor.COLLECTIVES))
+torch.save(out, out_path)
+torch.distributed.destroy_process_group()
+print("MULTIHOST_OK", rank, used)
+"""
+
+
+def run_multihost(backend: str, world: int, env_args: dict, dev):
+    """Run :data:`MULTIHOST_WORKER` as ``world`` processes of one
+    ``torch.distributed`` job on ``backend`` (every rank on the card, or
+    on its own card for NCCL; on the CPU when ``dev`` is the CPU), each
+    with its rows of the day named by ``env_args``. Returns each rank's
+    outputs and the job's wall time, start-up included."""
+    import socket
+    import tempfile
+    import torch
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        address = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
+    device = "cuda" if torch.device(dev).type == "cuda" else "cpu"
+    spec = json.dumps(dict(env_args, axes=GRID_AXES))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        paths = [Path(tmp) / f"rank{r}.pt" for r in range(world)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", MULTIHOST_WORKER, str(r), str(world),
+             address, backend, device, str(ROOT / "src"), str(paths[r]),
+             spec], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(world)]
+        try:
+            outs = [p.communicate(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        for r, (p, (stdout, stderr)) in enumerate(zip(procs, outs)):
+            require(p.returncode == 0 and f"MULTIHOST_OK {r}" in stdout,
+                    f"multihost rank {r} ({backend}) failed: "
+                    f"{stderr[-3000:]}")
+        got = [torch.load(path) for path in paths]
+    return got, time.perf_counter() - t0
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
@@ -3721,12 +4266,12 @@ def main() -> int:
                            {k: r["fused"] for k, r in results.items()},
                            small_cpu, exact, reset_counts, read_counts,
                            equal)
-    modes = {name: (mode, phase11[key], phase11["mode_launches"][name])
+    modes = [(name, mode, phase11[key], phase11["mode_launches"][name])
              for name, mode, key in (
                  ("first_crossing", "carry", "first_crossing_carry"),
                  ("segment_resolve", "offset", "segment_resolve_offset"),
-                 ("capped_scan", "scaled", "capped_scan_scaled"))}
-    for name, (mode, m, launches) in modes.items():
+                 ("capped_scan", "scaled", "capped_scan_scaled"))]
+    for name, mode, m, launches in modes:
         print(f"[11] {name} ({mode}; {m['rows']} rows): {m['ms']:.4f} ms, "
               f"plain {m['plain_ms']:.4f} ms, bound {m['bound'][0]:.4f} ms "
               f"({m['bound'][1]}), {launches} launches on the chunked or "
@@ -3746,7 +4291,22 @@ def main() -> int:
     for name, launches in phase13["counted"].items():
         counted[name] += launches
     resume = phase13["resume"]
-    modes["sweep_partials"] = ("resume", resume, resume["launches"])
+    modes.append(("sweep_partials", "resume", resume, resume["launches"]))
+    # ---- phase 14: the multi-GPU placements ------------------------------
+    phase14 = sharded_phase(
+        dev, env, small, engines, {k: r["fused"] for k, r in results.items()},
+        exact, reset_counts, read_counts, equal,
+        env_args=dict(seed=args.seed, n_events=full.n_events,
+                      n_campaigns=full.n_campaigns, emb_dim=full.emb_dim,
+                      b_base=full.b_base))
+    for name, launches in phase14["counted"].items():
+        counted[name] += launches
+    for name, mode, key in (("sweep_partials", "shard", "sweep_partials_shard"),
+                            ("first_crossing", "shard_carry",
+                             "first_crossing_shard"),
+                            ("segment_resolve", "shard_offset",
+                             "segment_resolve_shard")):
+        modes.append((name, mode, phase14[key], phase14[key]["launches"]))
     rows = []
     for name, src, replaces in KERNELS:
         ms, plain_ms, library_ms = timing[name]
@@ -3836,8 +4396,9 @@ def main() -> int:
         if name == "segment_resolve":
             rows[-1].update(one_lane_ms=sg1_ms, one_lane_plain_ms=sg1_plain,
                             one_lane_bound_ms=sg1_bound)
-        if name in modes:
-            mode, m, launches = modes[name]
+        for mode_name, mode, m, launches in modes:
+            if mode_name != name:
+                continue
             rows[-1].update({f"{mode}_ms": m["ms"],
                              f"{mode}_plain_ms": m["plain_ms"],
                              f"{mode}_bound_ms": m["bound"][0],
@@ -3853,6 +4414,8 @@ def main() -> int:
                             host_pass_pcie_bound_ms=hp["pcie_bound_ms"],
                             host_pass_launches=hp["launches"])
         require(counted[name] > 0, f"{name} never launched on its path")
+    print(f"[done] all phases in {time.perf_counter() - t_script:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

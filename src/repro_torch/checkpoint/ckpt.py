@@ -12,9 +12,15 @@ wrote: one directory per step, ``<path>/step_XXXXXXXX/``, holding
   names them. ``None`` is an empty subtree and has no leaf.
 
 A step is written into ``.tmp_step_XXXXXXXX`` and renamed into place, so a
-crash never leaves a partial ``step_*``. ``repro``'s ``shardings=``
-(restoring onto another device mesh) belongs to the multi-GPU placements
-(ROADMAP.md queue 1, item 8) and raises here.
+crash never leaves a partial ``step_*``.
+
+A leaf is written as its *logical* value: a
+:class:`~repro_torch.launch.mesh.ShardedLog` is put together from its
+shards first. So a checkpoint does not remember the mesh it came from, and
+:func:`restore_checkpoint`'s ``shardings=`` places each leaf onto any mesh
+(``event_sharding(mesh)`` splits its rows over the mesh's event ranks,
+``replicated(mesh)`` puts it whole on the lead device): saved from 4 shards,
+restored onto 2 — the elastic restore.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, pick_device
+from repro_torch.launch.mesh import ShardedLog
 
 Tree = Any
 
@@ -64,6 +71,8 @@ def _unflatten(like: Tree, leaves) -> Tree:
 
 
 def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, ShardedLog):
+        leaf = leaf.full()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
@@ -109,11 +118,16 @@ def restore_checkpoint(path: str | Path, like: Tree,
                        ) -> Tuple[Tree, Dict]:
     """Restore step ``step`` (the latest by default) into the structure of
     ``like`` (its leaves' values are ignored), each leaf a tensor on
-    ``device`` (the card by default). Returns ``(tree, manifest)``."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore_checkpoint(shardings=) is not ported to repro_torch "
-            "yet; see ROADMAP.md queue 1, item 8 (multi-GPU placements)")
+    ``device`` (the card by default). Returns ``(tree, manifest)``.
+
+    ``shardings`` places leaves on a mesh instead: a tree of ``like``'s
+    structure whose entries are shardings
+    (:func:`repro_torch.launch.mesh.event_sharding`, giving a
+    :class:`~repro_torch.launch.mesh.ShardedLog`, or
+    :func:`~repro_torch.launch.mesh.replicated`) or ``None`` (the leaf on
+    ``device``); a sharding where ``like`` has a subtree applies to every
+    leaf under it. Any mesh restores any checkpoint, whatever mesh wrote
+    it."""
     root = Path(path)
     if step is None:
         step = latest_step(root)
@@ -124,14 +138,34 @@ def restore_checkpoint(path: str | Path, like: Tree,
     flat = _flatten(like)
     if not flat:
         return _unflatten(like, iter(())), manifest
-    dev = pick_device(device)
+    places = _placements(like, shardings)
+    dev = None if all(p is not None for p in places) else pick_device(device)
     leaves = []
     with np.load(ckpt_dir / "arrays.npz") as data:
-        for key, _ in flat:
+        for (key, _), place in zip(flat, places):
             if key not in data:
                 raise KeyError(f"checkpoint missing leaf {key}")
-            leaves.append(torch.from_numpy(np.array(data[key])).to(dev))
+            arr = torch.from_numpy(np.array(data[key]))
+            leaves.append(arr.to(dev) if place is None else place.place(arr))
     return _unflatten(like, iter(leaves)), manifest
+
+
+def _placements(like: Tree, shardings: Optional[Tree]) -> list:
+    """The sharding of each leaf of ``like`` (in :func:`_flatten`'s
+    order): the entry of ``shardings`` at the leaf's path, or the nearest
+    one above it; ``None`` where there is none."""
+    if like is None:
+        return []
+    if shardings is None or hasattr(shardings, "place"):
+        return [shardings] * len(_flatten(like))
+    if isinstance(like, dict):
+        return [p for key in sorted(like)
+                for p in _placements(like[key], shardings.get(key))]
+    if isinstance(like, (list, tuple)):
+        return [p for i, sub in enumerate(like)
+                for p in _placements(sub, shardings[i])]
+    raise ValueError(f"shardings do not match the tree: {shardings!r} "
+                     "where the tree has a leaf")
 
 
 @dataclasses.dataclass

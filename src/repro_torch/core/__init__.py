@@ -1,8 +1,9 @@
 """Core library (port of ``repro.core``): SORT2AGGREGATE with Algorithm 4,
 Algorithm 2 for one design and for a scenario sweep (over event and
-scenario chunks too, from a log in host memory, and as resumable folds of
-a growing log), the exact sequential oracle and the naive sampled
-replay; :mod:`.theory` and :mod:`.multislot` are imported by name."""
+scenario chunks too, from a log in host memory, as resumable folds of a
+growing log, and on a mesh of devices or processes), the exact sequential
+oracle and the naive sampled replay; :mod:`.theory`, :mod:`.multislot`
+and the rest of :mod:`.sharded` are imported by name."""
 from repro_torch.core.types import (AuctionRule, Segments, SimResult,
                                     never_capped)
 from repro_torch.core.auction import (resolve, resolve_row, spend_sums,
@@ -35,6 +36,9 @@ from repro_torch.core.sweep import (sweep_sequential, sweep_parallel,
                                     sweep_sort2aggregate,
                                     sweep_state_machine, stack_rules,
                                     scenario_rule)
+from repro_torch.core.sharded import (sweep_first_crossing_sharded,
+                                      sweep_sharded,
+                                      sweep_sort2aggregate_sharded)
 from repro_torch.core.counterfactual import (CounterfactualDelta,
                                              CounterfactualEngine,
                                              ScenarioGrid, SweepResult)
@@ -59,6 +63,8 @@ __all__ = [
     "ParallelSimTrace", "parallel_simulate", "parallel_state_machine",
     "sweep_sequential", "sweep_parallel", "sweep_sort2aggregate",
     "sweep_state_machine", "stack_rules", "scenario_rule",
+    "sweep_sharded", "sweep_sort2aggregate_sharded",
+    "sweep_first_crossing_sharded",
     "CounterfactualDelta", "CounterfactualEngine", "ScenarioGrid",
     "SweepResult",
 ]

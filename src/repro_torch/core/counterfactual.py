@@ -39,9 +39,9 @@ import torch
 from repro_torch import prng
 from repro_torch.core import sweep as sweep_lib
 from repro_torch.core import vi as vi_lib
-from repro_torch.core.executor import (HostStream, SweepPlan,
-                                       check_s2a_options, execute_s2a_sweep,
-                                       execute_sweep, reject_unported)
+from repro_torch.core.executor import (HostStream, check_s2a_options,
+                                       execute_s2a_sweep, execute_sweep,
+                                       plan_for_driver, reject_unported)
 from repro_torch.core.parallel import parallel_simulate
 from repro_torch.core.sequential import (naive_sampled_replay,
                                          sequential_replay)
@@ -299,7 +299,19 @@ class CounterfactualEngine:
         Algorithm 4 run for every lane on common random numbers; ``False``
         (or None) from the all-active state. ``crossing_block`` sizes the
         first-crossing scan. The result carries ``consistency_gaps`` and
-        ``refine_iters`` per scenario."""
+        ``refine_iters`` per scenario.
+
+        ``driver="sharded"`` runs the sweep on the mesh named by ``mesh``
+        (a :class:`repro_torch.launch.mesh.SweepMeshSpec`): events over its
+        event ranks, scenarios over its scenario axis. ``"parallel"`` is
+        bit for bit the batched sweep; ``"sort2aggregate"`` runs the base
+        warm start's Algorithm 4 (:func:`~repro_torch.core.sharded.
+        estimate_pi_sharded`) and every refine and aggregate pass on the
+        mesh too. ``driver="multihost"`` (``"parallel"`` only) runs the
+        sharded program over a ``torch.distributed`` world
+        (``mesh=SweepMeshSpec.for_processes()``): this engine's ``values``
+        are this rank's rows of the global log, and every rank gets the
+        one-process answers."""
         from repro_torch.scenarios.family import CompiledFamily
         request = grid
         values, overlay = self.values, None
@@ -313,9 +325,10 @@ class CounterfactualEngine:
                 "scenario families with an intervention overlay (live "
                 "windows / CRN stochastic axes) run on the parallel "
                 f"executor only; use method='parallel', not {method!r}.")
-        reject_unported(mesh=mesh, tuned=tuned)
-        plan = SweepPlan(placement=driver, resolve=resolve, chunks=chunks,
-                         scenario_chunks=scenario_chunks)
+        reject_unported(tuned=tuned)
+        plan = plan_for_driver(driver, resolve=resolve, mesh=mesh,
+                               chunks=chunks,
+                               scenario_chunks=scenario_chunks)
         if chunks is not None and method not in ("parallel",
                                                  "sort2aggregate"):
             raise ValueError(
@@ -353,7 +366,8 @@ class CounterfactualEngine:
                                                      values=values)
             elif warm_start == "base":
                 caps0 = self._base_warm_caps(grid, base_index, refine_iters,
-                                             key, values=values)
+                                             key, values=values,
+                                             driver=driver, mesh=mesh)
             results, gaps, iters = execute_s2a_sweep(
                 values, grid.budgets, grid.rules, plan,
                 cap_times_init=caps0, refine_iters=refine_iters,
@@ -366,6 +380,12 @@ class CounterfactualEngine:
                 values, grid.budgets, grid.rules, plan, overlay=overlay)
             results = SimResult(final_spend=s_hat, cap_times=cap_times)
         elif method == "sequential":
+            if driver in ("sharded", "multihost"):
+                raise ValueError(
+                    "method='sequential' is the O(N)-serial validation "
+                    "oracle and has no sharded/multihost driver; use "
+                    "driver='batched', or method='parallel'/"
+                    "'sort2aggregate' to scale out.")
             results = sweep_lib.sweep_sequential(
                 values, grid.budgets, grid.rules,
                 record_events=record_events)
@@ -426,9 +446,8 @@ class CounterfactualEngine:
         :class:`repro_torch.search.SearchResult`."""
         from repro_torch import search as search_lib
         # fail fast on the execution plan before any evaluation is spent
-        reject_unported(mesh=mesh)
-        SweepPlan(placement=driver, resolve=resolve, chunks=chunks,
-                  scenario_chunks=scenario_chunks)
+        plan_for_driver(driver, resolve=resolve, mesh=mesh, chunks=chunks,
+                        scenario_chunks=scenario_chunks)
         objective_fn = search_lib.as_objective(objective)
         ledger = search_lib.EvaluationLedger(budget=int(budget))
 
@@ -466,15 +485,32 @@ class CounterfactualEngine:
 
     def _base_warm_caps(self, grid: ScenarioGrid, base_index: int,
                         refine_iters: int, key: Optional[torch.Tensor], *,
-                        values: Optional[torch.Tensor] = None
+                        values: Optional[torch.Tensor] = None,
+                        driver: str = "batched", mesh=None
                         ) -> torch.Tensor:
         """(C,) warm-start cap times from the base design (the paper's
-        previous-day trick): the single-design SORT2AGGREGATE of scenario
-        ``base_index`` over ``values`` (a family's; the engine's by
-        default)."""
+        previous-day trick), on the sweep's placement: the single-design
+        SORT2AGGREGATE of scenario ``base_index`` over ``values`` (a
+        family's; the engine's by default), or on a mesh
+        (``driver="sharded"``) Algorithm 4 with the residual summed over
+        the shards, its cap times, and the base design's refinement on the
+        mesh without its scenario axis."""
         values = self.values if values is None else values
         base_rule, base_budgets = grid.scenario(base_index)
         key = key if key is not None else self._default_key()
+        if driver == "sharded":
+            from repro_torch.core import sharded as sharded_lib
+            n_events = values.shape[0]
+            pi = sharded_lib.estimate_pi_sharded(
+                mesh.mesh, values, base_budgets, base_rule, key,
+                event_axes=mesh.event_axes)
+            caps_pi = vi_lib.pi_to_cap_times(pi, n_events)
+            base_mesh = dataclasses.replace(mesh, scenario_axis=None)
+            base_res, _, _ = sharded_lib.sweep_sort2aggregate_sharded(
+                values, base_budgets[None, :],
+                sweep_lib.stack_rules([base_rule]), base_mesh,
+                cap_times_init=caps_pi, refine_iters=refine_iters)
+            return torch.clamp(base_res.cap_times[0], max=n_events + 1)
         base = _sort2aggregate(values, base_budgets, base_rule, key,
                                refine_iters=refine_iters)
         return base.result.cap_times

@@ -70,13 +70,32 @@ over NEW rows only, from a carried :class:`SweepCarry`, the rows placed on
 the global grid at the rows already seen: the streaming service's causal
 estimate (:mod:`repro_torch.serve.counterfactual`).
 
+Two placements spread the log over a mesh
+(:class:`repro_torch.launch.mesh.SweepMeshSpec`), as in ``repro``:
+
+* ``"sharded"`` — one process: event rank ``r`` holds global events
+  ``[r·local_n, (r+1)·local_n)`` on its mesh device (views of one tensor
+  where devices repeat, as on one card). Every round takes the two-pass
+  shape on every back-end where the fused kernel would run one launch
+  (``repro`` runs no one-launch round when sharded); each shard's
+  ``(S, 32, C)`` partials are computed on its device at its global offset
+  and added on the budgets' device in rank order — the psum, exact because
+  each canonical block is one shard's and the others add +0.0. Chunks ×
+  sharding scans each shard's own chunks; a scenario axis runs each
+  scenario group's lanes through their own loop, the results gathered in
+  lane order (lanes never read each other, so the bits are those of one
+  loop over all lanes).
+* ``"multihost"`` — a ``torch.distributed`` world, one event shard a rank:
+  each rank passes its own rows, and each pass's partials go through one
+  ``all_reduce(SUM)`` (:data:`COLLECTIVES` counts them); the outputs are
+  replicated on every rank.
+
 The round loop (:func:`_run_loop`) is a Python loop that checks once per
 round whether any lane is alive — one host sync per round; capturing the
-loop in a CUDA graph is later work. Axes ``repro`` has and this port does
-not yet (the ``sharded`` and ``multihost`` placements, ``tuned`` plans)
-raise ``NotImplementedError`` naming the ROADMAP item that ports them; the
-port names its resolve back-ends after what they run, so ``repro``'s
-``"jnp"`` and ``"pallas"`` are unknown options here.
+loop in a CUDA graph is later work. ``tuned`` plans raise
+``NotImplementedError`` naming the ROADMAP item that ports them; the port
+names its resolve back-ends after what they run, so ``repro``'s ``"jnp"``
+and ``"pallas"`` are unknown options here.
 """
 from __future__ import annotations
 
@@ -95,22 +114,22 @@ from repro_torch.core.types import (AuctionRule, ScenarioOverlay,
 from repro_torch.device import DeviceLike, pick_device
 from repro_torch.kernels import crn as crn_ops
 from repro_torch.kernels.auction_resolve import ops as resolve_ops
+from repro_torch.launch.mesh import (ShardedLog, SweepMeshSpec,
+                                     ragged_shard_error)
 
 RESOLVE_BACKENDS = ("torch", "sweep_resolve", "fused")
 # the CUDA back-end of a C above the round kernels' shared memory; chosen by
 # pick_resolve, never named by a caller
 ANY_C_BACKEND = "auction_resolve"
-PLACEMENTS = ("device", "batched")
+SWEEP_DRIVERS = ("batched", "sharded", "multihost")
 SIM_DRIVERS = ("auto", "device", "host")
+PLACEMENTS = ("device", "batched", "sharded", "multihost")
 CHUNK_SOURCES = ("device", "host")
 
 # axes of repro's executor this port has not reached, and where ROADMAP.md
 # queues them
 UNPORTED = {
-    "placement='sharded'": "queue 1, item 8 (multi-GPU placements)",
-    "placement='multihost'": "queue 1, item 8 (multi-GPU placements)",
     "tuned": "queue 1, item 9 (tuning)",
-    "mesh": "queue 1, item 8 (multi-GPU placements)",
 }
 
 
@@ -326,14 +345,20 @@ def check_append_alignment(chunks: Optional[ChunkSpec], n_new: int) -> None:
 def check_host_stream(plan: "SweepPlan", *,
                       overlay: Optional[ScenarioOverlay] = None) -> None:
     """The host-streamed execution contract, with ``repro``'s texts: an
-    explicit chunk size, no scenario chunks, no overlay. Alignment itself is
-    :func:`check_chunks`."""
+    explicit chunk size, a one-device placement, no scenario chunks, no
+    overlay. Alignment itself is :func:`check_chunks`."""
     if plan.chunks is None:
         raise ValueError(
             "host-streamed execution needs chunks=: the log is fed to the "
             "device one chunk at a time, so ChunkSpec(events_per_chunk=..., "
             "source='host') (or an aligned int chunk size alongside a "
             "HostStream log) must state the working-set size.")
+    if plan.placement not in ("device", "batched"):
+        raise ValueError(
+            "host-streamed chunks run placement='device'/'batched' only "
+            f"(the host feeds one device's pipeline), got "
+            f"{plan.placement!r}; device-resident logs scale out via "
+            "placement='sharded'/'multihost' instead.")
     if plan.scenario_chunks is not None:
         raise ValueError(
             "scenario_chunks= does not compose with host-streamed chunks; "
@@ -350,29 +375,55 @@ def check_host_stream(plan: "SweepPlan", *,
 @dataclasses.dataclass(frozen=True)
 class SweepPlan:
     """Everything that decides which Algorithm-2 program runs:
-    ``placement`` (``"batched"`` | ``"device"``), ``resolve`` (``"torch"``
-    | ``"sweep_resolve"`` | ``"fused"`` | ``"auto"``), ``skip_retired``,
-    ``chunks`` (an optional :class:`ChunkSpec`, or an int) and
-    ``scenario_chunks`` (an optional :class:`ScenarioChunkSpec`, or an
-    int)."""
+    ``placement`` (``"batched"`` | ``"device"`` | ``"sharded"`` |
+    ``"multihost"``; the last two need ``mesh``, a
+    :class:`repro_torch.launch.mesh.SweepMeshSpec`), ``resolve``
+    (``"torch"`` | ``"sweep_resolve"`` | ``"fused"`` | ``"auto"``),
+    ``skip_retired``, ``chunks`` (an optional :class:`ChunkSpec`, or an
+    int) and ``scenario_chunks`` (an optional :class:`ScenarioChunkSpec`,
+    or an int)."""
 
     placement: str = "batched"
     resolve: str = "auto"
     skip_retired: bool = True
+    mesh: Optional[SweepMeshSpec] = None
     chunks: Optional[ChunkSpec] = None
     scenario_chunks: Optional[ScenarioChunkSpec] = None
 
     def __post_init__(self):
-        if f"placement={self.placement!r}" in UNPORTED:
-            raise not_ported(f"placement={self.placement!r}")
         if self.placement not in PLACEMENTS:
             raise _unknown("placement", self.placement, PLACEMENTS)
         if self.resolve not in RESOLVE_BACKENDS + ("auto",):
             raise _unknown("resolve back-end", self.resolve,
                            RESOLVE_BACKENDS + ("auto",))
+        if self.placement in ("sharded", "multihost") and self.mesh is None:
+            raise ValueError(
+                f"placement={self.placement!r} needs mesh=SweepMeshSpec(...);"
+                " see repro_torch.launch.mesh.SweepMeshSpec.for_devices "
+                "(sharded) / .for_processes (multihost)")
         object.__setattr__(self, "chunks", as_chunk_spec(self.chunks))
         object.__setattr__(self, "scenario_chunks",
                            as_scenario_chunk_spec(self.scenario_chunks))
+
+
+def plan_for_driver(driver: str, *, resolve: str = "auto",
+                    skip_retired: bool = True, mesh=None, chunks=None,
+                    scenario_chunks=None) -> SweepPlan:
+    """The plan of a ``driver=`` string (``sweep_parallel``,
+    ``engine.sweep``, ``engine.search``), with ``repro``'s unknown-driver
+    and missing-mesh texts; ``mesh`` is dropped off the mesh drivers."""
+    if driver not in SWEEP_DRIVERS:
+        raise _unknown("sweep driver", driver, SWEEP_DRIVERS)
+    meshed = driver in ("sharded", "multihost")
+    if meshed and mesh is None:
+        raise ValueError(
+            f"driver={driver!r} needs mesh=SweepMeshSpec(...); see "
+            "repro_torch.launch.mesh.SweepMeshSpec.for_devices (sharded) / "
+            ".for_processes (multihost)")
+    return SweepPlan(placement=driver, resolve=resolve,
+                     skip_retired=skip_retired,
+                     mesh=mesh if meshed else None, chunks=chunks,
+                     scenario_chunks=scenario_chunks)
 
 
 def check_chunks(chunks: Optional[ChunkSpec], *, n_events: int,
@@ -463,8 +514,8 @@ def planned_scenario_chunk(plan: SweepPlan, n_scenarios: int,
     """The scenario-chunk size ``plan`` runs at (``None`` = all lanes at
     once). An explicit ``plan.scenario_chunks`` always wins. Otherwise, as
     in ``repro``, a chunk is picked only where the fused one-launch round
-    would run its kernel (CUDA, no event chunks) and the whole batch does
-    not fit its gate; on the H100 the gate does not depend on S
+    would run its kernel (CUDA, unsharded, no event chunks) and the whole
+    batch does not fit its gate; on the H100 the gate does not depend on S
     (:func:`round_fused_fits`), so this never picks one. It picks nothing
     of its own either: ``repro`` has no memory-based pick."""
     if plan.scenario_chunks is not None:
@@ -472,7 +523,7 @@ def planned_scenario_chunk(plan: SweepPlan, n_scenarios: int,
     resolve = pick_resolve(plan.resolve, device) if resolve is None \
         else resolve
     if (resolve == "fused" and torch.device(device).type == "cuda"
-            and plan.chunks is None
+            and plan.placement != "sharded" and plan.chunks is None
             and not round_fused_fits(n_scenarios, n_campaigns,
                                      limit=limit)):
         return fitting_scenario_chunk(n_scenarios, n_campaigns, limit=limit)
@@ -507,6 +558,65 @@ def check_batch_shapes(values, budgets, rules) -> None:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device} but {where} are on "
                              f"{dev}; put a sweep on one device")
+
+
+def check_shard_layout(n_events: int, n_scenarios: int,
+                       spec: SweepMeshSpec,
+                       require_block_alignment: bool = True) -> None:
+    """The shard contract of :func:`check_sharded_shapes` on the global
+    shape alone (a multihost rank sees only its own rows)."""
+    d_ev = spec.event_device_count
+    if n_events % d_ev != 0:
+        raise ragged_shard_error(n_events, d_ev)
+    block = seg_lib.reduce_block_size(n_events)
+    local_n = n_events // d_ev
+    if require_block_alignment and d_ev > 1 and local_n % block != 0:
+        if seg_lib.REDUCE_BLOCKS % d_ev != 0:
+            # no N can align: shards can never hold whole canonical blocks
+            raise ValueError(
+                f"shard/grid misalignment: {d_ev} event-axis devices cannot "
+                f"divide the canonical reduction grid (REDUCE_BLOCKS="
+                f"{seg_lib.REDUCE_BLOCKS}); the event-device count must "
+                "divide REDUCE_BLOCKS for the bit-for-bit contract. Use a "
+                "device count that divides it, raise "
+                "repro_torch.core.segments.REDUCE_BLOCKS (a repo-wide "
+                "constant — it regroups every driver's reductions "
+                "consistently, so the cross-driver bit-for-bit contract is "
+                "preserved but absolute low bits shift), or use "
+                "driver='batched'.")
+        g = seg_lib.REDUCE_BLOCKS
+        aligned_n = max(1, -(-n_events // g)) * g   # d_ev | g => d_ev | k*g
+        raise ValueError(
+            f"shard/grid misalignment: each shard holds {local_n} events but "
+            f"the canonical reduction grid uses blocks of {block} "
+            f"(REDUCE_BLOCKS={g}); shards must hold whole blocks for the "
+            f"bit-for-bit reduction contract. Pad N to a multiple of {g} "
+            f"(e.g. {aligned_n}), or use driver='batched'.")
+    d_sc = spec.scenario_device_count
+    if n_scenarios % d_sc != 0:
+        raise ValueError(
+            f"ragged scenario shard: S={n_scenarios} scenarios over {d_sc} "
+            f"devices on mesh axis {spec.scenario_axis!r}. Pad the grid with "
+            "repeats of the base design, or drop scenario_axis.")
+
+
+def check_sharded_shapes(values, budgets, rules, spec: SweepMeshSpec,
+                         require_block_alignment: bool = True) -> None:
+    """The batch contract and the shard contract, with ``repro``'s texts:
+    N divides over the event ranks; with ``require_block_alignment`` (the
+    sharded Algorithm-2 sweep's bit-for-bit guarantee) every shard holds
+    whole canonical reduction blocks; S divides over the scenario axis. The
+    SORT2AGGREGATE sweeps (plain sums across shards) need only the first
+    and the last."""
+    check_batch_shapes(values, budgets, rules)
+    check_shard_layout(values.shape[0], budgets.shape[0], spec,
+                       require_block_alignment)
+
+
+def global_event_offset(rank: int, local_n: int) -> int:
+    """Global index of event rank ``rank``'s first row (``rank`` row-major
+    over a spec's event axes, :meth:`SweepMeshSpec.event_coords`)."""
+    return rank * local_n
 
 
 def check_overlay(overlay: Optional[ScenarioOverlay], *, n_scenarios: int,
@@ -628,11 +738,16 @@ def lane_commit(blk, c_next, no_cap, n_next, s_hat, active, cap, rnd,
 # The round body and the round loop
 # ---------------------------------------------------------------------------
 
+def _on(x, device):
+    """``x`` on ``device``: itself where it is there already (no copy)."""
+    return x if x is None or x.device == device else x.to(device)
+
+
 def _make_round_body(plan: SweepPlan, resolve: str, *, values, rules,
                      budgets_f32, n_events: int, n_campaigns: int,
                      overlay: Optional[ScenarioOverlay] = None,
                      noise=(None, None), resume_offset: int = 0,
-                     chunk_rows=None):
+                     chunk_rows=None, psum=None):
     """The per-round map ``round_body(core, keep) -> core'`` for the
     ``"torch"``, ``"sweep_resolve"`` or :data:`ANY_C_BACKEND` (resolve-once)
     or ``"fused"`` back-end; with ``plan.chunks``, the two-pass shape
@@ -645,17 +760,24 @@ def _make_round_body(plan: SweepPlan, resolve: str, *, values, rules,
     offset rules out the one-launch fused round, whose launch assumes its
     rows start the log: the fused back-end then takes two ``sweep_partials``
     passes over the rows at that offset, and the others place their
-    partials there. ``chunk_rows()``, when given, yields the chunk loop's
-    ``(global offset, rows)`` pairs in order (a host-streamed log); by
-    default the chunks are slices of ``values``, or ``values`` whole when
-    the plan has no chunks."""
+    partials there. ``chunk_rows()``, when given, yields the rows of every
+    pass as ``(global offset, rows)`` pairs in order — a host-streamed
+    log's chunks, or a sharded log's shards (or their chunks), each on its
+    own device — and also rules out the one-launch round; by default the
+    chunks are slices of ``values``, or ``values`` whole when the plan has
+    no chunks. Each part's partials are computed on its rows' device and
+    added on the lanes' device in order; ``psum`` then combines a pass's
+    partials across processes (the multihost all-reduce)."""
     sentinel = never_capped(n_events)
     second = rules.kind == "second_price"
     block = seg_lib.reduce_block_size(n_events)
     b = budgets_f32
+    home = b.device
     reserves = rules.reserve.to(torch.float32).expand(b.shape[0])
     chunks = plan.chunks
-    one_launch = resolve == "fused" and chunks is None and resume_offset == 0
+    psum = psum or (lambda t: t)
+    one_launch = resolve == "fused" and chunks is None and \
+        resume_offset == 0 and chunk_rows is None
 
     ol = overlay
     z_all, u_all = noise
@@ -667,12 +789,22 @@ def _make_round_body(plan: SweepPlan, resolve: str, *, values, rules,
         live_static = ol.live_stop > ol.live_start
 
     # the lanes' perturbed valuations do not change from round to round:
-    # an unchunked sweep draws them once ((S, N, C), one bid_noise launch
-    # on CUDA); a chunked one perturbs each chunk's rows every round, so
-    # its memory stays a chunk's
+    # an unchunked one-device sweep draws them once ((S, N, C), one
+    # bid_noise launch on CUDA); a chunked or sharded one perturbs each
+    # part's rows every round, so its memory stays a part's
     noisy = None
-    if per_event and ol.bid_sigma is not None and chunks is None:
+    if per_event and ol.bid_sigma is not None and chunks is None \
+            and chunk_rows is None:
         noisy = crn_ops.bid_noise(values, z_all, ol.bid_sigma)
+
+    lane_state = {}
+
+    def lanes_on(device):
+        """The lanes' multipliers and reserves on ``device``, copied once."""
+        if device not in lane_state:
+            lane_state[device] = (_on(rules.multipliers, device),
+                                  _on(reserves, device))
+        return lane_state[device]
 
     def resolve_per_event(v, active, offset):
         """(S, n) winners/prices of the rows ``v`` (global events from
@@ -681,54 +813,62 @@ def _make_round_body(plan: SweepPlan, resolve: str, *, values, rules,
         its live windows on the global indices and with its participation
         draws, then the torch resolve."""
         n = v.shape[0]
-        gidx = offset + torch.arange(n, dtype=torch.int32, device=v.device)
-        z = None if z_all is None else z_all[offset:offset + n]
-        u = None if u_all is None else u_all[offset:offset + n]
+        dev = v.device
+        mult, res = lanes_on(dev)
+        lo = offset - resume_offset
+        gidx = offset + torch.arange(n, dtype=torch.int32, device=dev)
+        z = None if z_all is None else _on(z_all[offset:offset + n], dev)
+        u = None if u_all is None else _on(u_all[offset:offset + n], dev)
         out = []
         for s in range(active.shape[0]):
             vv = v
             if noisy is not None:
-                vv = noisy[s]
+                vv = noisy[s][lo:lo + n]
             elif ol.bid_sigma is not None:
-                vv = crn_ops.bid_noise(v, z, ol.bid_sigma[s:s + 1])[0]
+                vv = crn_ops.bid_noise(v, z, _on(ol.bid_sigma[s:s + 1],
+                                                  dev))[0]
             m = active[s][None, :].expand(n, n_campaigns)
             if ol.live_start is not None:
-                m = m & (gidx[:, None] >= ol.live_start[s][None, :]) \
-                    & (gidx[:, None] < ol.live_stop[s][None, :])
+                m = m & (gidx[:, None] >= _on(ol.live_start[s], dev)[None, :]) \
+                    & (gidx[:, None] < _on(ol.live_stop[s], dev)[None, :])
             if ol.part_prob is not None:
-                m = m & (u < ol.part_prob[s][None, :])
+                m = m & (u < _on(ol.part_prob[s], dev)[None, :])
             out.append(auction.resolve(vv, m, AuctionRule(
-                multipliers=rules.multipliers[s], reserve=reserves[s],
-                kind=rules.kind)))
+                multipliers=mult[s], reserve=res[s], kind=rules.kind)))
         return (torch.stack([w for w, _ in out]),
                 torch.stack([p for _, p in out]))
 
-    def resolve_lanes(v, active, offset=0):
-        """(S, n) winners/prices of every lane over the rows ``v``: one
+    def resolve_lanes(v, active, offset):
+        """(S, n) winners/prices of every lane over the rows ``v`` (global
+        events from ``offset``; ``active`` on their device): one
         ``sweep_resolve`` or, for :data:`ANY_C_BACKEND`, one
         ``auction_resolve`` launch (and its chunk merge) for all lanes, or
         the torch path one lane at a time (the bids tensor is then (n, C),
         never (S, n, C)), under a per-event overlay when there is one."""
         if per_event:
             return resolve_per_event(v, active, offset)
+        mult, res = lanes_on(v.device)
         if resolve == "sweep_resolve":
             winners, prices, _ = resolve_ops.sweep_resolve(
-                v, rules.multipliers, active, reserves, second_price=second)
+                v, mult, active, res, second_price=second)
             return winners, prices
         if resolve == ANY_C_BACKEND:
-            return resolve_ops.resolve_lanes(v, rules.multipliers, active,
-                                             reserves, second_price=second)
+            return resolve_ops.resolve_lanes(v, mult, active, res,
+                                             second_price=second)
         out = [auction.resolve(v, active[s], AuctionRule(
-            multipliers=rules.multipliers[s], reserve=reserves[s],
-            kind=rules.kind)) for s in range(active.shape[0])]
+            multipliers=mult[s], reserve=res[s], kind=rules.kind))
+            for s in range(active.shape[0])]
         return (torch.stack([w for w, _ in out]),
                 torch.stack([p for _, p in out]))
 
-    def weighted_partials(winners, prices, lo, hi, offset=0):
+    def weighted_partials(winners, prices, lo, hi, offset):
         """(S, G, C) canonical partials of the events in ``[lo, hi)``, the
-        rows global events from ``offset``."""
-        return seg_lib.window_partials(winners, prices, n_campaigns, lo, hi,
-                                       block_size=block, index_offset=offset)
+        rows global events from ``offset``, computed on the rows' device
+        and returned on the lanes'."""
+        dev = winners.device
+        return _on(seg_lib.window_partials(
+            winners, prices, n_campaigns, _on(lo, dev), _on(hi, dev),
+            block_size=block, index_offset=offset), home)
 
     def device_rows():
         if chunks is None:
@@ -742,30 +882,34 @@ def _make_round_body(plan: SweepPlan, resolve: str, *, values, rules,
     rows_of = device_rows if chunk_rows is None else chunk_rows
 
     def fused_partials(v, active, keep, lo, hi, offset):
-        return resolve_ops.sweep_partials(
-            v, rules.multipliers, active, reserves, lo, hi, keep, offset,
-            n_events_global=n_events, reduce_blocks=seg_lib.REDUCE_BLOCKS,
-            second_price=second, skip_retired=plan.skip_retired)
+        dev = v.device
+        mult, res = lanes_on(dev)
+        return _on(resolve_ops.sweep_partials(
+            v, mult, _on(active, dev), res, _on(lo, dev), _on(hi, dev),
+            _on(keep, dev), offset, n_events_global=n_events,
+            reduce_blocks=seg_lib.REDUCE_BLOCKS, second_price=second,
+            skip_retired=plan.skip_retired), home)
 
     def window_partials(active, keep, lo, hi):
         """One pass of the two-pass shape: (S, G, C) partials of each
-        lane's window ``[lo, hi)``, a loop over the chunks in order adding
-        each chunk's partials (``repro``'s chunk scan; one pass over
-        ``values`` when the plan has no chunks). Where every chunk starts on
-        a canonical block, each block is one chunk's and the sum adds exact
-        zeros: the bits are the unchunked sweep's. A resumable fold whose
-        offset is not on a block lets a block straddle two chunks; its sum
-        is then regrouped, bitwise ``repro``'s chunked fold but not the
-        unchunked one."""
+        lane's window ``[lo, hi)``, a loop over the parts in order adding
+        each part's partials (``repro``'s chunk scan and mesh psum; one
+        pass over ``values`` when the plan has no chunks and no parts).
+        Where every part starts on a canonical block, each block is one
+        part's and the sum adds exact zeros: the bits are the unchunked
+        sweep's. A resumable fold whose offset is not on a block lets a
+        block straddle two chunks; its sum is then regrouped, bitwise
+        ``repro``'s chunked fold but not the unchunked one."""
         acc = None
         for offset, v in rows_of():
             if resolve == "fused":
                 parts = fused_partials(v, active, keep, lo, hi, offset)
             else:
-                winners, prices = resolve_lanes(v, active, offset)
+                winners, prices = resolve_lanes(v, _on(active, v.device),
+                                                offset)
                 parts = weighted_partials(winners, prices, lo, hi, offset)
             acc = parts if acc is None else acc + parts
-        return acc
+        return psum(acc)
 
     two_pass = chunks is not None or resolve == "fused"
 
@@ -785,9 +929,20 @@ def _make_round_body(plan: SweepPlan, resolve: str, *, values, rules,
             if two_pass:
                 rate_parts = window_partials(act, keep, n_hat, hi_all)
             else:
-                winners, prices = resolve_lanes(values, act, resume_offset)
-                rate_parts = weighted_partials(winners, prices, n_hat,
-                                               hi_all, resume_offset)
+                # one resolve of every part a round, read by both passes
+                resolved = [(offset, *resolve_lanes(v, _on(act, v.device),
+                                                    offset))
+                            for offset, v in rows_of()]
+
+                def resolved_partials(lo, hi):
+                    acc = None
+                    for offset, winners, prices in resolved:
+                        parts = weighted_partials(winners, prices, lo, hi,
+                                                  offset)
+                        acc = parts if acc is None else acc + parts
+                    return psum(acc)
+
+                rate_parts = resolved_partials(n_hat, hi_all)
             denom = torch.clamp(n_events - n_hat, min=1).to(torch.float32)
             rates = seg_lib.fold_blocks(rate_parts) / denom[:, None]
             c_next, no_cap, n_next = lane_predict(rates, b, s_hat, active,
@@ -795,8 +950,7 @@ def _make_round_body(plan: SweepPlan, resolve: str, *, values, rules,
             if two_pass:
                 block_parts = window_partials(act, keep, n_hat, n_next)
             else:
-                block_parts = weighted_partials(winners, prices, n_hat,
-                                                n_next, resume_offset)
+                block_parts = resolved_partials(n_hat, n_next)
         blk = seg_lib.fold_blocks(block_parts)
         return lane_commit(blk, c_next, no_cap, n_next, s_hat, active, cap,
                            rnd, retired, bnds, sentinel=sentinel)
@@ -845,15 +999,20 @@ def _unpack(core):
 def _run_lanes(plan: SweepPlan, resolve: str, *, values, rules,
                budgets_f32, n_events: int, n_campaigns: int,
                overlay: Optional[ScenarioOverlay] = None,
-               noise=(None, None)):
+               noise=(None, None), chunk_rows=None, psum=None,
+               device=None):
     """Run the lanes through the round program, one scenario chunk after
     another when the plan asks for them (``repro``'s ``_run_lanes``): each
     chunk builds its own round body and loop over its slice of budgets,
     multipliers, reserves and overlay fields (the (N, C) noise is every
     chunk's), and the chunks' results are concatenated. Lanes never read
-    each other, so the bits are the unchunked sweep's."""
+    each other, so the bits are the unchunked sweep's. ``chunk_rows`` and
+    ``psum`` go to :func:`_make_round_body` (a sharded or multihost
+    sweep's parts); ``device`` is where the rows are computed on
+    (``values``' by default)."""
     s_all = budgets_f32.shape[0]
     reserves = rules.reserve.to(torch.float32).expand(s_all)
+    device = values.device if device is None else device
 
     def run(lanes):
         rules_c = AuctionRule(multipliers=rules.multipliers[lanes],
@@ -863,13 +1022,14 @@ def _run_lanes(plan: SweepPlan, resolve: str, *, values, rules,
         round_body = _make_round_body(
             plan, resolve, values=values, rules=rules_c,
             budgets_f32=budgets_f32[lanes], n_events=n_events,
-            n_campaigns=n_campaigns, overlay=ol_c, noise=noise)
+            n_campaigns=n_campaigns, overlay=ol_c, noise=noise,
+            chunk_rows=chunk_rows, psum=psum)
         return _run_loop(round_body, n_scenarios=budgets_f32[lanes].shape[0],
                          n_events=n_events, n_campaigns=n_campaigns,
-                         device=values.device)
+                         device=budgets_f32.device)
 
     spc = planned_scenario_chunk(plan, s_all, n_campaigns, resolve,
-                                 device=values.device)
+                                 device=device)
     if spc is None or spc == s_all:
         return run(slice(0, s_all))
     outs = [run(slice(s0, s0 + spc)) for s0 in range(0, s_all, spc)]
@@ -895,6 +1055,164 @@ def _sweep_batched(values, budgets, rules, plan: SweepPlan,
                       budgets_f32=budgets.to(torch.float32),
                       n_events=n_events, n_campaigns=n_campaigns,
                       overlay=_local_overlay(overlay), noise=noise)
+    return _unpack(core)
+
+
+def _part_rows(parts, chunks: Optional[ChunkSpec]):
+    """The ``chunk_rows`` of a sharded pass: every part's ``(global offset,
+    rows)`` in order, each part scanned a chunk at a time when the plan has
+    chunks (chunks × sharding)."""
+    def rows():
+        for offset, v in parts:
+            if chunks is None:
+                yield offset, v
+                continue
+            epc = chunks.events_per_chunk
+            for k in range(0, v.shape[0], epc):
+                yield offset + k, v[k:k + epc]
+    return rows
+
+
+def _mesh_resolve(plan: SweepPlan, spec: SweepMeshSpec,
+                  n_campaigns: int) -> str:
+    """:func:`pick_resolve` for the mesh's devices (one kind of device a
+    mesh)."""
+    kinds = {d.type for d in spec.mesh.devices}
+    if len(kinds) != 1:
+        raise ValueError(f"a sweep mesh holds one kind of device, got "
+                         f"{sorted(kinds)}")
+    return pick_resolve(plan.resolve, spec.mesh.devices[0], n_campaigns)
+
+
+def shard_log(values, spec: SweepMeshSpec, group: int = 0):
+    """``(global offset, rows)`` of every event rank of ``spec``, in rank
+    order, on the devices of scenario group ``group``: slices of a tensor
+    ``values`` (views where the device is its own), or a
+    :class:`~repro_torch.launch.mesh.ShardedLog`'s shards when it is laid
+    out over the same event ranks (else it is put together and split
+    again)."""
+    d_ev = spec.event_device_count
+    if isinstance(values, ShardedLog):
+        if len(values.shards) == d_ev:
+            return [(off, _on(v, spec.shard_device(r, group)))
+                    for r, (off, v) in enumerate(zip(values.offsets,
+                                                     values.shards))]
+        values = values.full()
+    local_n = values.shape[0] // d_ev
+    return [(global_event_offset(r, local_n),
+             _on(values[r * local_n:(r + 1) * local_n],
+                 spec.shard_device(r, group)))
+            for r in range(d_ev)]
+
+
+def _sweep_sharded(values, budgets, rules, plan: SweepPlan,
+                   overlay: Optional[ScenarioOverlay] = None):
+    """The scenario-batched loop on a one-process mesh (``repro``'s
+    ``_sweep_sharded``): events over the spec's event ranks, scenarios over
+    its scenario axis, one round loop a scenario group, the outputs on the
+    budgets' device in lane order."""
+    spec = plan.mesh
+    check_sharded_shapes(values, budgets, rules, spec)
+    n_events, n_campaigns = values.shape
+    n_scenarios = budgets.shape[0]
+    resolve = _mesh_resolve(plan, spec, n_campaigns)
+    local_n = n_events // spec.event_device_count
+    check_overlay(overlay, n_scenarios=n_scenarios, n_campaigns=n_campaigns,
+                  resolve=resolve)
+    check_chunks(plan.chunks, n_events=n_events, local_n=local_n)
+    d_sc = spec.scenario_device_count
+    s_loc = n_scenarios // d_sc
+    check_scenario_chunks(plan.scenario_chunks, n_scenarios=n_scenarios,
+                          local_s=s_loc)
+    home = budgets.device
+    if overlay is not None:
+        overlay = overlay.map_fields(lambda x: x.to(home))
+    # the overlay's CRN noise is drawn ONCE on global indices; every part
+    # reads its own rows of it
+    noise = _overlay_noise(overlay, n_events, n_campaigns, home)
+    overlay = _local_overlay(overlay)
+    reserves = rules.reserve.to(torch.float32).expand(n_scenarios)
+    outs = []
+    for group in range(d_sc):
+        lanes = slice(group * s_loc, (group + 1) * s_loc)
+        rows = _part_rows(shard_log(values, spec, group), plan.chunks)
+        outs.append(_run_lanes(
+            plan, resolve, values=None,
+            rules=AuctionRule(multipliers=rules.multipliers[lanes],
+                              reserve=reserves[lanes], kind=rules.kind),
+            budgets_f32=budgets[lanes].to(torch.float32), n_events=n_events,
+            n_campaigns=n_campaigns,
+            overlay=None if overlay is None else overlay.map_fields(
+                lambda x: x[lanes]),
+            noise=noise, chunk_rows=rows,
+            device=spec.shard_device(0, group)))
+    core = outs[0] if d_sc == 1 else tuple(torch.cat(parts)
+                                           for parts in zip(*outs))
+    return _unpack(core)
+
+
+# the multihost sweep's all-reduces (one a pass) since the last reset
+COLLECTIVES = {"all_reduce": 0}
+
+
+def reset_collectives() -> None:
+    COLLECTIVES["all_reduce"] = 0
+
+
+def _all_reduce(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the ``torch.distributed`` world, in place (NCCL,
+    or gloo, which takes CUDA tensors too)."""
+    COLLECTIVES["all_reduce"] += 1
+    torch.distributed.all_reduce(t)
+    return t
+
+
+def _sweep_multihost(values_local, budgets, rules, plan: SweepPlan,
+                     overlay: Optional[ScenarioOverlay] = None):
+    """The sharded program over a ``torch.distributed`` world (``repro``'s
+    ``_sweep_multihost``): ``values_local`` is this rank's contiguous rows
+    of the global log (rank ``r`` holds events ``[r·local_n,
+    (r+1)·local_n)``), budgets and rules are replicated; each pass's
+    partials are summed over the world by one ``all_reduce``, so every rank
+    runs the same rounds and returns the same (replicated) outputs, bit
+    for bit the one-process sharded and batched sweeps. Under one process
+    it is the sharded sweep of a one-shard mesh."""
+    spec = plan.mesh
+    if spec.scenario_axis is not None:
+        raise ValueError(
+            "placement='multihost' shards events over processes only; "
+            "scenario-axis process meshes are not supported (shard "
+            "scenarios within one process via placement='sharded').")
+    if overlay is not None:
+        raise ValueError(
+            "overlays are not supported with placement='multihost' yet; "
+            "run overlay families on placement='sharded' or 'batched'.")
+    dist = torch.distributed
+    multi = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if multi else 1
+    rank = dist.get_rank() if multi else 0
+    if spec.event_device_count != world:
+        raise ValueError(
+            f"the multihost mesh has {spec.event_device_count} event shards "
+            f"but the torch.distributed world has {world} processes; build "
+            "it with SweepMeshSpec.for_processes() after "
+            "distributed_initialize")
+    check_batch_shapes(values_local, budgets, rules)
+    local_n, n_campaigns = values_local.shape
+    n_events = local_n * world
+    check_shard_layout(n_events, budgets.shape[0], spec)
+    resolve = pick_resolve(plan.resolve, values_local.device, n_campaigns)
+    check_chunks(plan.chunks, n_events=n_events, local_n=local_n)
+    check_scenario_chunks(plan.scenario_chunks, n_scenarios=budgets.shape[0],
+                          local_s=budgets.shape[0])
+    offset = global_event_offset(rank, local_n)
+    core = _run_lanes(
+        dataclasses.replace(plan, placement="sharded"), resolve, values=None,
+        rules=rules, budgets_f32=budgets.to(torch.float32),
+        n_events=n_events, n_campaigns=n_campaigns,
+        chunk_rows=_part_rows([(offset, values_local)], plan.chunks),
+        psum=_all_reduce if world > 1 else None,
+        device=values_local.device)
     return _unpack(core)
 
 
@@ -933,8 +1251,19 @@ def execute_sweep(values, budgets, rules, plan: SweepPlan, *,
     copies an in-memory ``values`` to host memory once) runs the
     host-streamed sweep on the budgets' device (:func:`_sweep_hoststream`),
     bit for bit the device-resident sweep on aligned chunk sizes.
+
+    ``placement="sharded"`` takes the whole log (a tensor, or a
+    :class:`~repro_torch.launch.mesh.ShardedLog`) and runs it on
+    ``plan.mesh`` (:func:`_sweep_sharded`); ``placement="multihost"``
+    takes THIS RANK's event shard as ``values`` and returns the outputs
+    on every rank (:func:`_sweep_multihost`). Both are bit for bit the
+    batched sweep on aligned shapes.
     """
     stream = _as_host_stream(values, plan, overlay=overlay)
+    if plan.placement == "multihost":
+        return _sweep_multihost(values, budgets, rules, plan, overlay)
+    if plan.placement == "sharded":
+        return _sweep_sharded(values, budgets, rules, plan, overlay)
     unbatched = plan.placement == "device"
     if unbatched:
         budgets = budgets[None, :]
@@ -1236,7 +1565,18 @@ def check_s2a_options(plan: SweepPlan, record_events: bool = False) -> None:
     """Validate the SORT2AGGREGATE sweep's plan (callable up front, so an
     engine can fail fast before paying for a warm start), with ``repro``'s
     texts."""
+    if plan.placement == "multihost":
+        raise ValueError(
+            "placement='multihost' runs method='parallel' sweeps only; the "
+            "sort2aggregate estimator scales out via placement='sharded' "
+            "within one process.")
     if plan.chunks is not None:
+        if plan.placement == "sharded":
+            raise ValueError(
+                "chunks= does not compose with the sharded sort2aggregate "
+                "sweep (its first-crossing prefix is an all_gather'd "
+                "cross-shard scan); use driver='batched' for chunked "
+                "replays, or drop chunks=.")
         if plan.chunks.source == "host":
             raise ValueError(
                 "host-streamed chunks apply to method='parallel' sweeps "
@@ -1254,6 +1594,12 @@ def check_s2a_options(plan: SweepPlan, record_events: bool = False) -> None:
             "scenario_chunks= (scenario-chunked execution) currently "
             "applies to method='parallel' sweeps only; drop "
             "scenario_chunks= for the sort2aggregate sweep.")
+    if plan.placement == "sharded" and record_events:
+        raise ValueError(
+            "record_events is not supported with driver='sharded': "
+            "per-event winners/prices are an (S, N) gather off the "
+            "mesh. Use driver='batched', or replay the scenarios of "
+            "interest via sharded_aggregate.")
 
 
 def execute_s2a_sweep(values, budgets, rules, plan: SweepPlan, *,
@@ -1266,10 +1612,18 @@ def execute_s2a_sweep(values, budgets, rules, plan: SweepPlan, *,
     placements run the lanes batched: each pass resolves every lane (one
     ``segment_resolve`` launch on CUDA) and finds every lane's crossings
     in one call. With ``plan.chunks`` every pass is a loop over the chunks
-    (:func:`repro_torch.core.sort2aggregate.refine_fixed_chunked`). Returns
-    ``(SimResult (S, ...), consistency_gaps (S,) float32, refine_iters_used
-    (S,) int32)``."""
+    (:func:`repro_torch.core.sort2aggregate.refine_fixed_chunked`).
+    ``placement="sharded"`` runs every pass on ``plan.mesh``
+    (:func:`repro_torch.core.sharded.sweep_sort2aggregate_sharded`, which
+    takes no ``crossing_block``: each shard is one crossing block, as in
+    ``repro``). Returns ``(SimResult (S, ...), consistency_gaps (S,)
+    float32, refine_iters_used (S,) int32)``."""
     check_s2a_options(plan, record_events)
+    if plan.placement == "sharded":
+        from repro_torch.core.sharded import sweep_sort2aggregate_sharded
+        return sweep_sort2aggregate_sharded(
+            values, budgets, rules, plan.mesh,
+            cap_times_init=cap_times_init, refine_iters=refine_iters)
     check_batch_shapes(values, budgets, rules)
     n_events, n_campaigns = values.shape
     if cap_times_init is None:

@@ -19,8 +19,9 @@ Two drivers run the same loop with the same float32 arithmetic, so their
   back-end, then the segment history rebuilt from its round log;
 * ``driver="host"`` — the reference host loop in numpy, over
   ``rate_fn``/``block_fn`` closures (:func:`repro_torch.core.segments.
-  masked_rate` / ``block_spend_sums`` by default); passing either closure
-  selects it under ``driver="auto"``.
+  masked_rate` / ``block_spend_sums`` by default; on a mesh,
+  :func:`repro_torch.core.sharded.make_sharded_kernels`); passing either
+  closure selects it under ``driver="auto"``.
 """
 from __future__ import annotations
 

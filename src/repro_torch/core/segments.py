@@ -312,6 +312,36 @@ def crossing_carry(winners: torch.Tensor, prices: torch.Tensor,
     return s0, cap
 
 
+def shard_crossing(winners: torch.Tensor, prices: torch.Tensor,
+                   budgets: torch.Tensor, num_campaigns: int, *,
+                   s0: torch.Tensor, cap: torch.Tensor, offset: int,
+                   n_global: int):
+    """One event shard's part of the sharded crossing diagnosis
+    (``repro``'s ``_local_first_crossing``): S lanes of resolved events
+    (winners/prices (S, n)), global events ``[offset, offset + n)`` of a
+    log of ``n_global``, ``offset`` a multiple of ``n``, scanned as ONE
+    block — ``s0 + cumsum`` over all n rows in XLA's order — from the
+    prefix ``s0`` (S, C) of the shards before it; a campaign whose ``cap``
+    is not the sentinel ``n_global + 1`` keeps it (the earlier shard's
+    crossing, which ``repro``'s ``pmin`` picks). Returns ``(flat sums (S,
+    C) of the shard's rows in event order, cap times (S, C))``: one
+    ``first_crossing`` call with a carry on CUDA (``block = n``), the flat
+    ``index_add_`` sums and :func:`_crossing_scan` on the CPU."""
+    n = winners.shape[-1]
+    _check_carry(n, n, offset, n_global)
+    if winners.device.type == "cpu":
+        _, cap = _crossing_scan(winners, prices, budgets, num_campaigns, n,
+                                s0, cap, offset, never_capped(n_global))
+        return auction.spend_sums(winners, prices, num_campaigns), cap
+    cap, spend, _ = first_crossing_cuda(
+        winners.to(torch.int32).contiguous(),
+        prices.to(torch.float32).contiguous(),
+        budgets.to(torch.float32).contiguous(), num_campaigns=num_campaigns,
+        block=n, carry=(s0.contiguous(), cap.contiguous(), offset,
+                        n_global))
+    return spend, cap
+
+
 def first_crossing_blocks_ref(winners: torch.Tensor, prices: torch.Tensor,
                               budgets: torch.Tensor, num_campaigns: int,
                               block: int = 4096, *, s0=None, cap=None,

@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.core.executor import (SweepPlan, check_batch_shapes,
                                        execute_s2a_sweep, execute_sweep,
-                                       reject_unported)
+                                       plan_for_driver)
 from repro_torch.core.sequential import second_price
 from repro_torch.core.types import AuctionRule, SimResult
 from repro_torch.kernels.capped_scan import ops as scan_ops
@@ -64,16 +64,18 @@ def sweep_parallel(values: torch.Tensor, budgets: torch.Tensor,
                    mesh=None, chunks=None, scenario_chunks=None,
                    overlay=None) -> SimResult:
     """Algorithm 2 over a scenario batch: one loop, serial depth
-    ``max_s K_s`` rounds. ``driver`` is the placement (``"batched"``);
-    ``resolve`` the per-round back-end (``"auto"`` = the CUDA fused round
-    on CUDA tensors, the torch path on CPU tensors); ``chunks`` (an int or
+    ``max_s K_s`` rounds. ``driver`` is the placement: ``"batched"``, or
+    ``"sharded"`` / ``"multihost"`` on the mesh named by ``mesh`` (a
+    :class:`repro_torch.launch.mesh.SweepMeshSpec`; bit for bit
+    ``"batched"`` on an aligned mesh); ``resolve`` the per-round back-end
+    (``"auto"`` = the CUDA fused round on CUDA tensors, the torch path on
+    CPU tensors); ``chunks`` (an int or
     :class:`~repro_torch.core.executor.ChunkSpec`) and ``scenario_chunks``
     (an int or :class:`~repro_torch.core.executor.ScenarioChunkSpec`) run
     it over event and scenario chunks, bit for bit the unchunked sweep."""
-    reject_unported(mesh=mesh)
-    plan = SweepPlan(placement=driver, resolve=resolve,
-                     skip_retired=skip_retired, chunks=chunks,
-                     scenario_chunks=scenario_chunks)
+    plan = plan_for_driver(driver, resolve=resolve,
+                           skip_retired=skip_retired, mesh=mesh,
+                           chunks=chunks, scenario_chunks=scenario_chunks)
     s_hat, cap_times, _, _, _, _ = execute_sweep(values, budgets, rules,
                                                  plan, overlay=overlay)
     return SimResult(final_spend=s_hat, cap_times=cap_times)
@@ -82,19 +84,20 @@ def sweep_parallel(values: torch.Tensor, budgets: torch.Tensor,
 def sweep_state_machine(values: torch.Tensor, budgets: torch.Tensor,
                         rules: AuctionRule, resolve: str = "sweep_resolve",
                         skip_retired: bool = True, *, chunks=None,
-                        scenario_chunks=None, overlay=None):
+                        scenario_chunks=None, overlay=None,
+                        driver: str = "batched", mesh=None):
     """The batched Algorithm-2 loop with its full round log exposed.
 
     Returns ``(s_hat (S, C), cap_times (S, C), retired (S, C+1),
     boundaries (S, C+2), num_rounds (S,), n_hat (S,))``. The default
     back-end is ``"sweep_resolve"``, the counterpart of ``repro``'s Pallas
     resolve: one resolve of all lanes per round, two canonical partials of
-    its winners and prices. ``chunks`` and ``scenario_chunks`` as in
-    :func:`sweep_parallel`.
+    its winners and prices. ``chunks``, ``scenario_chunks``, ``driver``
+    and ``mesh`` as in :func:`sweep_parallel`.
     """
-    plan = SweepPlan(placement="batched", resolve=resolve,
-                     skip_retired=skip_retired, chunks=chunks,
-                     scenario_chunks=scenario_chunks)
+    plan = plan_for_driver(driver, resolve=resolve,
+                           skip_retired=skip_retired, mesh=mesh,
+                           chunks=chunks, scenario_chunks=scenario_chunks)
     return execute_sweep(values, budgets, rules, plan, overlay=overlay)
 
 

@@ -1,6 +1,6 @@
 """Carry a scenario batch, a random key, a scenario family or its overlay,
-a resumable fold's carry, or a language model's parameters from the
-reference package's arrays into the port.
+a resumable fold's carry, a sweep mesh spec, or a language model's
+parameters from the reference package's arrays into the port.
 
 The reference (JAX) package's arrays reach the port as numpy arrays — what
 ``np.asarray`` gives for them. Those are often read-only views, so they are
@@ -20,6 +20,7 @@ from repro_torch.core.executor import SweepCarry
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import AuctionRule, ScenarioOverlay
 from repro_torch.device import DeviceLike, pick_device
+from repro_torch.launch.mesh import SweepMeshSpec, make_mesh
 from repro_torch.models.model import Model
 
 
@@ -171,3 +172,17 @@ def lm_params_from_reference(params, cfg: ArchConfig, *,
         raise ValueError(f"reference leaves the port has no parameter for: "
                          f"{extra}")
     return model
+
+
+def mesh_spec_from_reference(spec, *, devices) -> SweepMeshSpec:
+    """The port's :class:`~repro_torch.launch.mesh.SweepMeshSpec` of a
+    reference spec (anything with ``mesh.axis_names``, ``mesh.shape`` (a
+    mapping of axis sizes), ``event_axes`` and ``scenario_axis``): the same
+    axes, sizes and roles over ``devices`` (one a mesh position, row-major;
+    repeats allowed, e.g. ``["cpu"] * 4``), so both packages shard the same
+    rows the same way."""
+    names = tuple(spec.mesh.axis_names)
+    shape = tuple(int(spec.mesh.shape[a]) for a in names)
+    return SweepMeshSpec(make_mesh(shape, names, devices=devices),
+                         event_axes=tuple(spec.event_axes),
+                         scenario_axis=spec.scenario_axis)

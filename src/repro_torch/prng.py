@@ -182,10 +182,12 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int
     int32 bounds: two words from the keys of a :func:`split` (high, low),
     each reduced modulo the span ``maxval - minval`` (1 when ``maxval <=
     minval``), combined as ``(hi % span) * (2**32 % span) + lo % span``
-    in uint32 arithmetic (wrapping), modulo the span once more."""
+    in uint32 arithmetic (wrapping), modulo the span once more. A batch
+    of keys (K, 2) gives (K, *shape), each row its own key's draw."""
     if not (-2 ** 31 <= minval < 2 ** 31 and -2 ** 31 <= maxval < 2 ** 31):
         raise ValueError("randint takes int32 bounds")
-    k1, k2 = split(key)
+    keys = split(key)
+    k1, k2 = keys[..., 0, :], keys[..., 1, :]
     higher, lower = random_bits(k1, shape), random_bits(k2, shape)
     span = 1 if maxval <= minval else (maxval - minval) & MASK
     multiplier = (((2 ** 16 % span) ** 2) & MASK) % span

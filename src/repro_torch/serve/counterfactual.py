@@ -44,6 +44,7 @@ says otherwise).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -127,9 +128,13 @@ class CounterfactualService:
     grid at each log size (:meth:`_host_chunks`); ``events_per_chunk``
     must then be a multiple of ``REDUCE_BLOCKS``.
 
-    ``mesh=``, ``placement="sharded"`` (ROADMAP.md queue 1, item 8) and
-    ``tuned=True`` (item 9) are not ported and raise, after every
-    ``ValueError`` that ``repro`` raises before them."""
+    ``placement="sharded"`` with ``mesh=`` (a
+    :class:`repro_torch.launch.mesh.SweepMeshSpec`) runs every exact replay
+    on the mesh (the device store's log split over its event ranks, lane
+    batches padded to a multiple of its scenario groups), with the batched
+    service's bits; the streaming folds stay one-device programs.
+    ``tuned=True`` (ROADMAP.md queue 1, item 9) is not ported and raises,
+    after every ``ValueError`` that ``repro`` raises before it."""
 
     def __init__(self, budgets, base_rule: Optional[AuctionRule] = None, *,
                  events=None, events_per_chunk: int = 256,
@@ -177,10 +182,10 @@ class CounterfactualService:
                 if chunks is not None else int(events_per_chunk))
             chunks = None
         self.plan = SweepPlan(placement=placement, resolve=resolve,
-                              chunks=as_chunk_spec(chunks),
+                              mesh=mesh, chunks=as_chunk_spec(chunks),
                               scenario_chunks=as_scenario_chunk_spec(
                                   scenario_chunks))
-        reject_unported(mesh=mesh, tuned=tuned)
+        reject_unported(tuned=tuned)
         # the streaming folds: the batched program, the same resolve
         # preference (every back-end folds to the same bits)
         self._stream_plan = SweepPlan(placement="batched", resolve=resolve)
@@ -353,8 +358,9 @@ class CounterfactualService:
         """The plan and padded lane count of one replay: an explicit
         ``scenario_chunks`` wins; otherwise more than ``max_batch`` lanes
         run scenario-chunked at ``max_batch``. Lanes are padded to whole
-        chunks with repeats of lane 0 (a duplicate lane runs the same
-        per-lane program and changes no other lane's bits)."""
+        chunks (times the mesh's scenario groups) with repeats of lane 0 (a
+        duplicate lane runs the same per-lane program and changes no other
+        lane's bits)."""
         plan = self.plan
         if self.store == "host":
             return dataclasses.replace(
@@ -367,6 +373,9 @@ class CounterfactualService:
             plan = dataclasses.replace(
                 plan, scenario_chunks=as_scenario_chunk_spec(spc))
         unit = spc or 1
+        if plan.mesh is not None:
+            d_sc = plan.mesh.scenario_device_count
+            unit = unit * d_sc // math.gcd(unit, d_sc)
         return plan, -(-n_lanes // unit) * unit
 
     def _execute_batch(self, rules_s: AuctionRule, budgets_s: torch.Tensor,

@@ -87,7 +87,8 @@ def test_unknown_options_raise_the_reference_message():
     with pytest.raises(ValueError, match=r"unknown resolve back-end: 'jnp'"):
         pick_resolve("jnp", "cpu")
     with pytest.raises(ValueError, match=r"unknown placement: 'gpu' "
-                       r"\(choose from 'device', 'batched'\)"):
+                       r"\(choose from 'device', 'batched', 'sharded', "
+                       r"'multihost'\)"):
         SweepPlan(placement="gpu")
 
 
@@ -99,14 +100,44 @@ def small():
     return env, engine, engine.grid(bid_scales=[1.0, 1.2])
 
 
+def _cpu_mesh(*shape):
+    from repro_torch.launch.mesh import SweepMeshSpec
+    return SweepMeshSpec.for_devices(*shape, devices=["cpu"] * 4)
+
+
 @pytest.mark.parametrize("axis", [
     dict(driver="sharded"), dict(driver="multihost"),
     dict(tuned=True), dict(mesh=object()),
 ])
 def test_unported_sweep_axes_raise(small, axis):
+    """The multi-GPU axes run (the name is the item-8 tests'): a sharded
+    sweep on four CPU shards and a one-process multihost sweep are bitwise
+    the batched sweep, a mesh without a mesh driver is ignored (as
+    ``repro``'s ``plan_for_driver`` drops it), and a mesh driver without a
+    mesh raises ``repro``'s text. ``tuned=True`` still names item 9."""
+    from repro.core.executor import plan_for_driver as j_plan
+    from repro_torch.launch.mesh import SweepMeshSpec
     _, engine, grid = small
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        engine.sweep(grid, **axis)
+    if "tuned" in axis:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md queue 1, item 9"):
+            engine.sweep(grid, **axis)
+        return
+    want = engine.sweep(grid)
+    if "driver" in axis:
+        with pytest.raises(ValueError) as err:
+            engine.sweep(grid, **axis)
+        with pytest.raises(ValueError) as j_err:
+            j_plan(axis["driver"])
+        assert str(err.value) == str(j_err.value).replace(
+            "repro.launch", "repro_torch.launch")
+        mesh = (_cpu_mesh() if axis["driver"] == "sharded"
+                else SweepMeshSpec.for_processes(device="cpu"))
+        got = engine.sweep(grid, mesh=mesh, **axis)
+    else:
+        got = engine.sweep(grid, **axis)
+    assert torch.equal(got.results.final_spend, want.results.final_spend)
+    assert torch.equal(got.results.cap_times, want.results.cap_times)
 
 
 @pytest.mark.parametrize("prefetch", [True, False])

@@ -23,6 +23,8 @@ from repro_torch.checkpoint import (AsyncCheckpointer,  # noqa: E402
                                     save_checkpoint)
 from repro_torch.core import AuctionRule  # noqa: E402
 from repro_torch.interop import from_reference  # noqa: E402
+from repro_torch.launch.mesh import (ShardedLog, SweepMeshSpec,  # noqa: E402
+                                     event_sharding, replicated)
 from repro_torch.serve import CounterfactualService  # noqa: E402
 
 
@@ -130,9 +132,21 @@ def test_steps_missing_leaves_and_sharding(tmp_path):
     assert got["a"].tolist() == [11, 11]
     with pytest.raises(KeyError, match="checkpoint missing leaf b"):
         restore_checkpoint(tmp_path, {"b": 0}, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        restore_checkpoint(tmp_path, {"a": 0}, device="cpu",
-                           shardings={"a": None})
+    # shardings: None keeps a leaf on the device; a sharding places it
+    got, _ = restore_checkpoint(tmp_path, {"a": 0}, device="cpu",
+                                shardings={"a": None})
+    assert got["a"].tolist() == [11, 11]
+    spec = SweepMeshSpec.for_devices(devices=["cpu"] * 2)
+    got, _ = restore_checkpoint(tmp_path, {"a": 0},
+                                shardings={"a": event_sharding(spec)})
+    assert isinstance(got["a"], ShardedLog)
+    assert [s.tolist() for s in got["a"].shards] == [[11], [11]]
+    got, _ = restore_checkpoint(tmp_path, {"a": 0},
+                                shardings=replicated(spec))
+    assert got["a"].tolist() == [11, 11]
+    with pytest.raises(ValueError, match="ragged shard"):
+        restore_checkpoint(tmp_path, {"a": 0}, shardings=event_sharding(
+            SweepMeshSpec.for_devices(devices=["cpu"] * 4)))
     assert not list(tmp_path.glob(".tmp_step_*"))
 
 
@@ -262,3 +276,75 @@ def test_service_checkpoint_crosses_packages(tmp_path, env, grids, store,
         return
     assert restored.stats["registered"] == 3
     _assert_same_service(uninterrupted, restored, grid, port_grid)
+
+
+def _day():
+    env = make_synthetic_env(jax.random.PRNGKey(4), n_events=1024,
+                             n_campaigns=8, emb_dim=6)
+    grid = JGrid.product(JRule.first_price(8), env.budgets,
+                         bid_scales=[1.0, 1.2], budget_scales=[1.0, 0.6])
+    return env, grid
+
+
+def test_repro_checkpoint_restores_onto_a_port_mesh(tmp_path):
+    """A log ``repro`` saved restores onto a port mesh of four CPU shards
+    (its rows split in rank order, the budgets replicated), and the
+    sharded sweep of it is bitwise ``repro``'s batched sweep."""
+    from repro.core import SweepPlan as JPlan
+    from repro.core import execute_sweep as j_execute
+    from repro_torch.core import SweepPlan, execute_sweep
+    env, grid = _day()
+    j_ckpt.save_checkpoint(tmp_path, 3, {"values": env.values,
+                                         "budgets": grid.budgets})
+    spec = SweepMeshSpec.for_devices(devices=["cpu"] * 4)
+    tree, manifest = restore_checkpoint(
+        tmp_path, {"values": 0, "budgets": 0},
+        shardings={"values": event_sharding(spec),
+                   "budgets": replicated(spec)})
+    assert manifest["step"] == 3
+    log = tree["values"]
+    assert isinstance(log, ShardedLog) and log.shape == (1024, 8)
+    assert log.offsets == (0, 256, 512, 768)
+    np.testing.assert_array_equal(log.full().numpy(), np.asarray(env.values))
+    _, port_grid = from_reference(
+        np.asarray(env.values), np.asarray(grid.budgets),
+        np.asarray(grid.rules.multipliers), np.asarray(grid.rules.reserve),
+        grid.rules.kind, device="cpu")
+    got = execute_sweep(log, tree["budgets"], port_grid.rules,
+                        SweepPlan(placement="sharded", mesh=spec))
+    want = j_execute(env.values, grid.budgets, grid.rules,
+                     JPlan(placement="batched", resolve="jnp"))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_four_shard_save_restores_onto_two_shards(tmp_path):
+    """The elastic restore: a log saved from four shards (written as its
+    logical value) restores onto two, whose shards are the halves of the
+    log; the sweeps on both meshes are bitwise the batched sweep, and
+    ``repro`` reads the same checkpoint as the whole log."""
+    from repro_torch.core import SweepPlan, execute_sweep
+    env, grid = _day()
+    values, port_grid = from_reference(
+        np.asarray(env.values), np.asarray(grid.budgets),
+        np.asarray(grid.rules.multipliers), np.asarray(grid.rules.reserve),
+        grid.rules.kind, device="cpu")
+    four = SweepMeshSpec.for_devices(devices=["cpu"] * 4)
+    two = SweepMeshSpec.for_devices(devices=["cpu"] * 2)
+    log4 = event_sharding(four).place(values)
+    save_checkpoint(tmp_path, 1, {"values": log4})
+    tree, _ = restore_checkpoint(tmp_path, {"values": 0},
+                                 shardings={"values": event_sharding(two)})
+    log2 = tree["values"]
+    assert len(log2.shards) == 2 and log2.offsets == (0, 512)
+    assert torch.equal(log2.shards[1], values[512:])
+    want = execute_sweep(values, port_grid.budgets, port_grid.rules,
+                         SweepPlan())
+    for spec, log in ((four, log4), (two, log2)):
+        got = execute_sweep(log, port_grid.budgets, port_grid.rules,
+                            SweepPlan(placement="sharded", mesh=spec))
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    j_tree, _ = j_ckpt.restore_checkpoint(tmp_path, {"values": 0})
+    np.testing.assert_array_equal(np.asarray(j_tree["values"]),
+                                  values.numpy())

@@ -1824,3 +1824,74 @@ def test_straddling_chunk_is_staged_in_pinned_memory(dev):
     assert executor.H2D == {"copies": 3, "bytes": 3 * 1000 * 5 * 4,
                             "staged": 1}
     assert pipe.staging[1] is not None and pipe.staging[1].is_pinned()
+
+
+# ---------------------------------------------------------------------------
+# The multi-GPU placements: several event shards on one card
+# ---------------------------------------------------------------------------
+
+from repro_torch.core import sharded  # noqa: E402
+from repro_torch.launch.mesh import SweepMeshSpec, make_mesh  # noqa: E402
+
+
+@pytest.mark.parametrize("shape", [(4,), (2, 2)])
+@pytest.mark.parametrize("resolve", ["fused", "sweep_resolve", "torch"])
+def test_sharded_sweep_on_one_card_is_the_batched_sweep(dev, resolve, shape):
+    """Four event shards on ``cuda:0`` (views of one tensor), and a 2 × 2
+    event × scenario mesh: the six outputs of the CPU's batched sweep, bit
+    for bit; the fused back-end makes two ``sweep_partials`` launches a
+    shard a round and no ``round_fused``."""
+    env, budgets, rules = _grid_env()
+    budgets, rules = torch.cat([budgets, budgets[:1]]), AuctionRule(
+        multipliers=torch.cat([rules.multipliers, rules.multipliers[:1]]),
+        reserve=torch.cat([rules.reserve, rules.reserve[:1]]),
+        kind=rules.kind)
+    want = sweep_state_machine(env.values, budgets, rules, resolve="torch")
+    spec = SweepMeshSpec.for_devices(*shape, devices=[dev] * 4)
+    cuda_rf.reset_launches()
+    got = sweep_state_machine(env.values.to(dev), budgets.to(dev),
+                              _on(dev, rules), resolve=resolve,
+                              driver="sharded", mesh=spec)
+    torch.cuda.synchronize()
+    if resolve == "fused":
+        shards = spec.event_device_count
+        rounds = sum(int(got[4][g * 2:(g + 1) * 2].max())
+                     for g in range(2)) if len(shape) == 2 \
+            else int(got[4].max())
+        assert cuda_rf.LAUNCHES["round_fused"] == 0
+        assert cuda_rf.LAUNCHES["sweep_partials"] == 2 * shards * rounds
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_sharded_s2a_and_vi_on_one_card_are_the_cpu(dev):
+    """The sharded SORT2AGGREGATE sweep (one ``segment_resolve`` launch and
+    one ``first_crossing`` call with a carry at ``block = local_n`` a shard
+    a pass) and Algorithm 4 at scale (a MatrixTile resolve and a flat sum
+    a step) on four shards of one card: the CPU's mesh, bit for bit."""
+    env, budgets, rules = _grid_env()
+    cpu = SweepMeshSpec.for_devices(devices=["cpu"] * 4)
+    card = SweepMeshSpec.for_devices(devices=[dev] * 4)
+    want = sharded.sweep_sort2aggregate_sharded(env.values, budgets, rules,
+                                                cpu, refine_iters=3)
+    cuda_sg.reset_launches()
+    cuda_fc.reset_launches()
+    got = sharded.sweep_sort2aggregate_sharded(
+        env.values.to(dev), budgets.to(dev), _on(dev, rules), card,
+        refine_iters=3)
+    torch.cuda.synchronize()
+    assert cuda_sg.LAUNCHES["segment_resolve"] == \
+        cuda_fc.LAUNCHES["first_crossing"] == 4 * 4
+    for a, b in zip((got[0].final_spend, got[0].cap_times, got[1], got[2]),
+                    (want[0].final_spend, want[0].cap_times, want[1],
+                     want[2])):
+        assert torch.equal(a.cpu(), b)
+    rule = AuctionRule(multipliers=rules.multipliers[1],
+                       reserve=rules.reserve[1], kind=rules.kind)
+    key = prng.PRNGKey(3)
+    pi_cpu = sharded.estimate_pi_sharded(cpu.mesh, env.values, budgets[1],
+                                         rule, key, num_iters=50)
+    pi_card = sharded.estimate_pi_sharded(
+        card.mesh, env.values.to(dev), budgets[1].to(dev),
+        _on(dev, rule), key, num_iters=50)
+    assert torch.equal(pi_card.cpu(), pi_cpu)

@@ -153,7 +153,8 @@ def test_search_constraints_budget_and_errors(golden_engine):
     # the execution plan is checked before any evaluation
     with pytest.raises(ValueError, match="unknown resolve back-end"):
         golden_engine.search(space, resolve="jnp")
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+    with pytest.raises(ValueError, match=r"driver='sharded' needs "
+                       r"mesh=SweepMeshSpec"):
         golden_engine.search(space, driver="sharded")
 
 
@@ -205,3 +206,30 @@ def test_search_trajectory_is_repros(method, options):
     assert got.best_value == pytest.approx(want.best_value, rel=1e-6)
     assert (got.converged, got.best_feasible) == \
         (want.converged, want.best_feasible)
+
+
+def test_sharded_search_is_the_batched_search():
+    """``engine.search(driver="sharded", mesh=...)`` on four CPU shards
+    (and a 2 × 2 event × scenario mesh) visits the points of the batched
+    search with the same scores: its inner sweeps are bitwise the batched
+    sweeps."""
+    from repro_torch.launch.mesh import SweepMeshSpec
+    env = make_synthetic_env(jax.random.PRNGKey(3),
+                             n_events=2048, n_campaigns=8, emb_dim=4)
+    engine = CounterfactualEngine(
+        torch.from_numpy(np.asarray(env.values).copy()),
+        torch.from_numpy(np.array(env.budgets * jnp.float32(0.6))),
+        device="cpu")
+    space = SearchSpace(reserve=(0.0, 0.3), budget_scale=(0.5, 1.5))
+    kw = dict(method="halving", budget=24, num_candidates=4,
+              constraints=(CapRateCeiling(0.5),))
+    want = engine.search(space, **kw)
+    for shape in ((4,), (2, 2)):
+        mesh = SweepMeshSpec.for_devices(*shape, devices=["cpu"] * 4)
+        got = engine.search(space, driver="sharded", mesh=mesh, **kw)
+        assert got.best_point == want.best_point
+        assert [h["points"] for h in got.history] == \
+            [h["points"] for h in want.history]
+        for g, w in zip(got.history, want.history):
+            np.testing.assert_array_equal(g["values"], w["values"])
+            np.testing.assert_array_equal(g["margins"], w["margins"])

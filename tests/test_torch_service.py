@@ -570,13 +570,34 @@ def test_input_errors_are_repros(env, port):
         assert _message(ours) == _message(theirs)
 
 
-def test_unported_options_raise(port):
-    _, budgets, base, _ = port
-    for kw, item in ((dict(placement="sharded"), "item 8"),
-                     (dict(mesh=object()), "item 8"),
-                     (dict(tuned=True), "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            CounterfactualService(budgets, base, device="cpu", **kw)
+def test_unported_options_raise(env, grid, port, reference):
+    """The mesh options run (the name is the item-8 test's): a service
+    with ``placement="sharded"`` on four CPU shards, and on a 2 × 2 mesh
+    (three asks padded to whole scenario groups), answers its asks and its
+    sweep bitwise ``repro``'s one-shot sweep; a sharded placement without a
+    mesh and a host store with a mesh raise ``repro``'s texts.
+    ``tuned=True`` and ``tune()`` still name item 9."""
+    from repro_torch.launch.mesh import SweepMeshSpec
+    values, budgets, base, port_grid = port
+    for shape in ((4,), (2, 2)):
+        mesh = SweepMeshSpec.for_devices(*shape, devices=["cpu"] * 4)
+        svc = _service(port, placement="sharded", mesh=mesh)
+        svc.append(values)
+        tickets = [svc.ask(*_scenario(grid, s)) for s in range(3)]
+        for s, ticket in enumerate(tickets):
+            got = ticket.result()
+            _same(reference.results.final_spend[s], got.final_spend)
+            _same(reference.results.cap_times[s], got.cap_times)
+        _assert_sweep(reference, svc.sweep(port_grid))
+    want = _message(lambda: JService(env.budgets, JRule.first_price(_C),
+                                     placement="sharded"))
+    assert _message(lambda: _service(port, placement="sharded")) == \
+        want.replace("repro.launch", "repro_torch.launch")
+    assert _message(lambda: _service(port, store="host", mesh=mesh)) == \
+        _message(lambda: JService(env.budgets, JRule.first_price(_C),
+                                  store="host", mesh=object()))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        CounterfactualService(budgets, base, device="cpu", tuned=True)
     with pytest.raises(NotImplementedError, match="item 9"):
         _service(port).tune()
     assert "store='host' replans" in _message(
