@@ -245,6 +245,22 @@ Run from the repository root. Phases:
    at ``block = local_n`` and ``segment_resolve`` at a shard offset, each
    against its plain version and timed (the JSON rows' ``shard_*``,
    ``shard_carry_*`` and ``shard_offset_*`` keys).
+15. plan tuning and the keyed days (``tune_phase``): (a) the §7.1 day
+   built on the card from ``prng.PRNGKey(seed)``, its first, last full and
+   last blocks bitwise the CPU's keyed build; (b) ``engine.tune(grid)``
+   at S=32 for the fused and ``sweep_resolve`` back-ends, both rules, each
+   candidate's predicted and paired times and the winner, then
+   ``sweep(tuned=True)`` / ``block_t="auto"`` bitwise phase 4 with the
+   concrete plan's launches, a ``CounterfactualService(tuned=True)``
+   answering bitwise phase 4 before and after its ``tune()``, a host
+   store's ``tune()`` refused, the cost model's full-day seconds beside
+   phase 4's walls and the host time of one launch; (c) the Yahoo-like day
+   pair of §7.2 (``PAPER_YAHOO_FULL``) built on the card from a key,
+   bitwise the CPU's build, both exact replays (one ``capped_scan`` launch
+   each) and the warm-started SORT2AGGREGATE (only ``segment_resolve`` and
+   ``first_crossing`` launches) with the fig. 6 errors, and the whole
+   pipeline at ``PAPER_YAHOO_CPU`` (its days cut to half their auctions)
+   bitwise the CPU's.
 
 Every check raises on failure and nothing is caught, so any failure exits
 non-zero. The last line is the JSON result. Without a CUDA device, or
@@ -406,6 +422,19 @@ CPU_CUT_EVENTS = 32_768
 # against the CPU
 SHARDS = 4
 SHARDED_CPU_LANES = 4
+# phase 15: the keyed day's blocks (repro's default); the tuner measures on
+# half the day, whose canonical blocks (15,625 rows) divide every chunk
+# size of the day's lattice (a cut to 125,000 rows made every chunk
+# candidate illegal), with fewer trials than its defaults; the launches
+# timed for the roofline's dispatch_us
+KEYED_BLOCK = 65_536
+# the Yahoo pipeline's CPU check: PAPER_YAHOO_CPU's days cut to half their
+# auctions (the same 1,000 keywords and C; the budget halved with the
+# volume), for the script's time
+YAHOO_CPU_CUT = 2
+TUNE_EVENTS = 500_000
+TUNE_TRIALS = (1, 3)            # quick, full
+DISPATCH_CALLS = 200
 # operations a cell of crn_cells, (32-bit integer, float32): three
 # Threefry hashes (20 rounds of an add, a rotate and a xor, 5 key
 # injections of three adds, the key schedule's two xors: 77 each) and the
@@ -2827,6 +2856,344 @@ def sharded_phase(dev, env, small, engines, base_sweeps, exact,
     return out
 
 
+def tune_phase(dev, env, engines, base_sweeps, walls, reset_counts,
+               read_counts, *, seed: int, full, yahoo_full, yahoo_cpu,
+               key_block: int = KEYED_BLOCK, tune_events: int = TUNE_EVENTS,
+               epc: int = SERVICE_EPC, ask_lanes=SERVICE_ASK_LANES,
+               cache_path: Path = ROOT / "build" / "tune_cache.json") -> dict:
+    """Phase 15: plan tuning and the keyed days on the card. (a) The keyed
+    §7.1 day (``full``) built on the card from ``prng.PRNGKey(seed)``, its
+    first, last full and last ``key_block``-row blocks bitwise the CPU's
+    keyed build of the same blocks (values, event and campaign
+    embeddings). (b) ``engine.tune(grid)`` at S=32 for ``resolve="auto"``
+    (fused) and ``"sweep_resolve"``, both pricing rules, on
+    ``tune_events`` events of the day (the cache at ``cache_path``, also
+    the default file of the phase): every measured candidate's config,
+    predicted and paired times, the winner and its speedup; then
+    ``engine.sweep(grid, tuned=True)`` and ``block_t="auto"`` bitwise phase
+    4, the tuned plan's six outputs bitwise phase 4 with the launches of
+    the concrete plan it resolves to (resolution launches nothing); a
+    ``CounterfactualService(tuned=True)`` answering ``ask_lanes`` bitwise
+    phase 4 (as phase 13's asks are), its ``tune()`` pinning a concrete
+    plan, a host store's ``tune()`` raising ``repro``'s text; the cost
+    model's full-day seconds beside phase 4's walls; the host time of one
+    kernel launch (``dispatch_us``). (c) The Yahoo-like day pair at
+    ``yahoo_full`` built on the card from a key, bitwise the CPU's build;
+    both exact replays (one ``capped_scan`` launch each), the fig. 5-6
+    warm start and ``sort2aggregate(..., refine_iters=12)`` (only
+    ``segment_resolve`` and ``first_crossing`` launches, no ``vi``, no
+    ``index_add_``), the walls, the heuristics' and S2A's spend-weighted
+    errors against the day-2 replay and the capped count; the whole
+    pipeline at ``yahoo_cpu`` bitwise the CPU's. Returns the numbers and
+    the launches."""
+    import os
+    import torch
+    from repro_torch import prng, tune
+    from repro_torch.core import (SweepPlan, execute_sweep,
+                                  sequential_replay, sort2aggregate,
+                                  spend_weighted_relative_error)
+    from repro_torch.core.executor import needs_tuning
+    from repro_torch.core.segments import REDUCE_BLOCKS
+    from repro_torch.data import make_synthetic_env, make_yahoo_like_env
+    from repro_torch.data.synthetic import keyed_block
+    from repro_torch.data.yahoo import as_is_prediction, rescaled_prediction
+    from repro_torch.kernels.auction_resolve import ops
+    from repro_torch.serve import CounterfactualService
+
+    t_phase = time.perf_counter()
+    n, c = env.values.shape
+    quick, trials = TUNE_TRIALS
+    tune_kw = dict(max_events=tune_events, quick_trials=quick,
+                   trials=trials)
+    out = {"counted": {"round_fused": 0, "sweep_partials": 0,
+                       "sweep_resolve": 0, "segment_partials": 0,
+                       "capped_scan": 0, "segment_resolve": 0,
+                       "first_crossing": 0}, "tune": []}
+
+    plain_index_add = torch.Tensor.index_add_
+    index_adds = [0]
+
+    def counting_index_add(self, *a, **k):
+        index_adds[0] += 1
+        return plain_index_add(self, *a, **k)
+
+    def timed(fn):
+        """``fn()`` with the kernel counts and a count of ``index_add_``
+        calls set to 0 just before: ``(result, wall seconds, counts)``."""
+        reset_counts()
+        index_adds[0] = 0
+        torch.cuda.synchronize()
+        torch.Tensor.index_add_ = counting_index_add
+        try:
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            torch.Tensor.index_add_ = plain_index_add
+        return res, wall, dict(read_counts(), index_add_=index_adds[0])
+
+    def add(counts):
+        for name in out["counted"]:
+            out["counted"][name] += counts.get(name, 0)
+
+    # (a) the keyed §7.1 day
+    key = prng.PRNGKey(seed)
+    keyed, wall, _ = timed(lambda: make_synthetic_env(
+        key, full.n_events, full.n_campaigns, full.emb_dim,
+        b_base=full.b_base, block=key_block, device=dev))
+    out["keyed_wall"] = wall
+    last = (full.n_events - 1) // key_block * key_block
+    blocks = sorted({(0, key_block), (last - key_block, last),
+                     (last, full.n_events)})
+    t0 = time.perf_counter()
+    for lo, hi in blocks:
+        emb, vals, cemb = keyed_block(key, lo, hi, full.n_campaigns,
+                                      full.emb_dim, device="cpu")
+        for name, got, want in (("values", keyed.values[lo:hi], vals),
+                                ("event_emb", keyed.event_emb[lo:hi], emb),
+                                ("campaign_emb", keyed.campaign_emb, cemb)):
+            require(torch.equal(got.cpu(), want),
+                    f"keyed day rows [{lo}, {hi}): {name} differs from "
+                    f"the CPU's keyed build")
+    print(f"[15] (a) keyed §7.1 day (N={full.n_events} C={full.n_campaigns}"
+          f" d={full.emb_dim}) built on the card in {wall:.4f} s; blocks "
+          f"{blocks} bitwise the CPU's keyed build (values, embeddings; "
+          f"{time.perf_counter() - t0:.1f} s on the CPU)", flush=True)
+    del keyed
+
+    # (b) tuning at S=32
+    cache_path.parent.mkdir(parents=True, exist_ok=True)
+    cache_path.unlink(missing_ok=True)
+    saved_env = os.environ.get(tune.ENV_VAR)
+    os.environ[tune.ENV_VAR] = str(cache_path)
+    try:
+        for kind in KINDS:
+            engine, grid = engines[kind]
+            s = grid.num_scenarios
+            want = base_sweeps[kind]
+            for resolve in ("auto", "sweep_resolve"):
+                t0 = time.perf_counter()
+                report = engine.tune(grid, resolve=resolve,
+                                     cache_path=cache_path, **tune_kw)
+                tune_wall = time.perf_counter() - t0
+                for m in report.measurements:
+                    print(f"[15] (b) {kind} {resolve}: candidate "
+                          f"{m.config}: predicted {m.predicted_total:.6f} s"
+                          f" (full day), paired {m.us:.1f} µs against the "
+                          f"default's {m.us_default:.1f} µs"
+                          f"{' (pruned)' if m.pruned else ''}", flush=True)
+                plan = SweepPlan(resolve=resolve, block_t="auto", tuned=True)
+                shape = tune.shape_for(plan, n_events=n, n_campaigns=c,
+                                       n_scenarios=s, device=dev)
+                ranked = tune.rank_candidates(plan, shape)
+                default = tune.default_candidate(plan)
+                predicted = dict(ranked)[default].total
+                concrete = tune.resolve_plan(plan, n_events=n, n_campaigns=c,
+                                             n_scenarios=s, device=dev)
+                require(concrete == report.plan(plan),
+                        f"{kind} {resolve}: the tuned plan did not resolve "
+                        f"to the measured winner")
+                got, t_wall, t_cnt = timed(lambda: execute_sweep(
+                    env.values, grid.budgets, grid.rules, plan))
+                ref, c_wall, c_cnt = timed(lambda: execute_sweep(
+                    env.values, grid.budgets, grid.rules, concrete))
+                require(t_cnt == c_cnt,
+                        f"{kind} {resolve}: resolving the tuned plan "
+                        f"launched more than its sweep ({t_cnt} against "
+                        f"{c_cnt})")
+                add(t_cnt)
+                for name, a, b in zip(OUTPUTS, got, want):
+                    require(torch.equal(a, b), f"{kind} {resolve}: the "
+                            f"tuned plan's {name} differs from phase 4's")
+                for kw in (dict(tuned=True), dict(block_t="auto")):
+                    res = engine.sweep(grid, resolve=resolve, **kw)
+                    require(torch.equal(res.results.final_spend, want[0])
+                            and torch.equal(res.results.cap_times, want[1]),
+                            f"{kind} {resolve}: engine.sweep({kw}) differs "
+                            f"from phase 4")
+                row = dict(kind=kind, resolve=resolve,
+                           winner=report.winner_config,
+                           speedup=report.speedup, origin=report.origin,
+                           n_candidates=report.n_candidates,
+                           measured_events=report.measured_events,
+                           tune_wall=tune_wall, tuned_wall=t_wall,
+                           predicted_full_day_s=predicted,
+                           phase4_wall=walls[(kind, resolve)],
+                           measurements=[dataclasses.asdict(m) for m in
+                                         report.measurements])
+                out["tune"].append(row)
+                print(f"[15] (b) {kind} {resolve}: {report.n_candidates} "
+                      f"candidates, {len(report.measurements)} measured on "
+                      f"{report.measured_events} events in {tune_wall:.2f}"
+                      f" s; winner {report.winner_config} (speedup "
+                      f"{report.speedup}); sweep(tuned=True) and block_t="
+                      f"'auto' bitwise phase 4, the tuned plan's launches "
+                      f"{ {k: v for k, v in t_cnt.items() if v} } those of "
+                      f"its concrete plan ({t_wall:.4f} s); the cost model's"
+                      f" full-day default {predicted:.6f} s against phase "
+                      f"4's {walls[(kind, resolve)]:.4f} s", flush=True)
+        # the service: tuned=True answers phase 13's asks, tune() pins
+        engine, grid = engines[KINDS[0]]
+        want = base_sweeps[KINDS[0]]
+        svc = CounterfactualService(env.budgets, engine.base_rule,
+                                    events_per_chunk=epc, tuned=True,
+                                    device=dev)
+        svc.append(env.values)
+
+        def asks(what):
+            tickets = [svc.ask(*grid.scenario(s)) for s in ask_lanes]
+            svc.flush()
+            for s, t in zip(ask_lanes, tickets):
+                a = t.result()
+                require(torch.equal(a.final_spend, want[0][s])
+                        and torch.equal(a.cap_times, want[1][s]),
+                        f"tuned service ({what}): the ask of lane {s} "
+                        f"differs from phase 4 (and phase 13)")
+
+        asks("cache or cost model")
+        t0 = time.perf_counter()
+        svc.tune(scenarios=grid.num_scenarios, cache_path=cache_path,
+                 **tune_kw)
+        svc_tune_wall = time.perf_counter() - t0
+        require(not needs_tuning(svc.plan), "service.tune() pinned no plan")
+        svc._cache.clear()           # the asks replay under the pinned plan
+        asks("pinned")
+        host = CounterfactualService(env.budgets, engine.base_rule,
+                                     events_per_chunk=epc, store="host",
+                                     device=dev)
+        host.append(env.values[:epc])
+        raised = ""
+        try:
+            host.tune()
+        except ValueError as err:
+            raised = str(err)
+        require("store='host' replans" in raised,
+                f"a host store's tune() did not raise repro's text: "
+                f"{raised!r}")
+        print(f"[15] (b) CounterfactualService(tuned=True): {len(ask_lanes)}"
+              f" asks bitwise phase 4 (phase 13's answers) before and after "
+              f"tune() ({svc_tune_wall:.2f} s) pinned {svc.plan}; a host "
+              f"store's tune() raises repro's text", flush=True)
+        del svc, host
+    finally:
+        if saved_env is None:
+            os.environ.pop(tune.ENV_VAR, None)
+        else:
+            os.environ[tune.ENV_VAR] = saved_env
+    # the host time of one kernel launch, the roofline's dispatch_us
+    grid = engines[KINDS[0]][1]
+    v_small = env.values[:4096]
+    lane = slice(0, 1)
+    act = torch.ones((1, c), dtype=torch.bool, device=dev)
+    lo = torch.zeros(1, dtype=torch.int32, device=dev)
+    hi = torch.full((1,), 4096, dtype=torch.int32, device=dev)
+    keep = torch.ones(1, dtype=torch.bool, device=dev)
+
+    def launch():
+        ops.sweep_partials(v_small, grid.rules.multipliers[lane], act,
+                           grid.rules.reserve[lane], lo, hi, keep, 0,
+                           n_events_global=4096,
+                           reduce_blocks=REDUCE_BLOCKS)
+
+    for _ in range(20):
+        launch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DISPATCH_CALLS):
+        launch()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    out["dispatch_us"] = host_s / DISPATCH_CALLS * 1e6
+    print(f"[15] (b) dispatch: {out['dispatch_us']:.2f} µs of host time a "
+          f"sweep_partials launch ({DISPATCH_CALLS} launches, N=4096, "
+          f"C={c}, one lane)", flush=True)
+
+    # (c) the Yahoo-like day pair
+    def yahoo(preset, where):
+        return make_yahoo_like_env(
+            prng.PRNGKey(seed), n_keywords=preset.n_keywords,
+            n_campaigns=preset.n_campaigns, n_day1=preset.n_day1,
+            n_day2=preset.n_day2, budget=preset.budget, device=where)
+
+    def pipeline(y, preset):
+        """fig. 5-6: both replays, the warm start, S2A and the errors,
+        each step timed with its launches."""
+        n1, n2 = preset.n_day1, preset.n_day2
+        v1, v2 = y.values(1), y.values(2)
+        d1, w1, k1 = timed(lambda: sequential_replay(v1, y.budgets, y.rule))
+        d2, w2, k2 = timed(lambda: sequential_replay(v2, y.budgets, y.rule))
+        caps1 = d1.cap_times.long()
+        warm = torch.where(caps1 <= n1, torch.clamp(caps1 * n2 // n1,
+                                                    max=n2),
+                           n2 + 1).to(torch.int32)
+        s2a, w3, k3 = timed(lambda: sort2aggregate(
+            v2, y.budgets, y.rule, cap_times_init=warm, refine_iters=12))
+        errs = {
+            "as_is": spend_weighted_relative_error(
+                as_is_prediction(d1.final_spend), d2.final_spend),
+            "rescale": spend_weighted_relative_error(
+                rescaled_prediction(d1.final_spend, n1, n2, y.budgets),
+                d2.final_spend),
+            "s2a": spend_weighted_relative_error(s2a.result.final_spend,
+                                                 d2.final_spend)}
+        outputs = dict(day1_spend=d1.final_spend, day1_caps=d1.cap_times,
+                       day2_spend=d2.final_spend, day2_caps=d2.cap_times,
+                       warm=warm, s2a_spend=s2a.result.final_spend,
+                       s2a_caps=s2a.result.cap_times, **errs)
+        return outputs, (w1, w2, w3), (k1, k2, k3), s2a.refine_iters_used
+
+    y_card, y_wall, _ = timed(lambda: yahoo(yahoo_full, dev))
+    y_cpu = yahoo(yahoo_full, "cpu")
+    for name in ("bid_table", "day1_keywords", "day2_keywords", "budgets"):
+        require(torch.equal(getattr(y_card, name).cpu(),
+                            getattr(y_cpu, name)),
+                f"Yahoo-like day: {name} differs from the CPU's build")
+    res, (w1, w2, w3), (k1, k2, k3), iters = pipeline(y_card, yahoo_full)
+    for k in (k1, k2):
+        require(k["capped_scan"] == 1 and sum(k.values()) == 1,
+                f"an exact replay made launches {k}")
+    s2a_kernels = {name for name, v in k3.items() if v}
+    require(k3["segment_resolve"] > 0 and k3["first_crossing"] > 0
+            and s2a_kernels <= {"segment_resolve", "first_crossing",
+                                "first_crossing_device_kernels"},
+            f"the warm-started SORT2AGGREGATE made launches {k3}")
+    for k in (k1, k2, k3):
+        add(k)
+    capped = int((res["day2_caps"] <= yahoo_full.n_day2).sum())
+    out["yahoo"] = dict(build_wall=y_wall, replay_walls=(w1, w2),
+                        s2a_wall=w3, s2a_launches=k3, refine_iters=iters,
+                        capped=capped,
+                        errors={e: float(res[e]) for e in
+                                ("as_is", "rescale", "s2a")})
+    print(f"[15] (c) Yahoo-like day pair (K={yahoo_full.n_keywords} C="
+          f"{yahoo_full.n_campaigns}, {yahoo_full.n_day1} then "
+          f"{yahoo_full.n_day2} auctions) built on the card in {y_wall:.4f}"
+          f" s, bitwise the CPU's; exact replays {w1:.4f} s and {w2:.4f} s"
+          f" (one capped_scan launch each); warm-started SORT2AGGREGATE "
+          f"(12 refine passes, {iters} used) {w3:.4f} s, launches "
+          f"{ {k: v for k, v in k3.items() if v} }; spend-weighted error "
+          f"against the day-2 replay: as is {float(res['as_is']):.4f}, "
+          f"rescaled {float(res['rescale']):.4f}, SORT2AGGREGATE "
+          f"{float(res['s2a']):.4f}; {capped} of {yahoo_full.n_campaigns} "
+          f"campaigns capped on day 2", flush=True)
+    del y_card, y_cpu
+    t0 = time.perf_counter()
+    on_card = pipeline(yahoo(yahoo_cpu, dev), yahoo_cpu)
+    on_cpu = pipeline(yahoo(yahoo_cpu, "cpu"), yahoo_cpu)
+    for name, want in on_cpu[0].items():
+        require(torch.equal(on_card[0][name].cpu(), want),
+                f"Yahoo pipeline at {yahoo_cpu}: {name} differs from the "
+                f"CPU's")
+    require(on_card[3] == on_cpu[3], "S2A refine iterations differ")
+    print(f"[15] (c) the pipeline at {yahoo_cpu} on the card bitwise the "
+          f"CPU's (replays, warm start, S2A, errors; "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    out["wall"] = time.perf_counter() - t_phase
+    print(f"[15] phase 15: {out['wall']:.1f} s", flush=True)
+    return out
+
+
 MULTIHOST_WORKER = """
 import json, sys, time
 import torch
@@ -2933,7 +3300,9 @@ def main() -> int:
 
     from repro_torch import prng
     from repro_torch.configs.paper_auction import (PAPER_SYNTHETIC_CPU,
-                                                   PAPER_SYNTHETIC_FULL)
+                                                   PAPER_SYNTHETIC_FULL,
+                                                   PAPER_YAHOO_CPU,
+                                                   PAPER_YAHOO_FULL)
     from repro_torch.core import (AuctionRule, CounterfactualEngine,
                                   ScenarioGrid, Segments, scenario_rule,
                                   spend_weighted_relative_error,
@@ -4307,6 +4676,18 @@ def main() -> int:
                             ("segment_resolve", "shard_offset",
                              "segment_resolve_shard")):
         modes.append((name, mode, phase14[key], phase14[key]["launches"]))
+    # ---- phase 15: plan tuning and the keyed days -------------------------
+    phase15 = tune_phase(
+        dev, env, engines, {k: r["fused"] for k, r in results.items()},
+        {**{(k, "auto"): r["wall"] for k, r in results.items()},
+         **{(k, "sweep_resolve"): w for k, w in sr_wall.items()}},
+        reset_counts, read_counts, seed=args.seed, full=full,
+        yahoo_full=PAPER_YAHOO_FULL, yahoo_cpu=dataclasses.replace(
+            PAPER_YAHOO_CPU, n_day1=PAPER_YAHOO_CPU.n_day1 // YAHOO_CPU_CUT,
+            n_day2=PAPER_YAHOO_CPU.n_day2 // YAHOO_CPU_CUT,
+            budget=PAPER_YAHOO_CPU.budget / YAHOO_CPU_CUT))
+    for name, launches in phase15["counted"].items():
+        counted[name] += launches
     rows = []
     for name, src, replaces in KERNELS:
         ms, plain_ms, library_ms = timing[name]
@@ -4414,6 +4795,10 @@ def main() -> int:
                             host_pass_pcie_bound_ms=hp["pcie_bound_ms"],
                             host_pass_launches=hp["launches"])
         require(counted[name] > 0, f"{name} never launched on its path")
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "phase15.json").write_text(json.dumps(
+        dict(card=card, **phase15), indent=1, default=str))
     print(f"[done] all phases in {time.perf_counter() - t_script:.1f} s",
           flush=True)
     print(json.dumps({"kernels": rows}))

@@ -39,9 +39,9 @@ import torch
 from repro_torch import prng
 from repro_torch.core import sweep as sweep_lib
 from repro_torch.core import vi as vi_lib
-from repro_torch.core.executor import (HostStream, check_s2a_options,
-                                       execute_s2a_sweep, execute_sweep,
-                                       plan_for_driver, reject_unported)
+from repro_torch.core.executor import (DEFAULT_BLOCK_T, HostStream,
+                                       check_s2a_options, execute_s2a_sweep,
+                                       execute_sweep, plan_for_driver)
 from repro_torch.core.parallel import parallel_simulate
 from repro_torch.core.sequential import (naive_sampled_replay,
                                          sequential_replay)
@@ -264,7 +264,7 @@ class CounterfactualEngine:
               warm_start="base", refine_iters: int = 8,
               crossing_block: int = 4096, key: Optional[torch.Tensor] = None,
               mesh=None, chunks=None, scenario_chunks=None,
-              tuned: bool = False) -> SweepResult:
+              block_t=DEFAULT_BLOCK_T, tuned: bool = False) -> SweepResult:
         """Evaluate every scenario in ``grid`` in one batched program.
 
         ``grid`` is a :class:`ScenarioGrid` or a
@@ -311,7 +311,12 @@ class CounterfactualEngine:
         sharded program over a ``torch.distributed`` world
         (``mesh=SweepMeshSpec.for_processes()``): this engine's ``values``
         are this rank's rows of the global log, and every rank gets the
-        one-process answers."""
+        one-process answers.
+
+        ``block_t="auto"`` / ``tuned=True`` leave the plan's performance
+        knobs to the tuner (:mod:`repro_torch.tune`): the executor resolves
+        them from the tuning cache (one :meth:`tune` pass fills it) or the
+        cost model, and the answers are the default plan's bit for bit."""
         from repro_torch.scenarios.family import CompiledFamily
         request = grid
         values, overlay = self.values, None
@@ -325,10 +330,10 @@ class CounterfactualEngine:
                 "scenario families with an intervention overlay (live "
                 "windows / CRN stochastic axes) run on the parallel "
                 f"executor only; use method='parallel', not {method!r}.")
-        reject_unported(tuned=tuned)
         plan = plan_for_driver(driver, resolve=resolve, mesh=mesh,
                                chunks=chunks,
-                               scenario_chunks=scenario_chunks)
+                               scenario_chunks=scenario_chunks,
+                               block_t=block_t, tuned=tuned)
         if chunks is not None and method not in ("parallel",
                                                  "sort2aggregate"):
             raise ValueError(
@@ -393,6 +398,33 @@ class CounterfactualEngine:
             raise ValueError(f"unknown sweep method: {method}")
         return SweepResult(grid=grid, results=results,
                            n_events=self.n_events, base_index=base_index)
+
+    def tune(self, grid=None, *, driver: str = "batched",
+             resolve: str = "auto", mesh=None, chunks=None,
+             scenario_chunks=None, cache=None, cache_path=None,
+             max_events: int = 4096, trials: int = 7,
+             quick_trials: int = 3, top_k: int = 4, measure: bool = True):
+        """One measured tuning pass for this engine's log shape: the legal
+        knob lattice of the (driver, resolve, chunks) plan, ranked by the
+        cost model, the best candidates timed paired against the default
+        plan, and the winner kept in the tuning cache, so every later
+        same-shape ``sweep(..., tuned=True)`` (or ``block_t="auto"``)
+        resolves to it without measuring. ``grid`` defaults to a small
+        product grid; the decision keys on shapes, not designs. Returns
+        the :class:`repro_torch.tune.TuneReport`. Every candidate gives
+        the default plan's bits."""
+        from repro_torch import tune as tune_lib
+        if grid is None:
+            grid = self.grid(bid_scales=(1.0, 1.25),
+                             budget_scales=(1.0, 0.75))
+        plan = plan_for_driver(driver, resolve=resolve, mesh=mesh,
+                               chunks=chunks,
+                               scenario_chunks=scenario_chunks,
+                               block_t="auto", tuned=True)
+        return tune_lib.autotune(
+            self.values, grid.budgets, grid.rules, plan, cache=cache,
+            cache_path=cache_path, max_events=max_events, trials=trials,
+            quick_trials=quick_trials, top_k=top_k, measure=measure)
 
     def grid_from_points(self, points: Sequence[dict]) -> ScenarioGrid:
         """A :class:`ScenarioGrid` from search-space points: each point a

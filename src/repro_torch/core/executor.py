@@ -90,12 +90,19 @@ Two placements spread the log over a mesh
   ``all_reduce(SUM)`` (:data:`COLLECTIVES` counts them); the outputs are
   replicated on every rank.
 
+A plan's performance knobs may be left to the tuner (:mod:`repro_torch.
+tune`), as in ``repro``: ``block_t="auto"`` and ``tuned=True`` resolve in
+:func:`execute_sweep`, before anything runs (:func:`resolve_auto_plan`:
+the tuning cache, else the cost model; never a measurement), to a concrete
+plan whose outputs are the default plan's bit for bit. ``block_t`` is
+``repro``'s Pallas event tile; the port's CUDA kernels fix their tiles when
+they are compiled, so the tuner keeps it at the plan's value.
+
 The round loop (:func:`_run_loop`) is a Python loop that checks once per
 round whether any lane is alive — one host sync per round; capturing the
-loop in a CUDA graph is later work. ``tuned`` plans raise
-``NotImplementedError`` naming the ROADMAP item that ports them; the port
-names its resolve back-ends after what they run, so ``repro``'s ``"jnp"``
-and ``"pallas"`` are unknown options here.
+loop in a CUDA graph is later work. The port names its resolve back-ends
+after what they run, so ``repro``'s ``"jnp"`` and ``"pallas"`` are unknown
+options here.
 """
 from __future__ import annotations
 
@@ -126,30 +133,13 @@ SIM_DRIVERS = ("auto", "device", "host")
 PLACEMENTS = ("device", "batched", "sharded", "multihost")
 CHUNK_SOURCES = ("device", "host")
 
-# axes of repro's executor this port has not reached, and where ROADMAP.md
-# queues them
-UNPORTED = {
-    "tuned": "queue 1, item 9 (tuning)",
-}
+DEFAULT_BLOCK_T = 256
 
 
 def _unknown(kind: str, got, known) -> ValueError:
     """THE unknown-option error, with ``repro``'s message text."""
     names = ", ".join(repr(k) for k in known)
     return ValueError(f"unknown {kind}: {got!r} (choose from {names})")
-
-
-def not_ported(axis: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{axis} is not ported to repro_torch yet; see ROADMAP.md "
-        f"{UNPORTED[axis]}")
-
-
-def reject_unported(**axes) -> None:
-    """Raise for any not-yet-ported axis given a non-default value."""
-    for name, value in axes.items():
-        if value not in (None, False):
-            raise not_ported(name)
 
 
 def pick_resolve(resolve: str, device, n_campaigns: int | None = None, *,
@@ -380,8 +370,12 @@ class SweepPlan:
     :class:`repro_torch.launch.mesh.SweepMeshSpec`), ``resolve``
     (``"torch"`` | ``"sweep_resolve"`` | ``"fused"`` | ``"auto"``),
     ``skip_retired``, ``chunks`` (an optional :class:`ChunkSpec`, or an
-    int) and ``scenario_chunks`` (an optional :class:`ScenarioChunkSpec`,
-    or an int)."""
+    int), ``scenario_chunks`` (an optional :class:`ScenarioChunkSpec`, or
+    an int), ``block_t`` (``repro``'s Pallas event tile, a positive int,
+    or ``"auto"`` to leave it to the tuner; no CUDA kernel of the port
+    takes it) and ``tuned`` (leave every knob not pinned here to the
+    tuner: the tile when ``"auto"``, the chunk specs when ``None``, a host
+    stream's prefetch, ``skip_retired``; :func:`resolve_auto_plan`)."""
 
     placement: str = "batched"
     resolve: str = "auto"
@@ -389,10 +383,18 @@ class SweepPlan:
     mesh: Optional[SweepMeshSpec] = None
     chunks: Optional[ChunkSpec] = None
     scenario_chunks: Optional[ScenarioChunkSpec] = None
+    block_t: int | str = DEFAULT_BLOCK_T
+    tuned: bool = False
 
     def __post_init__(self):
         if self.placement not in PLACEMENTS:
             raise _unknown("placement", self.placement, PLACEMENTS)
+        if self.block_t != "auto" and (
+                not isinstance(self.block_t, int)
+                or isinstance(self.block_t, bool) or self.block_t < 1):
+            raise ValueError(
+                f"SweepPlan.block_t must be a positive int or 'auto', got "
+                f"{self.block_t!r}")
         if self.resolve not in RESOLVE_BACKENDS + ("auto",):
             raise _unknown("resolve back-end", self.resolve,
                            RESOLVE_BACKENDS + ("auto",))
@@ -408,7 +410,8 @@ class SweepPlan:
 
 def plan_for_driver(driver: str, *, resolve: str = "auto",
                     skip_retired: bool = True, mesh=None, chunks=None,
-                    scenario_chunks=None) -> SweepPlan:
+                    scenario_chunks=None, block_t=DEFAULT_BLOCK_T,
+                    tuned: bool = False) -> SweepPlan:
     """The plan of a ``driver=`` string (``sweep_parallel``,
     ``engine.sweep``, ``engine.search``), with ``repro``'s unknown-driver
     and missing-mesh texts; ``mesh`` is dropped off the mesh drivers."""
@@ -423,7 +426,38 @@ def plan_for_driver(driver: str, *, resolve: str = "auto",
     return SweepPlan(placement=driver, resolve=resolve,
                      skip_retired=skip_retired,
                      mesh=mesh if meshed else None, chunks=chunks,
-                     scenario_chunks=scenario_chunks)
+                     scenario_chunks=scenario_chunks, block_t=block_t,
+                     tuned=tuned)
+
+
+def needs_tuning(plan: SweepPlan) -> bool:
+    """Whether the plan leaves knobs to the tuner."""
+    return plan.tuned or plan.block_t == "auto"
+
+
+def resolve_auto_plan(plan: SweepPlan, *, n_events: int, n_campaigns: int,
+                      n_scenarios: int, device="cuda") -> SweepPlan:
+    """``block_t="auto"`` / ``tuned=True`` resolved to a concrete plan for
+    a sweep on ``device`` (:func:`repro_torch.tune.resolve_plan`: the
+    tuning cache, else the cost model). A concrete plan comes back as it
+    is. Only knobs whose every setting gives the same bits move."""
+    if not needs_tuning(plan):
+        return plan
+    from repro_torch import tune
+    return tune.resolve_plan(plan, n_events=n_events,
+                             n_campaigns=n_campaigns,
+                             n_scenarios=n_scenarios, device=device)
+
+
+def _untuned(plan: SweepPlan) -> SweepPlan:
+    """The tuner's knobs pinned at the defaults without asking the tuner:
+    the entry points whose lattice it does not model (the SORT2AGGREGATE
+    spine, resumable folds)."""
+    if not needs_tuning(plan):
+        return plan
+    return dataclasses.replace(
+        plan, block_t=DEFAULT_BLOCK_T if plan.block_t == "auto"
+        else plan.block_t, tuned=False)
 
 
 def check_chunks(chunks: Optional[ChunkSpec], *, n_events: int,
@@ -1258,7 +1292,18 @@ def execute_sweep(values, budgets, rules, plan: SweepPlan, *,
     takes THIS RANK's event shard as ``values`` and returns the outputs
     on every rank (:func:`_sweep_multihost`). Both are bit for bit the
     batched sweep on aligned shapes.
+
+    ``plan.block_t="auto"`` / ``plan.tuned=True`` resolve here, before
+    anything runs (:func:`resolve_auto_plan`), to a plan whose outputs are
+    the default plan's bit for bit.
     """
+    if needs_tuning(plan):
+        n_ev, n_c = tuple(values.shape)
+        plan = resolve_auto_plan(
+            plan, n_events=int(n_ev), n_campaigns=int(n_c),
+            n_scenarios=int(budgets.shape[0]) if budgets.ndim == 2 else 1,
+            device=values.device if isinstance(values, torch.Tensor)
+            else budgets.device)
     stream = _as_host_stream(values, plan, overlay=overlay)
     if plan.placement == "multihost":
         return _sweep_multihost(values, budgets, rules, plan, overlay)
@@ -1519,7 +1564,9 @@ def execute_sweep_resumable(values_new, budgets, rules, plan: SweepPlan, *,
     ``placement="batched"`` only, any resolve back-end, event ``chunks=``
     within a slab, a :class:`HostStream` slab or ``chunks.source="host"``
     (folded without the new rows ever on the card at once); no scenario
-    chunks. ``repro``'s texts for every error."""
+    chunks. ``repro``'s texts for every error. A tuned plan runs at the
+    defaults (the tuner models whole sweeps, not fold windows)."""
+    plan = _untuned(plan)
     if plan.placement != "batched":
         raise ValueError(
             "execute_sweep_resumable runs placement='batched' only (the "
@@ -1616,8 +1663,10 @@ def execute_s2a_sweep(values, budgets, rules, plan: SweepPlan, *,
     ``placement="sharded"`` runs every pass on ``plan.mesh``
     (:func:`repro_torch.core.sharded.sweep_sort2aggregate_sharded`, which
     takes no ``crossing_block``: each shard is one crossing block, as in
-    ``repro``). Returns ``(SimResult (S, ...), consistency_gaps (S,)
-    float32, refine_iters_used (S,) int32)``."""
+    ``repro``). A tuned plan runs at the defaults (the tuner models the
+    parallel sweep only). Returns ``(SimResult (S, ...), consistency_gaps
+    (S,) float32, refine_iters_used (S,) int32)``."""
+    plan = _untuned(plan)
     check_s2a_options(plan, record_events)
     if plan.placement == "sharded":
         from repro_torch.core.sharded import sweep_sort2aggregate_sharded

@@ -1,8 +1,16 @@
 """Error metrics used in the paper's figures (port of
-``repro.core.metrics``)."""
+``repro.core.metrics``). A vector's sums are added in XLA CPU's order
+(:func:`repro_torch.floats.xla_sum`), so the metrics are ``repro``'s bits
+at any campaign count."""
 from __future__ import annotations
 
 import torch
+
+from repro_torch.floats import xla_sum
+
+
+def _sum(x: torch.Tensor) -> torch.Tensor:
+    return xla_sum(x) if x.ndim == 1 else x.sum()
 
 
 def relative_error(s_hat: torch.Tensor, s_ref: torch.Tensor,
@@ -16,7 +24,7 @@ def relative_error(s_hat: torch.Tensor, s_ref: torch.Tensor,
 
 def _weighted_rel(s_hat: torch.Tensor, s_ref: torch.Tensor):
     rel = (s_hat - s_ref).abs() / torch.clamp(s_ref.abs(), min=1e-12)
-    w = s_ref / torch.clamp(s_ref.sum(), min=1e-12)
+    w = s_ref / torch.clamp(_sum(s_ref), min=1e-12)
     return rel, w
 
 
@@ -25,7 +33,7 @@ def spend_weighted_relative_error(s_hat: torch.Tensor,
     """Fig. 6 metric: per-campaign relative errors weighted by reference
     spend."""
     rel, w = _weighted_rel(s_hat, s_ref)
-    return (rel * w).sum()
+    return _sum(rel * w)
 
 
 def relative_error_cdf(s_hat: torch.Tensor, s_ref: torch.Tensor):

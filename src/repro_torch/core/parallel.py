@@ -32,7 +32,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import segments as seg_lib
-from repro_torch.core.executor import (SweepPlan, check_sim_driver,
+from repro_torch.core.executor import (DEFAULT_BLOCK_T, SweepPlan,
+                                       check_sim_driver,
                                        execute_sweep)
 from repro_torch.core.types import (AuctionRule, Segments, SimResult,
                                     never_capped)
@@ -163,16 +164,19 @@ def _simulate_host(values, budgets, rule, *, rate_fn, block_fn,
 # ---------------------------------------------------------------------------
 
 def parallel_state_machine(values: torch.Tensor, budgets: torch.Tensor,
-                           rule: AuctionRule, resolve: str = "torch"):
+                           rule: AuctionRule, resolve: str = "torch",
+                           block_t=DEFAULT_BLOCK_T):
     """The Algorithm-2 loop of one design as the executor's
     ``placement="device"`` program (the batched program at S=1, so the same
     arithmetic as a scenario sweep). Returns ``(s_hat (C,), cap_times (C,),
     retired (C+1,), boundaries (C+2,), num_rounds (), n_hat ())``:
     ``retired[j]`` is the campaign retired after round j (-1 for a last
     round in which nobody caps) and ``boundaries[j+1]`` the end of round
-    j's block."""
+    j's block. ``block_t`` is ``repro``'s tile (``"auto"``: the
+    tuner's)."""
     return execute_sweep(values, budgets, rule,
-                         SweepPlan(placement="device", resolve=resolve))
+                         SweepPlan(placement="device", resolve=resolve,
+                                   block_t=block_t))
 
 
 def _simulate_device(values, budgets, rule, *, resolve, return_trace):

@@ -12,9 +12,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.executor import (SweepPlan, check_batch_shapes,
-                                       execute_s2a_sweep, execute_sweep,
-                                       plan_for_driver)
+from repro_torch.core.executor import (DEFAULT_BLOCK_T, SweepPlan,
+                                       check_batch_shapes, execute_s2a_sweep,
+                                       execute_sweep, plan_for_driver)
 from repro_torch.core.sequential import second_price
 from repro_torch.core.types import AuctionRule, SimResult
 from repro_torch.kernels.capped_scan import ops as scan_ops
@@ -62,7 +62,7 @@ def sweep_parallel(values: torch.Tensor, budgets: torch.Tensor,
                    rules: AuctionRule, resolve: str = "auto",
                    driver: str = "batched", skip_retired: bool = True, *,
                    mesh=None, chunks=None, scenario_chunks=None,
-                   overlay=None) -> SimResult:
+                   overlay=None, block_t=DEFAULT_BLOCK_T) -> SimResult:
     """Algorithm 2 over a scenario batch: one loop, serial depth
     ``max_s K_s`` rounds. ``driver`` is the placement: ``"batched"``, or
     ``"sharded"`` / ``"multihost"`` on the mesh named by ``mesh`` (a
@@ -72,10 +72,12 @@ def sweep_parallel(values: torch.Tensor, budgets: torch.Tensor,
     CPU tensors); ``chunks`` (an int or
     :class:`~repro_torch.core.executor.ChunkSpec`) and ``scenario_chunks``
     (an int or :class:`~repro_torch.core.executor.ScenarioChunkSpec`) run
-    it over event and scenario chunks, bit for bit the unchunked sweep."""
+    it over event and scenario chunks, bit for bit the unchunked sweep;
+    ``block_t`` is ``repro``'s tile, or ``"auto"`` for the tuner."""
     plan = plan_for_driver(driver, resolve=resolve,
                            skip_retired=skip_retired, mesh=mesh,
-                           chunks=chunks, scenario_chunks=scenario_chunks)
+                           chunks=chunks, scenario_chunks=scenario_chunks,
+                           block_t=block_t)
     s_hat, cap_times, _, _, _, _ = execute_sweep(values, budgets, rules,
                                                  plan, overlay=overlay)
     return SimResult(final_spend=s_hat, cap_times=cap_times)
@@ -85,19 +87,21 @@ def sweep_state_machine(values: torch.Tensor, budgets: torch.Tensor,
                         rules: AuctionRule, resolve: str = "sweep_resolve",
                         skip_retired: bool = True, *, chunks=None,
                         scenario_chunks=None, overlay=None,
-                        driver: str = "batched", mesh=None):
+                        driver: str = "batched", mesh=None,
+                        block_t=DEFAULT_BLOCK_T):
     """The batched Algorithm-2 loop with its full round log exposed.
 
     Returns ``(s_hat (S, C), cap_times (S, C), retired (S, C+1),
     boundaries (S, C+2), num_rounds (S,), n_hat (S,))``. The default
     back-end is ``"sweep_resolve"``, the counterpart of ``repro``'s Pallas
     resolve: one resolve of all lanes per round, two canonical partials of
-    its winners and prices. ``chunks``, ``scenario_chunks``, ``driver``
-    and ``mesh`` as in :func:`sweep_parallel`.
+    its winners and prices. ``chunks``, ``scenario_chunks``, ``driver``,
+    ``mesh`` and ``block_t`` as in :func:`sweep_parallel`.
     """
     plan = plan_for_driver(driver, resolve=resolve,
                            skip_retired=skip_retired, mesh=mesh,
-                           chunks=chunks, scenario_chunks=scenario_chunks)
+                           chunks=chunks, scenario_chunks=scenario_chunks,
+                           block_t=block_t)
     return execute_sweep(values, budgets, rules, plan, overlay=overlay)
 
 

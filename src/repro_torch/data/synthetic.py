@@ -6,9 +6,17 @@
 * valuations         v_c(e_i) = min( exp(r_c . e_i / (2 sqrt(d))) / 10, 1 )
 * budgets            b^c = k * b_base, k = 1..|C|
 
-The normals come from one CPU ``torch.Generator`` seeded with ``seed``, so a
-seed names the same embeddings on every device (they are not ``jax.random``'s
-bits; tests that compare with ``repro`` hand both sides the same arrays).
+A day is named by a key or by a seed:
+
+* a :mod:`repro_torch.prng` key (``prng.PRNGKey(k)``) gives ``repro``'s day
+  for ``jax.random.PRNGKey(k)`` bit for bit: the normals are
+  ``jax.random``'s (split, fold_in, normal), and the valuations repeat
+  XLA CPU's float32 arithmetic (:func:`keyed_valuation_block`); the draws
+  and the valuations run on ``device``, in elementwise operations, so the
+  card gives the CPU's bits;
+* an int seed draws the normals from one CPU ``torch.Generator`` (not
+  ``jax.random``'s bits) and builds the valuations with ``torch`` ops.
+
 The valuation matrix is built blockwise on ``device``.
 """
 from __future__ import annotations
@@ -18,6 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import floats, prng
 from repro_torch.core import auction
 from repro_torch.core.types import AuctionRule
 from repro_torch.device import DeviceLike, pick_device
@@ -49,24 +58,66 @@ def valuation_block(event_emb: torch.Tensor,
     return torch.clamp(torch.exp(logits) / 10.0, max=1.0).to(torch.float32)
 
 
-def make_synthetic_env(seed: int, n_events: int = 100_000,
+def keyed_valuation_block(event_emb: torch.Tensor,
+                          campaign_emb: torch.Tensor) -> torch.Tensor:
+    """Eq. (12) as ``repro``'s jitted ``valuation_block`` computes it on
+    XLA's CPU backend: the dot in XLA's order (:func:`floats.xla_dot`),
+    the divide by ``2 sqrt(d)`` and by 10 compiled into multiplies by
+    their float32 reciprocals, XLA's ``exp`` (:func:`floats.exp`)."""
+    d = event_emb.shape[-1]
+    dev = event_emb.device
+    inv_scale = np.float32(1.0) / (np.float32(2.0) * np.sqrt(np.float32(d)))
+    logits = floats.xla_dot(event_emb, campaign_emb) * torch.tensor(
+        inv_scale, device=dev)
+    out = floats.exp(logits) * torch.tensor(np.float32(1.0) / np.float32(10),
+                                            device=dev)
+    return torch.minimum(out, torch.ones((), device=dev))
+
+
+def keyed_block(key: torch.Tensor, lo: int, hi: int, n_campaigns: int,
+                emb_dim: int = 10, *, device: DeviceLike = None):
+    """Rows ``[lo, hi)`` of the keyed day, drawn alone (``lo`` the start of
+    one of its blocks): ``(event_emb (hi - lo, d), values (hi - lo, C),
+    campaign_emb (C, d))``, bit for bit those rows of
+    :func:`make_synthetic_env`'s keyed day on any device."""
+    k_base, k_xi, k_r, _ = prng.split(key.to(pick_device(device)), 4)
+    e_base = prng.normal(k_base, (emb_dim,))
+    campaign_emb = prng.normal(k_r, (n_campaigns, emb_dim))
+    xi = prng.normal(prng.fold_in(k_xi, lo), (hi - lo, emb_dim))
+    emb = (e_base[None, :] + 3.0 * xi) / 4.0
+    return emb, keyed_valuation_block(emb, campaign_emb), campaign_emb
+
+
+def make_synthetic_env(seed, n_events: int = 100_000,
                        n_campaigns: int = 100, emb_dim: int = 10,
                        b_base: float | None = None,
                        target_cap_fraction: float = 0.5,
                        rule: AuctionRule | None = None,
                        block: int = 65_536, *,
                        device: DeviceLike = None) -> SyntheticEnv:
+    """The §7.1 day on ``device``: ``seed`` is a :mod:`repro_torch.prng`
+    key (``repro``'s day for the same key, bit for bit) or an int seed
+    (the port's own ``torch.Generator`` draws)."""
     dev = pick_device(device)
-    gen = torch.Generator(device="cpu").manual_seed(int(seed))
-    e_base = torch.randn(emb_dim, generator=gen)
-    campaign_emb = torch.randn(n_campaigns, emb_dim, generator=gen).to(dev)
     embs, vals = [], []
-    for lo in range(0, n_events, block):
-        hi = min(lo + block, n_events)
-        xi = torch.randn(hi - lo, emb_dim, generator=gen)
-        emb = ((e_base[None, :] + 3.0 * xi) / 4.0).to(dev)
-        embs.append(emb)
-        vals.append(valuation_block(emb, campaign_emb))
+    if isinstance(seed, torch.Tensor):
+        for lo in range(0, n_events, block):
+            emb, v, campaign_emb = keyed_block(
+                seed, lo, min(lo + block, n_events), n_campaigns, emb_dim,
+                device=dev)
+            embs.append(emb)
+            vals.append(v)
+    else:
+        gen = torch.Generator(device="cpu").manual_seed(int(seed))
+        e_base = torch.randn(emb_dim, generator=gen)
+        campaign_emb = torch.randn(n_campaigns, emb_dim,
+                                   generator=gen).to(dev)
+        for lo in range(0, n_events, block):
+            hi = min(lo + block, n_events)
+            xi = torch.randn(hi - lo, emb_dim, generator=gen)
+            emb = ((e_base[None, :] + 3.0 * xi) / 4.0).to(dev)
+            embs.append(emb)
+            vals.append(valuation_block(emb, campaign_emb))
     event_emb = torch.cat(embs)
     values = torch.cat(vals)
     if b_base is None:

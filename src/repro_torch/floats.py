@@ -18,9 +18,24 @@ bits where ``torch.log1p`` and ``torch.exp`` differ in the last bit
 (18% and 9.6% of float32 inputs). ``jax.random.normal`` and the bid noise
 of the scenario families reach them through :mod:`repro_torch.prng` and
 :mod:`repro_torch.core.crn`.
+
+Three more orders of XLA's CPU backend that the keyed synthetic and
+Yahoo-like days (:mod:`repro_torch.data`) meet:
+
+* :func:`xla_sum` — a float32 sum over a vector, rewritten by XLA as
+  windows of 32 summed in order, then the window totals the same way;
+* :func:`xla_dot` — a ``(M, K) @ (N, K).T`` product, whose kernel XLA picks
+  by (N, K): a chain of fused multiply-adds over k, or 2 or 4 interleaved
+  chains added at the end (:data:`DOT_CHAINS`, measured);
+* :func:`powf` — ``x ** y``, which XLA's compiled code hands to the C
+  library's ``powf``.
 """
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+
+import numpy as np
 import torch
 
 
@@ -131,3 +146,120 @@ def exp(x: torch.Tensor) -> torch.Tensor:
     scale = _bits_to_f32((n.to(torch.int64) + 127) << 23)
     out = y * scale
     return torch.where(out < _f32(1.17549435e-38, x), 0.0, out)
+
+
+def xla_sum(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.sum`` of a float32 vector on XLA's CPU backend: a vector of
+    more than 32 floats is padded with zeros (half the padding in front) to
+    whole windows of 32, each window summed in order from 0, and the
+    window totals summed by the same rule; at most 32 floats are summed in
+    order from 0."""
+    x = x.to(torch.float32)
+    n = x.shape[0]
+    if n <= 32:
+        acc = x.new_zeros(())
+        for v in x:
+            acc = acc + v
+        return acc
+    windows = -(-n // 32)
+    pad = windows * 32 - n
+    x = torch.cat([x.new_zeros(pad // 2), x, x.new_zeros(pad - pad // 2)])
+    x = x.reshape(windows, 32)
+    acc = x.new_zeros(windows)
+    for j in range(32):
+        acc = acc + x[:, j]
+    return xla_sum(acc)
+
+
+# How many interleaved multiply-add chains XLA CPU's (M, K) @ (N, K).T
+# kernel keeps (jax 0.9.0 on an x86 CPU), by K (the contracted width) and
+# N: run-length codes "chains*count" over N = 1, 2, ... (measured against
+# jax for every N <= 512, K <= 16 and M >= 2; M = 1 is one chain). Chain j
+# of u adds k = j, j+u, ... as fused multiply-adds from its first product;
+# the chains are added pairwise, and the K mod u products left over are
+# added in order and then added to that. Outside the table the order is
+# not known and :func:`xla_dot` takes one chain; N = 1 at K >= 8 is another
+# kernel, whose order is not known either.
+DOT_CHAINS = {
+    1: "1*512", 2: "1*512", 3: "1*512",
+    4: "1*1 4*23 2*8 4*16 1*16" + " 4*16 2*16 4*16 1*16" * 7,
+    5: "1*1 4*15 2*16 1*32 2*32 1*416",
+    6: "1*1 4*15 2*16 1*32" + " 2*32 1*32" * 7,
+    7: "1*1 4*23 2*8 4*16 1*16 4*16 2*16 1*32 4*16 2*16 1*32 4*16 1*48 "
+       "4*16 1*240",
+    8: "1*1 4*23 2*8 4*16 1*16" + " 4*16 2*16 4*16 1*16" * 7,
+    9: "1*1 4*15 2*16 1*32 2*32 1*32 2*32 1*32 2*32 1*288",
+    10: "1*1 4*15 2*16 4*16 1*16" + " 2*32 1*32" * 7,
+    11: "1*1 4*23 2*8 4*16 1*16 4*16 2*16 4*16 1*16 4*16 2*16 1*32 4*16 "
+        "2*16 1*32 4*16 2*16 1*32 4*16 1*48 4*16 1*48 4*16 1*48",
+    12: "1*1 4*23 2*8 4*16 1*16" + " 4*16 2*16 4*16 1*16" * 7,
+    13: "1*1 4*15 2*16 4*16 1*16 4*16 2*16 1*32 2*32 1*32 2*32 1*32 2*32 "
+        "1*32 2*32 1*160",
+    14: "1*1 4*15 2*16 4*16 1*16 4*16 2*16 1*32" + " 2*32 1*32" * 6,
+    15: "1*1 4*23 2*8 4*16 1*16 4*16 2*16 4*16 1*16 4*16 2*16 4*16 1*16 "
+        "4*16 2*16 1*32 4*16 2*16 1*32 4*16 2*16 1*32 4*16 2*16 1*32 4*16 "
+        "1*48",
+    16: "1*1 4*23 2*8 4*16 1*16" + " 4*16 2*16 4*16 1*16" * 7,
+}
+
+
+def dot_chains(m: int, n: int, k: int) -> int:
+    """The number of chains of :data:`DOT_CHAINS` for an (m, k) @ (n, k).T
+    product (1 where m is 1 or the table has no entry)."""
+    codes = DOT_CHAINS.get(k)
+    if m < 2 or codes is None:
+        return 1
+    for code in codes.split():
+        chains, count = code.split("*")
+        n -= int(count)
+        if n <= 0:
+            return int(chains)
+    return 1
+
+
+def xla_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b.T`` for float32 ``a`` (M, K) and ``b`` (N, K) in the order of
+    XLA CPU's kernel (:data:`DOT_CHAINS`), elementwise float32 operations
+    and :func:`fma`, so the CPU and CUDA give the same bits."""
+    m, k = a.shape
+    n = b.shape[0]
+    u = dot_chains(m, n, k)
+    if k < u:
+        u = 1
+    full = k // u * u
+
+    def product(j):
+        return a[:, j:j + 1] * b[:, j][None, :]
+
+    chains = []
+    for j in range(u):
+        acc = product(j)
+        for jj in range(j + u, full, u):
+            acc = fma(a[:, jj:jj + 1].expand(m, n),
+                      b[:, jj][None, :].expand(m, n), acc)
+        chains.append(acc)
+    while len(chains) > 1:
+        chains = [chains[i] + chains[i + 1]
+                  for i in range(0, len(chains), 2)]
+    out = chains[0]
+    if full < k:
+        tail = product(full)
+        for j in range(full + 1, k):
+            tail = tail + product(j)
+        out = out + tail
+    return out
+
+
+def powf(x: torch.Tensor, y: float) -> torch.Tensor:
+    """float32 ``x ** y`` as XLA CPU computes it: its compiled code calls
+    the C library's ``powf``, so this calls the same function, on the host,
+    element by element (meant for small tables), and returns the result on
+    ``x``'s device."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    libm.powf.restype = ctypes.c_float
+    libm.powf.argtypes = [ctypes.c_float, ctypes.c_float]
+    y32 = float(np.float32(y))
+    host = x.detach().to("cpu", torch.float32).reshape(-1).tolist()
+    out = torch.tensor([libm.powf(v, y32) for v in host],
+                       dtype=torch.float32)
+    return out.reshape(x.shape).to(x.device)

@@ -20,7 +20,8 @@ so it gives the same bits on the CPU and on CUDA.
   combined modulo the span;
 * :func:`permutation` and :func:`choice` (``replace=False``) — the
   multi-round stable sort by fresh 32-bit keys of ``jax.random``'s
-  ``_shuffle``.
+  ``_shuffle``; :func:`choice` with ``p`` (``replace=True``) — the
+  searchsorted of scaled uniforms in ``p``'s prefix sum.
 
 A key may live on any device; every function draws on the key's device.
 """
@@ -201,25 +202,75 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.permutation(key, n)``: ``arange(n)`` (int64) shuffled
     by ``ceil(3 ln n / ln(2**32 - 1))`` rounds, each a stable sort by fresh
-    32-bit words drawn from the second key of a split."""
+    32-bit words drawn from the second key of a split. A batch of keys
+    (K, 2) gives (K, n), each row its own key's permutation."""
     rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(MASK)))
-    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    x = torch.arange(n, dtype=torch.int64, device=key.device).expand(
+        key.shape[:-1] + (n,))
     for _ in range(rounds):
-        key, subkey = split(key)
+        keys = split(key)
+        key, subkey = keys[..., 0, :], keys[..., 1, :]
         order = torch.sort(random_bits(subkey, (n,)), stable=True).indices
-        x = x[order]
+        x = torch.gather(x, -1, order)
     return x
 
 
-def choice(key: torch.Tensor, n: int, size: int, *,
-           replace: bool = False) -> torch.Tensor:
-    """``jax.random.choice(key, n, (size,), replace=False)``: the first
-    ``size`` entries of :func:`permutation`."""
+def _searchsorted_left(sorted_arr: torch.Tensor,
+                       query: torch.Tensor) -> torch.Tensor:
+    """``jnp.searchsorted(sorted_arr, query)`` (``side="left"``, its default
+    ``method="scan"``): ``ceil(log2(n + 1))`` bisection steps from ``(low,
+    high) = (0, n)``, ``mid = (low + high) // 2``, going left where ``query
+    <= sorted_arr[mid]``; returns ``high``. The same steps as ``jnp``'s, so
+    the same index even where rounding left the array not quite sorted."""
+    n = sorted_arr.shape[0]
+    low = torch.zeros(query.shape, dtype=torch.int64, device=query.device)
+    high = torch.full(query.shape, n, dtype=torch.int64, device=query.device)
+    for _ in range(int(np.ceil(np.log2(n + 1)))):
+        mid = (low + high) // 2
+        left = query <= sorted_arr[mid.clamp(max=n - 1)]
+        low, high = torch.where(left, low, mid), torch.where(left, mid, high)
+    return high
+
+
+def choice(key: torch.Tensor, n: int, size, *, replace: bool = False,
+           p: torch.Tensor | None = None) -> torch.Tensor:
+    """``jax.random.choice(key, n, shape, replace=replace, p=p)`` for the
+    two forms the ported paths draw:
+
+    * ``replace=False`` without ``p``: the first ``size`` entries of
+      :func:`permutation` (int64; a batch of keys (K, 2) gives (K,
+      *shape), each row its own key's draw);
+    * ``replace=True`` with ``p`` (float32, (n,)): ``p``'s prefix sum in
+      XLA CPU's order (:func:`repro_torch.core.segments.xla_cumsum`),
+      ``r = cumsum[-1] * (1 - uniform(key, shape))``, and the index of
+      each ``r`` by ``jnp.searchsorted``'s bisection, side left (int32).
+
+    ``size`` is an int or a shape. ``replace=False`` with ``p`` (the Gumbel
+    top-k) and ``replace=True`` without it raise ``NotImplementedError``:
+    no ported path draws them (ROADMAP.md queue 1, item 10)."""
+    shape = (size,) if isinstance(size, int) else tuple(size)
+    if p is not None:
+        if not replace:
+            raise NotImplementedError(
+                "choice(replace=False, p=...) is not ported to repro_torch "
+                "yet; see ROADMAP.md queue 1, item 10")
+        from repro_torch.core.segments import xla_cumsum
+        p = torch.as_tensor(p, dtype=torch.float32).to(key.device)
+        if tuple(p.shape) != (n,):
+            raise ValueError(
+                "p must be None or a 1D vector with the same size as "
+                f"a.shape[axis]. p has shape {tuple(p.shape)} and "
+                f"a.shape[axis] is {n}.")
+        cum = xla_cumsum(p[:, None])[:, 0]
+        r = cum[-1] * (1 - uniform(key, shape))
+        return _searchsorted_left(cum, r).to(torch.int32)
     if replace:
         raise NotImplementedError(
-            "choice(replace=True) is not needed by the ported path")
-    if size > n:
+            "choice(replace=True) without p is not needed by the ported "
+            "path; see ROADMAP.md queue 1, item 10")
+    count = math.prod(shape)
+    if count > n:
         raise ValueError(
-            f"Cannot take a larger sample (size {size}) than population "
+            f"Cannot take a larger sample (size {count}) than population "
             f"(size {n}) when 'replace=False'")
-    return permutation(key, n)[:size]
+    return permutation(key, n)[..., :count].reshape(key.shape[:-1] + shape)

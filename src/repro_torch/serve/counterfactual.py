@@ -54,14 +54,14 @@ from repro_torch.checkpoint.ckpt import (latest_step, restore_checkpoint,
 from repro_torch.core import segments as seg_lib
 from repro_torch.core import sweep as sweep_lib
 from repro_torch.core.counterfactual import (CounterfactualEngine,
-                                             SweepResult)
-from repro_torch.core.executor import (ChunkSpec, HostStream, SweepCarry,
-                                       SweepPlan, host_slab, as_chunk_spec,
+                                             ScenarioGrid, SweepResult)
+from repro_torch.core.executor import (DEFAULT_BLOCK_T, ChunkSpec,
+                                       HostStream, SweepCarry, SweepPlan,
+                                       host_slab, as_chunk_spec,
                                        as_scenario_chunk_spec,
                                        check_append_alignment, execute_sweep,
                                        execute_sweep_resumable,
-                                       initial_carry, not_ported,
-                                       reject_unported)
+                                       initial_carry)
 from repro_torch.core.types import AuctionRule, ScenarioOverlay, SimResult
 from repro_torch.device import DeviceLike, pick_device
 from repro_torch.scenarios.family import (CompiledFamily, design_fingerprint,
@@ -133,8 +133,11 @@ class CounterfactualService:
     on the mesh (the device store's log split over its event ranks, lane
     batches padded to a multiple of its scenario groups), with the batched
     service's bits; the streaming folds stay one-device programs.
-    ``tuned=True`` (ROADMAP.md queue 1, item 9) is not ported and raises,
-    after every ``ValueError`` that ``repro`` raises before it."""
+    ``tuned=True`` leaves the replay plan's free knobs to the tuner
+    (:mod:`repro_torch.tune`) at each replay (the cache, else the cost
+    model); stated ``chunks``/``scenario_chunks`` stay pinned, so append
+    alignment and lane padding do not move, and every plan answers with
+    the same bits. :meth:`tune` measures and pins a winner."""
 
     def __init__(self, budgets, base_rule: Optional[AuctionRule] = None, *,
                  events=None, events_per_chunk: int = 256,
@@ -184,8 +187,9 @@ class CounterfactualService:
         self.plan = SweepPlan(placement=placement, resolve=resolve,
                               mesh=mesh, chunks=as_chunk_spec(chunks),
                               scenario_chunks=as_scenario_chunk_spec(
-                                  scenario_chunks))
-        reject_unported(tuned=tuned)
+                                  scenario_chunks),
+                              block_t="auto" if tuned else DEFAULT_BLOCK_T,
+                              tuned=tuned)
         # the streaming folds: the batched program, the same resolve
         # preference (every back-end folds to the same bits)
         self._stream_plan = SweepPlan(placement="batched", resolve=resolve)
@@ -473,9 +477,18 @@ class CounterfactualService:
                                     self.base_rule, device=self.device,
                                     service=self)
 
-    def tune(self, **kwargs):
-        """``repro``'s measured tuning pass; not ported (ROADMAP.md queue 1,
-        item 9)."""
+    def tune(self, *, scenarios: Optional[int] = None, cache=None,
+             cache_path=None, max_events: int = 4096, trials: int = 7,
+             quick_trials: int = 3, top_k: int = 4, measure: bool = True):
+        """One measured tuning pass on the stored log, then the winner
+        pinned as this service's replay plan: candidates timed paired
+        against the default plan at ``scenarios`` lanes (default
+        ``max_batch``), the winner kept in the tuning cache, and
+        ``self.plan`` the concrete tuned plan (stated chunk specs stay
+        pinned). Every candidate answers with the same bits, so the answer
+        cache keeps its entries. Returns the
+        :class:`repro_torch.tune.TuneReport`."""
+        from repro_torch import tune as tune_lib
         if self.store == "host":
             raise ValueError(
                 "store='host' replans its chunking per log size "
@@ -483,7 +496,18 @@ class CounterfactualService:
                 "construct the service with tuned=True instead — host "
                 "replays then resolve their free knobs through the tuning "
                 "cache at each ask.")
-        raise not_ported("tuned")
+        self.flush()
+        n_lanes = int(scenarios) if scenarios is not None else self.max_batch
+        grid = ScenarioGrid.product(
+            self.base_rule, self.base_budgets,
+            bid_scales=tuple(1.0 + 0.25 * i for i in range(n_lanes)))
+        plan = dataclasses.replace(self.plan, block_t="auto", tuned=True)
+        report = tune_lib.autotune(
+            self.values, grid.budgets, grid.rules, plan, cache=cache,
+            cache_path=cache_path, max_events=max_events, trials=trials,
+            quick_trials=quick_trials, top_k=top_k, measure=measure)
+        self.plan = report.plan(plan)
+        return report
 
     # -- streaming carries (the causal path) -------------------------------
 

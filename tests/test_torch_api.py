@@ -114,15 +114,11 @@ def test_unported_sweep_axes_raise(small, axis):
     sweep on four CPU shards and a one-process multihost sweep are bitwise
     the batched sweep, a mesh without a mesh driver is ignored (as
     ``repro``'s ``plan_for_driver`` drops it), and a mesh driver without a
-    mesh raises ``repro``'s text. ``tuned=True`` still names item 9."""
+    mesh raises ``repro``'s text. ``tuned=True`` (tuning) runs too: the
+    plan resolved by the cost model is bitwise the default plan."""
     from repro.core.executor import plan_for_driver as j_plan
     from repro_torch.launch.mesh import SweepMeshSpec
     _, engine, grid = small
-    if "tuned" in axis:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1, item 9"):
-            engine.sweep(grid, **axis)
-        return
     want = engine.sweep(grid)
     if "driver" in axis:
         with pytest.raises(ValueError) as err:

@@ -1895,3 +1895,91 @@ def test_sharded_s2a_and_vi_on_one_card_are_the_cpu(dev):
         card.mesh, env.values.to(dev), budgets[1].to(dev),
         _on(dev, rule), key, num_iters=50)
     assert torch.equal(pi_card.cpu(), pi_cpu)
+
+
+# ---------------------------------------------------------------------------
+# plan tuning and the keyed days
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("resolve", ["fused", "sweep_resolve", "torch"])
+def test_tuned_sweep_on_the_card_is_the_untuned_sweep(dev, resolve,
+                                                      tmp_path, monkeypatch):
+    """A tuned plan on the card (the cost model's choice, then a cached
+    winner that chunks events and scenarios) gives the untuned sweep's six
+    outputs bit for bit."""
+    from repro_torch import tune
+    from repro_torch.tune import space
+    monkeypatch.setenv(tune.ENV_VAR, str(tmp_path / "tune.json"))
+    env, budgets, rules = _grid_env()
+    budgets = torch.cat([budgets, budgets[:1]]).to(dev)
+    rules = _on(dev, AuctionRule(
+        multipliers=torch.cat([rules.multipliers, rules.multipliers[:1]]),
+        reserve=torch.cat([rules.reserve, rules.reserve[:1]]),
+        kind=rules.kind))
+    values = env.values.to(dev)
+    base = executor.SweepPlan(resolve=resolve)
+    tuned = executor.SweepPlan(resolve=resolve, block_t="auto", tuned=True)
+    want = executor.execute_sweep(values, budgets, rules, base)
+    for a, b in zip(executor.execute_sweep(values, budgets, rules, tuned),
+                    want):
+        assert torch.equal(a, b)
+    shape = tune.shape_for(tuned, n_events=4096, n_campaigns=16,
+                           n_scenarios=4, device=dev)
+    winner = space.Candidate(events_per_chunk=1024, scenarios_per_chunk=2,
+                             skip_retired=False)
+    assert space.is_legal(winner, tuned, shape)
+    cache = tune.TuningCache.load(tmp_path / "tune.json")
+    cache.put(tune.cache_key(shape), winner.config())
+    cache.save()
+    for a, b in zip(executor.execute_sweep(values, budgets, rules, tuned),
+                    want):
+        assert torch.equal(a, b)
+
+
+def test_rank_candidates_on_the_card_with_real_limits(dev):
+    """The lattice on the card with the real ``round_campaign_limits()``:
+    the §7.1 day's C fits the fused round, so the fused lattice frees
+    ``skip_retired`` and ranks the one-launch round first; a C past the
+    limit goes to the any-C back-end."""
+    from repro_torch import tune
+    from repro_torch.kernels.auction_resolve import ops as ops_
+    plan = executor.SweepPlan(block_t="auto", tuned=True)
+    shape = tune.shape_for(plan, n_events=1_000_000, n_campaigns=100,
+                           n_scenarios=32, device=dev)
+    assert shape.resolve == "fused" and shape.platform == "cuda"
+    ranked = tune.rank_candidates(plan, shape)
+    assert {c.skip_retired for c, _ in ranked} == {True, False}
+    assert ranked[0][0].events_per_chunk is None
+    assert ranked[0][0].scenarios_per_chunk is None
+    wide = ops_.round_campaign_limits()["fused"] + 1
+    assert tune.shape_for(plan, n_events=4096, n_campaigns=wide,
+                          n_scenarios=4, device=dev).resolve == \
+        executor.ANY_C_BACKEND
+
+
+@pytest.mark.parametrize("n,c,d,block", [
+    (5000, 16, 10, 2048), (3000, 100, 10, 1024), (2048, 37, 6, 1000)])
+def test_keyed_day_on_the_card_is_the_cpus(dev, n, c, d, block):
+    """The keyed synthetic day built on the card (draws, the dot in XLA's
+    order, ``floats.exp``) is the CPU's keyed day bit for bit."""
+    want = make_synthetic_env(prng.PRNGKey(7), n_events=n, n_campaigns=c,
+                              emb_dim=d, block=block, device="cpu")
+    got = make_synthetic_env(prng.PRNGKey(7), n_events=n, n_campaigns=c,
+                             emb_dim=d, block=block, device=dev)
+    for name in ("values", "event_emb", "campaign_emb", "budgets"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), \
+            name
+
+
+def test_yahoo_env_on_the_card_is_the_cpus(dev):
+    """The Yahoo-like day built on the card is the CPU's bit for bit: the
+    bid table, both days' keywords and valuations."""
+    from repro_torch.data import make_yahoo_like_env
+    kw = dict(n_keywords=1000, n_campaigns=40, n_day1=4096, n_day2=6144,
+              budget=12.0)
+    want = make_yahoo_like_env(prng.PRNGKey(0), device="cpu", **kw)
+    got = make_yahoo_like_env(prng.PRNGKey(0), device=dev, **kw)
+    for name in ("bid_table", "day1_keywords", "day2_keywords", "budgets"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), \
+            name
+    assert torch.equal(got.values(2).cpu(), want.values(2))

@@ -570,13 +570,15 @@ def test_input_errors_are_repros(env, port):
         assert _message(ours) == _message(theirs)
 
 
-def test_unported_options_raise(env, grid, port, reference):
+def test_unported_options_raise(env, grid, port, reference, tmp_path):
     """The mesh options run (the name is the item-8 test's): a service
     with ``placement="sharded"`` on four CPU shards, and on a 2 × 2 mesh
     (three asks padded to whole scenario groups), answers its asks and its
     sweep bitwise ``repro``'s one-shot sweep; a sharded placement without a
     mesh and a host store with a mesh raise ``repro``'s texts.
-    ``tuned=True`` and ``tune()`` still name item 9."""
+    ``tuned=True`` runs too (tuning): its asks are bitwise ``repro``'s
+    sweep, ``tune()`` pins a concrete plan, and a host store's ``tune()``
+    raises ``repro``'s text."""
     from repro_torch.launch.mesh import SweepMeshSpec
     values, budgets, base, port_grid = port
     for shape in ((4,), (2, 2)):
@@ -596,9 +598,17 @@ def test_unported_options_raise(env, grid, port, reference):
     assert _message(lambda: _service(port, store="host", mesh=mesh)) == \
         _message(lambda: JService(env.budgets, JRule.first_price(_C),
                                   store="host", mesh=object()))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        CounterfactualService(budgets, base, device="cpu", tuned=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _service(port).tune()
+    from repro_torch.core.executor import needs_tuning
+    tuned = _service(port, tuned=True)
+    assert tuned.plan.tuned and tuned.plan.block_t == "auto"
+    tuned.append(values)
+    for s in range(3):
+        got = tuned.ask(*_scenario(grid, s)).result()
+        _same(reference.results.final_spend[s], got.final_spend)
+        _same(reference.results.cap_times[s], got.cap_times)
+    tuned.tune(scenarios=2, trials=1, quick_trials=1, top_k=2,
+               max_events=256, cache_path=tmp_path / "svc.json")
+    assert not needs_tuning(tuned.plan)
+    _assert_sweep(reference, tuned.sweep(port_grid))
     assert "store='host' replans" in _message(
         lambda: _service(port, store="host").tune())
