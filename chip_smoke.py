@@ -354,6 +354,10 @@ VI_SWEEP_CPU_EPOCHS = 1
 # pi, a select, a multiply, a compare with the best bid and a select: a
 # dependent step on one SM takes at least B*C*5/128 cycles (the chain floor)
 VI_SCAN_INSTRUCTIONS = 5
+# per (lane, event, campaign) segment_resolve's scan issues at least a
+# multiply and a max (first price, as timed): its issue floor at one
+# instruction a thread a cycle on every SM
+SEGMENT_SCAN_INSTRUCTIONS = 2
 # segment_resolve's hand-built edges (phase 2), against the plain version on
 # the CPU: name, table, S, N, C
 SEGMENT_EDGES = (
@@ -553,6 +557,20 @@ def cuda_ms(fn, reps: int) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def cuda_ms_once(fn) -> float:
+    """Milliseconds of one run of ``fn`` by CUDA events, with no warm-up
+    run: for plain versions that take seconds and build nothing."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop)
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S,
@@ -826,6 +844,21 @@ def vi_cost(n_batches: int, b: int, c: int, w: int, total: int, s: int,
     n_ops = 3 * s * total * b * c
     floor_ms = total * (VI_SCAN_INSTRUCTIONS * b * c / 128) / clock_hz * 1e3
     return n_bytes, n_ops, floor_ms
+
+
+def segment_cost(n: int, c: int, s: int, k: int):
+    """``(bytes, operations, issue floor ms)`` of a segment replay of n
+    rows, S lanes, K inner boundaries: the rows read once, each lane's
+    table, multipliers and reserve read once and its winners and prices
+    written once; a multiply and a compare per (lane, event, campaign); the
+    issue floor SEGMENT_SCAN_INSTRUCTIONS of them at 128 a cycle an SM."""
+    import torch
+    n_bytes = n * c * 4 + s * (n * 8 + (k + 2) * 4 + (k + 1) * c + c * 4 + 4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    floor_ms = SEGMENT_SCAN_INSTRUCTIONS * s * n * c / (sms * 128 * clock_hz) \
+        * 1e3
+    return n_bytes, 2 * s * n * c, floor_ms
 
 
 def serve_phase(seed: int, dev, reset_counts, read_counts) -> dict:
@@ -1412,14 +1445,13 @@ def chunks_phase(dev, env, small, engines, base_sweeps, small_cpu, exact,
     equal("winners", w_k, plain[0], "segment_resolve at an offset, plain")
     equal("prices", p_k, plain[1], "segment_resolve at an offset, plain")
     del plain
+    sg_bytes, sg_ops, sg_floor = segment_cost(epc, c, s, k_seg)
     out["segment_resolve_offset"] = dict(
         ms=cuda_ms(lambda: sg_mod.segment_resolve_cuda(
             rows, *seg_args, second_price=False, offset=off), 10),
         plain_ms=cuda_ms(lambda: ref.segment_resolve_plain(
             rows, *seg_args, offset=off), 1),
-        bound=bound_ms(epc * c * 4 + s * (epc * 8 + (k_seg + 2) * 4
-                                          + (k_seg + 1) * c + c * 4 + 4),
-                       2 * s * epc * c),
+        bound=bound_ms(sg_bytes, sg_ops), issue_floor_ms=sg_floor,
         rows=epc, offset=off)
     # first_crossing with a carry: chunk by chunk, one whole call's bits; a
     # chunk boundary on a crossing
@@ -1497,8 +1529,8 @@ def chunks_phase(dev, env, small, engines, base_sweeps, small_cpu, exact,
     out["capped_scan_scaled"] = dict(
         ms=cuda_ms(lambda: scan_ops.capped_scan(sub, *scan_args, scale=inv),
                    10),
-        plain_ms=cuda_ms(lambda: capped_scan_ref(sub, *scan_args,
-                                                 scale=inv), 1),
+        plain_ms=cuda_ms_once(lambda: capped_scan_ref(sub, *scan_args,
+                                                      scale=inv)),
         bound=bound_ms(k_sample * c * 4 + c * 12 + 4 + k_sample * 8 + c * 8,
                        k_sample * c * 3),
         rows=k_sample, lanes=1, capped=scan_capped)
@@ -1993,8 +2025,8 @@ def crn_phase(dev, env, small, reset_counts, read_counts, equal, *,
             p_args = (chain.sampled, draws.u, chain.step, chain.denom,
                       chain.btilde, pfam.grid.rules.multipliers,
                       pfam.grid.rules.reserve, torch.ones((8, c), device=dev))
-            ov_plain_ms = cuda_ms(lambda: ref.vi_chain_ref(
-                *p_args, sample_size=k_warm, elig=chain.elig), 1)
+            ov_plain_ms = cuda_ms_once(lambda: ref.vi_chain_ref(
+                *p_args, sample_size=k_warm, elig=chain.elig))
             total, b = full.u.shape[0], vi_warm["batch_size"]
             eb = -(-b * c // 16) * 16
             v_bytes, v_ops, v_floor = vi_cost(full.n_batches, b, c, 1, total,
@@ -2769,14 +2801,13 @@ def sharded_phase(dev, env, small, engines, base_sweeps, exact,
     equal("winners", w1, plain[0], "[14] segment_resolve at a shard offset")
     equal("prices", p1, plain[1], "[14] segment_resolve at a shard offset")
     del plain
+    sg_bytes, sg_ops, sg_floor = segment_cost(local_n, c, s, k_seg)
     out["segment_resolve_shard"] = dict(
         ms=cuda_ms(lambda: sg_mod.segment_resolve_cuda(
             rows, *seg_args, second_price=False, offset=off), 10),
         plain_ms=cuda_ms(lambda: ref.segment_resolve_plain(
             rows, *seg_args, offset=off), 1),
-        bound=bound_ms(local_n * c * 4 + s * (local_n * 8 + (k_seg + 2) * 4
-                                              + (k_seg + 1) * c + c * 4 + 4),
-                       2 * s * local_n * c),
+        bound=bound_ms(sg_bytes, sg_ops), issue_floor_ms=sg_floor,
         rows=local_n, offset=off,
         launches=out["counted"]["segment_resolve"])
     # first_crossing with a carry at block = local_n: shard 1 from shard 0
@@ -3813,8 +3844,8 @@ def main() -> int:
             timing["vi"] = (
                 cuda_ms(lambda: vi_mod.vi_cuda(
                     *vi_args, sample_size=k_sim, second_price=False), 10),
-                cuda_ms(lambda: ref.vi_chain_ref(*vi_args,
-                                                 sample_size=k_sim), 1),
+                cuda_ms_once(lambda: ref.vi_chain_ref(*vi_args,
+                                                      sample_size=k_sim)),
                 None)
             v_bytes, v_ops, v_floor = vi_cost(
                 draws.n_batches, VI_SIMULATE["batch_size"], c, 1,
@@ -4383,10 +4414,10 @@ def main() -> int:
                 cuda_ms(lambda: ref.segment_resolve_plain(*one), 3))
             k_seg = segs.masks.shape[1] - 1
             for tag, lanes in (("", s), ("_one_lane", 1)):
-                timing[f"segment_resolve{tag}_bound"] = bound_ms(
-                    n * c * 4 + lanes * (n * 8 + (k_seg + 2) * 4
-                                         + (k_seg + 1) * c + c * 4 + 4),
-                    2 * lanes * n * c)
+                sg_bytes, sg_ops, sg_floor = segment_cost(n, c, lanes, k_seg)
+                timing[f"segment_resolve{tag}_bound"] = bound_ms(sg_bytes,
+                                                                 sg_ops)
+                timing[f"segment_resolve{tag}_issue_floor"] = sg_floor
         s2a[kind] = dict(sim_wall=sim_wall, sweep_wall=sweep_wall,
                          vi_wall=vi_wall, sweep=sweep, warm_wall=warm_wall,
                          launches=(sim_counts, sweep_counts, warm_counts))
@@ -4601,9 +4632,11 @@ def main() -> int:
     print(f"[10] segment_resolve at the sweep's cap times: S={s} "
           f"{timing['segment_resolve'][0]:.4f} ms (plain "
           f"{timing['segment_resolve'][1]:.4f} ms, bound "
-          f"{timing['segment_resolve_bound'][0]:.4f} ms); one lane "
+          f"{timing['segment_resolve_bound'][0]:.4f} ms, issue floor "
+          f"{timing['segment_resolve_issue_floor']:.4f} ms); one lane "
           f"{sg1_ms:.4f} ms (plain {sg1_plain:.4f} ms, bound "
-          f"{sg1_bound:.4f} ms)")
+          f"{sg1_bound:.4f} ms, issue floor "
+          f"{timing['segment_resolve_one_lane_issue_floor']:.4f} ms)")
     tokens_out = LM_REQUESTS * LM_STEPS
     print(f"[10] {LM_ARCH} serving on {card}: prefill of {LM_REQUESTS} x "
           f"{LM_PROMPT} tokens {lm['prefill_s']:.4f} s "
@@ -4775,8 +4808,12 @@ def main() -> int:
                             overlay_staged=vo["staged"],
                             overlay_launches=phase12["counted"]["vi"])
         if name == "segment_resolve":
-            rows[-1].update(one_lane_ms=sg1_ms, one_lane_plain_ms=sg1_plain,
-                            one_lane_bound_ms=sg1_bound)
+            rows[-1].update(
+                one_lane_ms=sg1_ms, one_lane_plain_ms=sg1_plain,
+                one_lane_bound_ms=sg1_bound,
+                issue_floor_ms=timing["segment_resolve_issue_floor"],
+                one_lane_issue_floor_ms=timing[
+                    "segment_resolve_one_lane_issue_floor"])
         for mode_name, mode, m, launches in modes:
             if mode_name != name:
                 continue
@@ -4786,6 +4823,8 @@ def main() -> int:
                              f"{mode}_bound_by": m["bound"][1],
                              f"{mode}_rows": m["rows"],
                              f"{mode}_launches": launches})
+            if "issue_floor_ms" in m:
+                rows[-1][f"{mode}_issue_floor_ms"] = m["issue_floor_ms"]
         if name == "sweep_partials":
             hp = phase13["pass"]
             rows[-1].update(host_pass_ms=hp["ms"],

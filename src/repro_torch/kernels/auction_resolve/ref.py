@@ -24,10 +24,12 @@ NEG = -2.0 ** 30
 # csrc/lane_resolve.cuh: rows a tile (one thread a row), the most lanes an
 # item takes
 LANE_TILE, LANE_MAX = 512, 8
-# csrc/vi.cu: threads a CTA (one lane); csrc/segment_resolve.cu: rows a
-# tile, lanes whose first pieces are staged together
-VI_THREADS = 512
-SEGMENT_TILE, SEGMENT_LANES = 128, 32
+# csrc/vi.cu: threads a CTA that resolve rows (one lane);
+# csrc/segment_resolve.cu: rows a tile, lanes a CTA, CTAs of the grid (one
+# an SM of an H100), and the lane count up to which a CTA takes one tile
+VI_THREADS = 256
+SEGMENT_TILE, SEGMENT_LANES, SEGMENT_CTAS = 128, 32, 132
+SEGMENT_FEW_LANES = 8           # at most this many: a CTA a tile
 
 
 def _resolve_rows(values: torch.Tensor, multipliers: torch.Tensor,
@@ -391,16 +393,22 @@ def segment_resolve_plain(values: torch.Tensor, multipliers: torch.Tensor,
 def segment_resolve_ref(values: torch.Tensor, multipliers: torch.Tensor,
                         reserves: torch.Tensor, boundaries: torch.Tensor,
                         masks: torch.Tensor, second_price: bool = False, *,
-                        tile: int = SEGMENT_TILE,
-                        lanes: int = SEGMENT_LANES, offset: int = 0):
+                        tile: int = SEGMENT_TILE, lanes: int | None = None,
+                        n_ctas: int | None = None, offset: int = 0):
     """What ``csrc/segment_resolve.cu`` computes, by its split, for tests
-    (bitwise :func:`segment_resolve_plain`): tiles of ``tile`` rows; per
-    tile, lanes ``lanes`` at a time; a lane's segments in the tile j_lo ..
-    j_hi (the inner boundaries at or below its first and last rows, as
-    global events ``offset + row``); its first piece, segment j_lo up to
-    the next boundary, resolved under that segment's (C,) mask; each later
-    non-empty piece on its own. Rows no piece covers keep winner -2 and a
-    NaN price."""
+    (bitwise :func:`segment_resolve_plain`): tiles of ``tile`` rows; lanes
+    ``lanes`` at a time, each group on ``min(tiles, n_ctas)`` CTAs, a CTA a
+    contiguous run of tiles (the kernel's choice by default: with 8 lanes
+    or fewer a CTA a tile, else 32 lanes a CTA on ``SEGMENT_CTAS``); per
+    CTA and lane, the segment at the run's
+    first row (the inner boundaries at or below it, as global events
+    ``offset + row``) and its next boundary, carried from tile to tile; in
+    a tile, a lane's first piece (its current segment up to the next
+    boundary) resolved under that segment's (C,) mask, then, round by
+    round, each boundary inside the tile: the lane advances one segment and
+    the piece up to the following boundary (empty for a duplicate) is
+    resolved on its own. Rows no piece covers keep winner -2 and a NaN
+    price."""
     n, _ = values.shape
     s_count, k2 = boundaries.shape
     k = k2 - 2
@@ -408,7 +416,7 @@ def segment_resolve_ref(values: torch.Tensor, multipliers: torch.Tensor,
     winners = torch.full((s_count, n), -2, dtype=torch.int32, device=dev)
     prices = torch.full((s_count, n), float("nan"), dtype=torch.float32,
                         device=dev)
-    bounds = boundaries.to(torch.int64).cpu()
+    bounds = boundaries.to(torch.int64).cpu() - offset   # local rows
 
     def piece(s, p0, p1, j):
         w, p = _resolve_rows(values[p0:p1], multipliers[s], masks[s, j],
@@ -416,31 +424,48 @@ def segment_resolve_ref(values: torch.Tensor, multipliers: torch.Tensor,
         winners[s, p0:p1] = w
         prices[s, p0:p1] = p
 
-    bounds = bounds - offset           # global events to local rows
-    for t0 in range(0, n, tile):
-        t1 = min(t0 + tile, n)
-        for s0 in range(0, s_count, lanes):
+    tiles = -(-n // tile)
+    few = s_count <= SEGMENT_FEW_LANES
+    lanes = lanes or (SEGMENT_FEW_LANES if few else SEGMENT_LANES)
+    ctas = min(tiles, n_ctas or (tiles if few else SEGMENT_CTAS))
+    for s0 in range(0, s_count, lanes):
+        for x in range(ctas):
+            t0, t1 = x * tiles // ctas, (x + 1) * tiles // ctas
             for s in range(s0, min(s0 + lanes, s_count)):
                 inner = bounds[s, 1:k + 1]
-                j_lo = int((inner <= t0).sum())
-                j_hi = int((inner <= t1 - 1).sum())
-                end = int(bounds[s, j_lo + 1]) if j_lo < k else n
-                piece(s, t0, min(end, t1), j_lo)
-                for j in range(j_lo + 1, j_hi + 1):
-                    p0 = max(int(bounds[s, j]), t0)
-                    p1 = min(int(bounds[s, j + 1]) if j < k else n, t1)
-                    if p0 < p1:
-                        piece(s, p0, p1, j)
+                seg = int((inner <= t0 * tile).sum())
+                nxt = int(bounds[s, seg + 1]) if seg < k else n
+                for t in range(t0, t1):
+                    r0, r1 = t * tile, min((t + 1) * tile, n)
+                    if nxt > r0:
+                        piece(s, r0, min(nxt, r1), seg)
+                    while nxt < r1:
+                        seg += 1
+                        lo = nxt
+                        nxt = int(bounds[s, seg + 1]) if seg < k else n
+                        if lo < min(nxt, r1):
+                            piece(s, lo, min(nxt, r1), seg)
     return winners, prices
 
 
 def vi_threads_per_row(batch_size: int) -> int:
     """``csrc/vi.cu``'s threads per batch row: the most, a power of two up
-    to 32, that ``batch_size`` rows fill in a CTA."""
+    to 32, that ``batch_size`` rows fill in a CTA's resolving threads."""
     tpr = 32
     while tpr > 1 and tpr * batch_size > VI_THREADS:
         tpr //= 2
     return tpr
+
+
+def vi_slices(num_campaigns: int, tpr: int) -> list:
+    """``csrc/vi.cu``'s column slices of a row, one a thread: slice k takes
+    every tpr-th quad from quad k when C is a multiple of 4, else every
+    tpr-th column from column k, in ascending order."""
+    cols = torch.arange(num_campaigns)
+    if num_campaigns % 4:
+        return [cols[k::tpr] for k in range(tpr)]
+    quads = cols.reshape(-1, 4)
+    return [quads[k::tpr].reshape(-1) for k in range(tpr)]
 
 
 def _slice_top2(bids: torch.Tensor, reserve: torch.Tensor):
@@ -474,21 +499,22 @@ def vi_chain_ref(sampled: torch.Tensor, u: torch.Tensor, step: torch.Tensor,
     activations or None, ``u`` (total, B, 1 or C),
     ``step`` (total,), ``denom`` (n_batches,), ``btilde``, ``multipliers``,
     ``pi0`` (S, C), ``reserves`` (S,). Per step: the batch's rows resolved
-    by :func:`vi_threads_per_row` interleaved column slices, each scanned
-    on its own, then merged pairwise in the kernel's shuffle order (the
-    larger best wins, the lower column on a tie; the second price the larger
-    of the loser's best and the winner's second); each campaign's prices
-    added in row order from +0.0; the update ``clamp(fma(step,
-    btilde - sums / denom, pi), 0, 1)``. Returns ``(pi (S, C), history (S,
-    ceil(total / track_every), C) or None)``."""
+    by :func:`vi_threads_per_row` slices (:func:`vi_slices`: interleaved
+    quads, or columns when C is not a multiple of 4), each scanned on its
+    own, then merged pairwise in the kernel's shuffle order (the larger
+    best wins, the lower column on a tie; the second price the larger of
+    the loser's best and the winner's second); each campaign's won prices
+    added in row order from +0.0, divided only where it won something; the
+    update ``clamp(fma(step, btilde - sums / denom, pi), 0, 1)``. Returns
+    ``(pi (S, C), history (S, ceil(total / track_every), C) or None)``."""
     total, b, w = u.shape
     n_batches = sampled.shape[-2] // b
     s_count, c = multipliers.shape
     dev = sampled.device
-    tpr = vi_threads_per_row(b)
     res = reserves.to(torch.float32)
     pi = pi0.to(torch.float32).clone()
-    cols = torch.arange(c, device=dev)
+    tpr = vi_threads_per_row(b)
+    slices = vi_slices(c, tpr)
     history = []
     for t in range(total):
         bi = t % n_batches
@@ -501,8 +527,8 @@ def vi_chain_ref(sampled: torch.Tensor, u: torch.Tensor, step: torch.Tensor,
                            * multipliers[:, None, :], float("nan"))
         live = (bi * b + torch.arange(b, device=dev)) < sample_size
         parts = []
-        for k in range(tpr):
-            sl = cols[k::tpr]
+        for sl in slices:
+            sl = sl.to(dev)
             best, second, win = _slice_top2(bids[..., sl], res)
             if len(sl):
                 win = torch.where(win >= 0, sl[win.clamp(min=0)], -1)
@@ -527,7 +553,10 @@ def vi_chain_ref(sampled: torch.Tensor, u: torch.Tensor, step: torch.Tensor,
         slot = torch.where(win >= 0, win, c)
         for r in range(b):                                     # row order
             sums.scatter_add_(1, slot[:, r:r + 1], price[:, r:r + 1])
-        delta = btilde - sums[:, :c] / denom[bi]
+        won = torch.zeros((s_count, c + 1), dtype=torch.bool, device=dev)
+        won.scatter_(1, slot, True)
+        delta = torch.where(won[:, :c], btilde - sums[:, :c] / denom[bi],
+                            btilde)
         pi = torch.clamp(fma(step[t], delta, pi), 0.0, 1.0)
         if track_every and t % track_every == 0:
             history.append(pi)

@@ -5,7 +5,8 @@ resolve launch per lane (the counterpart of ``repro``'s
 ``auction_resolve_pallas``). It follows :mod:`repro_torch.kernels.binding`
 and counts its launches in :data:`LAUNCHES`.
 
-The kernel stages 128-row tiles of all C columns, so it takes at most
+The kernel streams 128-row tiles of all C columns through shared memory,
+each CTA a run of tiles for 32 lanes, so it takes at most
 :func:`max_campaigns` campaigns; the wrapper refuses more, and
 :func:`repro_torch.kernels.auction_resolve.ops.segment_resolve` routes such
 calls to the per-lane resolve.
@@ -21,8 +22,8 @@ from repro_torch.kernels.binding import I as _I, P as _P, check as _check
 
 LAUNCHES = {"segment_resolve": 0}
 
-ROWS_PER_CTA = 128        # kRows of the kernel: a tile, one thread a row
-LANE_CHUNK = 32           # kLaneChunk: lanes whose first pieces are staged
+ROWS_PER_CTA = 128        # kRows of the kernel: a tile, two rows a thread
+LANE_CHUNK = 32           # kLaneChunk: the lanes a CTA resolves
 
 _SIGNATURES = {
     "sg_segment_resolve": [_P] * 7 + [_I] * 6 + [_P],

@@ -43,9 +43,9 @@ def _lib():
 
 def staged(batch_size: int, num_campaigns: int, width: int,
            eligibility: bool = False) -> bool:
-    """Whether a run's state and double-buffered batches (with a per-lane
-    eligibility mask when ``eligibility``) fit in shared memory (else they
-    live in device memory); builds the kernel."""
+    """Whether a run's state and a ring of at least two staged batches
+    (with a per-lane eligibility mask when ``eligibility``) fit in shared
+    memory (else they live in device memory); builds the kernel."""
     return bool(_lib().vi_staged(batch_size, num_campaigns, width,
                                  int(eligibility)))
 

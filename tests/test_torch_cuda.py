@@ -1051,6 +1051,16 @@ VI_CASES = {
     "B3_pi0": (3, "shared", 50, 4, 16, 0.7, 2),
     "B600_independent": (600, "independent", 1500, 2, 16, None, 0),
     "simulate_c100": (64, "shared", 2000, 4, 100, None, 0),
+    # the split's edges: fewer steps than the ring's stages; the ring's
+    # slots wrapping across epochs of three batches; rows that fill no
+    # whole warp (13 rows, 2 a warp; 100 rows, 16 a warp); C=37 (columns,
+    # not quads); C=36 (nine quads), W = C; C=1
+    "total_below_stages": (64, "shared", 150, 1, 16, None, 1),
+    "ring_wraps_epochs": (64, "independent", 150, 7, 16, None, 0),
+    "B1_C37": (1, "shared", 30, 2, 37, None, 0),
+    "B13_C37": (13, "shared", 100, 3, 37, None, 2),
+    "B100_C36_independent": (100, "independent", 300, 3, 36, None, 0),
+    "C1_independent": (20, "independent", 120, 3, 1, None, 0),
 }
 
 
@@ -1115,6 +1125,58 @@ def test_vi_kernel_state_in_device_memory(dev, coupling):
     assert torch.equal(out[str(dev)].pi.cpu(), out["cpu"].pi)
 
 
+@pytest.mark.parametrize("coupling", ["shared", "independent"])
+def test_vi_kernel_at_the_staged_gate(dev, coupling):
+    """The last C whose staged state (a ring of at least two batches) fits
+    in shared memory (64-row batches): one staged launch, the CPU's
+    bits."""
+    w = 1 if coupling == "shared" else None
+    c = 16
+    while cuda_vi.staged(64, c + 1, w or c + 1):
+        c += 1
+    values, budgets, mult = _vi_env(c, seed=8)
+    out = {}
+    for where in ("cpu", dev):
+        rule = AuctionRule(multipliers=mult.to(where),
+                           reserve=torch.tensor(0.02, device=where),
+                           kind="first_price")
+        cuda_vi.reset_launches()
+        out[str(where)] = vi.estimate_pi(
+            values.to(where), budgets.to(where) * c / 16, rule,
+            prng.PRNGKey(4).to(where), sample_size=300, num_iters=3,
+            batch_size=64, coupling=coupling)
+    assert cuda_vi.LAUNCHES == {"vi": 1, "vi_device_state": 0}
+    assert torch.equal(out[str(dev)].pi.cpu(), out["cpu"].pi)
+
+
+@pytest.mark.parametrize("coupling", ["shared", "independent"])
+def test_vi_sweep_second_price_ties_at_a_zero_reserve(dev, coupling):
+    """Valuations in eighths, unit multipliers on most lanes and a zero
+    reserve: ties for the top bid (the second price is the best) and
+    zero bids at the reserve; 33 lanes in one launch, the CPU's lanes bit
+    for bit."""
+    rng = np.random.default_rng(12)
+    c = 24
+    values = torch.from_numpy((rng.integers(0, 8, (4096, c)) / 8).astype(
+        np.float32))
+    budgets = torch.from_numpy(rng.uniform(10, 60, c).astype(np.float32))
+    mult = torch.ones((33, c))
+    mult[::3] = 1.5
+    out = {}
+    for where in ("cpu", dev):
+        rules = AuctionRule(multipliers=mult.to(where),
+                            reserve=torch.zeros(33, device=where),
+                            kind="second_price")
+        cuda_vi.reset_launches()
+        out[str(where)] = vi.estimate_pi_sweep(
+            values.to(where), (budgets[None] * torch.linspace(
+                0.5, 1.5, 33)[:, None]).to(where), rules,
+            prng.PRNGKey(6).to(where), sample_size=400, num_iters=4,
+            batch_size=64, coupling=coupling)
+    assert cuda_vi.LAUNCHES["vi"] == 1
+    assert torch.equal(out[str(dev)].pi.cpu(), out["cpu"].pi)
+
+
 def test_vi_sweep_kernel_is_the_cpu_lanes(dev):
     """estimate_pi_sweep: five lanes in one vi launch, with a pi0, bitwise
     the CPU's lane loop."""
@@ -1155,6 +1217,9 @@ def _segment_table(case, s, n, c, rng):
     if case == "tile_edges":
         edges = np.array([tile, 2 * tile, 3 * tile + 1, 4 * tile - 1, n - 1])
         caps = edges[rng.integers(0, len(edges), (s, c))]
+    elif case == "every_tile":          # on tile starts, runs' starts too
+        caps = tile * rng.integers(1, n // tile, (s, c)) \
+            + rng.integers(0, 2, (s, c))
     elif case == "duplicates":
         caps = rng.choice([n // 5, n // 2, n // 2, n // 2, n - 3], (s, c))
     elif case == "cap_at_1_and_n":
@@ -1184,6 +1249,12 @@ SEGMENT_EDGES = {
     "hand_built_n1": ("hand_built", 2, 1, 12),
     "hand_built_n129": ("hand_built", 3, 129, 7),
     "duplicates_n127": ("duplicates", 4, 127, 100),
+    # the persistent grid: runs of several tiles a CTA, boundaries on tile
+    # and run starts; one bulk copy a tile (C=100), a bulk copy a row into
+    # padded rows (C=40, ten quads), 4-byte copies (C=37)
+    "runs_every_tile_s32": ("every_tile", 32, 50_765, 100),
+    "runs_c40_padded": ("duplicates", 8, 40_000, 40),
+    "runs_c37_hand_built_s33": ("hand_built", 33, 30_000, 37),
 }
 
 
@@ -1202,6 +1273,28 @@ def test_segment_resolve_kernel_edges_give_the_cpu_bits(dev, case, sp):
     assert cuda_sg.LAUNCHES["segment_resolve"] == 1
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("sp", [False, True])
+def test_segment_resolve_ties_at_a_zero_reserve(dev, sp):
+    """Valuations in eighths, unit multipliers and a zero reserve: ties for
+    the top bid (the first column wins, the second price is the best) and
+    zero bids that never beat the reserve; S=33, the CPU's bits."""
+    rng = np.random.default_rng(13)
+    n, c, s = 3000, 100, 33
+    values = torch.from_numpy((rng.integers(0, 8, (n, c)) / 8).astype(
+        np.float32))
+    mult = torch.ones((s, c))
+    res = torch.zeros(s)
+    bounds, masks = _segment_table("duplicates", s, n, c, rng)
+    want = ref.segment_resolve_plain(values, mult, res, bounds, masks, sp)
+    got = ops.segment_resolve(values.to(dev), mult.to(dev), res.to(dev),
+                              bounds.to(dev), masks.to(dev),
+                              second_price=sp)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert bool((want[0] >= 0).any())
 
 
 @pytest.mark.parametrize("above", [False, True])

@@ -110,6 +110,25 @@ def test_segment_resolve_ref_is_the_plain_version(case, kind, s):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("offset", [0, 300])
+@pytest.mark.parametrize("n_ctas", [1, 3, 7])
+@pytest.mark.parametrize("s", [1, 33])
+@pytest.mark.parametrize("case", ["tile_edges", "hand_built"])
+def test_segment_resolve_ref_runs_of_tiles(case, s, n_ctas, offset):
+    """The persistent grid's split: each CTA a run of tiles carrying every
+    lane's segment and next boundary from tile to tile (runs of 2 or 3
+    tiles, one run of all 8), at a row offset too, is the plain version's
+    bits, second price."""
+    values, mult, res, bounds, masks = _inputs(case, s, seed=41 + s)
+    rows = slice(offset, N)
+    want = ref.segment_resolve_plain(values[rows], mult, res, bounds, masks,
+                                     True, offset=offset)
+    got = ref.segment_resolve_ref(values[rows], mult, res, bounds, masks,
+                                  True, n_ctas=n_ctas, offset=offset)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("case", CASES)
 def test_segment_resolve_is_the_reference_aggregate(case, kind):

@@ -64,9 +64,10 @@ def _kernel_inputs(values, budgets, key, *, sample_size, num_iters,
 
 
 # (batch_size, coupling, sample_size, num_iters, pi0, track_every): 64 rows
-# not dividing the sample (tpr 8); one row (tpr 32, slices past the 16
-# columns); 20 rows (tpr 16); 3 rows with a pi0 (tpr 32); 600 rows, more
-# than the kernel's 512 threads (tpr 1, two passes of rows)
+# not dividing the sample (tpr 4); one row (tpr 32, slices past the 4
+# quads of 16 columns); 20 rows (tpr 8); 3 rows with a pi0 (tpr 32); 600
+# rows, more than the kernel's 256 resolving threads (tpr 1, three passes
+# of rows)
 CASES = {
     "B64_shared": (64, "shared", 200, 30, None, 3),
     "B64_independent": (64, "independent", 200, 30, None, 0),
@@ -82,7 +83,7 @@ CASES = {
 def test_vi_chain_ref_is_the_loop_and_the_reference(env, case, kind):
     batch_size, coupling, sample_size, num_iters, p0, track = CASES[case]
     assert ref.vi_threads_per_row(batch_size) == {
-        64: 8, 1: 32, 20: 16, 3: 32, 600: 1}[batch_size]
+        64: 4, 1: 32, 20: 8, 3: 32, 600: 1}[batch_size]
     rule = _design(kind)
     key = jax.random.PRNGKey(3)
     kw = dict(sample_size=sample_size, num_iters=num_iters,
@@ -114,6 +115,77 @@ def test_vi_chain_ref_is_the_loop_and_the_reference(env, case, kind):
         assert hist is None and loop.history is None
     # the estimate moved off its start: the chain did something
     assert not torch.equal(got[0], pi_start[0])
+
+
+# the split's edges, each at its own C: (batch_size, coupling, sample_size,
+# num_iters, C): fewer steps than the ring's four stages; a ring of four
+# slots over three batches an epoch (the slots wrap across epochs); one row
+# at C=37 (columns, not quads); 13 rows (tpr 16, two rows a warp: 13 is
+# no multiple of them); 100 rows (tpr 2, sixteen rows a warp) at C=36
+# (nine quads), W = C; C=1, both couplings
+SPLIT_EDGES = {
+    "total_below_stages": (64, "shared", 150, 1, 16),
+    "ring_wraps_epochs": (64, "independent", 150, 7, 16),
+    "B1_C37": (1, "shared", 30, 2, 37),
+    "B13_C37": (13, "shared", 100, 3, 37),
+    "B100_C36_independent": (100, "independent", 300, 3, 36),
+    "C1_independent": (20, "independent", 120, 3, 1),
+    "C1_shared": (64, "shared", 200, 2, 1),
+}
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("case", sorted(SPLIT_EDGES))
+def test_vi_chain_ref_split_edges(case, kind):
+    """The kernel's split at its edges (ring, rows a warp, quads or
+    columns, W = C, C=1): ``vi_chain_ref`` is ``repro``'s ``estimate_pi``
+    and the port's CPU loop, bit for bit."""
+    batch_size, coupling, sample_size, num_iters, c = SPLIT_EDGES[case]
+    n = 1024
+    env_c = make_synthetic_env(jax.random.PRNGKey(2), n_events=n,
+                               n_campaigns=c, emb_dim=4)
+    rule = JRule(multipliers=jnp.linspace(0.9, 1.2, c, dtype=jnp.float32),
+                 reserve=jnp.float32(0.02), kind=kind)
+    key = jax.random.PRNGKey(5)
+    kw = dict(sample_size=sample_size, num_iters=num_iters,
+              batch_size=batch_size, coupling=coupling, eta_decay=0.05)
+    # repro's second price takes top_k(2) of the columns: C=1 has one, so
+    # there the port's CPU loop is the witness alone
+    want = None if c == 1 and kind == "second_price" else \
+        j_vi.estimate_pi(env_c.values, env_c.budgets, rule, key, **kw)
+    values, budgets = _t(env_c.values), _t(env_c.budgets)
+    t_key = key_from_reference(np.asarray(key))
+    loop = vi.estimate_pi(values, budgets, AuctionRule(
+        multipliers=_t(rule.multipliers), reserve=_t(rule.reserve),
+        kind=kind), t_key, **kw)
+    draws = vi._draws(t_key, n, c, sample_size=sample_size,
+                      num_iters=num_iters, batch_size=batch_size,
+                      coupling=coupling, device="cpu")
+    chain = vi._chain(values, budgets, draws, sample_size=sample_size,
+                      batch_size=batch_size, eta=0.5, eta_decay=0.05)
+    got, _ = ref.vi_chain_ref(
+        chain.sampled, draws.u, chain.step, chain.denom, chain.btilde[None],
+        _t(rule.multipliers)[None], _t(rule.reserve).reshape(1),
+        torch.ones((1, c)), sample_size=sample_size,
+        second_price=kind == "second_price")
+    if want is not None:
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want.pi))
+    assert torch.equal(got[0], loop.pi)
+    assert bool(((got >= 0) & (got <= 1)).all())
+
+
+@pytest.mark.parametrize("c,tpr", [(100, 4), (16, 32), (37, 8), (1, 2),
+                                   (36, 2), (36, 16)])
+def test_vi_slices_cover_each_column_once(c, tpr):
+    """Every column in exactly one slice, ascending within it: quads when
+    C is a multiple of 4, columns otherwise."""
+    slices = ref.vi_slices(c, tpr)
+    assert len(slices) == tpr
+    assert sorted(torch.cat(slices).tolist()) == list(range(c))
+    for sl in slices:
+        assert bool((sl[1:] > sl[:-1]).all())
+    if c % 4 == 0 and tpr < c // 4:
+        assert slices[1][:5].tolist() == [4, 5, 6, 7, 4 * tpr + 4]
 
 
 @pytest.mark.parametrize("coupling", ["shared", "independent"])
