@@ -260,7 +260,30 @@ Run from the repository root. Phases:
    each) and the warm-started SORT2AGGREGATE (only ``segment_resolve`` and
    ``first_crossing`` launches) with the fig. 6 errors, and the whole
    pipeline at ``PAPER_YAHOO_CPU`` (its days cut to half their auctions)
-   bitwise the CPU's.
+   bitwise the CPU's;
+16. the MoE and recurrent language models (``mixers_phase``), random
+   weights from ``--seed``, each through ``ServeEngine.generate`` at full
+   width with 8 requests of 2,048 prompt tokens and 32 greedy tokens:
+   granite-moe-3b-a800m whole (32 attention + MoE layers, 40 experts
+   top-8), xlstm-125m whole (10 mLSTM and 2 sLSTM layers), mixtral-8x7b
+   cut to 4 of its 32 layers and jamba-v0.1-52b to its first 5 (4 mamba
+   layers, 2 of them MoE, and its attention layer; ``MIXER_MODELS``: the
+   whole of either does not fit the card's 80 GB).
+   Each prefill makes exactly one ``flash_attention`` launch an attention
+   layer and decode none; the tokens lie in the vocabulary and a second
+   run gives the same; the prefill is traced, its device time split into
+   attention and the rest (the MoE products and dispatch, the mamba scan,
+   the sLSTM loop). Then each cut to 2 layers at full width (jamba's
+   mamba and mamba + MoE), xlstm to its first 6 (5 mLSTM and an sLSTM),
+   runs on the card and on the CPU (2 requests of 256 tokens, 8
+   teacher-forced decode steps), twice: as served, bfloat16 logits within
+   ``LM_TOL`` for granite and mixtral and printed beside it for jamba and
+   xlstm (rounding alone reaches it there), then cast to float32, logits
+   within ``F32_TOL`` for all four. Where the CPU's
+   MoE routing differs from the card's at a token whose probabilities
+   drift less than ``ROUTE_DRIFT`` between them (a near tie), the CPU
+   takes the card's experts and the tie is printed with its layer and
+   token; a larger drift fails.
 
 Every check raises on failure and nothing is caught, so any failure exits
 non-zero. The last line is the JSON result. Without a CUDA device, or
@@ -526,14 +549,48 @@ FLASH_SHAPES = (    # b, s, h, kv, dh, causal, window, dtype name
     (1, 500, 16, 2, 64, True, 77, "float32"),
     (1, 300, 4, 2, 256, True, 77, "float32"),
     (16385, 16, 4, 1, 64, True, None, "float32"),
+    # phase 16's prefills: granite-moe-3b-a800m's GQA 3:1 at dh=64 and
+    # mixtral-8x7b's 4,096 window (past S) at dh=128
+    (8, 2048, 24, 8, 64, True, None, "bfloat16"),
+    (8, 2048, 32, 8, 128, True, 4096, "bfloat16"),
 )
 # the shapes phase 9 (a) times besides stablelm's bf16 prefill: its float32
-# twin (the split-TF32 kernel) and gemma3-4b's dh=256 window layer in both
-# types
+# twin (the split-TF32 kernel), gemma3-4b's dh=256 window layer in both
+# types, and phase 16's prefills: granite-moe-3b-a800m (GQA 3:1, dh=64) and
+# mixtral-8x7b (a 4,096 window over 2,048 tokens, dh=128)
 FLASH_TIMED = {(8, 2048, 32, 32, 64, True, None, "float32"): "float32 prefill",
                (1, 4096, 8, 4, 256, True, 1024, "bfloat16"): "gemma3-4b",
                (1, 4096, 8, 4, 256, True, 1024, "float32"):
-                   "gemma3-4b float32"}
+                   "gemma3-4b float32",
+               (8, 2048, 24, 8, 64, True, None, "bfloat16"): "granite prefill",
+               (8, 2048, 32, 8, 128, True, 4096, "bfloat16"):
+                   "mixtral prefill"}
+# phase 16: arch, layers on the card (None: all of them), layers of the
+# card-vs-CPU check, whether its bfloat16 logits are held within LM_TOL.
+# mixtral-8x7b is ~93 GB of bfloat16 weights and jamba-v0.1-52b ~103 GB,
+# over the card's 80 GB: each runs at full width, cut to keep the phase
+# near two minutes (at 8 layers, jamba's one period, it took 190 s on the
+# H100): mixtral to 4 layers (12.1 GB), jamba to its first 5 (4 mamba
+# layers, 2 of them MoE, and its attention layer; 14.3 GB). The check cuts
+# each to its first LM_CPU_LAYERS layers, and xlstm-125m to its first
+# pattern of 6, so that its sLSTM (layer 5) is held at full width. Under
+# rounding alone jamba's bfloat16 logits differ by up to 3 bfloat16 ulps
+# of the largest (0.0157-0.0234 over seeds 0-2; 0.0166-0.0206 with every
+# product a float32 GEMM), and xlstm's sLSTM recurrence, at the
+# reference's initialisation, amplifies rounding to 0.11-0.17: both are
+# printed beside LM_TOL, and their float32 twins held within F32_TOL
+# (tools/lm_products.py floor and seeds, NVIDIA H100 80GB HBM3 at 700 W)
+MIXER_MODELS = (("granite-moe-3b-a800m", None, LM_CPU_LAYERS, True),
+                ("xlstm-125m", None, 6, False),
+                ("mixtral-8x7b", 4, LM_CPU_LAYERS, True),
+                ("jamba-v0.1-52b", 5, LM_CPU_LAYERS, False))
+# card vs CPU logits of the float32 twins, max |diff| over max |CPU|: they
+# read 1.5e-6 to 6.2e-6 (granite, mixtral, jamba) and 2.2e-5 to 6.4e-5
+# (xlstm) over seeds 0-2 (tools/lm_products.py seeds, NVIDIA H100 80GB
+# HBM3 at 700 W); a layer computing something else moves them by far more
+F32_TOL = 2.0 ** -10
+ROUTE_DRIFT = 2.0 ** -7     # the most a near tie's probabilities may drift
+TIES_SHOWN = 4
 
 
 def require(ok: bool, what: str) -> None:
@@ -645,16 +702,16 @@ def smi(fields: str) -> str:
 
 def trace(tag: str, label: str, fn, counts: dict | None = None) -> dict:
     """Run ``fn`` under ``torch.profiler`` and print its wall time, the
-    device's busy time (the sum of the kernels' own device time: the rows
-    of device type CUDA, so an operator and the kernel it launched are not
-    both counted) and idle share, and the six busiest kernels. Returns the
-    device microseconds by kernel name; ``counts``, if given, gets each
-    kernel's number of launches."""
+    device's busy time (the sum of the kernels' own device time) and idle
+    share, and the six busiest kernels. Returns the device microseconds by
+    kernel name; ``counts``, if given, gets each kernel's number of
+    launches. Only the kernels are recorded, no host operator events: a
+    trace of ~10^5 launches is then summarised in seconds, not a
+    minute."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1091,6 +1148,237 @@ def serve_phase(seed: int, dev, reset_counts, read_counts) -> dict:
           f"steps: card vs CPU logits, max |diff| / max |CPU|: prefill "
           f"{worst['prefill']:.4g}, decode {worst['decode']:.4g} (tol "
           f"{LM_TOL}; {time.perf_counter() - t0:.1f} s)", flush=True)
+    return out
+
+
+def is_gemm(kernel: str) -> bool:
+    """A cuBLAS / CUTLASS matrix-product kernel, by its name."""
+    key = kernel.lower()
+    return any(tag in key for tag in ("gemm", "gemv", "nvjet", "cutlass",
+                                      "xmma"))
+
+
+def mixers_phase(seed: int, dev, reset_counts, read_counts, *,
+                 models=MIXER_MODELS, config=None, requests=LM_REQUESTS,
+                 prompt=LM_PROMPT, steps=LM_STEPS, card_name="") -> dict:
+    """Phase 16: the MoE and recurrent models at full width (``config``,
+    default ``get_config``, gives each arch's config; a CPU rehearsal
+    passes ``reduced_config`` and small sizes). Returns their numbers and
+    the ``flash_attention`` launches of their generate runs."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, build_model
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.serve import ServeEngine
+
+    config = config or get_config
+    t_phase = time.perf_counter()
+    out = {"models": {}, "flash_launches": 0}
+    for arch, cut, cpu_layers, bf16_bounded in models:
+        cfg = config(arch)
+        if cut is not None:
+            cfg = dataclasses.replace(cfg, n_layers=cut)
+        tag = f"[16] {arch}" + (f" cut to {cut} layers" if cut else "")
+        n_attn = sum(ls.kind == "attn" for ls in cfg.layers)
+        t_model = t0 = time.perf_counter()
+        model = build_model(cfg, device=dev, seed=seed)
+        torch.cuda.synchronize()
+        rec = dict(init_s=time.perf_counter() - t0, layers=cfg.n_layers,
+                   attention_layers=n_attn,
+                   weights_gb=sum(p.numel() * p.element_size()
+                                  for p in model.parameters()) / 1e9)
+        tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (requests, prompt))).to(dev)
+        engine = ServeEngine(model, max_len=prompt + steps)
+
+        def only_flash(counts, what):
+            require(counts["flash_attention"] == n_attn and not any(
+                n for name, n in counts.items() if name != "flash_attention"),
+                f"{tag}: {what} launches {counts}, expected {n_attn} "
+                f"flash_attention (one an attention layer) and nothing else")
+
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        generated = engine.generate(tokens, steps)
+        torch.cuda.synchronize()
+        rec["generate_s"] = time.perf_counter() - t0
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        launches = read_counts()
+        only_flash(launches, "generate")
+        out["flash_launches"] += launches["flash_attention"]
+        require(tuple(generated.shape) == (requests, steps)
+                and bool(((generated >= 0)
+                          & (generated < cfg.vocab_size)).all()),
+                f"{tag}: generated tokens malformed")
+        require(torch.equal(engine.generate(tokens, steps), generated),
+                f"{tag}: a second generate gave other tokens")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = engine.prefill(tokens)
+        torch.cuda.synchronize()
+        rec["prefill_s"] = time.perf_counter() - t0
+        only_flash(read_counts(), "prefill")
+        require(bool(torch.isfinite(logits.float()).all())
+                and tuple(logits.shape) == (requests, 1, cfg.padded_vocab),
+                f"{tag}: prefill logits not finite or of the wrong shape")
+        tok = engine._sample(logits)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            logits, caches = model.decode_step(caches, tok[:, None],
+                                               prompt + i)
+            tok = engine._sample(logits)
+        torch.cuda.synchronize()
+        rec["decode_ms"] = (time.perf_counter() - t0) / steps * 1e3
+        del logits, caches
+        counts = {}
+        t0 = time.perf_counter()
+        by_kernel = trace("[16]", f"{arch} prefill",
+                          lambda: engine.prefill(tokens), counts=counts)
+        rec["trace_s"] = time.perf_counter() - t0
+        if by_kernel:
+            busy = sum(by_kernel.values()) / 1e3
+            attention = sum(us for k, us in by_kernel.items()
+                            if "flash_" in k) / 1e3
+            gemm = sum(us for k, us in by_kernel.items() if is_gemm(k)) / 1e3
+            rec["trace"] = dict(busy_ms=busy, attention_ms=attention,
+                                gemm_ms=gemm,
+                                other_ms=busy - attention - gemm,
+                                kernel_launches=sum(counts.values()))
+            print(f"{tag} prefill: device busy {busy:.3f} ms = attention "
+                  f"{attention:.3f} ms + matrix products {gemm:.3f} ms + "
+                  f"the rest {busy - attention - gemm:.3f} ms (elementwise "
+                  f"ops, the MoE dispatch, the mamba scan, the sLSTM "
+                  f"loop); {sum(counts.values())} device kernel launches "
+                  f"(traced and summarised in {rec['trace_s']:.1f} s)",
+                  flush=True)
+        gen_tokens = requests * steps
+        print(f"{tag} on {card_name}: d_model={cfg.d_model}, {cfg.n_layers} "
+              f"layers ({n_attn} attention), {rec['weights_gb']:.2f} GB of "
+              f"weights; prefill of {requests} x {prompt} tokens "
+              f"{rec['prefill_s']:.4f} s "
+              f"({requests * prompt / rec['prefill_s']:.6g} prompt tokens/s);"
+              f" decode {rec['decode_ms']:.4f} ms a step of {requests} "
+              f"tokens ({requests / rec['decode_ms'] * 1e3:.6g} tokens/s); "
+              f"generate of {steps} tokens {rec['generate_s']:.4f} s "
+              f"({gen_tokens / rec['generate_s']:.6g} generated tokens/s); "
+              f"peak device memory {rec['peak_gib']:.3f} GiB; weights "
+              f"initialised in {rec['init_s']:.2f} s; {n_attn} "
+              f"flash_attention launches a prefill, none in decode; the "
+              f"same tokens twice; first tokens {generated[:2, :6].tolist()}",
+              flush=True)
+        del engine, tokens, generated
+
+        # ---- the card against the CPU, cut to a few layers
+        small = dataclasses.replace(cfg, n_layers=cpu_layers)
+        card = Model(small, device=dev)
+        card.load_state_dict({k: v for k, v in model.state_dict().items()
+                              if not k.startswith("blocks.")
+                              or int(k.split(".")[1]) < cpu_layers})
+        del model
+        torch.cuda.empty_cache()
+        cpu = Model(small, device="cpu")
+        cpu.load_state_dict(card.state_dict())
+        rec["cpu_check"] = card_against_cpu(f"[16] {arch}", card, cpu,
+                                            small, seed, moe_lib,
+                                            bf16_bounded)
+        del card, cpu
+        torch.cuda.empty_cache()
+        rec["wall_s"] = time.perf_counter() - t_model
+        print(f"{tag}: {rec['wall_s']:.1f} s in all", flush=True)
+        out["models"][arch] = rec
+    out["wall"] = time.perf_counter() - t_phase
+    print(f"[16] phase 16: {out['wall']:.1f} s", flush=True)
+    return out
+
+
+def card_against_cpu(tag, card, cpu, cfg, seed, moe_lib,
+                     bf16_bounded: bool) -> dict:
+    """``LM_CPU_REQUESTS`` x ``LM_CPU_PROMPT`` tokens and
+    ``LM_CPU_STEPS`` teacher-forced decode steps on both, the logits held
+    as max |diff| over max |CPU|, twice: as served (bfloat16), against
+    ``LM_TOL`` (required where ``bf16_bounded``, printed beside it
+    otherwise), then with both models cast to float32, within ``F32_TOL``.
+    The second is the same code on the same weights with rounding 2^16
+    times finer, so a layer that computes something else on the card
+    stands out of it where the bfloat16 reading cannot tell it from
+    rounding. The card's MoE routing is recorded; where the CPU's differs
+    at a near tie (its probabilities within ``ROUTE_DRIFT`` of the card's)
+    the CPU takes the card's experts (``moe.follow_routing``, which raises
+    past it) and the tie is printed with its layer and token. ``card``
+    and ``cpu`` are cast in place."""
+    import numpy as np
+    import torch
+    seq = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab_size, (LM_CPU_REQUESTS, LM_CPU_PROMPT + LM_CPU_STEPS)))
+    moe_layers = [i for i, ls in enumerate(cfg.layers) if ls.moe]
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        if dtype == "float32":
+            card.float()
+            cpu.float()
+        routes = []
+        t0 = time.perf_counter()
+        runs = {}
+        for name, m in (("card", card), ("cpu", cpu)):
+            d = m.device
+            steps = []
+            with (moe_lib.record_routing(routes) if name == "card" else
+                  moe_lib.follow_routing(routes, ROUTE_DRIFT)) as taken:
+                logits, caches = m.prefill(seq[:, :LM_CPU_PROMPT].to(d),
+                                           LM_CPU_PROMPT + LM_CPU_STEPS)
+                steps.append(logits.float().cpu())
+                for i in range(LM_CPU_STEPS):
+                    pos = LM_CPU_PROMPT + i
+                    logits, caches = m.decode_step(
+                        caches, seq[:, pos:pos + 1].to(d), pos)
+                    steps.append(logits.float().cpu())
+            runs[name] = steps
+        ties = []
+        for tie in taken:
+            step, layer = divmod(tie["call"], len(moe_layers))
+            flat = tie["group"] * routes[tie["call"]][1].shape[1] \
+                + tie["token"]
+            where = (f"prefill token {flat % LM_CPU_PROMPT} of request "
+                     f"{flat // LM_CPU_PROMPT}" if step == 0 else
+                     f"decode step {step - 1} of request {flat}")
+            ties.append(dict(tie, layer=moe_layers[layer], where=where))
+        rel = [float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(runs["card"], runs["cpu"])]
+        worst = dict(prefill=rel[0], decode=max(rel[1:]))
+        tol = LM_TOL if dtype == "bfloat16" else F32_TOL
+        for tie in ties[:TIES_SHOWN]:
+            print(f"{tag} {dtype}: near tie at layer {tie['layer']}, "
+                  f"{tie['where']}: the card's experts {tie['followed']}, "
+                  f"the CPU's {tie['own']}, probabilities "
+                  f"{tie['drift']:.4g} apart; the CPU took the card's",
+                  flush=True)
+        if len(ties) > TIES_SHOWN:
+            print(f"{tag} {dtype}: {len(ties) - TIES_SHOWN} more near ties "
+                  f"(all in build/phase16.json), at layers "
+                  f"{sorted({t['layer'] for t in ties})}, the largest drift "
+                  f"{max(t['drift'] for t in ties):.4g}", flush=True)
+        held = dtype == "float32" or bf16_bounded
+        print(f"{tag} cut to {cfg.n_layers} layers, {dtype}, "
+              f"{LM_CPU_REQUESTS} x {LM_CPU_PROMPT} tokens + {LM_CPU_STEPS} "
+              f"teacher-forced decode steps: card vs CPU logits, max |diff| "
+              f"/ max |CPU|: prefill {worst['prefill']:.4g}, decode "
+              f"{worst['decode']:.4g} (steps "
+              f"{[float(f'{r:.4g}') for r in rel[1:]]}; "
+              f"{'tol' if held else 'reported beside'} {tol}); "
+              f"{len(routes)} MoE calls, {len(ties)} near ties "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        if held:
+            for i, r in enumerate(rel):
+                require(r < tol, f"{tag}: card vs CPU {dtype} logits "
+                                 f"({'prefill' if i == 0 else 'decode'} "
+                                 f"{i}): relative error {r:.4g} >= {tol}")
+        out[dtype] = dict(worst, steps=rel, held=held, moe_calls=len(routes),
+                          near_ties=ties)
     return out
 
 
@@ -4721,6 +5009,10 @@ def main() -> int:
             budget=PAPER_YAHOO_CPU.budget / YAHOO_CPU_CUT))
     for name, launches in phase15["counted"].items():
         counted[name] += launches
+    # ---- phase 16: the MoE and recurrent language models -----------------
+    phase16 = mixers_phase(args.seed, dev, reset_counts, read_counts,
+                           card_name=card)
+    counted["flash_attention"] += phase16["flash_launches"]
     rows = []
     for name, src, replaces in KERNELS:
         ms, plain_ms, library_ms = timing[name]
@@ -4838,6 +5130,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "phase15.json").write_text(json.dumps(
         dict(card=card, **phase15), indent=1, default=str))
+    (out_dir / "phase16.json").write_text(json.dumps(
+        dict(card=card, **phase16), indent=1, default=str))
     print(f"[done] all phases in {time.perf_counter() - t_script:.1f} s",
           flush=True)
     print(json.dumps({"kernels": rows}))

@@ -63,7 +63,9 @@ def keyed_valuation_block(event_emb: torch.Tensor,
     """Eq. (12) as ``repro``'s jitted ``valuation_block`` computes it on
     XLA's CPU backend: the dot in XLA's order (:func:`floats.xla_dot`),
     the divide by ``2 sqrt(d)`` and by 10 compiled into multiplies by
-    their float32 reciprocals, XLA's ``exp`` (:func:`floats.exp`)."""
+    their float32 reciprocals, XLA's ``exp`` (:func:`floats.exp`). Raises
+    ``ValueError`` for a (C, d) whose dot order was not measured
+    (:data:`floats.DOT_CHAINS`): there the bits would not be ``repro``'s."""
     d = event_emb.shape[-1]
     dev = event_emb.device
     inv_scale = np.float32(1.0) / (np.float32(2.0) * np.sqrt(np.float32(d)))

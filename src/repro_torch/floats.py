@@ -25,8 +25,9 @@ Yahoo-like days (:mod:`repro_torch.data`) meet:
 * :func:`xla_sum` — a float32 sum over a vector, rewritten by XLA as
   windows of 32 summed in order, then the window totals the same way;
 * :func:`xla_dot` — a ``(M, K) @ (N, K).T`` product, whose kernel XLA picks
-  by (N, K): a chain of fused multiply-adds over k, or 2 or 4 interleaved
-  chains added at the end (:data:`DOT_CHAINS`, measured);
+  by (N, K): a chain of fused multiply-adds over k, or 2, 4 or 8
+  interleaved chains added at the end (:data:`DOT_CHAINS`, measured; an
+  (N, K) outside it is refused, not guessed);
 * :func:`powf` — ``x ** y``, which XLA's compiled code hands to the C
   library's ``powf``.
 """
@@ -173,57 +174,197 @@ def xla_sum(x: torch.Tensor) -> torch.Tensor:
 
 # How many interleaved multiply-add chains XLA CPU's (M, K) @ (N, K).T
 # kernel keeps (jax 0.9.0 on an x86 CPU), by K (the contracted width) and
-# N: run-length codes "chains*count" over N = 1, 2, ... (measured against
-# jax for every N <= 512, K <= 16 and M >= 2; M = 1 is one chain). Chain j
-# of u adds k = j, j+u, ... as fused multiply-adds from its first product;
-# the chains are added pairwise, and the K mod u products left over are
-# added in order and then added to that. Outside the table the order is
-# not known and :func:`xla_dot` takes one chain; N = 1 at K >= 8 is another
-# kernel, whose order is not known either.
+# N, for M >= 2 rows (M = 1 is one chain). Measured by
+# ``tests/measure_dot_chains.py`` against jax for K = 1 ... 64: every
+# N <= DOT_MEASURED_N, 256 sampled N above it up to DOT_SAMPLED_N, and
+# three N at 4,096 rows. A K's string is run-length codes "chains*count"
+# over N = 1, 2, ...; then "|" and, where the codes repeat past
+# DOT_MEASURED_N (every sample fitting), the repeating unit's codes over N
+# mod its length. "0" marks an N no chain count matched (N = 1 at some
+# K >= 8). Chain j of u adds k = j, j+u, ... as fused multiply-adds from
+# its first product; the chains are added pairwise, and the K mod u
+# products left over are added in order and then added to that. Where
+# the table has no count :func:`dot_chains` returns None and
+# :func:`xla_dot` raises.
+DOT_MEASURED_N = 1024
+DOT_SAMPLED_N = 16_384
 DOT_CHAINS = {
-    1: "1*512", 2: "1*512", 3: "1*512",
-    4: "1*1 4*23 2*8 4*16 1*16" + " 4*16 2*16 4*16 1*16" * 7,
-    5: "1*1 4*15 2*16 1*32 2*32 1*416",
-    6: "1*1 4*15 2*16 1*32" + " 2*32 1*32" * 7,
-    7: "1*1 4*23 2*8 4*16 1*16 4*16 2*16 1*32 4*16 2*16 1*32 4*16 1*48 "
-       "4*16 1*240",
-    8: "1*1 4*23 2*8 4*16 1*16" + " 4*16 2*16 4*16 1*16" * 7,
-    9: "1*1 4*15 2*16 1*32 2*32 1*32 2*32 1*32 2*32 1*288",
-    10: "1*1 4*15 2*16 4*16 1*16" + " 2*32 1*32" * 7,
-    11: "1*1 4*23 2*8 4*16 1*16 4*16 2*16 4*16 1*16 4*16 2*16 1*32 4*16 "
-        "2*16 1*32 4*16 2*16 1*32 4*16 1*48 4*16 1*48 4*16 1*48",
-    12: "1*1 4*23 2*8 4*16 1*16" + " 4*16 2*16 4*16 1*16" * 7,
-    13: "1*1 4*15 2*16 4*16 1*16 4*16 2*16 1*32 2*32 1*32 2*32 1*32 2*32 "
-        "1*32 2*32 1*160",
-    14: "1*1 4*15 2*16 4*16 1*16 4*16 2*16 1*32" + " 2*32 1*32" * 6,
-    15: "1*1 4*23 2*8 4*16 1*16 4*16 2*16 4*16 1*16 4*16 2*16 4*16 1*16 "
-        "4*16 2*16 1*32 4*16 2*16 1*32 4*16 2*16 1*32 4*16 2*16 1*32 4*16 "
-        "1*48",
-    16: "1*1 4*23 2*8 4*16 1*16" + " 4*16 2*16 4*16 1*16" * 7,
+    1: '1*1024 | 1*1',
+    2: '1*1024 | 1*1',
+    3: '1*1024 | 1*1',
+    4: '1*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 15
+        + '4*16 1*16 | 1*1 4*16 2*16 4*16 1*15',
+    5: '1*1 4*15 2*16 1*32 2*32 1*928 | 1*1',
+    6: '1*1 4*15 2*16 ' + '1*32 2*32 ' * 15 + '1*32 | 1*1 2*32 1*31',
+    7: '1*1 4*23 2*8 4*16 1*16 4*16 2*16 1*32 4*16 2*16 1*32 4*16 '
+        + '1*48 4*16 1*752 | 1*1',
+    8: '8*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 15
+        + '4*16 1*16 | 1*1 4*16 2*16 4*16 1*15',
+    9: '8*1 4*15 2*16 ' + '1*32 2*32 ' * 3 + '1*800 | 1*1',
+    10: '0*1 4*15 2*16 4*16 1*16 ' + '2*32 1*32 ' * 15 + '| 1*1 2*32 1*31',
+    11: '0*1 4*23 2*8 4*16 1*16 4*16 2*16 4*16 1*16 4*16 2*16 1*32 '
+        + '4*16 2*16 1*32 4*16 2*16 1*32 4*16 1*48 4*16 1*48 4*16 '
+        + '1*560 | 1*1',
+    12: '0*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 15
+        + '4*16 1*16 | 1*1 4*16 2*16 4*16 1*15',
+    13: '0*1 4*15 2*16 4*16 1*16 4*16 2*16 ' + '1*32 2*32 ' * 4
+        + '1*672 | 1*1',
+    14: '0*1 4*15 2*16 4*16 1*16 4*16 2*16 ' + '1*32 2*32 ' * 14
+        + '1*32 | 1*1 2*32 1*31',
+    15: '0*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 3
+        + '1*32 4*16 2*16 1*32 4*16 2*16 1*32 4*16 2*16 1*32 '
+        + '4*16 1*48 ' * 3 + '4*16 1*368 | 1*1',
+    16: '8*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 15
+        + '4*16 1*16 | 1*1 4*16 2*16 4*16 1*15',
+    17: '8*1 4*15 2*16 4*16 1*16 4*16 2*16 ' + '1*32 2*32 ' * 6
+        + '1*544 | 1*1',
+    18: '8*1 4*15 2*16 4*16 1*16 4*16 2*16 4*16 1*16 ' + '2*32 1*32 ' * 14
+        + '| 1*1 2*32 1*31',
+    19: '0*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 4
+        + '1*32 4*16 2*16 1*32 4*16 2*16 1*32 4*16 2*16 1*32 4*16 2*16 '
+        + '1*32 ' + '4*16 1*48 ' * 4 + '4*16 1*176 |',
+    20: '0*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 15
+        + '4*16 1*16 | 1*1 4*16 2*16 4*16 1*15',
+    21: '0*1 4*15 2*16 4*16 1*16 4*16 2*16 1*32 4*16 2*16 '
+        + '1*32 2*32 ' * 7 + '1*416 | 1*1',
+    22: '0*1 4*15 2*16 4*16 1*16 4*16 2*16 4*16 1*16 4*16 2*16 '
+        + '1*32 2*32 ' * 13 + '1*32 | 1*1 2*32 1*31',
+    23: '0*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 5
+        + '1*32 4*16 2*16 1*32 4*16 2*16 1*32 4*16 2*16 1*32 4*16 2*16 '
+        + '1*32 4*16 2*16 1*32 ' + '4*16 1*48 ' * 5 + '|',
+    24: '8*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 15
+        + '4*16 1*16 | 1*1 4*16 2*16 4*16 1*15',
+    25: '8*1 4*15 2*16 4*16 1*16 4*16 2*16 4*16 1*16 4*16 2*16 '
+        + '1*32 2*32 ' * 9 + '1*288 | 1*1',
+    26: '0*1 4*15 2*16 4*16 1*16 4*16 2*16 4*16 1*16 4*16 2*16 4*16 '
+        + '1*16 ' + '2*32 1*32 ' * 13 + '| 1*1 2*32 1*31',
+    27: '0*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 6
+        + '1*32 4*16 2*16 1*32 4*16 2*16 ' * 3 + '1*32 ' + '4*16 1*48 ' * 3
+        + '|',
+    28: '0*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 15
+        + '4*16 1*16 | 1*1 4*16 2*16 4*16 1*15',
+    29: '0*1 4*15 2*16 4*16 1*16 4*16 2*16 4*16 1*16 4*16 2*16 1*32 '
+        + '4*16 2*16 ' + '1*32 2*32 ' * 10 + '1*160 |',
+    30: '0*1 4*15 ' + '2*16 4*16 1*16 4*16 ' * 3 + '2*16 '
+        + '1*32 2*32 ' * 12 + '1*32 | 1*1 2*32 1*31',
+    31: '0*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 7
+        + '1*32 4*16 2*16 1*32 4*16 2*16 ' * 3
+        + '1*32 4*16 2*16 1*32 4*16 1*48 |',
+    32: '8*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 15
+        + '4*16 1*16 | 1*1 4*16 2*16 4*16 1*15',
+    33: '8*1 4*15 2*16 4*16 1*16 4*16 2*16 4*16 1*16 4*16 2*16 1*32 '
+        + '4*16 2*16 ' + '1*32 2*32 ' * 12 + '1*32 |',
+    34: '0*1 4*15 ' + '2*16 4*16 1*16 4*16 ' * 3 + '2*16 4*16 1*16 '
+        + '2*32 1*32 ' * 12 + '| 1*1 2*32 1*31',
+    35: '0*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 8
+        + '1*32 4*16 2*16 1*32 4*16 2*16 ' * 3 + '1*32 4*16 2*16 1*32 |',
+    36: '0*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 15
+        + '4*16 1*16 | 1*1 4*16 2*16 4*16 1*15',
+    37: '0*1 4*15 ' + '2*16 4*16 1*16 4*16 ' * 3 + '2*16 1*32 4*16 2*16 '
+        + '1*32 2*32 ' * 11 + '1*32 |',
+    38: '0*1 4*15 ' + '2*16 4*16 1*16 4*16 ' * 4 + '2*16 '
+        + '1*32 2*32 ' * 11 + '1*32 | 1*1 2*32 1*31',
+    39: '0*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 9
+        + '1*32 4*16 2*16 1*32 4*16 2*16 ' * 3 + '1*32 |',
+    40: '8*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 15
+        + '4*16 1*16 | 1*1 4*16 2*16 4*16 1*15',
+    41: '8*1 4*15 ' + '2*16 4*16 1*16 4*16 ' * 3 + '2*16 1*32 4*16 2*16 '
+        + '1*32 2*32 ' * 11 + '1*32 |',
+    42: '8*1 4*15 ' + '2*16 4*16 1*16 4*16 ' * 4 + '2*16 4*16 1*16 '
+        + '2*32 1*32 ' * 11 + '| 1*1 2*32 1*31',
+    43: '0*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 10
+        + '1*32 4*16 2*16 1*32 4*16 2*16 1*32 4*16 2*16 1*32 4*16 2*16 '
+        + '1*32 4*16 2*16 1*32 |',
+    44: '0*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 15
+        + '4*16 1*16 | 1*1 4*16 2*16 4*16 1*15',
+    45: '0*1 4*15 ' + '2*16 4*16 1*16 4*16 ' * 3
+        + '2*16 1*32 4*16 2*16 1*32 4*16 2*16 ' + '1*32 2*32 ' * 10
+        + '1*32 |',
+    46: '0*1 4*15 ' + '2*16 4*16 1*16 4*16 ' * 5 + '2*16 '
+        + '1*32 2*32 ' * 10 + '1*32 | 1*1 2*32 1*31',
+    47: '0*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 11
+        + '1*32 4*16 2*16 1*32 4*16 2*16 1*32 4*16 2*16 1*32 4*16 2*16 '
+        + '1*32 |',
+    48: '8*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 15
+        + '4*16 1*16 | 1*1 4*16 2*16 4*16 1*15',
+    49: '8*1 4*15 ' + '2*16 4*16 1*16 4*16 ' * 4 + '2*16 1*32 4*16 2*16 '
+        + '1*32 2*32 ' * 10 + '1*32 |',
+    50: '8*1 4*15 ' + '2*16 4*16 1*16 4*16 ' * 5 + '2*16 4*16 1*16 '
+        + '2*32 1*32 ' * 10 + '| 1*1 2*32 1*31',
+    51: '0*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 12
+        + '1*32 4*16 2*16 1*32 4*16 2*16 1*32 4*16 2*16 1*32 |',
+    52: '0*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 15
+        + '4*16 1*16 | 1*1 4*16 2*16 4*16 1*15',
+    53: '0*1 4*15 ' + '2*16 4*16 1*16 4*16 ' * 4
+        + '2*16 1*32 4*16 2*16 1*32 4*16 2*16 ' + '1*32 2*32 ' * 9 + '1*32 |',
+    54: '0*1 4*15 ' + '2*16 4*16 1*16 4*16 ' * 6 + '2*16 ' + '1*32 2*32 ' * 9
+        + '1*32 | 1*1 2*32 1*31',
+    55: '0*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 13
+        + '1*32 4*16 2*16 1*32 4*16 2*16 1*32 |',
+    56: '8*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 15
+        + '4*16 1*16 | 1*1 4*16 2*16 4*16 1*15',
+    57: '8*1 4*15 ' + '2*16 4*16 1*16 4*16 ' * 4
+        + '2*16 1*32 4*16 2*16 1*32 4*16 2*16 ' + '1*32 2*32 ' * 9 + '1*32 |',
+    58: '8*1 4*15 ' + '2*16 4*16 1*16 4*16 ' * 6 + '2*16 4*16 1*16 '
+        + '2*32 1*32 ' * 9 + '| 1*1 2*32 1*31',
+    59: '0*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 14
+        + '1*32 4*16 2*16 1*32 |',
+    60: '0*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 15
+        + '4*16 1*16 | 1*1 4*16 2*16 4*16 1*15',
+    61: '0*1 4*15 ' + '2*16 4*16 1*16 4*16 ' * 5
+        + '2*16 1*32 4*16 2*16 1*32 4*16 2*16 ' + '1*32 2*32 ' * 8 + '1*32 |',
+    62: '0*1 4*15 ' + '2*16 4*16 1*16 4*16 ' * 7 + '2*16 ' + '1*32 2*32 ' * 8
+        + '1*32 | 1*1 2*32 1*31',
+    63: '0*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 15 + '1*32 |',
+    64: '8*1 4*23 2*8 ' + '4*16 1*16 4*16 2*16 ' * 15
+        + '4*16 1*16 | 1*1 4*16 2*16 4*16 1*15',
 }
 
 
-def dot_chains(m: int, n: int, k: int) -> int:
-    """The number of chains of :data:`DOT_CHAINS` for an (m, k) @ (n, k).T
-    product (1 where m is 1 or the table has no entry)."""
-    codes = DOT_CHAINS.get(k)
-    if m < 2 or codes is None:
-        return 1
+def _run_length_at(codes: str, i: int):
+    """The value at 0-based position ``i`` of run-length ``codes``, or
+    None past their end."""
     for code in codes.split():
-        chains, count = code.split("*")
-        n -= int(count)
-        if n <= 0:
-            return int(chains)
-    return 1
+        value, count = code.split("*")
+        i -= int(count)
+        if i < 0:
+            return int(value)
+    return None
+
+
+def dot_chains(m: int, n: int, k: int):
+    """The number of chains of :data:`DOT_CHAINS` for an (m, k) @ (n, k).T
+    product: 1 where m is 1, None where the table has no measured count."""
+    if m < 2:
+        return 1
+    entry = DOT_CHAINS.get(k)
+    if entry is None:
+        return None
+    head, _, unit = entry.partition("|")
+    if n <= DOT_MEASURED_N:
+        u = _run_length_at(head, n - 1)
+    elif unit.strip() and n <= DOT_SAMPLED_N:
+        length = sum(int(code.split("*")[1]) for code in unit.split())
+        u = _run_length_at(unit, n % length)
+    else:
+        u = None
+    return u or None
 
 
 def xla_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b.T`` for float32 ``a`` (M, K) and ``b`` (N, K) in the order of
     XLA CPU's kernel (:data:`DOT_CHAINS`), elementwise float32 operations
-    and :func:`fma`, so the CPU and CUDA give the same bits."""
+    and :func:`fma`, so the CPU and CUDA give the same bits. Raises
+    ``ValueError`` for an (N, K) whose order was not measured."""
     m, k = a.shape
     n = b.shape[0]
     u = dot_chains(m, n, k)
+    if u is None:
+        raise ValueError(
+            f"XLA CPU's order of an ({m}, {k}) @ ({n}, {k}).T product is "
+            f"not measured (floats.DOT_CHAINS: K <= 64, every N <= "
+            f"{DOT_MEASURED_N}, N <= {DOT_SAMPLED_N} where the counts "
+            f"repeat; tests/measure_dot_chains.py measures more)")
     if k < u:
         u = 1
     full = k // u * u

@@ -144,10 +144,13 @@ def lm_params_from_reference(params, cfg: ArchConfig, *,
     """The port's :class:`Model` of ``cfg`` holding the reference's
     parameters: ``params`` is ``repro``'s tree from ``Model.init_params``
     with numpy leaves (``np.asarray`` of each). The stacked ``groups``
-    leaves (n_groups, ...) are unstacked into one block per layer; each
-    value is cast to the port's serving dtype (bfloat16 matmul weights,
-    as the reference's ``cdt`` casts them; float32 norm scales). A
-    missing, extra or misshapen leaf raises ``ValueError``."""
+    leaves (n_groups, ...) are unstacked into one block per layer (the
+    attention, ``moe``, ``mamba``, ``mlstm`` and ``slstm`` subtrees alike;
+    the ``tail`` is unstacked already); each value is cast to the dtype
+    the port holds it in, the one the reference reads it at (bfloat16
+    matmul weights, as its ``cdt`` casts them; float32 norm scales, gate
+    biases, ``a_log``, ``dt_bias`` and ``conv_b``). A missing, extra or
+    misshapen leaf raises ``ValueError``."""
     model = Model(cfg, device=device)
     leaves = _flatten(params)
     used = set()
@@ -167,7 +170,11 @@ def lm_params_from_reference(params, cfg: ArchConfig, *,
                              f"{name} {tuple(p.shape)}")
         used.add(path)
         p.data.copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
-    extra = sorted(set(leaves) - used)
+    # a config of fewer layers than one pattern (n_groups 0) has every
+    # layer in the tail and its stacked groups empty
+    extra = sorted(path for path in set(leaves) - used
+                   if not (path.startswith("groups/") and cfg.n_groups == 0
+                           and leaves[path].shape[:1] == (0,)))
     if extra:
         raise ValueError(f"reference leaves the port has no parameter for: "
                          f"{extra}")

@@ -2,8 +2,13 @@
 greedy decode (port of ``repro.launch.serve``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
       --reduced --device cpu --requests 16 --max-new 48
+
+``--arch`` takes every name of ``repro_torch.configs.ARCHS``: the dense
+stablelm-1.6b, gemma3-4b, gemma3-12b and internlm2-20b, the MoE
+granite-moe-3b-a800m and mixtral-8x7b, the hybrid jamba-v0.1-52b and the
+recurrent xlstm-125m.
 
 It takes the reference's flags plus ``--device`` (default: the CUDA card).
 Weights are random from seed 0, the budgets from numpy seed 0 and the

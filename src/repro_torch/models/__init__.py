@@ -1,4 +1,5 @@
-"""The dense-attention language models (port of ``repro.models``)."""
+"""The decoder-only language models: attention, MoE, mamba and xLSTM
+layers (port of ``repro.models``)."""
 from repro_torch.models.model import Model, build_model
 
 __all__ = ["Model", "build_model"]

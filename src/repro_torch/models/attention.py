@@ -139,8 +139,10 @@ def attend_decode(p: Attention, x: torch.Tensor, cfg: ArchConfig,
 
 
 def prefill_cache(layer: LayerSpec, k: torch.Tensor, v: torch.Tensor,
-                  max_len: int) -> KVCache:
-    """A decode cache from prefill's k and v (B, S, KV, dh).
+                  max_len: int, dtype: torch.dtype = COMPUTE_DTYPE
+                  ) -> KVCache:
+    """A decode cache from prefill's k and v (B, S, KV, dh), in ``dtype``
+    (the reference's bfloat16; a float32 copy of a model passes its own).
 
     Window layers keep the last ``window`` positions, stored
     rolling-aligned (slot = position % window) so decode continues
@@ -152,10 +154,10 @@ def prefill_cache(layer: LayerSpec, k: torch.Tensor, v: torch.Tensor,
         shift = (s - s_cache) % s_cache
         k_c = torch.roll(k[:, s - s_cache:], shift, dims=1)
         v_c = torch.roll(v[:, s - s_cache:], shift, dims=1)
-        return KVCache(k=k_c.to(COMPUTE_DTYPE), v=v_c.to(COMPUTE_DTYPE))
+        return KVCache(k=k_c.to(dtype), v=v_c.to(dtype))
     shape = (k.shape[0], s_cache) + tuple(k.shape[2:])
-    k_c = torch.zeros(shape, dtype=COMPUTE_DTYPE, device=k.device)
-    v_c = torch.zeros(shape, dtype=COMPUTE_DTYPE, device=k.device)
+    k_c = torch.zeros(shape, dtype=dtype, device=k.device)
+    v_c = torch.zeros(shape, dtype=dtype, device=k.device)
     k_c[:, :s] = k
     v_c[:, :s] = v
     return KVCache(k=k_c, v=v_c)

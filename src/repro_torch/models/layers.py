@@ -1,5 +1,6 @@
 """Shared layers (port of ``repro.models.layers``): RMSNorm, the rotary
-embedding, the gated MLP, the embedding and the output head.
+embedding, the gated MLP, the embedding and the output head, and the
+activations the mixers share (``jax.nn``'s formulations).
 
 The reference keeps float32 masters and casts each matmul weight to the
 compute dtype (bfloat16) at use (``cdt``). Serving holds those weights in
@@ -7,6 +8,8 @@ bfloat16 already, which gives the same values; norm scales stay float32,
 as :func:`rmsnorm` reads them. ``softmax_xent`` waits for training.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -76,6 +79,27 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     which XLA expands so (``F.silu`` rounds once and differs in a third of
     the bfloat16 results)."""
     return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)`` op by op in x's dtype:
+    ``x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x**3)))``, the
+    constants rounded to x's dtype as jax rounds them."""
+    c, a = (float(torch.tensor(v).to(x.dtype))
+            for v in (math.sqrt(2 / math.pi), 0.044715))
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + a * (x * x * x))))
+    return x * cdf
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: ``-softplus(-x)``."""
+    return -softplus(-x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, ``logaddexp(x, 0)`` (``F.softplus`` switches
+    to ``x`` above a threshold and differs in the last bit)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,15 @@
-"""Decoder-only LM assembly (port of ``repro.models.lm`` for dense
-attention layers).
+"""Decoder-only LM assembly (port of ``repro.models.lm``).
 
 Layers are the config's ``n_groups`` repetitions of its ``pattern``,
 then the unscanned tail (gemma3-4b's 34 = 5*6 + 4). Where the reference
 stacks each group's parameters and runs ``lax.scan``, the port keeps one
-:class:`Block` per layer and a Python loop. Two modes share one code path:
+:class:`Block` per layer and a Python loop. A block is one of the
+reference's five kinds: attention or mamba, each followed by a dense or
+MoE MLP; mLSTM (self-contained); sLSTM followed by its own gated FFN. Two
+modes share one code path:
 
-* ``prefill`` — the full sequence; emits one decode cache per layer;
+* ``prefill`` — the full sequence; emits one decode cache per layer (a
+  ``KVCache``, ``MambaState``, ``MLSTMState`` or ``SLSTMState``);
 * ``decode``  — one token; consumes the caches and returns them updated.
 
 ``train`` mode raises: training is still to port (ROADMAP queue 1, item
@@ -14,13 +17,16 @@ stacks each group's parameters and runs ``lax.scan``, the port keeps one
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Any, List, Optional
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba as mamba_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import (MLP, RMSNorm, embed, mlp, rmsnorm,
                                        unembed)
 
@@ -29,37 +35,92 @@ TRAINING_TODO = ("training (softmax_xent, train/, launch/train.py, "
 
 
 class Block(nn.Module):
-    """One ``kind="attn"`` layer with a dense MLP: pre-norm attention and
-    pre-norm SwiGLU, each added to the residual."""
+    """One layer of ``spec.kind``: ``ln1`` and the mixer (``attn``,
+    ``mamba``, ``mlstm`` or ``slstm``); for attention and mamba ``ln2``
+    and the ``mlp`` or ``moe``; for sLSTM ``ln_ff`` before its FFN. The
+    attribute names are the reference's tree keys."""
 
     def __init__(self, cfg: ArchConfig, spec: LayerSpec,
                  device: torch.device):
         super().__init__()
         self.spec = spec
         self.ln1 = RMSNorm(cfg.d_model, device)
-        self.attn = attn_lib.Attention(cfg, device)
+        if spec.kind == "attn":
+            self.attn = attn_lib.Attention(cfg, device)
+        elif spec.kind == "mamba":
+            self.mamba = mamba_lib.Mamba(cfg, device)
+        elif spec.kind == "mlstm":
+            self.mlstm = xlstm_lib.MLSTM(cfg, device)
+            return
+        elif spec.kind == "slstm":
+            self.slstm = xlstm_lib.SLSTM(cfg, device)
+            self.ln_ff = RMSNorm(cfg.d_model, device)
+            return
+        else:
+            raise ValueError(f"unknown layer kind {spec.kind!r}")
         self.ln2 = RMSNorm(cfg.d_model, device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, device)
+        if spec.moe:
+            self.moe = moe_lib.MoE(cfg, device)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, device)
+
+
+def init_cache(cfg: ArchConfig, spec: LayerSpec, batch: int, max_len: int,
+               device: torch.device):
+    """A zero decode cache of one layer, in the reference's dtypes."""
+    if spec.kind == "attn":
+        return attn_lib.init_cache(cfg, spec, batch, max_len, device)
+    if spec.kind == "mamba":
+        return mamba_lib.init_state(cfg, batch, device)
+    if spec.kind == "mlstm":
+        return xlstm_lib.init_mlstm_state(cfg, batch, device)
+    return xlstm_lib.init_slstm_state(cfg, batch, device)
 
 
 def apply_block(p: Block, x: torch.Tensor, cfg: ArchConfig, mode: str,
-                cache: Optional[attn_lib.KVCache], pos: Optional[int],
+                cache: Any, pos: Optional[int],
                 positions: Optional[torch.Tensor], max_len: int):
-    """Returns ``(x, new_cache)``."""
+    """Returns ``(x, new_cache)``. (The MoE's load-balancing loss is for
+    training, which is still to port.)"""
     h = rmsnorm(p.ln1.scale, x, cfg.norm_eps)
-    if mode == "decode":
-        out, new_cache = attn_lib.attend_decode(p.attn, h, cfg, p.spec, cache,
-                                                pos)
+    decode = mode == "decode"
+    kind = p.spec.kind
+    if kind == "attn":
+        if decode:
+            out, new_cache = attn_lib.attend_decode(p.attn, h, cfg, p.spec,
+                                                    cache, pos)
+        else:
+            out, (k, v) = attn_lib.attend_full(p.attn, h, cfg, p.spec,
+                                               positions)
+            new_cache = attn_lib.prefill_cache(p.spec, k, v, max_len,
+                                               dtype=x.dtype)
+    elif kind == "mamba":
+        out, new_cache = (mamba_lib.mamba_step(p.mamba, h, cfg, cache)
+                          if decode else mamba_lib.mamba_apply(
+                              p.mamba, h, cfg, return_state=True))
+    elif kind == "mlstm":
+        out, new_cache = (xlstm_lib.mlstm_step(p.mlstm, h, cfg, cache)
+                          if decode else xlstm_lib.mlstm_apply(
+                              p.mlstm, h, cfg, return_state=True))
+        return x + out, new_cache
     else:
-        out, (k, v) = attn_lib.attend_full(p.attn, h, cfg, p.spec, positions)
-        new_cache = attn_lib.prefill_cache(p.spec, k, v, max_len)
+        out, new_cache = (xlstm_lib.slstm_step(p.slstm, h, cfg, cache)
+                          if decode else xlstm_lib.slstm_apply(
+                              p.slstm, h, cfg, return_state=True))
+        x = x + out
+        hf = rmsnorm(p.ln_ff.scale, x, cfg.norm_eps)
+        return x + xlstm_lib.slstm_ffn(p.slstm, hf), new_cache
     x = x + out
     h2 = rmsnorm(p.ln2.scale, x, cfg.norm_eps)
-    return x + mlp(p.mlp, h2), new_cache
+    if p.spec.moe:
+        out2, _ = moe_lib.moe_apply(p.moe, h2, cfg)
+    else:
+        out2 = mlp(p.mlp, h2)
+    return x + out2, new_cache
 
 
 def forward(model, tokens: torch.Tensor, *, mode: str = "prefill",
-            caches: Optional[List[attn_lib.KVCache]] = None,
+            caches: Optional[List[Any]] = None,
             pos: Optional[int] = None, max_len: int = 0):
     """Returns ``(logits (B, 1, V_pad), new caches)``. ``model`` is a
     :class:`repro_torch.models.Model`; ``tokens`` (B, S) int. Prefill

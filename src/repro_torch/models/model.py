@@ -1,5 +1,5 @@
 """The model facade used by serving (port of ``repro.models.model`` for
-the dense-attention language models).
+the decoder-only language models).
 
 :class:`Model` is an ``nn.Module`` that holds its weights (the reference
 passes a parameter tree to each step instead) and exposes the serving
@@ -10,14 +10,13 @@ not run yet.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Any, List
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, pick_device
-from repro_torch.models import attention as attn_lib
 from repro_torch.models import lm as lm_lib
 from repro_torch.models import spec as spec_lib
 from repro_torch.models.layers import Embedding, RMSNorm, Unembed
@@ -28,12 +27,7 @@ _ROADMAP = "is still to port: ROADMAP queue 1, item 10"
 def check_ported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP line for a config
     with any layer the port's model does not run."""
-    kinds = sorted({ls.kind for ls in cfg.pattern} - {"attn"})
     missing = []
-    if any(ls.moe for ls in cfg.pattern):
-        missing.append("the MoE MLP (models/moe.py)")
-    if kinds:
-        missing.append(f"the {'/'.join(kinds)} mixers (mamba and xLSTM)")
     if cfg.is_encdec:
         missing.append("the encoder-decoder (whisper)")
     if cfg.num_patches:
@@ -72,11 +66,12 @@ class Model(nn.Module):
         spec_lib.init_params(self, seed)
         return self
 
-    def init_cache(self, batch: int, max_len: int
-                   ) -> List[attn_lib.KVCache]:
-        """Zero decode caches, one per layer (windowed layers hold
-        ``window`` positions)."""
-        return [attn_lib.init_cache(self.cfg, ls, batch, max_len, self.device)
+    def init_cache(self, batch: int, max_len: int) -> List[Any]:
+        """Zero decode caches, one per layer: a ``KVCache`` of an attention
+        layer (windowed layers hold ``window`` positions), a
+        ``MambaState``, ``MLSTMState`` or ``SLSTMState`` of a recurrent
+        one."""
+        return [lm_lib.init_cache(self.cfg, ls, batch, max_len, self.device)
                 for ls in self.cfg.layers]
 
     def prefill(self, tokens: torch.Tensor, max_len: int):
@@ -84,11 +79,11 @@ class Model(nn.Module):
         position, caches of max_len positions)``."""
         return lm_lib.forward(self, tokens, mode="prefill", max_len=max_len)
 
-    def decode_step(self, caches: List[attn_lib.KVCache],
+    def decode_step(self, caches: List[Any],
                     tokens: torch.Tensor, pos: int):
         """One token a row (``tokens`` (B, 1)) at absolute position
-        ``pos``. Returns ``(logits (B, 1, V_pad), caches)``; the caches are
-        updated in place."""
+        ``pos``. Returns ``(logits (B, 1, V_pad), caches)``; attention
+        caches are updated in place, recurrent states replaced."""
         return lm_lib.forward(self, tokens, mode="decode", caches=caches,
                               pos=pos)
 

@@ -1464,6 +1464,58 @@ def test_reduced_prefill_on_the_card_is_the_plain_path(dev, arch,
     assert torch.equal(caches[0].k, plain_caches[0].k)
 
 
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mixtral-8x7b",
+                                  "jamba-v0.1-52b", "xlstm-125m"])
+def test_reduced_moe_and_recurrent_models_on_the_card_are_the_cpus(dev,
+                                                                  arch):
+    """A reduced model of each new layer kind (MoE MLP, mamba, mLSTM,
+    sLSTM) on the card against the same weights on the CPU: prefill and 4
+    teacher-forced decode steps, one ``flash_attention`` launch an
+    attention layer, twice, as ``chip_smoke.py`` phase 16 holds them: as
+    served, bfloat16 logits within 2e-2 of the CPU's scale
+    (``LM_TOL``), then both models cast to float32, logits within 2^-10
+    (``F32_TOL``). xlstm-125m's bfloat16 logits are not held: its sLSTM
+    recurrence, at the reference's initialisation, amplifies rounding past
+    2e-2 (3.4e-2 here with bfloat16 tensor-core products on an NVIDIA H100
+    80GB HBM3), so its float32 twin alone tells a wrong layer from
+    rounding. Where the CPU's MoE routing differs from the card's at a
+    near tie (probabilities within 2^-7), the CPU follows the card
+    (``moe.follow_routing``; it raises past that)."""
+    from repro_torch.models import Model
+    from repro_torch.models import moe as t_moe
+    cfg = reduced_config(arch)
+    card = build_model(cfg, device=dev, seed=0)
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    seq = torch.randint(0, cfg.vocab_size, (2, 44),
+                        generator=torch.Generator().manual_seed(2))
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2.0 ** -10)):
+        if dtype == torch.float32:
+            card.float()
+            cpu.float()
+        routes, runs = [], {}
+        for name, m in (("card", card), ("cpu", cpu)):
+            with (t_moe.record_routing(routes) if name == "card"
+                  else t_moe.follow_routing(routes, 2.0 ** -7)):
+                cuda_fa.reset_launches()
+                logits, caches = m.prefill(seq[:, :40].to(m.device), 48)
+                out = [logits.float().cpu()]
+                if name == "card":
+                    torch.cuda.synchronize()
+                    assert cuda_fa.LAUNCHES["flash_attention"] == sum(
+                        ls.kind == "attn" for ls in cfg.layers)
+                for pos in range(40, 44):
+                    logits, caches = m.decode_step(
+                        caches, seq[:, pos:pos + 1].to(m.device), pos)
+                    out.append(logits.float().cpu())
+            runs[name] = out
+        assert bool(routes) == bool(cfg.n_experts)
+        if dtype == torch.bfloat16 and arch == "xlstm-125m":
+            continue
+        for a, b in zip(runs["card"], runs["cpu"]):
+            assert float((a - b).abs().max()) < tol * float(b.abs().max())
+
+
 def test_lm_entry_points_default_to_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")

@@ -67,6 +67,33 @@ def test_keyed_synthetic_day_is_repros(n, c, d, block, b_base):
         _same(getattr(want, name), getattr(got, name), name)
 
 
+@pytest.mark.parametrize("c,d", [
+    (513, 10), (600, 10), (100, 20), (100, 32), (1, 8),   # differed before
+    (100, 10),                                           # bitwise before
+    (2000, 12), (700, 64),
+])
+def test_keyed_day_is_repros_wherever_the_dot_order_is_measured(c, d):
+    """The (C, d) whose values differed from ``repro``'s in 17-31% of cells
+    while :data:`floats.DOT_CHAINS` covered C <= 512, d <= 16 are bitwise
+    now, as is (100, 10)."""
+    want = j_synthetic(jax.random.PRNGKey(3), n_events=300, n_campaigns=c,
+                       emb_dim=d, block=256, b_base=1.0)
+    got = make_synthetic_env(prng.PRNGKey(3), n_events=300, n_campaigns=c,
+                             emb_dim=d, block=256, b_base=1.0, device="cpu")
+    for name in ("values", "event_emb", "campaign_emb"):
+        _same(getattr(want, name), getattr(got, name), name)
+
+
+@pytest.mark.parametrize("c,d", [(1, 10), (100, 65), (20_000, 10)])
+def test_keyed_day_refuses_an_unmeasured_dot_order(c, d):
+    """Where XLA CPU's chain count is not measured (no count matched at
+    C = 1 for this d; d past 64; C past 16,384) the keyed day raises
+    rather than give other bits than ``repro``'s."""
+    with pytest.raises(ValueError, match="not measured"):
+        make_synthetic_env(prng.PRNGKey(3), n_events=64, n_campaigns=c,
+                           emb_dim=d, b_base=1.0, device="cpu")
+
+
 def test_seed_path_still_builds_a_day():
     """An int keeps the port's own generator: a valid day, not
     ``repro``'s bits."""
@@ -83,11 +110,14 @@ def test_seed_path_still_builds_a_day():
     (64, 16, 10), (64, 20, 10), (64, 100, 10), (64, 64, 10), (2, 200, 10),
     (1, 16, 10), (64, 30, 7), (64, 24, 8), (64, 80, 5), (64, 512, 16),
     (64, 3, 3), (64, 40, 13),
+    (16, 1, 8), (64, 2000, 10), (64, 1500, 64), (64, 3000, 15),
+    (4096, 100, 33),
 ])
 def test_xla_dot_is_xlas(m, n, k):
     """:func:`floats.xla_dot` is XLA CPU's ``a @ b.T`` bit for bit at
-    shapes of each kernel of :data:`floats.DOT_CHAINS` (one, two and four
-    chains, with and without a tail; one row)."""
+    shapes of each kernel of :data:`floats.DOT_CHAINS` (one, two, four and
+    eight chains, with and without a tail; one row; N past the 1,024 of
+    the table's every-N measurement; 4,096 rows)."""
     rng = np.random.default_rng(m * 1000 + n * 10 + k)
     a = rng.standard_normal((m, k)).astype(np.float32)
     b = rng.standard_normal((n, k)).astype(np.float32)
