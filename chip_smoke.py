@@ -284,6 +284,29 @@ Run from the repository root. Phases:
    drift less than ``ROUTE_DRIFT`` between them (a near tie), the CPU
    takes the card's experts and the tie is printed with its layer and
    token; a larger drift fails.
+17. the encoder-decoder, the patch prefix and sampling (``encdec_phase``),
+   random weights from ``--seed``, each through ``ServeEngine.generate``
+   at full width with 8 requests and 32 greedy tokens (``ENCDEC_MODELS``):
+   whisper-small whole (12 encoder + 12 decoder layers) on 1,500 frames a
+   request (seeded normal frame embeddings: the frontend is a stub) and a
+   224-token decoder prompt, and internvl2-76b cut to 8 of its 80 layers
+   (the whole is ~141 GB of bfloat16) on 256 patch embeddings + 1,792
+   tokens. Each prefill makes exactly one ``flash_attention`` launch a
+   layer (whisper's 12 encoder launches, checked alone, not causal: S =
+   1,500, ragged against both kernels' tiles) and decode none; the
+   tokens lie in the vocabulary, a second run gives the same, and they
+   are the argmax loop's with any key; the prefill is traced, its device
+   time split into attention, products and the rest. On whisper,
+   sampling at temperature 0.7: one key gives the same tokens twice,
+   another key others, and ``_sample`` on the card is bit for bit the
+   CPU's on the same bfloat16 logits and keys. Then each cut to 2 layers
+   (2 + 2 for whisper) at full width, all frames and patches, a shorter
+   text, runs on the card and on the CPU (2 requests, 8 teacher-forced
+   decode steps), as served (bfloat16 logits within ``LM_TOL``) and as
+   float32 twins (within ``F32_TOL``; the frames and patches float32 in
+   both). Phase 9 (a) holds and times the kernel at phase 17's shapes in
+   both types: whisper's encoder (B=8, S=1,500, H=12, dh=64, not causal)
+   and internvl2's prefill (B=8, S=2,048, H=64, KV=8, dh=128).
 
 Every check raises on failure and nothing is caught, so any failure exits
 non-zero. The last line is the JSON result. Without a CUDA device, or
@@ -553,18 +576,35 @@ FLASH_SHAPES = (    # b, s, h, kv, dh, causal, window, dtype name
     # mixtral-8x7b's 4,096 window (past S) at dh=128
     (8, 2048, 24, 8, 64, True, None, "bfloat16"),
     (8, 2048, 32, 8, 128, True, 4096, "bfloat16"),
+    # phase 17's: whisper-small's encoder, bidirectional over 1,500 frames
+    # (11 x 128 + 92 query rows, 23 x 64 + 28 keys), and internvl2-76b's
+    # prefill of 256 patches + 1,792 tokens (GQA 8:1, dh=128), both types
+    (8, 1500, 12, 12, 64, False, None, "bfloat16"),
+    (8, 1500, 12, 12, 64, False, None, "float32"),
+    (8, 2048, 64, 8, 128, True, None, "bfloat16"),
+    (8, 2048, 64, 8, 128, True, None, "float32"),
 )
 # the shapes phase 9 (a) times besides stablelm's bf16 prefill: its float32
 # twin (the split-TF32 kernel), gemma3-4b's dh=256 window layer in both
-# types, and phase 16's prefills: granite-moe-3b-a800m (GQA 3:1, dh=64) and
-# mixtral-8x7b (a 4,096 window over 2,048 tokens, dh=128)
+# types, phase 16's prefills: granite-moe-3b-a800m (GQA 3:1, dh=64) and
+# mixtral-8x7b (a 4,096 window over 2,048 tokens, dh=128), and phase 17's
+# in both types: whisper-small's encoder (not causal) and internvl2-76b's
+# prefill
 FLASH_TIMED = {(8, 2048, 32, 32, 64, True, None, "float32"): "float32 prefill",
                (1, 4096, 8, 4, 256, True, 1024, "bfloat16"): "gemma3-4b",
                (1, 4096, 8, 4, 256, True, 1024, "float32"):
                    "gemma3-4b float32",
                (8, 2048, 24, 8, 64, True, None, "bfloat16"): "granite prefill",
                (8, 2048, 32, 8, 128, True, 4096, "bfloat16"):
-                   "mixtral prefill"}
+                   "mixtral prefill",
+               (8, 1500, 12, 12, 64, False, None, "bfloat16"):
+                   "whisper encoder",
+               (8, 1500, 12, 12, 64, False, None, "float32"):
+                   "whisper encoder float32",
+               (8, 2048, 64, 8, 128, True, None, "bfloat16"):
+                   "internvl2 prefill",
+               (8, 2048, 64, 8, 128, True, None, "float32"):
+                   "internvl2 prefill float32"}
 # phase 16: arch, layers on the card (None: all of them), layers of the
 # card-vs-CPU check, whether its bfloat16 logits are held within LM_TOL.
 # mixtral-8x7b is ~93 GB of bfloat16 weights and jamba-v0.1-52b ~103 GB,
@@ -591,6 +631,20 @@ MIXER_MODELS = (("granite-moe-3b-a800m", None, LM_CPU_LAYERS, True),
 F32_TOL = 2.0 ** -10
 ROUTE_DRIFT = 2.0 ** -7     # the most a near tie's probabilities may drift
 TIES_SHOWN = 4
+# phase 17: arch, layers on the card (None: all), the text prompt (after
+# the patches), the text prompt of the card-vs-CPU check. whisper-small
+# whole (12 encoder + 12 decoder layers, 0.67 GB of bfloat16): 8 requests
+# of 1,500 frames (30 s of audio each) and a 224-token decoder prompt, half
+# of its 448 positions. internvl2-76b at full width cut to 8 of its 80
+# layers (all 80 are ~141 GB of bfloat16, over the card's 80 GB; 8 are
+# 18.0 GB, 1.71 GB a layer and 4.2 GB of embedding tables): 256 patches +
+# 1,792 text tokens, a 2,048-position prompt. The check cuts each to
+# LM_CPU_LAYERS layers (2 + 2 for whisper) at full width, all 1,500 frames
+# and 256 patches, and shortens the text: the CPU runs both twins
+ENCDEC_MODELS = (("whisper-small", None, 224, 64),
+                 ("internvl2-76b", 8, 1792, 32))
+SAMPLE_TEMPERATURE = 0.7
+SAMPLE_KEYS = 8             # keys of the card-vs-CPU draw of _sample
 
 
 def require(ok: bool, what: str) -> None:
@@ -965,10 +1019,15 @@ def serve_phase(seed: int, dev, reset_counts, read_counts) -> dict:
         del diff
         shape = (b, s, h, kv, dh, causal, window, dname)
         if shape in FLASH_TIMED:
-            # key-query pairs each row sees (causal and window)
+            # key-query pairs each row sees (causal or not, and window)
             rows = torch.arange(s, dtype=torch.float64)
-            seen = rows + 1 if window is None else torch.clamp(rows + 1,
-                                                               max=window)
+            if causal:
+                seen = rows + 1 if window is None else torch.clamp(
+                    rows + 1, max=window)
+            else:
+                seen = torch.full_like(rows, s)
+                if window is not None:
+                    seen -= torch.clamp(rows - window + 1, min=0)
             pairs = b * h * float(seen.sum())
             kernel_ms = cuda_ms(lambda: fa_ops.flash_attention(
                 q, k, v, causal=causal, window=window), 10)
@@ -980,11 +1039,13 @@ def serve_phase(seed: int, dev, reset_counts, read_counts) -> dict:
             band = None
             if window is not None:
                 idx = torch.arange(s, device=dev)
-                band = ((idx[None, :] <= idx[:, None])
-                        & (idx[None, :] > idx[:, None] - window))
+                band = idx[None, :] > idx[:, None] - window
+                if causal:
+                    band &= idx[None, :] <= idx[:, None]
             library_ms = cuda_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=band, is_causal=band is None,
+                    qt, kt, vt, attn_mask=band,
+                    is_causal=causal and band is None,
                     enable_gqa=kv != h), 10)
             n_bytes = 2 * (q.numel() + k.numel()) * q.element_size()
             if dname == "float32":
@@ -1297,8 +1358,11 @@ def mixers_phase(seed: int, dev, reset_counts, read_counts, *,
 
 
 def card_against_cpu(tag, card, cpu, cfg, seed, moe_lib,
-                     bf16_bounded: bool) -> dict:
-    """``LM_CPU_REQUESTS`` x ``LM_CPU_PROMPT`` tokens and
+                     bf16_bounded: bool, *, prompt: int = LM_CPU_PROMPT,
+                     stub=None) -> dict:
+    """``LM_CPU_REQUESTS`` x ``prompt`` tokens (and ``stub``, ``(keyword,
+    float32 CPU tensor)``, the frames or patch embeddings of a model with
+    a stub frontend; they stay float32, the model casts them) and
     ``LM_CPU_STEPS`` teacher-forced decode steps on both, the logits held
     as max |diff| over max |CPU|, twice: as served (bfloat16), against
     ``LM_TOL`` (required where ``bf16_bounded``, printed beside it
@@ -1314,7 +1378,8 @@ def card_against_cpu(tag, card, cpu, cfg, seed, moe_lib,
     import numpy as np
     import torch
     seq = torch.from_numpy(np.random.default_rng(seed + 1).integers(
-        0, cfg.vocab_size, (LM_CPU_REQUESTS, LM_CPU_PROMPT + LM_CPU_STEPS)))
+        0, cfg.vocab_size, (LM_CPU_REQUESTS, prompt + LM_CPU_STEPS)))
+    offset = cfg.num_patches
     moe_layers = [i for i, ls in enumerate(cfg.layers) if ls.moe]
     out = {}
     for dtype in ("bfloat16", "float32"):
@@ -1327,15 +1392,17 @@ def card_against_cpu(tag, card, cpu, cfg, seed, moe_lib,
         for name, m in (("card", card), ("cpu", cpu)):
             d = m.device
             steps = []
+            extra = {} if stub is None else {stub[0]: stub[1].to(d)}
             with (moe_lib.record_routing(routes) if name == "card" else
                   moe_lib.follow_routing(routes, ROUTE_DRIFT)) as taken:
-                logits, caches = m.prefill(seq[:, :LM_CPU_PROMPT].to(d),
-                                           LM_CPU_PROMPT + LM_CPU_STEPS)
+                logits, caches = m.prefill(seq[:, :prompt].to(d),
+                                           offset + prompt + LM_CPU_STEPS,
+                                           **extra)
                 steps.append(logits.float().cpu())
                 for i in range(LM_CPU_STEPS):
-                    pos = LM_CPU_PROMPT + i
+                    pos = prompt + i
                     logits, caches = m.decode_step(
-                        caches, seq[:, pos:pos + 1].to(d), pos)
+                        caches, seq[:, pos:pos + 1].to(d), offset + pos)
                     steps.append(logits.float().cpu())
             runs[name] = steps
         ties = []
@@ -1343,8 +1410,8 @@ def card_against_cpu(tag, card, cpu, cfg, seed, moe_lib,
             step, layer = divmod(tie["call"], len(moe_layers))
             flat = tie["group"] * routes[tie["call"]][1].shape[1] \
                 + tie["token"]
-            where = (f"prefill token {flat % LM_CPU_PROMPT} of request "
-                     f"{flat // LM_CPU_PROMPT}" if step == 0 else
+            where = (f"prefill token {flat % prompt} of request "
+                     f"{flat // prompt}" if step == 0 else
                      f"decode step {step - 1} of request {flat}")
             ties.append(dict(tie, layer=moe_layers[layer], where=where))
         rel = [float((a - b).abs().max() / b.abs().max())
@@ -1364,7 +1431,7 @@ def card_against_cpu(tag, card, cpu, cfg, seed, moe_lib,
                   f"{max(t['drift'] for t in ties):.4g}", flush=True)
         held = dtype == "float32" or bf16_bounded
         print(f"{tag} cut to {cfg.n_layers} layers, {dtype}, "
-              f"{LM_CPU_REQUESTS} x {LM_CPU_PROMPT} tokens + {LM_CPU_STEPS} "
+              f"{LM_CPU_REQUESTS} x {prompt} tokens + {LM_CPU_STEPS} "
               f"teacher-forced decode steps: card vs CPU logits, max |diff| "
               f"/ max |CPU|: prefill {worst['prefill']:.4g}, decode "
               f"{worst['decode']:.4g} (steps "
@@ -1380,6 +1447,244 @@ def card_against_cpu(tag, card, cpu, cfg, seed, moe_lib,
         out[dtype] = dict(worst, steps=rel, held=held, moe_calls=len(routes),
                           near_ties=ties)
     return out
+
+
+def encdec_phase(seed: int, dev, reset_counts, read_counts, *,
+                 card_name="") -> dict:
+    """Phase 17: ``ENCDEC_MODELS``, whisper-small's encoder-decoder and
+    internvl2-76b's patch prefix, at full width through
+    ``ServeEngine.generate`` with ``LM_REQUESTS`` requests and
+    ``LM_STEPS`` tokens, sampling at ``SAMPLE_TEMPERATURE`` on the first
+    model, and each cut against the CPU. Returns their numbers and the
+    ``flash_attention`` launches of their generate runs, all and not
+    causal."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+    from repro_torch.models import build_model, new_model
+    from repro_torch.models import encdec as encdec_lib
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.serve import ServeEngine
+
+    requests, steps = LM_REQUESTS, LM_STEPS
+    t_phase = time.perf_counter()
+    out = {"models": {}, "flash_launches": 0}
+    for arch, cut, prompt, cpu_prompt in ENCDEC_MODELS:
+        cfg = get_config(arch)
+        if cut is not None:
+            cfg = dataclasses.replace(cfg, n_layers=cut)
+        tag = f"[17] {arch}" + (f" cut to {cut} layers" if cut else "")
+        stub_key = "frames" if cfg.is_encdec else "patch_embeds"
+        width = cfg.encoder_frames or cfg.num_patches
+        n_flash = cfg.n_layers + cfg.encoder_layers
+        t_model = t0 = time.perf_counter()
+        model = build_model(cfg, device=dev, seed=seed)
+        torch.cuda.synchronize()
+        rec = dict(init_s=time.perf_counter() - t0, layers=cfg.n_layers,
+                   encoder_layers=cfg.encoder_layers, prompt=prompt,
+                   stub=(stub_key, width),
+                   weights_gb=sum(p.numel() * p.element_size()
+                                  for p in model.parameters()) / 1e9)
+        rng = np.random.default_rng(seed)
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (requests, prompt))).to(dev),
+            stub_key: torch.from_numpy(rng.standard_normal(
+                (requests, width, cfg.d_model), dtype=np.float32)).to(dev)}
+        positions = prompt + cfg.num_patches
+        engine = ServeEngine(model, max_len=positions + steps)
+
+        def only_flash(counts, what, n=n_flash):
+            # the encoder's launches, and only they, are not causal
+            non_causal = fa_mod.NON_CAUSAL_LAUNCHES["flash_attention"]
+            require(counts["flash_attention"] == n and not any(
+                k for name, k in counts.items() if name != "flash_attention")
+                and non_causal == cfg.encoder_layers,
+                f"{tag}: {what} launches {counts}, {non_causal} not causal; "
+                f"expected {n} flash_attention ({cfg.encoder_layers} not "
+                f"causal) and nothing else")
+            return non_causal
+
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        generated = engine.generate(batch, steps)
+        torch.cuda.synchronize()
+        rec["generate_s"] = time.perf_counter() - t0
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        launches = read_counts()
+        rec["non_causal_launches"] = only_flash(launches, "generate")
+        rec["launches"] = launches["flash_attention"]
+        out["flash_launches"] += launches["flash_attention"]
+        require(tuple(generated.shape) == (requests, steps)
+                and bool(((generated >= 0)
+                          & (generated < cfg.vocab_size)).all()),
+                f"{tag}: generated tokens malformed")
+        require(torch.equal(engine.generate(batch, steps), generated),
+                f"{tag}: a second generate gave other tokens")
+        if cfg.is_encdec:
+            reset_counts()
+            enc = encdec_lib.encode(model, batch["frames"])
+            torch.cuda.synchronize()
+            only_flash(read_counts(), "encode", cfg.encoder_layers)
+            require(tuple(enc.shape) == (requests, width, cfg.d_model)
+                    and bool(torch.isfinite(enc.float()).all()),
+                    f"{tag}: the encoder's output is malformed")
+            del enc
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = engine.prefill(batch)
+        torch.cuda.synchronize()
+        rec["prefill_s"] = time.perf_counter() - t0
+        only_flash(read_counts(), "prefill")
+        require(bool(torch.isfinite(logits.float()).all())
+                and tuple(logits.shape) == (requests, 1, cfg.padded_vocab),
+                f"{tag}: prefill logits not finite or of the wrong shape")
+        prefill_logits = logits
+        tok = engine._sample(logits)
+        # the greedy loop as it was before sampling was ported: argmax of
+        # the true vocabulary; generate's greedy tokens are its, with any key
+        hand = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            hand.append(tok)
+            logits, caches = model.decode_step(caches, tok[:, None],
+                                               positions + i)
+            tok = torch.argmax(logits[:, -1, :cfg.vocab_size],
+                               dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        rec["decode_ms"] = (time.perf_counter() - t0) / steps * 1e3
+        require(torch.equal(torch.stack(hand, 1), generated),
+                f"{tag}: generate's greedy tokens are not the argmax loop's")
+        require(torch.equal(engine.generate(batch, steps,
+                                            key=prng.PRNGKey(seed + 5)),
+                            generated),
+                f"{tag}: a key changed the greedy tokens")
+        del logits, caches
+        counts = {}
+        t0 = time.perf_counter()
+        by_kernel = trace("[17]", f"{arch} prefill",
+                          lambda: engine.prefill(batch), counts=counts)
+        rec["trace_s"] = time.perf_counter() - t0
+        if by_kernel:
+            busy = sum(by_kernel.values()) / 1e3
+            attention = sum(us for k, us in by_kernel.items()
+                            if "flash_" in k) / 1e3
+            gemm = sum(us for k, us in by_kernel.items() if is_gemm(k)) / 1e3
+            rec["trace"] = dict(busy_ms=busy, attention_ms=attention,
+                                gemm_ms=gemm,
+                                other_ms=busy - attention - gemm,
+                                kernel_launches=sum(counts.values()))
+            print(f"{tag} prefill: device busy {busy:.3f} ms = attention "
+                  f"{attention:.3f} ms + matrix products {gemm:.3f} ms + "
+                  f"the rest {busy - attention - gemm:.3f} ms (elementwise "
+                  f"ops, norms, RoPE, the cross-attention's einsums and "
+                  f"softmax); {sum(counts.values())} device kernel launches "
+                  f"(traced and summarised in {rec['trace_s']:.1f} s)",
+                  flush=True)
+        if not out.get("sampling"):
+            out["sampling"] = sample_check(tag, engine, batch, steps,
+                                           prefill_logits, seed, prng, cfg)
+        del prefill_logits
+        n_prompt = requests * positions
+        print(f"{tag} on {card_name}: d_model={cfg.d_model}, "
+              f"{cfg.encoder_layers} encoder + {cfg.n_layers} decoder layers"
+              f", {rec['weights_gb']:.2f} GB of weights; prefill of "
+              f"{requests} x ({width} {stub_key.replace('_', ' ')} + "
+              f"{prompt} tokens) {rec['prefill_s']:.4f} s; decode "
+              f"{rec['decode_ms']:.4f} ms a step of {requests} tokens "
+              f"({requests / rec['decode_ms'] * 1e3:.6g} tokens/s); generate "
+              f"of {steps} tokens {rec['generate_s']:.4f} s "
+              f"({requests * steps / rec['generate_s']:.6g} generated "
+              f"tokens/s); peak device memory {rec['peak_gib']:.3f} GiB; "
+              f"weights initialised in {rec['init_s']:.2f} s; "
+              f"{rec['launches']} flash_attention launches in generate, "
+              f"{rec['non_causal_launches']} of them not causal, all in "
+              f"its prefill; the same tokens twice; first tokens "
+              f"{generated[:2, :6].tolist()}"
+              + ("" if cfg.is_encdec else
+                 f" ({n_prompt} prompt positions)"), flush=True)
+        del engine, batch, generated
+
+        # ---- the card against the CPU, cut to a few layers
+        small = dataclasses.replace(
+            cfg, n_layers=LM_CPU_LAYERS,
+            encoder_layers=LM_CPU_LAYERS if cfg.is_encdec else 0)
+        card = new_model(small, device=dev)
+        card.load_state_dict({
+            k: v for k, v in model.state_dict().items()
+            if not k.startswith(("blocks.", "enc_blocks.", "dec_blocks."))
+            or int(k.split(".")[1]) < LM_CPU_LAYERS})
+        del model
+        torch.cuda.empty_cache()
+        cpu = new_model(small, device="cpu")
+        cpu.load_state_dict(card.state_dict())
+        stub = torch.from_numpy(np.random.default_rng(seed + 2)
+                                .standard_normal((LM_CPU_REQUESTS, width,
+                                                  cfg.d_model),
+                                                 dtype=np.float32))
+        rec["cpu_check"] = card_against_cpu(
+            f"[17] {arch} ({width} {stub_key.replace('_', ' ')})", card,
+            cpu, small, seed, moe_lib, True, prompt=cpu_prompt,
+            stub=(stub_key, stub))
+        del card, cpu
+        torch.cuda.empty_cache()
+        rec["wall_s"] = time.perf_counter() - t_model
+        print(f"{tag}: {rec['wall_s']:.1f} s in all", flush=True)
+        out["models"][arch] = rec
+    out["wall"] = time.perf_counter() - t_phase
+    print(f"[17] phase 17: {out['wall']:.1f} s", flush=True)
+    return out
+
+
+def sample_check(tag, engine, batch, steps, logits, seed, prng, cfg) -> dict:
+    """Sampling at ``SAMPLE_TEMPERATURE`` with ``engine``'s model: two
+    ``generate`` runs with one key give the same tokens, another key other
+    ones; ``_sample`` on the card, on the prefill's bfloat16 logits with
+    ``SAMPLE_KEYS`` keys at once and a few one at a time, is bit for bit
+    ``_sample`` on the CPU of the same logits copied to the host and the
+    same keys."""
+    import torch
+    from repro_torch.serve import ServeEngine
+    t0 = time.perf_counter()
+    hot = ServeEngine(engine.model, max_len=engine.max_len,
+                      temperature=SAMPLE_TEMPERATURE)
+    key = prng.PRNGKey(seed + 11)
+    first = hot.generate(batch, steps, key=key)
+    require(torch.equal(hot.generate(batch, steps, key=key), first),
+            f"{tag}: two sampled generate runs with one key differ")
+    require(bool(((first >= 0) & (first < cfg.vocab_size)).all()),
+            f"{tag}: sampled tokens outside the vocabulary")
+    other = hot.generate(batch, steps, key=prng.PRNGKey(seed + 12))
+    require(not torch.equal(other, first),
+            f"{tag}: two keys drew the same {tuple(first.shape)} tokens")
+    keys = prng.split(prng.PRNGKey(seed + 13), SAMPLE_KEYS)
+    host = logits.cpu()
+    card = hot._sample(logits, keys.to(logits.device))
+    require(card.device == logits.device
+            and torch.equal(card.cpu(), hot._sample(host, keys)),
+            f"{tag}: _sample on the card differs from the CPU's over "
+            f"{SAMPLE_KEYS} keys")
+    for i in (0, 1, SAMPLE_KEYS - 1):
+        require(torch.equal(hot._sample(logits, keys[i].to(logits.device))
+                            .cpu(), hot._sample(host, keys[i])),
+                f"{tag}: _sample on the card differs from the CPU's "
+                f"(key {i})")
+    distinct = len(torch.unique(card))
+    wall = time.perf_counter() - t0
+    print(f"{tag} sampling at temperature {SAMPLE_TEMPERATURE}: generate "
+          f"twice with one key gives the same tokens (first tokens "
+          f"{first[:2, :6].tolist()}), another key others; _sample on the "
+          f"card bitwise the CPU's on the same bfloat16 logits over "
+          f"{SAMPLE_KEYS} keys at once and 3 one at a time ({distinct} "
+          f"distinct tokens; {wall:.1f} s)", flush=True)
+    return dict(temperature=SAMPLE_TEMPERATURE, keys=SAMPLE_KEYS,
+                distinct_tokens=distinct, first_tokens=first[:2].tolist(),
+                wall_s=wall)
 
 
 def any_c_phase(dev, values_any, gen_any, ops, ref, ar_mod, timing,
@@ -5013,6 +5318,10 @@ def main() -> int:
     phase16 = mixers_phase(args.seed, dev, reset_counts, read_counts,
                            card_name=card)
     counted["flash_attention"] += phase16["flash_launches"]
+    # ---- phase 17: the encoder-decoder, the patch prefix and sampling -----
+    phase17 = encdec_phase(args.seed, dev, reset_counts, read_counts,
+                           card_name=card)
+    counted["flash_attention"] += phase17["flash_launches"]
     rows = []
     for name, src, replaces in KERNELS:
         ms, plain_ms, library_ms = timing[name]
@@ -5081,6 +5390,13 @@ def main() -> int:
                 rows[-1][f"{key}_bound_ms"] = t_bound
                 if cuda_core:
                     rows[-1][f"{key}_cuda_core_bound_ms"] = cuda_core
+            # phase 17's launches, counted in the row's: each model's
+            # generate, all and those with causal=False
+            for arch, rec in phase17["models"].items():
+                key = arch.replace("-", "_").replace(".", "_")
+                rows[-1][f"{key}_launches"] = rec["launches"]
+                rows[-1][f"{key}_non_causal_launches"] = \
+                    rec["non_causal_launches"]
         if name == "vi":
             rows[-1].update(plain_sampled_rows=timing["vi_plain_shape"][0],
                             plain_steps=timing["vi_plain_shape"][1],
@@ -5132,6 +5448,8 @@ def main() -> int:
         dict(card=card, **phase15), indent=1, default=str))
     (out_dir / "phase16.json").write_text(json.dumps(
         dict(card=card, **phase16), indent=1, default=str))
+    (out_dir / "phase17.json").write_text(json.dumps(
+        dict(card=card, **phase17), indent=1, default=str))
     print(f"[done] all phases in {time.perf_counter() - t_script:.1f} s",
           flush=True)
     print(json.dumps({"kernels": rows}))

@@ -2,11 +2,13 @@
 :mod:`.paper_auction`) and the language-model registry: ``get_config(name)``
 / ``--arch <id>``.
 
-The registry holds the architectures the port's model runs: the decoder-only
-ones, whose layers are attention, mamba, mLSTM or sLSTM mixers with a dense
-or MoE MLP (no patches, no encoder). ``get_config`` and ``reduced_config`` are copies of
-``repro.configs:29-70``; the reduced miniatures define the CPU tests and
-equal the reference's field by field.
+The registry holds every architecture of ``repro.configs.ARCHS``: the
+decoder-only ones, whose layers are attention, mamba, mLSTM or sLSTM mixers
+with a dense or MoE MLP; internvl2-76b, a decoder with a prefix of patch
+embeddings; and whisper-small, an encoder-decoder fed frame embeddings (both
+frontends are stubs, as in the reference). ``get_config`` and
+``reduced_config`` are copies of ``repro.configs:29-70``; the reduced
+miniatures define the CPU tests and equal the reference's field by field.
 """
 from __future__ import annotations
 
@@ -18,15 +20,18 @@ from repro_torch.configs.gemma3_12b import CONFIG as _gemma3_12b
 from repro_torch.configs.gemma3_4b import CONFIG as _gemma3_4b
 from repro_torch.configs.granite_moe_3b import CONFIG as _granite_moe_3b
 from repro_torch.configs.internlm2_20b import CONFIG as _internlm2_20b
+from repro_torch.configs.internvl2_76b import CONFIG as _internvl2_76b
 from repro_torch.configs.jamba_v01_52b import CONFIG as _jamba_v01_52b
 from repro_torch.configs.mixtral_8x7b import CONFIG as _mixtral_8x7b
 from repro_torch.configs.stablelm_1_6b import CONFIG as _stablelm_1_6b
+from repro_torch.configs.whisper_small import CONFIG as _whisper_small
 from repro_torch.configs.xlstm_125m import CONFIG as _xlstm_125m
 
 ARCHS: Dict[str, ArchConfig] = {
-    c.name: c for c in [_xlstm_125m, _gemma3_12b, _internlm2_20b,
-                        _stablelm_1_6b, _gemma3_4b, _mixtral_8x7b,
-                        _granite_moe_3b, _jamba_v01_52b]
+    c.name: c for c in [_internvl2_76b, _xlstm_125m, _gemma3_12b,
+                        _internlm2_20b, _stablelm_1_6b, _gemma3_4b,
+                        _mixtral_8x7b, _granite_moe_3b, _jamba_v01_52b,
+                        _whisper_small]
 }
 
 

@@ -7,8 +7,9 @@ Every architecture is an :class:`ArchConfig` built from a repeating
 ``n_layers // len(pattern)`` groups repeat the pattern; a remainder tail
 (e.g. gemma3-4b's 34 = 5*6 + 4) follows them. The fields are the
 reference's, field by field, so that ``reduced_config`` gives the same
-miniatures; the port's model runs the decoder-only ones
-(:func:`repro_torch.models.build_model` says which).
+miniatures; :func:`repro_torch.models.build_model` runs every one of the
+registry (an encoder-decoder as
+:class:`repro_torch.models.EncDecModel`).
 """
 from __future__ import annotations
 

@@ -9,14 +9,15 @@ the estimate drifts. PyTorch has no elementwise fused multiply-add, so
 the final rounding to float32 the correctly rounded one. The operands are
 elementwise, so CPU and CUDA tensors give the same bits.
 
-XLA's CPU backend also brings its own float32 ``log1p`` and ``exp``: Cephes
-polynomials in which the compiler contracts each multiply-add it can into
-a fused one. :func:`log1p` and :func:`exp` repeat them operation for
-operation from ``+ - * /``, :func:`fma`, ``floor``, compares and selects,
-all IEEE on both devices, so they give ``jnp.log1p``'s and ``jnp.exp``'s
-bits where ``torch.log1p`` and ``torch.exp`` differ in the last bit
-(18% and 9.6% of float32 inputs). ``jax.random.normal`` and the bid noise
-of the scenario families reach them through :mod:`repro_torch.prng` and
+XLA's CPU backend also brings its own float32 ``log``, ``log1p`` and
+``exp``: Cephes polynomials in which the compiler contracts each
+multiply-add it can into a fused one. :func:`log`, :func:`log1p` and
+:func:`exp` repeat them operation for operation from ``+ - * /``,
+:func:`fma`, ``floor``, compares and selects, all IEEE on both devices, so
+they give ``jnp.log1p``'s and ``jnp.exp``'s bits where ``torch.log1p`` and
+``torch.exp`` differ in the last bit (18% and 9.6% of float32 inputs).
+``jax.random.normal``, ``jax.random.gumbel`` and the bid noise of the
+scenario families reach them through :mod:`repro_torch.prng` and
 :mod:`repro_torch.core.crn`.
 
 Three more orders of XLA's CPU backend that the keyed synthetic and
@@ -80,9 +81,11 @@ _LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
               2.1642788614495947685003e2, 6.0118660497603843919306e1)
 
 
-def _log(x1: torch.Tensor) -> torch.Tensor:
-    """XLA CPU's float32 ``log`` of ``x1``: the exponent split off, the
-    mantissa moved into [sqrt(1/2), sqrt(2)), Cephes' polynomial."""
+def log(x1: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's float32 ``log`` of ``x1`` (``jnp.log``): the exponent
+    split off, the mantissa moved into [sqrt(1/2), sqrt(2)), Cephes'
+    polynomial. ``jax.random.gumbel`` reaches it through
+    :func:`repro_torch.prng.gumbel`."""
     tiny = _f32(1.17549435e-38, x1)                 # smallest normal
     xc = torch.where(x1 > tiny, x1, tiny)
     bits = xc.view(torch.int32).to(torch.int64)
@@ -107,10 +110,10 @@ def _log(x1: torch.Tensor) -> torch.Tensor:
 
 def log1p(x: torch.Tensor) -> torch.Tensor:
     """``jnp.log1p`` of float32 ``x`` on XLA's CPU backend: ``log(1 + x)``
-    (:func:`_log`) where ``|x| >= sqrt(2) - 1``, else Cephes' rational
+    (:func:`log`) where ``|x| >= sqrt(2) - 1``, else Cephes' rational
     approximation ``x - x^2/2 + x^3 P(x)/Q(x)``."""
     x = x.to(torch.float32)
-    large = _log(x + 1.0)
+    large = log(x + 1.0)
     x2 = x * x
     zero = x * 0.0
     den = zero + _f32(_LOG1P_DEN[0], x)

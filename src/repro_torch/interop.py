@@ -21,7 +21,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import AuctionRule, ScenarioOverlay
 from repro_torch.device import DeviceLike, pick_device
 from repro_torch.launch.mesh import SweepMeshSpec, make_mesh
-from repro_torch.models.model import Model
+from repro_torch.models.model import AnyModel, new_model
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:
@@ -125,46 +125,60 @@ def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def _reference_leaf(name: str, cfg: ArchConfig) -> Tuple[str, Optional[int]]:
-    """The reference tree path of the port's parameter ``name``, and the
-    index into the stacked ``groups`` axis (None outside the groups)."""
+def _reference_leaf(name: str, cfg: ArchConfig
+                    ) -> Tuple[str, Optional[int], int]:
+    """The reference tree path of the port's parameter ``name``, the index
+    into the stacked axis it is unstacked from (None outside the stacks)
+    and that axis's size: the decoder-only LM's ``groups`` (``n_groups``
+    repetitions of the pattern, then the unstacked ``tail``), the
+    encoder-decoder's ``enc_groups`` (``encoder_layers``) and
+    ``dec_groups`` (``n_layers``)."""
     head, _, rest = name.partition(".")
-    if head != "blocks":
-        return name.replace(".", "/"), None
+    stacks = {"enc_blocks": ("enc_groups", cfg.encoder_layers),
+              "dec_blocks": ("dec_groups", cfg.n_layers)}
+    if head not in stacks and head != "blocks":
+        return name.replace(".", "/"), None, 0
     index, _, rest = rest.partition(".")
-    layer, width = int(index), len(cfg.pattern)
-    rest = rest.replace(".", "/")
+    layer, rest = int(index), rest.replace(".", "/")
+    if head in stacks:
+        stack, size = stacks[head]
+        return f"{stack}/{rest}", layer, size
+    width = len(cfg.pattern)
     if layer < cfg.n_groups * width:
-        return f"groups/sub{layer % width}/{rest}", layer // width
-    return f"tail/tail{layer - cfg.n_groups * width}/{rest}", None
+        return (f"groups/sub{layer % width}/{rest}", layer // width,
+                cfg.n_groups)
+    return f"tail/tail{layer - cfg.n_groups * width}/{rest}", None, 0
 
 
 def lm_params_from_reference(params, cfg: ArchConfig, *,
-                             device: DeviceLike = None) -> Model:
-    """The port's :class:`Model` of ``cfg`` holding the reference's
-    parameters: ``params`` is ``repro``'s tree from ``Model.init_params``
-    with numpy leaves (``np.asarray`` of each). The stacked ``groups``
-    leaves (n_groups, ...) are unstacked into one block per layer (the
-    attention, ``moe``, ``mamba``, ``mlstm`` and ``slstm`` subtrees alike;
-    the ``tail`` is unstacked already); each value is cast to the dtype
-    the port holds it in, the one the reference reads it at (bfloat16
-    matmul weights, as its ``cdt`` casts them; float32 norm scales, gate
-    biases, ``a_log``, ``dt_bias`` and ``conv_b``). A missing, extra or
-    misshapen leaf raises ``ValueError``."""
-    model = Model(cfg, device=device)
+                             device: DeviceLike = None) -> AnyModel:
+    """The port's model of ``cfg`` (:func:`~repro_torch.models.new_model`)
+    holding the reference's parameters: ``params`` is ``repro``'s tree
+    from ``Model.init_params`` with numpy leaves (``np.asarray`` of each).
+    The stacked leaves are unstacked into one block per layer: the
+    decoder-only LM's ``groups`` (n_groups, ...) (the attention, ``moe``,
+    ``mamba``, ``mlstm`` and ``slstm`` subtrees alike; the ``tail`` is
+    unstacked already), the encoder-decoder's ``enc_groups``
+    (encoder_layers, ...) and ``dec_groups`` (n_layers, ...); ``enc_norm``
+    and the VLM's ``patch_proj/w`` are carried as they are. Each value is
+    cast to the dtype the port holds it in, the one the reference reads it
+    at (bfloat16 matmul weights, as its ``cdt`` casts them; float32 norm
+    scales, gate biases, ``a_log``, ``dt_bias`` and ``conv_b``). A
+    missing, extra or misshapen leaf raises ``ValueError``."""
+    model = new_model(cfg, device=device)
     leaves = _flatten(params)
     used = set()
     for name, p in model.named_parameters():
-        path, group = _reference_leaf(name, cfg)
+        path, index, size = _reference_leaf(name, cfg)
         if path not in leaves:
             raise ValueError(f"the reference tree has no {path!r} for the "
                              f"port's {name}")
         value = leaves[path]
-        if group is not None:
-            if value.shape[:1] != (cfg.n_groups,):
-                raise ValueError(f"{path} stacks {value.shape[:1]} groups, "
-                                 f"the config has {cfg.n_groups}")
-            value = value[group]
+        if index is not None:
+            if value.shape[:1] != (size,):
+                raise ValueError(f"{path} stacks {value.shape[:1]} layers "
+                                 f"or groups, the config has {size}")
+            value = value[index]
         if value.shape != tuple(p.shape):
             raise ValueError(f"{path} has shape {value.shape}, the port's "
                              f"{name} {tuple(p.shape)}")

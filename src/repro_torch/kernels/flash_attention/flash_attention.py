@@ -1,7 +1,8 @@
 """``ctypes`` wrapper of the flash-attention CUDA kernel
 (``csrc/flash_attention.cu``), the port of ``repro``'s
 ``flash_attention_pallas``. It follows :mod:`repro_torch.kernels.binding`
-and counts its launches in :data:`LAUNCHES`.
+and counts its launches in :data:`LAUNCHES`, and those of them with
+``causal=False`` (an encoder's attention) in :data:`NON_CAUSAL_LAUNCHES`.
 
 The kernel reads the model's ``(B, S, H, dh)`` layout directly, and query
 head h reads kv head ``h // (H // KV)``: no transpose and no repeated kv
@@ -25,6 +26,7 @@ from repro_torch.kernels import binding
 from repro_torch.kernels.binding import I as _I, P as _P, check as _check
 
 LAUNCHES = {"flash_attention": 0}
+NON_CAUSAL_LAUNCHES = {"flash_attention": 0}
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GRID_Y = 65535          # CUDA's limit on gridDim.y
@@ -37,6 +39,7 @@ _SIGNATURES = {"fa_forward": [_P] * 4 + [_I] * 8 + [_P]}
 
 def reset_launches() -> None:
     LAUNCHES["flash_attention"] = 0
+    NON_CAUSAL_LAUNCHES["flash_attention"] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,4 +88,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          binding.stream(dev))
     binding.raise_on(err, "flash_attention_kernel")
     LAUNCHES["flash_attention"] += 1
+    if not causal:
+        NON_CAUSAL_LAUNCHES["flash_attention"] += 1
     return out

@@ -5,15 +5,22 @@ greedy decode (port of ``repro.launch.serve``).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
       --reduced --device cpu --requests 16 --max-new 48
 
-``--arch`` takes every name of ``repro_torch.configs.ARCHS``: the dense
-stablelm-1.6b, gemma3-4b, gemma3-12b and internlm2-20b, the MoE
+``--arch`` serves every text-only name of ``repro_torch.configs.ARCHS``:
+the dense stablelm-1.6b, gemma3-4b, gemma3-12b and internlm2-20b, the MoE
 granite-moe-3b-a800m and mixtral-8x7b, the hybrid jamba-v0.1-52b and the
-recurrent xlstm-125m.
+recurrent xlstm-125m. The CLI builds a batch of prompt tokens alone, so it
+refuses (``ValueError``) the two models with a stub frontend, whisper-small
+(its encoder needs frame embeddings: ``repro``'s CLI fails in ``encode``)
+and internvl2-76b (its prefill needs patch embeddings: ``repro``'s CLI
+serves it text alone and decodes ``num_patches`` positions past its
+prefill). Serve those through ``ServeEngine.generate`` with a batch that
+holds ``frames`` or ``patch_embeds``.
 
 It takes the reference's flags plus ``--device`` (default: the CUDA card).
 Weights are random from seed 0, the budgets from numpy seed 0 and the
 prompts from numpy seed 1, as the reference fixes them. It plans the
-compactions and serves segment 0.
+compactions and serves segment 0, greedily or, with ``--temperature``,
+sampled from ``prng.PRNGKey(0)`` as the reference samples.
 """
 from __future__ import annotations
 
@@ -45,6 +52,12 @@ def main(argv=None):
 
     dev = pick_device(args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if cfg.is_encdec or cfg.num_patches:
+        raise ValueError(
+            f"{args.arch}: the serve CLI makes prompt tokens only, no "
+            f"{'frames' if cfg.is_encdec else 'patch embeddings'} for its "
+            f"stub frontend; call ServeEngine.generate with a batch that "
+            f"holds them")
     model = build_model(cfg, device=dev)
     eng = ServeEngine(model, max_len=args.prompt_len + args.max_new,
                       temperature=args.temperature)

@@ -12,6 +12,11 @@ modes share one code path:
   ``KVCache``, ``MambaState``, ``MLSTMState`` or ``SLSTMState``);
 * ``decode``  — one token; consumes the caches and returns them updated.
 
+VLM (internvl2): precomputed patch embeddings (B, P, d) (the vision
+frontend is a stub, as in the reference) are projected by ``patch_proj``
+and placed ahead of the token embeddings; positions and the caches run
+over the P + S positions.
+
 ``train`` mode raises: training is still to port (ROADMAP queue 1, item
 10).
 """
@@ -121,20 +126,35 @@ def apply_block(p: Block, x: torch.Tensor, cfg: ArchConfig, mode: str,
 
 def forward(model, tokens: torch.Tensor, *, mode: str = "prefill",
             caches: Optional[List[Any]] = None,
-            pos: Optional[int] = None, max_len: int = 0):
+            pos: Optional[int] = None, max_len: int = 0,
+            patch_embeds: Optional[torch.Tensor] = None):
     """Returns ``(logits (B, 1, V_pad), new caches)``. ``model`` is a
     :class:`repro_torch.models.Model`; ``tokens`` (B, S) int. Prefill
     unembeds the last position alone (the reference unembeds every
     position and the serving path keeps the last; the rows are the same)
     and builds a cache per layer of ``max_len`` positions (default S).
     Decode takes one token a row at absolute position ``pos`` and a cache
-    per layer."""
+    per layer. A prefill of a config with ``num_patches`` takes
+    ``patch_embeds`` (B, P, d) (any float dtype; cast to the model's):
+    ``patch_embeds @ patch_proj.w`` leads the token embeddings, and
+    ``max_len`` counts the patches. Without them, or with them for a
+    config that has none, it raises ``ValueError``."""
     if mode == "train":
         raise NotImplementedError(TRAINING_TODO)
     if mode not in ("prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}; have prefill, decode")
     cfg = model.cfg
     x = embed(model.embed.table, tokens)
+    if mode == "prefill" and cfg.num_patches:
+        if patch_embeds is None:
+            raise ValueError(f"{cfg.name} has a patch prefix: its prefill "
+                             f"takes patch_embeds= (B, {cfg.num_patches}, "
+                             f"d) patch embeddings")
+        w = model.patch_proj.w
+        x = torch.cat([patch_embeds.to(w.dtype) @ w, x], dim=1)
+    elif patch_embeds is not None:
+        raise ValueError(f"{cfg.name} takes no patch embeddings in "
+                         f"{mode}")
     b, s, _ = x.shape
     if mode == "decode":
         if pos is None or caches is None:

@@ -9,8 +9,11 @@ so it gives the same bits on the CPU and on CUDA.
 
 * :func:`PRNGKey`, :func:`split`, :func:`fold_in` — keys;
 * :func:`random_bits` — uint32 words (returned as int64);
-* :func:`uniform` — float32 in ``[minval, maxval)`` by the mantissa
-  transform; :func:`bernoulli` — ``uniform < p`` in float32;
+* :func:`uniform` — float32 or bfloat16 in ``[minval, maxval)`` by the
+  mantissa transform; :func:`bernoulli` — ``uniform < p`` in float32;
+* :func:`gumbel` and :func:`categorical` — ``jax.random.gumbel`` and the
+  Gumbel-max draw of ``jax.random.categorical``, in float32 or bfloat16
+  (serving's sampling at ``temperature > 0`` draws on bfloat16 logits);
 * :func:`normal` — ``sqrt(2) * erf_inv(u)`` of a uniform ``u`` in
   ``[nextafter(-1, 0), 1)``, with XLA's single-precision ``erf_inv``
   (:func:`erf_inv`) on XLA CPU's float32 ``log1p``
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike
-from repro_torch.floats import fma, log1p
+from repro_torch.floats import fma, log, log1p
 
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -114,17 +117,62 @@ def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
 
 
 def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform`` in float32: the top 23 bits of each word as
-    the mantissa of a float in [1, 2), minus 1, scaled to ``[minval,
-    maxval)``. A batch of keys (K, 2) gives (K, *shape)."""
+            maxval: float = 1.0, dtype: torch.dtype = torch.float32
+            ) -> torch.Tensor:
+    """``jax.random.uniform`` in ``[minval, maxval)``, float32 or
+    bfloat16. A batch of keys (K, 2) gives (K, *shape).
+
+    * float32: the top 23 bits of each word as the mantissa of a float in
+      [1, 2), minus 1, times ``maxval - minval`` plus ``minval`` in one
+      fused multiply-add (XLA's CPU backend contracts them);
+    * bfloat16: the low byte of each word (``nmant = 7 < 8``, so jax draws
+      8 random bits), shifted right by one into the mantissa of a bfloat16
+      in [1, 2): 128 values. Minus 1, then the scale and the shift, each op
+      rounded to bfloat16 (compared with ``jax.random.uniform`` over
+      several ranges, the separately rounded ops give its bits and a fused
+      multiply-add does not); the bounds are rounded to float32 and then to
+      bfloat16, as jax takes them."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"uniform draws float32 or bfloat16, got {dtype}")
     bits = random_bits(key, shape)
-    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    floats = floats - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    if dtype == torch.bfloat16:
+        mant = ((bits & 0xFF) >> 1) | 0x3F80
+        floats = mant.to(torch.int16).view(torch.bfloat16) - 1.0
+        lo, hi = lo.to(dtype), hi.to(dtype)
+        return torch.maximum(lo, floats * (hi - lo) + lo)
+    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    floats = floats - 1.0
     # XLA's CPU backend fuses the scale and shift (one rounding)
     return torch.maximum(lo, fma(floats, hi - lo, lo))
+
+
+def gumbel(key: torch.Tensor, shape=(), dtype: torch.dtype = torch.float32
+           ) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, dtype)`` (its default ``mode="low"``)
+    in float32 or bfloat16: ``-log(-log(u))`` of the :func:`uniform` ``u``
+    in ``[tiny, 1)`` (``tiny`` the dtype's smallest normal), with XLA CPU's
+    float32 ``log`` (:func:`repro_torch.floats.log`). In bfloat16 each
+    ``log`` works on float32 and its result is rounded to bfloat16 before
+    the next op: jax's jitted ``_gumbel`` rounds so under the test
+    process's default XLA flags (one rounding at the end differs in most
+    draws). A batch of keys (K, 2) gives (K, *shape)."""
+    tiny = float(torch.finfo(dtype).tiny)
+    u = uniform(key, shape, minval=tiny, maxval=1.0, dtype=dtype)
+    inner = -log(u.float()).to(dtype)
+    return -log(inner.float()).to(dtype)
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)`` (with replacement,
+    ``mode="low"``) on float32 or bfloat16 logits: the index of the
+    largest ``gumbel(key, logits.shape, logits.dtype) + logits`` along the
+    last axis, the sum in the logits' dtype, the first index on a tie (the
+    bfloat16 Gumbel noise takes 128 values, so ties are common). Drawn on
+    the key's device, which must be the logits'. Returns int64."""
+    noise = gumbel(key, tuple(logits.shape), logits.dtype)
+    return torch.argmax(noise + logits, dim=-1)
 
 
 # Giles' single-precision erf_inv polynomials (XLA's ErfInv32), highest

@@ -1,12 +1,14 @@
-"""Serving engine: prefill and greedy decode, and the budget-capped
-batch planner (port of ``repro.serve.engine``).
+"""Serving engine: prefill, greedy or sampled decode, and the
+budget-capped batch planner (port of ``repro.serve.engine``).
 
-:class:`ServeEngine` runs a :class:`repro_torch.models.Model` eagerly on
-the model's device (the reference jits its prefill and decode steps):
-prefill through the flash-attention kernel, then one decode step per
-token with greedy ``argmax`` over the true vocabulary. Sampling at
-``temperature > 0`` (the reference's ``jax.random.categorical`` on
-bfloat16 logits) is still to port and raises.
+:class:`ServeEngine` runs a :class:`repro_torch.models.Model` (or the
+encoder-decoder, :class:`repro_torch.models.EncDecModel`) eagerly on the
+model's device (the reference jits its prefill and decode steps): prefill
+through the flash-attention kernel, then one decode step per token. A
+token is the ``argmax`` over the true vocabulary at ``temperature <= 0``,
+else a draw of :func:`repro_torch.prng.categorical` on the bfloat16
+logits divided by the temperature: ``jax.random.categorical``'s bits,
+with the reference's key schedule.
 
 The second half is the reference's beyond-paper bridge, copied as it is
 (numpy): a decode batch where every request carries a token budget and
@@ -16,15 +18,15 @@ fixed-shape segments between compaction points.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.models.model import Model
+from repro_torch import prng
+from repro_torch.models.model import AnyModel
 
-SAMPLING_TODO = ("temperature > 0 (jax.random.categorical on bfloat16 "
-                 "logits) is still to port: ROADMAP queue 1, item 10")
+Batch = Union[torch.Tensor, Dict[str, torch.Tensor]]
 
 
 # ---------------------------------------------------------------------------
@@ -32,38 +34,70 @@ SAMPLING_TODO = ("temperature > 0 (jax.random.categorical on bfloat16 "
 
 @dataclasses.dataclass
 class ServeEngine:
-    model: Model
+    model: AnyModel
     max_len: int
     temperature: float = 0.0
 
-    def __post_init__(self):
-        if self.temperature > 0.0:
-            raise NotImplementedError(SAMPLING_TODO)
-
-    def prefill(self, tokens: torch.Tensor):
+    def prefill(self, batch: Batch):
         """The last position's logits and the decode caches of
-        ``max_len`` positions."""
-        return self.model.prefill(tokens.to(self.model.device),
-                                  max_len=self.max_len)
+        ``max_len`` positions. ``batch`` is the prompt tokens (B, S), or
+        the reference's batch: a dict of ``tokens`` and the stub
+        frontends' ``frames`` (B, F, d) or ``patch_embeds`` (B, P, d),
+        which the model's prefill takes by keyword (it raises
+        ``ValueError`` for a missing one)."""
+        dev = self.model.device
+        if isinstance(batch, torch.Tensor):
+            return self.model.prefill(batch.to(dev), max_len=self.max_len)
+        extra = {k: v.to(dev) for k, v in batch.items() if k != "tokens"}
+        return self.model.prefill(batch["tokens"].to(dev),
+                                  max_len=self.max_len, **extra)
 
-    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+    def _sample(self, logits: torch.Tensor,
+                key: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The next token of each row (int32), on the logits' device:
+        ``argmax`` at ``temperature <= 0`` (``key`` unused), else
+        ``prng.categorical(key, logits / temperature)``, the division in
+        the logits' dtype by the temperature rounded to it (jax's weakly
+        typed scalar)."""
         logits = logits[:, -1, : self.model.cfg.vocab_size]
-        return torch.argmax(logits, dim=-1).to(torch.int32)
+        if self.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        if key is None:
+            raise ValueError("sampling at temperature > 0 needs a key")
+        t = torch.tensor(self.temperature, dtype=torch.float32).to(
+            logits.dtype)
+        return prng.categorical(key.to(logits.device),
+                                logits / t.to(logits.device)).to(torch.int32)
 
-    def generate(self, tokens: torch.Tensor, num_steps: int) -> torch.Tensor:
-        """Greedy generation from prompts ``tokens`` (B, S). Returns
-        (B, num_steps) int32 tokens on the model's device. Makes one
-        prefill and ``num_steps`` decode steps, as the reference does; no
-        step waits for the host."""
-        logits, caches = self.prefill(tokens)
-        prompt_len = tokens.shape[1]
+    def generate(self, batch: Batch, num_steps: int,
+                 key: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Greedy or temperature generation from ``batch`` (see
+        :meth:`prefill`). Returns (B, num_steps) int32 tokens on the
+        model's device. Makes one prefill and ``num_steps`` decode steps,
+        as the reference does: the first token is drawn with ``key``
+        (default ``prng.PRNGKey(0)``), each later one with the second key
+        of a split of the previous key; the positions count the patches.
+        No step waits for the host: the keys are split on the model's
+        device, and only at ``temperature > 0`` (a greedy token uses no
+        key, so skipping the splits leaves the tokens as they were)."""
+        sampling = self.temperature > 0.0
+        if sampling:
+            key = (prng.PRNGKey(0) if key is None else key).to(
+                self.model.device)
+        sub = key
+        logits, caches = self.prefill(batch)
+        tokens = batch if isinstance(batch, torch.Tensor) else \
+            batch["tokens"]
+        prompt_len = tokens.shape[1] + (self.model.cfg.num_patches or 0)
         outs = []
-        tok = self._sample(logits)
+        tok = self._sample(logits, key)
         for i in range(num_steps):
             outs.append(tok)
             logits, caches = self.model.decode_step(caches, tok[:, None],
                                                     prompt_len + i)
-            tok = self._sample(logits)
+            if sampling:
+                key, sub = prng.split(key)
+            tok = self._sample(logits, sub)
         return torch.stack(outs, dim=1)
 
 

@@ -1388,17 +1388,41 @@ def test_flash_attention_matches_plain(dev, b, s, h, kv, dh, causal, window,
     both sides are float32-accurate up to 2^-16 in P and round the output
     once: they agree within two output ulps at each row's scale (2^-6 of
     the row's largest value)."""
+    _check_flash(dev, b, s, h, kv, dh, causal, window, dtype)
+
+
+# whisper-small's encoder: bidirectional attention over 1,500 frames
+# (11 x 128 + 92 query rows, 23 x 64 + 28 keys), and ragged S around one
+# query tile and one kv tile, at both kernels' dh of 64 and 128
+NON_CAUSAL_SHAPES = [(b, s, h, kv, dh, dtype)
+                     for dh, (b, h, kv) in ((64, (2, 12, 12)), (128, (1, 8, 2)))
+                     for s in (1, 63, 65, 129, 1500)
+                     for dtype in (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("b,s,h,kv,dh,dtype", NON_CAUSAL_SHAPES)
+def test_flash_attention_non_causal_matches_plain(dev, b, s, h, kv, dh,
+                                                  dtype):
+    """``causal=False``, the encoder's mode: every key tile of every query
+    tile, the ragged tails masked, against the plain version as above."""
+    _check_flash(dev, b, s, h, kv, dh, False, None, dtype)
+
+
+def _check_flash(dev, b, s, h, kv, dh, causal, window, dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(s + h)
     q = torch.randn((b, s, h, dh), generator=gen, device=dev).to(dtype)
     k = torch.randn((b, s, kv, dh), generator=gen, device=dev).to(dtype)
     v = torch.randn((b, s, kv, dh), generator=gen, device=dev).to(dtype)
     before = cuda_fa.LAUNCHES["flash_attention"]
+    before_nc = cuda_fa.NON_CAUSAL_LAUNCHES["flash_attention"]
     got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
     again = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
     want = fa_ref.attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert cuda_fa.LAUNCHES["flash_attention"] == before + 2
+    assert cuda_fa.NON_CAUSAL_LAUNCHES["flash_attention"] == \
+        before_nc + (0 if causal else 2)
     assert got.dtype == dtype and torch.equal(got, again)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
@@ -1514,6 +1538,83 @@ def test_reduced_moe_and_recurrent_models_on_the_card_are_the_cpus(dev,
             continue
         for a, b in zip(runs["card"], runs["cpu"]):
             assert float((a - b).abs().max()) < tol * float(b.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-76b"])
+def test_reduced_encdec_and_vlm_on_the_card_are_the_cpus(dev, arch):
+    """Reduced whisper-small (the encoder's flash launches with
+    ``causal=False``) and internvl2-76b (the patch prefix) on the card
+    against the same weights on the CPU: prefill and 4 teacher-forced
+    decode steps, one ``flash_attention`` launch an encoder and a decoder
+    layer, bfloat16 logits within 2e-2 of the CPU's scale (``LM_TOL``),
+    then both models cast to float32 (the frames or patches float32 as
+    given), within 2^-10 (``F32_TOL``), as ``chip_smoke.py`` phase 17
+    holds them."""
+    from repro_torch.models import new_model
+    cfg = reduced_config(arch)
+    card = build_model(cfg, device=dev, seed=0)
+    cpu = new_model(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    gen = torch.Generator().manual_seed(2)
+    seq = torch.randint(0, cfg.vocab_size, (2, 44), generator=gen)
+    stub = torch.randn((2, cfg.encoder_frames or cfg.num_patches,
+                        cfg.d_model), generator=gen)
+    what = "frames" if cfg.is_encdec else "patch_embeds"
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2.0 ** -10)):
+        if dtype == torch.float32:
+            card.float()
+            cpu.float()
+        runs = {}
+        for name, m in (("card", card), ("cpu", cpu)):
+            cuda_fa.reset_launches()
+            logits, caches = m.prefill(seq[:, :40].to(m.device), 48,
+                                       **{what: stub.to(m.device)})
+            out = [logits.float().cpu()]
+            if name == "card":
+                torch.cuda.synchronize()
+                assert cuda_fa.LAUNCHES["flash_attention"] == \
+                    cfg.n_layers + cfg.encoder_layers
+                assert cuda_fa.NON_CAUSAL_LAUNCHES["flash_attention"] == \
+                    cfg.encoder_layers
+            for pos in range(40, 44):
+                logits, caches = m.decode_step(
+                    caches, seq[:, pos:pos + 1].to(m.device),
+                    pos + cfg.num_patches)
+                out.append(logits.float().cpu())
+            runs[name] = out
+        for a, b in zip(runs["card"], runs["cpu"]):
+            assert float((a - b).abs().max()) < tol * float(b.abs().max())
+
+
+@pytest.mark.parametrize("temperature", [0.5, 0.7, 1.3])
+def test_sampler_on_the_card_is_the_cpus(dev, temperature):
+    """``ServeEngine._sample`` on bfloat16 logits on the card (drawing on
+    the card) against the same logits copied to the host and the same
+    keys: bit for bit, over 1,000 keys at once and one key at a time, on
+    logits with frequent ties of ``gumbel + logits`` and on spread ones;
+    the bfloat16 uniforms and Gumbel noise too."""
+    import types
+    from repro_torch.serve import ServeEngine
+    cfg = types.SimpleNamespace(vocab_size=5_000, num_patches=0)
+    eng = ServeEngine(types.SimpleNamespace(cfg=cfg), max_len=0,
+                      temperature=temperature)
+    keys = prng.split(prng.PRNGKey(7), 1000)
+    gen = torch.Generator().manual_seed(3)
+    for logits in ((torch.randint(0, 6, (8, 1, 5_120), generator=gen) / 4),
+                   torch.randn((8, 1, 5_120), generator=gen) * 3):
+        logits = logits.bfloat16()
+        got = eng._sample(logits.to(dev), keys.to(dev))
+        assert got.device == logits.to(dev).device
+        assert torch.equal(got.cpu(), eng._sample(logits, keys))
+        for i in (0, 1, 999):
+            assert torch.equal(eng._sample(logits.to(dev), keys[i]).cpu(),
+                               eng._sample(logits, keys[i]))
+    for dtype in (torch.bfloat16, torch.float32):
+        assert torch.equal(prng.gumbel(keys.to(dev), (4, 33), dtype).cpu(),
+                           prng.gumbel(keys, (4, 33), dtype))
+    assert torch.equal(
+        prng.uniform(keys.to(dev), (4, 33), dtype=torch.bfloat16).cpu(),
+        prng.uniform(keys, (4, 33), dtype=torch.bfloat16))
 
 
 def test_lm_entry_points_default_to_the_card():

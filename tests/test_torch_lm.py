@@ -424,25 +424,43 @@ def test_ported_layer_kinds_build_and_prefill(change, what):
 
 @pytest.mark.parametrize("change,what", [
     pytest.param(dict(encoder_layers=2, encoder_frames=12),
-                 "encoder-decoder", id="change3-encoder-decoder"),
-    pytest.param(dict(num_patches=4), "VLM", id="change4-VLM"),
+                 "frames", id="change3-encoder-decoder"),
+    pytest.param(dict(num_patches=4), "patch_embeds", id="change4-VLM"),
 ])
 def test_unported_architectures_raise(change, what):
+    """The encoder-decoder and the VLM's patch prefix (which raised until
+    the port ran them) build on the CPU and prefill with their stub
+    frontend's input; what raises now is a prefill without it
+    (``ValueError``: no silent text-only prefill)."""
     cfg = dataclasses.replace(reduced_config("stablelm-1.6b"), **change)
-    with pytest.raises(NotImplementedError,
-                       match=f"(?s){what}.*ROADMAP queue 1, item 10"):
-        build_model(cfg, device="cpu")
+    model = build_model(cfg, device="cpu")
+    toks = torch.from_numpy(_tokens(cfg, S)).long()
+    width = cfg.encoder_frames or cfg.num_patches
+    stub = torch.randn((B, width, cfg.d_model),
+                       generator=torch.Generator().manual_seed(0))
+    logits, caches = model.prefill(toks, MAX_LEN, **{what: stub})
+    assert tuple(logits.shape) == (B, 1, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits.float()).all())
+    assert len(caches) == cfg.n_layers
+    with pytest.raises(ValueError, match=f"{what}="):
+        model.prefill(toks, MAX_LEN)
 
 
 def test_unported_modes_raise():
+    """Training still raises; sampling at ``temperature > 0`` (which raised
+    until the port drew ``jax.random.categorical``'s bits) samples, and
+    whisper-small (unknown to the registry until the port ran it) is a
+    config."""
     cfg = reduced_config("stablelm-1.6b")
     model = build_model(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="training.*item 10"):
         t_lm.forward(model, torch.zeros(1, 4, dtype=torch.long), mode="train")
-    with pytest.raises(NotImplementedError, match="temperature.*item 10"):
-        t_engine.ServeEngine(model, max_len=16, temperature=0.7)
+    eng = t_engine.ServeEngine(model, max_len=16, temperature=0.7)
+    toks = eng.generate(torch.from_numpy(_tokens(cfg, 6)).long(), 4)
+    assert tuple(toks.shape) == (B, 4) and bool((toks < cfg.vocab_size).all())
+    assert get_config("whisper-small").encoder_layers == 12
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("whisper-small")
+        get_config("whisper-medium")
 
 
 def test_no_card_means_an_error_not_the_cpu(monkeypatch):

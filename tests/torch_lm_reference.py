@@ -1,7 +1,9 @@
 """Helpers of the whole-model tests of the port's MoE and recurrent
 architectures (``tests/test_torch_moe.py``, ``tests/test_torch_mixers.py``):
 ``repro``'s serving path run two ways, and the port's, on the same
-parameters and prompts.
+parameters and prompts. At the end, the same reference for the models
+with a stub frontend and for sampling (:class:`ServeReference`, used by
+``tests/test_torch_encdec.py`` and ``tests/test_torch_sampling.py``).
 
 * ``repro`` with XLA's excess precision off (``XLA_FLAGS=
   --xla_allow_excess_precision=false``, in a subprocess, since the flag is
@@ -278,3 +280,131 @@ def check_compiled(served: dict) -> None:
         compiled = served["compiled"][i]
         assert rel(port, compiled) <= rel(ref, compiled) + MODEL_TOL, \
             (served["arch"], what)
+
+
+# ---------------------------------------------------------------------------
+# serving with the stub frontends (whisper's frames, internvl2's patches)
+# and at temperature > 0: ``tests/test_torch_encdec.py`` and
+# ``tests/test_torch_sampling.py``
+
+SERVE_REFERENCE = textwrap.dedent("""
+    import json, sys
+    import jax, jax.numpy as jnp, numpy as np
+    import repro.models.attention as j_attention
+    from repro.configs import reduced_config
+    from repro.kernels.flash_attention import flash_attention
+    from repro.models import build_model
+    from repro.serve.engine import ServeEngine
+    MAX_LEN, STEPS = %d, %d
+    j_attention.causal_attention = flash_attention
+    out = {}
+    for job in json.loads(sys.argv[2]):
+        name, arch = job["name"], job["arch"]
+        with np.load(f"{sys.argv[1]}/{name}.npz") as data:
+            flat = {k: data[k] for k in data.files}
+        params, batch = {}, {}
+        for path, value in flat.items():
+            if path.startswith("batch/"):
+                batch[path[6:]] = jnp.asarray(value)
+                continue
+            node = params
+            *head, last = path.split("/")
+            for k in head:
+                node = node.setdefault(k, {})
+            node[last] = jnp.asarray(value)
+        cfg = reduced_config(arch)
+        model = build_model(cfg)
+        if job["greedy"]:
+            prefill = jax.jit(lambda p, b: model.prefill(p, b, MAX_LEN))
+            decode = jax.jit(model.decode_step)
+            logits, caches = prefill(params, batch)
+            out[f"{name}/logits/0"] = np.asarray(logits[:, -1:], np.float32)
+            stack = "dec_groups" if cfg.is_encdec else "groups"
+            for j, layer in enumerate(caches[stack].values()):
+                if cfg.is_encdec:
+                    kv = dict(k=layer.self_kv.k, v=layer.self_kv.v,
+                              cross_k=layer.cross_k, cross_v=layer.cross_v)
+                else:
+                    kv = dict(k=layer["sub0"].k, v=layer["sub0"].v)
+                for key, value in kv.items():
+                    out[f"{name}/caches/{j}/{key}"] = np.asarray(
+                        value, np.float32)
+            start = batch["tokens"].shape[1] + cfg.num_patches
+            tokens = []
+            for i in range(STEPS):
+                tok = jnp.argmax(logits[:, -1, :cfg.vocab_size], -1).astype(
+                    jnp.int32)
+                tokens.append(np.asarray(tok))
+                logits, caches = decode(params, caches, tok[:, None],
+                                        jnp.int32(start + i))
+                out[f"{name}/logits/{i + 1}"] = np.asarray(logits,
+                                                           np.float32)
+            out[f"{name}/tokens"] = np.stack(tokens, 1)
+        for t, seed in job["sampled"]:
+            eng = ServeEngine(model, params, max_len=MAX_LEN, temperature=t)
+            out[f"{name}/sampled/{t}/{seed}"] = np.asarray(eng.generate(
+                batch, STEPS, key=jax.random.PRNGKey(seed)))
+    np.savez(f"{sys.argv[1]}/reference.npz", **out)
+    print("REFERENCE_OK")
+""") % (MAX_LEN, STEPS)
+
+
+def serve_batch(arch: str, seed: int = 1) -> dict:
+    """``repro``'s serving batch of ``reduced_config(arch)`` from numpy
+    ``seed``: B x S prompt tokens, and the stub frontends' float32
+    ``frames`` (B, encoder_frames, d) or ``patch_embeds`` (B, num_patches,
+    d), standard normal."""
+    cfg = reduced_config(arch)
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(
+        np.int32)}
+    if cfg.is_encdec:
+        batch["frames"] = rng.standard_normal(
+            (B, cfg.encoder_frames, cfg.d_model)).astype(np.float32)
+    if cfg.num_patches:
+        batch["patch_embeds"] = rng.standard_normal(
+            (B, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def torch_batch(batch: dict) -> dict:
+    """The port's batch of :func:`serve_batch`'s (int64 tokens)."""
+    return {k: torch.from_numpy(v).long() if k == "tokens"
+            else torch.from_numpy(v) for k, v in batch.items()}
+
+
+class ServeReference:
+    """``repro``'s serving path without excess precision (the flash fast
+    path in interpret mode, as :class:`Reference`), started in a
+    subprocess at once; :meth:`result` waits for it. ``jobs`` are
+    ``(name, arch, params, batch, greedy, sampled)``: ``greedy`` runs the
+    jitted prefill and STEPS greedy decode steps (every step's logits,
+    the prefill's caches, the tokens); ``sampled`` lists ``(temperature,
+    key seed)`` pairs for ``ServeEngine.generate``."""
+
+    def __init__(self, jobs, workdir: Path):
+        import json
+        self.workdir = workdir
+        spec = []
+        for name, arch, params, batch, greedy, sampled in jobs:
+            np.savez(workdir / f"{name}.npz", **_flat(params),
+                     **{f"batch/{k}": v for k, v in batch.items()})
+            spec.append(dict(name=name, arch=arch, greedy=greedy,
+                             sampled=[list(p) for p in sampled]))
+        env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=SRC,
+                   XLA_FLAGS="--xla_allow_excess_precision=false")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", SERVE_REFERENCE, str(workdir),
+             json.dumps(spec)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self._out = None
+
+    def result(self, name: str) -> dict:
+        if self._out is None:
+            stdout, stderr = self.proc.communicate(timeout=600)
+            assert self.proc.returncode == 0, stderr[-3000:]
+            assert "REFERENCE_OK" in stdout
+            with np.load(self.workdir / "reference.npz") as data:
+                self._out = {k: data[k] for k in data.files}
+        return {k.split("/", 1)[1]: v for k, v in self._out.items()
+                if k.startswith(f"{name}/")}
