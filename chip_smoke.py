@@ -307,6 +307,33 @@ Run from the repository root. Phases:
    both). Phase 9 (a) holds and times the kernel at phase 17's shapes in
    both types: whisper's encoder (B=8, S=1,500, H=12, dh=64, not causal)
    and internvl2's prefill (B=8, S=2,048, H=64, KV=8, dh=128).
+18. training (``train_phase``): (a) the flash-attention backward kernel
+   (``csrc/flash_attention_bwd.cu``) against its plain version on the
+   card, dq, dk and dv from the same q, k, v, output, output gradient and
+   the forward kernel's logsumexp, at the training shapes
+   (``BWD_SHAPES``: stablelm-1.6b's microbatch, granite-moe-3b's GQA,
+   gemma3-4b's dh=256 window layer, whisper-small's encoder, not causal
+   and ragged, internvl2-76b's GQA 8:1 at dh=128) in bfloat16 (max |diff|
+   over max |plain| within 2e-2) and at two of them in float32 (1e-4); a
+   second launch gives the same bits; each bfloat16 shape timed against
+   its plain version, its bound (five products at the bf16 tensor-core
+   peak) and SDPA's backward (``torch.autograd.grad`` through
+   ``scaled_dot_product_attention``; timed only). (b) stablelm-1.6b at
+   full width (24 layers, d=2,048, ~1.64 B parameters of float32 masters,
+   ~26 GB of float32 state) through ``init_state``,
+   ``make_train_step(microbatches=2)`` and ``pipeline_for(seq_len=2048,
+   global_batch=8)``: a warm-up step and 3 timed steps, each launching
+   exactly 2 x 24 x 2 ``flash_attention`` (forward and recompute, each
+   microbatch) and 24 x 2 ``flash_attention_bwd``, the loss finite; a
+   second run from the same seed gives the same parameters and losses bit
+   for bit. (c) the reduced configs of stablelm-1.6b, granite-moe-3b,
+   whisper-small and internvl2-76b on the card against the CPU from the
+   same state (``TRAIN_CPU_ARCHS``), computing in bfloat16 and as float32
+   twins: the loss and every parameter's gradient within ``TRAIN_TOLS``,
+   then one AdamW step. (d) ``train_loop`` on the card at reduced
+   stablelm-1.6b with a ``FailureInjector`` at step 3 and a checkpoint
+   every 2 steps: the losses after the restart and the final state are an
+   uninterrupted run's bit for bit.
 
 Every check raises on failure and nothing is caught, so any failure exits
 non-zero. The last line is the JSON result. Without a CUDA device, or
@@ -532,6 +559,9 @@ KERNELS = (   # name, CUDA source, the TPU kernel (or XLA op) it replaces
     ("crn_cells", "src/repro_torch/csrc/crn.cu", "src/repro/core/crn.py:67"),
     ("bid_noise", "src/repro_torch/csrc/crn.cu",
      "src/repro/core/executor.py:914"),
+    # no Pallas: XLA's autodiff of the reference's attention (training)
+    ("flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd.cu",
+     "src/repro/models/attention.py:103"),
 )
 LM_ARCH = "stablelm-1.6b"
 LM_REQUESTS, LM_PROMPT, LM_STEPS = 8, 2048, 32
@@ -645,6 +675,46 @@ ENCDEC_MODELS = (("whisper-small", None, 224, 64),
                  ("internvl2-76b", 8, 1792, 32))
 SAMPLE_TEMPERATURE = 0.7
 SAMPLE_KEYS = 8             # keys of the card-vs-CPU draw of _sample
+# phase 18 (a): the backward kernel at the training shapes (b, s, h, kv, dh,
+# causal, window, label): stablelm-1.6b's microbatch (8 rows in 2), granite-
+# moe-3b's GQA 3:1, gemma3-4b's local layer (dh=256, a 1,024 window),
+# whisper-small's encoder (not causal, 1,500 frames: ragged against the 64-
+# row tiles) and internvl2-76b's GQA 8:1 at dh=128 (one row of 256 patches
+# + 1,792 tokens); the first and fourth also in float32
+BWD_SHAPES = ((4, 2048, 32, 32, 64, True, None, "stablelm-1.6b"),
+              (4, 2048, 24, 8, 64, True, None, "granite-moe-3b"),
+              (1, 4096, 8, 4, 256, True, 1024, "gemma3-4b local"),
+              (8, 1500, 12, 12, 64, False, None, "whisper-small encoder"),
+              (1, 2048, 64, 8, 128, True, None, "internvl2-76b"))
+BWD_F32 = ("stablelm-1.6b", "whisper-small encoder")
+# max |kernel - plain| / max |plain| of dq, dk, dv: bfloat16 rounds each
+# gradient once (2^-9 of its scale; the float32 sums inside differ only in
+# order), float32 only the order of the sums
+BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# phase 18 (b): stablelm-1.6b at full width
+TRAIN_ARCH = "stablelm-1.6b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 2048, 2, 3
+TRAIN_LR = 3e-4
+# phase 18 (c): reduced configs on the card against the CPU, 4 rows of 64
+# positions, one step at lr 1e-3. Bounds, max |card - CPU| / max |CPU|,
+# per compute dtype. float32 twins: the flash kernels' split TF32 and
+# CUDA-core sums against the CPU's float32 (order only); bfloat16: two
+# devices' bfloat16 products and roundings, as the port is held against
+# repro in tests/test_torch_train_loss.py
+TRAIN_CPU_ARCHS = ("stablelm-1.6b", "granite-moe-3b-a800m", "whisper-small",
+                   "internvl2-76b")
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, TRAIN_CPU_LR = 4, 64, 1e-3
+# (loss, gradients, parameters after the step in learning rates); the
+# float32 twins read 7.7e-8, 2.3e-6 and 0.031 at most (this phase on an
+# NVIDIA H100 80GB HBM3 at 700 W), bfloat16 5.5e-5 and 1.3e-2, and its
+# parameters up to 2 learning rates apart (printed, not held: Adam's first
+# step is lr * g / (|g| + eps), so a gradient near zero whose sign differs
+# moves by up to 2 lr)
+TRAIN_TOLS = {"float32": (1e-6, 2e-5, 0.1), "bfloat16": (1e-3, 5e-2, None)}
+# phase 18 (d): train_loop with a failure at step 3, checkpoints every 2
+TRAIN_LOOP = dict(steps=6, global_batch=4, seq_len=64, ckpt_every=2,
+                  log_every=100, lr=1e-3)
+TRAIN_FAIL_AT = 3
 
 
 def require(ok: bool, what: str) -> None:
@@ -1638,6 +1708,386 @@ def encdec_phase(seed: int, dev, reset_counts, read_counts, *,
         out["models"][arch] = rec
     out["wall"] = time.perf_counter() - t_phase
     print(f"[17] phase 17: {out['wall']:.1f} s", flush=True)
+    return out
+
+
+def bwd_pairs(b: int, s: int, h: int, causal: bool, window) -> float:
+    """The (query, key) pairs attention of this shape computes: what each
+    of its products costs, per dh."""
+    import torch
+    rows = torch.arange(s, dtype=torch.float64)
+    seen = rows + 1 if causal else torch.full_like(rows, float(s))
+    if window is not None:
+        # keys j > i - window: at most window of them up to i, and all
+        # the later ones when not causal
+        before = torch.clamp(rows + 1, max=window)
+        seen = before if causal else before + (s - 1 - rows)
+    return b * h * float(seen.sum())
+
+
+def backward_check(dev, tag: str) -> dict:
+    """Phase 18 (a): ``BWD_SHAPES`` through the forward kernel (with its
+    logsumexp) and the backward kernel against ``ref.attention_bwd_ref``;
+    bfloat16 timed against the plain version, the bound and SDPA's
+    backward. Returns the timings and errors by label."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    out = {"shapes": {}, "max_abs_err": 0.0}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for b, s, h, kv, dh, causal, window, label in BWD_SHAPES:
+        for dname in ("bfloat16", "float32"):
+            if dname == "float32" and label not in BWD_F32:
+                continue
+            dtype = getattr(torch, dname)
+            gen = torch.Generator(device=dev).manual_seed(s + h + dh)
+            q, do = (torch.randn((b, s, h, dh), generator=gen, device=dev)
+                     .to(dtype) for _ in range(2))
+            k, v = (torch.randn((b, s, kv, dh), generator=gen, device=dev)
+                    .to(dtype) for _ in range(2))
+            o, lse = fa_mod.flash_attention_cuda(
+                q, k, v, causal=causal, window=window, with_lse=True)
+
+            def kernel():
+                return fab.flash_attention_bwd_cuda(
+                    q, k, v, o, do, lse, causal=causal, window=window)
+
+            def plain():
+                return fa_ref.attention_bwd_ref(
+                    q, k, v, o, do, lse, causal=causal, window=window)
+
+            got, again, want = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            rec = {}
+            for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+                require(torch.equal(g, a),
+                        f"{tag} {label} {dname}: a second launch gave other "
+                        f"bits of {name}")
+                diff = float((g.float() - w.float()).abs().max())
+                rel = diff / float(w.float().abs().max())
+                require(rel <= BWD_TOL[dname],
+                        f"{tag} {label} {dname}: {name} differs by {rel:.3g}"
+                        f" of its scale (> {BWD_TOL[dname]})")
+                rec[f"{name}_rel_err"] = rel
+                out["max_abs_err"] = max(out["max_abs_err"], diff)
+            del got, again, want
+            if dname == "bfloat16":
+                pairs = bwd_pairs(b, s, h, causal, window)
+                # read q, k, v, o, dO and lse once, write dq, dk, dv
+                n_bytes = (3 * q.numel() + 2 * k.numel()) \
+                    * q.element_size() + lse.numel() * 4 \
+                    + (q.numel() + 2 * k.numel()) * q.element_size()
+                rec["bound"] = bound_ms(n_bytes, 5 * 2 * pairs * dh,
+                                        BF16_OPS_PER_S)
+                rec["ms"] = cuda_ms(kernel, 5)
+                rec["plain_ms"] = cuda_ms(plain, 2)
+                # the yardstick: SDPA's backward on the same tensors as
+                # (B, H, S, dh) views, a band mask for the window; the port
+                # never calls it
+                leaves = [x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v)]
+                band = None
+                if window is not None:
+                    idx = torch.arange(s, device=dev)
+                    band = idx[None, :] > idx[:, None] - window
+                    if causal:
+                        band &= idx[None, :] <= idx[:, None]
+                ref_out = sdpa(*leaves, attn_mask=band,
+                               is_causal=causal and band is None,
+                               enable_gqa=kv != h)
+                grad_out = do.transpose(1, 2)
+                rec["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                    ref_out, leaves, grad_out, retain_graph=True), 5)
+                del ref_out, leaves
+                print(f"{tag} {label} (B={b}, S={s}, H={h}, KV={kv}, "
+                      f"dh={dh}, {'causal' if causal else 'not causal'}"
+                      f"{'' if window is None else f', window {window}'}) "
+                      f"bf16: kernel {rec['ms']:.4f} ms, plain "
+                      f"{rec['plain_ms']:.4f} ms, SDPA backward "
+                      f"{rec['library_ms']:.4f} ms, bound "
+                      f"{rec['bound'][0]:.4f} ms ({rec['bound'][1]}); "
+                      f"errors dq {rec['dq_rel_err']:.3g}, dk "
+                      f"{rec['dk_rel_err']:.3g}, dv {rec['dv_rel_err']:.3g} "
+                      f"of their scale", flush=True)
+            else:
+                print(f"{tag} {label} f32: errors dq {rec['dq_rel_err']:.3g}"
+                      f", dk {rec['dk_rel_err']:.3g}, dv "
+                      f"{rec['dv_rel_err']:.3g} of their scale", flush=True)
+            out["shapes"][f"{label} {dname}"] = rec
+            del q, k, v, o, do, lse
+            torch.cuda.empty_cache()
+    return out
+
+
+def full_width_train(seed: int, dev, reset_counts, read_counts, tag: str,
+                     keep_params: bool) -> dict:
+    """Phase 18 (b), one run: ``TRAIN_ARCH`` at full width from ``seed``,
+    a warm-up step, ``TRAIN_STEPS`` timed steps and one more (traced with
+    ``keep_params``). Returns the losses, walls, launches, peak memory
+    and, with ``keep_params``, the final parameters on the host (else the
+    state)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline_for
+    from repro_torch.models import new_model
+    from repro_torch.train import (AdamW, init_state, make_train_step,
+                                   warmup_cosine)
+
+    cfg = get_config(TRAIN_ARCH)
+    t0 = time.perf_counter()
+    model = new_model(cfg, device=dev, param_dtype=torch.float32)
+    adamw = AdamW(learning_rate=warmup_cosine(TRAIN_LR, 1, TRAIN_STEPS + 1))
+    state = init_state(model, adamw, seed)
+    step = make_train_step(model, adamw, microbatches=TRAIN_MICRO)
+    pipe = pipeline_for(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                        seed=seed, device=dev)
+    torch.cuda.synchronize()
+    rec = dict(init_s=time.perf_counter() - t0,
+               params=sum(p.numel() for p in model.parameters()),
+               losses=[], step_s=[], launches=[])
+    state, metrics = step(state, pipe.batch(0))          # warm-up
+    rec["losses"].append(float(metrics["loss"]))
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(1, TRAIN_STEPS + 1):
+        batch = pipe.batch(i)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        rec["step_s"].append(time.perf_counter() - t0)
+        counts = read_counts()
+        rec["launches"].append(counts)
+        want = {"flash_attention": 2 * cfg.n_layers * TRAIN_MICRO,
+                "flash_attention_bwd": cfg.n_layers * TRAIN_MICRO}
+        require(all(counts[k] == n for k, n in want.items()) and not any(
+            n for k, n in counts.items() if k not in want),
+            f"{tag} step {i} launches {counts}, expected {want} and "
+            f"nothing else")
+        rec["losses"].append(float(metrics["loss"]))
+        rec["grad_norm"] = float(metrics["grad_norm"])
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    # one more step, traced in the first run: the device time by kernel
+    # family
+    batch = pipe.batch(TRAIN_STEPS + 1)
+    box = {}
+
+    def last_step():
+        box["state"], box["metrics"] = step(state, batch)
+
+    by_kernel = (trace(tag, "a train step", last_step) if keep_params
+                 else last_step())
+    state = box["state"]
+    rec["losses"].append(float(box["metrics"]["loss"]))
+    if by_kernel:
+        busy = sum(by_kernel.values()) / 1e3
+        split = {
+            "attention_bwd": sum(us for k, us in by_kernel.items()
+                                 if "bwd_" in k) / 1e3,
+            "attention_fwd": sum(us for k, us in by_kernel.items()
+                                 if "flash_" in k) / 1e3,
+            "products": sum(us for k, us in by_kernel.items()
+                            if is_gemm(k)) / 1e3}
+        split["rest"] = busy - sum(split.values())
+        rec["trace"] = dict(busy_ms=busy, **split)
+        print(f"{tag} traced step: device busy {busy:.1f} ms = "
+              + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items()),
+              flush=True)
+    require(all(torch.isfinite(torch.tensor(rec["losses"]))),
+            f"{tag}: losses {rec['losses']} not finite")
+    if keep_params:
+        rec["host_params"] = {k: v.detach().cpu()
+                              for k, v in state.params.items()}
+    else:
+        rec["state"] = state
+    rec["cfg"] = cfg
+    return rec
+
+
+def card_against_cpu_train(seed: int, dev, tag: str) -> dict:
+    """Phase 18 (c): ``TRAIN_CPU_ARCHS`` reduced, the same float32 masters
+    and batch on the card and the CPU, in both compute dtypes: the loss and
+    each leaf's gradient within ``TRAIN_TOLS``, then one AdamW step, whose
+    parameters are printed in steps of the learning rate. Where the CPU's
+    MoE routing differs from the card's at a near tie (within
+    ``ROUTE_DRIFT``), the card takes the CPU's experts."""
+    import torch
+    from repro_torch.configs import reduced_config
+    from repro_torch.data import pipeline_for
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import new_model
+    from repro_torch.train import AdamW, constant_lr
+
+    out = {}
+    for arch in TRAIN_CPU_ARCHS:
+        cfg = reduced_config(arch)
+        batch = pipeline_for(cfg, seq_len=TRAIN_CPU_SEQ,
+                             global_batch=TRAIN_CPU_BATCH, seed=seed,
+                             device="cpu").batch(0)
+        for dname in ("bfloat16", "float32"):
+            compute = getattr(torch, dname)
+            models, runs = {}, {}
+            for where in ("cpu", dev):
+                model = new_model(cfg, device=where,
+                                  param_dtype=torch.float32)
+                if compute == torch.float32:
+                    model.compute_dtype = None      # the float32 twin
+                if where == "cpu":
+                    model.init_params(seed)
+                else:
+                    model.load_state_dict(models["cpu"].state_dict())
+                for p in model.parameters():
+                    p.requires_grad_(True)
+                models[where] = model
+            log: list = []
+            with moe_lib.record_routing(log):
+                loss_cpu, met_cpu = models["cpu"].loss(batch)
+            loss_cpu.backward()
+            with moe_lib.follow_routing(log, ROUTE_DRIFT) as ties:
+                loss_card, met_card = models[dev].loss(
+                    {k: v.to(dev) for k, v in batch.items()})
+            loss_card.backward()
+            loss_tol, grad_tol, step_tol = TRAIN_TOLS[dname]
+            loss_card, loss_cpu = float(loss_card.detach()), \
+                float(loss_cpu.detach())
+            loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+            grad_rel = {}
+            for (name, pc), (_, pd) in zip(
+                    models["cpu"].named_parameters(),
+                    models[dev].named_parameters()):
+                scale = float(pc.grad.abs().max())
+                grad_rel[name] = float((pd.grad.cpu() - pc.grad).abs().max()
+                                       ) / (scale if scale else 1.0)
+            worst = max(grad_rel, key=grad_rel.get)
+            require(loss_rel <= loss_tol,
+                    f"{tag} {arch} {dname}: loss {loss_card} on the card, "
+                    f"{loss_cpu} on the CPU ({loss_rel:.3g} > {loss_tol})")
+            require(grad_rel[worst] <= grad_tol,
+                    f"{tag} {arch} {dname}: gradient of {worst} differs by "
+                    f"{grad_rel[worst]:.3g} of its scale (> {grad_tol})")
+            # one AdamW step from the gradients, each device on its own
+            steps = {}
+            for where, model in models.items():
+                adamw = AdamW(learning_rate=constant_lr(TRAIN_CPU_LR))
+                params = dict(model.named_parameters())
+                grads = {k: p.grad for k, p in params.items()}
+                adamw.update(grads, adamw.init(params), params)
+                steps[where] = params
+            moved = max(float((steps[dev][k].detach().cpu()
+                               - steps["cpu"][k].detach()).abs().max())
+                        for k in steps["cpu"]) / TRAIN_CPU_LR
+            require(step_tol is None or moved <= step_tol,
+                    f"{tag} {arch} {dname}: after one step the parameters "
+                    f"differ by {moved:.3g} learning rates (> {step_tol})")
+            out[f"{arch} {dname}"] = dict(loss_rel=loss_rel,
+                                          grad_rel=grad_rel[worst],
+                                          worst=worst, step_diff_lr=moved,
+                                          ties=len(ties))
+            print(f"{tag} {arch} {dname}: loss {loss_card:.6f} on the card, "
+                  f"{loss_cpu:.6f} on the CPU ({loss_rel:.3g} <= {loss_tol}); "
+                  f"gradients within {grad_rel[worst]:.3g} of their scale "
+                  f"(worst {worst}; <= {grad_tol}); after one AdamW step the "
+                  f"parameters differ by at most {moved:.3g} learning rates"
+                  f" (<= {step_tol}); {len(ties)} near ties followed",
+                  flush=True)
+            del models, steps
+    return out
+
+
+def train_phase(seed: int, dev, reset_counts, read_counts, *,
+                card_name="") -> dict:
+    """Phase 18: training. (a) the backward kernel against its plain
+    version and timed; (b) stablelm-1.6b at full width, twice from one
+    seed; (c) reduced configs on the card against the CPU; (d)
+    ``train_loop``'s restart on the card. Returns the numbers, the
+    launches of (b)'s timed steps and the backward kernel's row."""
+    import shutil
+    import torch
+    from repro_torch.configs import reduced_config
+    from repro_torch.fault import FailureInjector
+    from repro_torch.launch.train import train_loop
+
+    t_phase = time.perf_counter()
+    out = {}
+    out["backward"] = bwd = backward_check(dev, "[18a]")
+    print(f"[18a] {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    first = full_width_train(seed, dev, reset_counts, read_counts, "[18b]",
+                             keep_params=True)
+    cfg = first.pop("cfg")
+    host = first.pop("host_params")
+    torch.cuda.empty_cache()
+    second = full_width_train(seed, dev, reset_counts, read_counts,
+                              "[18b] again", keep_params=False)
+    second.pop("cfg")
+    state = second.pop("state")
+    require(second["losses"] == first["losses"],
+            f"[18b] a second run gave losses {second['losses']}, the first "
+            f"{first['losses']}")
+    same = all(torch.equal(state.params[k], v.to(dev))
+               for k, v in host.items())
+    require(same, "[18b] a second run from the same seed gave other "
+            "parameters")
+    del state, host
+    torch.cuda.empty_cache()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = statistics.median(first["step_s"])
+    out["full"] = dict(first, tokens_per_step=tokens, step_median_s=step_s,
+                       tokens_per_s=tokens / step_s,
+                       wall_s=time.perf_counter() - t0)
+    print(f"[18b] {TRAIN_ARCH} on {card_name}: {first['params'] / 1e9:.4f} B "
+          f"parameters ({cfg.n_layers} layers, d={cfg.d_model}, vocab "
+          f"{cfg.vocab_size}), float32 masters; steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens in {TRAIN_MICRO} microbatches: "
+          f"{[round(t, 4) for t in first['step_s']]} s (median {step_s:.4f}"
+          f" s, {tokens / step_s:.6g} tokens/s); peak device memory "
+          f"{first['peak_gib']:.3f} GiB; losses {first['losses']}; "
+          f"{first['launches'][0]} launches a step; the same parameters "
+          f"and losses from a second run; {out['full']['wall_s']:.1f} s",
+          flush=True)
+
+    t0 = time.perf_counter()
+    out["cpu_check"] = card_against_cpu_train(seed, dev, "[18c]")
+    print(f"[18c] {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    small = reduced_config(TRAIN_ARCH)
+    ckpt = ROOT / "build" / "phase18_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    straight, losses = train_loop(small, ckpt_dir=ckpt / "straight",
+                                  seed=seed, device=dev, **TRAIN_LOOP)
+    restarted, again = train_loop(
+        small, ckpt_dir=ckpt / "restarted", seed=seed, device=dev,
+        failure_injector=FailureInjector(schedule={TRAIN_FAIL_AT: 0}),
+        **TRAIN_LOOP)
+    resumed_at = (TRAIN_FAIL_AT // TRAIN_LOOP["ckpt_every"]
+                  * TRAIN_LOOP["ckpt_every"])
+    require(again[:TRAIN_FAIL_AT] == losses[:TRAIN_FAIL_AT]
+            and again[TRAIN_FAIL_AT:] == losses[resumed_at:],
+            f"[18d] losses after the restart {again}, uninterrupted "
+            f"{losses}")
+    require(all(torch.equal(restarted.params[k], v)
+                for k, v in straight.params.items()),
+            "[18d] the restarted run ended with other parameters")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    out["restart"] = dict(losses=losses, restarted=again,
+                          wall_s=time.perf_counter() - t0)
+    print(f"[18d] train_loop on the card: a failure at step {TRAIN_FAIL_AT} "
+          f"resumed from step {resumed_at}; losses {again} against "
+          f"{losses} uninterrupted, the same bits and the same final "
+          f"parameters; {out['restart']['wall_s']:.1f} s", flush=True)
+
+    main = bwd["shapes"][f"{BWD_SHAPES[0][7]} bfloat16"]
+    out["row"] = dict(ms=main["ms"], plain_ms=main["plain_ms"],
+                      library_ms=main["library_ms"], bound=main["bound"],
+                      max_abs_err=bwd["max_abs_err"])
+    out["launches"] = {k: sum(c[k] for c in first["launches"])
+                       for k in ("flash_attention", "flash_attention_bwd")}
+    out["wall"] = time.perf_counter() - t_phase
+    print(f"[18] phase 18: {out['wall']:.1f} s", flush=True)
     return out
 
 
@@ -3949,10 +4399,12 @@ def main() -> int:
     from repro_torch.kernels.capped_scan import ops as scan_ops
     from repro_torch.kernels.capped_scan.ref import capped_scan_ref
     from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+    from repro_torch.kernels.flash_attention import \
+        flash_attention_bwd as fab_mod
     from repro_torch.kernels import crn as crn_mod
 
     counters = (rf_mod, sr_mod, sp_mod, cs_mod, ar_mod, fc_mod, fa_mod,
-                vi_mod, sg_mod, crn_mod)
+                vi_mod, sg_mod, crn_mod, fab_mod)
 
     def reset_counts():
         for mod in counters:
@@ -3973,8 +4425,8 @@ def main() -> int:
     built = build.build_all(["round_fused", "sweep_resolve",
                              "segment_partials", "capped_scan",
                              "auction_resolve", "first_crossing",
-                             "flash_attention", "vi", "segment_resolve",
-                             "crn"])
+                             "flash_attention", "flash_attention_bwd", "vi",
+                             "segment_resolve", "crn"])
     print(f"[1] built {len(built)} libraries in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, (lib_path, log, seconds) in built.items():
@@ -5322,6 +5774,16 @@ def main() -> int:
     phase17 = encdec_phase(args.seed, dev, reset_counts, read_counts,
                            card_name=card)
     counted["flash_attention"] += phase17["flash_launches"]
+    # ---- phase 18: training ------------------------------------------------
+    phase18 = train_phase(args.seed, dev, reset_counts, read_counts,
+                          card_name=card)
+    for name, launches in phase18["launches"].items():
+        counted[name] += launches
+    row18 = phase18["row"]
+    timing["flash_attention_bwd"] = (row18["ms"], row18["plain_ms"],
+                                     row18["library_ms"])
+    timing["flash_attention_bwd_bound"] = row18["bound"]
+    errs["flash_attention_bwd"] = row18["max_abs_err"]
     rows = []
     for name, src, replaces in KERNELS:
         ms, plain_ms, library_ms = timing[name]
@@ -5339,8 +5801,9 @@ def main() -> int:
                                        else ar_rows
                                        if name.startswith("auction_resolve")
                                        else part_rows if name == "crn_cells"
-                                       else None if name in ("flash_attention",
-                                                             "vi")
+                                       else None if name in (
+                                           "flash_attention", "vi",
+                                           "flash_attention_bwd")
                                        else n)))
         if name == "crn_cells":
             # the kernel at the plain version's rows, like for like
@@ -5397,6 +5860,19 @@ def main() -> int:
                 rows[-1][f"{key}_launches"] = rec["launches"]
                 rows[-1][f"{key}_non_causal_launches"] = \
                     rec["non_causal_launches"]
+        if name == "flash_attention_bwd":
+            for label, rec in phase18["backward"]["shapes"].items():
+                key = label.replace(" ", "_").replace("-", "_").replace(
+                    ".", "_")
+                rows[-1].update({f"{key}_{k}": v for k, v in rec.items()
+                                 if k != "bound"})
+                if "bound" in rec:
+                    rows[-1][f"{key}_bound_ms"] = rec["bound"][0]
+            full = phase18["full"]
+            rows[-1].update(train_step_s=full["step_median_s"],
+                            train_tokens_per_s=full["tokens_per_s"],
+                            train_peak_gib=full["peak_gib"],
+                            train_launches_per_step=full["launches"][0])
         if name == "vi":
             rows[-1].update(plain_sampled_rows=timing["vi_plain_shape"][0],
                             plain_steps=timing["vi_plain_shape"][1],
@@ -5450,6 +5926,8 @@ def main() -> int:
         dict(card=card, **phase16), indent=1, default=str))
     (out_dir / "phase17.json").write_text(json.dumps(
         dict(card=card, **phase17), indent=1, default=str))
+    (out_dir / "phase18.json").write_text(json.dumps(
+        dict(card=card, **phase18), indent=1, default=str))
     print(f"[done] all phases in {time.perf_counter() - t_script:.1f} s",
           flush=True)
     print(json.dumps({"kernels": rows}))

@@ -66,7 +66,10 @@ def _unflatten(like: Tree, leaves) -> Tree:
         filled = {key: _unflatten(like[key], leaves) for key in sorted(like)}
         return {key: filled[key] for key in like}
     if isinstance(like, (list, tuple)):
-        return type(like)(_unflatten(sub, leaves) for sub in like)
+        subs = [_unflatten(sub, leaves) for sub in like]
+        # a NamedTuple (a TrainState) takes its fields as arguments
+        return type(like)(*subs) if hasattr(like, "_fields") \
+            else type(like)(subs)
     return next(leaves)
 
 

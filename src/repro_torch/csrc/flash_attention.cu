@@ -101,6 +101,16 @@ namespace {
 constexpr int kBK = 64;          // key/value rows per tile of the bf16 kernel
 constexpr float kNeg = -1073741824.0f;   // -2^30, the reference's NEG
 
+// The row logsumexp of the scaled, masked scores, m + log(l) with the
+// denominator the output was divided by, for rows row_lo and row_lo + 8
+// (those below S) of one (b, h): what the backward recomputes P from.
+__device__ __forceinline__ void write_lse(float* __restrict__ lse, long base,
+                                          int row_lo, int S, const float (&m)[2],
+                                          const float (&denom)[2]) {
+  if (row_lo < S) lse[base + row_lo] = m[0] + logf(denom[0]);
+  if (row_lo + 8 < S) lse[base + row_lo + 8] = m[1] + logf(denom[1]);
+}
+
 // ---------------------------------------------------------------------------
 // The bf16 tensor-core kernel
 // ---------------------------------------------------------------------------
@@ -225,8 +235,9 @@ __device__ __forceinline__ void load_tile(bf16* tile,
 template <int DH>
 __global__ void __launch_bounds__(TC<DH>::kThreads, DH <= 64 ? 2 : 1)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o, int S,
-                int H, int KV, int causal, int window) {
+                const bf16* __restrict__ v, bf16* __restrict__ o,
+                float* __restrict__ lse, int S, int H, int KV, int causal,
+                int window) {
   using C = TC<DH>;
   constexpr int kKSteps = DH / 16;     // k-steps of QK^T, n-tile pairs of PV
   extern __shared__ __align__(128) unsigned char tc_smem[];
@@ -409,6 +420,8 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     denom[r] = fmaxf(l[r], 1e-30f);
   }
+  if (lse != nullptr && tig == 0) write_lse(lse, (long)bh * S, row_lo, S, m,
+                                             denom);
   __syncwarp();
 #pragma unroll
   for (int n = 0; n < DH / 8; ++n) {
@@ -507,8 +520,9 @@ __device__ __forceinline__ void load_rows(float* tile,
 template <int DH>
 __global__ void __launch_bounds__(TF<DH>::kThreads, DH <= 64 ? 2 : 1)
 flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o, int S,
-                  int H, int KV, int causal, int window) {
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ lse, int S, int H, int KV, int causal,
+                  int window) {
   using C = TF<DH>;
   constexpr int kTK = C::kBK;          // keys a tile
   constexpr int kDSteps = DH / 8;      // k-steps of QK^T, n-tiles of PV
@@ -673,6 +687,8 @@ flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     denom[r] = fmaxf(l[r], 1e-30f);
   }
+  if (lse != nullptr && tig == 0) write_lse(lse, (long)bh * S, row_lo, S, m,
+                                             denom);
 #pragma unroll
   for (int n = 0; n < kDSteps; ++n) {
     const int col = 8 * n + 2 * tig;
@@ -686,8 +702,8 @@ flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int DH>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int H, int KV, int causal, int window,
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               void* lse, int B, int S, int H, int KV, int causal, int window,
                cudaStream_t stream) {
   using C = TF<DH>;
   auto kernel = flash_tf32_kernel<DH>;
@@ -697,14 +713,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid(B * H, (S + C::kBQ - 1) / C::kBQ);
   kernel<<<grid, C::kThreads, C::kBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, KV, causal,
-      window);
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), S, H, KV, causal, window);
   return (int)cudaGetLastError();
 }
 
 template <int DH>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int S, int H, int KV, int causal, int window,
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                void* lse, int B, int S, int H, int KV, int causal, int window,
                 cudaStream_t stream) {
   using C = TC<DH>;
   auto kernel = flash_tc_kernel<DH>;
@@ -714,18 +730,19 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid(B * H, (S + C::kBQ - 1) / C::kBQ);
   kernel<<<grid, C::kThreads, C::kBytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, H, KV, causal,
-      window);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), S, H, KV, causal, window);
   return (int)cudaGetLastError();
 }
 
 template <int DH>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int KV, int causal, int window, int bf16_in,
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, int S, int H, int KV, int causal, int window, int bf16_in,
            cudaStream_t stream) {
-  return bf16_in
-             ? launch_bf16<DH>(q, k, v, o, B, S, H, KV, causal, window, stream)
-             : launch_f32<DH>(q, k, v, o, B, S, H, KV, causal, window, stream);
+  return bf16_in ? launch_bf16<DH>(q, k, v, o, lse, B, S, H, KV, causal,
+                                   window, stream)
+                 : launch_f32<DH>(q, k, v, o, lse, B, S, H, KV, causal,
+                                  window, stream);
 }
 
 }  // namespace
@@ -734,19 +751,22 @@ extern "C" {
 
 // Attention of q (B, S, H, dh) over k, v (B, S, KV, dh) into o (B, S, H,
 // dh), all 16-byte aligned; bf16_in != 0 for bfloat16 tensors, float32
-// otherwise; window <= 0 for none. Returns the cudaError_t of the launch,
+// otherwise; window <= 0 for none. lse, if not null, receives each row's
+// logsumexp of its scaled, masked scores, (B, H, S) float32 (training
+// saves it for the backward, csrc/flash_attention_bwd.cu); serving passes
+// null, and the kernels then write what they wrote without it. Returns the cudaError_t of the launch,
 // or cudaErrorInvalidValue for a head dim other than 16, 32, 64, 128 or
 // 256 or H not a multiple of KV.
-int fa_forward(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int H, int KV, int dh, int causal, int window,
-               int bf16_in, cudaStream_t stream) {
+int fa_forward(const void* q, const void* k, const void* v, void* o,
+               void* lse, int B, int S, int H, int KV, int dh, int causal,
+               int window, int bf16_in, cudaStream_t stream) {
   if (KV < 1 || H % KV != 0) return (int)cudaErrorInvalidValue;
   switch (dh) {
-    case 16: return launch<16>(q, k, v, o, B, S, H, KV, causal, window, bf16_in, stream);
-    case 32: return launch<32>(q, k, v, o, B, S, H, KV, causal, window, bf16_in, stream);
-    case 64: return launch<64>(q, k, v, o, B, S, H, KV, causal, window, bf16_in, stream);
-    case 128: return launch<128>(q, k, v, o, B, S, H, KV, causal, window, bf16_in, stream);
-    case 256: return launch<256>(q, k, v, o, B, S, H, KV, causal, window, bf16_in, stream);
+    case 16: return launch<16>(q, k, v, o, lse, B, S, H, KV, causal, window, bf16_in, stream);
+    case 32: return launch<32>(q, k, v, o, lse, B, S, H, KV, causal, window, bf16_in, stream);
+    case 64: return launch<64>(q, k, v, o, lse, B, S, H, KV, causal, window, bf16_in, stream);
+    case 128: return launch<128>(q, k, v, o, lse, B, S, H, KV, causal, window, bf16_in, stream);
+    case 256: return launch<256>(q, k, v, o, lse, B, S, H, KV, causal, window, bf16_in, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,6 +1,7 @@
 """Carry a scenario batch, a random key, a scenario family or its overlay,
-a resumable fold's carry, a sweep mesh spec, or a language model's
-parameters from the reference package's arrays into the port.
+a resumable fold's carry, a sweep mesh spec, a language model's
+parameters or a training state from the reference package's arrays into
+the port.
 
 The reference (JAX) package's arrays reach the port as numpy arrays — what
 ``np.asarray`` gives for them. Those are often read-only views, so they are
@@ -150,24 +151,15 @@ def _reference_leaf(name: str, cfg: ArchConfig
     return f"tail/tail{layer - cfg.n_groups * width}/{rest}", None, 0
 
 
-def lm_params_from_reference(params, cfg: ArchConfig, *,
-                             device: DeviceLike = None) -> AnyModel:
-    """The port's model of ``cfg`` (:func:`~repro_torch.models.new_model`)
-    holding the reference's parameters: ``params`` is ``repro``'s tree
-    from ``Model.init_params`` with numpy leaves (``np.asarray`` of each).
-    The stacked leaves are unstacked into one block per layer: the
-    decoder-only LM's ``groups`` (n_groups, ...) (the attention, ``moe``,
-    ``mamba``, ``mlstm`` and ``slstm`` subtrees alike; the ``tail`` is
-    unstacked already), the encoder-decoder's ``enc_groups``
-    (encoder_layers, ...) and ``dec_groups`` (n_layers, ...); ``enc_norm``
-    and the VLM's ``patch_proj/w`` are carried as they are. Each value is
-    cast to the dtype the port holds it in, the one the reference reads it
-    at (bfloat16 matmul weights, as its ``cdt`` casts them; float32 norm
-    scales, gate biases, ``a_log``, ``dt_bias`` and ``conv_b``). A
-    missing, extra or misshapen leaf raises ``ValueError``."""
-    model = new_model(cfg, device=device)
-    leaves = _flatten(params)
+def _port_values(tree, cfg: ArchConfig, model) -> Dict[str, np.ndarray]:
+    """The leaves of a reference tree in the layout of ``repro``'s
+    ``Model.init_params`` (numpy leaves), by the name of the port's
+    parameter of ``model`` each becomes: the stacked leaves unstacked into
+    one block per layer. A missing, extra or misshapen leaf raises
+    ``ValueError``."""
+    leaves = _flatten(tree)
     used = set()
+    out = {}
     for name, p in model.named_parameters():
         path, index, size = _reference_leaf(name, cfg)
         if path not in leaves:
@@ -183,7 +175,7 @@ def lm_params_from_reference(params, cfg: ArchConfig, *,
             raise ValueError(f"{path} has shape {value.shape}, the port's "
                              f"{name} {tuple(p.shape)}")
         used.add(path)
-        p.data.copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
+        out[name] = np.array(value, dtype=np.float32)
     # a config of fewer layers than one pattern (n_groups 0) has every
     # layer in the tail and its stacked groups empty
     extra = sorted(path for path in set(leaves) - used
@@ -192,7 +184,59 @@ def lm_params_from_reference(params, cfg: ArchConfig, *,
     if extra:
         raise ValueError(f"reference leaves the port has no parameter for: "
                          f"{extra}")
+    return out
+
+
+def lm_params_from_reference(params, cfg: ArchConfig, *,
+                             device: DeviceLike = None,
+                             param_dtype: torch.dtype = torch.bfloat16
+                             ) -> AnyModel:
+    """The port's model of ``cfg`` (:func:`~repro_torch.models.new_model`)
+    holding the reference's parameters: ``params`` is ``repro``'s tree
+    from ``Model.init_params`` with numpy leaves (``np.asarray`` of each).
+    The stacked leaves are unstacked into one block per layer: the
+    decoder-only LM's ``groups`` (n_groups, ...) (the attention, ``moe``,
+    ``mamba``, ``mlstm`` and ``slstm`` subtrees alike; the ``tail`` is
+    unstacked already), the encoder-decoder's ``enc_groups``
+    (encoder_layers, ...) and ``dec_groups`` (n_layers, ...); ``enc_norm``
+    and the VLM's ``patch_proj/w`` are carried as they are. Each value is
+    cast to the dtype the port holds it in: with ``param_dtype`` bfloat16
+    (serving), the one the reference reads it at (bfloat16 matmul
+    weights, as its ``cdt`` casts them; float32 norm scales, gate biases,
+    ``a_log``, ``dt_bias`` and ``conv_b``); with ``torch.float32``
+    (training), the reference's float32 masters unrounded. A missing,
+    extra or misshapen leaf raises ``ValueError``."""
+    model = new_model(cfg, device=device, param_dtype=param_dtype)
+    values = _port_values(params, cfg, model)
+    for name, p in model.named_parameters():
+        p.data.copy_(torch.from_numpy(values[name]))
     return model
+
+
+def train_state_from_reference(state, cfg: ArchConfig, *,
+                               device: DeviceLike = None):
+    """The port's :class:`~repro_torch.train.TrainState` of ``repro``'s
+    (``params`` and the optimizer's ``mu`` and ``nu``, trees in the
+    parameters' layout with numpy leaves, and its ``step``): float32
+    masters and moments keyed by the port's parameter names, unstacked as
+    :func:`lm_params_from_reference` unstacks them, and an int32 step, on
+    ``device`` (the card by default). A train step of a model of ``cfg``
+    copies the parameters into the model's own
+    (:func:`repro_torch.train.bind_state`)."""
+    from repro_torch.train import AdamWState, TrainState
+    dev = pick_device(device)
+    shape = new_model(cfg, device="meta", param_dtype=torch.float32)
+
+    def tensors(tree):
+        return {name: torch.from_numpy(v).to(dev)
+                for name, v in _port_values(tree, cfg, shape).items()}
+
+    opt = state.opt
+    step = torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32,
+                        device=dev)
+    return TrainState(params=tensors(state.params),
+                      opt=AdamWState(step=step, mu=tensors(opt.mu),
+                                     nu=tensors(opt.nu)))
 
 
 def mesh_spec_from_reference(spec, *, devices) -> SweepMeshSpec:

@@ -34,7 +34,7 @@ MAX_GRID_Y = 65535          # CUDA's limit on gridDim.y
 # TF<DH>)
 ROWS = {16: 128, 32: 128, 64: 128, 128: 128, 256: 64}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SIGNATURES = {"fa_forward": [_P] * 4 + [_I] * 8 + [_P]}
+_SIGNATURES = {"fa_forward": [_P] * 5 + [_I] * 8 + [_P]}
 
 
 def reset_launches() -> None:
@@ -47,21 +47,20 @@ def _lib():
     return binding.bind("flash_attention", _SIGNATURES)
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True,
-                         window: Optional[int] = None) -> torch.Tensor:
-    """Attention of q (B, S, H, dh) over k, v (B, S, KV, dh), all float32
-    or all bfloat16 and contiguous; causal and/or with a sliding
-    ``window``. One launch; returns (B, S, H, dh) in q's dtype."""
+def validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             window: Optional[int], what: str) -> list:
+    """The data pointers of q (B, S, H, dh), k and v (B, S, KV, dh) once
+    they are CUDA tensors of one dtype the kernels take, contiguous, on
+    16-byte boundaries, of a head dim and S the kernels take, with H a
+    multiple of KV and a positive window if any; ``ValueError`` naming
+    ``what`` otherwise."""
     b, s, h, dh = q.shape
     kv = k.shape[2]
     dev = q.device
     if q.dtype not in _DTYPES:
-        raise ValueError(f"flash_attention takes float32 or bfloat16, got "
-                         f"{q.dtype}")
+        raise ValueError(f"{what} takes float32 or bfloat16, got {q.dtype}")
     if dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention takes head dims {HEAD_DIMS}, "
-                         f"got {dh}")
+        raise ValueError(f"{what} takes head dims {HEAD_DIMS}, got {dh}")
     if kv < 1 or h % kv:
         raise ValueError(f"{h} query heads do not group onto {kv} kv heads")
     tiles = -(-s // ROWS[dh])
@@ -76,18 +75,37 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window is not None and window < 1:
         raise ValueError(f"a window must be positive, got {window}")
     binding.require_cuda(q)
-    ptrs = [
+    return [
         _check("q", q, q.dtype, (b, s, h, dh), dev),
         _check("k", k, q.dtype, (b, s, kv, dh), dev),
         _check("v", v, q.dtype, (b, s, kv, dh), dev),
     ]
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: Optional[int] = None, with_lse: bool = False):
+    """Attention of q (B, S, H, dh) over k, v (B, S, KV, dh), all float32
+    or all bfloat16 and contiguous; causal and/or with a sliding
+    ``window``. One launch; returns (B, S, H, dh) in q's dtype, and with
+    ``with_lse`` also each row's logsumexp of its scaled, masked scores,
+    (B, H, S) float32, which the backward recomputes the probabilities
+    from."""
+    b, s, h, dh = q.shape
+    kv = k.shape[2]
+    dev = q.device
+    ptrs = validate(q, k, v, window, "flash_attention")
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=dev)
+           if with_lse else None)
     lib = _lib()
-    err = lib.fa_forward(*ptrs, out.data_ptr(), b, s, h, kv, dh, int(causal),
+    err = lib.fa_forward(*ptrs, out.data_ptr(),
+                         None if lse is None else lse.data_ptr(), b, s, h,
+                         kv, dh, int(causal),
                          -1 if window is None else window, _DTYPES[q.dtype],
                          binding.stream(dev))
     binding.raise_on(err, "flash_attention_kernel")
     LAUNCHES["flash_attention"] += 1
     if not causal:
         NON_CAUSAL_LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, lse) if with_lse else out

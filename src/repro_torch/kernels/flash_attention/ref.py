@@ -8,6 +8,9 @@ tensors: float32 scores scaled by ``1/sqrt(float32(dh))``, masked with
 with grouped kv heads, what ``ops.flash_attention`` computes. The CPU path
 runs them; ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold
 ``csrc/flash_attention.cu`` against them on the card.
+:func:`attention_lse_ref` adds the row logsumexp the training forward
+saves, and :func:`attention_bwd_ref` is the plain backward
+(``csrc/flash_attention_bwd.cu``'s), which the CPU's training path runs.
 """
 from __future__ import annotations
 
@@ -37,19 +40,33 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         window: Optional[int] = None) -> torch.Tensor:
     """Attention of q, k, v (BH, S, dh), causal and/or with a sliding
     ``window`` (key j is seen by query i when ``j > i - window``)."""
-    s, dh = q.shape[1], q.shape[-1]
-    dev = q.device
-    scores = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * inv_sqrt(dh)
-    rows = torch.arange(s, device=dev)[:, None]
-    cols = torch.arange(s, device=dev)[None, :]
-    mask = torch.ones((s, s), dtype=torch.bool, device=dev)
+    scores = masked_scores(q, k, causal=causal, window=window)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", probs, v.float()).to(q.dtype)
+
+
+def seen(s: int, *, causal: bool, window: Optional[int],
+         device) -> torch.Tensor:
+    """(S, S) bool: key j is seen by query i (``j <= i`` if causal, ``j >
+    i - window`` with a window)."""
+    rows = torch.arange(s, device=device)[:, None]
+    cols = torch.arange(s, device=device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=device)
     if causal:
         mask &= cols <= rows
     if window is not None:
         mask &= cols > rows - window
-    scores = torch.where(mask[None], scores, NEG)
-    probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", probs, v.float()).to(q.dtype)
+    return mask
+
+
+def masked_scores(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
+                  window: Optional[int]) -> torch.Tensor:
+    """float32 scores ``(q . k) / sqrt(float32(dh))`` of q, k (..., S, dh),
+    NEG where the key is not seen."""
+    s, dh = q.shape[-2], q.shape[-1]
+    scores = (q.float() @ k.float().transpose(-1, -2)) * inv_sqrt(dh)
+    mask = seen(s, causal=causal, window=window, device=q.device)
+    return torch.where(mask, scores, NEG)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -68,6 +85,55 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = flash_attention_ref(fold(q), fold(k), fold(v), causal=causal,
                               window=window)
     return out.reshape(b, h, s, dh).transpose(1, 2)
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None):
+    """:func:`attention_ref` and each row's logsumexp of its scaled, masked
+    scores, ``(out (B, S, H, dh) in q's dtype, lse (B, H, S) float32)``:
+    the plain version of the forward kernel with ``with_lse``."""
+    h = q.shape[2]
+    scores = masked_scores(q.transpose(1, 2), repeat_kv(k, h).transpose(1, 2),
+                           causal=causal, window=window)
+    probs = torch.softmax(scores, dim=-1)
+    out = probs @ repeat_kv(v, h).transpose(1, 2).float()
+    return (out.to(q.dtype).transpose(1, 2),
+            torch.logsumexp(scores, dim=-1))
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None):
+    """The plain version of ``csrc/flash_attention_bwd.cu``, with its
+    signature: the gradients ``(dq (B, S, H, dh), dk, dv (B, S, KV, dh))``
+    in q's dtype from q, k, v, the output ``o``, its gradient ``do`` and
+    the forward's ``lse`` (B, H, S), all in float32: P = exp(scores - lse)
+    (0 where a key is not seen), D = rowsum(do * o), dV = P^T dO, dS = P
+    (dO V^T - D), dQ = dS K / sqrt(dh), dK = dS^T Q / sqrt(dh), dK and dV
+    summed over each kv head's group of query heads."""
+    b, s, h, dh = q.shape
+    kv = k.shape[2]
+
+    def heads(x):
+        return repeat_kv(x, h).transpose(1, 2).float()   # (B, H, S, dh)
+
+    qf, kf, vf = heads(q), heads(k), heads(v)
+    of, dof = o.transpose(1, 2).float(), do.transpose(1, 2).float()
+    scores = masked_scores(qf, kf, causal=causal, window=window)
+    mask = seen(s, causal=causal, window=window, device=q.device)
+    p = torch.where(mask, torch.exp(scores - lse[..., None]), 0.0)
+    delta = (dof * of).sum(-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta)
+    scale = inv_sqrt(dh)
+    dq = (ds @ kf) * scale
+    dk = (ds.transpose(-1, -2) @ qf) * scale
+    dv = p.transpose(-1, -2) @ dof
+
+    def group(x):      # (B, H, S, dh) -> (B, S, KV, dh), the group summed
+        return x.reshape(b, kv, h // kv, s, dh).sum(2).transpose(1, 2)
+
+    return (dq.transpose(1, 2).to(q.dtype), group(dk).to(k.dtype),
+            group(dv).to(v.dtype))
 
 
 def round_tf32(x: torch.Tensor) -> torch.Tensor:

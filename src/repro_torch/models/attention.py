@@ -1,12 +1,16 @@
-"""GQA attention (port of ``repro.models.attention``): prefill through the
-flash-attention kernel, cached decode.
+"""GQA attention (port of ``repro.models.attention``): train and prefill
+through the flash-attention kernel, cached decode.
 
-* Prefill attention (:func:`causal_attention`) is the documented fast path
-  of the reference made real: on a CUDA tensor it is the hand-written
-  kernel ``csrc/flash_attention.cu`` (float32 scores and softmax; on
-  bfloat16 tensors the probabilities reach its tensor cores as two
-  bfloat16 terms, 16 significant bits), on a CPU tensor the kernel's plain
-  version. Nothing falls back from one to the other.
+* Train and prefill attention (:func:`causal_attention`) is the
+  documented fast path of the reference made real: on a CUDA tensor it is
+  the hand-written kernel ``csrc/flash_attention.cu`` (float32 scores and
+  softmax; on bfloat16 tensors the probabilities reach its tensor cores as
+  two bfloat16 terms, 16 significant bits), on a CPU tensor the kernel's
+  plain version. Nothing falls back from one to the other. Where autograd
+  records (training), the forward also keeps each row's logsumexp and the
+  gradient is the backward kernel ``csrc/flash_attention_bwd.cu`` (the
+  plain backward on the CPU), which recomputes the score tiles as the
+  reference's remat does.
 * Decode (:func:`attend_decode`) is plain torch matmuls, as the reference
   leaves it to XLA, in the reference's dtypes: bfloat16 scores rounded,
   a float32 softmax, bfloat16 probabilities.
@@ -27,7 +31,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import NEG, inv_sqrt, repeat_kv
-from repro_torch.models.layers import COMPUTE_DTYPE, rmsnorm_head, rope
+from repro_torch.models.layers import COMPUTE_DTYPE, cdt, rmsnorm_head, rope
 from repro_torch.models.spec import new_param
 
 
@@ -66,9 +70,10 @@ def init_cache(cfg: ArchConfig, layer: LayerSpec, batch: int, max_len: int,
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum("bsd,dhk->bshk", x, w)``."""
+    """``einsum("bsd,dhk->bshk", x, cdt(w))``."""
     d, heads, dh = w.shape
-    return (x @ w.reshape(d, heads * dh)).unflatten(-1, (heads, dh))
+    return (x @ cdt(w, x.dtype).reshape(d, heads * dh)).unflatten(
+        -1, (heads, dh))
 
 
 def _qkv(p: Attention, x: torch.Tensor, cfg: ArchConfig,
@@ -83,9 +88,9 @@ def _qkv(p: Attention, x: torch.Tensor, cfg: ArchConfig,
 
 
 def _out(ctx: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """``einsum("bshk,hkd->bsd", ctx, wo)``."""
+    """``einsum("bshk,hkd->bsd", ctx, cdt(wo))``."""
     h, dh, d = wo.shape
-    return ctx.flatten(-2) @ wo.reshape(h * dh, d)
+    return ctx.flatten(-2) @ cdt(wo, ctx.dtype).reshape(h * dh, d)
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -93,14 +98,16 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      causal: bool = True) -> torch.Tensor:
     """Exact attention, q (B, S, H, dh), k and v (B, S, KV, dh), through
     the flash-attention kernel (its plain version on the CPU): float32
-    scores and softmax, the output in q's dtype."""
+    scores and softmax, the output in q's dtype; differentiable through
+    the backward kernel where autograd records."""
     return flash_attention(q, k, v, causal=causal, window=window)
 
 
 def attend_full(p: Attention, x: torch.Tensor, cfg: ArchConfig,
                 layer: LayerSpec, positions: torch.Tensor,
                 causal: bool = True):
-    """Prefill path. Returns ``(out, (k, v))``, k and v for the cache."""
+    """Train and prefill path. Returns ``(out, (k, v))``, k and v for the
+    cache."""
     q, k, v = _qkv(p, x, cfg, positions)
     ctx = causal_attention(q, k, v, window=layer.window, causal=causal)
     return _out(ctx, p.wo), (k, v)

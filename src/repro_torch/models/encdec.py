@@ -4,7 +4,8 @@ embeddings (B, F, d)).
 
 Encoder: bidirectional attention blocks over the frames, through the
 flash-attention kernel with ``causal=False`` (its plain version on the
-CPU). Decoder: causal self-attention, cross-attention over the encoder's
+CPU; in training both attentions take its gradient path, the backward
+kernel on the card). Decoder: causal self-attention, cross-attention over the encoder's
 output, and the MLP, per layer. Where the reference stacks each stack's
 parameters and runs ``lax.scan``, the port keeps one block per layer and
 a Python loop, as :mod:`repro_torch.models.lm` does.
@@ -13,7 +14,8 @@ Decode caches, one :class:`DecCache` per decoder layer: the decoder's
 self-attention ``KVCache`` and the cross-attention keys and values
 computed from the encoder's output at prefill, fixed after it.
 
-Cross-attention is plain torch in the reference's roundings
+Cross-attention is plain torch (under autograd in training) in the
+reference's roundings
 (``encdec.py:116-132``): bfloat16 ``q * scale`` and scores, a float32
 softmax, bfloat16 probabilities. It has no RoPE. No Pallas kernel
 computes it in the reference, and the flash kernel's float32 scores would
@@ -25,6 +27,7 @@ from typing import List, NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.device import DeviceLike, pick_device
@@ -35,7 +38,6 @@ from repro_torch.models.attention import KVCache, _out, _proj
 from repro_torch.models.layers import (COMPUTE_DTYPE, MLP, Embedding,
                                        RMSNorm, Unembed, embed, mlp, rmsnorm,
                                        unembed)
-from repro_torch.models.lm import TRAINING_TODO
 from repro_torch.models.spec import new_param
 
 _ATTN = LayerSpec(kind="attn")
@@ -122,24 +124,48 @@ def cross_attend(p: CrossAttention, x: torch.Tensor, k: torch.Tensor,
     return _out(ctx, p.wo)
 
 
+def _cross_and_mlp(block: DecoderBlock, x: torch.Tensor, ck: torch.Tensor,
+                   cv: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """A decoder layer after its self-attention: cross-attention over the
+    keys and values ``ck``, ``cv``, then the MLP, each added to ``x``."""
+    hx = rmsnorm(block.ln_x.scale, x, cfg.norm_eps)
+    x = x + cross_attend(block.xattn, hx, ck, cv, cfg)
+    h2 = rmsnorm(block.ln2.scale, x, cfg.norm_eps)
+    return x + mlp(block.mlp, h2)
+
+
+def _train_layer(block: DecoderBlock, x: torch.Tensor, enc: torch.Tensor,
+                 cfg: ArchConfig, positions: torch.Tensor) -> torch.Tensor:
+    """Train mode, one decoder layer: causal self-attention, then
+    :func:`_cross_and_mlp` over the encoder's output."""
+    h = rmsnorm(block.ln1.scale, x, cfg.norm_eps)
+    out, _ = attn_lib.attend_full(block.self_attn, h, cfg, _ATTN, positions)
+    ck, cv = cross_kv(block.xattn, enc)
+    return _cross_and_mlp(block, x + out, ck, cv, cfg)
+
+
 def forward(model: "EncDecModel", tokens: torch.Tensor, *, mode: str,
             frames: Optional[torch.Tensor] = None,
             caches: Optional[List[DecCache]] = None,
-            pos: Optional[int] = None, max_len: int = 0):
-    """Returns ``(logits (B, 1, V_pad), new caches)``. Prefill encodes
-    ``frames`` and runs the decoder over ``tokens`` (B, S) at positions
-    ``arange(S)``, building each layer's self-attention cache of
-    ``max_len`` positions (default S) and its cross keys and values;
-    decode takes one token a row at absolute position ``pos`` and the
-    caches (the self-attention caches are updated in place). The last
-    position alone is unembedded, as :func:`repro_torch.models.lm.forward`
-    does."""
-    if mode == "train":
-        raise NotImplementedError(TRAINING_TODO)
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"unknown mode {mode!r}; have prefill, decode")
+            pos: Optional[int] = None, max_len: int = 0,
+            remat: bool = True):
+    """Prefill and decode return ``(logits (B, 1, V_pad), new caches)``;
+    train returns ``(logits (B, S, V_pad), aux)`` with ``aux`` a float32
+    zero (no MoE), as the reference. Prefill and train encode ``frames``
+    and run the decoder over ``tokens`` (B, S) at positions ``arange(S)``;
+    prefill builds each layer's self-attention cache of ``max_len``
+    positions (default S) and its cross keys and values; train recomputes
+    each decoder layer in the backward (``torch.utils.checkpoint``, as the
+    reference's ``jax.checkpoint`` of its scanned body) unless ``remat``
+    is false. Decode takes one token a row at absolute position ``pos``
+    and the caches (the self-attention caches are updated in place). The
+    last position alone is unembedded in prefill, as
+    :func:`repro_torch.models.lm.forward` does."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}; have train, prefill, "
+                         f"decode")
     cfg = model.cfg
-    x = embed(model.embed.table, tokens)
+    x = embed(model.embed.table, tokens, model.dtype)
     decode = mode == "decode"
     if decode:
         if pos is None or caches is None:
@@ -148,11 +174,19 @@ def forward(model: "EncDecModel", tokens: torch.Tensor, *, mode: str,
     else:
         if frames is None:
             raise ValueError(f"{cfg.name} is an encoder-decoder: its "
-                             f"prefill takes frames= (B, F, d) frame "
+                             f"{mode} takes frames= (B, F, d) frame "
                              f"embeddings")
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         enc = encode(model, frames)
         max_len = max_len or x.shape[1]
+    if mode == "train":
+        for block in model.dec_blocks:
+            x = (checkpoint(_train_layer, block, x, enc, cfg, positions,
+                            use_reentrant=False) if remat
+                 else _train_layer(block, x, enc, cfg, positions))
+        x = rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
+        return (unembed(model.unembed.table, x),
+                torch.zeros((), dtype=torch.float32, device=x.device))
     new_caches = []
     for layer, block in enumerate(model.dec_blocks):
         h = rmsnorm(block.ln1.scale, x, cfg.norm_eps)
@@ -167,11 +201,7 @@ def forward(model: "EncDecModel", tokens: torch.Tensor, *, mode: str,
             self_kv = attn_lib.prefill_cache(_ATTN, k, v, max_len,
                                              dtype=x.dtype)
             ck, cv = cross_kv(block.xattn, enc)
-        x = x + out
-        hx = rmsnorm(block.ln_x.scale, x, cfg.norm_eps)
-        x = x + cross_attend(block.xattn, hx, ck, cv, cfg)
-        h2 = rmsnorm(block.ln2.scale, x, cfg.norm_eps)
-        x = x + mlp(block.mlp, h2)
+        x = _cross_and_mlp(block, x + out, ck, cv, cfg)
         new_caches.append(DecCache(self_kv, ck, cv))
     if not decode:
         x = x[:, -1:]
@@ -192,6 +222,7 @@ class EncDecModel(nn.Module):
         super().__init__()
         dev = pick_device(device)
         self.cfg = cfg
+        self.compute_dtype: Optional[torch.dtype] = None
         vocab = cfg.padded_vocab
         self.embed = Embedding(vocab, cfg.d_model, dev)
         self.enc_blocks = nn.ModuleList(
@@ -208,9 +239,16 @@ class EncDecModel(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        """The compute dtype: bfloat16 as served, float32 after
-        ``.float()``."""
-        return self.embed.table.dtype
+        """The compute dtype: ``compute_dtype`` where it is set (a model
+        of float32 masters computes in bfloat16), else the weights' own:
+        bfloat16 as served, float32 after ``.float()``."""
+        return self.compute_dtype or self.embed.table.dtype
+
+    def loss(self, batch, aux_weight: float = 0.01, remat: bool = True):
+        """The training loss of ``batch`` (``tokens``, ``labels``,
+        ``frames``): see :func:`repro_torch.models.model.lm_loss`."""
+        from repro_torch.models.model import lm_loss
+        return lm_loss(self, batch, aux_weight, remat)
 
     def init_params(self, seed: int = 0) -> "EncDecModel":
         """Random weights from a ``torch.Generator`` seeded with ``seed``

@@ -4,12 +4,17 @@ activations the mixers share (``jax.nn``'s formulations).
 
 The reference keeps float32 masters and casts each matmul weight to the
 compute dtype (bfloat16) at use (``cdt``). Serving holds those weights in
-bfloat16 already, which gives the same values; norm scales stay float32,
-as :func:`rmsnorm` reads them. ``softmax_xent`` waits for training.
+bfloat16 already, which gives the same values, and :func:`cdt` leaves
+them as they are; training holds float32 masters (``param_dtype=`` of
+:func:`repro_torch.models.new_model`) and every use site casts them with
+:func:`cdt`, so their gradients reach the masters in float32. Norm scales
+stay float32, as :func:`rmsnorm` reads them. :func:`softmax_xent` is the
+training loss.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -17,6 +22,12 @@ from torch import nn
 from repro_torch.models.spec import new_param
 
 COMPUTE_DTYPE = torch.bfloat16
+
+
+def cdt(x: torch.Tensor, dtype: torch.dtype = COMPUTE_DTYPE) -> torch.Tensor:
+    """A (float32 master) weight cast to the compute dtype; the tensor
+    itself when it is already held in it."""
+    return x.to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -104,9 +115,9 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: ``(silu(x @ wi_gate) * (x @ wi_up)) @ wo``, in x's dtype."""
-    gate = x @ p.wi_gate
-    up = x @ p.wi_up
-    return (silu(gate) * up) @ p.wo
+    gate = x @ cdt(p.wi_gate, x.dtype)
+    up = x @ cdt(p.wi_up, x.dtype)
+    return (silu(gate) * up) @ cdt(p.wo, x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -126,10 +137,36 @@ class Unembed(nn.Module):
         self.table = new_param((vocab, d_model), COMPUTE_DTYPE, device)
 
 
-def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+def embed(table: torch.Tensor, tokens: torch.Tensor,
+          dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The rows of ``table`` cast to ``dtype`` (the reference's
+    ``cdt(table)[tokens]``; the table's own dtype by default)."""
+    return cdt(table, dtype or table.dtype)[tokens]
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Logits ``x @ table.T``: (B, S, d) -> (B, S, V)."""
-    return x @ table.T
+    """Logits ``x @ table.T`` in x's dtype: (B, S, d) -> (B, S, V)."""
+    return x @ cdt(table, x.dtype).T
+
+
+# ---------------------------------------------------------------------------
+# Cross-entropy over (possibly padded) logits
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 true_vocab: int):
+    """Mean cross-entropy over the labels ``>= 0`` (``repro``'s
+    ``softmax_xent``): logits (B, S, V_pad) of any float dtype taken in
+    float32, the pad columns ``>= true_vocab`` set to ``-1e30``, logsumexp
+    minus the gold logit. Returns ``(loss, n_tokens)``, both float32
+    scalars."""
+    vpad = logits.shape[-1]
+    lf = logits.float()
+    if vpad != true_vocab:
+        pad = torch.arange(vpad, device=lf.device) >= true_vocab
+        lf = torch.where(pad, -1e30, lf)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.clamp(min=0)[..., None].long())[..., 0]
+    mask = (labels >= 0).float()
+    n_tokens = mask.sum()
+    loss = ((lse - gold) * mask).sum() / torch.clamp(n_tokens, min=1.0)
+    return loss, n_tokens

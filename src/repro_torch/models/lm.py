@@ -5,9 +5,13 @@ then the unscanned tail (gemma3-4b's 34 = 5*6 + 4). Where the reference
 stacks each group's parameters and runs ``lax.scan``, the port keeps one
 :class:`Block` per layer and a Python loop. A block is one of the
 reference's five kinds: attention or mamba, each followed by a dense or
-MoE MLP; mLSTM (self-contained); sLSTM followed by its own gated FFN. Two
-modes share one code path:
+MoE MLP; mLSTM (self-contained); sLSTM followed by its own gated FFN.
+Three modes share one code path:
 
+* ``train``   — the full sequence, logits at every position, the MoE
+  load-balancing losses summed over the blocks, no caches; each block is
+  recomputed in the backward (``torch.utils.checkpoint``, the counterpart
+  of the reference's per-group ``jax.checkpoint(nothing_saveable)``);
 * ``prefill`` — the full sequence; emits one decode cache per layer (a
   ``KVCache``, ``MambaState``, ``MLSTMState`` or ``SLSTMState``);
 * ``decode``  — one token; consumes the caches and returns them updated.
@@ -17,8 +21,9 @@ frontend is a stub, as in the reference) are projected by ``patch_proj``
 and placed ahead of the token embeddings; positions and the caches run
 over the P + S positions.
 
-``train`` mode raises: training is still to port (ROADMAP queue 1, item
-10).
+``train`` mode raises for a model with mamba, mLSTM or sLSTM blocks:
+their in-place scans are not yet written for autograd (ROADMAP queue 1,
+item 10c-ii).
 """
 from __future__ import annotations
 
@@ -26,17 +31,19 @@ from typing import Any, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import xlstm as xlstm_lib
-from repro_torch.models.layers import (MLP, RMSNorm, embed, mlp, rmsnorm,
-                                       unembed)
+from repro_torch.models.layers import (MLP, RMSNorm, cdt, embed, mlp,
+                                       rmsnorm, unembed)
 
-TRAINING_TODO = ("training (softmax_xent, train/, launch/train.py, "
-                 "data/tokens.py) is still to port: ROADMAP queue 1, item 10")
+TRAINING_TODO = ("training of the recurrent mixers (mamba, mLSTM, sLSTM; "
+                 "their scans are in place) and comm/ is still to port: "
+                 "ROADMAP queue 1, item 10c-ii")
 
 
 class Block(nn.Module):
@@ -85,8 +92,8 @@ def init_cache(cfg: ArchConfig, spec: LayerSpec, batch: int, max_len: int,
 def apply_block(p: Block, x: torch.Tensor, cfg: ArchConfig, mode: str,
                 cache: Any, pos: Optional[int],
                 positions: Optional[torch.Tensor], max_len: int):
-    """Returns ``(x, new_cache)``. (The MoE's load-balancing loss is for
-    training, which is still to port.)"""
+    """Prefill or decode: returns ``(x, new_cache)`` (the MoE's
+    load-balancing loss is for training, :func:`train_block`)."""
     h = rmsnorm(p.ln1.scale, x, cfg.norm_eps)
     decode = mode == "decode"
     kind = p.spec.kind
@@ -116,42 +123,68 @@ def apply_block(p: Block, x: torch.Tensor, cfg: ArchConfig, mode: str,
         hf = rmsnorm(p.ln_ff.scale, x, cfg.norm_eps)
         return x + xlstm_lib.slstm_ffn(p.slstm, hf), new_cache
     x = x + out
+    return _mlp_sublayer(p, x, cfg)[0], new_cache
+
+
+def _mlp_sublayer(p: Block, x: torch.Tensor, cfg: ArchConfig):
+    """``x`` plus the dense or MoE MLP of ``ln2(x)``, and the MoE's
+    load-balancing loss (None for a dense MLP)."""
     h2 = rmsnorm(p.ln2.scale, x, cfg.norm_eps)
     if p.spec.moe:
-        out2, _ = moe_lib.moe_apply(p.moe, h2, cfg)
-    else:
-        out2 = mlp(p.mlp, h2)
-    return x + out2, new_cache
+        out2, aux = moe_lib.moe_apply(p.moe, h2, cfg)
+        return x + out2, aux
+    return x + mlp(p.mlp, h2), None
+
+
+def train_block(p: Block, x: torch.Tensor, cfg: ArchConfig,
+                positions: torch.Tensor):
+    """Train mode, an attention block: returns ``(x, aux)``, ``aux`` the
+    MoE's load-balancing loss (float32; 0 for a dense MLP)."""
+    h = rmsnorm(p.ln1.scale, x, cfg.norm_eps)
+    out, _ = attn_lib.attend_full(p.attn, h, cfg, p.spec, positions)
+    x, aux = _mlp_sublayer(p, x + out, cfg)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def forward(model, tokens: torch.Tensor, *, mode: str = "prefill",
             caches: Optional[List[Any]] = None,
             pos: Optional[int] = None, max_len: int = 0,
-            patch_embeds: Optional[torch.Tensor] = None):
-    """Returns ``(logits (B, 1, V_pad), new caches)``. ``model`` is a
-    :class:`repro_torch.models.Model`; ``tokens`` (B, S) int. Prefill
-    unembeds the last position alone (the reference unembeds every
-    position and the serving path keeps the last; the rows are the same)
-    and builds a cache per layer of ``max_len`` positions (default S).
-    Decode takes one token a row at absolute position ``pos`` and a cache
-    per layer. A prefill of a config with ``num_patches`` takes
-    ``patch_embeds`` (B, P, d) (any float dtype; cast to the model's):
-    ``patch_embeds @ patch_proj.w`` leads the token embeddings, and
-    ``max_len`` counts the patches. Without them, or with them for a
-    config that has none, it raises ``ValueError``."""
-    if mode == "train":
-        raise NotImplementedError(TRAINING_TODO)
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"unknown mode {mode!r}; have prefill, decode")
+            patch_embeds: Optional[torch.Tensor] = None,
+            remat: bool = True):
+    """Prefill and decode return ``(logits (B, 1, V_pad), new caches)``;
+    train returns ``(logits (B, P + S, V_pad), aux)``, ``aux`` the MoE
+    load-balancing losses summed over the blocks (float32).
+    ``model`` is a :class:`repro_torch.models.Model`; ``tokens`` (B, S)
+    int; the activations are in ``model.dtype``. Prefill unembeds the last
+    position alone (the reference unembeds every position and the serving
+    path keeps the last; the rows are the same) and builds a cache per
+    layer of ``max_len`` positions (default S). Decode takes one token a
+    row at absolute position ``pos`` and a cache per layer. Train runs
+    every block under ``torch.utils.checkpoint`` unless ``remat`` is false
+    and raises ``NotImplementedError`` for a recurrent block. A train or
+    prefill step of a config with ``num_patches`` takes ``patch_embeds``
+    (B, P, d) (any float dtype; cast to the model's): ``patch_embeds @
+    patch_proj.w`` leads the token embeddings, and ``max_len`` counts the
+    patches. Without them, or with them for a config that has none, it
+    raises ``ValueError``."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}; have train, prefill, "
+                         f"decode")
     cfg = model.cfg
-    x = embed(model.embed.table, tokens)
-    if mode == "prefill" and cfg.num_patches:
+    train = mode == "train"
+    if train and any(ls.kind != "attn" for ls in cfg.layers):
+        raise NotImplementedError(TRAINING_TODO)
+    dtype = model.dtype
+    x = embed(model.embed.table, tokens, dtype)
+    if mode != "decode" and cfg.num_patches:
         if patch_embeds is None:
-            raise ValueError(f"{cfg.name} has a patch prefix: its prefill "
+            raise ValueError(f"{cfg.name} has a patch prefix: its {mode} "
                              f"takes patch_embeds= (B, {cfg.num_patches}, "
                              f"d) patch embeddings")
-        w = model.patch_proj.w
-        x = torch.cat([patch_embeds.to(w.dtype) @ w, x], dim=1)
+        w = cdt(model.patch_proj.w, dtype)
+        x = torch.cat([patch_embeds.to(dtype) @ w, x], dim=1)
     elif patch_embeds is not None:
         raise ValueError(f"{cfg.name} takes no patch embeddings in "
                          f"{mode}")
@@ -164,7 +197,14 @@ def forward(model, tokens: torch.Tensor, *, mode: str = "prefill",
         positions = torch.arange(s, device=x.device)[None, :]
         max_len = max_len or s
     new_caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, block in enumerate(model.blocks):
+        if train:
+            x, a = (checkpoint(train_block, block, x, cfg, positions,
+                               use_reentrant=False) if remat
+                    else train_block(block, x, cfg, positions))
+            aux = aux + a
+            continue
         cache = None if caches is None else caches[layer]
         x, nc = apply_block(block, x, cfg, mode, cache, pos, positions,
                             max_len)
@@ -174,4 +214,4 @@ def forward(model, tokens: torch.Tensor, *, mode: str = "prefill",
     x = rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
     table = (model.embed.table if cfg.tie_embeddings
              else model.unembed.table)
-    return unembed(table, x), new_caches
+    return unembed(table, x), (aux if train else new_caches)

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import COMPUTE_DTYPE, silu
+from repro_torch.models.layers import COMPUTE_DTYPE, cdt, silu
 from repro_torch.models.spec import new_param
 
 
@@ -92,7 +92,7 @@ def record_routing(log: list) -> Iterator[list]:
     """Append every MoE call's ``(probs (g, t, e) float32, experts (g, t,
     k))``, on the CPU, to ``log`` while the context is open."""
     def hook(probs, vals, idx):
-        log.append((probs.float().cpu(), idx.cpu()))
+        log.append((probs.detach().float().cpu(), idx.cpu()))
         return vals, idx
     _HOOKS.append(hook)
     try:
@@ -126,7 +126,7 @@ def follow_routing(log, max_drift: float) -> Iterator[List[dict]]:
         differ = (idx != ref_idx).any(-1)
         if not bool(differ.any()):
             return vals, idx
-        drift = (probs - ref_probs).abs().amax(-1)
+        drift = (probs.detach() - ref_probs).abs().amax(-1)
         for g, t in torch.nonzero(differ).tolist():
             tie = dict(call=call, group=g, token=t, own=idx[g, t].tolist(),
                        followed=ref_idx[g, t].tolist(),
@@ -171,7 +171,7 @@ def route(p: MoE, x: torch.Tensor, cfg: ArchConfig) -> Routing:
     g_size = xg.shape[1]
     e, k = cfg.n_experts, cfg.top_k
     cap = capacity(g_size, cfg)
-    logits = (xg @ p.router.to(x.dtype)).float()
+    logits = (xg @ cdt(p.router, x.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
     gate_vals, experts = _choose(probs, k)
     gates = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
@@ -194,7 +194,9 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ArchConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> ``(out (B, S, d), aux ())``: the routed experts'
     SwiGLU outputs weighted by their gates, and the Switch/GShard
-    load-balancing loss (float32)."""
+    load-balancing loss (float32). Out of place throughout, so autograd
+    takes the gradient of both (``aux`` through the router's
+    probabilities, as in the reference)."""
     b, s, d = x.shape
     r = route(p, x, cfg)
     xg, _ = groups(x, cfg)
@@ -203,9 +205,10 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ArchConfig
     expert_in = torch.einsum("gtec,gtd->egcd", r.dispatch, xg)
     e, g, cap, _ = expert_in.shape
     rows = expert_in.reshape(e, g * cap, d)
-    gate = rows @ p.wi_gate
-    up = rows @ p.wi_up
-    expert_out = ((silu(gate) * up) @ p.wo).reshape(e, g, cap, d)
+    gate = rows @ cdt(p.wi_gate, rows.dtype)
+    up = rows @ cdt(p.wi_up, rows.dtype)
+    expert_out = ((silu(gate) * up) @ cdt(p.wo, rows.dtype)).reshape(
+        e, g, cap, d)
     out = torch.einsum("gtec,egcd->gtd", r.combine, expert_out)
     out = out.reshape(-1, d)[: b * s]
 

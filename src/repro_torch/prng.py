@@ -18,7 +18,7 @@ so it gives the same bits on the CPU and on CUDA.
   ``[nextafter(-1, 0), 1)``, with XLA's single-precision ``erf_inv``
   (:func:`erf_inv`) on XLA CPU's float32 ``log1p``
   (:func:`repro_torch.floats.log1p`), so bit for bit
-  ``jax.random.normal``;
+  ``jax.random.normal``, in float32 or bfloat16;
 * :func:`randint` — int32 in ``[minval, maxval)`` from two 32-bit words
   combined modulo the span;
 * :func:`permutation` and :func:`choice` (``replace=False``) — the
@@ -207,14 +207,26 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
 
 
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_NORMAL_LO_BF16 = -1.0 + 2.0 ** -8       # bfloat16's nextafter(-1, 0)
 
 
-def normal(key: torch.Tensor, shape=()) -> torch.Tensor:
-    """``jax.random.normal(key, shape)`` in float32: ``float32(sqrt(2)) *
-    erf_inv(u)`` with ``u`` the :func:`uniform` in ``[nextafter(-1, 0),
-    1)``. A batch of keys (K, 2) gives (K, *shape)."""
-    u = uniform(key, shape, minval=_NORMAL_LO, maxval=1.0)
+def normal(key: torch.Tensor, shape=(), dtype: torch.dtype = torch.float32
+           ) -> torch.Tensor:
+    """``jax.random.normal(key, shape, dtype)`` in float32 or bfloat16:
+    ``sqrt(2) * erf_inv(u)`` with ``u`` the :func:`uniform` in
+    ``[nextafter(-1, 0), 1)`` of the dtype. In float32 the product is
+    ``float32(sqrt(2)) * erf_inv(u)``; in bfloat16 ``u`` is a bfloat16
+    uniform, ``erf_inv`` works in float32 and is rounded to bfloat16, and
+    the product with ``bfloat16(sqrt(2))`` is rounded again (compared with
+    ``jax.random.normal``, rounding each op gives its bits). A batch of
+    keys (K, 2) gives (K, *shape)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"normal draws float32 or bfloat16, got {dtype}")
+    lo = _NORMAL_LO if dtype == torch.float32 else _NORMAL_LO_BF16
+    u = uniform(key, shape, minval=lo, maxval=1.0, dtype=dtype)
     sqrt2 = torch.tensor(np.sqrt(2.0), dtype=torch.float32, device=u.device)
+    if dtype == torch.bfloat16:
+        return erf_inv(u.float()).to(dtype) * sqrt2.to(dtype)
     return erf_inv(u) * sqrt2
 
 

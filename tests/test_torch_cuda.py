@@ -41,6 +41,8 @@ from repro_torch.kernels.capped_scan import ops as scan_ops  # noqa: E402
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.kernels.flash_attention import \
     flash_attention as cuda_fa  # noqa: E402
+from repro_torch.kernels.flash_attention import \
+    flash_attention_bwd as cuda_fab  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.models import attention as t_attention  # noqa: E402
@@ -1429,6 +1431,113 @@ def _check_flash(dev, b, s, h, kv, dh, causal, window, dtype):
     if dtype == torch.bfloat16:
         scale = want.float().abs().amax(dim=-1, keepdim=True)
         assert ((got.float() - want.float()).abs() <= 2.0 ** -6 * scale).all()
+
+
+# the backward kernel's edges: every head dim, S below one 64-row tile and
+# ragged past one, windows cutting a tile (64 keys; 32 at dh=256), GQA 8:1
+# and 3:1, not causal with and without a window
+FLASH_BWD_SHAPES = [
+    (2, 40, 4, 2, 16, True, None),
+    (2, 129, 4, 4, 32, False, None),
+    (1, 500, 16, 2, 64, True, 77),        # GQA 8:1
+    (2, 1000, 6, 2, 64, True, None),      # GQA 3:1, ragged
+    (2, 333, 8, 4, 32, False, 50),
+    (1, 257, 2, 2, 128, False, None),
+    (1, 300, 8, 1, 128, True, None),
+    (1, 300, 4, 2, 256, True, 77),
+    (2, 100, 4, 1, 256, False, 40),
+]
+
+
+def _bwd_inputs(dev, b, s, h, kv, dh, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, s, h, dh), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, s, kv, dh), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, s, kv, dh), generator=gen, device=dev).to(dtype)
+    do = torch.randn((b, s, h, dh), generator=gen, device=dev).to(dtype)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,h,kv,dh,causal,window", FLASH_BWD_SHAPES)
+def test_flash_attention_bwd_matches_plain(dev, b, s, h, kv, dh, causal,
+                                           window, dtype):
+    """The backward kernel against its plain version on the same q, k, v,
+    output, output gradient and logsumexp (the forward kernel's), max
+    |diff| over max |plain| within 2e-2 in bfloat16 (one rounding of each
+    gradient) and 1e-4 in float32; the forward's logsumexp within 1e-5 of
+    the plain one; two launches give the same bits."""
+    q, k, v, do = _bwd_inputs(dev, b, s, h, kv, dh, dtype, s + dh)
+    o, lse = cuda_fa.flash_attention_cuda(q, k, v, causal=causal,
+                                          window=window, with_lse=True)
+    _, want_lse = fa_ref.attention_lse_ref(q, k, v, causal=causal,
+                                           window=window)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    before = cuda_fab.LAUNCHES["flash_attention_bwd"]
+    got = cuda_fab.flash_attention_bwd_cuda(q, k, v, o, do, lse,
+                                            causal=causal, window=window)
+    again = cuda_fab.flash_attention_bwd_cuda(q, k, v, o, do, lse,
+                                              causal=causal, window=window)
+    want = fa_ref.attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                                    window=window)
+    torch.cuda.synchronize()
+    assert cuda_fab.LAUNCHES["flash_attention_bwd"] == before + 2
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert torch.equal(g, a), name
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max()), (name, err)
+
+
+def test_flash_attention_lse_leaves_the_output_bits(dev):
+    """Asking the forward for its logsumexp changes none of its output's
+    bits, in either kernel."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, _ = _bwd_inputs(dev, 2, 300, 4, 2, 64, dtype, 3)
+        plain = cuda_fa.flash_attention_cuda(q, k, v, window=77)
+        out, _ = cuda_fa.flash_attention_cuda(q, k, v, window=77,
+                                              with_lse=True)
+        assert torch.equal(out, plain)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_autograd_on_the_card(dev, dtype):
+    """Where autograd records, ``ops.flash_attention`` runs the forward
+    kernel with its logsumexp and then the backward kernel, one launch
+    each, and its gradients are the CPU's plain ones within the kernel
+    tolerances; with grad off it launches the forward alone."""
+    q, k, v, do = _bwd_inputs(dev, 2, 200, 6, 2, 64, dtype, 5)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fwd = cuda_fa.LAUNCHES["flash_attention"]
+    bwd = cuda_fab.LAUNCHES["flash_attention_bwd"]
+    out = fa_ops.flash_attention(*leaves, window=50)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert cuda_fa.LAUNCHES["flash_attention"] == fwd + 1
+    assert cuda_fab.LAUNCHES["flash_attention_bwd"] == bwd + 1
+    cpu = [t.cpu().requires_grad_() for t in (q, k, v)]
+    want_out = fa_ops.flash_attention(*cpu, window=50)
+    want = torch.autograd.grad(want_out, cpu, do.cpu())
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for g, w in zip(grads, want):
+        err = float((g.cpu().float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max())
+    with torch.no_grad():
+        fa_ops.flash_attention(*leaves, window=50)
+    assert cuda_fab.LAUNCHES["flash_attention_bwd"] == bwd + 1
+
+
+def test_flash_attention_bwd_refuses_an_unaligned_gradient(dev):
+    """The backward kernel loads 16 bytes at a time: an output gradient
+    that starts off a 16-byte boundary is refused, nothing launched."""
+    q, k, v, _ = _bwd_inputs(dev, 1, 64, 2, 2, 64, torch.float32, 0)
+    o, lse = cuda_fa.flash_attention_cuda(q, k, v, with_lse=True)
+    do = torch.zeros(q.numel() + 1, device=dev)[1:].view(q.shape)
+    before = cuda_fab.LAUNCHES["flash_attention_bwd"]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        cuda_fab.flash_attention_bwd_cuda(q, k, v, o, do, lse)
+    assert cuda_fab.LAUNCHES["flash_attention_bwd"] == before
 
 
 def test_flash_attention_folded_heads(dev):

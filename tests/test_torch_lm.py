@@ -447,14 +447,17 @@ def test_unported_architectures_raise(change, what):
 
 
 def test_unported_modes_raise():
-    """Training still raises; sampling at ``temperature > 0`` (which raised
-    until the port drew ``jax.random.categorical``'s bits) samples, and
-    whisper-small (unknown to the registry until the port ran it) is a
-    config."""
+    """Training a recurrent mixer still raises (the attention families
+    train: ``tests/test_torch_train.py``); sampling at ``temperature > 0``
+    (which raised until the port drew ``jax.random.categorical``'s bits)
+    samples, and whisper-small (unknown to the registry until the port ran
+    it) is a config."""
+    recurrent = build_model(reduced_config("xlstm-125m"), device="cpu")
+    with pytest.raises(NotImplementedError, match="training.*item 10"):
+        t_lm.forward(recurrent, torch.zeros(1, 4, dtype=torch.long),
+                     mode="train")
     cfg = reduced_config("stablelm-1.6b")
     model = build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="training.*item 10"):
-        t_lm.forward(model, torch.zeros(1, 4, dtype=torch.long), mode="train")
     eng = t_engine.ServeEngine(model, max_len=16, temperature=0.7)
     toks = eng.generate(torch.from_numpy(_tokens(cfg, 6)).long(), 4)
     assert tuple(toks.shape) == (B, 4) and bool((toks < cfg.vocab_size).all())
