@@ -313,20 +313,24 @@ Run from the repository root. Phases:
    the forward kernel's logsumexp, at the training shapes
    (``BWD_SHAPES``: stablelm-1.6b's microbatch, granite-moe-3b's GQA,
    gemma3-4b's dh=256 window layer, whisper-small's encoder, not causal
-   and ragged, internvl2-76b's GQA 8:1 at dh=128) in bfloat16 (max |diff|
-   over max |plain| within 2e-2) and at two of them in float32 (1e-4); a
-   second launch gives the same bits; each bfloat16 shape timed against
-   its plain version, its bound (five products at the bf16 tensor-core
-   peak) and SDPA's backward (``torch.autograd.grad`` through
+   and ragged, internvl2-76b's GQA 8:1 at dh=128) in bfloat16 (the
+   ``mma.sync`` kernels; max |diff| over max |plain| within 2e-2, and
+   within ``BWD_MIRROR_TOL`` of ``ref.attention_bwd_bf16_ref``, the mirror
+   of their roundings of P and dS) and at two of them in float32 (the
+   CUDA-core kernels; 1e-4); a second launch gives the same bits; each
+   bfloat16 shape timed against its plain version, its bound (five
+   products at the bf16 tensor-core peak), the design's floor (seven) and
+   SDPA's backward (``torch.autograd.grad`` through
    ``scaled_dot_product_attention``; timed only). (b) stablelm-1.6b at
    full width (24 layers, d=2,048, ~1.64 B parameters of float32 masters,
    ~26 GB of float32 state) through ``init_state``,
    ``make_train_step(microbatches=2)`` and ``pipeline_for(seq_len=2048,
    global_batch=8)``: a warm-up step and 3 timed steps, each launching
    exactly 2 x 24 x 2 ``flash_attention`` (forward and recompute, each
-   microbatch) and 24 x 2 ``flash_attention_bwd``, the loss finite; a
-   second run from the same seed gives the same parameters and losses bit
-   for bit. (c) the reduced configs of stablelm-1.6b, granite-moe-3b,
+   microbatch) and 24 x 2 ``flash_attention_bwd``, all of them on the
+   tensor-core route (``TENSOR_CORE_LAUNCHES``), the loss finite; a traced
+   step splits the backward's time by kernel; a second run from the same
+   seed gives the same parameters and losses bit for bit. (c) the reduced configs of stablelm-1.6b, granite-moe-3b,
    whisper-small and internvl2-76b on the card against the CPU from the
    same state (``TRAIN_CPU_ARCHS``), computing in bfloat16 and as float32
    twins: the loss and every parameter's gradient within ``TRAIN_TOLS``,
@@ -688,9 +692,14 @@ BWD_SHAPES = ((4, 2048, 32, 32, 64, True, None, "stablelm-1.6b"),
               (1, 2048, 64, 8, 128, True, None, "internvl2-76b"))
 BWD_F32 = ("stablelm-1.6b", "whisper-small encoder")
 # max |kernel - plain| / max |plain| of dq, dk, dv: bfloat16 rounds each
-# gradient once (2^-9 of its scale; the float32 sums inside differ only in
-# order), float32 only the order of the sums
+# gradient once (2^-9 of its scale) and feeds the tensor cores P and dS
+# rounded once to bfloat16, float32 only the order of the sums
 BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# the bfloat16 kernels against ref.attention_bwd_bf16_ref, the mirror of
+# their roundings of P and dS, run on the card: two output ulps at each
+# tensor's largest values (read <= 4.5e-3 at these shapes,
+# tools/flash_bwd_designs.py on an NVIDIA H100 80GB HBM3 at 700 W)
+BWD_MIRROR_TOL = 2.0 ** -6
 # phase 18 (b): stablelm-1.6b at full width
 TRAIN_ARCH = "stablelm-1.6b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 2048, 2, 3
@@ -1725,11 +1734,21 @@ def bwd_pairs(b: int, s: int, h: int, causal: bool, window) -> float:
     return b * h * float(seen.sum())
 
 
+def kernel_name(key: str) -> str:
+    """A traced kernel's name with its template arguments, without its
+    return type, namespace and parameters."""
+    name = key.split("(anonymous namespace)::")[-1]
+    return name[:name.index(">") + 1] if "<" in name else name.split("(")[0]
+
+
 def backward_check(dev, tag: str) -> dict:
     """Phase 18 (a): ``BWD_SHAPES`` through the forward kernel (with its
-    logsumexp) and the backward kernel against ``ref.attention_bwd_ref``;
-    bfloat16 timed against the plain version, the bound and SDPA's
-    backward. Returns the timings and errors by label."""
+    logsumexp) and the backward kernel against ``ref.attention_bwd_ref``
+    (and, in bfloat16, against ``ref.attention_bwd_bf16_ref``, the mirror
+    of the tensor-core kernels' roundings); bfloat16 timed against the
+    plain version, the bound, the design's floor (its seven products at
+    the bf16 tensor-core peak: the dQ kernel recomputes S and dP) and
+    SDPA's backward. Returns the timings and errors by label."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention as fa_mod
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
@@ -1772,6 +1791,18 @@ def backward_check(dev, tag: str) -> dict:
                         f" of its scale (> {BWD_TOL[dname]})")
                 rec[f"{name}_rel_err"] = rel
                 out["max_abs_err"] = max(out["max_abs_err"], diff)
+            if dname == "bfloat16":
+                mirror = fa_ref.attention_bwd_bf16_ref(
+                    q, k, v, o, do, lse, causal=causal, window=window)
+                for name, g, w in zip(("dq", "dk", "dv"), got, mirror):
+                    rel = float((g.float() - w.float()).abs().max()
+                                / w.float().abs().max())
+                    require(rel <= BWD_MIRROR_TOL,
+                            f"{tag} {label}: {name} differs from the mirror "
+                            f"of the kernels' roundings by {rel:.3g} of its "
+                            f"scale (> {BWD_MIRROR_TOL})")
+                    rec[f"{name}_mirror_rel_err"] = rel
+                del mirror
             del got, again, want
             if dname == "bfloat16":
                 pairs = bwd_pairs(b, s, h, causal, window)
@@ -1781,7 +1812,9 @@ def backward_check(dev, tag: str) -> dict:
                     + (q.numel() + 2 * k.numel()) * q.element_size()
                 rec["bound"] = bound_ms(n_bytes, 5 * 2 * pairs * dh,
                                         BF16_OPS_PER_S)
+                rec["floor_ms"] = 7 * 2 * pairs * dh / BF16_OPS_PER_S * 1e3
                 rec["ms"] = cuda_ms(kernel, 5)
+                rec["tflops"] = 5 * 2 * pairs * dh / rec["ms"] / 1e9
                 rec["plain_ms"] = cuda_ms(plain, 2)
                 # the yardstick: SDPA's backward on the same tensors as
                 # (B, H, S, dh) views, a band mask for the window; the port
@@ -1807,10 +1840,15 @@ def backward_check(dev, tag: str) -> dict:
                       f"bf16: kernel {rec['ms']:.4f} ms, plain "
                       f"{rec['plain_ms']:.4f} ms, SDPA backward "
                       f"{rec['library_ms']:.4f} ms, bound "
-                      f"{rec['bound'][0]:.4f} ms ({rec['bound'][1]}); "
+                      f"{rec['bound'][0]:.4f} ms ({rec['bound'][1]}), "
+                      f"7-product floor {rec['floor_ms']:.4f} ms, "
+                      f"{rec['tflops']:.1f} TFLOP/s on five products; "
                       f"errors dq {rec['dq_rel_err']:.3g}, dk "
                       f"{rec['dk_rel_err']:.3g}, dv {rec['dv_rel_err']:.3g} "
-                      f"of their scale", flush=True)
+                      f"of their scale (against the mirror "
+                      f"{rec['dq_mirror_rel_err']:.3g}, "
+                      f"{rec['dk_mirror_rel_err']:.3g}, "
+                      f"{rec['dv_mirror_rel_err']:.3g})", flush=True)
             else:
                 print(f"{tag} {label} f32: errors dq {rec['dq_rel_err']:.3g}"
                       f", dk {rec['dk_rel_err']:.3g}, dv "
@@ -1831,6 +1869,7 @@ def full_width_train(seed: int, dev, reset_counts, read_counts, tag: str,
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import pipeline_for
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
     from repro_torch.models import new_model
     from repro_torch.train import (AdamW, init_state, make_train_step,
                                    warmup_cosine)
@@ -1866,6 +1905,10 @@ def full_width_train(seed: int, dev, reset_counts, read_counts, tag: str,
             n for k, n in counts.items() if k not in want),
             f"{tag} step {i} launches {counts}, expected {want} and "
             f"nothing else")
+        tc = fab.TENSOR_CORE_LAUNCHES["flash_attention_bwd"]
+        require(tc == want["flash_attention_bwd"],
+                f"{tag} step {i}: {tc} backward launches on the tensor-core "
+                f"route, expected all {want['flash_attention_bwd']}")
         rec["losses"].append(float(metrics["loss"]))
         rec["grad_norm"] = float(metrics["grad_norm"])
     rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -1891,9 +1934,14 @@ def full_width_train(seed: int, dev, reset_counts, read_counts, tag: str,
             "products": sum(us for k, us in by_kernel.items()
                             if is_gemm(k)) / 1e3}
         split["rest"] = busy - sum(split.values())
-        rec["trace"] = dict(busy_ms=busy, **split)
+        bwd_split = {k: us / 1e3 for k, us in by_kernel.items()
+                     if "bwd_" in k}
+        rec["trace"] = dict(busy_ms=busy, **split, backward=bwd_split)
         print(f"{tag} traced step: device busy {busy:.1f} ms = "
-              + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items()),
+              + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items())
+              + "; the backward's kernels: "
+              + ", ".join(f"{kernel_name(k)} {v:.1f} ms" for k, v in sorted(
+                              bwd_split.items(), key=lambda kv: -kv[1])),
               flush=True)
     require(all(torch.isfinite(torch.tensor(rec["losses"]))),
             f"{tag}: losses {rec['losses']} not finite")

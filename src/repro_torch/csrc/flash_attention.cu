@@ -58,7 +58,8 @@
 // divided by max(l, 1e-30), rounded once to bf16 and written with 16-byte
 // stores through shared memory. No atomics and a fixed order: two launches
 // give the same bits. wgmma, TMA and warp specialisation are a later PR's
-// work.
+// work. The swizzle, cp.async, ldmatrix and mma.sync helpers live in
+// tensor_tiles.cuh, shared with the backward's bf16 kernels.
 //
 // The float32 design (`flash_tf32_kernel`) is the same shape in split TF32
 // (3xTF32) on mma.sync.m16n8k8: each float32 operand x is hi = tf32(x),
@@ -96,7 +97,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tensor_tiles.cuh"
+
 namespace {
+
+using namespace tensor_tiles;
 
 constexpr int kBK = 64;          // key/value rows per tile of the bf16 kernel
 constexpr float kNeg = -1073741824.0f;   // -2^30, the reference's NEG
@@ -115,7 +120,6 @@ __device__ __forceinline__ void write_lse(float* __restrict__ lse, long base,
 // The bf16 tensor-core kernel
 // ---------------------------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int DH>
@@ -133,103 +137,6 @@ struct TC {
   static constexpr size_t kBytes =
       (size_t)(kBQ * DH + 2 * kStages * kTile) * sizeof(bf16);
 };
-
-// Element offset of 16-byte chunk `chunk` of row `row` in a swizzled tile
-// of DH bf16 a row. The eight rows an ldmatrix reads at one chunk column
-// fall on eight distinct 16-byte bank groups: for rows of 128 bytes or
-// more the chunk index is XORed with the row's low 3 bits; shorter rows
-// share a 128-byte line, and the chunk's place in the line is XORed with
-// the line's index. A warp's 16 rows never leave their own lines.
-template <int DH>
-__device__ __forceinline__ int swz(int row, int chunk) {
-  if constexpr (DH >= 64) {
-    return row * DH + ((chunk ^ (row & 7)) << 3);
-  } else {
-    const int lin = row * (DH / 8) + chunk;
-    return (lin ^ ((lin >> 3) & 7)) << 3;
-  }
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes from global to shared memory, asynchronously; src_bytes 0
-// zero-fills the destination (the source address must still be valid).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// c (16x8, float32) += a (16x16, bf16, row) * b (16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats rounded to bf16, lo in the low half (the lower column).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Two floats as bf16 pairs hi + lo: hi rounds them, lo rounds what hi
-// leaves, so hi + lo carries 16 significant bits of each (the error is
-// 2^-16 of the value, not bf16's 2^-9).
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
-}
-
-// Rows [row0, row0 + ROWS) of one head into a swizzled tile by cp.async;
-// rows at or past S are zero-filled.
-template <int DH, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* tile,
-                                          const bf16* __restrict__ src,
-                                          long base, long row_stride, int row0,
-                                          int S) {
-  using C = TC<DH>;
-  for (int idx = threadIdx.x; idx < ROWS * C::kChunks; idx += C::kThreads) {
-    const int r = idx / C::kChunks, c = idx % C::kChunks, s = row0 + r;
-    const bf16* from = src + base + (long)min(s, S - 1) * row_stride + c * 8;
-    cp_async16(tile + swz<DH>(r, c), from, s < S ? 16 : 0);
-  }
-}
 
 // Two CTAs an SM for dh <= 64 (at most 128 registers a thread).
 template <int DH>
@@ -263,9 +170,9 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     t_begin = x < 0 ? 0 : x / kBK + 1;
   }
 
-  load_tile<DH, C::kBQ>(Qs, q, q_base, q_row, q0, S);
-  load_tile<DH, kBK>(Ks, k, kv_base, kv_row, t_begin * kBK, S);
-  load_tile<DH, kBK>(Vs, v, kv_base, kv_row, t_begin * kBK, S);
+  load_tile<DH, C::kBQ, C::kThreads>(Qs, q, q_base, q_row, q0, S);
+  load_tile<DH, kBK, C::kThreads>(Ks, k, kv_base, kv_row, t_begin * kBK, S);
+  load_tile<DH, kBK, C::kThreads>(Vs, v, kv_base, kv_row, t_begin * kBK, S);
   cp_commit();
   cp_wait<0>();
   __syncthreads();
@@ -302,9 +209,9 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // which every thread has left: three stages back, the previous
     // iteration's opening barrier; two, its closing one
     if (t + 1 < t_end) {
-      load_tile<DH, kBK>(Ks + nx * C::kTile, k, kv_base, kv_row,
+      load_tile<DH, kBK, C::kThreads>(Ks + nx * C::kTile, k, kv_base, kv_row,
                          (t + 1) * kBK, S);
-      load_tile<DH, kBK>(Vs + nx * C::kTile, v, kv_base, kv_row,
+      load_tile<DH, kBK, C::kThreads>(Vs + nx * C::kTile, v, kv_base, kv_row,
                          (t + 1) * kBK, S);
     }
     cp_commit();

@@ -1,9 +1,12 @@
-"""``ctypes`` wrapper of the flash-attention backward CUDA kernel
+"""``ctypes`` wrapper of the flash-attention backward CUDA kernels
 (``csrc/flash_attention_bwd.cu``): the gradient of
 :func:`.flash_attention.flash_attention_cuda` for training. It follows
 :mod:`repro_torch.kernels.binding` and counts its calls in
 :data:`LAUNCHES` (one a call; a call is three device kernels: the row sums
-``D = rowsum(dO * O)``, then dK and dV, then dQ).
+``D = rowsum(dO * O)``, then dK and dV, then dQ; four for bfloat16 at
+dh=256, where dV and dK are two launches), and those of them that took the
+bfloat16 tensor-core route (``mma.sync``) in :data:`TENSOR_CORE_LAUNCHES`;
+float32 takes the CUDA-core kernels.
 
 It replaces no Pallas kernel: ``repro`` takes this gradient from XLA's
 autodiff of ``repro/models/attention.py:103`` ``causal_attention``.
@@ -21,12 +24,14 @@ from repro_torch.kernels.flash_attention.flash_attention import (_DTYPES,
                                                                  validate)
 
 LAUNCHES = {"flash_attention_bwd": 0}
+TENSOR_CORE_LAUNCHES = {"flash_attention_bwd": 0}
 
 _SIGNATURES = {"fa_backward": [_P] * 10 + [_I] * 8 + [_P]}
 
 
 def reset_launches() -> None:
     LAUNCHES["flash_attention_bwd"] = 0
+    TENSOR_CORE_LAUNCHES["flash_attention_bwd"] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -43,7 +48,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     dtype of attention of q over k, v (as the forward's arguments), given
     its output ``o`` and the output's gradient ``do`` (B, S, H, dh) and the
     forward's row logsumexp ``lse`` (B, H, S) float32. All contiguous CUDA
-    tensors; one call, three launches; raises on a failed launch."""
+    tensors; one call, three launches (four for bfloat16 at dh=256);
+    raises on a failed launch."""
     b, s, h, dh = q.shape
     kv = k.shape[2]
     dev = q.device
@@ -64,4 +70,6 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              _DTYPES[q.dtype], binding.stream(dev))
     binding.raise_on(err, "flash_attention_bwd_kernel")
     LAUNCHES["flash_attention_bwd"] += 1
+    if q.dtype == torch.bfloat16:
+        TENSOR_CORE_LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv

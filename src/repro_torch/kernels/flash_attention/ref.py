@@ -10,7 +10,9 @@ runs them; ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold
 ``csrc/flash_attention.cu`` against them on the card.
 :func:`attention_lse_ref` adds the row logsumexp the training forward
 saves, and :func:`attention_bwd_ref` is the plain backward
-(``csrc/flash_attention_bwd.cu``'s), which the CPU's training path runs.
+(``csrc/flash_attention_bwd.cu``'s), which the CPU's training path runs;
+:func:`attention_bwd_bf16_ref`, for tests, repeats the bfloat16 kernels'
+roundings of P and dS.
 """
 from __future__ import annotations
 
@@ -111,6 +113,30 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (0 where a key is not seen), D = rowsum(do * o), dV = P^T dO, dS = P
     (dO V^T - D), dQ = dS K / sqrt(dh), dK = dS^T Q / sqrt(dh), dK and dV
     summed over each kv head's group of query heads."""
+    return _attention_bwd(q, k, v, o, do, lse, causal, window,
+                          lambda x: x)
+
+
+def attention_bwd_bf16_ref(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, o: torch.Tensor,
+                           do: torch.Tensor, lse: torch.Tensor, *,
+                           causal: bool = True,
+                           window: Optional[int] = None):
+    """What the bfloat16 route of ``csrc/flash_attention_bwd.cu`` (its
+    ``mma.sync`` kernels) computes, for tests: :func:`attention_bwd_ref`
+    with the tensor cores' operands rounded where the kernels round them.
+    P is rounded once to bfloat16 as the operand of dV = P^T dO, and dS =
+    P (dP - D), taken from the float32 P, once as the operand of dK and dQ;
+    every sum is float32. It shows on the CPU how far those roundings move
+    the gradients from the plain version's."""
+    return _attention_bwd(q, k, v, o, do, lse, causal, window,
+                          lambda x: x.to(torch.bfloat16).float())
+
+
+def _attention_bwd(q, k, v, o, do, lse, causal, window, operand):
+    """The backward of :func:`attention_bwd_ref`, with ``operand`` applied
+    to P and dS where they enter the products dV = P^T dO, dQ = dS K and
+    dK = dS^T Q."""
     b, s, h, dh = q.shape
     kv = k.shape[2]
 
@@ -123,11 +149,11 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask = seen(s, causal=causal, window=window, device=q.device)
     p = torch.where(mask, torch.exp(scores - lse[..., None]), 0.0)
     delta = (dof * of).sum(-1, keepdim=True)
-    ds = p * (dof @ vf.transpose(-1, -2) - delta)
+    ds = operand(p * (dof @ vf.transpose(-1, -2) - delta))
     scale = inv_sqrt(dh)
     dq = (ds @ kf) * scale
     dk = (ds.transpose(-1, -2) @ qf) * scale
-    dv = p.transpose(-1, -2) @ dof
+    dv = operand(p).transpose(-1, -2) @ dof
 
     def group(x):      # (B, H, S, dh) -> (B, S, KV, dh), the group summed
         return x.reshape(b, kv, h // kv, s, dh).sum(2).transpose(1, 2)

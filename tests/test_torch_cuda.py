@@ -1433,7 +1433,7 @@ def _check_flash(dev, b, s, h, kv, dh, causal, window, dtype):
         assert ((got.float() - want.float()).abs() <= 2.0 ** -6 * scale).all()
 
 
-# the backward kernel's edges: every head dim, S below one 64-row tile and
+# the backward kernels' edges: every head dim, S below one 64-row tile and
 # ragged past one, windows cutting a tile (64 keys; 32 at dh=256), GQA 8:1
 # and 3:1, not causal with and without a window
 FLASH_BWD_SHAPES = [
@@ -1446,7 +1446,30 @@ FLASH_BWD_SHAPES = [
     (1, 300, 8, 1, 128, True, None),
     (1, 300, 4, 2, 256, True, 77),
     (2, 100, 4, 1, 256, False, 40),
+    # the bf16 tensor-core kernels' tiles, S at and one past their edges:
+    # 64 keys a dK/dV CTA and 64 rows a dQ CTA at every dh; query tiles of
+    # the dK/dV ring and kv tiles of the dQ ring of 64 rows at dh <= 64 and
+    # of 32 above
+    (1, 64, 2, 1, 16, True, None),
+    (2, 65, 4, 2, 16, False, None),
+    (1, 64, 4, 4, 32, False, None),
+    (1, 65, 4, 2, 32, True, 20),
+    (2, 64, 4, 2, 64, True, None),
+    (1, 65, 6, 3, 64, False, 9),
+    (1, 32, 2, 2, 128, True, None),
+    (1, 33, 4, 2, 128, False, None),
+    (1, 64, 4, 1, 128, True, 40),
+    (1, 65, 2, 2, 128, True, None),
+    (1, 32, 2, 1, 256, False, None),
+    (1, 33, 4, 2, 256, True, None),
+    (1, 64, 2, 2, 256, True, 17),
+    (1, 65, 4, 4, 256, False, None),
 ]
+# the bf16 kernels against ref.attention_bwd_bf16_ref, the CPU mirror of
+# their roundings of P and dS: two output ulps at each tensor's largest
+# values (max |diff| / max |mirror|; read <= 4.5e-3 at phase 18 (a)'s
+# shapes, tools/flash_bwd_designs.py on an NVIDIA H100 80GB HBM3 at 700 W)
+FLASH_BWD_MIRROR_TOL = 2.0 ** -6
 
 
 def _bwd_inputs(dev, b, s, h, kv, dh, dtype, seed):
@@ -1465,8 +1488,10 @@ def test_flash_attention_bwd_matches_plain(dev, b, s, h, kv, dh, causal,
     """The backward kernel against its plain version on the same q, k, v,
     output, output gradient and logsumexp (the forward kernel's), max
     |diff| over max |plain| within 2e-2 in bfloat16 (one rounding of each
-    gradient) and 1e-4 in float32; the forward's logsumexp within 1e-5 of
-    the plain one; two launches give the same bits."""
+    gradient) and 1e-4 in float32, and in bfloat16 also against the CPU
+    mirror of its roundings within ``FLASH_BWD_MIRROR_TOL``; the forward's
+    logsumexp within 1e-5 of the plain one; two launches give the same
+    bits."""
     q, k, v, do = _bwd_inputs(dev, b, s, h, kv, dh, dtype, s + dh)
     o, lse = cuda_fa.flash_attention_cuda(q, k, v, causal=causal,
                                           window=window, with_lse=True)
@@ -1488,6 +1513,32 @@ def test_flash_attention_bwd_matches_plain(dev, b, s, h, kv, dh, causal,
         assert torch.equal(g, a), name
         err = float((g.float() - w.float()).abs().max())
         assert err <= tol * float(w.float().abs().max()), (name, err)
+    if dtype == torch.bfloat16:
+        mirror = fa_ref.attention_bwd_bf16_ref(q, k, v, o, do, lse,
+                                               causal=causal, window=window)
+        for name, g, w in zip(("dq", "dk", "dv"), got, mirror):
+            err = float((g.float() - w.float()).abs().max())
+            assert err <= FLASH_BWD_MIRROR_TOL * float(w.float().abs().max()),\
+                (name, err)
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64, 128, 256])
+def test_flash_attention_bwd_routes(dev, dh):
+    """bfloat16 takes the tensor-core kernels (``TENSOR_CORE_LAUNCHES``
+    counts it) at every head dim, float32 the CUDA-core ones (counted in
+    ``LAUNCHES`` alone), each giving the same bits twice."""
+    for dtype, tensor_cores in ((torch.bfloat16, 1), (torch.float32, 0)):
+        q, k, v, do = _bwd_inputs(dev, 1, 130, 4, 2, dh, dtype, dh)
+        o, lse = cuda_fa.flash_attention_cuda(q, k, v, with_lse=True)
+        calls = cuda_fab.LAUNCHES["flash_attention_bwd"]
+        tc = cuda_fab.TENSOR_CORE_LAUNCHES["flash_attention_bwd"]
+        got = cuda_fab.flash_attention_bwd_cuda(q, k, v, o, do, lse)
+        again = cuda_fab.flash_attention_bwd_cuda(q, k, v, o, do, lse)
+        torch.cuda.synchronize()
+        assert cuda_fab.LAUNCHES["flash_attention_bwd"] == calls + 2
+        assert cuda_fab.TENSOR_CORE_LAUNCHES["flash_attention_bwd"] == \
+            tc + 2 * tensor_cores
+        assert all(torch.equal(g, a) for g, a in zip(got, again))
 
 
 def test_flash_attention_lse_leaves_the_output_bits(dev):

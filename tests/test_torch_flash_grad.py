@@ -12,6 +12,12 @@ float32 (measured <= 5.5e-7: only the order of the float32 sums differs)
 and 2e-2 in bfloat16 (measured <= 8.5e-3: the reference rounds its scores
 and probabilities to bfloat16, ``u = 2^-9``, where the port's plain
 version keeps them in float32 and rounds each gradient once).
+
+The card's bfloat16 backward kernels feed their tensor cores P and dS
+rounded once to bfloat16; ``ref.attention_bwd_bf16_ref`` repeats those
+roundings on the CPU, and is held here against ``jax.vjp`` within the same
+2e-2 and against the plain backward within ``chip_smoke.py``'s ``BWD_TOL``
+(2e-2), at each case.
 """
 import jax
 import jax.numpy as jnp
@@ -67,6 +73,48 @@ def test_attention_gradient_is_jax_vjp(b, s, h, kv, dh, causal, window,
     for name, g, w in zip("qkv", got, want):
         assert g.dtype == td
         assert lm_ref.rel(g, w) <= tol, name
+
+
+def _bf16_inputs(b, s, h, kv, dh):
+    rng = np.random.default_rng(s + dh)
+    return [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            .to(torch.bfloat16) for shape in
+            ((b, s, h, dh), (b, s, kv, dh), (b, s, kv, dh), (b, s, h, dh))]
+
+
+@pytest.mark.parametrize("b,s,h,kv,dh,causal,window", ATTENTION_CASES)
+def test_bf16_mirror_is_jax_vjp(b, s, h, kv, dh, causal, window):
+    """The mirror of the bfloat16 kernels' roundings, from the plain
+    forward's output and logsumexp, against ``jax.vjp`` of ``repro``'s
+    attention on the same bfloat16 inputs, within 2e-2 (measured <=
+    8.3e-3)."""
+    q, k, v, do = _bf16_inputs(b, s, h, kv, dh)
+    _, vjp = jax.vjp(
+        lambda q, k, v: causal_attention(q, k, v, window=window,
+                                         causal=causal),
+        *(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v)))
+    want = vjp(jnp.asarray(do.float().numpy(), jnp.bfloat16))
+    out, lse = ref.attention_lse_ref(q, k, v, causal=causal, window=window)
+    got = ref.attention_bwd_bf16_ref(q, k, v, out, do, lse, causal=causal,
+                                     window=window)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.bfloat16
+        assert lm_ref.rel(g, w) <= 2e-2, name
+
+
+@pytest.mark.parametrize("b,s,h,kv,dh,causal,window", ATTENTION_CASES)
+def test_bf16_mirror_is_the_plain_backward(b, s, h, kv, dh, causal, window):
+    """The mirror against the plain backward on the same bfloat16 inputs,
+    within ``BWD_TOL``'s 2e-2 (measured <= 6.2e-3), and not equal to it:
+    its roundings of P and dS move the gradients."""
+    q, k, v, do = _bf16_inputs(b, s, h, kv, dh)
+    out, lse = ref.attention_lse_ref(q, k, v, causal=causal, window=window)
+    args = (q, k, v, out, do, lse)
+    got = ref.attention_bwd_bf16_ref(*args, causal=causal, window=window)
+    want = ref.attention_bwd_ref(*args, causal=causal, window=window)
+    for name, g, w in zip("qkv", got, want):
+        assert lm_ref.rel(g, w.float()) <= 2e-2, name
+    assert not all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.parametrize("b,s,h,kv,dh,causal,window", ATTENTION_CASES)
