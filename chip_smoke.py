@@ -338,6 +338,25 @@ Run from the repository root. Phases:
    stablelm-1.6b with a ``FailureInjector`` at step 3 and a checkpoint
    every 2 steps: the losses after the restart and the final state are an
    uninterrupted run's bit for bit.
+19. training the recurrent mixers and ``comm`` (``mixers_train_phase``):
+   (a) xlstm-125m uncut (12 layers, d=768: mLSTM and sLSTM) and
+   jamba-v0.1-52b at full width cut to its first layer (mamba with
+   d_in=8,192 and a dense MLP, ~0.82 B parameters of float32 masters), 8 x
+   2,048 tokens a step in 1 and 2 microbatches: a warm-up step and 2 timed
+   steps launching no hand-written kernel, the loss finite, peak memory,
+   and a traced step's device time split into the mixers' recurrences
+   (marked on the stream by ``ScanMarks``), the other products and the
+   rest; (b) one period of each, reduced (jamba's 8 layers with its
+   attention layer, whose flash forward and backward kernels must launch
+   once each a loss; xlstm's 6 with its sLSTM), on the card against the
+   CPU in both compute dtypes, as 18 (c) but without the per-block
+   recompute (``MIXER_TRAIN_TOLS``); (c)
+   ``train_loop``'s failure and restart at reduced xlstm-125m, bit for bit
+   as 18 (d); (d) ``comm.ring_all_reduce_mean`` and
+   ``compressed_all_reduce_mean`` over two gloo processes on the card and
+   two on the CPU, a 16 M-float leaf a rank: within float32 rounding and
+   the int8 quantisation's error of the exact mean, the card's bitwise the
+   CPU's.
 
 Every check raises on failure and nothing is caught, so any failure exits
 non-zero. The last line is the JSON result. Without a CUDA device, or
@@ -724,6 +743,40 @@ TRAIN_TOLS = {"float32": (1e-6, 2e-5, 0.1), "bfloat16": (1e-3, 5e-2, None)}
 TRAIN_LOOP = dict(steps=6, global_batch=4, seq_len=64, ckpt_every=2,
                   log_every=100, lr=1e-3)
 TRAIN_FAIL_AT = 3
+# phase 19 (a): the recurrent mixers trained at full width, (arch, layers
+# kept or None, microbatches): xlstm-125m uncut (12 layers, d=768; one
+# microbatch, since the sLSTM's token loop runs once a microbatch) and
+# jamba-v0.1-52b at full width cut to its first layer (mamba + dense MLP;
+# with the next, its first MoE layer of 2.82 B parameters, the float32
+# state alone is ~60 GB, and AdamW's temporaries do not fit 80 GB)
+MIXER_TRAIN = (("xlstm-125m", None, 1), ("jamba-v0.1-52b", 1, 2))
+MIXER_TRAIN_BATCH, MIXER_TRAIN_SEQ, MIXER_TRAIN_STEPS = 8, 2048, 2
+# phase 19 (b): one period of each, reduced, on the card against the CPU
+# (TRAIN_CPU_BATCH x TRAIN_CPU_SEQ, as phase 18 (c)). xlstm's gradients are
+# ill-conditioned at such weights (near-zero mLSTM head contexts under the
+# head norm's eps, tests/test_torch_train_mixers.py: a one-ulp change of
+# the embedding table moves its float32 gradients by 3.7e-4 of their scale
+# and a bfloat16 rounding of it its bfloat16 gradients by 1.5): its float32
+# gradients are held within 1e-3, its bfloat16 gradients and both dtypes'
+# steps printed, not held. jamba's float32 step is printed too: Adam's first
+# step is lr * g / (|g| + eps), and its gradients within 2e-5 of their scale
+# still moved a near-zero element 0.127 learning rates (this phase on an
+# NVIDIA H100 80GB HBM3 at 700 W)
+MIXER_CPU_ARCHS = (("jamba-v0.1-52b", 8), ("xlstm-125m", 6))
+# leaves whose gradient cancels (the input gates' biases: shifting every
+# input gate of a unit scales a memory's numerator and normaliser alike;
+# exactly zero for the sLSTM, 2.6e-10 of rounding in the CPU tests): held
+# against their block's largest gradient, as tests/test_torch_train_mixers.py
+# holds them
+CANCELLING = ("mlstm.b_i", "slstm.b_i")
+MIXER_TRAIN_TOLS = {"xlstm-125m": {"float32": (1e-6, 1e-3, None),
+                                   "bfloat16": (1e-3, None, None)},
+                    "jamba-v0.1-52b": {"float32": (1e-6, 2e-5, None),
+                                       "bfloat16": (1e-3, 5e-2, None)}}
+# phase 19 (d): the all-reduce means over two gloo processes, one leaf a
+# rank, on the card and on the CPU
+COMM_FLOATS = 1 << 24
+COMM_RUNS = (("card", "cuda"), ("CPU", "cpu"))
 
 
 def require(ok: bool, what: str) -> None:
@@ -833,14 +886,17 @@ def smi(fields: str) -> str:
         .splitlines()[0]
 
 
-def trace(tag: str, label: str, fn, counts: dict | None = None) -> dict:
+def trace(tag: str, label: str, fn, counts: dict | None = None,
+          ordered: list | None = None) -> dict:
     """Run ``fn`` under ``torch.profiler`` and print its wall time, the
     device's busy time (the sum of the kernels' own device time) and idle
     share, and the six busiest kernels. Returns the device microseconds by
     kernel name; ``counts``, if given, gets each kernel's number of
-    launches. Only the kernels are recorded, no host operator events: a
-    trace of ~10^5 launches is then summarised in seconds, not a
-    minute."""
+    launches, ``ordered`` every kernel's ``(name, start, device us)`` in
+    the device's order. Only the kernels are recorded, no host operator
+    events, and they are read from the profiler's own records, not
+    through its Python events (``key_averages``): phase 19's ~3 x 10^5
+    launches are then summarised in seconds, not two minutes."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -849,13 +905,20 @@ def trace(tag: str, label: str, fn, counts: dict | None = None) -> dict:
         fn()
         torch.cuda.synchronize()
         traced_wall = time.perf_counter() - t0
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    by_kernel = sorted(((e.key, e.self_device_time_total) for e in rows),
-                       key=lambda kv: -kv[1])
+    kernels = sorted(
+        ((e.name(), e.start_ns() / 1e3, e.duration_ns() / 1e3)
+         for e in prof.profiler.kineto_results.events()
+         if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0),
+        key=lambda k: k[1])
+    totals, launches = {}, {}
+    for name, _, us in kernels:
+        totals[name] = totals.get(name, 0.0) + us
+        launches[name] = launches.get(name, 0) + 1
+    by_kernel = sorted(totals.items(), key=lambda kv: -kv[1])
     if counts is not None:
-        counts.update((e.key, e.count) for e in rows)
+        counts.update(launches)
+    if ordered is not None:
+        ordered.extend(kernels)
     busy_us = sum(us for _, us in by_kernel)
     if busy_us == 0:
         print(f"{tag} traced {label}: the profiler recorded no device "
@@ -1954,13 +2017,23 @@ def full_width_train(seed: int, dev, reset_counts, read_counts, tag: str,
     return rec
 
 
-def card_against_cpu_train(seed: int, dev, tag: str) -> dict:
-    """Phase 18 (c): ``TRAIN_CPU_ARCHS`` reduced, the same float32 masters
-    and batch on the card and the CPU, in both compute dtypes: the loss and
-    each leaf's gradient within ``TRAIN_TOLS``, then one AdamW step, whose
-    parameters are printed in steps of the learning rate. Where the CPU's
-    MoE routing differs from the card's at a near tie (within
-    ``ROUTE_DRIFT``), the card takes the CPU's experts."""
+def card_against_cpu_train(seed: int, dev, tag: str, archs=TRAIN_CPU_ARCHS,
+                           tols=None, reset_counts=None, read_counts=None,
+                           remat: bool = True) -> dict:
+    """Phase 18 (c) and 19 (b): ``archs`` reduced (a name, or ``(name,
+    layers)`` to cut it), the same float32 masters and batch on the card
+    and the CPU, in both compute dtypes: the loss and each leaf's gradient
+    within ``TRAIN_TOLS`` (or ``tols[arch]``; a bound of None is printed,
+    not held), then one AdamW step, whose parameters are printed in steps
+    of the learning rate. Where the CPU's MoE routing differs from the
+    card's at a near tie (within ``ROUTE_DRIFT``), the card takes the
+    CPU's experts. A leaf the loss never reads has a zero gradient; one
+    whose gradient cancels (``CANCELLING``) is held against its block's
+    largest. With the counters' ``reset_counts`` and ``read_counts``, each
+    card run's kernel launches are returned under ``launches``. ``remat``
+    false runs
+    both losses without the per-block recompute (a recompute outside
+    ``follow_routing`` would route the card's own way again)."""
     import torch
     from repro_torch.configs import reduced_config
     from repro_torch.data import pipeline_for
@@ -1968,9 +2041,15 @@ def card_against_cpu_train(seed: int, dev, tag: str) -> dict:
     from repro_torch.models import new_model
     from repro_torch.train import AdamW, constant_lr
 
+    def grad(p):
+        return p.grad if p.grad is not None else torch.zeros_like(p)
+
     out = {}
-    for arch in TRAIN_CPU_ARCHS:
+    for entry in archs:
+        arch, layers = (entry, None) if isinstance(entry, str) else entry
         cfg = reduced_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
         batch = pipeline_for(cfg, seq_len=TRAIN_CPU_SEQ,
                              global_batch=TRAIN_CPU_BATCH, seed=seed,
                              device="cpu").batch(0)
@@ -1991,28 +2070,37 @@ def card_against_cpu_train(seed: int, dev, tag: str) -> dict:
                 models[where] = model
             log: list = []
             with moe_lib.record_routing(log):
-                loss_cpu, met_cpu = models["cpu"].loss(batch)
+                loss_cpu, met_cpu = models["cpu"].loss(batch, remat=remat)
             loss_cpu.backward()
+            if reset_counts is not None:
+                reset_counts()
             with moe_lib.follow_routing(log, ROUTE_DRIFT) as ties:
                 loss_card, met_card = models[dev].loss(
-                    {k: v.to(dev) for k, v in batch.items()})
+                    {k: v.to(dev) for k, v in batch.items()}, remat=remat)
             loss_card.backward()
-            loss_tol, grad_tol, step_tol = TRAIN_TOLS[dname]
+            launches = read_counts() if read_counts is not None else None
+            loss_tol, grad_tol, step_tol = (tols or {}).get(
+                arch, TRAIN_TOLS)[dname]
             loss_card, loss_cpu = float(loss_card.detach()), \
                 float(loss_cpu.detach())
             loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
             grad_rel = {}
+            named = dict(models["cpu"].named_parameters())
             for (name, pc), (_, pd) in zip(
                     models["cpu"].named_parameters(),
                     models[dev].named_parameters()):
-                scale = float(pc.grad.abs().max())
-                grad_rel[name] = float((pd.grad.cpu() - pc.grad).abs().max()
+                scale = float(grad(pc).abs().max())
+                if name.endswith(CANCELLING):
+                    block = name.rsplit(".", 2)[0] + "."
+                    scale = max(float(grad(q).abs().max()) for k, q in
+                                named.items() if k.startswith(block))
+                grad_rel[name] = float((grad(pd).cpu() - grad(pc)).abs().max()
                                        ) / (scale if scale else 1.0)
             worst = max(grad_rel, key=grad_rel.get)
             require(loss_rel <= loss_tol,
                     f"{tag} {arch} {dname}: loss {loss_card} on the card, "
                     f"{loss_cpu} on the CPU ({loss_rel:.3g} > {loss_tol})")
-            require(grad_rel[worst] <= grad_tol,
+            require(grad_tol is None or grad_rel[worst] <= grad_tol,
                     f"{tag} {arch} {dname}: gradient of {worst} differs by "
                     f"{grad_rel[worst]:.3g} of its scale (> {grad_tol})")
             # one AdamW step from the gradients, each device on its own
@@ -2020,7 +2108,7 @@ def card_against_cpu_train(seed: int, dev, tag: str) -> dict:
             for where, model in models.items():
                 adamw = AdamW(learning_rate=constant_lr(TRAIN_CPU_LR))
                 params = dict(model.named_parameters())
-                grads = {k: p.grad for k, p in params.items()}
+                grads = {k: grad(p) for k, p in params.items()}
                 adamw.update(grads, adamw.init(params), params)
                 steps[where] = params
             moved = max(float((steps[dev][k].detach().cpu()
@@ -2029,17 +2117,19 @@ def card_against_cpu_train(seed: int, dev, tag: str) -> dict:
             require(step_tol is None or moved <= step_tol,
                     f"{tag} {arch} {dname}: after one step the parameters "
                     f"differ by {moved:.3g} learning rates (> {step_tol})")
+            shown = {k: n for k, n in (launches or {}).items() if n}
             out[f"{arch} {dname}"] = dict(loss_rel=loss_rel,
                                           grad_rel=grad_rel[worst],
                                           worst=worst, step_diff_lr=moved,
-                                          ties=len(ties))
+                                          ties=len(ties), launches=launches)
             print(f"{tag} {arch} {dname}: loss {loss_card:.6f} on the card, "
                   f"{loss_cpu:.6f} on the CPU ({loss_rel:.3g} <= {loss_tol}); "
                   f"gradients within {grad_rel[worst]:.3g} of their scale "
                   f"(worst {worst}; <= {grad_tol}); after one AdamW step the "
                   f"parameters differ by at most {moved:.3g} learning rates"
-                  f" (<= {step_tol}); {len(ties)} near ties followed",
-                  flush=True)
+                  f" (<= {step_tol}); {len(ties)} near ties followed"
+                  + (f"; launches {shown}" if launches is not None
+                     else ""), flush=True)
             del models, steps
     return out
 
@@ -2051,11 +2141,7 @@ def train_phase(seed: int, dev, reset_counts, read_counts, *,
     seed; (c) reduced configs on the card against the CPU; (d)
     ``train_loop``'s restart on the card. Returns the numbers, the
     launches of (b)'s timed steps and the backward kernel's row."""
-    import shutil
     import torch
-    from repro_torch.configs import reduced_config
-    from repro_torch.fault import FailureInjector
-    from repro_torch.launch.train import train_loop
 
     t_phase = time.perf_counter()
     out = {}
@@ -2101,9 +2187,346 @@ def train_phase(seed: int, dev, reset_counts, read_counts, *,
     out["cpu_check"] = card_against_cpu_train(seed, dev, "[18c]")
     print(f"[18c] {time.perf_counter() - t0:.1f} s", flush=True)
 
+    out["restart"] = restart_check(TRAIN_ARCH, None, seed, dev, "[18d]",
+                                   "phase18_ckpt")
+
+    main = bwd["shapes"][f"{BWD_SHAPES[0][7]} bfloat16"]
+    out["row"] = dict(ms=main["ms"], plain_ms=main["plain_ms"],
+                      library_ms=main["library_ms"], bound=main["bound"],
+                      max_abs_err=bwd["max_abs_err"])
+    out["launches"] = {k: sum(c[k] for c in first["launches"])
+                       for k in ("flash_attention", "flash_attention_bwd")}
+    out["wall"] = time.perf_counter() - t_phase
+    print(f"[18] phase 18: {out['wall']:.1f} s", flush=True)
+    return out
+
+
+class ScanMarks:
+    """Marks where the mixers' recurrences run on the stream: wrapped by
+    :meth:`wrap`, a recurrence launches a marker kernel (``torch.cuda.
+    _sleep(0)``, ``spin_kernel``) before and after its forward and, through
+    autograd hooks, when its output's gradient arrives and each time one of
+    its inputs' gradients is complete (the last of these ends its
+    backward). :meth:`split` finds the markers among a trace's kernels in
+    the device's order and sums the device time between each span's first
+    and last marker."""
+
+    def __init__(self):
+        self.labels = []          # (span, "start" or "stop") in launch order
+        self.spans = 0
+
+    def _mark(self, span: int, what: str) -> None:
+        import torch
+        torch.cuda._sleep(0)
+        self.labels.append((span, what))
+
+    def wrap(self, fn):
+        import torch
+
+        def tensors(tree):
+            if isinstance(tree, torch.Tensor):
+                return [tree] if tree.requires_grad else []
+            if isinstance(tree, (tuple, list)):
+                return [t for sub in tree for t in tensors(sub)]
+            return []
+
+        def wrapped(*args):
+            span = self.spans
+            self.spans += 2
+            self._mark(span, "start")
+            out = fn(*args)
+            self._mark(span, "stop")
+            outs, ins = tensors(out), tensors(args)
+            if torch.is_grad_enabled() and outs and ins:
+                started = []
+
+                def on_out(_):
+                    if not started:
+                        started.append(True)
+                        self._mark(span + 1, "start")
+
+                for t in outs:
+                    t.register_hook(on_out)
+                for t in ins:
+                    t.register_hook(lambda _: self._mark(span + 1, "stop"))
+            return out
+        return wrapped
+
+    def split(self, ordered: list):
+        """``(device us inside the spans, device us outside, markers)`` of
+        ``ordered`` (``trace``'s kernels in the device's order)."""
+        marks = [i for i, (name, _, _) in enumerate(ordered)
+                 if "spin_kernel" in name]
+        require(len(marks) == len(self.labels),
+                f"{len(marks)} marker kernels traced, {len(self.labels)} "
+                f"launched")
+        bounds = {}
+        for pos, (span, what) in zip(marks, self.labels):
+            lo, hi = bounds.get(span, (None, None))
+            bounds[span] = (pos if what == "start" and lo is None else lo,
+                            pos if what == "stop" else hi)
+        inside = [False] * len(ordered)
+        for lo, hi in bounds.values():
+            if lo is not None and hi is not None:
+                for i in range(lo, hi + 1):
+                    inside[i] = True
+        marked = set(marks)
+        scan = sum(us for i, (_, _, us) in enumerate(ordered)
+                   if inside[i] and i not in marked)
+        other = [(name, us) for i, (name, _, us) in enumerate(ordered)
+                 if not inside[i] and i not in marked]
+        return scan, other, len(marks)
+
+
+def mixer_train_full(seed: int, dev, reset_counts, read_counts, arch: str,
+                     cut, micro: int, tag: str) -> dict:
+    """Phase 19 (a), one model: ``arch`` at full width (cut to ``cut``
+    layers if given) from ``seed``, ``MIXER_TRAIN_BATCH`` x
+    ``MIXER_TRAIN_SEQ`` tokens a step in ``micro`` microbatches: a warm-up
+    step, ``MIXER_TRAIN_STEPS`` timed steps (no hand-written kernel
+    launched) and one traced step, its device time split into the mixers'
+    recurrences (:class:`ScanMarks`: mamba's ``SelectiveScan``, the
+    mLSTM's ``mlstm_chunks`` and the sLSTM's ``slstm_scan``, forward,
+    recompute and backward, their own small products included), the other
+    products and the rest."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline_for
+    from repro_torch.models import mamba as mamba_lib
+    from repro_torch.models import new_model
+    from repro_torch.models import xlstm as xlstm_lib
+    from repro_torch.train import (AdamW, init_state, make_train_step,
+                                   warmup_cosine)
+
+    cfg = get_config(arch)
+    if cut is not None:
+        cfg = dataclasses.replace(cfg, n_layers=cut)
     t0 = time.perf_counter()
-    small = reduced_config(TRAIN_ARCH)
-    ckpt = ROOT / "build" / "phase18_ckpt"
+    model = new_model(cfg, device=dev, param_dtype=torch.float32)
+    adamw = AdamW(learning_rate=warmup_cosine(TRAIN_LR, 1,
+                                              MIXER_TRAIN_STEPS + 1))
+    state = init_state(model, adamw, seed)
+    step = make_train_step(model, adamw, microbatches=micro)
+    pipe = pipeline_for(cfg, seq_len=MIXER_TRAIN_SEQ,
+                        global_batch=MIXER_TRAIN_BATCH, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    rec = dict(init_s=time.perf_counter() - t0, layers=cfg.n_layers,
+               kinds=sorted({ls.kind for ls in cfg.layers}),
+               params=sum(p.numel() for p in model.parameters()),
+               losses=[], step_s=[], launches=[])
+    t0 = time.perf_counter()
+    state, metrics = step(state, pipe.batch(0))          # warm-up
+    rec["losses"].append(float(metrics["loss"]))
+    rec["warmup_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(1, MIXER_TRAIN_STEPS + 1):
+        batch = pipe.batch(i)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        rec["step_s"].append(time.perf_counter() - t0)
+        counts = read_counts()
+        rec["launches"].append(counts)
+        require(not any(counts.values()),
+                f"{tag} step {i} launches {counts}: no hand-written kernel "
+                f"is on a recurrent model's training path (flash_attention "
+                f"and flash_attention_bwd 0)")
+        rec["losses"].append(float(metrics["loss"]))
+        rec["grad_norm"] = float(metrics["grad_norm"])
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    batch = pipe.batch(MIXER_TRAIN_STEPS + 1)
+    marks = ScanMarks()
+    saved = (mamba_lib.SelectiveScan, xlstm_lib.mlstm_chunks,
+             xlstm_lib.slstm_scan)
+    mamba_lib.SelectiveScan = types.SimpleNamespace(
+        apply=marks.wrap(saved[0].apply))
+    xlstm_lib.mlstm_chunks = marks.wrap(saved[1])
+    xlstm_lib.slstm_scan = marks.wrap(saved[2])
+    box, ordered = {}, []
+
+    def last_step():
+        box["state"], box["metrics"] = step(state, batch)
+
+    t0 = time.perf_counter()
+    try:
+        by_kernel = trace(tag, "a train step", last_step, ordered=ordered)
+    finally:
+        rec["traced_s"] = time.perf_counter() - t0
+        (mamba_lib.SelectiveScan, xlstm_lib.mlstm_chunks,
+         xlstm_lib.slstm_scan) = saved
+    rec["losses"].append(float(box["metrics"]["loss"]))
+    if by_kernel:
+        t_split = time.perf_counter()
+        scan_us, other, n_marks = marks.split(ordered)
+        products = sum(us for name, us in other if is_gemm(name)) / 1e3
+        rest = sum(us for name, us in other if not is_gemm(name)) / 1e3
+        rec["trace"] = dict(busy_ms=sum(by_kernel.values()) / 1e3,
+                            mixer_scan_ms=scan_us / 1e3,
+                            products_ms=products, rest_ms=rest,
+                            kernels=len(ordered), markers=n_marks,
+                            split_s=time.perf_counter() - t_split)
+        print(f"{tag} traced step: device busy {rec['trace']['busy_ms']:.1f}"
+              f" ms = mixer scans {scan_us / 1e3:.1f} ms (their own small "
+              f"products included), other products {products:.1f} ms, rest "
+              f"{rest:.1f} ms ({len(ordered)} kernels, {n_marks} markers; "
+              f"the traced step and its summary {rec['traced_s']:.1f} s, "
+              f"the split {rec['trace']['split_s']:.1f} s)", flush=True)
+    require(all(torch.isfinite(torch.tensor(rec["losses"]))),
+            f"{tag}: losses {rec['losses']} not finite")
+    tokens = MIXER_TRAIN_BATCH * MIXER_TRAIN_SEQ
+    step_s = statistics.median(rec["step_s"])
+    rec.update(tokens_per_step=tokens, microbatches=micro,
+               step_median_s=step_s, tokens_per_s=tokens / step_s)
+    print(f"{tag} {rec['params'] / 1e9:.4f} B parameters ({cfg.n_layers} "
+          f"layers: {', '.join(rec['kinds'])}; d={cfg.d_model}), float32 "
+          f"masters; steps of {MIXER_TRAIN_BATCH} x {MIXER_TRAIN_SEQ} tokens "
+          f"in {micro} microbatch(es): warm-up {rec['warmup_s']:.3f} s, "
+          f"{[round(t, 4) for t in rec['step_s']]} s (median {step_s:.4f} s,"
+          f" {tokens / step_s:.6g} tokens/s); peak device memory "
+          f"{rec['peak_gib']:.3f} GiB; losses {rec['losses']}; no "
+          f"hand-written kernel launched", flush=True)
+    del model, state, box
+    return rec
+
+
+COMM_WORKER = """
+import sys, time
+import torch
+rank, world, address, device, src, out_path, n = sys.argv[1:8]
+rank, world, n = int(rank), int(world), int(n)
+sys.path.insert(0, src)
+from repro_torch import comm
+from repro_torch.launch.mesh import distributed_initialize
+dev = torch.device(device)
+if dev.type == "cuda":                 # every rank on the one card
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+used = distributed_initialize(address, world, rank, backend="gloo",
+                              device=dev)
+gen = torch.Generator().manual_seed(1000 + rank)
+x = (torch.randn(n, generator=gen) * (1 + rank)).to(dev)
+out = {}
+for name, fn in (("ring", comm.ring_all_reduce_mean),
+                 ("compressed", comm.compressed_all_reduce_mean)):
+    fn(x[:4096])                       # a warm-up of the group's links
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = fn(x)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out[name] = (got.cpu(), time.perf_counter() - t0)
+torch.save(out, out_path)
+torch.distributed.destroy_process_group()
+print("COMM_OK", rank, used)
+"""
+
+
+def comm_check(dev, tag: str) -> dict:
+    """Phase 19 (d): :data:`COMM_WORKER` as two gloo processes on the card
+    (both ranks on it, as phase 14 (b) runs them) and two on the CPU, each
+    rank with its own ``COMM_FLOATS``-float leaf: the ring mean within
+    float32 rounding of the exact mean, the compressed mean within the
+    int8 quantisation's error of it, and both on the card bitwise the
+    CPU's."""
+    import socket
+    import tempfile
+    import torch
+
+    def start(device, where, tmp):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            address = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
+        paths = [Path(tmp) / f"{where}{r}.pt" for r in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", COMM_WORKER, str(r), "2", address,
+             device, str(ROOT / "src"), str(paths[r]), str(COMM_FLOATS)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+        return procs, paths
+
+    t0 = time.perf_counter()
+    got = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        jobs = {where: start(device, where, tmp)
+                for where, device in COMM_RUNS}
+        try:
+            for where, (procs, paths) in jobs.items():
+                for r, p in enumerate(procs):
+                    stdout, stderr = p.communicate(timeout=300)
+                    require(p.returncode == 0 and f"COMM_OK {r}" in stdout,
+                            f"{tag} {where} rank {r} failed: "
+                            f"{stderr[-3000:]}")
+                got[where] = [torch.load(path) for path in paths]
+        finally:
+            for procs, _ in jobs.values():
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+    xs = [torch.randn(COMM_FLOATS, generator=torch.Generator().manual_seed(
+        1000 + r)) * (1 + r) for r in range(2)]
+    exact = (xs[0].double() + xs[1].double()) / 2
+    rounding = float(torch.finfo(torch.float32).eps) * (
+        xs[0].abs() + xs[1].abs()).double()
+    out = {}
+    for name in ("ring", "compressed"):
+        card = [g[name][0] for g in got[COMM_RUNS[0][0]]]
+        host = [g[name][0] for g in got[COMM_RUNS[1][0]]]
+        require(all(torch.equal(c, card[0]) for c in card)
+                and all(torch.equal(c, h) for c, h in zip(card, host)),
+                f"{tag} {name}: the ranks' means differ, or the card's "
+                f"from the CPU's")
+        err = (card[0].double() - exact).abs()
+        if name == "ring":
+            require(bool((err <= rounding).all()),
+                    f"{tag} ring mean off the exact mean by "
+                    f"{float(err.max()):.3g}")
+        else:
+            # a rank's value moves by at most half its block's scale, plus
+            # 127 times the scale's bfloat16 rounding (2^-8 of it)
+            moved = sum(x.reshape(-1, 256).abs().amax(1).double() / 127
+                        for x in xs) / 2 * (0.5 + 127 * 2.0 ** -8)
+            require(bool((err.reshape(-1, 256)
+                          <= moved[:, None] * (1 + 1e-6)).all()),
+                    f"{tag} compressed mean off by more than the "
+                    f"quantisation's error")
+        out[name] = dict(max_err=float(err.max()),
+                         card_s=max(g[name][1] for g in got[COMM_RUNS[0][0]]),
+                         cpu_s=max(g[name][1] for g in got[COMM_RUNS[1][0]]))
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"{tag} two gloo processes, a {COMM_FLOATS:,}-float leaf a rank: "
+          f"ring mean {out['ring']['card_s']:.4f} s on the card "
+          f"({out['ring']['cpu_s']:.4f} s on the CPU), max error "
+          f"{out['ring']['max_err']:.3g} (within float32 rounding); "
+          f"compressed mean {out['compressed']['card_s']:.4f} s "
+          f"({out['compressed']['cpu_s']:.4f} s), max error "
+          f"{out['compressed']['max_err']:.3g} (within the int8 "
+          f"quantisation's); both bitwise the CPU's; "
+          f"{out['wall_s']:.1f} s with the start-up", flush=True)
+    return out
+
+
+def restart_check(arch: str, layers, seed: int, dev, tag: str,
+                  ckpt_name: str) -> dict:
+    """``train_loop`` on ``arch`` reduced (cut to ``layers`` if given) on
+    the card, uninterrupted and with a ``FailureInjector`` at
+    ``TRAIN_FAIL_AT``: the losses after the restart and the final
+    parameters bit for bit the uninterrupted run's (phases 18 (d) and 19
+    (c))."""
+    import shutil
+    import torch
+    from repro_torch.configs import reduced_config
+    from repro_torch.fault import FailureInjector
+    from repro_torch.launch.train import train_loop
+
+    t0 = time.perf_counter()
+    small = reduced_config(arch)
+    if layers is not None:
+        small = dataclasses.replace(small, n_layers=layers)
+    ckpt = ROOT / "build" / ckpt_name
     shutil.rmtree(ckpt, ignore_errors=True)
     straight, losses = train_loop(small, ckpt_dir=ckpt / "straight",
                                   seed=seed, device=dev, **TRAIN_LOOP)
@@ -2115,27 +2538,69 @@ def train_phase(seed: int, dev, reset_counts, read_counts, *,
                   * TRAIN_LOOP["ckpt_every"])
     require(again[:TRAIN_FAIL_AT] == losses[:TRAIN_FAIL_AT]
             and again[TRAIN_FAIL_AT:] == losses[resumed_at:],
-            f"[18d] losses after the restart {again}, uninterrupted "
+            f"{tag} losses after the restart {again}, uninterrupted "
             f"{losses}")
     require(all(torch.equal(restarted.params[k], v)
                 for k, v in straight.params.items()),
-            "[18d] the restarted run ended with other parameters")
+            f"{tag} the restarted run ended with other parameters")
     shutil.rmtree(ckpt, ignore_errors=True)
-    out["restart"] = dict(losses=losses, restarted=again,
-                          wall_s=time.perf_counter() - t0)
-    print(f"[18d] train_loop on the card: a failure at step {TRAIN_FAIL_AT} "
-          f"resumed from step {resumed_at}; losses {again} against "
-          f"{losses} uninterrupted, the same bits and the same final "
-          f"parameters; {out['restart']['wall_s']:.1f} s", flush=True)
+    out = dict(losses=losses, restarted=again,
+               wall_s=time.perf_counter() - t0)
+    print(f"{tag} train_loop on the card ({arch}): a failure at step "
+          f"{TRAIN_FAIL_AT} resumed from step {resumed_at}; losses {again} "
+          f"against {losses} uninterrupted, the same bits and the same "
+          f"final parameters; {out['wall_s']:.1f} s", flush=True)
+    return out
 
-    main = bwd["shapes"][f"{BWD_SHAPES[0][7]} bfloat16"]
-    out["row"] = dict(ms=main["ms"], plain_ms=main["plain_ms"],
-                      library_ms=main["library_ms"], bound=main["bound"],
-                      max_abs_err=bwd["max_abs_err"])
-    out["launches"] = {k: sum(c[k] for c in first["launches"])
-                       for k in ("flash_attention", "flash_attention_bwd")}
+
+def mixers_train_phase(seed: int, dev, reset_counts, read_counts, *,
+                       card_name="", full=MIXER_TRAIN) -> dict:
+    """Phase 19: the recurrent mixers' training. (a) ``full``'s models at
+    full width; (b) one period of jamba-v0.1-52b and of xlstm-125m,
+    reduced, on the card against the CPU without the recompute (jamba's
+    attention layer through the flash kernels: 1 forward and 1 backward
+    launch a loss); (c)
+    ``train_loop``'s restart at reduced xlstm-125m; (d) the all-reduce
+    means over two gloo processes."""
+    import torch
+
+    t_phase = time.perf_counter()
+    out = {"full": {}}
+    for arch, cut, micro in full:
+        t0 = time.perf_counter()
+        tag = f"[19a] {arch}" + (f" cut to {cut} layer(s)" if cut else "")
+        rec = mixer_train_full(seed, dev, reset_counts, read_counts, arch,
+                               cut, micro, tag)
+        rec["wall_s"] = time.perf_counter() - t0
+        rec["card"] = card_name
+        out["full"][arch] = rec
+        torch.cuda.empty_cache()
+        print(f"{tag} {rec['wall_s']:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    out["cpu_check"] = checks = card_against_cpu_train(
+        seed, dev, "[19b]", archs=MIXER_CPU_ARCHS, tols=MIXER_TRAIN_TOLS,
+        reset_counts=reset_counts, read_counts=read_counts, remat=False)
+    for dname in ("bfloat16", "float32"):
+        got = checks[f"jamba-v0.1-52b {dname}"]["launches"]
+        want = {"flash_attention": 1, "flash_attention_bwd": 1}
+        require(all(got[k] == n for k, n in want.items()) and not any(
+            n for k, n in got.items() if k not in want),
+            f"[19b] jamba {dname}: launches {got}, expected {want} (its "
+            f"attention layer's forward and backward) and nothing else")
+        got = checks[f"xlstm-125m {dname}"]["launches"]
+        require(not any(got.values()), f"[19b] xlstm {dname}: launches "
+                f"{got}, expected none")
+    out["flash_launches"] = {k: sum(checks[f"jamba-v0.1-52b {d}"][
+        "launches"][k] for d in ("bfloat16", "float32"))
+        for k in ("flash_attention", "flash_attention_bwd")}
+    print(f"[19b] {time.perf_counter() - t0:.1f} s", flush=True)
+
+    out["restart"] = restart_check("xlstm-125m", MIXER_CPU_ARCHS[1][1], seed,
+                                   dev, "[19c]", "phase19_ckpt")
+    out["comm"] = comm_check(dev, "[19d]")
     out["wall"] = time.perf_counter() - t_phase
-    print(f"[18] phase 18: {out['wall']:.1f} s", flush=True)
+    print(f"[19] phase 19: {out['wall']:.1f} s on {card_name}", flush=True)
     return out
 
 
@@ -5827,6 +6292,9 @@ def main() -> int:
                           card_name=card)
     for name, launches in phase18["launches"].items():
         counted[name] += launches
+    # ---- phase 19: training the recurrent mixers, comm ---------------------
+    phase19 = mixers_train_phase(args.seed, dev, reset_counts, read_counts,
+                                 card_name=card)
     row18 = phase18["row"]
     timing["flash_attention_bwd"] = (row18["ms"], row18["plain_ms"],
                                      row18["library_ms"])
@@ -5976,8 +6444,10 @@ def main() -> int:
         dict(card=card, **phase17), indent=1, default=str))
     (out_dir / "phase18.json").write_text(json.dumps(
         dict(card=card, **phase18), indent=1, default=str))
-    print(f"[done] all phases in {time.perf_counter() - t_script:.1f} s",
-          flush=True)
+    (out_dir / "phase19.json").write_text(json.dumps(
+        dict(card=card, **phase19), indent=1, default=str))
+    print(f"[done] all phases in {time.perf_counter() - t_script:.1f} s on "
+          f"{card}", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

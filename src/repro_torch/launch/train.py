@@ -10,11 +10,10 @@ widths on the CUDA card.
       --ckpt-dir /tmp/ckpt
 
 It takes the reference's flags plus ``--device`` (default: the CUDA
-card). The families whose mixers are attention train (dense, windowed,
-MoE, encoder-decoder, VLM); a config with mamba, mLSTM or sLSTM blocks
-raises ``NotImplementedError`` (ROADMAP queue 1, item 10c-ii). Weights
-come from a ``torch.Generator`` seeded with ``seed`` (not
-``jax.random``'s bits); the batches are ``repro``'s bit for bit.
+card). Every architecture trains: dense, windowed, MoE, encoder-decoder,
+VLM and the recurrent mixers (mamba, mLSTM, sLSTM). Weights come from a
+``torch.Generator`` seeded with ``seed`` (not ``jax.random``'s bits);
+the batches are ``repro``'s bit for bit.
 """
 from __future__ import annotations
 

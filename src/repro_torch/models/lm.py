@@ -11,7 +11,14 @@ Three modes share one code path:
 * ``train``   — the full sequence, logits at every position, the MoE
   load-balancing losses summed over the blocks, no caches; each block is
   recomputed in the backward (``torch.utils.checkpoint``, the counterpart
-  of the reference's per-group ``jax.checkpoint(nothing_saveable)``);
+  of the reference's per-group ``jax.checkpoint(nothing_saveable)``)
+  except an sLSTM block, whose scan keeps its (B, S)-sized states itself
+  (~0.4 GB a layer at xlstm-125m's 8 x 2,048 tokens) and whose token loop
+  is host-bound, so a recompute would only run it again. Every kind
+  trains: attention through the flash kernels' autograd Function, mamba
+  through :class:`~repro_torch.models.mamba.SelectiveScan`, the sLSTM
+  through :class:`~repro_torch.models.xlstm.SLSTMScan`, the mLSTM under
+  plain autograd;
 * ``prefill`` — the full sequence; emits one decode cache per layer (a
   ``KVCache``, ``MambaState``, ``MLSTMState`` or ``SLSTMState``);
 * ``decode``  — one token; consumes the caches and returns them updated.
@@ -20,10 +27,6 @@ VLM (internvl2): precomputed patch embeddings (B, P, d) (the vision
 frontend is a stub, as in the reference) are projected by ``patch_proj``
 and placed ahead of the token embeddings; positions and the caches run
 over the P + S positions.
-
-``train`` mode raises for a model with mamba, mLSTM or sLSTM blocks:
-their in-place scans are not yet written for autograd (ROADMAP queue 1,
-item 10c-ii).
 """
 from __future__ import annotations
 
@@ -40,11 +43,6 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import (MLP, RMSNorm, cdt, embed, mlp,
                                        rmsnorm, unembed)
-
-TRAINING_TODO = ("training of the recurrent mixers (mamba, mLSTM, sLSTM; "
-                 "their scans are in place) and comm/ is still to port: "
-                 "ROADMAP queue 1, item 10c-ii")
-
 
 class Block(nn.Module):
     """One layer of ``spec.kind``: ``ln1`` and the mixer (``attn``,
@@ -138,11 +136,25 @@ def _mlp_sublayer(p: Block, x: torch.Tensor, cfg: ArchConfig):
 
 def train_block(p: Block, x: torch.Tensor, cfg: ArchConfig,
                 positions: torch.Tensor):
-    """Train mode, an attention block: returns ``(x, aux)``, ``aux`` the
-    MoE's load-balancing loss (float32; 0 for a dense MLP)."""
+    """Train mode, a block of any kind, composed as :func:`apply_block`
+    composes it: returns ``(x, aux)``, ``aux`` the MoE's load-balancing
+    loss (float32; 0 without a MoE)."""
     h = rmsnorm(p.ln1.scale, x, cfg.norm_eps)
-    out, _ = attn_lib.attend_full(p.attn, h, cfg, p.spec, positions)
-    x, aux = _mlp_sublayer(p, x + out, cfg)
+    kind, aux = p.spec.kind, None
+    if kind == "attn":
+        out, _ = attn_lib.attend_full(p.attn, h, cfg, p.spec, positions)
+    elif kind == "mamba":
+        out, _ = mamba_lib.mamba_apply(p.mamba, h, cfg)
+    elif kind == "mlstm":
+        out, _ = xlstm_lib.mlstm_apply(p.mlstm, h, cfg)
+    else:
+        out, _ = xlstm_lib.slstm_apply(p.slstm, h, cfg)
+    x = x + out
+    if kind in ("attn", "mamba"):
+        x, aux = _mlp_sublayer(p, x, cfg)
+    elif kind == "slstm":
+        hf = rmsnorm(p.ln_ff.scale, x, cfg.norm_eps)
+        x = x + xlstm_lib.slstm_ffn(p.slstm, hf)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
@@ -162,8 +174,8 @@ def forward(model, tokens: torch.Tensor, *, mode: str = "prefill",
     path keeps the last; the rows are the same) and builds a cache per
     layer of ``max_len`` positions (default S). Decode takes one token a
     row at absolute position ``pos`` and a cache per layer. Train runs
-    every block under ``torch.utils.checkpoint`` unless ``remat`` is false
-    and raises ``NotImplementedError`` for a recurrent block. A train or
+    every block but an sLSTM one under ``torch.utils.checkpoint`` unless
+    ``remat`` is false. A train or
     prefill step of a config with ``num_patches`` takes ``patch_embeds``
     (B, P, d) (any float dtype; cast to the model's): ``patch_embeds @
     patch_proj.w`` leads the token embeddings, and ``max_len`` counts the
@@ -174,8 +186,6 @@ def forward(model, tokens: torch.Tensor, *, mode: str = "prefill",
                          f"decode")
     cfg = model.cfg
     train = mode == "train"
-    if train and any(ls.kind != "attn" for ls in cfg.layers):
-        raise NotImplementedError(TRAINING_TODO)
     dtype = model.dtype
     x = embed(model.embed.table, tokens, dtype)
     if mode != "decode" and cfg.num_patches:
@@ -201,7 +211,8 @@ def forward(model, tokens: torch.Tensor, *, mode: str = "prefill",
     for layer, block in enumerate(model.blocks):
         if train:
             x, a = (checkpoint(train_block, block, x, cfg, positions,
-                               use_reentrant=False) if remat
+                               use_reentrant=False)
+                    if remat and block.spec.kind != "slstm"
                     else train_block(block, x, cfg, positions))
             aux = aux + a
             continue

@@ -15,9 +15,22 @@ steps hold several at once, so a chunk runs over slices of the d_in
 channels (:data:`SCAN_ELEMENTS` elements a tensor). The channels are
 independent, so the slicing changes no number.
 
+Training differentiates a chunk's scan with :class:`SelectiveScan`, an
+autograd Function whose forward is the prefill's scan (the same slices,
+the same bits) and which saves only its (B, T, d_in)- and (B, T,
+N)-sized inputs. Its backward recomputes each channel slice's ``a_bar``,
+``bx`` and states and runs the adjoint recurrence ``lam_t = g_t + a_{t+1}
+lam_{t+1}`` by the same doubling steps backwards in time: autograd of the
+doubling steps themselves would hold each step's operands, tens of GiB a
+layer at jamba's width (the reference recomputes too:
+``jax.checkpoint(nothing_saveable)`` around each chunk).
+
 Parameters are held in the dtype the reference reads them at: the matmul
 weights, ``conv_w`` and ``d_skip`` in bfloat16 (its ``cdt`` and
 ``astype(x.dtype)``); ``a_log``, ``dt_bias`` and ``conv_b`` in float32.
+Training holds float32 masters of all of them, and every use site casts
+with :func:`~repro_torch.models.layers.cdt` to the dtype the reference
+computes in (a no-op on the serving weights).
 """
 from __future__ import annotations
 
@@ -27,7 +40,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import COMPUTE_DTYPE, silu, softplus
+from repro_torch.models.layers import COMPUTE_DTYPE, cdt, silu, softplus
 from repro_torch.models.spec import new_param
 
 SCAN_ELEMENTS = 1 << 28      # a (B, T, d_in slice, N) float32 tensor: 1 GiB
@@ -94,20 +107,21 @@ def ssm_inputs(p: Mamba, x_c: torch.Tensor, cfg: ArchConfig):
     """``x_c`` (B, T, d_in) -> ``(dt (B, T, d_in) float32, b_mat and c_mat
     (B, T, N) in x_c's dtype)``: the discretisation's inputs."""
     _, dt_rank, n, _ = dims(cfg)
-    x_dbl = x_c @ p.x_proj
+    x_dbl = x_c @ cdt(p.x_proj, x_c.dtype)
     dt, b_mat, c_mat = torch.split(x_dbl, [dt_rank, n, n], dim=-1)
-    dt = softplus((dt @ p.dt_w).float() + p.dt_bias)
+    dt = softplus((dt @ cdt(p.dt_w, x_c.dtype)).float() + p.dt_bias.float())
     return dt, b_mat, c_mat
 
 
-def discretise(p: Mamba, dt, b_mat, x_c, channels: slice):
-    """``(a_bar, bx)`` (B, T, C, N) float32 for the ``channels`` slice:
+def discretise(a_log, dt, b_mat, x_c):
+    """``(a_bar, bx)`` (B, T, C, N) in dt's dtype (float32) for the C
+    channels of ``a_log`` (C, N), ``dt`` and ``x_c`` (B, T, C):
     ``exp(dt * A)`` and ``dt * B * x``."""
-    a = -torch.exp(p.a_log[channels])                           # (C, N)
-    dt = dt[..., channels, None]
+    a = -torch.exp(a_log)                                       # (C, N)
+    dt = dt[..., None]
     a_bar = torch.exp(dt * a)
-    bx = dt * b_mat[:, :, None, :].float() \
-        * x_c[..., channels, None].float()
+    bx = dt * b_mat[:, :, None, :].to(dt.dtype) \
+        * x_c[..., None].to(dt.dtype)
     return a_bar, bx
 
 
@@ -124,6 +138,18 @@ def linear_scan_(a: torch.Tensor, b: torch.Tensor):
     return a, b
 
 
+def reverse_scan_(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The scan backwards in time, in place: ``g`` becomes ``lam_t = g_t +
+    a_t * lam_{t+1}`` (``lam`` past the end 0), by the same doubling
+    steps; ``a`` is overwritten."""
+    t, step = a.shape[1], 1
+    while step < t:
+        g[:, :-step] += a[:, :-step] * g[:, step:]
+        a[:, :-step] = a[:, :-step] * a[:, step:]
+        step *= 2
+    return g
+
+
 def pick_chunk(s: int, target: int = 1024) -> int:
     if s <= target:
         return s
@@ -138,34 +164,105 @@ def channel_slices(b: int, t: int, d_in: int, n: int):
     return [slice(lo, min(lo + width, d_in)) for lo in range(0, d_in, width)]
 
 
+def selective_scan(dt, b_mat, c_mat, x_c, a_log, h_in):
+    """One chunk's scan, channel slice by channel slice: ``(y (B, T,
+    d_in) in x_c's dtype, h_last (B, d_in, N))``, ``y_t`` the C
+    contraction of the bfloat16-rounded state ``h_t`` (before ``d_skip``
+    and the gate), from the carried state ``h_in``."""
+    b, t, d_in = x_c.shape
+    y = torch.empty_like(x_c)
+    h_last = torch.empty_like(h_in)
+    for ch in channel_slices(b, t, d_in, a_log.shape[1]):
+        a_cum, hs = linear_scan_(*discretise(a_log[ch], dt[..., ch], b_mat,
+                                             x_c[..., ch]))
+        hs += a_cum.mul_(h_in[:, None, ch])                  # (B, T, C, N)
+        del a_cum
+        h_last[:, ch] = hs[:, -1]
+        y[..., ch] = (hs.to(x_c.dtype) @ c_mat[..., None])[..., 0]
+        del hs
+    return y, h_last
+
+
+class SelectiveScan(torch.autograd.Function):
+    """:func:`selective_scan` under autograd. The forward saves its inputs
+    only; the backward, a channel slice at a time, recomputes ``a_bar``,
+    ``bx`` and the states ``h``, forms ``g_t = dL/dh_t`` from the C
+    contraction (and ``h_last``'s gradient), runs the adjoint recurrence
+    ``lam_t = g_t + a_{t+1} lam_{t+1}`` (:func:`reverse_scan_`), and
+    chains ``dbx = lam``, ``da_bar_t = lam_t h_{t-1}`` through
+    :func:`discretise` with autograd; ``dh_in = a_1 lam_1``. ``b_mat``'s
+    and ``x_c``'s gradients add in float32 and are rounded once, as the
+    reference's float32 casts of them are."""
+
+    @staticmethod
+    def forward(ctx, dt, b_mat, c_mat, x_c, a_log, h_in):
+        ctx.save_for_backward(dt, b_mat, c_mat, x_c, a_log, h_in)
+        return selective_scan(dt, b_mat, c_mat, x_c, a_log, h_in)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        dt, b_mat, c_mat, x_c, a_log, h_in = ctx.saved_tensors
+        b, t, d_in = x_c.shape
+        work = dt.dtype
+        d_dt, d_x = torch.empty_like(dt), torch.empty_like(x_c)
+        d_alog, d_hin = torch.empty_like(a_log), torch.empty_like(h_in)
+        d_c = torch.zeros(c_mat.shape, dtype=work, device=c_mat.device)
+        b_leaf = b_mat.to(work).detach().requires_grad_()
+        d_b = torch.zeros_like(b_leaf)
+        for ch in channel_slices(b, t, d_in, a_log.shape[1]):
+            leaves = (dt[..., ch].detach().requires_grad_(),
+                      x_c[..., ch].to(work).detach().requires_grad_(),
+                      a_log[ch].detach().requires_grad_(), b_leaf)
+            with torch.enable_grad():
+                a_bar, bx = discretise(leaves[2], leaves[0], b_leaf,
+                                       leaves[1])
+            a_cum, hs = linear_scan_(a_bar.detach().clone(),
+                                     bx.detach().clone())
+            hs += a_cum.mul_(h_in[:, None, ch])              # (B, T, C, N)
+            del a_cum
+            g_y = gy[..., ch, None]
+            d_c += (g_y.to(work) * hs.to(x_c.dtype).to(work)).sum(2)
+            lam = (g_y * c_mat[:, :, None, :]).to(work)      # dL/dh_t
+            if gh is not None:
+                lam[:, -1] += gh[:, ch]
+            a_next = torch.empty_like(hs)
+            a_next[:, :-1] = a_bar[:, 1:]
+            a_next[:, -1] = 0
+            lam = reverse_scan_(a_next, lam)
+            del a_next
+            d_hin[:, ch] = a_bar[:, 0] * lam[:, 0]
+            d_abar = lam * hs.roll(1, dims=1)                # lam_t h_{t-1}
+            del hs
+            d_abar[:, 0] = lam[:, 0] * h_in[:, ch]
+            g_dt, g_x, g_alog, g_b = torch.autograd.grad(
+                (a_bar, bx), leaves, (d_abar, lam))
+            del a_bar, bx, d_abar, lam
+            d_dt[..., ch], d_x[..., ch], d_alog[ch] = g_dt, g_x, g_alog
+            d_b += g_b
+        return (d_dt, d_b.to(b_mat.dtype), d_c.to(c_mat.dtype), d_x,
+                d_alog, d_hin)
+
+
 def mamba_apply(p: Mamba, x: torch.Tensor, cfg: ArchConfig,
                 return_state: bool = False):
-    """Full-sequence form. x (B, S, d) -> ``(out (B, S, d), MambaState or
-    None)``."""
+    """Full-sequence form, prefill and train. x (B, S, d) -> ``(out (B, S,
+    d), MambaState or None)``."""
     b, s, _ = x.shape
     d_in, _, n, k = dims(cfg)
-    x_in, z = torch.chunk(x @ p.w_in, 2, dim=-1)
-    x_c = silu(conv1d_causal(x_in, p.conv_w, p.conv_b))
+    x_in, z = torch.chunk(x @ cdt(p.w_in, x.dtype), 2, dim=-1)
+    x_c = silu(conv1d_causal(x_in, cdt(p.conv_w, x.dtype), p.conv_b))
     chunk = pick_chunk(s)
     h = torch.zeros((b, d_in, n), dtype=torch.float32, device=x.device)
+    a_log, d_skip = p.a_log.float(), cdt(p.d_skip, x.dtype)
     ys = []
     for lo in range(0, s, chunk):
         xc_c, z_c = x_c[:, lo:lo + chunk], z[:, lo:lo + chunk]
         dt, b_mat, c_mat = ssm_inputs(p, xc_c, cfg)
-        y = torch.empty_like(xc_c)
-        h_next = torch.empty_like(h)
-        for ch in channel_slices(b, chunk, d_in, n):
-            a_cum, hs = linear_scan_(*discretise(p, dt, b_mat, xc_c, ch))
-            hs += a_cum.mul_(h[:, None, ch])                 # (B, T, C, N)
-            del a_cum
-            h_next[:, ch] = hs[:, -1]
-            y[..., ch] = (hs.to(x.dtype) @ c_mat[..., None])[..., 0]
-            del hs
-        h = h_next
-        y = y + p.d_skip * xc_c
+        y, h = SelectiveScan.apply(dt, b_mat, c_mat, xc_c, a_log, h)
+        y = y + d_skip * xc_c
         ys.append(y * silu(z_c))
     y = torch.cat(ys, dim=1)
-    out = y @ p.w_out
+    out = y @ cdt(p.w_out, x.dtype)
     if not return_state:
         return out, None
     return out, MambaState(ssm=h, conv=conv_tail(x_in, k))
@@ -183,16 +280,16 @@ def conv_tail(x_in: torch.Tensor, k: int) -> torch.Tensor:
 def mamba_step(p: Mamba, x: torch.Tensor, cfg: ArchConfig,
                state: MambaState):
     """One-token decode. x (B, 1, d) -> ``(out (B, 1, d), new state)``."""
-    x_in, z = torch.chunk(x @ p.w_in, 2, dim=-1)
+    x_in, z = torch.chunk(x @ cdt(p.w_in, x.dtype), 2, dim=-1)
     win = torch.cat([state.conv.to(x.dtype), x_in], dim=1)        # (B, k, C)
-    x_c = (win.float() * p.conv_w.float()).sum(1).to(x.dtype)
+    x_c = (win.float() * cdt(p.conv_w, x.dtype).float()).sum(1).to(x.dtype)
     x_c = silu(x_c + p.conv_b.to(x.dtype))[:, None, :]
     dt, b_mat, c_mat = ssm_inputs(p, x_c, cfg)
-    a_bar, bx = discretise(p, dt, b_mat, x_c, slice(None))
+    a_bar, bx = discretise(p.a_log.float(), dt, b_mat, x_c)
     h = a_bar[:, 0] * state.ssm + bx[:, 0]                     # (B, C, N)
     y = (h.to(x.dtype) @ c_mat[:, 0, :, None])[..., 0]
-    y = y + p.d_skip * x_c[:, 0]
+    y = y + cdt(p.d_skip, x.dtype) * x_c[:, 0]
     y = (y * silu(z[:, 0]))[:, None, :]
     new_state = MambaState(
         ssm=h, conv=torch.cat([state.conv[:, 1:], x_in.float()], dim=1))
-    return y @ p.w_out, new_state
+    return y @ cdt(p.w_out, x.dtype), new_state

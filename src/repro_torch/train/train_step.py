@@ -13,7 +13,9 @@ copied into the model's parameters first.
 Microbatches are contiguous slices of the batch's rows: their gradients
 are summed in float32 (the parameters' ``.grad``) and divided by their
 number, as is the loss; the metrics are then ``loss``, ``grad_norm`` and
-``lr`` only, as the reference's scan drops ``ce`` and ``aux``.
+``lr`` only, as the reference's scan drops ``ce`` and ``aux``. A leaf the
+loss never reads (the sLSTM's ``ff_norm``, which ``repro`` declares and
+its block does not use) gets the reference's zero gradient.
 ``state_specs`` is not ported: its one reader is the dry run (ROADMAP
 10e).
 """
@@ -77,6 +79,9 @@ def make_train_step(model, optimizer: AdamW, microbatches: int = 1,
             mb_loss, metrics = model.loss(part, aux_weight=aux_weight)
             mb_loss.backward()          # adds into .grad in float32
             loss = loss + mb_loss.detach()
+        for p in params.values():
+            if p.grad is None:          # a leaf the loss never reads
+                p.grad = torch.zeros_like(p)
         if microbatches == 1:
             metrics = {k: v.detach() for k, v in metrics.items()}
         else:

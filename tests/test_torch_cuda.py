@@ -2389,3 +2389,16 @@ def test_yahoo_env_on_the_card_is_the_cpus(dev):
         assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), \
             name
     assert torch.equal(got.values(2).cpu(), want.values(2))
+
+
+@pytest.mark.parametrize("n", [1, 257, 100_003])
+def test_comm_quantisation_on_the_card_is_the_cpus(dev, n):
+    """``comm``'s int8 block quantisation and error feedback on the card
+    give the CPU's bits (a divide by a host scalar would be CUDA's multiply
+    by its reciprocal)."""
+    from repro_torch import comm
+    x = torch.randn(n, generator=torch.Generator().manual_seed(n)) * 1e3
+    err = torch.randn(n, generator=torch.Generator().manual_seed(1)) * 1e-2
+    for got, want in zip(comm.compress_with_feedback(x.to(dev), err.to(dev)),
+                         comm.compress_with_feedback(x, err)):
+        assert got.dtype == want.dtype and torch.equal(got.cpu(), want)

@@ -447,15 +447,18 @@ def test_unported_architectures_raise(change, what):
 
 
 def test_unported_modes_raise():
-    """Training a recurrent mixer still raises (the attention families
-    train: ``tests/test_torch_train.py``); sampling at ``temperature > 0``
-    (which raised until the port drew ``jax.random.categorical``'s bits)
-    samples, and whisper-small (unknown to the registry until the port ran
-    it) is a config."""
-    recurrent = build_model(reduced_config("xlstm-125m"), device="cpu")
-    with pytest.raises(NotImplementedError, match="training.*item 10"):
-        t_lm.forward(recurrent, torch.zeros(1, 4, dtype=torch.long),
-                     mode="train")
+    """What raised until the port ran it runs: train mode of a recurrent
+    mixer (which raised until the port trained mamba, the mLSTM and the
+    sLSTM: ``tests/test_torch_train_mixers.py``) gives every position's
+    logits; sampling at ``temperature > 0`` (which raised until the port
+    drew ``jax.random.categorical``'s bits) samples, and whisper-small
+    (unknown to the registry until the port ran it) is a config."""
+    cfg = reduced_config("xlstm-125m")
+    recurrent = build_model(cfg, device="cpu")
+    logits, aux = t_lm.forward(recurrent, torch.zeros(1, 4, dtype=torch.long),
+                               mode="train")
+    assert tuple(logits.shape) == (1, 4, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits.float()).all()) and float(aux) == 0
     cfg = reduced_config("stablelm-1.6b")
     model = build_model(cfg, device="cpu")
     eng = t_engine.ServeEngine(model, max_len=16, temperature=0.7)

@@ -51,7 +51,6 @@ from repro_torch.checkpoint import (restore_checkpoint,  # noqa: E402
 from repro_torch.configs import reduced_config  # noqa: E402
 from repro_torch.data import TokenPipeline, pipeline_for  # noqa: E402
 from repro_torch.launch.train import train_loop  # noqa: E402
-from repro_torch.models import lm as t_lm  # noqa: E402
 from repro_torch.models import new_model  # noqa: E402
 from repro_torch.models.layers import softmax_xent  # noqa: E402
 
@@ -381,15 +380,6 @@ def test_loss_decreases_in_training():
         state, metrics = step(state, pipe.batch(i))
         losses.append(float(metrics["loss"]))
     assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.1, losses
-
-
-@pytest.mark.parametrize("arch", ["xlstm-125m", "jamba-v0.1-52b"])
-def test_recurrent_training_still_raises(arch):
-    cfg = reduced_config(arch)
-    model = new_model(cfg, device="cpu", param_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="training.*item 10"):
-        t_lm.forward(model, torch.zeros(1, 4, dtype=torch.long),
-                     mode="train")
 
 
 @pytest.mark.parametrize("args", [(192, 16, 256, 4, 16), (8, 2, 12, 3, 4),
