@@ -38,7 +38,8 @@ Run from the repository root. Phases:
    sample, 20 epochs of 64 rows), both rules and couplings, bitwise the
    plain loop on the CPU on the same draws, and at S=32 on the
    per-scenario warm start's 10% sample cut to ``VI_SWEEP_CPU_EPOCHS``
-   epoch(s), bitwise the CPU's lane loop; then timed alone at the full
+   epoch(s), its lanes ``VI_SWEEP_CPU_LANES`` bitwise the CPU's lane loop
+   (the lanes are independent on the CPU); then timed alone at the full
    warm start (S=32, 80 epochs);
 3. hold the fused-round sweep on the card against the plain torch sweep on
    the CPU at a reduced size (N=65,536, C=64, S=8): every integer output
@@ -334,7 +335,9 @@ Run from the repository root. Phases:
    whisper-small and internvl2-76b on the card against the CPU from the
    same state (``TRAIN_CPU_ARCHS``), computing in bfloat16 and as float32
    twins: the loss and every parameter's gradient within ``TRAIN_TOLS``,
-   then one AdamW step. (d) ``train_loop`` on the card at reduced
+   then one AdamW step; the MoE routing of the CPU's forward and of its
+   backward's recompute is recorded and followed on the card at near ties.
+   (d) ``train_loop`` on the card at reduced
    stablelm-1.6b with a ``FailureInjector`` at step 3 and a checkpoint
    every 2 steps: the losses after the restart and the final state are an
    uninterrupted run's bit for bit.
@@ -356,7 +359,14 @@ Run from the repository root. Phases:
    ``compressed_all_reduce_mean`` over two gloo processes on the card and
    two on the CPU, a 16 M-float leaf a rank: within float32 rounding and
    the int8 quantisation's error of the exact mean, the card's bitwise the
-   CPU's.
+   CPU's;
+20. the dry run (``dryrun_phase``; ``repro_torch.launch.dryrun``, counted
+   on the ``meta`` device): (a) stablelm-1.6b at phase 18 (b)'s shape on a
+   1×1 logical mesh, its product FLOPs within [6, 8]·N·D plus attention,
+   its roofline terms printed beside 18 (b)'s measured median step; (b)
+   the production cell ``single_stablelm-1.6b_train_4k`` (status ``ok``,
+   finite terms); (c) the hill climb's cell 3 baseline; no kernel
+   launched and no card memory allocated. Records in ``build/``.
 
 Every check raises on failure and nothing is caught, so any failure exits
 non-zero. The last line is the JSON result. Without a CUDA device, or
@@ -368,6 +378,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -441,11 +452,14 @@ SWEEP_RESOLVE_EDGES = (   # name, S, N, C, per-event mask
 PLAIN_EVENTS = 16_384           # events of the plain capped scan timed on card
 # Algorithm 4 as simulate runs it (a 1% sample, 20 epochs of 64 rows) and as
 # the per-scenario warm start does (10%, 80 epochs, decayed steps); the S=32
-# sweep's comparison with the CPU is cut to VI_SWEEP_CPU_EPOCHS epochs
+# sweep's comparison with the CPU is cut to VI_SWEEP_CPU_EPOCHS epochs and
+# to VI_SWEEP_CPU_LANES of its 32 lanes (the card still runs all 32 in one
+# launch; the CPU's loop took ~18 s a rule for all of them)
 VI_SIMULATE = dict(sample_rate=0.01, num_iters=20, batch_size=64,
                    eta_decay=0.0)
 VI_WARM = dict(sample_rate=0.1, num_iters=80, batch_size=64, eta_decay=0.05)
 VI_SWEEP_CPU_EPOCHS = 1
+VI_SWEEP_CPU_LANES = (0, 7, 20, 31)
 # per (row, campaign) a vi step's scan issues a compare of the uniform with
 # pi, a select, a multiply, a compare with the best bid and a select: a
 # dependent step on one SM takes at least B*C*5/128 cycles (the chain floor)
@@ -2027,13 +2041,14 @@ def card_against_cpu_train(seed: int, dev, tag: str, archs=TRAIN_CPU_ARCHS,
     not held), then one AdamW step, whose parameters are printed in steps
     of the learning rate. Where the CPU's MoE routing differs from the
     card's at a near tie (within ``ROUTE_DRIFT``), the card takes the
-    CPU's experts. A leaf the loss never reads has a zero gradient; one
-    whose gradient cancels (``CANCELLING``) is held against its block's
-    largest. With the counters' ``reset_counts`` and ``read_counts``, each
-    card run's kernel launches are returned under ``launches``. ``remat``
-    false runs
-    both losses without the per-block recompute (a recompute outside
-    ``follow_routing`` would route the card's own way again)."""
+    CPU's experts, in the forward and in the backward's per-block
+    recompute alike (both run inside ``record_routing`` and
+    ``follow_routing``). A leaf the loss never reads has a zero gradient;
+    one whose gradient cancels (``CANCELLING``) is held against its
+    block's largest. With the counters' ``reset_counts`` and
+    ``read_counts``, each card run's kernel launches are returned under
+    ``launches``. ``remat`` false runs both losses without the per-block
+    recompute."""
     import torch
     from repro_torch.configs import reduced_config
     from repro_torch.data import pipeline_for
@@ -2068,16 +2083,18 @@ def card_against_cpu_train(seed: int, dev, tag: str, archs=TRAIN_CPU_ARCHS,
                 for p in model.parameters():
                     p.requires_grad_(True)
                 models[where] = model
+            # the backward's recompute routes again: it is recorded and
+            # followed too, in the backward's order
             log: list = []
             with moe_lib.record_routing(log):
                 loss_cpu, met_cpu = models["cpu"].loss(batch, remat=remat)
-            loss_cpu.backward()
+                loss_cpu.backward()
             if reset_counts is not None:
                 reset_counts()
             with moe_lib.follow_routing(log, ROUTE_DRIFT) as ties:
                 loss_card, met_card = models[dev].loss(
                     {k: v.to(dev) for k, v in batch.items()}, remat=remat)
-            loss_card.backward()
+                loss_card.backward()
             launches = read_counts() if read_counts is not None else None
             loss_tol, grad_tol, step_tol = (tols or {}).get(
                 arch, TRAIN_TOLS)[dname]
@@ -2601,6 +2618,82 @@ def mixers_train_phase(seed: int, dev, reset_counts, read_counts, *,
     out["comm"] = comm_check(dev, "[19d]")
     out["wall"] = time.perf_counter() - t_phase
     print(f"[19] phase 19: {out['wall']:.1f} s on {card_name}", flush=True)
+    return out
+
+
+def dryrun_phase(dev, read_counts, step_s: float, *, card_name="") -> dict:
+    """Phase 20: the dry run (``repro_torch.launch.dryrun``, counted on
+    the ``meta`` device) on the card's machine: (a) stablelm-1.6b at phase
+    18 (b)'s shape (TRAIN_BATCH x TRAIN_SEQ tokens, TRAIN_MICRO
+    microbatches) on a 1×1 logical mesh, its roofline terms beside phase
+    18 (b)'s measured median step ``step_s``; (b) the production cell
+    ``single_stablelm-1.6b_train_4k``; (c) the hill climb's cell 3
+    baseline. Nothing may launch a kernel or allocate card memory; the
+    records go to ``build/``."""
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun, hillclimb
+    from repro_torch.launch.mesh import LogicalMesh
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    launches, allocated = read_counts(), torch.cuda.memory_allocated(dev)
+    out = {}
+    cfg = get_config(TRAIN_ARCH)
+    mesh = LogicalMesh(("data", "model"), (1, 1))
+    rec = dryrun.measure(TRAIN_ARCH, "phase18", mesh, None, TRAIN_MICRO,
+                         shape=ShapeConfig("phase18", TRAIN_SEQ, TRAIN_BATCH,
+                                           "train"))
+    out["phase18_shape"] = rec
+    terms, ca = rec["roofline"], rec["cost_analysis"]
+    six_nd = 6.0 * cfg.active_param_count_estimate() * TRAIN_BATCH * TRAIN_SEQ
+    # the products: 6·N·D, the per-block recompute's forward (up to 2·N·D
+    # more) and attention
+    require(six_nd <= ca["product_flops"] <= 8 * six_nd + 3 * ca[
+        "attention_flops"] and ca["attention_flops"] > 0,
+        f"[20a] product FLOPs {ca['product_flops']:.4g} outside [6, 8]·N·D "
+        f"({six_nd:.4g}) plus attention")
+    t_roof = max(terms["t_compute"], terms["t_memory"],
+                 terms["t_collective"])
+    print(f"[20a] dry run of {TRAIN_ARCH} at {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens, {TRAIN_MICRO} microbatches, 1x1 mesh ({rec['compile_s']}"
+          f" s): {ca['product_flops']:.4e} product FLOPs "
+          f"({ca['product_flops'] / six_nd:.3f} x 6ND), "
+          f"{ca['flops']:.4e} FLOPs, {ca['bytes accessed']:.4e} bytes; "
+          f"T_comp {terms['t_compute']:.4f} s, T_mem {terms['t_memory']:.4f}"
+          f" s, T_coll {terms['t_collective']:.4f} s ({terms['bottleneck']}"
+          f"-bound, data-sheet rates of {terms['hardware']}); phase 18 (b) "
+          f"measured {step_s:.4f} s a step on {card_name} "
+          f"({step_s / t_roof:.2f} x the roofline); activation peak "
+          f"(estimate) {rec['memory']['temp_bytes'] / 2**30:.3f} GiB",
+          flush=True)
+    out["phase18_step_s"] = step_s
+    prod = dryrun.run_cell(TRAIN_ARCH, "train_4k", "single",
+                           out_dir=ROOT / "build" / "dryrun_torch",
+                           verbose=False)
+    require(prod["status"] == "ok", f"[20b] {prod.get('error')}")
+    t = prod["roofline"]
+    require(all(math.isfinite(t[k]) and t[k] > 0 for k in (
+        "t_compute", "t_memory", "t_collective")), f"[20b] terms {t}")
+    print(f"[20b] {prod['cell']}: T_comp {t['t_compute'] * 1e3:.2f} ms, "
+          f"T_mem {t['t_memory'] * 1e3:.2f} ms, T_coll "
+          f"{t['t_collective'] * 1e3:.2f} ms ({t['bottleneck']}-bound; "
+          f"useful-FLOPs ratio {t['useful_flops_ratio']:.3f}); state "
+          f"{prod['memory']['state_bytes'] / 1e9:.3f} GB a device, "
+          f"activation peak (estimate) {prod['memory']['temp_bytes'] / 1e9:.3f}"
+          f" GB; {prod['compile_s']} s", flush=True)
+    out["production"] = prod
+    c3 = hillclimb.cell3(["baseline_fp32"],
+                         out_dir=ROOT / "build" / "perf_torch")["baseline_fp32"]
+    out["cell3"] = c3
+    torch.cuda.synchronize()
+    require(read_counts() == launches,
+            "[20] the dry run launched a kernel")
+    require(torch.cuda.memory_allocated(dev) == allocated,
+            "[20] the dry run allocated card memory")
+    out["wall"] = time.perf_counter() - t_phase
+    print(f"[20] phase 20: {out['wall']:.1f} s (budget 20 s); no kernel "
+          f"launched, no card memory allocated", flush=True)
     return out
 
 
@@ -4867,6 +4960,13 @@ def run_multihost(backend: str, world: int, env_args: dict, dev):
     return got, time.perf_counter() - t0
 
 
+def phase_wall(n: int, t0: float) -> float:
+    """Print phase ``n``'s wall since ``t0``; return the time now."""
+    now = time.perf_counter()
+    print(f"[{n}] phase {n}: {now - t0:.1f} s", flush=True)
+    return now
+
+
 def main() -> int:
     t_script = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4933,6 +5033,7 @@ def main() -> int:
     print(f"card: {card} | max SM clock {smi('clocks.max.sm')} | torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
 
+    t_wall = time.perf_counter()
     # ---- phase 1: build ----------------------------------------------------
     t0 = time.perf_counter()
     built = build.build_all(["round_fused", "sweep_resolve",
@@ -4948,6 +5049,7 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 print(f"      ptxas: {line.strip()}")
 
+    t_wall = phase_wall(1, t_wall)
     # ---- phase 2: kernels vs plain versions ------------------------------
     full = PAPER_SYNTHETIC_FULL
     t0 = time.perf_counter()
@@ -5425,17 +5527,18 @@ def main() -> int:
         got = vi_lib.estimate_pi_sweep(env.values, grid.budgets, grid.rules,
                                        key, num_iters=VI_SWEEP_CPU_EPOCHS,
                                        **warm_kw)
+        lanes = torch.tensor(VI_SWEEP_CPU_LANES)
         want = vi_lib.estimate_pi_sweep(
-            values_cpu, grid.budgets.cpu(), AuctionRule(
-                multipliers=grid.rules.multipliers.cpu(),
-                reserve=grid.rules.reserve.cpu(), kind=kind), key,
+            values_cpu, grid.budgets.cpu()[lanes], AuctionRule(
+                multipliers=grid.rules.multipliers.cpu()[lanes],
+                reserve=grid.rules.reserve.cpu()[lanes], kind=kind), key,
             num_iters=VI_SWEEP_CPU_EPOCHS, **warm_kw)
-        equal("pi", got.pi.cpu(), want.pi,
+        equal("pi", got.pi.cpu()[lanes], want.pi,
               f"vi sweep {kind} S={grid.num_scenarios} against the CPU")
         print(f"[2] vi sweep {kind}: S={grid.num_scenarios} lanes in one "
               f"launch, {k_warm} sampled rows, {VI_SWEEP_CPU_EPOCHS} epoch(s) "
               f"({-(-k_warm // 64) * VI_SWEEP_CPU_EPOCHS} steps a lane): "
-              f"bitwise the CPU's lane loop "
+              f"lanes {VI_SWEEP_CPU_LANES} bitwise the CPU's lane loop "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
     grid = base_grid(KINDS[0], env.budgets, GRID_AXES)
     s_warm = grid.num_scenarios
@@ -5463,6 +5566,7 @@ def main() -> int:
           f"(chain floor {w_floor:.4f} ms)", flush=True)
     del draws, chain, warm_args, values_cpu, budgets_cpu
 
+    t_wall = phase_wall(2, t_wall)
     # ---- phase 3: exactness at a reduced size ----------------------------
     small_cpu = {}                  # phase 11 holds chunked sweeps to these
     for kind in KINDS:
@@ -5489,6 +5593,7 @@ def main() -> int:
               f"rounds {on_card[4].tolist()}; {t1 - t0:.2f} s on the card, "
               f"{t2 - t1:.2f} s on the CPU", flush=True)
 
+    t_wall = phase_wall(3, t_wall)
     # ---- phase 4: the main path at full width ----------------------------
     results = {}
     counted = {name: 0 for name, _, _ in KERNELS}
@@ -5575,6 +5680,7 @@ def main() -> int:
         print(sweep.format_delta_table())
         del plain, on_cpu
 
+    t_wall = phase_wall(4, t_wall)
     # ---- phase 5: the exact replay at full width -------------------------
     def fixed_point(kind, grid, res, second):
         """Every lane is the exact replay: resolving each event against the
@@ -5674,6 +5780,7 @@ def main() -> int:
               flush=True)
         del seq, res, again
 
+    t_wall = phase_wall(5, t_wall)
     # ---- phase 6: three back-ends, one answer ----------------------------
     sr_wall = {}
     for kind in KINDS:
@@ -5785,6 +5892,7 @@ def main() -> int:
                         equal)
         del values_any, out_any
 
+    t_wall = phase_wall(6, t_wall)
     # ---- phase 7: the paper's comparison ---------------------------------
     for kind in KINDS:
         engine, grid = engines[kind]
@@ -5813,6 +5921,7 @@ def main() -> int:
               + ", ".join(f"{n * grid.num_scenarios / w:.4g}" for w in walls)
               + " events*scenarios/s", flush=True)
 
+    t_wall = phase_wall(7, t_wall)
     # ---- phase 8: SORT2AGGREGATE -------------------------------------------
     plain_index_add = torch.Tensor.index_add_
     index_adds = [0]
@@ -6029,6 +6138,7 @@ def main() -> int:
               f"(lane 0): spend-weighted error {sim_err:.6f}", flush=True)
         del outs, sweep, res, warm, segs, seg_args
 
+    t_wall = phase_wall(8, t_wall)
     # ---- phase 9: LM serving -------------------------------------------
     t0 = time.perf_counter()
     lm = serve_phase(args.seed, dev, reset_counts, read_counts)
@@ -6295,6 +6405,9 @@ def main() -> int:
     # ---- phase 19: training the recurrent mixers, comm ---------------------
     phase19 = mixers_train_phase(args.seed, dev, reset_counts, read_counts,
                                  card_name=card)
+    # ---- phase 20: the dry run and the hill climb, counted on meta --------
+    phase20 = dryrun_phase(dev, read_counts,
+                           phase18["full"]["step_median_s"], card_name=card)
     row18 = phase18["row"]
     timing["flash_attention_bwd"] = (row18["ms"], row18["plain_ms"],
                                      row18["library_ms"])
@@ -6446,6 +6559,8 @@ def main() -> int:
         dict(card=card, **phase18), indent=1, default=str))
     (out_dir / "phase19.json").write_text(json.dumps(
         dict(card=card, **phase19), indent=1, default=str))
+    (out_dir / "phase20.json").write_text(json.dumps(
+        dict(card=card, **phase20), indent=1, default=str))
     print(f"[done] all phases in {time.perf_counter() - t_script:.1f} s on "
           f"{card}", flush=True)
     print(json.dumps({"kernels": rows}))

@@ -9,13 +9,15 @@ embeddings; and whisper-small, an encoder-decoder fed frame embeddings (both
 frontends are stubs, as in the reference). ``get_config`` and
 ``reduced_config`` are copies of ``repro.configs:29-70``; the reduced
 miniatures define the CPU tests and equal the reference's field by field.
+``SHAPES`` and ``shape_applicable`` are the dry run's workload shapes.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
 
-from repro_torch.configs.base import ArchConfig, LayerSpec
+from repro_torch.configs.base import (SHAPES, ArchConfig, LayerSpec,
+                                      ShapeConfig, shape_applicable)
 from repro_torch.configs.gemma3_12b import CONFIG as _gemma3_12b
 from repro_torch.configs.gemma3_4b import CONFIG as _gemma3_4b
 from repro_torch.configs.granite_moe_3b import CONFIG as _granite_moe_3b
@@ -78,5 +80,5 @@ def reduced_config(name: str) -> ArchConfig:
     )
 
 
-__all__ = ["ARCHS", "get_config", "reduced_config", "ArchConfig",
-           "LayerSpec"]
+__all__ = ["ARCHS", "SHAPES", "get_config", "reduced_config", "ArchConfig",
+           "LayerSpec", "ShapeConfig", "shape_applicable"]

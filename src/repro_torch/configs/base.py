@@ -10,10 +10,15 @@ reference's, field by field, so that ``reduced_config`` gives the same
 miniatures; :func:`repro_torch.models.build_model` runs every one of the
 registry (an encoder-decoder as
 :class:`repro_torch.models.EncDecModel`).
+
+:class:`ShapeConfig`, :data:`SHAPES` and :func:`shape_applicable` are the
+dry run's workload shapes (``repro.configs.base:124-147``, field by field
+and with the reference's reason texts).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 
@@ -92,3 +97,69 @@ class ArchConfig:
         """Every layer's spec in execution order: the groups, then the
         tail."""
         return self.pattern * self.n_groups + self.tail
+
+    def param_count_estimate(self) -> int:
+        """The reference's figure for the 6·N·D accounting: the parameters
+        of the decoder-only LM of this config (embedding, every layer, the
+        final norm, the output head, the patch projection). Like
+        ``repro``'s, it counts that layout for every config, whisper-small
+        included, whose encoder-decoder holds more (334,674,432 against
+        193,088,256: :func:`repro_torch.models.spec.count_params` of its
+        model counts those)."""
+        return sum(math.prod(shape) for _, shape in _lm_param_shapes(self))
+
+    def active_param_count_estimate(self) -> int:
+        """Parameters touched per token (MoE: ``top_k`` of ``n_experts``):
+        the estimate less the share of the expert weights that a token
+        skips. The expert weights are the reference's: the ``moe`` leaves
+        of three or more dims with ``n_experts`` in their shape, tested on
+        its stacked leaves, where a grouped layer's leaf has a leading
+        ``n_groups`` axis (so its router, ``(n_groups, d, e)``, counts too;
+        a tail layer's does not)."""
+        shapes = _lm_param_shapes(self)
+        total = sum(math.prod(shape) for _, shape in shapes)
+        if self.n_experts == 0:
+            return total
+        grouped = self.n_groups * len(self.pattern)
+        expert = 0
+        for name, shape in shapes:
+            if ".moe." not in name:
+                continue
+            stacked = ((self.n_groups,) + shape
+                       if int(name.split(".")[1]) < grouped else shape)
+            if len(stacked) >= 3 and self.n_experts in stacked:
+                expert += math.prod(shape)
+        return total - expert + int(expert * self.top_k / self.n_experts)
+
+
+def _lm_param_shapes(cfg: ArchConfig):
+    # imported here: the models import this module
+    from repro_torch.models.lm import lm_param_shapes
+    return lm_param_shapes(cfg)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+    microbatches: int = 1
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(arch: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether a (arch x shape) cell is runnable, and why not if not."""
+    if shape.name == "long_500k" and not arch.long_context_ok:
+        return False, ("skipped: pure full-attention architecture (task rule: "
+                       "long_500k needs sub-quadratic attention)")
+    if shape.name == "long_500k" and arch.is_encdec:
+        return False, "skipped: whisper decoder is positionally capped << 512k"
+    return True, ""

@@ -1,6 +1,7 @@
 """Command-line entry points and device meshes (port of ``repro.launch``)."""
-from repro_torch.launch.mesh import (SweepMeshSpec, data_axes,
-                                     distributed_initialize, make_mesh)
+from repro_torch.launch.mesh import (LogicalMesh, SweepMeshSpec, data_axes,
+                                     distributed_initialize, make_mesh,
+                                     make_production_mesh)
 
-__all__ = ["make_mesh", "data_axes", "SweepMeshSpec",
-           "distributed_initialize"]
+__all__ = ["make_mesh", "make_production_mesh", "LogicalMesh", "data_axes",
+           "SweepMeshSpec", "distributed_initialize"]

@@ -21,9 +21,11 @@ world's process group.
 checkpoint restores onto (``repro_torch.checkpoint.restore_checkpoint(
 shardings=)``); an event-sharded array is a :class:`ShardedLog`, its rows
 split over the event ranks, each part on its rank's device.
-``make_production_mesh`` (the 16×16 TPU pod shape) is not ported here:
-its callers, the dry run and the hill climb, come with tuning and the
-off-path launchers.
+
+:func:`make_production_mesh` is the dry run's mesh: a
+:class:`LogicalMesh`, axis names and sizes with no devices (16×16
+``("data", "model")``, or 2×16×16 with a leading ``"pod"`` axis, as in
+``repro``), since the dry run counts work on the ``meta`` device.
 """
 from __future__ import annotations
 
@@ -109,6 +111,40 @@ def make_mesh(shape, axes, *, devices: Optional[Sequence[DeviceLike]] = None
             f"a mesh of shape {shape} needs {math.prod(shape)} devices, but "
             f"{len(devs)} are given")
     return Mesh(devices=tuple(devs), axis_names=axes, sizes=shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class LogicalMesh:
+    """A named grid of ``prod(sizes)`` positions with no devices: what the
+    partition rules read (``repro_torch.models.spec.partition_spec``) and
+    what the dry run's collectives run over."""
+
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.sizes):
+            raise ValueError(
+                f"mesh axes {self.axis_names} do not match its shape "
+                f"{self.sizes}")
+
+    @property
+    def shape(self) -> dict:
+        """``{axis name: size}``, as ``jax.sharding.Mesh.shape``."""
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> LogicalMesh:
+    """One pod, (16, 16) = 256 positions on ``("data", "model")``; two,
+    (2, 16, 16) with a leading ``"pod"`` axis that is pure data-parallel
+    (``repro.launch.mesh:39``)."""
+    if multi_pod:
+        return LogicalMesh(("pod", "data", "model"), (2, 16, 16))
+    return LogicalMesh(("data", "model"), (16, 16))
 
 
 def data_axes(mesh: Mesh) -> tuple:

@@ -1,8 +1,10 @@
-"""Roofline terms for the plan tuner (port of ``repro.launch.roofline``'s
-:class:`HardwareSpec`, ``HARDWARE``, :class:`RooflineTerms` and
-:func:`terms_from_cost`; the HLO text parsing stays in ``repro``: the
-port counts its own launches instead, :func:`repro_torch.tune.space.
-dryrun_terms`).
+"""Roofline terms for the plan tuner and the dry run (port of
+``repro.launch.roofline``: :class:`HardwareSpec`, ``HARDWARE``,
+:class:`RooflineTerms`, :func:`terms_from_cost`, :func:`roofline` and
+:func:`model_flops_estimate`; the HLO text parsing has no counterpart:
+the tuner counts its own launches, :func:`repro_torch.tune.space.
+dryrun_terms`, and the dry run counts a ``meta`` run,
+:mod:`repro_torch.launch.hlo_cost`).
 
 Three times (seconds) from counted work:
 
@@ -14,11 +16,25 @@ Three times (seconds) from counted work:
 tuner's cost model. ``"cuda-h100"`` holds an H100 SXM's data-sheet rates
 (float32 outside the tensor cores: the resolve is compare-and-select work
 on the CUDA cores); ``"cpu"`` is ``repro``'s coarse stand-in, used only to
-rank.
+rank. The dry run's LM cells take :data:`H100_TENSOR_CORES`
+(``"cuda-h100-tc"``, not among the tuner's ``HARDWARE``): their products
+are bfloat16 on the tensor cores (:func:`roofline` takes the rest of
+their operations at ``"cuda-h100"``'s CUDA-core rate).
+
+**Links a mesh axis gets** (:func:`axis_bandwidth`). An H100 SXM node
+holds 8 cards on NVLink 4 (450 GB/s a direction a card); nodes meet over
+InfiniBand NDR, one 400 Gb/s adapter a card (50 GB/s a direction). The
+mesh is laid out row-major over nodes of 8 consecutive positions, so an
+axis whose every group of ranks lies in one node (the 2×2 test mesh)
+rings over NVLink, and any other over InfiniBand, its slowest hop: on the
+16×16 production mesh the ``model`` axis (16 consecutive cards) spans two
+nodes and ``data`` (a stride of 16) sixteen, so both get 50 GB/s, as does
+``pod``. All data-sheet rates; none was measured.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Dict, Optional
 
 
@@ -54,6 +70,12 @@ HARDWARE: Dict[str, HardwareSpec] = {
     "cpu": HardwareSpec("cpu", 0.5e12, 50e9, 50e9, h2d_bw=50e9,
                         dispatch_us=8.0),
 }
+
+
+# NVIDIA H100 SXM data sheet: 989 TFLOP/s bfloat16 on the tensor cores,
+# dense (1,979 with 2:4 sparsity); the same HBM3 and NVLink
+H100_TENSOR_CORES = HardwareSpec("cuda-h100-tc", 989e12, 3.35e12, 450e9,
+                                 h2d_bw=64e9, dispatch_us=53.57)
 
 
 @dataclasses.dataclass
@@ -95,3 +117,60 @@ def terms_from_cost(flops: float, nbytes: float, wire_bytes: float,
         t_compute=t_c, t_memory=t_m, t_collective=t_x,
         bottleneck=max(terms, key=terms.get),
         collective_detail=dict(collective_detail or {}), hardware=hw.name)
+
+
+NODE_GPUS = 8              # cards an NVLink node holds (HGX H100)
+INTER_NODE_BW = 50e9       # InfiniBand NDR, 400 Gb/s a card, one direction
+
+
+def axis_bandwidth(mesh, axes, hw: HardwareSpec) -> float:
+    """Bytes/s of a ring over the mesh ``axes`` (a name or a tuple):
+    ``hw.ici_bw`` (NVLink) where every group of ranks lies in one node of
+    :data:`NODE_GPUS` consecutive row-major positions, else
+    :data:`INTER_NODE_BW`."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    names, sizes = list(mesh.axis_names), list(mesh.sizes)
+    nodes: Dict[tuple, set] = {}
+    for linear, coords in enumerate(itertools.product(
+            *(range(n) for n in sizes))):
+        key = tuple(c for a, c in zip(names, coords) if a not in axes)
+        nodes.setdefault(key, set()).add(linear // NODE_GPUS)
+    fits = all(len(v) == 1 for v in nodes.values())
+    return hw.ici_bw if fits else INTER_NODE_BW
+
+
+def roofline(cost, *, model_flops_per_device: Optional[float] = None,
+             hw: Optional[HardwareSpec] = None, mesh=None,
+             memory_bytes: Optional[float] = None) -> RooflineTerms:
+    """The three terms of a per-device :class:`~repro_torch.launch.
+    hlo_cost.Cost`: T_comp its products at ``hw.peak_flops`` (the tensor
+    cores, ``"cuda-h100-tc"`` by default) and its other operations at the
+    CUDA cores' float32 rate; T_mem its bytes over ``hw.hbm_bw``; T_coll
+    each mesh axis' wire bytes over that axis' link
+    (:func:`axis_bandwidth`; ``hw.ici_bw`` without a mesh)."""
+    hw = hw or H100_TENSOR_CORES
+    other = max(cost.flops - cost.product_flops, 0.0)
+    t_c = (cost.product_flops / hw.peak_flops
+           + other / HARDWARE["cuda-h100"].peak_flops)
+    t_m = cost.bytes / hw.hbm_bw
+    t_x = sum(wire / (axis_bandwidth(mesh, tuple(key.split("+")), hw)
+                      if mesh is not None else hw.ici_bw)
+              for key, wire in cost.coll_by_axis.items())
+    terms = {"compute": t_c, "memory": t_m, "collective": t_x}
+    out = RooflineTerms(
+        flops_per_device=cost.flops, bytes_per_device=cost.bytes,
+        wire_bytes_per_device=cost.coll_wire_bytes,
+        t_compute=t_c, t_memory=t_m, t_collective=t_x,
+        bottleneck=max(terms, key=terms.get),
+        collective_detail=dict(cost.coll_by_kind), hardware=hw.name,
+        per_device_memory_bytes=memory_bytes)
+    out.model_flops = model_flops_per_device
+    if model_flops_per_device and cost.flops > 0:
+        out.useful_flops_ratio = model_flops_per_device / cost.flops
+    return out
+
+
+def model_flops_estimate(n_params_active: int, tokens: int) -> float:
+    """The 6*N*D convention (fwd+bwd); callers pass fwd-only tokens/3 for
+    inference shapes."""
+    return 6.0 * float(n_params_active) * float(tokens)

@@ -31,6 +31,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import NEG, inv_sqrt, repeat_kv
+from repro_torch.models import runtime
 from repro_torch.models.layers import COMPUTE_DTYPE, cdt, rmsnorm_head, rope
 from repro_torch.models.spec import new_param
 
@@ -40,6 +41,11 @@ class Attention(nn.Module):
     the reference's layouts; QK-norm scales (dh,) when the config has
     them."""
     INIT = {"q_norm": "ones", "k_norm": "ones"}
+    LOGICAL = {"wq": ("embed", "heads", "head_dim"),
+               "wk": ("embed", "kv_heads", "head_dim"),
+               "wv": ("embed", "kv_heads", "head_dim"),
+               "wo": ("heads", "head_dim", "embed"),
+               "q_norm": (None,), "k_norm": (None,)}
 
     def __init__(self, cfg: ArchConfig, device: torch.device):
         super().__init__()
@@ -76,9 +82,22 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         -1, (heads, dh))
 
 
+KV_LOGICAL = ("batch", "kv_seq", "kv_heads", "head_dim")
+
+
+def _weight(p: Attention, name: str, dtype: torch.dtype) -> torch.Tensor:
+    """The weight ``name`` cast to ``dtype``, its compute-time layout
+    named (``runtime.gather_weight``)."""
+    return runtime.gather_weight(cdt(getattr(p, name), dtype),
+                                 Attention.LOGICAL[name])
+
+
 def _qkv(p: Attention, x: torch.Tensor, cfg: ArchConfig,
          positions: torch.Tensor):
-    q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+    q, k, v = (_proj(x, _weight(p, w, x.dtype)) for w in ("wq", "wk", "wv"))
+    q = runtime.constrain(q, ("batch", "seq", "heads", "head_dim"))
+    k = runtime.constrain(k, ("batch", "seq", "kv_heads", "head_dim"))
+    v = runtime.constrain(v, ("batch", "seq", "kv_heads", "head_dim"))
     if cfg.qk_norm:
         q = rmsnorm_head(p.q_norm, q, cfg.norm_eps)
         k = rmsnorm_head(p.k_norm, k, cfg.norm_eps)
@@ -110,7 +129,7 @@ def attend_full(p: Attention, x: torch.Tensor, cfg: ArchConfig,
     cache."""
     q, k, v = _qkv(p, x, cfg, positions)
     ctx = causal_attention(q, k, v, window=layer.window, causal=causal)
-    return _out(ctx, p.wo), (k, v)
+    return _out(ctx, _weight(p, "wo", ctx.dtype)), (k, v)
 
 
 def attend_decode(p: Attention, x: torch.Tensor, cfg: ArchConfig,
@@ -128,6 +147,8 @@ def attend_decode(p: Attention, x: torch.Tensor, cfg: ArchConfig,
     slot = pos % s_cache
     cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
     cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
+    runtime.constrain(cache.k, KV_LOGICAL)
+    runtime.constrain(cache.v, KV_LOGICAL)
 
     # absolute position held by each slot j: largest n <= pos with n % S == j
     j = torch.arange(s_cache, device=x.device)
@@ -159,12 +180,13 @@ def prefill_cache(layer: LayerSpec, k: torch.Tensor, v: torch.Tensor,
     if s >= s_cache:
         # roll so that absolute position p sits in slot p % s_cache
         shift = (s - s_cache) % s_cache
-        k_c = torch.roll(k[:, s - s_cache:], shift, dims=1)
-        v_c = torch.roll(v[:, s - s_cache:], shift, dims=1)
-        return KVCache(k=k_c.to(dtype), v=v_c.to(dtype))
-    shape = (k.shape[0], s_cache) + tuple(k.shape[2:])
-    k_c = torch.zeros(shape, dtype=dtype, device=k.device)
-    v_c = torch.zeros(shape, dtype=dtype, device=k.device)
-    k_c[:, :s] = k
-    v_c[:, :s] = v
-    return KVCache(k=k_c, v=v_c)
+        k_c = torch.roll(k[:, s - s_cache:], shift, dims=1).to(dtype)
+        v_c = torch.roll(v[:, s - s_cache:], shift, dims=1).to(dtype)
+    else:
+        shape = (k.shape[0], s_cache) + tuple(k.shape[2:])
+        k_c = torch.zeros(shape, dtype=dtype, device=k.device)
+        v_c = torch.zeros(shape, dtype=dtype, device=k.device)
+        k_c[:, :s] = k
+        v_c[:, :s] = v
+    return KVCache(k=runtime.constrain(k_c, KV_LOGICAL),
+                   v=runtime.constrain(v_c, KV_LOGICAL))

@@ -33,6 +33,7 @@ from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.device import DeviceLike, pick_device
 from repro_torch.kernels.flash_attention.ref import inv_sqrt, repeat_kv
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import runtime
 from repro_torch.models import spec as spec_lib
 from repro_torch.models.attention import KVCache, _out, _proj
 from repro_torch.models.layers import (COMPUTE_DTYPE, MLP, Embedding,
@@ -41,11 +42,14 @@ from repro_torch.models.layers import (COMPUTE_DTYPE, MLP, Embedding,
 from repro_torch.models.spec import new_param
 
 _ATTN = LayerSpec(kind="attn")
+SEQ_LOGICAL = ("batch", "seq", None)
+LOGITS_LOGICAL = ("batch", "seq", "vocab")
 
 
 class CrossAttention(nn.Module):
     """``wq`` (d, H, dh), ``wk`` and ``wv`` (d, KV, dh), ``wo`` (H, dh, d):
     the reference's ``xattn`` subtree, no QK-norm."""
+    LOGICAL = attn_lib.Attention.LOGICAL
 
     def __init__(self, cfg: ArchConfig, device: torch.device):
         super().__init__()
@@ -95,6 +99,7 @@ def encode(model: "EncDecModel", frames: torch.Tensor) -> torch.Tensor:
     x = frames.to(model.dtype)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for block in model.enc_blocks:
+        x = runtime.constrain(x, SEQ_LOGICAL)
         h = rmsnorm(block.ln1.scale, x, cfg.norm_eps)
         out, _ = attn_lib.attend_full(block.attn, h, cfg, _ATTN, positions,
                                       causal=False)
@@ -181,14 +186,17 @@ def forward(model: "EncDecModel", tokens: torch.Tensor, *, mode: str,
         max_len = max_len or x.shape[1]
     if mode == "train":
         for block in model.dec_blocks:
+            x = runtime.constrain(x, SEQ_LOGICAL)
             x = (checkpoint(_train_layer, block, x, enc, cfg, positions,
                             use_reentrant=False) if remat
                  else _train_layer(block, x, enc, cfg, positions))
         x = rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
-        return (unembed(model.unembed.table, x),
+        return (runtime.constrain(unembed(model.unembed.table, x),
+                                  LOGITS_LOGICAL),
                 torch.zeros((), dtype=torch.float32, device=x.device))
     new_caches = []
     for layer, block in enumerate(model.dec_blocks):
+        x = runtime.constrain(x, SEQ_LOGICAL)
         h = rmsnorm(block.ln1.scale, x, cfg.norm_eps)
         if decode:
             cache = caches[layer]
@@ -206,7 +214,8 @@ def forward(model: "EncDecModel", tokens: torch.Tensor, *, mode: str,
     if not decode:
         x = x[:, -1:]
     x = rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
-    return unembed(model.unembed.table, x), new_caches
+    return (runtime.constrain(unembed(model.unembed.table, x),
+                              LOGITS_LOGICAL), new_caches)
 
 
 class EncDecModel(nn.Module):

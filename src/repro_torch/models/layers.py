@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from repro_torch.models import runtime
 from repro_torch.models.spec import new_param
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -35,6 +36,7 @@ def cdt(x: torch.Tensor, dtype: torch.dtype = COMPUTE_DTYPE) -> torch.Tensor:
 
 class RMSNorm(nn.Module):
     INIT = {"scale": "ones"}
+    LOGICAL = {"scale": (None,)}
 
     def __init__(self, dim: int, device: torch.device):
         super().__init__()
@@ -77,6 +79,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 # Gated MLP (SwiGLU)
 
 class MLP(nn.Module):
+    LOGICAL = {"wi_gate": ("embed", "ff"), "wi_up": ("embed", "ff"),
+               "wo": ("ff", "embed")}
+
     def __init__(self, d_model: int, d_ff: int, device: torch.device):
         super().__init__()
         self.wi_gate = new_param((d_model, d_ff), COMPUTE_DTYPE, device)
@@ -115,9 +120,12 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: ``(silu(x @ wi_gate) * (x @ wi_up)) @ wo``, in x's dtype."""
-    gate = x @ cdt(p.wi_gate, x.dtype)
-    up = x @ cdt(p.wi_up, x.dtype)
-    return (silu(gate) * up) @ cdt(p.wo, x.dtype)
+    def w(name):
+        return runtime.gather_weight(cdt(getattr(p, name), x.dtype),
+                                     MLP.LOGICAL[name])
+    gate = x @ w("wi_gate")
+    up = x @ w("wi_up")
+    return (silu(gate) * up) @ w("wo")
 
 
 # ---------------------------------------------------------------------------
@@ -125,6 +133,7 @@ def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
 
 class Embedding(nn.Module):
     INIT = {"table": "embed"}
+    LOGICAL = {"table": ("vocab", "embed")}
 
     def __init__(self, vocab: int, d_model: int, device: torch.device):
         super().__init__()
@@ -132,6 +141,8 @@ class Embedding(nn.Module):
 
 
 class Unembed(nn.Module):
+    LOGICAL = {"table": ("vocab", "embed")}
+
     def __init__(self, vocab: int, d_model: int, device: torch.device):
         super().__init__()
         self.table = new_param((vocab, d_model), COMPUTE_DTYPE, device)
@@ -145,8 +156,10 @@ def embed(table: torch.Tensor, tokens: torch.Tensor,
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Logits ``x @ table.T`` in x's dtype: (B, S, d) -> (B, S, V)."""
-    return x @ cdt(table, x.dtype).T
+    """Logits ``x @ table.T`` in x's dtype: (B, S, d) -> (B, S, V); the
+    output head's compute-time layout named (``runtime.gather_weight``)."""
+    w = runtime.gather_weight(cdt(table, x.dtype), Unembed.LOGICAL["table"])
+    return x @ w.T
 
 
 # ---------------------------------------------------------------------------

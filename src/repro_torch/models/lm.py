@@ -30,7 +30,7 @@ over the P + S positions.
 """
 from __future__ import annotations
 
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -40,9 +40,14 @@ from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import runtime
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import (MLP, RMSNorm, cdt, embed, mlp,
                                        rmsnorm, unembed)
+
+ACT_LOGICAL = ("batch", "act_seq", None)
+LOGITS_LOGICAL = ("batch", "seq", "vocab")
+
 
 class Block(nn.Module):
     """One layer of ``spec.kind``: ``ln1`` and the mixer (``attn``,
@@ -73,6 +78,26 @@ class Block(nn.Module):
             self.moe = moe_lib.MoE(cfg, device)
         else:
             self.mlp = MLP(cfg.d_model, cfg.d_ff, device)
+
+
+def lm_param_shapes(cfg: ArchConfig) -> List[Tuple[str, Tuple[int, ...]]]:
+    """``(name, shape)`` of every parameter of the decoder-only LM of
+    ``cfg``, in :class:`~repro_torch.models.Model`'s order and names, built
+    on the ``meta`` device: the layout ``repro``'s ``lm.param_specs``
+    describes, which its parameter estimate counts for every config (an
+    encoder-decoder's included)."""
+    meta = torch.device("meta")
+    d, vocab = cfg.d_model, cfg.padded_vocab
+    out = [("embed.table", (vocab, d))]
+    for i, spec in enumerate(cfg.layers):
+        out += [(f"blocks.{i}.{name}", tuple(p.shape)) for name, p
+                in Block(cfg, spec, meta).named_parameters()]
+    out.append(("final_norm.scale", (d,)))
+    if not cfg.tie_embeddings:
+        out.append(("unembed.table", (vocab, d)))
+    if cfg.num_patches:
+        out.append(("patch_proj.w", (d, d)))
+    return out
 
 
 def init_cache(cfg: ArchConfig, spec: LayerSpec, batch: int, max_len: int,
@@ -208,21 +233,32 @@ def forward(model, tokens: torch.Tensor, *, mode: str = "prefill",
         max_len = max_len or s
     new_caches = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    # the reference's scanned groups name the residual's layout at their
+    # entry and exit (not in decode, whose groups run unscanned)
+    width = len(cfg.pattern)
+    grouped = cfg.n_groups * width if mode != "decode" else 0
     for layer, block in enumerate(model.blocks):
+        if layer < grouped and layer % width == 0:
+            x = runtime.constrain(x, ACT_LOGICAL)
         if train:
             x, a = (checkpoint(train_block, block, x, cfg, positions,
                                use_reentrant=False)
                     if remat and block.spec.kind != "slstm"
                     else train_block(block, x, cfg, positions))
             aux = aux + a
-            continue
-        cache = None if caches is None else caches[layer]
-        x, nc = apply_block(block, x, cfg, mode, cache, pos, positions,
-                            max_len)
-        new_caches.append(nc)
+        else:
+            cache = None if caches is None else caches[layer]
+            x, nc = apply_block(block, x, cfg, mode, cache, pos, positions,
+                                max_len)
+            new_caches.append(nc)
+        if layer < grouped and layer % width == width - 1:
+            x = runtime.constrain(x, ACT_LOGICAL)
     if mode == "prefill":
         x = x[:, -1:]
     x = rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
-    table = (model.embed.table if cfg.tie_embeddings
-             else model.unembed.table)
-    return unembed(table, x), (aux if train else new_caches)
+    if cfg.tie_embeddings:      # the reference's tied product names no layout
+        logits = x @ cdt(model.embed.table, x.dtype).T
+    else:
+        logits = unembed(model.unembed.table, x)
+    logits = runtime.constrain(logits, LOGITS_LOGICAL)
+    return logits, (aux if train else new_caches)

@@ -59,6 +59,11 @@ class Mamba(nn.Module):
     ``d_skip`` (d_in,), ``w_out`` (d_in, d)."""
     INIT = {"conv_b": "zeros", "dt_bias": "ones", "a_log": "ones",
             "d_skip": "ones"}
+    LOGICAL = {"w_in": ("embed", "inner"), "conv_w": ("conv", "inner"),
+               "conv_b": ("inner",), "x_proj": ("inner", None),
+               "dt_w": (None, "inner"), "dt_bias": ("inner",),
+               "a_log": ("inner", "state"), "d_skip": ("inner",),
+               "w_out": ("inner", "embed")}
 
     def __init__(self, cfg: ArchConfig, device: torch.device):
         super().__init__()

@@ -46,6 +46,7 @@ def check_ported(cfg: ArchConfig) -> None:
 
 class PatchProj(nn.Module):
     """The VLM's patch projection ``w`` (d, d)."""
+    LOGICAL = {"w": ("embed", None)}
 
     def __init__(self, d_model: int, device: torch.device):
         super().__init__()

@@ -43,6 +43,10 @@ from repro_torch.models.spec import new_param
 class MoE(nn.Module):
     """``router`` (d, e), ``wi_gate`` and ``wi_up`` (e, d, f), ``wo``
     (e, f, d): the reference's layouts, in bfloat16 (its ``cdt``)."""
+    LOGICAL = {"router": ("embed", "expert"),
+               "wi_gate": ("expert", "embed", "ff"),
+               "wi_up": ("expert", "embed", "ff"),
+               "wo": ("expert", "ff", "embed")}
 
     def __init__(self, cfg: ArchConfig, device: torch.device):
         super().__init__()

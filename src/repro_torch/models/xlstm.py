@@ -62,6 +62,12 @@ class MLSTM(nn.Module):
     ``w_down`` (d_in, d)."""
     INIT = {"conv_b": "zeros", "b_i": "zeros", "b_f": "ones",
             "out_norm": "ones"}
+    LOGICAL = {"w_up": ("embed", "inner"), "conv_w": ("conv", "inner"),
+               "conv_b": ("inner",), "w_q": (None, "inner"),
+               "w_k": (None, "inner"), "w_v": (None, "inner"),
+               "w_i": ("inner", "heads"), "b_i": ("heads",),
+               "w_f": ("inner", "heads"), "b_f": ("heads",),
+               "out_norm": (None,), "w_down": ("inner", "embed")}
 
     def __init__(self, cfg: ArchConfig, device: torch.device):
         super().__init__()
@@ -227,6 +233,11 @@ class SLSTM(nn.Module):
     INIT = {"b_z": "zeros", "b_i": "zeros", "b_f": "ones", "b_o": "zeros",
             "out_norm": "ones", "ff_norm": "ones"}
     SCALE = {f"r_{g}": 0.5 for g in GATES}
+    LOGICAL = {**{f"w_{g}": ("embed", "heads", "head_dim") for g in GATES},
+               **{f"r_{g}": ("heads", "head_dim", None) for g in GATES},
+               **{f"b_{g}": ("heads", "head_dim") for g in GATES},
+               "out_norm": (None,), "ff_up": ("embed", "ff"),
+               "ff_down": ("ff", "embed"), "ff_norm": (None,)}
 
     def __init__(self, cfg: ArchConfig, device: torch.device):
         super().__init__()

@@ -29,7 +29,9 @@ leaves; for any leaves when the gradients are not clipped, as the scale
 is then exactly 1), on the CPU and on the card (every operation is IEEE
 float32 or exact). The update works in place, as the reference's
 jitted step donates its state: it overwrites the parameters and the
-moments it is given.
+moments it is given. Each leaf's update and sum of squares go through
+:func:`repro_torch.kernels.meta.repeatable` (a plain call, except under
+the dry run's cost count).
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch import floats
+from repro_torch.kernels import meta as kernel_meta
 
 Params = Dict[str, torch.Tensor]
 # leaves are updated in pieces of at most this many elements, which bounds
@@ -96,28 +99,42 @@ class AdamW:
         b1, b2 = _f32(self.b1, gnorm), _f32(self.b2, gnorm)
         ob1, ob2 = _f32(1 - self.b1, gnorm), _f32(1 - self.b2, gnorm)
         eps, wd = _f32(self.eps, gnorm), _f32(self.weight_decay, gnorm)
+        consts = (scale, lr, c1, c2, b1, b2, ob1, ob2, eps, wd)
         for name, p in params.items():
-            g_all = grads[name].reshape(-1)
-            m_all = state.mu[name].view(-1)
-            v_all = state.nu[name].view(-1)
-            p_all = p.data.view(-1)
-            for lo in range(0, p_all.numel(), _PIECE):
-                piece = slice(lo, lo + _PIECE)
-                g = g_all[piece].float() * scale
-                m = floats.fma(m_all[piece], b1, g * ob1)
-                v = floats.fma(v_all[piece], b2, (g * ob2) * g)
-                # float64's root rounded to float32 is the correctly
-                # rounded one (torch's float32 sqrt on the CPU is not
-                # always)
-                root = torch.sqrt((v / c2).double()).float()
-                base = m / (c1 * (root + eps))
-                pf = p_all[piece].float()
-                new = floats.fma(-lr, floats.fma(pf, wd, base), pf)
-                m_all[piece] = m
-                v_all[piece] = v
-                p_all[piece] = new.to(p.dtype)
+            kernel_meta.repeatable(_update_leaf, p, grads[name],
+                                   state.mu[name], state.nu[name], consts)
         new_state = AdamWState(step=step, mu=state.mu, nu=state.nu)
         return params, new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _update_leaf(p, g, mu, nu, consts) -> None:
+    """The update of one leaf ``p`` from its gradient ``g``, in place
+    (``p``, ``mu`` and ``nu``), a piece of ``_PIECE`` elements at a
+    time."""
+    scale, lr, c1, c2, b1, b2, ob1, ob2, eps, wd = consts
+    g_all = g.reshape(-1)
+    m_all = mu.view(-1)
+    v_all = nu.view(-1)
+    p_all = p.detach().view(-1)
+    for lo in range(0, p_all.numel(), _PIECE):
+        piece = slice(lo, lo + _PIECE)
+        g = g_all[piece].float() * scale
+        m = floats.fma(m_all[piece], b1, g * ob1)
+        v = floats.fma(v_all[piece], b2, (g * ob2) * g)
+        # float64's root rounded to float32 is the correctly rounded one
+        # (torch's float32 sqrt on the CPU is not always)
+        root = torch.sqrt((v / c2).double()).float()
+        base = m / (c1 * (root + eps))
+        pf = p_all[piece].float()
+        new = floats.fma(-lr, floats.fma(pf, wd, base), pf)
+        m_all[piece] = m
+        v_all[piece] = v
+        p_all[piece] = new.to(p.dtype)
+
+
+def _sum_squares(leaf: torch.Tensor) -> torch.Tensor:
+    flat = leaf.float().reshape(-1)
+    return floats.xla_sum(flat * flat)
 
 
 def global_norm(tree: Params) -> torch.Tensor:
@@ -127,8 +144,7 @@ def global_norm(tree: Params) -> torch.Tensor:
     correctly rounded."""
     total = None
     for leaf in tree.values():
-        flat = leaf.float().reshape(-1)
-        s = floats.xla_sum(flat * flat)
+        s = kernel_meta.repeatable(_sum_squares, leaf)
         total = s if total is None else total + s
     return torch.sqrt(total.double()).float()
 

@@ -16,8 +16,8 @@ number, as is the loss; the metrics are then ``loss``, ``grad_norm`` and
 ``lr`` only, as the reference's scan drops ``ce`` and ``aux``. A leaf the
 loss never reads (the sLSTM's ``ff_norm``, which ``repro`` declares and
 its block does not use) gets the reference's zero gradient.
-``state_specs`` is not ported: its one reader is the dry run (ROADMAP
-10e).
+:func:`state_specs` is the train state as ``meta`` tensors, which the dry
+run (:mod:`repro_torch.launch.dryrun`) runs a step on.
 """
 from __future__ import annotations
 
@@ -33,6 +33,21 @@ Params = Dict[str, torch.Tensor]
 class TrainState(NamedTuple):
     params: Params          # the model's parameters by name
     opt: AdamWState
+
+
+def state_specs(model) -> TrainState:
+    """The train state of ``model`` as ``meta`` tensors (``repro``'s
+    ``state_specs``, ``train_step.py:31-42``, unstacked: one leaf a
+    parameter of the port's): float32 masters ``params``, the moments
+    ``mu`` and ``nu`` keyed like them, and an int32 ``step``."""
+    meta = torch.device("meta")
+
+    def leaves() -> Params:
+        return {name: torch.empty(p.shape, dtype=torch.float32, device=meta)
+                for name, p in model.named_parameters()}
+    return TrainState(params=leaves(), opt=AdamWState(
+        step=torch.zeros((), dtype=torch.int32, device=meta), mu=leaves(),
+        nu=leaves()))
 
 
 def init_state(model, optimizer: AdamW, seed: int) -> TrainState:

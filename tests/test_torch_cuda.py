@@ -2402,3 +2402,27 @@ def test_comm_quantisation_on_the_card_is_the_cpus(dev, n):
     for got, want in zip(comm.compress_with_feedback(x.to(dev), err.to(dev)),
                          comm.compress_with_feedback(x, err)):
         assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+
+
+def test_flash_wrappers_on_meta_launch_nothing(dev):
+    """The dry run's meta route: the forward and backward wrappers return
+    empty outputs of their kernels' shapes and dtypes, launch no kernel
+    and allocate no card memory."""
+    meta = torch.device("meta")
+    q = torch.empty((2, 256, 8, 64), dtype=torch.bfloat16, device=meta,
+                    requires_grad=True)
+    k = torch.empty((2, 256, 2, 64), dtype=torch.bfloat16, device=meta,
+                    requires_grad=True)
+    v = torch.empty_like(k, requires_grad=True)
+    fwd, bwd = dict(cuda_fa.LAUNCHES), dict(cuda_fab.LAUNCHES)
+    allocated = torch.cuda.memory_allocated(dev)
+    out = fa_ops.flash_attention(q, k, v, causal=True, window=None)
+    assert (out.shape, out.dtype, out.device) == (q.shape, q.dtype, meta)
+    out.sum().backward()
+    for t, g in ((q, q.grad), (k, k.grad), (v, v.grad)):
+        assert (g.shape, g.dtype, g.device) == (t.shape, t.dtype, meta)
+    with torch.no_grad():
+        served = fa_ops.flash_attention(q, k, v, causal=False, window=64)
+    assert served.shape == q.shape and served.device == meta
+    assert dict(cuda_fa.LAUNCHES) == fwd and dict(cuda_fab.LAUNCHES) == bwd
+    assert torch.cuda.memory_allocated(dev) == allocated

@@ -259,9 +259,17 @@ def test_tf32_rounding_is_to_nearest_ties_away():
     assert float(((hi + lo - y).abs() / y.abs()).max()) <= 2.0 ** -21
 
 
-def test_a_non_cpu_tensor_goes_to_the_kernel_not_the_plain_version():
-    """Only a CPU tensor takes the plain version; any other device reaches
-    the CUDA wrapper, which raises for a tensor that is not on a card."""
+def test_a_non_cpu_tensor_goes_to_the_kernel_not_the_plain_version(
+        monkeypatch):
+    """Only a CPU tensor takes the plain version. A meta tensor (the dry
+    run) takes the wrappers' meta route: empty outputs, nothing computed;
+    the CUDA wrapper raises for a tensor that is not on a card."""
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran")
+    for name in ("attention_ref", "attention_lse_ref"):
+        monkeypatch.setattr(ops, name, plain)
     q = torch.empty(1, 8, 2, 64, device="meta")
+    out = ops.flash_attention(q, q, q)
+    assert (out.shape, out.device.type) == (q.shape, "meta")
     with pytest.raises(ValueError, match="CUDA tensors, got meta"):
-        ops.flash_attention(q, q, q)
+        cuda_fa.flash_attention_cuda(q, q, q)
