@@ -19,7 +19,9 @@ Run from the repository root. Phases:
    a reserve (winners and prices bitwise; sums at rtol 1e-5, and
    MatrixTile's bitwise the plain version on the CPU), ``first_crossing``
    of the 32 resolved lanes (cap times bitwise the plain version on the
-   card and, for one lane, on the CPU; spends bitwise the CPU) and
+   card and, for one lane, on the CPU, with the spends and caps only;
+   spends bitwise the CPU; each call's device kernels traced and printed
+   by name at 32 lanes and one lane, both modes) and
    ``capped_scan`` at N=65,536, C=64, S=8 with a reserve, a zero budget and
    a zero multiplier, and at N=4,096, S=4 with C=257 and C=1,000, past the
    first design's 256 campaigns (bitwise the plain version on the card);
@@ -92,7 +94,8 @@ Run from the repository root. Phases:
    ``vi`` launch and a ``segment_resolve`` and a ``first_crossing`` launch a
    pass, the sweep ``refine_iters + 1`` more of each (one
    ``segment_resolve`` launch a pass for all 32 lanes), no
-   ``auction_resolve``; the sweep with ``warm_start="per_scenario"`` (10%
+   ``auction_resolve``, and ``first_crossing`` runs exactly 3 device kernels
+   a refine pass (caps only) and 4 the aggregate pass; the sweep with ``warm_start="per_scenario"`` (10%
    sample, 80 epochs) runs in one ``vi`` launch and is timed; at the
    sweep's own cap times ``segment_resolve`` is bitwise the per-lane
    MatrixTile resolve on the gathered masks, both rules; then its
@@ -138,7 +141,10 @@ Run from the repository root. Phases:
    chain floor, at simulate's shape and at the full warm start,
    ``segment_resolve`` at S=32 and at one lane, and one JSON line
    describing each kernel (``first_crossing``'s row also gives the device
-   kernels its calls ran; ``vi``'s its chain floor and the warm start;
+   kernels its calls ran, its caps-only times, its split by device kernel
+   and the flat sums' chain floor, ``chain_floor_ms``: the longest (lane,
+   campaign) run of sales times ``FADD_LATENCY_CYCLES`` at the top SM
+   clock; ``vi``'s its chain floor and the warm start;
    ``segment_resolve``'s its one-lane time).
    The plain capped scan is one chain of small launches per event, so it
    is timed over the first 16,384 events of the full day
@@ -159,7 +165,8 @@ Run from the repository root. Phases:
    gaps and refine iterations bitwise the unchunked sweep, ``final_spend``
    bitwise across the two sizes and within 1e-4 of the flat sums,
    ``n_chunks`` ``segment_resolve`` and ``first_crossing`` launches a
-   pass; (e) ``first_crossing`` with a carry chunk by chunk bitwise one
+   pass, caps only (3 device kernels a call); (e) ``first_crossing`` with
+   a carry chunk by chunk bitwise one
    call (cap times and the running total; a chunk boundary on a crossing;
    two chunks of a lane bitwise the CPU), ``segment_resolve`` at a row
    offset bitwise the rows of a whole call and its plain version, and
@@ -243,9 +250,10 @@ Run from the repository root. Phases:
    onto 2 shards, and a log saved from ``SHARDS`` shards restored onto 2
    (the elastic restore), both sweeping bitwise phase 4; then
    ``sweep_partials`` at a shard's offset, ``first_crossing`` with a carry
-   at ``block = local_n`` and ``segment_resolve`` at a shard offset, each
-   against its plain version and timed (the JSON rows' ``shard_*``,
-   ``shard_carry_*`` and ``shard_offset_*`` keys).
+   at ``block = local_n`` (also caps only, the same cap times and running
+   spend; traced by kernel, its chain floor) and ``segment_resolve`` at a
+   shard offset, each against its plain version and timed (the JSON rows'
+   ``shard_*``, ``shard_carry_*`` and ``shard_offset_*`` keys).
 15. plan tuning and the keyed days (``tune_phase``): (a) the §7.1 day
    built on the card from ``prng.PRNGKey(seed)``, its first, last full and
    last blocks bitwise the CPU's keyed build; (b) ``engine.tune(grid)``
@@ -379,6 +387,7 @@ import argparse
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -483,6 +492,10 @@ SEGMENT_EDGES = (
     ("duplicates, N=127", "duplicates", 4, 127, 100),
 )
 SMALL_N = (256, 1024, 8192)     # first_crossing's small calls, one lane
+FC_TILE = 4096                  # first_crossing's tile: 16^3 rows
+# the latency of a dependent float32 add on the SM's FP32 pipe (cycles,
+# Volta through Hopper): a flat sum is one chain of them a (lane, campaign)
+FADD_LATENCY_CYCLES = 4
 ANY_C_EVENTS = 512              # the parallel sweep past the round kernels
 # a day-sized any-C resolve (phase 6): N, C, S (4.3 GB of valuations). The
 # matrix kernel's issue floor there: a thread holds ANY_C_LANES lanes of a
@@ -878,19 +891,56 @@ def resolve_cost(n, c, s, rows, second_price, outputs):
 
 def crossing_ops(winners, n, c, block=4096):
     """Operations ``first_crossing`` needs for S lanes of N events in
-    crossing blocks of ``block``: inside a 16-row group a campaign's
-    running spend changes only at its own sales, so per (lane, campaign)
-    and block a test at each group's first row and one add for each group
-    total pushed up XLA's levels; per sale an add and a test of the scan
-    and an add of the flat sum. The sales are this run's."""
+    crossing blocks of ``block``: inside a 4,096-row tile of a block a
+    campaign's running spend changes only at its own sales and at a few
+    group starts after them, so per sale an add of the scan, a test and an
+    add of the flat sum, and per (lane, campaign, tile) three group-start
+    tests and the six adds of the chain between tiles. The sales are this
+    run's."""
     s = winners.shape[0]
     sales = int((winners >= 0).sum())
-    pushes, width = 0, block
-    while width > 16:
-        width = -(-width // 16)
-        pushes += width
     blocks = -(-n // block)
-    return s * c * blocks * (-(-block // 16) + pushes) + 3 * sales
+    tiles = (blocks - 1) * -(-block // FC_TILE) + -(
+        -(n - (blocks - 1) * block) // FC_TILE)
+    return 3 * sales + 9 * s * c * tiles
+
+
+def chain_floor_ms(winners, c: int) -> tuple[float, int]:
+    """The flat sums' floor: the longest (lane, campaign) run of sales in
+    the call, one dependent float32 add each (``FADD_LATENCY_CYCLES``) at
+    the card's top SM clock. Returns ``(ms, the run's length)``."""
+    import torch
+    w = winners.reshape(-1, winners.shape[-1]).long()
+    lanes = torch.arange(w.shape[0], device=w.device)[:, None]
+    ids = lanes * (c + 1) + torch.where(w >= 0, w, c)
+    runs = torch.bincount(ids.reshape(-1), minlength=w.shape[0] * (c + 1))
+    longest = int(runs.reshape(-1, c + 1)[:, :c].max())
+    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    return longest * FADD_LATENCY_CYCLES / clock_hz * 1e3, longest
+
+
+def fc_split(tag: str, label: str, fn, reps: int = 5) -> dict:
+    """``first_crossing``'s device kernels in a call of ``fn``, traced over
+    ``reps`` calls (:func:`trace`): ``{kernel: (launches a call, device ms a
+    launch)}``, printed. A call launches each of its kernels once; the mean
+    over the launches recorded keeps a dropped record from halving a
+    kernel's time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    counts: dict = {}
+    by_kernel = trace(tag, f"first_crossing {label}, {reps} calls",
+                      lambda: [fn() for _ in range(reps)], counts)
+    split = {}
+    for name, us in by_kernel.items():
+        found = re.search(r"(\w+_kernel(<[^>]*>)?)", name)
+        split[found.group(1) if found else name[:40]] = (
+            counts[name] / reps, us / 1e3 / counts[name])
+    print(f"{tag} first_crossing {label}, device kernels (launches a call, "
+          f"ms a launch): " + "; ".join(
+              f"{k} x{n:g} {ms:.4f}" for k, (n, ms) in split.items()),
+          flush=True)
+    return split
 
 
 def smi(fields: str) -> str:
@@ -3024,10 +3074,14 @@ def chunks_phase(dev, env, small, engines, base_sweeps, small_cpu, exact,
             got, wall, cnt = counted(lambda: sweep_sort2aggregate(
                 *s2a_args, chunks=epc, **kw))
             passes = 8 + 1
+            # every pass carried chunk by chunk, caps only (3 device
+            # kernels a call; the final spend is the carried total)
             require(cnt["segment_resolve"] == cnt["first_crossing"]
-                    == k * passes,
+                    == k * passes and cnt["first_crossing_device_kernels"]
+                    == 3 * k * passes,
                     f"[11] {kind} S2A chunks={epc}: launches {cnt}, "
-                    f"expected {k * passes} of each")
+                    f"expected {k * passes} of each, "
+                    f"{3 * k * passes} first_crossing device kernels")
             for name, a, b in (("cap times", got[0].cap_times,
                                 whole[0].cap_times),
                                ("gaps", got[1], whole[1]),
@@ -3127,7 +3181,11 @@ def chunks_phase(dev, env, small, engines, base_sweeps, small_cpu, exact,
             block, s0=carry[0], cap=carry[1], offset=start, n_global=n)
     torch.cuda.synchronize()
     fc_launches = read_counts()["first_crossing"]
-    require(fc_launches == n // epc, "[11] first_crossing carry launches")
+    require(fc_launches == n // epc
+            and read_counts()["first_crossing_device_kernels"]
+            == 3 * fc_launches,
+            "[11] first_crossing carry launches (caps only: 3 device "
+            "kernels a call)")
     equal("cap times", carry[1], whole_cap, "first_crossing chunk by chunk")
     equal("running spend", carry[0], whole_s0,
           "first_crossing chunk by chunk")
@@ -3148,6 +3206,9 @@ def chunks_phase(dev, env, small, engines, base_sweeps, small_cpu, exact,
     w_k, p_k = w_all[:, off:off + epc], p_all[:, off:off + epc]
     c_args = dict(s0=carry[0], cap=zero[1], offset=off, n_global=n)
     out["first_crossing_carry"] = dict(
+        split=fc_split("[11]", f"a {epc}-row chunk with a carry, caps only",
+                       lambda: seg_lib.crossing_carry(w_k, p_k, b, c, block,
+                                                      **c_args)),
         ms=cuda_ms(lambda: seg_lib.crossing_carry(w_k, p_k, b, c, block,
                                                   **c_args), 10),
         plain_ms=cuda_ms(lambda: seg_lib._crossing_scan(
@@ -4469,13 +4530,28 @@ def sharded_phase(dev, env, small, engines, base_sweeps, exact,
     spend1, cap1 = seg_lib.shard_crossing(w1, p1, b, c, s0=s0, cap=cap0,
                                           offset=off, n_global=n)
     torch.cuda.synchronize()
-    require(read_counts()["first_crossing"] == 1,
-            "[14] first_crossing at block = local_n: one call")
-    _, plain_cap = seg_lib._crossing_scan(w1, p1, b, c, local_n, s0, cap0,
-                                          off, n + 1)
+    require(read_counts()["first_crossing"] == 1
+            and read_counts()["first_crossing_device_kernels"] == 4,
+            "[14] first_crossing at block = local_n: one call, 4 device "
+            "kernels")
+    plain_s0, plain_cap = seg_lib._crossing_scan(w1, p1, b, c, local_n, s0,
+                                                 cap0, off, n + 1)
     equal("cap times", cap1, plain_cap,
           "[14] first_crossing with a carry at block = local_n")
-    del plain_cap
+    # the caps-only call (segments.crossing_carry): the same cap times, and
+    # the running spend after the shard
+    reset_counts()
+    s0_only, caps_only = seg_lib.crossing_carry(
+        w1, p1, b, c, local_n, s0=s0, cap=cap0, offset=off, n_global=n)
+    torch.cuda.synchronize()
+    require(read_counts()["first_crossing_device_kernels"] == 3,
+            "[14] first_crossing at block = local_n, caps only: 3 device "
+            "kernels")
+    equal("cap times", caps_only, plain_cap,
+          "[14] first_crossing at block = local_n, caps only")
+    equal("running spend", s0_only, plain_s0,
+          "[14] first_crossing at block = local_n, caps only")
+    del plain_cap, plain_s0
     lane = 0
     cpu_spend, cpu_cap = seg_lib.shard_crossing(
         w1[lane:lane + 1].cpu(), p1[lane:lane + 1].cpu(),
@@ -4485,7 +4561,17 @@ def sharded_phase(dev, env, small, engines, base_sweeps, exact,
           "[14] first_crossing at block = local_n, lane 0 against the CPU")
     equal("flat sums", spend1[lane:lane + 1].cpu(), cpu_spend,
           "[14] first_crossing at block = local_n, lane 0 against the CPU")
+    floor = chain_floor_ms(w1, c)
     out["first_crossing_shard"] = dict(
+        split=fc_split("[14]", "at block = local_n with a carry, spends "
+                               "and caps",
+                       lambda: seg_lib.shard_crossing(
+                           w1, p1, b, c, s0=s0, cap=cap0, offset=off,
+                           n_global=n)),
+        chain_floor_ms=floor[0], longest_run=floor[1],
+        caps_only_ms=cuda_ms(lambda: seg_lib.crossing_carry(
+            w1, p1, b, c, local_n, s0=s0, cap=cap0, offset=off,
+            n_global=n), 5),
         ms=cuda_ms(lambda: seg_lib.shard_crossing(
             w1, p1, b, c, s0=s0, cap=cap0, offset=off, n_global=n), 5),
         plain_ms=cuda_ms(lambda: seg_lib._crossing_scan(
@@ -4528,9 +4614,16 @@ def sharded_phase(dev, env, small, engines, base_sweeps, exact,
                       ("segment_resolve", "segment_resolve_shard")):
         m = out[key]
         print(f"[14] {name} at a shard ({m['rows']} rows, S={s}): "
-              f"{m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound "
-              f"{m['bound'][0]:.4f} ms ({m['bound'][1]}), {m['launches']} "
-              f"launches on the sharded paths", flush=True)
+              f"{m['ms']:.4f} ms"
+              + (f", caps only {m['caps_only_ms']:.4f} ms"
+                 if "caps_only_ms" in m else "")
+              + f", plain {m['plain_ms']:.4f} ms, bound "
+              f"{m['bound'][0]:.4f} ms ({m['bound'][1]})"
+              + (f", the flat sums' chain floor {m['chain_floor_ms']:.4f} ms "
+                 f"({m['longest_run']} sales of one (lane, campaign))"
+                 if "chain_floor_ms" in m else "")
+              + f", {m['launches']} launches on the sharded paths",
+              flush=True)
     out["wall"] = time.perf_counter() - t_phase
     print(f"[14] phase 14: {out['wall']:.1f} s", flush=True)
     return out
@@ -5333,6 +5426,9 @@ def main() -> int:
         plain_cap = seg_lib.first_crossing_ref(w, p, grid.budgets, c)
         torch.cuda.synchronize()
         equal("cap times", fc_cap, plain_cap, f"first_crossing {kind}")
+        equal("cap times", seg_lib.first_crossing_times(
+            w, p, grid.budgets, c), fc_cap, f"first_crossing {kind}, caps "
+                                            f"only")
         equal("spend", fc_spend.cpu(), auction.spend_sums(w.cpu(), p.cpu(), c),
               f"first_crossing {kind} on the CPU")
         lane = CPU_LANE[kind]
@@ -5374,6 +5470,29 @@ def main() -> int:
                         10),
                 cuda_ms(lambda: seg_lib.first_crossing_ref(w1, p1, b1, c),
                         1))
+            # caps only (the refine passes), each call's device kernels,
+            # the flat sums' chain floor
+            timing["first_crossing_caps_only"] = {
+                "S32": cuda_ms(lambda: seg_lib.first_crossing_times(
+                    w, p, grid.budgets, c), 10),
+                "one_lane": cuda_ms(lambda: seg_lib.first_crossing_times(
+                    w1, p1, b1, c), 10)}
+            timing["first_crossing_split"] = {
+                "S32": fc_split("[2]", f"S={s}, spends and caps",
+                                lambda: seg_lib.crossing_and_spend(
+                                    w, p, grid.budgets, c)),
+                "S32_caps_only": fc_split(
+                    "[2]", f"S={s}, caps only",
+                    lambda: seg_lib.first_crossing_times(
+                        w, p, grid.budgets, c)),
+                "one_lane": fc_split("[2]", "one lane, spends and caps",
+                                     lambda: seg_lib.crossing_and_spend(
+                                         w1, p1, b1, c)),
+                "one_lane_caps_only": fc_split(
+                    "[2]", "one lane, caps only",
+                    lambda: seg_lib.first_crossing_times(w1, p1, b1, c))}
+            timing["first_crossing_chain_floor"] = {
+                "S32": chain_floor_ms(w, c), "one_lane": chain_floor_ms(w1, c)}
             # what a small call costs (auction.spend_sums on a short
             # log): one lane of the first SMALL_N events, bitwise the CPU
             timing["first_crossing_small"] = {}
@@ -5960,6 +6079,11 @@ def main() -> int:
     s2a = {}
     s2a_peak = 0
     fc_device_kernels = 0
+
+    def fc_kernels(passes: int) -> int:
+        """first_crossing's device kernels in an S2A run of ``passes``
+        passes: caps only (3) in all but the aggregate pass (4)."""
+        return 3 * (passes - 1) + 4
     refine_iters = 8                      # engine.sweep's default
     for kind in KINDS:
         engine, grid = engines[kind]
@@ -6000,6 +6124,18 @@ def main() -> int:
                 == sim_counts["segment_resolve"] + passes,
                 f"{kind}: S2A sweep launches {sweep_counts} against "
                 f"simulate's {sim_counts}")
+        # first_crossing's device kernels: every refine pass asks for the
+        # cap times only (3: the tiles' sums, the chain, the crossings),
+        # the aggregate pass for the flat sums too (4)
+        fc_sim = fc_kernels(sim_counts["first_crossing"])
+        require(sim_counts["first_crossing_device_kernels"] == fc_sim
+                and sweep_counts["first_crossing_device_kernels"]
+                == fc_sim + fc_kernels(passes),
+                f"{kind}: S2A first_crossing device kernels: simulate "
+                f"{sim_counts['first_crossing_device_kernels']} (expected "
+                f"{fc_sim}), sweep "
+                f"{sweep_counts['first_crossing_device_kernels']} (expected "
+                f"{fc_sim + fc_kernels(passes)})")
         # the full-size per-scenario warm start: Algorithm 4 for all S
         # lanes (10% sample, 80 epochs) in one vi launch, then the passes
         warm, warm_wall, warm_counts, warm_adds = driven(
@@ -6008,6 +6144,8 @@ def main() -> int:
         require(warm_counts["vi"] == 1 and warm_counts["vi_device_state"] == 0
                 and warm_counts["segment_resolve"] == passes
                 and warm_counts["first_crossing"] == passes
+                and warm_counts["first_crossing_device_kernels"]
+                == fc_kernels(passes)
                 and not warm_counts["auction_resolve"] and warm_adds == 0,
                 f"{kind}: per-scenario warm start launches {warm_counts}")
         require(bool(torch.isfinite(warm.results.final_spend).all())
@@ -6203,11 +6341,21 @@ def main() -> int:
     fc_ms = timing["first_crossing"][0]
     fc1_ms, fc1_plain = timing["first_crossing_one_lane"]
     fc1_bound, fc1_by = timing["first_crossing_one_lane_bound"]
+    fc_caps = timing["first_crossing_caps_only"]
+    fc_floor = timing["first_crossing_chain_floor"]
     print(f"[10] first_crossing, S={s}: {fc_ms:.4f} ms (the first design "
           f"{EARLIER_MS['first_crossing']} ms, "
-          f"{EARLIER_MS['first_crossing'] / fc_ms:.2f}x); one lane "
-          f"(simulate's shape): {fc1_ms:.4f} ms, plain {fc1_plain:.4f} ms, "
-          f"bound {fc1_bound:.4f} ms ({fc1_by})")
+          f"{EARLIER_MS['first_crossing'] / fc_ms:.2f}x), caps only "
+          f"{fc_caps['S32']:.4f} ms; bound "
+          f"{timing['first_crossing_bound'][0]:.4f} ms "
+          f"({timing['first_crossing_bound'][1]}), the flat sums' chain "
+          f"floor {fc_floor['S32'][0]:.4f} ms ({fc_floor['S32'][1]} sales "
+          f"of one (lane, campaign)); one lane (simulate's shape): "
+          f"{fc1_ms:.4f} ms, caps only "
+          f"{fc_caps['one_lane']:.4f} ms, plain {fc1_plain:.4f} ms, bound "
+          f"{fc1_bound:.4f} ms ({fc1_by}), chain floor "
+          f"{fc_floor['one_lane'][0]:.4f} ms ({fc_floor['one_lane'][1]} "
+          f"sales)")
     print(f"[10] first_crossing, one lane, C={c}, small calls: " + ", ".join(
         f"N={rows} {ms:.4f} ms"
         for rows, ms in timing["first_crossing_small"].items()))
@@ -6342,10 +6490,14 @@ def main() -> int:
                  ("segment_resolve", "offset", "segment_resolve_offset"),
                  ("capped_scan", "scaled", "capped_scan_scaled"))]
     for name, mode, m, launches in modes:
-        print(f"[11] {name} ({mode}; {m['rows']} rows): {m['ms']:.4f} ms, "
-              f"plain {m['plain_ms']:.4f} ms, bound {m['bound'][0]:.4f} ms "
-              f"({m['bound'][1]}), {launches} launches on the chunked or "
-              f"sampled paths")
+        print(f"[11] {name} ({mode}; {m['rows']} rows): {m['ms']:.4f} ms"
+              + (f", caps only {m['caps_only_ms']:.4f} ms"
+                 if "caps_only_ms" in m else "")
+              + f", plain {m['plain_ms']:.4f} ms, bound {m['bound'][0]:.4f} "
+              f"ms ({m['bound'][1]})"
+              + (f", the flat sums' chain floor {m['chain_floor_ms']:.4f} ms"
+                 if "chain_floor_ms" in m else "")
+              + f", {launches} launches on the chunked or sampled paths")
     # ---- phase 12: CRN scenario families ---------------------------------
     phase12 = crn_phase(dev, env, small, reset_counts, read_counts, equal,
                         seed=args.seed, clock_hz=clock_hz)
@@ -6448,7 +6600,14 @@ def main() -> int:
         if name == "first_crossing":
             rows[-1].update(one_lane_ms=fc1_ms, one_lane_plain_ms=fc1_plain,
                             one_lane_bound_ms=fc1_bound,
+                            caps_only_ms=fc_caps["S32"],
+                            one_lane_caps_only_ms=fc_caps["one_lane"],
+                            chain_floor_ms=fc_floor["S32"][0],
+                            one_lane_chain_floor_ms=fc_floor["one_lane"][0],
                             device_kernels=fc_device_kernels,
+                            split_ms={k: {n: v[1] for n, v in sp.items()}
+                                      for k, sp in timing[
+                                          "first_crossing_split"].items()},
                             small_n_ms={str(k): v for k, v in timing[
                                 "first_crossing_small"].items()})
         if name.startswith("auction_resolve"):
@@ -6536,8 +6695,13 @@ def main() -> int:
                              f"{mode}_bound_by": m["bound"][1],
                              f"{mode}_rows": m["rows"],
                              f"{mode}_launches": launches})
-            if "issue_floor_ms" in m:
-                rows[-1][f"{mode}_issue_floor_ms"] = m["issue_floor_ms"]
+            for extra in ("issue_floor_ms", "chain_floor_ms",
+                          "caps_only_ms"):
+                if extra in m:
+                    rows[-1][f"{mode}_{extra}"] = m[extra]
+            if "split" in m:
+                rows[-1][f"{mode}_split_ms"] = {
+                    k: v[1] for k, v in m["split"].items()}
         if name == "sweep_partials":
             hp = phase13["pass"]
             rows[-1].update(host_pass_ms=hp["ms"],

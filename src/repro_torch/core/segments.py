@@ -9,8 +9,8 @@ exactly: the total is a flat per-campaign sum in event order (XLA's segment
 sum on the CPU), and the crossing scan adds each block's one-hot spends in
 the order of XLA's CPU ``cumsum`` (:func:`xla_cumsum`). On CUDA tensors
 the resolve is the ``segment_resolve`` kernel and both sums come from one
-``first_crossing`` kernel launch (``csrc/first_crossing.cu``), which gives
-the CPU's bits.
+``first_crossing`` kernel call (``csrc/first_crossing.cu``), which gives
+the CPU's bits; a call that needs the cap times only skips the flat sums.
 
 **Canonical blocked reduction.** The Algorithm-2 rounds' two reductions (remaining rate, block spend) go
 through a fixed (REDUCE_BLOCKS, C) grid of per-block partials, each block
@@ -297,8 +297,8 @@ def crossing_carry(winners: torch.Tensor, prices: torch.Tensor,
     (sentinel ``n_global + 1``). Returns ``(s0, cap)`` after the last row:
     chained over the chunks of a log, the cap times of
     :func:`first_crossing_times` on the whole log and its running total.
-    One ``first_crossing`` call on CUDA, :func:`_crossing_scan` on the
-    CPU."""
+    One caps-only ``first_crossing`` call on CUDA (no flat sums),
+    :func:`_crossing_scan` on the CPU."""
     _check_carry(winners.shape[-1], block, offset, n_global)
     if winners.device.type == "cpu":
         return _crossing_scan(winners, prices, budgets, num_campaigns, block,
@@ -308,7 +308,7 @@ def crossing_carry(winners: torch.Tensor, prices: torch.Tensor,
         prices.to(torch.float32).contiguous(),
         budgets.to(torch.float32).contiguous(), num_campaigns=num_campaigns,
         block=block, carry=(s0.contiguous(), cap.contiguous(), offset,
-                            n_global))
+                            n_global), spend=False)
     return s0, cap
 
 
@@ -342,25 +342,95 @@ def shard_crossing(winners: torch.Tensor, prices: torch.Tensor,
     return spend, cap
 
 
+_TILE = 4096          # rows of a crossing tile, 16^3: csrc/first_crossing.cu
+_HI_MARGIN = 1.0 + 2.0 ** -12   # a tile's values lie below its last's times
+
+
+def _group_prefix(x: torch.Tensor) -> torch.Tensor:
+    """In-group sequential prefixes of ``x`` (..., L, C) along its rows, in
+    groups of 16 from row 0 (the last group padded with zeros): (..., G, 16,
+    C), row ``i`` at ``[..., i // 16, i % 16, :]``."""
+    n = x.shape[-2]
+    groups = -(-n // _GROUP)
+    pad = groups * _GROUP - n
+    if pad:
+        x = torch.cat([x, x.new_zeros(x.shape[:-2] + (pad, x.shape[-1]))],
+                      dim=-2)
+    return _sequential_prefix(
+        x.reshape(x.shape[:-2] + (groups, _GROUP, x.shape[-1])))
+
+
+def _tile_levels(sm: torch.Tensor):
+    """A tile's in-group prefixes (S, rows, C) -> ``(P_0, P_1, P_2)``, each
+    flattened to (S, entries, C): P_0 over the rows, P_1 over the 16-row
+    groups' totals, P_2 over the level-1 groups' totals (one group: a tile
+    holds at most 16 of them)."""
+    def flat(p):
+        return p.reshape(p.shape[0], -1, p.shape[-1])
+    p0 = _group_prefix(sm)
+    p1 = _group_prefix(p0[:, :, -1, :])
+    p2 = _group_prefix(p1[:, :, -1, :])
+    return flat(p0), flat(p1), flat(p2)
+
+
+def _tile_tested(w: torch.Tensor, cols: torch.Tensor):
+    """The rows of a tile at which the kernel's pass C tests a campaign
+    (S, rows, C): its sales, and the first rows of the 16-row groups where
+    the exclusive prefix may move: the first two groups of each level-1
+    group (256 rows) and the group after a group with a sale."""
+    sale = w[:, :, None] == cols
+    rows = sale.shape[1]
+    groups = -(-rows // _GROUP)
+    pad = groups * _GROUP - rows
+    sale_g = torch.nn.functional.pad(sale, (0, 0, 0, pad)).reshape(
+        sale.shape[0], groups, _GROUP, -1).any(dim=2)
+    a = torch.arange(groups, device=w.device)
+    cand = (a % _GROUP <= 1)[None, :, None].expand(sale_g.shape).clone()
+    cand[:, 1:] |= sale_g[:, :-1]
+    start = torch.zeros(rows, dtype=torch.bool, device=w.device)
+    start[::_GROUP] = True
+    return sale | (start[None, :, None] & cand[:, torch.arange(
+        rows, device=w.device) // _GROUP])
+
+
 def first_crossing_blocks_ref(winners: torch.Tensor, prices: torch.Tensor,
                               budgets: torch.Tensor, num_campaigns: int,
                               block: int = 4096, *, s0=None, cap=None,
-                              offset: int = 0, n_global: int | None = None):
+                              offset: int = 0, n_global: int | None = None,
+                              spend: bool = True):
     """``(spend, cap times, running spend after the last row)`` of S lanes
     (``winners``/``prices`` (S, N), ``budgets`` (S, C)) by the
     decomposition ``csrc/first_crossing.cu`` runs; for tests, bitwise
     :func:`first_crossing_ref`, :func:`crossing_carry` and the flat sums.
+    ``spend=False`` (the kernel's caps-only mode) returns None for the
+    spends.
 
-    * Pass A: every block's in-block scan (:func:`xla_cumsum`) on its own,
-      its total ``T[b]`` the value at its last row.
-    * Pass B: the chain ``s0[0] = 0`` (or the carried ``s0``),
-      ``s0[b+1] = s0[b] + T[b]``; the last is the returned running spend.
-    * Pass C: ``s0[b] + scan >= budget``, tested only at the first row of
-      each 16-row group and at the campaign's own sales: between those rows
-      the scan does not change, so the first crossing is one of them. The
-      earliest crossing block wins, at global time ``offset + row + 1``;
-      a campaign whose carried ``cap`` is not the sentinel ``n_global + 1``
-      keeps it.
+    Every crossing block is cut into tiles of 4,096 rows from its first
+    row (a block of at most 4,096 rows is one tile).
+
+    * Pass A: each tile's in-group prefixes at its last row ``i``: ``c0 =
+      P_0[i]``, ``c1 = P_1[(i >> 4) - 1]``, ``c2 = P_2[((i >> 4) - 1 >> 4)
+      - 1]`` (0.0 where an index is negative).
+    * Pass B, per block: a whole tile's total ``tot = c2 + (c1 + c0)``;
+      the exclusive prefixes ``E`` of the tiles, XLA's scan of the totals
+      (:func:`xla_cumsum`); each tile's start state ``(st0, st1, st2)``, 0
+      for the first and ``((E' + c2') + (c1' + c0'), E' + tot', E)`` after
+      a whole tile (primes: the tile before); the value at the block's
+      last row ``((st2 + c2) + c1) + c0`` (``(st1 + c1) + c0`` when ``(i
+      >> 4) - 1 < 16``, ``st0 + c0`` when ``i < 16``); the chain ``s0[b+1]
+      = s0[b] + last[b]`` from 0.0 or the carried ``s0``.
+    * Pass C: the value of row ``r`` of group ``a``, ``E0(a) + P_0[r]``
+      with ``E0(0) = st0``, ``E0(a) = E1((a-1) >> 4) + P_1[a-1]``, ``E1(0)
+      = st1``, ``E1(y) = st2 + P_2[y-1]`` (``E0(16 y) = E1(y-1) +
+      V2[y-1]``, ``V2`` a level-1 group's total); ``s0 + value >= budget``
+      tested at the campaign's sales and at the group starts where ``E0``
+      may move (:func:`_tile_tested`). A campaign is not walked where ``s0 + st0 >=
+      budget`` (the tile's first row crosses) or ``s0 + hi < budget``, ``hi``
+      the tile's last value times ``1 + 2^-12`` (no row can: every value of
+      the tile lies below it while no price of the block so far is
+      negative; NaN, and every campaign walked, after one). The earliest
+      crossing wins, at global time ``offset + row + 1``; a campaign whose
+      carried ``cap`` is not the sentinel ``n_global + 1`` keeps it.
     * Flat sums: a stable sort of each lane's events by winner, then one
       chain per (lane, campaign) over its own sales in event order, from
       0.0 (a non-sale adds +0.0, which changes nothing).
@@ -372,32 +442,73 @@ def first_crossing_blocks_ref(winners: torch.Tensor, prices: torch.Tensor,
     _check_carry(n, block, offset, n_global)
     sentinel = never_capped(n_global)
     cols = torch.arange(c, device=dev)
-    b = budgets.to(torch.float32)
+    b = budgets.to(torch.float32)[:, None, :]
     p32 = prices.to(torch.float32)
-    starts = list(range(0, n, block))
-    scans, totals = [], []
-    for lo in starts:                                           # pass A
-        w = winners[:, lo:lo + block, None]
-        scan = xla_cumsum((w == cols).to(torch.float32)
-                          * p32[:, lo:lo + block, None])
-        scans.append(scan)
-        totals.append(scan[:, -1, :])
-    chain = [torch.zeros((s, c), dtype=torch.float32, device=dev)
-             if s0 is None else s0]
-    for t in totals:                                            # pass B
-        chain.append(chain[-1] + t)
+    run = (torch.zeros((s, c), dtype=torch.float32, device=dev)
+           if s0 is None else s0)
     found = torch.full((s, c), sentinel, dtype=torch.int32, device=dev)
-    for lo, scan, base in zip(reversed(starts), reversed(scans),
-                              reversed(chain[:-1])):            # pass C
-        rows = torch.arange(scan.shape[1], device=dev)
-        tested = (rows[None, :, None] % _GROUP == 0) | (
-            winners[:, lo:lo + block, None] == cols)
-        crossed = ((base[:, None, :] + scan) >= b[:, None, :]) & tested
-        first = torch.argmax(crossed.to(torch.uint8), dim=1)
-        found = torch.where(crossed.any(dim=1),
-                            (offset + lo + first + 1).to(torch.int32),
-                            found)
+    zero = torch.zeros((s, c), dtype=torch.float32, device=dev)
+    for lo in range(0, n, block):
+        length = min(block, n - lo)
+        tiles, sums = [], []
+        for t0 in range(lo, lo + length, _TILE):               # pass A
+            rows = min(_TILE, lo + length - t0)
+            w = winners[:, t0:t0 + rows]
+            sm = (w[:, :, None] == cols).to(torch.float32) \
+                * p32[:, t0:t0 + rows, None]
+            p0, p1, p2 = _tile_levels(sm)
+            ai = (rows - 1) >> 4
+            y = (ai - 1) >> 4
+            cs = (p0[:, rows - 1], p1[:, ai - 1] if ai > 0 else zero,
+                  p2[:, y - 1] if ai > 0 and y > 0 else zero)
+            tiles.append((t0, rows, w, p0, p1, p2))
+            sums.append(cs)
+        # pass B: the tiles' start states, the last value, the s0 chain
+        tots = [c2 + (c1 + c0) for c0, c1, c2 in sums[:-1]]
+        scan = xla_cumsum(torch.stack(tots, dim=1)) if tots else None
+        starts = [(zero, zero, zero)]
+        for j in range(1, len(sums)):
+            e_prev = zero if j == 1 else scan[:, j - 2]
+            c0, c1, c2 = sums[j - 1]
+            starts.append(((e_prev + c2) + (c1 + c0), e_prev + tots[j - 1],
+                           scan[:, j - 1]))
+        lasts, neg = [], torch.zeros(s, dtype=torch.bool, device=dev)
+        for (t0, rows, *_), (st0, st1, st2), (c0, c1, c2) in zip(
+                tiles, starts, sums):       # the value at each last row
+            ai = (rows - 1) >> 4
+            lasts.append(st0 + c0 if ai == 0 else (st1 + c1) + c0
+                         if (ai - 1) >> 4 == 0 else ((st2 + c2) + c1) + c0)
+        last = lasts[-1]
+        for (t0, rows, w, p0, p1, p2), (st0, st1, st2), tile_last in zip(
+                tiles, starts, lasts):                          # pass C
+            # campaigns whose first row crosses, and those no row of the
+            # tile can reach: the bound is NaN after a negative price
+            neg |= (p32[:, t0:t0 + rows] < 0).any(dim=1)
+            hi = torch.where(neg[:, None], torch.nan,
+                             tile_last * _HI_MARGIN)
+            at_start = (hi == hi) & (run + st0 >= b[:, 0])
+            walk = ~at_start & ~(run + hi < b[:, 0])
+            found = torch.where(at_start & (found == sentinel),
+                                offset + t0 + 1, found)
+            groups = -(-rows // _GROUP)
+            lvl1 = -(-groups // _GROUP)
+            e1 = torch.cat([st1[:, None], st2[:, None] + p2[:, :lvl1 - 1]],
+                           dim=1)
+            a = torch.arange(1, groups, device=dev)
+            e0 = torch.cat([st0[:, None],
+                            e1[:, (a - 1) // _GROUP] + p1[:, a - 1]], dim=1)
+            r = torch.arange(rows, device=dev)
+            value = e0[:, r // _GROUP] + p0[:, :rows]
+            crossed = ((run[:, None, :] + value) >= b) & _tile_tested(
+                w, cols) & walk[:, None, :]
+            first = torch.argmax(crossed.to(torch.uint8), dim=1)
+            hit = crossed.any(dim=1) & (found == sentinel)
+            found = torch.where(hit, (offset + t0 + first + 1).to(
+                torch.int32), found)
+        run = run + last
     cap = found if cap is None else torch.where(cap != sentinel, cap, found)
+    if not spend:
+        return None, cap, run
     # flat sums: the counting sort and the per-campaign chains
     key = torch.where(winners < 0, c, winners).long()
     order = torch.argsort(key, dim=1, stable=True)
@@ -405,13 +516,13 @@ def first_crossing_blocks_ref(winners: torch.Tensor, prices: torch.Tensor,
     counts = torch.zeros((s, c + 1), dtype=torch.long, device=dev)
     counts.scatter_add_(1, key, torch.ones_like(key))
     first_pos = torch.cumsum(counts, dim=1) - counts
-    spend = torch.zeros((s, c), dtype=torch.float32, device=dev)
+    sums = torch.zeros((s, c), dtype=torch.float32, device=dev)
     longest = int(counts[:, :c].max()) if n else 0
     for i in range(longest):
         live = i < counts[:, :c]
         pos = torch.clamp(first_pos[:, :c] + i, max=max(n - 1, 0))
-        spend = torch.where(live, spend + sorted_p.gather(1, pos), spend)
-    return spend, cap, chain[-1]
+        sums = torch.where(live, sums + sorted_p.gather(1, pos), sums)
+    return sums, cap, run
 
 
 def first_crossing_times(winners: torch.Tensor, prices: torch.Tensor,
@@ -421,11 +532,19 @@ def first_crossing_times(winners: torch.Tensor, prices: torch.Tensor,
     reaches its budget; N+1 if it never does. Blockwise: each block of
     ``block`` events is scanned in XLA's cumsum order (:func:`xla_cumsum`)
     from the running total the previous blocks carried. (N,) or (S, N)
-    winners/prices with (C,) or (S, C) budgets; one ``first_crossing``
-    kernel launch for CUDA tensors, :func:`first_crossing_ref` for CPU
-    tensors."""
-    return crossing_and_spend(winners, prices, budgets, num_campaigns,
-                              block)[1]
+    winners/prices with (C,) or (S, C) budgets; one caps-only
+    ``first_crossing`` call for CUDA tensors (no flat sums),
+    :func:`first_crossing_ref` for CPU tensors."""
+    if winners.device.type == "cpu":
+        return first_crossing_ref(winners, prices, budgets, num_campaigns,
+                                  block)
+    lanes = winners.reshape(-1, winners.shape[-1])
+    cap, _ = first_crossing_cuda(
+        lanes.to(torch.int32).contiguous(),
+        prices.reshape(lanes.shape).to(torch.float32).contiguous(),
+        budgets.reshape(-1, num_campaigns).to(torch.float32).contiguous(),
+        num_campaigns=num_campaigns, block=block, spend=False)
+    return cap.reshape(winners.shape[:-1] + (num_campaigns,))
 
 
 def crossing_and_spend(winners: torch.Tensor, prices: torch.Tensor,

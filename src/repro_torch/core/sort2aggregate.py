@@ -61,9 +61,11 @@ def refine_segments(values: torch.Tensor, budgets: torch.Tensor,
     for it in range(max_iters):
         segs = Segments.from_cap_times(
             torch.from_numpy(caps.astype(np.int32)).to(dev), n_events)
-        replay = seg_lib.aggregate(values, segs, budgets, rule,
-                                   record_events=False)
-        new_caps = replay.cap_times.cpu().numpy().astype(np.int64)
+        # the replay's cap times only (aggregate's, without the flat sums)
+        winners, prices = seg_lib.resolve_segments(values, segs, rule)
+        new_caps = seg_lib.first_crossing_times(
+            winners, prices, budgets, values.shape[1]).cpu().numpy().astype(
+                np.int64)
         gap = int(np.max(np.abs(np.minimum(new_caps, n_events + 1)
                                 - np.minimum(caps, n_events + 1))))
         if gap < best_gap:
@@ -83,18 +85,24 @@ def refine_segments(values: torch.Tensor, budgets: torch.Tensor,
 
 def _replay_lanes(values: torch.Tensor, caps: torch.Tensor,
                   budgets: torch.Tensor, rules: AuctionRule, *,
-                  crossing_block: int):
+                  crossing_block: int, spends: bool = True):
     """One replay of S lanes (caps (S, C)) under their segment histories:
     every lane resolved under its own segment table (one
     ``segment_resolve`` launch on CUDA), then one crossing pass for all
-    lanes. Returns ``(spend (S, C), cap times (S, C), winners (S, N),
-    prices (S, N))``; lanes never exchange data, so each lane's bits are
-    its single-lane :func:`~repro_torch.core.segments.aggregate`'s."""
+    lanes, with the flat sums unless ``spends=False`` (a refine pass, which
+    reads the cap times only). Returns ``(spend (S, C) or None, cap times
+    (S, C), winners (S, N), prices (S, N))``; lanes never exchange data, so
+    each lane's bits are its single-lane
+    :func:`~repro_torch.core.segments.aggregate`'s."""
     n_events, n_campaigns = values.shape
     segs = Segments.from_cap_times(caps, n_events)
     winners, prices = resolve_ops.segment_resolve(
         values, rules.multipliers, rules.reserve, segs.boundaries,
         segs.masks, second_price=rules.kind == "second_price")
+    if not spends:
+        return None, seg_lib.first_crossing_times(
+            winners, prices, budgets, n_campaigns, crossing_block), \
+            winners, prices
     spend, cap = seg_lib.crossing_and_spend(winners, prices, budgets,
                                             n_campaigns, crossing_block)
     return spend, cap, winners, prices
@@ -114,7 +122,8 @@ def refine_fixed_lanes(values: torch.Tensor, budgets: torch.Tensor,
     moved = torch.zeros(caps.shape[0], dtype=torch.int32, device=caps.device)
     for _ in range(refine_iters):
         _, new, _, _ = _replay_lanes(values, caps, budgets, rules,
-                                     crossing_block=crossing_block)
+                                     crossing_block=crossing_block,
+                                     spends=False)
         new = torch.clamp(new, max=sentinel)
         moved = moved + (new != caps).any(-1).to(torch.int32)
         caps = new

@@ -429,6 +429,47 @@ def test_carried_crossing_scan_is_one_call(block, epc):
                                 cap=state["plain"][1], offset=8, n_global=n)
 
 
+@pytest.mark.parametrize("block,epc", [(4097, 8194), (8192 + 100, 8292)])
+@pytest.mark.parametrize("spend", [True, False])
+def test_carried_crossing_scan_splits_tiles(block, epc, spend):
+    """Chunk by chunk with a carry, crossing blocks longer than the
+    kernel's 4,096-row tile (4,097: a whole tile and a one-row one; 8,292:
+    two whole tiles and a 100-row one): the kernel's CPU mirror, with the
+    spends and in its caps-only mode, gives the plain version's carry at
+    every chunk, one whole-log call's cap times and ``repro``'s running
+    total; a chunk boundary falls on a crossing."""
+    s, n, c = 2, 3 * epc, 12
+    w, p, budgets = _crossing_inputs(s, n, c, seed=block + epc)
+    w[0, epc - 1], p[0, epc - 1] = 0, 0.75
+    s0, _ = segments._crossing_scan(
+        _t(w[:, :epc]), _t(p[:, :epc]), _t(budgets), c, block,
+        torch.zeros((s, c)), torch.full((s, c), n + 1, dtype=torch.int32),
+        0, n + 1)
+    budgets[0, 0] = float(s0[0, 0])
+    whole = segments.first_crossing_ref(_t(w), _t(p), _t(budgets), c, block)
+    assert int(whole[0, 0]) == epc
+    zero = (torch.zeros((s, c)), torch.full((s, c), n + 1,
+                                            dtype=torch.int32))
+    plain, mirror = zero, zero
+    for off in range(0, n, epc):
+        sl = slice(off, off + epc)
+        plain = segments.crossing_carry(
+            _t(w[:, sl]), _t(p[:, sl]), _t(budgets), c, block, s0=plain[0],
+            cap=plain[1], offset=off, n_global=n)
+        spends, m_cap, m_s0 = segments.first_crossing_blocks_ref(
+            _t(w[:, sl]), _t(p[:, sl]), _t(budgets), c, block, s0=mirror[0],
+            cap=mirror[1], offset=off, n_global=n, spend=spend)
+        assert (spends is None) == (not spend)
+        mirror = (m_s0, m_cap)
+        _same(plain[0], mirror[0])
+        _same(plain[1], mirror[1])
+    _same(whole, torch.clamp(mirror[1], max=n + 1))
+    want_s0 = np.stack([_repro_running_total(w[k], p[k], c, block)
+                        for k in range(s)])
+    _same(want_s0, mirror[0])
+    assert bool((whole < n).sum() > 2)
+
+
 def _repro_running_total(w, p, c, block):
     """``repro``'s blockwise running spend after the last row (the carry of
     its chunked spine), one lane."""

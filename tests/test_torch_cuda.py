@@ -945,17 +945,18 @@ def _crossing_log(s, n, c, block, seed):
     return winners, prices, budgets
 
 
-def _crossing_edges(winners, prices, budgets, block):
+def _crossing_edges(winners, prices, budgets, block, rows=None):
     """Budgets that cross on a block's first and last rows (campaign 1 at
     the running spend of row ``block``, campaign 3 of row ``2 * block -
     1``, each row made a sale of its campaign; rows 0 and N-1 when the log
-    holds less than two blocks), a zero and a
-    negative budget (cap at event 1), and, with more than one lane, a lane
-    without a sale."""
+    holds less than two blocks; or campaigns 1, 3, 5 at ``rows``), a zero
+    and a negative budget (cap at event 1), and, with more than one lane, a
+    lane without a sale."""
     s, n = winners.shape
     c = budgets.shape[1]
-    rows = (block, 2 * block - 1) if 2 * block <= n else (0, n - 1)
-    for col, row in zip((1, 3), rows):
+    if rows is None:
+        rows = (block, 2 * block - 1) if 2 * block <= n else (0, n - 1)
+    for col, row in zip((1, 3, 5), rows):
         for lane in range(s):
             winners[lane, row] = col
             cum, s0 = None, torch.zeros(())
@@ -972,15 +973,19 @@ def _crossing_edges(winners, prices, budgets, block):
     return winners, prices, budgets
 
 
-@pytest.mark.parametrize("block", [4096, 1000, 17, 16, 5, 1, 65536])
+@pytest.mark.parametrize("block", [4096, 1000, 17, 16, 5, 1, 65536, "n"])
 @pytest.mark.parametrize("c", [12, 150])
 @pytest.mark.parametrize("s,n", [(3, 20_000), (1, 20_000), (3, 700)])
 def test_first_crossing_is_the_cpu(dev, block, c, s, n):
     """Cap times and spends bitwise the CPU at every block edge: blocks of
-    <= 16 rows (a sequential scan), of 1, and not dividing N; crossings on
-    a block's first and last rows; zero and negative budgets; a lane
-    without a sale; one lane (``simulate``'s shape); and a short log. A
-    call runs four device kernels, as the library counts them."""
+    <= 16 rows (a sequential scan), of 1, and not dividing N, and ``block
+    = n`` (20,000 rows: four whole 4,096-row tiles and a ragged one);
+    crossings on a block's first and last rows; zero and negative budgets;
+    a lane without a sale; one lane (``simulate``'s shape); and a short
+    log. A call runs four device kernels, as the library counts them; the
+    caps-only call (``first_crossing_times``) three, with the same cap
+    times."""
+    block = n if block == "n" else block
     winners, prices, budgets = _crossing_log(s, n, c, block, seed=block + c)
     if block > 1:
         winners, prices, budgets = _crossing_edges(winners, prices, budgets,
@@ -996,6 +1001,91 @@ def test_first_crossing_is_the_cpu(dev, block, c, s, n):
     assert torch.equal(cap.cpu(), want_cap)
     assert torch.equal(spend.cpu(), want_spend)
     assert bool((want_cap <= n).any())
+    cuda_fc.reset_launches()
+    caps_only = segments.first_crossing_times(
+        winners.to(dev), prices.to(dev), budgets.to(dev), c, block)
+    torch.cuda.synchronize()
+    assert cuda_fc.LAUNCHES["first_crossing_device_kernels"] == 3
+    assert torch.equal(caps_only.cpu(), want_cap)
+
+
+@pytest.mark.parametrize("block", [70_000, 65_536 + 300, 15_625, 4097])
+@pytest.mark.parametrize("c", [12, 150])
+def test_first_crossing_splits_tiles_is_the_cpu(dev, block, c):
+    """Crossing blocks longer than the kernel's 4,096-row tile at N =
+    70,000 (``block = n``, the sharded crossing's shape: 17 whole tiles and
+    a 368-row one; 65,836: the tiles' totals scanned over XLA's level 4;
+    15,625, the chunked S2A sweep's; 4,097: a one-row tile a block), with
+    budgets at the plain version's running spend on tile edges (rows 4,095,
+    4,096 and 8,191, each a sale of its campaign): cap times,
+    spends and the carried running spend bitwise the CPU, with the spends
+    and caps only."""
+    s, n = 2, 70_000
+    winners, prices, budgets = _crossing_log(s, n, c, block, seed=block + c)
+    winners, prices, budgets = _crossing_edges(winners, prices, budgets,
+                                               block, rows=(4095, 4096, 8191))
+    zero = (torch.zeros((s, c)), torch.full((s, c), n + 1,
+                                            dtype=torch.int32))
+    want_spend, want_cap = segments.crossing_and_spend(winners, prices,
+                                                       budgets, c, block)
+    want_s0, _ = segments.crossing_carry(winners, prices, budgets, c, block,
+                                         s0=zero[0], cap=zero[1], offset=0,
+                                         n_global=n)
+    args = (winners.to(dev), prices.to(dev), budgets.to(dev))
+    for spend_asked in (True, False):
+        cuda_fc.reset_launches()
+        cap, spend, s0 = cuda_fc.first_crossing_cuda(
+            *args, num_campaigns=c, block=block,
+            carry=(zero[0].to(dev), zero[1].to(dev), 0, n),
+            spend=spend_asked)
+        torch.cuda.synchronize()
+        assert cuda_fc.LAUNCHES["first_crossing_device_kernels"] == (
+            4 if spend_asked else 3)
+        assert torch.equal(cap.cpu(), want_cap)
+        assert torch.equal(s0.cpu(), want_s0)
+        if spend_asked:
+            assert torch.equal(spend.cpu(), want_spend)
+        else:
+            assert spend is None
+    assert bool((want_cap <= n).sum() > 2)
+
+
+@pytest.mark.parametrize("block", [4096, 70_000])
+def test_first_crossing_with_negative_prices_is_the_cpu(dev, block):
+    """Prices of both signs: the running spend falls as well as rises, so
+    the kernel bounds no tile by its last value and walks every campaign
+    from a block's first negative price on. Budgets at each campaign's
+    highest running spend on the CPU (lane 1 one ulp below): cap times and
+    spends bitwise the CPU, with the spends and caps only."""
+    s, n, c = 2, 140_000, 12
+    rng = np.random.default_rng(block)
+    winners = torch.from_numpy(rng.integers(-1, c, (s, n)).astype(np.int32))
+    prices = torch.from_numpy(np.where(
+        winners.numpy() >= 0, rng.random((s, n)) - 0.55, 0.0).astype(
+            np.float32))
+    budgets = torch.empty((s, c))
+    for lane in range(s):
+        best, s0 = None, torch.zeros(c)
+        for lo in range(0, n, block):
+            sm = (winners[lane, lo:lo + block, None] == torch.arange(c)) \
+                * prices[lane, lo:lo + block, None]
+            cum = s0 + segments.xla_cumsum(sm)
+            top = cum.max(0).values
+            best = top if best is None else torch.maximum(best, top)
+            s0 = cum[-1]
+        budgets[lane] = best
+    budgets[1] = torch.nextafter(budgets[1], torch.tensor(-float("inf")))
+    want_spend, want_cap = segments.crossing_and_spend(winners, prices,
+                                                       budgets, c, block)
+    spend, cap = segments.crossing_and_spend(
+        winners.to(dev), prices.to(dev), budgets.to(dev), c, block)
+    caps_only = segments.first_crossing_times(
+        winners.to(dev), prices.to(dev), budgets.to(dev), c, block)
+    torch.cuda.synchronize()
+    assert torch.equal(cap.cpu(), want_cap)
+    assert torch.equal(caps_only.cpu(), want_cap)
+    assert torch.equal(spend.cpu(), want_spend)
+    assert bool((want_cap <= n).all())
 
 
 def test_spend_sums_on_the_card_is_the_cpu_sum():
@@ -1791,15 +1881,18 @@ def test_lm_entry_points_default_to_the_card():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("block,epc", [(16, 16), (1, 7), (4096, 8192),
-                                       (17, 1020), (1000, 3000)])
+                                       (17, 1020), (1000, 3000),
+                                       (4097, 4097), (6000, 6000)])
 @pytest.mark.parametrize("c", [12, 150])
 def test_first_crossing_carry_is_one_call_and_the_cpu(dev, block, epc, c):
     """Chunk by chunk with a carry (chunks of one block, a chunk of one
-    event, blocks of <= 16 rows, C past one CTA's 128 campaigns), the
-    card's cap times and running spend are one whole-log call's and the
-    CPU's chunk by chunk; a chunk boundary falls on a crossing (lane 0,
-    campaign 0 reaches its budget on the first chunk's last row) and
-    campaigns capped in an earlier chunk keep their time."""
+    event, blocks of <= 16 rows, blocks past the kernel's 4,096-row tile,
+    C past one CTA's 256 campaigns), the card's cap times and running
+    spend are one whole-log call's and the CPU's chunk by chunk; a chunk
+    boundary falls on a crossing (lane 0, campaign 0 reaches its budget on
+    the first chunk's last row) and campaigns capped in an earlier chunk
+    keep their time. A carried call asks for the cap times only: three
+    device kernels."""
     s, n = 3, 12_000 - 12_000 % epc
     winners, prices, budgets = _crossing_log(s, n, c, block, seed=epc + c)
     winners[0, epc - 1], prices[0, epc - 1] = 0, 0.75
@@ -1828,6 +1921,7 @@ def test_first_crossing_carry_is_one_call_and_the_cpu(dev, block, epc, c):
         assert torch.equal(card[1].cpu(), cpu[1])
     torch.cuda.synchronize()
     assert cuda_fc.LAUNCHES["first_crossing"] == n // epc
+    assert cuda_fc.LAUNCHES["first_crossing_device_kernels"] == 3 * (n // epc)
     assert torch.equal(card[1], whole)
     assert bool((whole < n).sum() > 2)
 

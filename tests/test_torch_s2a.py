@@ -198,6 +198,192 @@ def test_first_crossing_blocks_ref_is_the_plain_version(block):
     assert bool((got_cap[:, -2:] == 1).all())
 
 
+def _tile_edge_log(s, n, c, block, rows, seed):
+    """S lanes of sales, campaign k selling on ``rows[k]`` (each a sale of
+    0.5), and budgets at ``repro``'s running spend there (lane 1 one ulp
+    above), at random rows for the other campaigns, a zero and a negative
+    budget for the last two."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(-1, c, (s, n)).astype(np.int32)
+    p = np.where(w >= 0, rng.random((s, n)), 0.0).astype(np.float32)
+    for col, row in enumerate(rows):
+        w[:, row], p[:, row] = col, 0.5
+    budgets = np.empty((s, c), np.float32)
+    for k in range(s):
+        cum = _blockwise_running_spend(w[k], p[k], c, block)
+        at = rng.integers(0, n, c)
+        at[:len(rows)] = rows
+        budgets[k] = cum[at, np.arange(c)]
+    budgets[1] = np.nextafter(budgets[1], np.float32(np.inf))
+    budgets[:, -2:] = [0.0, -1.0]
+    return w, p, budgets
+
+
+@pytest.mark.parametrize("block,n", [(4097, 12_000), (65_536 + 300, 140_000),
+                                     (70_000, 70_000)])
+def test_first_crossing_blocks_ref_splits_tiles(block, n):
+    """Crossing blocks longer than the kernel's 4,096-row tile: 4,097 (a
+    whole tile and a one-row one), 65,836 (16 whole tiles and a 300-row
+    one: the tiles' totals scanned over XLA's level 4) and ``block = n``
+    (17 whole tiles and a 368-row one, the sharded crossing's shape). The
+    decomposition's cap times are ``repro``'s and the plain version's bit
+    for bit, with budgets at ``repro``'s running spend on a tile's last and
+    first rows, a block's first row and the log's last row (each a sale),
+    and one ulp above; its flat sums and its running spend after the last
+    row are ``repro``'s; the caps-only mode
+    gives the same cap times and running spend, and no sums."""
+    s, c = 2, 12
+    rows = sorted({r for r in (4095, 4096, 4097, 8192, 3 * 4096 - 1,
+                               block, n - 1) if r < n})
+    w, p, budgets = _tile_edge_log(s, n, c, block, rows, seed=block)
+    got_spend, got_cap, got_s0 = segments.first_crossing_blocks_ref(
+        _t(w), _t(p), _t(budgets), c, block)
+    _same(segments.first_crossing_ref(_t(w), _t(p), _t(budgets), c, block),
+          got_cap)
+    for k in range(s):
+        _same(j_seg.first_crossing_times(jnp.asarray(w[k]),
+                                         jnp.asarray(p[k]),
+                                         jnp.asarray(budgets[k]), c,
+                                         block=block), got_cap[k])
+        _same(j_auction.spend_sums(jnp.asarray(w[k]), jnp.asarray(p[k]), c),
+              got_spend[k])
+    for col, row in enumerate(rows):
+        assert int(got_cap[0, col]) == row + 1
+    assert bool((got_cap[:, -2:] == 1).all())
+    # the running spend after the last row: every block's last value
+    _same(np.stack([_blockwise_running_spend(w[k], p[k], c, block)[-1]
+                    for k in range(s)]), got_s0)
+    none, caps_only, s0_only = segments.first_crossing_blocks_ref(
+        _t(w), _t(p), _t(budgets), c, block, spend=False)
+    assert none is None
+    _same(got_cap, caps_only)
+    _same(got_s0, s0_only)
+
+
+@pytest.mark.parametrize("block", [4096, 70_000, 140_000])
+def test_first_crossing_blocks_ref_where_rounding_moves_the_scan(block):
+    """Sparse sales (2% of the rows) of prices over six decades: a
+    campaign's running spend then rises at rows that are none of its sales,
+    group starts whose exclusive prefix takes another rounding (a group
+    total pushed up a level: groups 1 and 17 of a tile, the group after a
+    sale, the second group after a level-1 group with a sale). Budgets at
+    such rows (a pair of lanes for each kind of group start, where a
+    campaign has one) cross there; the decomposition, which tests only the sales and those group starts,
+    finds each crossing as ``repro`` does."""
+    s, c, n = 6, 6, 140_000
+    rng = np.random.default_rng(block + 1)
+    sell = rng.random((s, n)) < 0.02
+    w = np.where(sell, rng.integers(0, c, (s, n)), -1).astype(np.int32)
+    p = np.where(w >= 0, rng.random((s, n)) * 10.0 ** rng.integers(
+        -3, 3, (s, n)), 0.0).astype(np.float32)
+    budgets = np.full((s, c), np.inf, np.float32)
+    at = {}
+    for k in range(s):
+        cum = _blockwise_running_spend(w[k], p[k], c, block)
+        for col in range(c):
+            x = cum[:, col]
+            best = np.maximum.accumulate(x)
+            moved = np.nonzero((x[1:] != x[:-1]) & (w[k, 1:] != col)
+                               & (x[1:] > best[:-1]))[0] + 1
+            if len(moved):
+                # lanes 0 and 1 take group 1 of a tile, lanes 2 and 3
+                # group 17, lanes 4 and 5 the second group of another
+                # level-1 group, where there are such rows; else the k-th
+                a = (moved % block) % 4096 // 16
+                kind = np.where(a == 1, 0, np.where(
+                    a == 17, 1, np.where((a - 1) % 16 == 0, 2, 3)))
+                rare = moved[kind == k // 2]
+                row = int(rare[min(k % 2, len(rare) - 1)] if len(rare)
+                          else moved[min(k, len(moved) - 1)])
+                at[k, col] = row
+                budgets[k, col] = x[row]
+    assert len(at) >= s * c // 2
+    _, got_cap, _ = segments.first_crossing_blocks_ref(
+        _t(w), _t(p), _t(budgets), c, block, spend=False)
+    for k in range(s):
+        _same(j_seg.first_crossing_times(jnp.asarray(w[k]),
+                                         jnp.asarray(p[k]),
+                                         jnp.asarray(budgets[k]), c,
+                                         block=block), got_cap[k])
+    for (k, col), row in at.items():
+        assert int(got_cap[k, col]) == row + 1
+
+
+@pytest.mark.parametrize("block", [4096, 70_000])
+def test_first_crossing_blocks_ref_with_negative_prices(block):
+    """Prices of both signs: the running spend falls as well as rises, so
+    a tile's last value bounds none of its rows and the decomposition walks
+    every campaign of a block from its first negative price on. Budgets at
+    each campaign's highest running spend (lane 1 one ulp below): the cap
+    times are ``repro``'s and the plain version's bit for bit."""
+    s, c, n = 2, 6, 140_000
+    rng = np.random.default_rng(block + 2)
+    w = rng.integers(-1, c, (s, n)).astype(np.int32)
+    p = np.where(w >= 0, rng.random((s, n)) - 0.55, 0.0).astype(np.float32)
+    budgets = np.stack([_blockwise_running_spend(w[k], p[k], c, block).max(0)
+                        for k in range(s)]).astype(np.float32)
+    budgets[1] = np.nextafter(budgets[1], np.float32(-np.inf))
+    _, got_cap, _ = segments.first_crossing_blocks_ref(
+        _t(w), _t(p), _t(budgets), c, block, spend=False)
+    _same(segments.first_crossing_ref(_t(w), _t(p), _t(budgets), c, block),
+          got_cap)
+    for k in range(s):
+        _same(j_seg.first_crossing_times(jnp.asarray(w[k]),
+                                         jnp.asarray(p[k]),
+                                         jnp.asarray(budgets[k]), c,
+                                         block=block), got_cap[k])
+    assert bool((got_cap <= n).all())
+
+
+@pytest.mark.parametrize("spend", [True, False])
+def test_first_crossing_blocks_ref_at_a_shard_offset(spend):
+    """The sharded crossing's call (``block = local_n``): shard 1 of 2, its
+    70,000 rows scanned as one block of 17 whole tiles and a 368-row one
+    from the prefix of shard 0, at global offset 70,000. As in ``repro``'s
+    ``_local_first_crossing``, the prefix is shard 0's flat sums and the
+    crossing ``offset + argmax(s0 + cumsum >= budget) + 1``; a campaign
+    capped in shard 0 keeps its time. The decomposition (with and without
+    the spends) gives ``repro``'s cap times bit for bit, and the plain
+    version's (``segments.shard_crossing`` on the CPU)."""
+    s, c, local_n = 2, 12, 70_000
+    n = 2 * local_n
+    rows = [local_n + r for r in (0, 4095, 4096, 8192, 69_632, 69_999)]
+    rng = np.random.default_rng(7)
+    w = rng.integers(-1, c, (s, n)).astype(np.int32)
+    p = np.where(w >= 0, rng.random((s, n)), 0.0).astype(np.float32)
+    for col, row in enumerate(rows):
+        w[:, row], p[:, row] = col, 0.5
+    s0 = np.stack([np.asarray(j_auction.spend_sums(
+        jnp.asarray(w[k, :local_n]), jnp.asarray(p[k, :local_n]), c))
+        for k in range(s)])
+    local = [np.asarray(s0[k][None, :] + jnp.cumsum(j_auction.spend_matrix(
+        jnp.asarray(w[k, local_n:]), jnp.asarray(p[k, local_n:]), c),
+        axis=0)) for k in range(s)]
+    budgets = np.stack([local[k][[r - local_n for r in rows] + list(
+        rng.integers(0, local_n, c - len(rows))), np.arange(c)]
+        for k in range(s)]).astype(np.float32)
+    budgets[1] = np.nextafter(budgets[1], np.float32(np.inf))
+    cap0 = np.full((s, c), n + 1, np.int32)
+    cap0[0, c - 1] = 123
+    want = np.where(cap0 != n + 1, cap0, np.stack([np.where(
+        (local[k] >= budgets[k]).any(0),
+        local_n + np.argmax(local[k] >= budgets[k], axis=0) + 1, n + 1)
+        for k in range(s)]).astype(np.int32))
+    args = (_t(w[:, local_n:]), _t(p[:, local_n:]), _t(budgets), c)
+    carry = dict(s0=_t(s0), cap=_t(cap0), offset=local_n, n_global=n)
+    got_spend, got_cap, _ = segments.first_crossing_blocks_ref(
+        *args, local_n, spend=spend, **carry)
+    _same(want, got_cap)
+    plain_spend, plain_cap = segments.shard_crossing(*args, **carry)
+    _same(plain_cap, got_cap)
+    if spend:
+        _same(plain_spend, got_spend)
+    else:
+        assert got_spend is None
+    for col, row in enumerate(rows[:-1]):
+        assert int(got_cap[0, col]) == row + 1
+
+
 @pytest.fixture(scope="module")
 def oracle(env):
     """The exact replay of each rule's design (cap times to aggregate at)."""
